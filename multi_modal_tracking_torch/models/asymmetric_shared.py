@@ -1,0 +1,428 @@
+"""Asymmetric-shared RGB-T MixFormer (the flagship) with candidate
+elimination (CE).
+
+A shared-weight ViT with modality-specific LayerNorms (norm{1,2}_{v,i}) and
+cross-modal asymmetric attention: each modality's templates attend within
+their own modality, each modality's search attends to its own search plus
+the templates of BOTH modalities. The modalities ride the leading batch
+axis ([:B] = RGB, [B:] = TIR) for every shared dense op and separate only
+inside attention. CE at the configured blocks ranks search tokens by the
+template->search attention and keeps the top ceil(keep_ratio * L_s) per
+modality; removed tokens come back as zeros in their original positions
+before the fusion and the head.
+
+All backbone attention runs in kernel K1 (`ops/attention.py`):
+  * full forward: one call per block with the per-modality key layout
+    [own templates; other templates; own search] and n_mt = 2 * n_t;
+  * template cache (`template_step`): one call, no mask;
+  * cached search (`search_step`): one call with n_mt = 0.
+The template->search attention that ranks CE candidates stays plain torch.
+
+Inputs are NHWC at the public functions, as in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from multi_modal_tracking_torch.models.fusion import build_fusion
+from multi_modal_tracking_torch.models.heads import CornerPredictor, PyramidCornerPredictor
+from multi_modal_tracking_torch.models.layers import Mlp, PatchEmbed, _heads, _merge
+from multi_modal_tracking_torch.ops.attention import mixed_attention
+from multi_modal_tracking_torch.ops.boxes import box_xyxy_to_cxcywh
+from multi_modal_tracking_torch.ops.pos_embed import get_2d_sincos_pos_embed
+
+
+def _t2s_attention(q_mt: torch.Tensor, k_s: torch.Tensor, scale: float,
+                   ce_rows: Optional[Tuple[int, ...]]) -> torch.Tensor:
+    """Template->search attention for CE ranking: its own f32 softmax over
+    the concatenated bimodal search axis, over the `ce_rows` template rows
+    only (None = all rows)."""
+    if ce_rows is not None:
+        q_mt = q_mt[:, :, list(ce_rows)]
+    a = torch.matmul(q_mt, k_s.transpose(-2, -1)) * scale
+    return torch.softmax(a.float(), dim=-1)
+
+
+class AsymCrossModalAttention(nn.Module):
+    """Cross-modal asymmetric mixed attention over per-modality [t; ot; s]."""
+
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        self.scale = (dim // num_heads) ** -0.5
+
+    def _qkv_heads(self, x):
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        return (_heads(q, self.num_heads), _heads(k, self.num_heads),
+                _heads(v, self.num_heads))
+
+    def forward(self, x_v: torch.Tensor, x_i: torch.Tensor, n_mt: int,
+                return_attention: bool = False,
+                ce_rows: Optional[Tuple[int, ...]] = None):
+        """x_v/x_i: (B, n_mt + n_s, C) -> (x_v, x_i, attn_t2s | None)."""
+        B = x_v.shape[0]
+        q, k, v = self._qkv_heads(torch.cat([x_v, x_i], dim=0))
+        kV, kI, vV, vI = k[:B], k[B:], v[:B], v[B:]
+        # Per modality the keys are [own templates; other templates; own
+        # search], so the standard asymmetric mask (template rows see
+        # j < n_mt, search rows see every key) gives the cross-modal
+        # semantics and both modalities ride one kernel call.
+        k_all = torch.cat([
+            torch.cat([kV[:, :, :n_mt], kI[:, :, :n_mt], kV[:, :, n_mt:]], dim=2),
+            torch.cat([kI[:, :, :n_mt], kV[:, :, :n_mt], kI[:, :, n_mt:]], dim=2)], dim=0)
+        v_all = torch.cat([
+            torch.cat([vV[:, :, :n_mt], vI[:, :, :n_mt], vV[:, :, n_mt:]], dim=2),
+            torch.cat([vI[:, :, :n_mt], vV[:, :, :n_mt], vI[:, :, n_mt:]], dim=2)], dim=0)
+        out = self.proj(_merge(mixed_attention(q, k_all, v_all, n_mt, self.scale)))
+        attn_t2s = None
+        if return_attention:
+            q_mt = torch.cat([q[:B, :, :n_mt], q[B:, :, :n_mt]], dim=2)
+            k_s = torch.cat([kV[:, :, n_mt:], kI[:, :, n_mt:]], dim=2)
+            attn_t2s = _t2s_attention(q_mt, k_s, self.scale, ce_rows)
+        return out[:B], out[B:], attn_t2s
+
+    # ------------------------------------------------- cached-template path
+    # Template tokens never attend to search, so their per-block q/k/v
+    # depend only on the templates and are computed once per template
+    # update instead of every frame.
+
+    def template_step(self, nv: torch.Tensor, ni: torch.Tensor):
+        """Normed template tokens (B, n_mt, C) per modality -> attention
+        output + this block's cache {q, k, v per modality}."""
+        B = nv.shape[0]
+        q, k, v = self._qkv_heads(torch.cat([nv, ni], dim=0))
+        out = self.proj(_merge(mixed_attention(q, k, v, 0, self.scale)))
+        cache = {"qV": q[:B], "kV": k[:B], "vV": v[:B],
+                 "qI": q[B:], "kI": k[B:], "vI": v[B:]}
+        return out[:B], out[B:], cache
+
+    def search_step(self, nsv: torch.Tensor, nsi: torch.Tensor, cache,
+                    return_attention: bool = False,
+                    ce_rows: Optional[Tuple[int, ...]] = None):
+        """Normed search tokens (B, n_s, C) per modality + the cached
+        template q/k/v -> attention output of the search rows + the t->s CE
+        attention. Keys per modality: [RGB templates; TIR templates; own
+        search]."""
+        B = nsv.shape[0]
+        qs, ks, vs = self._qkv_heads(torch.cat([nsv, nsi], dim=0))
+        k_mt = torch.cat([cache["kV"], cache["kI"]], dim=2)
+        v_mt = torch.cat([cache["vV"], cache["vI"]], dim=2)
+        k_all = torch.cat([torch.cat([k_mt, ks[:B]], dim=2),
+                           torch.cat([k_mt, ks[B:]], dim=2)], dim=0)
+        v_all = torch.cat([torch.cat([v_mt, vs[:B]], dim=2),
+                           torch.cat([v_mt, vs[B:]], dim=2)], dim=0)
+        out = self.proj(_merge(mixed_attention(qs, k_all, v_all, 0, self.scale)))
+        attn_t2s = None
+        if return_attention:
+            q_mt = torch.cat([cache["qV"], cache["qI"]], dim=2)
+            k_s = torch.cat([ks[:B], ks[B:]], dim=2)
+            attn_t2s = _t2s_attention(q_mt, k_s, self.scale, ce_rows)
+        return out[:B], out[B:], attn_t2s
+
+
+def _ce_select(attn_m: torch.Tensor, tokens: torch.Tensor, gidx: torch.Tensor,
+               n_mt: int, lens_keep: int):
+    """Top-k search-token selection for one modality.
+
+    attn_m: (B, L_s) ranking scores; tokens: (B, n_mt + L_s, C);
+    gidx: (B, L_s) original positions. Returns (tokens_new, gidx_new), the
+    kept tokens in descending score order.
+    """
+    top_idx = torch.topk(attn_m, lens_keep, dim=1).indices
+    gidx_new = torch.gather(gidx, 1, top_idx)
+    C = tokens.shape[-1]
+    kept = torch.gather(tokens[:, n_mt:], 1, top_idx[..., None].expand(-1, -1, C))
+    return torch.cat([tokens[:, :n_mt], kept], dim=1), gidx_new
+
+
+def _recover(sm: torch.Tensor, gidx: torch.Tensor, n_s: int) -> torch.Tensor:
+    """(B, K, C) kept search tokens at original positions gidx -> (B, n_s, C)
+    with zeros at the pruned positions."""
+    if sm.shape[1] == n_s:
+        return sm
+    out = sm.new_zeros(sm.shape[0], n_s, sm.shape[2])
+    return out.scatter(1, gidx[..., None].expand(-1, -1, sm.shape[2]), sm)
+
+
+class SharedBlock(nn.Module):
+    """Transformer block with modality-specific LNs and optional CE."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1_v = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1_i = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2_v = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2_i = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = AsymCrossModalAttention(dim, num_heads, qkv_bias)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+
+    def _mlp(self, x_v, x_i):
+        B = x_v.shape[0]
+        m = self.mlp(torch.cat([self.norm2_v(x_v), self.norm2_i(x_i)], dim=0))
+        return x_v + m[:B], x_i + m[B:]
+
+    def forward(self, x_v, x_i, n_mt: int, gidx_v, gidx_i,
+                lens_keep: Optional[int] = None,
+                ce_rows: Optional[Tuple[int, ...]] = None):
+        """lens_keep: keep count (None = no CE at this block); ce_rows:
+        template rows pooled for the CE ranking (None = all rows)."""
+        exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
+        av, ai, attn_t2s = self.attn(self.norm1_v(x_v), self.norm1_i(x_i), n_mt,
+                                     return_attention=exe_ce, ce_rows=ce_rows)
+        x_v, x_i = x_v + av, x_i + ai
+        if exe_ce:
+            lens_s = gidx_v.shape[1]
+            a = attn_t2s.mean(dim=(1, 2))                      # (B, 2 * L_s)
+            x_v, gidx_v = _ce_select(a[:, :lens_s], x_v, gidx_v, n_mt, lens_keep)
+            x_i, gidx_i = _ce_select(a[:, lens_s:], x_i, gidx_i, n_mt, lens_keep)
+        x_v, x_i = self._mlp(x_v, x_i)
+        return x_v, x_i, gidx_v, gidx_i
+
+    # ------------------------------------------------- cached-template path
+    def template_step(self, x_v, x_i):
+        """Template-only block step -> evolved template tokens + the block's
+        attention cache."""
+        av, ai, cache = self.attn.template_step(self.norm1_v(x_v), self.norm1_i(x_i))
+        x_v, x_i = self._mlp(x_v + av, x_i + ai)
+        return x_v, x_i, cache
+
+    def search_step(self, s_v, s_i, cache, gidx_v, gidx_i,
+                    lens_keep: Optional[int] = None,
+                    ce_rows: Optional[Tuple[int, ...]] = None):
+        """Search-only block step against a template cache; CE selects among
+        pure search tokens."""
+        exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
+        av, ai, attn_t2s = self.attn.search_step(self.norm1_v(s_v), self.norm1_i(s_i),
+                                                 cache, return_attention=exe_ce,
+                                                 ce_rows=ce_rows)
+        s_v, s_i = s_v + av, s_i + ai
+        if exe_ce:
+            lens_s = gidx_v.shape[1]
+            a = attn_t2s.mean(dim=(1, 2))
+            s_v, gidx_v = _ce_select(a[:, :lens_s], s_v, gidx_v, 0, lens_keep)
+            s_i, gidx_i = _ce_select(a[:, lens_s:], s_i, gidx_i, 0, lens_keep)
+        s_v, s_i = self._mlp(s_v, s_i)
+        return s_v, s_i, gidx_v, gidx_i
+
+
+def ce_keep_schedule(n_search: int, depth: int, ce_loc: Sequence[int],
+                     ce_keep_ratio: Sequence[float], ce_keep_rate: Optional[float]):
+    """Per-block keep lengths (None = no pruning at that block):
+    lens_keep = ceil(rate * current L_s) at each CE block, with a runtime
+    ce_keep_rate overriding the per-block ratios when given."""
+    keeps: List[Optional[int]] = [None] * depth
+    cur = n_search
+    ce_loc = list(ce_loc or [])
+    ratios = list(ce_keep_ratio or [])
+    for bi in range(depth):
+        if bi in ce_loc:
+            r = ce_keep_rate if ce_keep_rate is not None else ratios[ce_loc.index(bi)]
+            k = min(math.ceil(r * cur), cur)
+            if k < cur:
+                keeps[bi] = k
+                cur = k
+    return keeps, cur
+
+
+class AsymSharedViT(nn.Module):
+    """Shared-weight bimodal ViT backbone (modalities on the batch axis)."""
+
+    def __init__(self, img_size_s: int = 288, img_size_t: int = 128, patch_size: int = 16,
+                 embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 ce_loc: Optional[Tuple[int, ...]] = None,
+                 ce_keep_ratio: Optional[Tuple[float, ...]] = None,
+                 ce_template_range: str = "CTR_POINT"):
+        super().__init__()
+        if ce_template_range != "CTR_POINT":
+            raise NotImplementedError(f"CE_TEMPLATE_RANGE {ce_template_range!r} is not ported "
+                                      f"(CTR_POINT, which every recipe uses, is)")
+        self.depth = depth
+        self.ce_loc, self.ce_keep_ratio = ce_loc, ce_keep_ratio
+        self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
+        self.blocks = nn.ModuleList([SharedBlock(embed_dim, num_heads, mlp_ratio, qkv_bias)
+                                     for _ in range(depth)])
+        self.grid_size_s = img_size_s // patch_size
+        self.grid_size_t = img_size_t // patch_size
+        # fixed sin-cos embeddings: buffers, not part of the state dict
+        self.register_buffer("pos_embed_s", torch.from_numpy(
+            get_2d_sincos_pos_embed(embed_dim, self.grid_size_s))[None], persistent=False)
+        self.register_buffer("pos_embed_t", torch.from_numpy(
+            get_2d_sincos_pos_embed(embed_dim, self.grid_size_t))[None], persistent=False)
+
+    def _ce_rows(self, use_mask: bool) -> Optional[Tuple[int, ...]]:
+        """Template-row indices ([t_v, ot_v, t_i, ot_i] order) pooled for the
+        CE ranking: the centre token (CTR_POINT) of each template copy; None
+        pools every row."""
+        if not use_mask:
+            return None
+        F = self.grid_size_t
+        c = (F - 1) // 2
+        return tuple(c * F + c + g * F * F for g in range(4))
+
+    def _keeps(self, n_s: int, ce_keep_rate: Optional[float]):
+        return ce_keep_schedule(n_s, self.depth, self.ce_loc or (),
+                                self.ce_keep_ratio or (), ce_keep_rate)[0]
+
+    def forward(self, x_t, x_ot, x_s, ce_keep_rate: Optional[float] = None,
+                use_ce_template_mask: bool = True):
+        """x_*: stacked bimodal NHWC batches (2B, H, W, 3), [:B] RGB, [B:] TIR.
+        Returns the (t, ot, s) feature maps (2B, h, w, C), search tokens
+        zero-restored at pruned positions."""
+        t = self.patch_embed(x_t) + self.pos_embed_t
+        ot = self.patch_embed(x_ot) + self.pos_embed_t
+        s = self.patch_embed(x_s) + self.pos_embed_s
+        B = t.shape[0] // 2
+        n_t, n_s = t.shape[1], s.shape[1]
+        n_mt = 2 * n_t
+        x = torch.cat([t, ot, s], dim=1)
+        x_v, x_i = x[:B], x[B:]
+        keeps = self._keeps(n_s, ce_keep_rate)
+        ce_rows = self._ce_rows(use_ce_template_mask)
+        gidx = torch.arange(n_s, device=x.device)[None].expand(B, n_s)
+        gidx_v = gidx_i = gidx
+        for bi, blk in enumerate(self.blocks):
+            x_v, x_i, gidx_v, gidx_i = blk(x_v, x_i, n_mt, gidx_v, gidx_i,
+                                           keeps[bi], ce_rows)
+        x_v = torch.cat([x_v[:, :n_mt], _recover(x_v[:, n_mt:], gidx_v, n_s)], dim=1)
+        x_i = torch.cat([x_i[:, :n_mt], _recover(x_i[:, n_mt:], gidx_i, n_s)], dim=1)
+        x = torch.cat([x_v, x_i], dim=0)
+        gt, gs = self.grid_size_t, self.grid_size_s
+        return (x[:, :n_t].reshape(2 * B, gt, gt, -1),
+                x[:, n_t:n_mt].reshape(2 * B, gt, gt, -1),
+                x[:, n_mt:].reshape(2 * B, gs, gs, -1))
+
+    # ------------------------------------------------- cached-template path
+    def build_template_cache(self, x_t, x_ot):
+        """Run the template tokens through all blocks once, collecting every
+        block's attention cache. Returns {"kv": [per-block cache], "t", "ot"}
+        with the final template feature maps."""
+        t = self.patch_embed(x_t) + self.pos_embed_t
+        ot = self.patch_embed(x_ot) + self.pos_embed_t
+        B = t.shape[0] // 2
+        n_t = t.shape[1]
+        x = torch.cat([t, ot], dim=1)
+        x_v, x_i = x[:B], x[B:]
+        kv = []
+        for blk in self.blocks:
+            x_v, x_i, c = blk.template_step(x_v, x_i)
+            kv.append(c)
+        x = torch.cat([x_v, x_i], dim=0)
+        gt = self.grid_size_t
+        return {"kv": kv, "t": x[:, :n_t].reshape(2 * B, gt, gt, -1),
+                "ot": x[:, n_t:].reshape(2 * B, gt, gt, -1)}
+
+    def forward_search(self, cache, x_s, ce_keep_rate: Optional[float] = None,
+                       use_ce_template_mask: bool = True):
+        """Per-frame search-only forward against a template cache; the same
+        function of the inputs as forward's search output."""
+        s = self.patch_embed(x_s) + self.pos_embed_s
+        B = s.shape[0] // 2
+        n_s = s.shape[1]
+        s_v, s_i = s[:B], s[B:]
+        keeps = self._keeps(n_s, ce_keep_rate)
+        ce_rows = self._ce_rows(use_ce_template_mask)
+        gidx = torch.arange(n_s, device=s.device)[None].expand(B, n_s)
+        gidx_v = gidx_i = gidx
+        for bi, blk in enumerate(self.blocks):
+            s_v, s_i, gidx_v, gidx_i = blk.search_step(s_v, s_i, cache["kv"][bi],
+                                                       gidx_v, gidx_i, keeps[bi], ce_rows)
+        s = torch.cat([_recover(s_v, gidx_v, n_s), _recover(s_i, gidx_i, n_s)], dim=0)
+        gs = self.grid_size_s
+        return s.reshape(2 * B, gs, gs, -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RGBTSpec:
+    """Model spec extracted from a CfgNode."""
+    search_size: int = 288
+    template_size: int = 128
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    head_type: str = "CORNER"
+    head_dim: int = 384
+    fusion_class: str = "Attention_Fusion_Bimodal_LNSpecific_2"
+    fusion_layers: int = 6
+    ce_loc: Optional[Tuple[int, ...]] = None
+    ce_keep_ratio: Optional[Tuple[float, ...]] = None
+    ce_template_range: str = "CTR_POINT"
+
+    @staticmethod
+    def from_cfg(cfg) -> "RGBTSpec":
+        dims = dict(base_patch16=(768, 12, 12), large_patch16=(1024, 24, 16))[cfg.MODEL.VIT_TYPE]
+        bb = cfg.MODEL.BACKBONE
+        # HEAD_FREEZE_BN needs no field: a frozen BN equals a BN in eval mode
+        return RGBTSpec(
+            search_size=cfg.DATA.SEARCH.SIZE, template_size=cfg.DATA.TEMPLATE.SIZE,
+            embed_dim=dims[0], depth=dims[1], num_heads=dims[2],
+            head_type=cfg.MODEL.HEAD_TYPE, head_dim=cfg.MODEL.get("HEAD_DIM", 384),
+            fusion_class=cfg.MODEL.FUSION_CLASS, fusion_layers=cfg.MODEL.FUSION_LAYERS,
+            ce_loc=tuple(bb.CE_LOC) if "CE_LOC" in bb else None,
+            ce_keep_ratio=tuple(bb.CE_KEEP_RATIO) if "CE_KEEP_RATIO" in bb else None,
+            ce_template_range=bb.get("CE_TEMPLATE_RANGE", "CTR_POINT"))
+
+
+def _build_head(sp: RGBTSpec) -> nn.Module:
+    if sp.head_type == "CORNER":
+        return CornerPredictor(sp.embed_dim, sp.head_dim, sp.search_size // 16, 16)
+    if sp.head_type == "CORNER_UP":
+        return PyramidCornerPredictor(sp.embed_dim, sp.head_dim, sp.search_size // 4, 4)
+    raise NotImplementedError(f"HEAD_TYPE {sp.head_type!r} is not ported "
+                              f"(CORNER and CORNER_UP are)")
+
+
+class MixFormerRGBT(nn.Module):
+    """Backbone + deformable fusion + corner head (inference)."""
+
+    def __init__(self, spec: RGBTSpec):
+        super().__init__()
+        sp = self.spec = spec
+        self.backbone = AsymSharedViT(
+            img_size_s=sp.search_size, img_size_t=sp.template_size,
+            embed_dim=sp.embed_dim, depth=sp.depth, num_heads=sp.num_heads,
+            ce_loc=sp.ce_loc, ce_keep_ratio=sp.ce_keep_ratio,
+            ce_template_range=sp.ce_template_range)
+        # the fusion's d_model is fixed at 512 for every recipe
+        self.fusion_vi = build_fusion(sp.fusion_class, sp.embed_dim, 512, sp.fusion_layers)
+        self.box_head = _build_head(sp)
+
+    def _head(self, s: torch.Tensor):
+        B = s.shape[0] // 2
+        fused = self.fusion_vi(s[:B], s[B:])
+        box_xyxy = self.box_head(fused)
+        return {"pred_boxes": box_xyxy_to_cxcywh(box_xyxy).reshape(B, 1, 4)}
+
+    def forward(self, t_vi, ot_vi, s_vi, ce_keep_rate: Optional[float] = None,
+                use_ce_template_mask: bool = True):
+        """t_vi/ot_vi/s_vi: (2B, H, W, 3) bimodal stacks ([:B] RGB, [B:] TIR).
+        Returns {'pred_boxes': (B, 1, 4) cxcywh in [0, 1]}."""
+        _, _, s = self.backbone(t_vi, ot_vi, s_vi, ce_keep_rate, use_ce_template_mask)
+        return self._head(s)
+
+    # ------------------------------------------------- cached-template path
+    def set_online(self, t_vi, ot_vi):
+        """Per-block template k/v cache + final template features; rebuilt
+        only at template updates, consumed by forward_track."""
+        return self.backbone.build_template_cache(t_vi, ot_vi)
+
+    def forward_track(self, cache, s_vi, ce_keep_rate: Optional[float] = None,
+                      use_ce_template_mask: bool = True):
+        """Per-frame tracking forward over the search tokens only."""
+        s = self.backbone.forward_search(cache, s_vi, ce_keep_rate, use_ce_template_mask)
+        return self._head(s)
+
+
+def build_mixformer_rgbt(cfg, with_score: bool = False) -> MixFormerRGBT:
+    if with_score:
+        raise NotImplementedError("the SPM score branch (asymmetric_shared_online) is not "
+                                  "ported yet (ROADMAP.md queue 1)")
+    return MixFormerRGBT(RGBTSpec.from_cfg(cfg))

@@ -1,0 +1,126 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` is compiled on first use into its own shared library
+with a plain C interface,
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
+
+under `multi_modal_tracking_torch/_build/` (listed in .gitignore). The file
+name carries a hash of the source and the flags, so an edited source is
+rebuilt and a stale library is never loaded. All missing libraries are
+compiled by concurrent nvcc processes. The compiler's output (ptxas
+register and shared-memory report) is kept beside each library as
+`lib<name>-<hash>.log`.
+
+Nothing here runs at import time: the CPU tests import every module and
+have no nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_C = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signature of every exported function: (argtypes, restype)
+SIGNATURES = {
+    "mixed_attention": {
+        "mixed_attention_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I,
+                                     ctypes.c_float, _C], _I),
+    },
+    "msda": {
+        "msda_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,
+                          ctypes.POINTER(_I), _C], _I),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of multi_modal_tracking_torch "
+                       "are built on the machine with the GPU (PATH or CUDA_HOME)")
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _load(name: str, path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def build(names: List[str] | None = None) -> Dict[str, str]:
+    """Compile every missing kernel library (concurrently) and load them all.
+    Returns {name: compiler log}; a log is empty for a library that was
+    already built."""
+    names = list(SIGNATURES) if names is None else names
+    with _lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs, logs = {}, {}
+        for name in names:
+            path = _lib_path(name)
+            if name in _libs or os.path.isfile(path):
+                logs[name] = ""
+                continue
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, path)
+        failed = []
+        for name, (proc, tmp, path) in procs.items():
+            out, _ = proc.communicate()
+            logs[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{out}")
+                continue
+            with open(path[:-3] + ".log", "w") as f:
+                f.write(out)
+            os.replace(tmp, path)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                _libs[name] = _load(name, _lib_path(name))
+        return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = _libs[name]
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
