@@ -2,16 +2,26 @@
 multi_modal_tracking_tpu.
 
 A package of its own beside the JAX package, with the same layout
-(config/, ops/, models/, tracking/, eval/, utils/). It imports torch and
-never jax, flax or anything of multi_modal_tracking_tpu; the JAX package is
-its reference, and only the tests import both.
+(config/, ops/, models/, tracking/, eval/, train/, utils/). It imports
+torch and never jax, flax, cv2 or anything of multi_modal_tracking_tpu; the
+JAX package is its reference, and only the tests import both.
 
-The entry points (eval.evaltracker.create_tracker, the tracker classes in
-tracking.tracker, models.build.build_model) run on the GPU unless the
-caller passes device="cpu", and raise when there is no GPU. The kernels
-that replace the JAX package's Pallas kernels are hand-written CUDA in
-csrc/, built with nvcc on first use (ops/_build.py); on CPU tensors their
-wrappers run the plain PyTorch versions.
+What it covers so far, for the RGB-T flagship (`asymmetric_shared_ce` with
+the LNSpecific fusion and the CORNER_UP head), in float32:
+  * tracking: eval.evaltracker.create_tracker and the tracker classes in
+    tracking.tracker;
+  * training: train.trainer.Trainer (epoch loop, CE keep-rate schedule),
+    train.train_step.make_train_step, the regime AdamW of train.optimizer,
+    and the numpy data pipeline of train.data on the synthetic RGB-T set.
+
+The entry points (create_tracker, the trackers, models.build.build_model,
+Trainer, make_train_step) run on the GPU unless the caller passes
+device="cpu", and raise when there is no GPU. The kernels that replace the
+JAX package's four Pallas kernels (mixed-attention forward and backward,
+MSDA forward and backward) are hand-written CUDA in csrc/, built with nvcc
+on first use (ops/_build.py) and differentiable through
+torch.autograd.Function; on CPU tensors their wrappers run the plain
+PyTorch versions.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

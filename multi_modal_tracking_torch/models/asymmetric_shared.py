@@ -11,12 +11,22 @@ template->search attention and keeps the top ceil(keep_ratio * L_s) per
 modality; removed tokens come back as zeros in their original positions
 before the fusion and the head.
 
-All backbone attention runs in kernel K1 (`ops/attention.py`):
+All backbone attention runs in kernel K1 (`ops/attention.py`), and its
+gradient in kernel K2:
   * full forward: one call per block with the per-modality key layout
     [own templates; other templates; own search] and n_mt = 2 * n_t;
   * template cache (`template_step`): one call, no mask;
   * cached search (`search_step`): one call with n_mt = 0.
-The template->search attention that ranks CE candidates stays plain torch.
+The template->search attention that ranks CE candidates stays plain torch,
+under `torch.no_grad()`: it only feeds `topk` indices, which carry no
+gradient.
+
+Training (`model.train()`): stochastic depth with per-block rates
+linspace(0, drop_path_rate, depth) on both residual branches of every
+block (an independent per-sample mask for each modality), CE under a
+runtime keep rate (`ce_keep_rate`), the fusion's dropouts and the head's
+BatchNorm statistics; the random layers draw from the generator given
+with `models.layers.set_generator`.
 
 Inputs are NHWC at the public functions, as in the JAX package.
 """
@@ -31,17 +41,18 @@ from torch import nn
 
 from multi_modal_tracking_torch.models.fusion import build_fusion
 from multi_modal_tracking_torch.models.heads import CornerPredictor, PyramidCornerPredictor
-from multi_modal_tracking_torch.models.layers import Mlp, PatchEmbed, _heads, _merge
+from multi_modal_tracking_torch.models.layers import DropPath, Mlp, PatchEmbed, _heads, _merge
 from multi_modal_tracking_torch.ops.attention import mixed_attention
 from multi_modal_tracking_torch.ops.boxes import box_xyxy_to_cxcywh
 from multi_modal_tracking_torch.ops.pos_embed import get_2d_sincos_pos_embed
 
 
+@torch.no_grad()
 def _t2s_attention(q_mt: torch.Tensor, k_s: torch.Tensor, scale: float,
                    ce_rows: Optional[Tuple[int, ...]]) -> torch.Tensor:
     """Template->search attention for CE ranking: its own f32 softmax over
     the concatenated bimodal search axis, over the `ce_rows` template rows
-    only (None = all rows)."""
+    only (None = all rows). No gradient: only `topk` reads it."""
     if ce_rows is not None:
         q_mt = q_mt[:, :, list(ce_rows)]
     a = torch.matmul(q_mt, k_s.transpose(-2, -1)) * scale
@@ -155,8 +166,9 @@ class SharedBlock(nn.Module):
     """Transformer block with modality-specific LNs and optional CE."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, drop_path: float = 0.0):
         super().__init__()
+        self.dp1, self.dp2 = DropPath(drop_path), DropPath(drop_path)
         self.norm1_v = nn.LayerNorm(dim, eps=1e-6)
         self.norm1_i = nn.LayerNorm(dim, eps=1e-6)
         self.norm2_v = nn.LayerNorm(dim, eps=1e-6)
@@ -167,7 +179,7 @@ class SharedBlock(nn.Module):
     def _mlp(self, x_v, x_i):
         B = x_v.shape[0]
         m = self.mlp(torch.cat([self.norm2_v(x_v), self.norm2_i(x_i)], dim=0))
-        return x_v + m[:B], x_i + m[B:]
+        return x_v + self.dp2(m[:B]), x_i + self.dp2(m[B:])
 
     def forward(self, x_v, x_i, n_mt: int, gidx_v, gidx_i,
                 lens_keep: Optional[int] = None,
@@ -177,7 +189,7 @@ class SharedBlock(nn.Module):
         exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
         av, ai, attn_t2s = self.attn(self.norm1_v(x_v), self.norm1_i(x_i), n_mt,
                                      return_attention=exe_ce, ce_rows=ce_rows)
-        x_v, x_i = x_v + av, x_i + ai
+        x_v, x_i = x_v + self.dp1(av), x_i + self.dp1(ai)
         if exe_ce:
             lens_s = gidx_v.shape[1]
             a = attn_t2s.mean(dim=(1, 2))                      # (B, 2 * L_s)
@@ -240,7 +252,7 @@ class AsymSharedViT(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  ce_loc: Optional[Tuple[int, ...]] = None,
                  ce_keep_ratio: Optional[Tuple[float, ...]] = None,
-                 ce_template_range: str = "CTR_POINT"):
+                 ce_template_range: str = "CTR_POINT", drop_path_rate: float = 0.0):
         super().__init__()
         if ce_template_range != "CTR_POINT":
             raise NotImplementedError(f"CE_TEMPLATE_RANGE {ce_template_range!r} is not ported "
@@ -248,8 +260,9 @@ class AsymSharedViT(nn.Module):
         self.depth = depth
         self.ce_loc, self.ce_keep_ratio = ce_loc, ce_keep_ratio
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
-        self.blocks = nn.ModuleList([SharedBlock(embed_dim, num_heads, mlp_ratio, qkv_bias)
-                                     for _ in range(depth)])
+        dpr = [float(r) for r in torch.linspace(0, drop_path_rate, depth, dtype=torch.float64)]
+        self.blocks = nn.ModuleList([SharedBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, dpr[i])
+                                     for i in range(depth)])
         self.grid_size_s = img_size_s // patch_size
         self.grid_size_t = img_size_t // patch_size
         # fixed sin-cos embeddings: buffers, not part of the state dict
@@ -350,21 +363,24 @@ class RGBTSpec:
     num_heads: int = 12
     head_type: str = "CORNER"
     head_dim: int = 384
+    head_freeze_bn: bool = False
     fusion_class: str = "Attention_Fusion_Bimodal_LNSpecific_2"
     fusion_layers: int = 6
     ce_loc: Optional[Tuple[int, ...]] = None
     ce_keep_ratio: Optional[Tuple[float, ...]] = None
     ce_template_range: str = "CTR_POINT"
+    drop_path_rate: float = 0.1
+    fusion_dropout: float = 0.1
 
     @staticmethod
     def from_cfg(cfg) -> "RGBTSpec":
         dims = dict(base_patch16=(768, 12, 12), large_patch16=(1024, 24, 16))[cfg.MODEL.VIT_TYPE]
         bb = cfg.MODEL.BACKBONE
-        # HEAD_FREEZE_BN needs no field: a frozen BN equals a BN in eval mode
         return RGBTSpec(
             search_size=cfg.DATA.SEARCH.SIZE, template_size=cfg.DATA.TEMPLATE.SIZE,
             embed_dim=dims[0], depth=dims[1], num_heads=dims[2],
             head_type=cfg.MODEL.HEAD_TYPE, head_dim=cfg.MODEL.get("HEAD_DIM", 384),
+            head_freeze_bn=cfg.MODEL.get("HEAD_FREEZE_BN", False),
             fusion_class=cfg.MODEL.FUSION_CLASS, fusion_layers=cfg.MODEL.FUSION_LAYERS,
             ce_loc=tuple(bb.CE_LOC) if "CE_LOC" in bb else None,
             ce_keep_ratio=tuple(bb.CE_KEEP_RATIO) if "CE_KEEP_RATIO" in bb else None,
@@ -373,15 +389,17 @@ class RGBTSpec:
 
 def _build_head(sp: RGBTSpec) -> nn.Module:
     if sp.head_type == "CORNER":
-        return CornerPredictor(sp.embed_dim, sp.head_dim, sp.search_size // 16, 16)
+        return CornerPredictor(sp.embed_dim, sp.head_dim, sp.search_size // 16, 16,
+                               sp.head_freeze_bn)
     if sp.head_type == "CORNER_UP":
-        return PyramidCornerPredictor(sp.embed_dim, sp.head_dim, sp.search_size // 4, 4)
+        return PyramidCornerPredictor(sp.embed_dim, sp.head_dim, sp.search_size // 4, 4,
+                                      sp.head_freeze_bn)
     raise NotImplementedError(f"HEAD_TYPE {sp.head_type!r} is not ported "
                               f"(CORNER and CORNER_UP are)")
 
 
 class MixFormerRGBT(nn.Module):
-    """Backbone + deformable fusion + corner head (inference)."""
+    """Backbone + deformable fusion + corner head."""
 
     def __init__(self, spec: RGBTSpec):
         super().__init__()
@@ -390,9 +408,10 @@ class MixFormerRGBT(nn.Module):
             img_size_s=sp.search_size, img_size_t=sp.template_size,
             embed_dim=sp.embed_dim, depth=sp.depth, num_heads=sp.num_heads,
             ce_loc=sp.ce_loc, ce_keep_ratio=sp.ce_keep_ratio,
-            ce_template_range=sp.ce_template_range)
+            ce_template_range=sp.ce_template_range, drop_path_rate=sp.drop_path_rate)
         # the fusion's d_model is fixed at 512 for every recipe
-        self.fusion_vi = build_fusion(sp.fusion_class, sp.embed_dim, 512, sp.fusion_layers)
+        self.fusion_vi = build_fusion(sp.fusion_class, sp.embed_dim, 512, sp.fusion_layers,
+                                      sp.fusion_dropout)
         self.box_head = _build_head(sp)
 
     def _head(self, s: torch.Tensor):
@@ -421,8 +440,10 @@ class MixFormerRGBT(nn.Module):
         return self._head(s)
 
 
-def build_mixformer_rgbt(cfg, with_score: bool = False) -> MixFormerRGBT:
+def build_mixformer_rgbt(cfg, with_score: bool = False, **spec_overrides) -> MixFormerRGBT:
+    """The flagship model of a config; `spec_overrides` replace fields of
+    the spec read from it (e.g. depth, or the drop rates)."""
     if with_score:
         raise NotImplementedError("the SPM score branch (asymmetric_shared_online) is not "
                                   "ported yet (ROADMAP.md queue 1)")
-    return MixFormerRGBT(RGBTSpec.from_cfg(cfg))
+    return MixFormerRGBT(dataclasses.replace(RGBTSpec.from_cfg(cfg), **spec_overrides))

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -47,14 +48,16 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
 
 
 def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
-                seed: int = 0) -> nn.Module:
+                seed: int = 0, spec_overrides: Optional[dict] = None) -> nn.Module:
     """Build the model of an RGB-T `asymmetric_shared*` script with random
     weights from `seed`, in eval mode on `device` (default: the GPU; raises
-    if there is none). float32 only, with TF32 turned off."""
+    if there is none). float32 only, with TF32 turned off. `spec_overrides`
+    replace fields of the model spec read from `cfg`."""
     if script not in _RGBT_SHARED:
         raise NotImplementedError(f"script {script!r} is not ported to "
                                   f"multi_modal_tracking_torch (ROADMAP.md queue 1)")
     dev = resolve_device(device)
     set_f32_precision(dtype)
-    model = init_random(build_mixformer_rgbt(cfg, **_RGBT_SHARED[script]), seed)
+    model = init_random(build_mixformer_rgbt(cfg, **_RGBT_SHARED[script],
+                                             **(spec_overrides or {})), seed)
     return model.to(dev).eval()

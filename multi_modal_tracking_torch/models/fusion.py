@@ -10,7 +10,10 @@ both modalities. The sampling core is kernel K3 (`ops/msda.py`).
 
 Module attribute names give the reference's state-dict keys, e.g.
 `fusion_vi.fusion_attention.encoder.layers.0.self_attn.value_proj.weight`.
-Inference only: the reference's dropouts are identities here.
+Each encoder layer has the reference's three dropouts (rate 0.1: after the
+deformable attention, after the FFN's ReLU, after its second linear); they
+act in training mode only and draw from the generator of `set_generator`.
+Gradients flow through K3's backward, kernel K4.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multi_modal_tracking_torch.models.layers import Dropout
 from multi_modal_tracking_torch.ops.msda import ms_deform_attn
 from multi_modal_tracking_torch.ops.pos_embed import sine_position_encoding
 
@@ -95,8 +99,9 @@ def _modal_layer_norm(x: torch.Tensor, norm_v: nn.LayerNorm, norm_i: nn.LayerNor
 
 class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int = 2, n_heads: int = 8,
-                 n_points: int = 4):
+                 n_points: int = 4, dropout: float = 0.1):
         super().__init__()
+        self.dropout1, self.dropout2, self.dropout3 = (Dropout(dropout) for _ in range(3))
         self.self_attn = MSDeformAttnBimodal(d_model, n_levels, n_heads, n_points)
         self.norm1_v = nn.LayerNorm(d_model, eps=1e-5)
         self.norm1_i = nn.LayerNorm(d_model, eps=1e-5)
@@ -106,9 +111,9 @@ class DeformableEncoderLayer(nn.Module):
         self.norm2_i = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes):
-        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes)
+        src2 = self.dropout1(self.self_attn(src + pos, reference_points, src, spatial_shapes))
         src = _modal_layer_norm(src + src2, self.norm1_v, self.norm1_i)
-        ff = self.linear2(torch.relu(self.linear1(src)))
+        ff = self.dropout3(self.linear2(self.dropout2(torch.relu(self.linear1(src)))))
         return _modal_layer_norm(src + ff, self.norm2_v, self.norm2_i)
 
 
@@ -122,12 +127,12 @@ class DeformableAttentionFusion(nn.Module):
     """N-layer deformable encoder over the two flattened modal search maps."""
 
     def __init__(self, d_model: int = 512, n_heads: int = 8, num_encoder_layers: int = 6,
-                 n_points: int = 4):
+                 n_points: int = 4, dropout: float = 0.1):
         super().__init__()
         self.d_model = d_model
         self.level_embed = nn.Parameter(torch.zeros(2, d_model))
         self.encoder = _Encoder([DeformableEncoderLayer(d_model, 4 * d_model, 2, n_heads,
-                                                        n_points)
+                                                        n_points, dropout)
                                  for _ in range(num_encoder_layers)])
         self._geometry = {}
 
@@ -175,7 +180,7 @@ class AttentionFusionBimodal(nn.Module):
     adjust (`Attention_Fusion_Bimodal_LNSpecific_2`)."""
 
     def __init__(self, channels: int = 768, d_model: int = 512, num_encoder_layers: int = 6,
-                 mode: str = "cat"):
+                 mode: str = "cat", dropout: float = 0.1):
         super().__init__()
         if mode not in ("cat", "shared_sum"):
             raise ValueError(f"mode {mode!r}")
@@ -185,7 +190,8 @@ class AttentionFusionBimodal(nn.Module):
         else:
             self.adjust_v = _AdjustConv(channels, d_model)
             self.adjust_i = _AdjustConv(channels, d_model)
-        self.fusion_attention = DeformableAttentionFusion(d_model, 8, num_encoder_layers)
+        self.fusion_attention = DeformableAttentionFusion(d_model, 8, num_encoder_layers,
+                                                          dropout=dropout)
         if mode == "cat":
             self.adjust_cat = _AdjustConv(2 * d_model, channels)
         else:
@@ -215,10 +221,10 @@ _FUSION_MODES = {
 
 
 def build_fusion(fusion_class: str, channels: int, d_model: int,
-                 num_encoder_layers: int) -> AttentionFusionBimodal:
+                 num_encoder_layers: int, dropout: float = 0.1) -> AttentionFusionBimodal:
     if fusion_class not in _FUSION_MODES:
         raise NotImplementedError(
             f"FUSION_CLASS {fusion_class!r} is not ported to multi_modal_tracking_torch "
             f"yet (ROADMAP.md queue 1, item 6: the rest of the fusion zoo)")
     return AttentionFusionBimodal(channels, d_model, num_encoder_layers,
-                                  _FUSION_MODES[fusion_class])
+                                  _FUSION_MODES[fusion_class], dropout)

@@ -5,6 +5,9 @@ stride-spaced coordinate mesh and return an xyxy box normalised by
 feat_sz * stride. Inputs are NHWC (B, F, F, C) at the public functions.
 Attribute names are the reference's (`conv1_tl.0.weight`,
 `adjust3_tl.1.0.weight`, ...), so a reference state dict loads as it is.
+`model.train()` reaches every BatchNorm of the towers (batch statistics,
+running-statistic updates); with `freeze_bn` (the recipe's HEAD_FREEZE_BN)
+they are FrozenBatchNorm2d and train mode changes nothing.
 """
 from __future__ import annotations
 
@@ -46,15 +49,16 @@ class CornerPredictor(nn.Module):
     """CORNER head: per corner conv1..conv4 (Conv-BN-ReLU) + conv5 (1x1)."""
 
     def __init__(self, inplanes: int = 768, channel: int = 384, feat_sz: int = 18,
-                 stride: int = 16):
+                 stride: int = 16, freeze_bn: bool = False):
         super().__init__()
         self.feat_sz, self.stride = feat_sz, stride
         c = channel
+        cbr = lambda i, o: ConvBNRelu(i, o, frozen=freeze_bn)   # noqa: E731
         for corner in ("tl", "br"):
-            setattr(self, f"conv1_{corner}", ConvBNRelu(inplanes, c))
-            setattr(self, f"conv2_{corner}", ConvBNRelu(c, c // 2))
-            setattr(self, f"conv3_{corner}", ConvBNRelu(c // 2, c // 4))
-            setattr(self, f"conv4_{corner}", ConvBNRelu(c // 4, c // 8))
+            setattr(self, f"conv1_{corner}", cbr(inplanes, c))
+            setattr(self, f"conv2_{corner}", cbr(c, c // 2))
+            setattr(self, f"conv3_{corner}", cbr(c // 2, c // 4))
+            setattr(self, f"conv4_{corner}", cbr(c // 4, c // 8))
             setattr(self, f"conv5_{corner}", nn.Conv2d(c // 8, 1, kernel_size=1))
 
     def _tower(self, x: torch.Tensor, corner: str) -> torch.Tensor:
@@ -76,17 +80,17 @@ class PyramidCornerPredictor(CornerPredictor):
     fusion), so the score maps are at stride 4."""
 
     def __init__(self, inplanes: int = 768, channel: int = 384, feat_sz: int = 72,
-                 stride: int = 4):
-        super().__init__(inplanes, channel, feat_sz, stride)
+                 stride: int = 4, freeze_bn: bool = False):
+        super().__init__(inplanes, channel, feat_sz, stride, freeze_bn)
         c = channel
+        cbr = lambda i, o: ConvBNRelu(i, o, frozen=freeze_bn)   # noqa: E731
         for corner in ("tl", "br"):
-            setattr(self, f"adjust1_{corner}", ConvBNRelu(inplanes, c // 2))
-            setattr(self, f"adjust2_{corner}", ConvBNRelu(inplanes, c // 4))
+            setattr(self, f"adjust1_{corner}", cbr(inplanes, c // 2))
+            setattr(self, f"adjust2_{corner}", cbr(inplanes, c // 4))
             setattr(self, f"adjust3_{corner}", nn.Sequential(
-                ConvBNRelu(c // 2, c // 4), ConvBNRelu(c // 4, c // 8),
-                ConvBNRelu(c // 8, 1)))
+                cbr(c // 2, c // 4), cbr(c // 4, c // 8), cbr(c // 8, 1)))
             setattr(self, f"adjust4_{corner}", nn.Sequential(
-                ConvBNRelu(c // 4, c // 8), ConvBNRelu(c // 8, 1)))
+                cbr(c // 4, c // 8), cbr(c // 8, 1)))
 
     def _tower(self, x: torch.Tensor, corner: str) -> torch.Tensor:
         """One corner's pyramid branch: NCHW (B, C, F/4, F/4) -> (B, F, F)

@@ -40,9 +40,16 @@ SIGNATURES = {
         "mixed_attention_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I,
                                      ctypes.c_float, _C], _I),
     },
+    "mixed_attention_bwd": {
+        "mixed_attention_bwd_f32": ([_C] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, _C],
+                                    _I),
+    },
     "msda": {
         "msda_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,
                           ctypes.POINTER(_I), _C], _I),
+    },
+    "msda_bwd": {
+        "msda_bwd_f32": ([_C] * 7 + [_I] * 7 + [ctypes.POINTER(_I), _C], _I),
     },
 }
 

@@ -1,5 +1,5 @@
-"""Multi-scale deformable attention sampling (MSDeformAttn core): kernel K3
-and its plain version.
+"""Multi-scale deformable attention sampling (MSDeformAttn core): kernels K3
+(forward) and K4 (backward) and their plain versions.
 
 Shapes (L levels with static spatial shapes):
   value              : (B, S, M, D)        S = sum_l H_l * W_l
@@ -13,9 +13,13 @@ loc * size - 0.5 with zero padding outside the map — the numerics of
 grid_sample(align_corners=False, padding_mode='zeros') — weighted by the
 attention weights and summed.
 
-`ms_deform_attn` runs the hand-written CUDA kernel (`csrc/msda.cu`) for CUDA
-tensors and the plain PyTorch version `ms_deform_attn_ref` for CPU tensors,
-and raises for anything else. There is no fallback from one to the other.
+`ms_deform_attn` goes through a `torch.autograd.Function` whenever a
+gradient is to be taken: its forward runs the
+hand-written CUDA kernel K3 (`csrc/msda.cu`) for CUDA tensors and
+`ms_deform_attn_ref` for CPU tensors; its backward runs K4
+(`csrc/msda_bwd.cu`) for CUDA tensors and `ms_deform_attn_bwd_ref` for CPU
+tensors. Anything else raises. There is no fallback from a kernel to a
+plain version.
 """
 from __future__ import annotations
 
@@ -27,32 +31,33 @@ import torch
 from multi_modal_tracking_torch.ops import _build
 
 
+def _corners(loc_l: torch.Tensor, H: int, W: int):
+    """loc_l (..., 2) -> (fx, fy, [(xi, yi, bilinear weight)] for the 4
+    corners in the order (x0, y0), (x0+1, y0), (x0, y0+1), (x0+1, y0+1))."""
+    x = loc_l[..., 0] * W - 0.5
+    y = loc_l[..., 1] * H - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    return fx, fy, [(x0i, y0i, (1 - fx) * (1 - fy)), (x0i + 1, y0i, fx * (1 - fy)),
+                    (x0i, y0i + 1, (1 - fx) * fy), (x0i + 1, y0i + 1, fx * fy)]
+
+
 def _bilinear_sample_level(value_l: torch.Tensor, loc: torch.Tensor, H: int,
                            W: int) -> torch.Tensor:
     """value_l (B, H*W, M, D), loc (B, Lq, M, P, 2) -> (B, Lq, M, P, D)."""
     B, _, M, D = value_l.shape
     Lq, P = loc.shape[1], loc.shape[3]
-    x = loc[..., 0] * W - 0.5
-    y = loc[..., 1] * H - 0.5
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    fx = x - x0
-    fy = y - y0
-    x0i = x0.to(torch.int64)
-    y0i = y0.to(torch.int64)
     v = value_l.permute(0, 2, 1, 3)                               # (B, M, HW, D)
-
-    def tap(xi, yi, wgt):
+    out = None
+    for xi, yi, wgt in _corners(loc, H, W)[2]:
         inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
         flat = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)        # (B, Lq, M, P)
         idx = flat.permute(0, 2, 1, 3).reshape(B, M, Lq * P, 1).expand(-1, -1, -1, D)
         g = torch.gather(v, 2, idx).reshape(B, M, Lq, P, D).permute(0, 2, 1, 3, 4)
-        return g * (wgt * inside.to(value_l.dtype))[..., None]
-
-    out = tap(x0i, y0i, (1 - fx) * (1 - fy))
-    out = out + tap(x0i + 1, y0i, fx * (1 - fy))
-    out = out + tap(x0i, y0i + 1, (1 - fx) * fy)
-    out = out + tap(x0i + 1, y0i + 1, fx * fy)
+        tap = g * (wgt * inside.to(value_l.dtype))[..., None]
+        out = tap if out is None else out + tap
     return out
 
 
@@ -74,9 +79,49 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     return out.reshape(B, Lq, M * D)
 
 
-def _check_kernel_args(value, spatial_shapes, loc, attw):
-    for name, t in (("value", value), ("sampling_locations", loc),
-                    ("attention_weights", attw)):
+def ms_deform_attn_bwd_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                           sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                           grad_out: torch.Tensor):
+    """Plain backward with explicit formulas (those of the JAX package's
+    `_msda_pallas_bwd`, ops/msda.py:391-418): per live corner tap,
+    dValue[corner] += attw * w_corner * g and dw = <g, V[corner]>; a dead
+    corner (outside its map) contributes nothing. dw then chains to
+    dAttw = sum_c w_c dw_c and, through the bilinear weights, to dLoc.
+    Returns (dValue, dLoc, dAttw)."""
+    B, S, M, D = value.shape
+    Lq = sampling_locations.shape[1]
+    g = grad_out.reshape(B, Lq, M, 1, D)
+    dvalue = torch.zeros_like(value)
+    dloc = torch.zeros_like(sampling_locations)
+    dattw = torch.zeros_like(attention_weights)
+    bidx = torch.arange(B, device=value.device)[:, None, None, None]
+    midx = torch.arange(M, device=value.device)[None, None, :, None]
+    start = 0
+    for lid, (H, W) in enumerate(spatial_shapes):
+        aw = attention_weights[:, :, :, lid]                       # (B, Lq, M, P)
+        fx, fy, corners = _corners(sampling_locations[:, :, :, lid], H, W)
+        dw = []
+        for xi, yi, wgt in corners:
+            live = ((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)).to(value.dtype)
+            flat = start + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+            index = (bidx.expand_as(flat), flat, midx.expand_as(flat))
+            dw.append((value[index] * g).sum(-1) * live)
+            dvalue.index_put_(index, (aw * wgt * live)[..., None] * g, accumulate=True)
+        dattw[:, :, :, lid] = sum(c[2] * d for c, d in zip(corners, dw))
+        d0, d1, d2, d3 = (aw * d for d in dw)
+        dfx = -(1 - fy) * d0 + (1 - fy) * d1 - fy * d2 + fy * d3
+        dfy = -(1 - fx) * d0 - fx * d1 + (1 - fx) * d2 + fx * d3
+        dloc[:, :, :, lid, :, 0] = dfx * W
+        dloc[:, :, :, lid, :, 1] = dfy * H
+        start += H * W
+    return dvalue, dloc, dattw
+
+
+def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None):
+    tensors = [("value", value), ("sampling_locations", loc), ("attention_weights", attw)]
+    if grad_out is not None:
+        tensors.append(("grad_out", grad_out))
+    for name, t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"ms_deform_attn: {name} is on {t.device}; all inputs "
                              f"must be CPU or all CUDA tensors")
@@ -84,9 +129,8 @@ def _check_kernel_args(value, spatial_shapes, loc, attw):
             raise TypeError(f"ms_deform_attn kernel takes float32, {name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"ms_deform_attn kernel takes contiguous {name}")
-    if not value.device == loc.device == attw.device:
-        raise ValueError(f"ms_deform_attn: inputs on {value.device}, {loc.device}, "
-                         f"{attw.device}")
+        if t.device != value.device:
+            raise ValueError(f"ms_deform_attn: {name} on {t.device}, value on {value.device}")
     if value.dim() != 4:
         raise ValueError(f"ms_deform_attn: value must be (B, S, M, D), is {tuple(value.shape)}")
     B, S, M, D = value.shape
@@ -98,17 +142,25 @@ def _check_kernel_args(value, spatial_shapes, loc, attw):
     if tuple(attw.shape) != tuple(loc.shape[:5]):
         raise ValueError(f"ms_deform_attn: attention_weights {tuple(attw.shape)} != "
                          f"{tuple(loc.shape[:5])}")
+    if grad_out is not None and tuple(grad_out.shape) != (B, loc.shape[1], M * D):
+        raise ValueError(f"ms_deform_attn: grad_out {tuple(grad_out.shape)} != "
+                         f"{(B, loc.shape[1], M * D)}")
     if sum(h * w for h, w in spatial_shapes) != S or not 1 <= L <= 8 or not 1 <= D <= 128:
         raise ValueError(f"ms_deform_attn kernel: levels {spatial_shapes} must cover "
                          f"S={S}, 1 <= L <= 8 and 1 <= D <= 128 (D={D})")
 
 
-def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                   sampling_locations: torch.Tensor,
-                   attention_weights: torch.Tensor) -> torch.Tensor:
-    """Multi-scale deformable attention core (see module docstring). CUDA
-    tensors go to kernel K3 (each launch counted in
-    `ms_deform_attn.launches`), CPU tensors to `ms_deform_attn_ref`."""
+def _shapes_arg(spatial_shapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(
+        *[int(s) for hw in spatial_shapes for s in hw])
+
+
+def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                       sampling_locations: torch.Tensor,
+                       attention_weights: torch.Tensor) -> torch.Tensor:
+    """Forward without autograd: kernel K3 for CUDA tensors (each launch
+    counted in `ms_deform_attn.launches`), `ms_deform_attn_ref` for CPU
+    tensors."""
     tensors = (value, sampling_locations, attention_weights)
     if all(t.device.type == "cpu" for t in tensors):
         return ms_deform_attn_ref(value, spatial_shapes, sampling_locations,
@@ -118,15 +170,74 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
     lib = _build.library("msda")
     err = lib.msda_fwd_f32(value.data_ptr(), sampling_locations.data_ptr(),
                            attention_weights.data_ptr(), out.data_ptr(),
-                           B, S, M, D, Lq, L, P, shapes,
+                           B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
                            torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_fwd_f32")
     ms_deform_attn.launches += 1
     return out
 
 
+def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                       sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                       grad_out: torch.Tensor):
+    """(dValue, dLoc, dAttw): kernel K4 for CUDA tensors (each launch counted
+    in `ms_deform_attn_bwd.launches`), `ms_deform_attn_bwd_ref` for CPU
+    tensors. K4 sums dValue with atomics, so its summation order varies
+    from run to run."""
+    tensors = (value, sampling_locations, attention_weights, grad_out)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ms_deform_attn_bwd_ref(value, spatial_shapes, sampling_locations,
+                                      attention_weights, grad_out)
+    _check_kernel_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+    B, S, M, D = value.shape
+    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
+        sampling_locations.shape[4]
+    dvalue = torch.zeros_like(value)         # zeroed on the stream before the launch
+    dloc = torch.empty_like(sampling_locations)
+    dattw = torch.empty_like(attention_weights)
+    lib = _build.library("msda_bwd")
+    err = lib.msda_bwd_f32(value.data_ptr(), sampling_locations.data_ptr(),
+                           attention_weights.data_ptr(), grad_out.data_ptr(),
+                           dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(),
+                           B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+                           torch.cuda.current_stream(value.device).cuda_stream)
+    _build.check(err, "msda_bwd_f32")
+    ms_deform_attn_bwd.launches += 1
+    return dvalue, dloc, dattw
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return ms_deform_attn_fwd(value, spatial_shapes, sampling_locations, attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attw = ctx.saved_tensors
+        dvalue, dloc, dattw = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc, attw,
+                                                 grad_out.contiguous())
+        return dvalue, None, dloc, dattw
+
+
+def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor) -> torch.Tensor:
+    """Multi-scale deformable attention core (see module docstring),
+    differentiable in value, sampling_locations and attention_weights: K3
+    forward and K4 backward on CUDA tensors, the plain versions on CPU
+    tensors. spatial_shapes is not differentiated. Without a gradient to
+    take (inference) it skips the autograd Function's per-call cost."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    tensors = (value, sampling_locations, attention_weights)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _MSDeformAttn.apply(value, shapes, sampling_locations, attention_weights)
+    return ms_deform_attn_fwd(value, shapes, sampling_locations, attention_weights)
+
+
 ms_deform_attn.launches = 0
+ms_deform_attn_bwd.launches = 0

@@ -8,6 +8,9 @@ with layout changes only:
   Conv kernel HWIO            -> Conv2d weight OIHW
   LayerNorm/GroupNorm/BN scale -> weight
   BN batch_stats mean/var     -> running_mean / running_var
+  frozen BN batch_stats bn_scale / bn_bias / bn_mean / bn_var
+                              -> FrozenBatchNorm2d (`.1`) weight / bias /
+                                 running_mean / running_var
 
 and these path renames:
 
@@ -62,7 +65,13 @@ def _module_path(path: Tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+_FROZEN_BN = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+              "bn_var": "running_var"}
+
+
 def _leaf(coll: str, name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name in _FROZEN_BN:
+        return _FROZEN_BN[name], arr
     if name == "kernel":
         if arr.ndim == 4:
             return "weight", np.transpose(arr, (3, 2, 0, 1))
@@ -77,14 +86,14 @@ def _leaf(coll: str, name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
 def from_jax_variables(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """flax variables of MixFormerRGBT (numpy leaves) -> the port's
     state_dict, loadable with `load_state_dict(..., strict=True)` (every
-    BatchNorm also gets num_batches_tracked = 0)."""
+    BatchNorm also gets num_batches_tracked = 0; a frozen one has none)."""
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables_np.get(coll, {})):
             name, arr = _leaf(coll, path[-1], np.asarray(leaf))
-            mod = _module_path(path[:-1])
+            mod = _module_path(path[:-1]) + (".1" if path[-1] in _FROZEN_BN else "")
             key = f"{mod}.{name}" if mod else name
             sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-            if name == "running_mean":
+            if name == "running_mean" and path[-1] not in _FROZEN_BN:
                 sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
