@@ -9,10 +9,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 per source, all at once);
   3. kernels  - each kernel (K1, K2 mixed-attention forward/backward, K3, K4
                 MSDA forward/backward) against its plain PyTorch version on
-                the card at the main paths' shapes (and narrow edge cases),
+                the card at the main paths' shapes (and narrow and ragged
+                edge cases), K1's saved logsumexp included and fed to K2,
                 timed on the device (torch.profiler) and with CUDA events,
                 beside the plain version, a PyTorch library yardstick where
-                one call computes the same function, and the card's bound;
+                one call computes the same function (and the ratio of the
+                kernel's time to it), and the card's bound: K1 and K2 run
+                3xTF32 on the tensor cores, so their bound_ms is at
+                495 / 3 = 165 TFLOP/s, with the f32 CUDA-core bound at
+                67 TFLOP/s beside it as bound_f32_ms;
   4. model    - the full-width asymmetric_shared_ce recipe (seeded random
                 weights): cached path (set_online + forward_track) against
                 the full forward, and the GPU run against the same model on
@@ -32,9 +37,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 against the same step on the CPU.
 Then the kernel table line and, last, {"ok": true, "device": {...}}.
 
-Tolerances (f32 everywhere, TF32 off):
-  * kernels: 2e-5 abs or 1e-4 rel (K1, K2, K3). Both sides are f32 sums of
-    the same terms in another order; measured differences are ~2e-6. K4:
+Tolerances (f32 everywhere, TF32 off for cuBLAS and cuDNN):
+  * kernels: 2e-5 abs or 1e-4 rel (K1 and its logsumexp, K2, K3). Both sides
+    are f32 sums of the same terms in another order; K1 and K2 form their
+    products as 3xTF32, which drops only the small*small term (~2^-22 of a
+    product), and sum long reductions tile by tile (tf32_mma.cuh); measured
+    differences are up to ~6e-6. One TF32 pass would give 3e-4 to 6e-4
+    and fail (tests/test_torch_port_attention_lse.py). K4:
     1e-5 of each output's largest magnitude or 1e-4 rel; it sums dValue with
     atomics in an order that changes from run to run, and dLoc (a factor W
     or H times sums of D products) reaches ~1e3. A wrong mask, tap or
@@ -66,6 +75,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12         # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12             # f32 outside the tensor cores
+H100_TF32X3_FLOPS = 495e12 / 3     # f32-accurate products as 3 TF32 MMAs (K1, K2)
 KERNEL_TOL = dict(atol=2e-5, rtol=1e-4)
 BOX_TOL = 1e-4
 SCRIPT, RECIPE = "asymmetric_shared_ce", "attention_lasher_newfusion_2layer"
@@ -110,18 +120,23 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e - s for s, e, n in _device_intervals(prof)
-                if names is None or any(k in n for k in names))
+    # a first profiler session of a process has once recorded no kernel at
+    # all: one more session before giving up
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e - s for s, e, n in _device_intervals(prof)
+                    if names is None or any(k in n for k in names))
+        if total > 0:
+            break
     require(total > 0, f"the profiler saw no device time for {names}")
     return total / iters / 1e3
 
 
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+def bound_ms(n_bytes: float, flops: float, rate: float = H100_F32_FLOPS):
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -207,9 +222,17 @@ def train_attention_lengths(keep):
     return [(n, lengths.count(n)) for n in sorted(set(lengths), reverse=True)]
 
 
+def _attn_bounds(n_bytes, flops):
+    """K1/K2 rows: the bound at the 3xTF32 rate and the f32 CUDA-core one."""
+    b_ms, b_by = bound_ms(n_bytes, flops, H100_TF32X3_FLOPS)
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_f32_ms=bound_ms(n_bytes, flops)[0])
+
+
 def kernel_k1(g):
     import torch.nn.functional as F
-    from multi_modal_tracking_torch.ops.attention import mixed_attention_fwd, mixed_attention_ref
+    from multi_modal_tracking_torch.ops.attention import (mixed_attention_fwd,
+                                                          mixed_attention_lse_ref,
+                                                          mixed_attention_ref)
 
     scale = HEAD_D ** -0.5
     # (form, batch, Nq, Nk, n_mt, calls per tracked frame, calls per training step)
@@ -221,27 +244,34 @@ def kernel_k1(g):
     rows, err_max = [], 0.0
     for form, B, Nq, Nk, n_mt, calls, step_calls in cases:
         q, k, v = _qkv(B, HEADS, Nq, Nk, HEAD_D, g)
-        got = mixed_attention_fwd(q, k, v, n_mt, scale)
+        with_lse = form == "train_forward"     # the training forward saves lse for K2
+        got = mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=with_lse)
         want = mixed_attention_ref(q, k, v, n_mt, scale)
-        err, rel, ok = max_err(got, want)
+        err, rel, ok = max_err(got[0] if with_lse else got, want)
         require(ok, f"K1 {form} Nq={Nq} Nk={Nk} n_mt={n_mt} disagrees with its plain "
                     f"version: max abs err {err}")
-        err_max = max(err_max, err)
+        lse_err = None
+        if with_lse:
+            lse_err, _, ok = max_err(got[1], mixed_attention_lse_ref(q, k, n_mt, scale))
+            require(ok, f"K1 {form} Nq={Nq} Nk={Nk} n_mt={n_mt}: lse disagrees with "
+                        f"mixed_attention_lse_ref: max abs err {lse_err}")
+        err_max = max(err_max, err, lse_err or 0.0)
         mask = _allowed(Nq, Nk, n_mt)
-        kern = lambda: mixed_attention_fwd(q, k, v, n_mt, scale)          # noqa: E731
+        kern = lambda: mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=with_lse)  # noqa: E731
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
                                                      scale=scale)
         n_bytes = 4 * B * HEADS * HEAD_D * (2 * Nq + 2 * Nk)
         flops = 4 * B * HEADS * HEAD_D * _pairs(Nq, Nk, n_mt)
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        rows.append(dict(form=form, B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, calls_per_frame=calls,
-                         calls_per_step=step_calls,
-                         max_abs_err=err, max_rel_err=rel,
-                         ms=device_ms(kern, ["mixed_attention_fwd_kernel"]),
-                         event_ms=cuda_time_ms(kern),
-                         plain_ms=cuda_time_ms(lambda: mixed_attention_ref(q, k, v, n_mt, scale)),
-                         library_ms=device_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                         bytes=n_bytes, flops=flops))
+        row = dict(form=form, B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, calls_per_frame=calls,
+                   calls_per_step=step_calls, max_abs_err=err, max_rel_err=rel,
+                   lse_max_abs_err=lse_err,
+                   ms=device_ms(kern, ["mixed_attention_fwd_kernel"]),
+                   event_ms=cuda_time_ms(kern),
+                   plain_ms=cuda_time_ms(lambda: mixed_attention_ref(q, k, v, n_mt, scale)),
+                   library_ms=device_ms(lib), bytes=n_bytes, flops=flops,
+                   **_attn_bounds(n_bytes, flops))
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        rows.append(row)
     emit({"phase": "kernels", "kernel": "K1 mixed_attention_fwd", "tolerance": KERNEL_TOL,
           "cases": rows})
     return rows, err_max
@@ -261,15 +291,15 @@ def kernel_k2(g):
         Nk, n_mt = Nq + N_MT, N_MT
         q, k, v = _qkv(B, HEADS, Nq, Nk, HEAD_D, g)
         gr = torch.randn(B, HEADS, Nq, HEAD_D, generator=g).cuda()
-        o = mixed_attention_fwd(q, k, v, n_mt, scale)
-        got = mixed_attention_bwd(q, k, v, o, gr, n_mt, scale)
+        o, lse = mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=True)
+        got = mixed_attention_bwd(q, k, v, o, gr, n_mt, scale, lse)
         want = mixed_attention_bwd_ref(q, k, v, gr, n_mt, scale)
         errs = [max_err(a, b) for a, b in zip(got, want)]
         require(all(e[2] for e in errs), f"K2 Nq={Nq} Nk={Nk} disagrees with its plain "
                                          f"version: max abs errs {[e[0] for e in errs]}")
         err = max(e[0] for e in errs)
         err_max = max(err_max, err)
-        kern = lambda: mixed_attention_bwd(q, k, v, o, gr, n_mt, scale)   # noqa: E731
+        kern = lambda: mixed_attention_bwd(q, k, v, o, gr, n_mt, scale, lse)  # noqa: E731
         mask = _allowed(Nq, Nk, n_mt)
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
 
@@ -280,14 +310,16 @@ def kernel_k2(g):
             torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), gr)
         n_bytes = 4 * B * HEADS * HEAD_D * (4 * Nq + 4 * Nk)
         flops = 10 * B * HEADS * HEAD_D * _pairs(Nq, Nk, n_mt)
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        rows.append(dict(B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, calls_per_step=calls,
-                         max_abs_err=err, ms=device_ms(kern, ["attn_bwd_"]),
-                         event_ms=cuda_time_ms(kern, iters=20),
-                         plain_ms=cuda_time_ms(
-                             lambda: mixed_attention_bwd_ref(q, k, v, gr, n_mt, scale), iters=10),
-                         library_ms=device_ms(sdpa_fwd_bwd) - device_ms(sdpa_fwd),
-                         bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops))
+        row = dict(B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, calls_per_step=calls,
+                   max_abs_err=err, max_abs_err_dq_dk_dv=[e[0] for e in errs],
+                   max_rel_err=max(e[1] for e in errs), ms=device_ms(kern, ["attn_bwd_"]),
+                   event_ms=cuda_time_ms(kern, iters=20),
+                   plain_ms=cuda_time_ms(
+                       lambda: mixed_attention_bwd_ref(q, k, v, gr, n_mt, scale), iters=10),
+                   library_ms=device_ms(sdpa_fwd_bwd) - device_ms(sdpa_fwd),
+                   bytes=n_bytes, flops=flops, **_attn_bounds(n_bytes, flops))
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        rows.append(row)
     emit({"phase": "kernels", "kernel": "K2 mixed_attention_bwd", "tolerance": KERNEL_TOL,
           "library": "scaled_dot_product_attention with the boolean mask: fwd+bwd minus fwd",
           "cases": rows})
@@ -373,24 +405,41 @@ def kernel_k4(g):
     return rows, err_max
 
 
+# (B, H, Nq, Nk, D, n_mt) of K1/K2's edge cases: n_mt 0, inside a tile, = Nq =
+# Nk; Nq != Nk; one query row, Nq 17 and 33 past 16-row tiles, Nk 9 inside a
+# 32-key tile, n_mt 8 inside a 16-row tile, at D 16/32/64; the last one is
+# large enough to take 64-row K1 blocks (the others take 16)
+ATTN_EDGES = [(2, 3, 40, 64, 16, 8), (2, 2, 70, 100, 32, 37), (1, 2, 5, 7, 16, 5),
+              (1, 2, 131, 197, 64, 65), (2, 3, 40, 40, 16, 40), (1, 2, 30, 70, 32, 0),
+              (1, 2, 1, 9, 16, 0), (1, 2, 1, 9, 64, 8), (2, 3, 17, 9, 16, 8),
+              (1, 2, 17, 33, 32, 8), (2, 2, 33, 9, 64, 8), (1, 3, 33, 41, 32, 33),
+              (32, 12, 70, 100, 64, 37)]
+
+
 def kernel_edges(g):
-    """Narrow widths and ragged tiles: n_mt inside a tile, Nq != Nk, D 16/32."""
+    """Narrow widths and ragged tiles for K1 (with its lse), K2 and K3."""
     from multi_modal_tracking_torch.ops.attention import (mixed_attention_bwd,
                                                           mixed_attention_bwd_ref,
-                                                          mixed_attention_fwd, mixed_attention_ref)
+                                                          mixed_attention_fwd,
+                                                          mixed_attention_lse_ref,
+                                                          mixed_attention_ref)
     from multi_modal_tracking_torch.ops.msda import ms_deform_attn_fwd, ms_deform_attn_ref
     edge = []
-    for (B, H, Nq, Nk, D, n_mt) in [(2, 3, 40, 64, 16, 8), (2, 2, 70, 100, 32, 37),
-                                    (1, 2, 5, 7, 16, 5), (1, 2, 131, 197, 64, 65),
-                                    (2, 3, 40, 40, 16, 40), (1, 2, 30, 70, 32, 0)]:
+    for (B, H, Nq, Nk, D, n_mt) in ATTN_EDGES:
         q, k, v = _qkv(B, H, Nq, Nk, D, g)
         gr = torch.randn(B, H, Nq, D, generator=g).cuda()
-        o = mixed_attention_fwd(q, k, v, n_mt, D ** -0.5)
+        o_only = mixed_attention_fwd(q, k, v, n_mt, D ** -0.5)
+        o, lse = mixed_attention_fwd(q, k, v, n_mt, D ** -0.5, return_lse=True)
+        require(torch.equal(o, o_only), f"K1 edge case {(B, H, Nq, Nk, D, n_mt)}: output "
+                                        f"depends on whether lse is written")
         err, _, ok = max_err(o, mixed_attention_ref(q, k, v, n_mt, D ** -0.5))
         require(ok, f"K1 edge case {(B, H, Nq, Nk, D, n_mt)}: max abs err {err}")
-        edge.append(dict(kernel="K1", shape=[B, H, Nq, Nk, D, n_mt], max_abs_err=err))
+        lse_err, _, ok = max_err(lse, mixed_attention_lse_ref(q, k, n_mt, D ** -0.5))
+        require(ok, f"K1 edge case {(B, H, Nq, Nk, D, n_mt)}: lse max abs err {lse_err}")
+        edge.append(dict(kernel="K1", shape=[B, H, Nq, Nk, D, n_mt], max_abs_err=err,
+                         lse_max_abs_err=lse_err))
         errs = [max_err(a, b) for a, b in zip(
-            mixed_attention_bwd(q, k, v, o, gr, n_mt, D ** -0.5),
+            mixed_attention_bwd(q, k, v, o, gr, n_mt, D ** -0.5, lse),
             mixed_attention_bwd_ref(q, k, v, gr, n_mt, D ** -0.5))]
         require(all(e[2] for e in errs), f"K2 edge case {(B, H, Nq, Nk, D, n_mt)}: "
                                          f"max abs errs {[e[0] for e in errs]}")
@@ -427,14 +476,22 @@ def phase_kernels(g: torch.Generator) -> dict:
             ("K4", "msda_bwd (K4)", "msda_bwd.cu", "msda.py:301", k4_rows, k4_err,
              "calls_per_step")):
         tot = _sum_rows(rows, weight)
-        b_ms, b_by = bound_ms(tot["bytes"], tot["flops"])
+        if key in ("K1", "K2"):
+            bounds = _attn_bounds(tot["bytes"], tot["flops"])
+        else:
+            b_ms, b_by = bound_ms(tot["bytes"], tot["flops"])
+            bounds = dict(bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_ms)
+        lib_ms = tot.get("library_ms")
         table[key] = dict(name=name, route="cuda", source=f"multi_modal_tracking_torch/csrc/{src}",
                           replaces=f"multi_modal_tracking_tpu/ops/{repl}", max_abs_err=err,
                           ms=tot["ms"], event_ms=tot["event_ms"], plain_ms=tot["plain_ms"],
-                          bound_ms=b_ms, bound_by=b_by, library_ms=tot.get("library_ms"),
-                          per="tracked frame" if weight == "calls_per_frame" else "training step")
+                          library_ms=lib_ms, library_ratio=tot["ms"] / lib_ms if lib_ms else None,
+                          per="tracked frame" if weight == "calls_per_frame" else "training step",
+                          **bounds)
     # K1 and K3 also run in every training step: their device ms per step
-    table["K1"]["train_step_ms"] = _sum_rows(k1_rows, "calls_per_step")["ms"]
+    k1_step = _sum_rows(k1_rows, "calls_per_step")
+    table["K1"]["train_step_ms"] = k1_step["ms"]
+    table["K1"]["train_step_library_ms"] = k1_step["library_ms"]
     table["K3"]["train_step_ms"] = _sum_rows(k3_rows, "calls_per_step")["ms"]
     return table
 
@@ -818,13 +875,16 @@ def main() -> None:
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "event_ms", "per",
+                                          "bound_by", "bound_f32_ms", "library_ms",
+                                          "library_ratio", "event_ms", "per",
                                           "launches_by_path") + (
-            ("train_step_ms",) if "train_step_ms" in row else ())})
+            ("train_step_ms", "train_step_library_ms") if key == "K1" else
+            ("train_step_ms",) if key == "K3" else ())})
     # ms is device time (torch.profiler): per tracked frame for K1 and K3
     # (12 search-step calls at the CE lengths, 2 calls at B=1), per training
     # step at the final keep for K2 and K4; train_step_ms is K1's and K3's
-    # device time per training step
+    # device time per training step; bound_ms is at 165 TFLOP/s (3xTF32) for
+    # K1 and K2, bound_f32_ms at 67 TFLOP/s (f32 CUDA cores) for all four
     emit({"kernels": table})
     emit({"ok": True, "device": dev})
 

@@ -7,7 +7,8 @@ with a plain C interface,
          -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 under `multi_modal_tracking_torch/_build/` (listed in .gitignore). The file
-name carries a hash of the source and the flags, so an edited source is
+name carries a hash of the source, of every header under `csrc/` (`*.cuh`,
+`*.h`, by name) and of the flags, so an edited source or shared header is
 rebuilt and a stale library is never loaded. All missing libraries are
 compiled by concurrent nvcc processes. The compiler's output (ptxas
 register and shared-memory report) is kept beside each library as
@@ -37,8 +38,7 @@ _I = ctypes.c_int
 #: C signature of every exported function: (argtypes, restype)
 SIGNATURES = {
     "mixed_attention": {
-        "mixed_attention_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I,
-                                     ctypes.c_float, _C], _I),
+        "mixed_attention_fwd_f32": ([_C] * 5 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
     },
     "mixed_attention_bwd": {
         "mixed_attention_bwd_f32": ([_C] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, _C],
@@ -66,11 +66,17 @@ def _nvcc() -> str:
                        "are built on the machine with the GPU (PATH or CUDA_HOME)")
 
 
+def _headers() -> List[str]:
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith((".cuh", ".h")))
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for fname in [f"{name}.cu", *_headers()]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _load(name: str, path: str) -> ctypes.CDLL:

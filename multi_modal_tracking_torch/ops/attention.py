@@ -14,10 +14,14 @@ is plain attention within the templates.
 `mixed_attention` goes through a `torch.autograd.Function` whenever a
 gradient is to be taken: its forward runs the
 hand-written CUDA kernel K1 (`csrc/mixed_attention.cu`) for CUDA tensors and
-`mixed_attention_ref` for CPU tensors; its backward runs K2
-(`csrc/mixed_attention_bwd.cu`) for CUDA tensors and
-`mixed_attention_bwd_ref` for CPU tensors. Anything else raises. There is
-no fallback from a kernel to a plain version.
+`mixed_attention_ref` for CPU tensors, and saves the row logsumexp; its
+backward runs K2 (`csrc/mixed_attention_bwd.cu`), which reads that
+logsumexp, for CUDA tensors and `mixed_attention_bwd_ref` for CPU tensors.
+Anything else raises. There is no fallback from a kernel to a plain
+version.
+
+Both kernels run their products on the tensor cores as 3xTF32
+(`csrc/tf32_mma.cuh`): f32-accurate, whatever the `allow_tf32` flags say.
 """
 from __future__ import annotations
 
@@ -35,11 +39,16 @@ def _allowed(n_mt: int, Nq: int, Nk: int, device) -> torch.Tensor:
     return (rows >= n_mt) | (cols < n_mt)
 
 
-def _probs(q, k, n_mt, scale):
+def _masked_scores(q, k, n_mt, scale):
     s = torch.matmul(q, k.transpose(-2, -1))
     s = s.to(torch.promote_types(s.dtype, torch.float32)) * scale
     allowed = _allowed(n_mt, q.shape[2], k.shape[2], q.device)
-    return torch.softmax(s.masked_fill(~allowed, NEG_INF), dim=-1), allowed
+    return s.masked_fill(~allowed, NEG_INF), allowed
+
+
+def _probs(q, k, n_mt, scale):
+    s, allowed = _masked_scores(q, k, n_mt, scale)
+    return torch.softmax(s, dim=-1), allowed
 
 
 def mixed_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,6 +56,13 @@ def mixed_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version: masked scores, f32 row softmax, weighted sum."""
     p, _ = _probs(q, k, n_mt, scale)
     return torch.matmul(p.to(v.dtype), v)
+
+
+def mixed_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, n_mt: int,
+                            scale: float) -> torch.Tensor:
+    """Plain row logsumexp of the masked, scaled scores, (B, H, Nq) f32:
+    what K1 saves for K2."""
+    return torch.logsumexp(_masked_scores(q, k, n_mt, scale)[0], dim=-1)
 
 
 def mixed_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,43 +117,68 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def query_warps(BH: int, Nq: int, n_sm: int) -> int:
+    """Warps of 16 query rows per K1 block: the most of 4 and 2 that still
+    gives every SM two blocks, else 1. 64 rows at the training shapes
+    (B*H 384), 16 or 32 at the tracking shapes (B*H 24)."""
+    for nw in (4, 2):
+        if BH * -(-Nq // (16 * nw)) >= 2 * n_sm:
+            return nw
+    return 1
+
+
 def mixed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        n_mt: int, scale: float) -> torch.Tensor:
+                        n_mt: int, scale: float, return_lse: bool = False):
     """Forward without autograd: kernel K1 for CUDA tensors (each launch
     counted in `mixed_attention.launches`), `mixed_attention_ref` for CPU
-    tensors."""
+    tensors. With `return_lse` it returns (out, lse), lse the (B, H, Nq)
+    row logsumexp (`mixed_attention_lse_ref` on CPU tensors); K1 writes it
+    only when asked."""
     if _on_cpu(q, k, v):
-        return mixed_attention_ref(q, k, v, n_mt, scale)
+        out = mixed_attention_ref(q, k, v, n_mt, scale)
+        return (out, mixed_attention_lse_ref(q, k, n_mt, scale)) if return_lse else out
     _check_kernel_args(dict(q=q, k=k, v=v), n_mt)
     B, H, Nq, D = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) if return_lse else None
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     lib = _build.library("mixed_attention")
     err = lib.mixed_attention_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B * H, Nq, k.shape[2], D, int(n_mt), float(scale),
+        lse.data_ptr() if return_lse else None,
+        B * H, Nq, k.shape[2], D, int(n_mt), float(scale), query_warps(B * H, Nq, n_sm),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_fwd_f32")
     mixed_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, g: torch.Tensor, n_mt: int, scale: float):
-    """(dq, dk, dv) for the forward output o and its incoming gradient g:
-    kernel K2 for CUDA tensors (each launch counted in
-    `mixed_attention_bwd.launches`), `mixed_attention_bwd_ref` for CPU
-    tensors (which recomputes P and does not need o)."""
+                        o: torch.Tensor, g: torch.Tensor, n_mt: int, scale: float,
+                        lse: torch.Tensor | None = None):
+    """(dq, dk, dv) for the forward output o, its incoming gradient g and
+    the row logsumexp lse that K1 returned: kernel K2 for CUDA tensors (each
+    launch counted in `mixed_attention_bwd.launches`; it needs lse and
+    raises without it), `mixed_attention_bwd_ref` for CPU tensors (which
+    recomputes P and needs neither o nor lse)."""
     if _on_cpu(q, k, v, o, g):
         return mixed_attention_bwd_ref(q, k, v, g, n_mt, scale)
     _check_kernel_args(dict(q=q, k=k, v=v, o=o, g=g), n_mt)
     B, H, Nq, D = q.shape
+    if lse is None:
+        raise ValueError("mixed_attention_bwd: the kernel needs the lse that "
+                         "mixed_attention_fwd(..., return_lse=True) returned")
+    if (lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or tuple(lse.shape) != (B, H, Nq)):
+        raise ValueError(f"mixed_attention_bwd: lse must be a contiguous float32 "
+                         f"({B}, {H}, {Nq}) tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
     lib = _build.library("mixed_attention_bwd")
     err = lib.mixed_attention_bwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         B * H, Nq, k.shape[2], D, int(n_mt), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_bwd_f32")
@@ -148,16 +189,17 @@ def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _MixedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, n_mt, scale):
-        out = mixed_attention_fwd(q, k, v, n_mt, scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.n_mt, ctx.scale = n_mt, scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         # the model's head merge can hand over a non-contiguous gradient
-        dq, dk, dv = mixed_attention_bwd(q, k, v, out, g.contiguous(), ctx.n_mt, ctx.scale)
+        dq, dk, dv = mixed_attention_bwd(q, k, v, out, g.contiguous(), ctx.n_mt, ctx.scale,
+                                         lse)
         return dq, dk, dv, None, None
 
 
