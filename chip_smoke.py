@@ -6,7 +6,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device   - requires CUDA, prints the card's name and power limit,
                 turns TF32 off;
   2. build    - compiles every kernel of the main paths from csrc/ (one nvcc
-                per source, all at once);
+                per source, all at once), then one short untimed profiler
+                session (`warm_profiler`);
   3. kernels  - each kernel (K1, K2 mixed-attention forward/backward, K3, K4
                 MSDA forward/backward) against its plain PyTorch version on
                 the card at the main paths' shapes (and narrow and ragged
@@ -120,19 +121,27 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a first profiler session of a process has once recorded no kernel at
-    # all: one more session before giving up
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e - s for s, e, n in _device_intervals(prof)
-                    if names is None or any(k in n for k in names))
-        if total > 0:
-            break
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e - s for s, e, n in _device_intervals(prof)
+                if names is None or any(k in n for k in names))
     require(total > 0, f"the profiler saw no device time for {names}")
     return total / iters / 1e3
+
+
+def warm_profiler() -> None:
+    """One short profiler session before any timing. The first session of
+    a process starts CUPTI's tracing, and a timed first session has once
+    recorded no kernel at all; later sessions record every kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(1 << 20, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            x.mul_(1.0)
+        torch.cuda.synchronize()
+    emit({"phase": "profiler warm-up", "device_events": len(_device_intervals(prof))})
 
 
 def bound_ms(n_bytes: float, flops: float, rate: float = H100_F32_FLOPS):
@@ -861,6 +870,7 @@ def phase_train(smi: str) -> dict:
 def main() -> None:
     dev, smi = phase_device()
     phase_build()
+    warm_profiler()
     g = torch.Generator().manual_seed(0)
     kernels = phase_kernels(g)
     phase_model(g)

@@ -350,17 +350,22 @@ template <int D>
 int launch(const float* q, const float* k, const float* v, const float* o, const float* g,
            const float* lse, float* dq, float* dk, float* dv, float* delta,
            int BH, int Nq, int Nk, int n_mt, float scale, cudaStream_t s) {
-  static bool attrs_set = false;
+  // the shared-memory attribute belongs to each device's context: set it
+  // once per device
+  constexpr int MAX_DEVICES = 64;
+  static bool attrs_set[MAX_DEVICES] = {};
   constexpr int smem_a = smem_a_bytes<D>(), smem_b = smem_b_bytes<D>();
-  cudaError_t err;
-  if (!attrs_set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES || !attrs_set[dev]) {
     err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attrs_set = true;
+    if (dev < MAX_DEVICES) attrs_set[dev] = true;
   }
   attn_bwd_dq_kernel<D><<<dim3((Nq + BQ - 1) / BQ, BH), THREADS, smem_a, s>>>(
       q, k, v, o, g, lse, dq, delta, Nq, Nk, n_mt, scale);

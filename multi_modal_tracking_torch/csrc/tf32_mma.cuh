@@ -37,7 +37,8 @@ constexpr float NEG_INF = -1e30f;   // the JAX code's finite mask value
 // rna_tf32(x): the bits cvt.rna.tf32.f32 gives for a finite x below the
 // largest TF32 value (half an ulp of TF32 added to the magnitude, the 13
 // low bits cleared), in two integer operations: on an H100 these take K2
-// 17% and K1 13% less time than the conversion instruction (kernel_ab.py).
+// 17% and K1 13% less time than the conversion instruction (PERF.md,
+// Findings, "Conversion throughput").
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }

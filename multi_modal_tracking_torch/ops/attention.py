@@ -14,9 +14,10 @@ is plain attention within the templates.
 `mixed_attention` goes through a `torch.autograd.Function` whenever a
 gradient is to be taken: its forward runs the
 hand-written CUDA kernel K1 (`csrc/mixed_attention.cu`) for CUDA tensors and
-`mixed_attention_ref` for CPU tensors, and saves the row logsumexp; its
-backward runs K2 (`csrc/mixed_attention_bwd.cu`), which reads that
-logsumexp, for CUDA tensors and `mixed_attention_bwd_ref` for CPU tensors.
+`mixed_attention_ref` for CPU tensors, and on CUDA saves the row
+logsumexp; its backward runs K2 (`csrc/mixed_attention_bwd.cu`), which
+reads that logsumexp, for CUDA tensors and `mixed_attention_bwd_ref`
+(which recomputes P) for CPU tensors.
 Anything else raises. There is no fallback from a kernel to a plain
 version.
 
@@ -189,7 +190,10 @@ def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _MixedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, n_mt, scale):
-        out, lse = mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=True)
+        # only K2 reads the logsumexp: the CPU backward recomputes P
+        with_lse = not _on_cpu(q, k, v)
+        out = mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=with_lse)
+        out, lse = out if with_lse else (out, None)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.n_mt, ctx.scale = n_mt, scale
         return out
