@@ -18,7 +18,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 kernel's time to it), and the card's bound: K1 and K2 run
                 3xTF32 on the tensor cores, so their bound_ms is at
                 495 / 3 = 165 TFLOP/s, with the f32 CUDA-core bound at
-                67 TFLOP/s beside it as bound_f32_ms;
+                67 TFLOP/s beside it as bound_f32_ms. K3 and K4 also run on
+                model-like sampling locations (the fusion's reference grid
+                plus its grid-bias offsets) beside uniform ones, on every
+                path `msda_plan` can choose (each is required once), and
+                K3's gather grid is timed empty as its launch floor;
   4. model    - the full-width asymmetric_shared_ce recipe (seeded random
                 weights): cached path (set_online + forward_track) against
                 the full forward, and the GPU run against the same model on
@@ -197,9 +201,40 @@ def phase_build():
     secs = time.perf_counter() - t0
     require(set(logs) >= {"mixed_attention", "mixed_attention_bwd", "msda", "msda_bwd"},
             f"built {sorted(logs)}")
-    ptxas = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-             for name, log in logs.items()}
-    emit({"phase": "build", "seconds": round(secs, 3), "ptxas": ptxas})
+    emit({"phase": "build", "seconds": round(secs, 3),
+          "ptxas": {name: ptxas_report(log) for name, log in logs.items()}})
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, spills and static shared memory of each kernel in an
+    `nvcc -Xptxas -v` log, by (demangled) function name."""
+    import re
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m and (cur is None or cur["function"] != m.group(1)):
+            cur = dict(function=m.group(1))
+            out.append(cur)
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    names = [r["function"] for r in out]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    for r, name in zip(out, names):
+        r["function"] = name.replace("(anonymous namespace)::", "").split("(")[0] \
+            .replace("void ", "")
+    return out
 
 
 def _qkv(B, H, Nq, Nk, D, g):
@@ -344,6 +379,32 @@ def _msda_inputs(B, shapes, Lq, M, D, P, g, lo=-0.2, hi=1.2):
     return value, loc, attw
 
 
+def _model_locations(B, shapes, M, P, g, noise=0.25):
+    """Sampling locations as the fusion makes them (models/fusion.py): the
+    reference point of each of the 2*H*W queries at its pixel centre, plus
+    the directional grid-bias offsets of `_msda_grid_bias` (head m's
+    direction times p + 1 pixels) and noise of `noise` pixels (normal), over
+    equal levels. Corners cluster as in the model, unlike uniform
+    locations."""
+    from multi_modal_tracking_torch.models.fusion import _msda_grid_bias
+    (H, W), L = shapes[0], len(shapes)
+    require(all(s == (H, W) for s in shapes), f"model-like locations need equal levels: {shapes}")
+    ys, xs = torch.meshgrid((torch.arange(H) + 0.5) / H, (torch.arange(W) + 0.5) / W,
+                            indexing="ij")
+    ref = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).repeat(2, 1)      # (2HW, 2)
+    bias = torch.from_numpy(_msda_grid_bias(M, L, P)).reshape(M, L, P, 2)
+    off = bias + noise * torch.randn(B, ref.shape[0], M, L, P, 2, generator=g)
+    norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
+    return (ref[None, :, None, None, None, :] + off / norm[:, None, :]).contiguous().cuda()
+
+
+def _plan(value, shapes, loc):
+    from multi_modal_tracking_torch.ops.msda import msda_plan
+    B, _, M, D = value.shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return msda_plan(B, M, D, loc.shape[4], shapes, n_sm)
+
+
 def _live_corners(loc, shapes):
     """Corner taps inside their map: the work the data needs."""
     n = 0
@@ -356,54 +417,84 @@ def _live_corners(loc, shapes):
 
 
 def kernel_k3(g):
+    """K3 at the tracking (B 1, gather kernel) and training (B 16, staged
+    kernel) shapes, on uniform locations (PR 3's cases) and model-like
+    ones; at B 1 also the gather grid's launch floor (an empty kernel)."""
+    from multi_modal_tracking_torch.ops import _build
     from multi_modal_tracking_torch.ops.msda import ms_deform_attn_fwd, ms_deform_attn_ref
     rows, err_max = [], 0.0
     S = Lq = 648
     for B in (1, TRAIN_B):
-        value, loc, attw = _msda_inputs(B, MSDA_SHAPES, Lq, M_HEADS, M_D, M_P, g, -0.1, 1.1)
-        got = ms_deform_attn_fwd(value, MSDA_SHAPES, loc, attw)
-        err, rel, ok = max_err(got, ms_deform_attn_ref(value, MSDA_SHAPES, loc, attw))
-        require(ok, f"K3 B={B} disagrees with its plain version: max abs err {err}")
-        err_max = max(err_max, err)
-        kern = lambda: ms_deform_attn_fwd(value, MSDA_SHAPES, loc, attw)   # noqa: E731
-        flops = 2.0 * M_D * _live_corners(loc, MSDA_SHAPES)
-        n_bytes = 4 * (value.numel() + loc.numel() + attw.numel() + got.numel())
-        b_ms, b_by = bound_ms(n_bytes, flops)
-        rows.append(dict(B=B, S=S, Lq=Lq, M=M_HEADS, D=M_D, L=M_L, P=M_P, max_abs_err=err,
-                         max_rel_err=rel, ms=device_ms(kern, ["msda_fwd_kernel"]),
-                         event_ms=cuda_time_ms(kern),
-                         plain_ms=cuda_time_ms(
-                             lambda: ms_deform_attn_ref(value, MSDA_SHAPES, loc, attw), iters=10),
-                         library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-                         flops=flops, calls_per_frame=2 if B == 1 else 0,
-                         calls_per_step=2 if B == TRAIN_B else 0))
+        for locations in ("uniform", "model"):
+            value, loc, attw = _msda_inputs(B, MSDA_SHAPES, Lq, M_HEADS, M_D, M_P, g, -0.1, 1.1)
+            if locations == "model":
+                loc = _model_locations(B, MSDA_SHAPES, M_HEADS, M_P, g)
+            got = ms_deform_attn_fwd(value, MSDA_SHAPES, loc, attw)
+            err, rel, ok = max_err(got, ms_deform_attn_ref(value, MSDA_SHAPES, loc, attw))
+            require(ok, f"K3 B={B} {locations} disagrees with its plain version: "
+                        f"max abs err {err}")
+            err_max = max(err_max, err)
+            kern = lambda: ms_deform_attn_fwd(value, MSDA_SHAPES, loc, attw)   # noqa: E731
+            flops = 2.0 * M_D * _live_corners(loc, MSDA_SHAPES)
+            n_bytes = 4 * (value.numel() + loc.numel() + attw.numel() + got.numel())
+            b_ms, b_by = bound_ms(n_bytes, flops)
+            plan = _plan(value, MSDA_SHAPES, loc)
+            row = dict(B=B, S=S, Lq=Lq, M=M_HEADS, D=M_D, L=M_L, P=M_P, locations=locations,
+                       path=plan.fwd, smem=plan.fwd_smem, max_abs_err=err, max_rel_err=rel,
+                       ms=device_ms(kern, ["msda_fwd_kernel"]), event_ms=cuda_time_ms(kern),
+                       plain_ms=cuda_time_ms(
+                           lambda: ms_deform_attn_ref(value, MSDA_SHAPES, loc, attw), iters=10),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                       flops=flops, calls_per_frame=2 if B == 1 else 0,
+                       calls_per_step=2 if B == TRAIN_B else 0)
+            if B == 1 and locations == "uniform":
+                lib = _build.library("msda")
+                stream = torch.cuda.current_stream().cuda_stream
+                floor = lambda: _build.check(   # noqa: E731
+                    lib.msda_launch_floor_f32(B, Lq, M_HEADS, stream), "msda_launch_floor_f32")
+                row["launch_floor_ms"] = device_ms(floor, ["msda_launch_floor_kernel"])
+                row["launch_floor_event_ms"] = cuda_time_ms(floor)
+            rows.append(row)
     emit({"phase": "kernels", "kernel": "K3 ms_deform_attn_fwd", "tolerance": KERNEL_TOL,
           "cases": rows})
     return rows, err_max
 
 
 def kernel_k4(g):
+    """K4 at the training shape (uniform and model-like locations), at B 1
+    and on three ragged levels. ms is the device time of the whole wrapper
+    call (its kernels and any zero fill of dValue); zero_fill_ms is that of
+    the zeros_like(value) the PR 3 wrapper launched before its kernel."""
     from multi_modal_tracking_torch.ops.msda import ms_deform_attn_bwd, ms_deform_attn_bwd_ref
     rows, err_max = [], 0.0
-    cases = [(TRAIN_B, MSDA_SHAPES, 648, M_HEADS, M_D, M_P), (1, MSDA_SHAPES, 648, M_HEADS, M_D, M_P),
-             (2, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4)]
-    for B, shapes, Lq, M, D, P in cases:
+    cases = [(TRAIN_B, MSDA_SHAPES, 648, M_HEADS, M_D, M_P, "uniform"),
+             (TRAIN_B, MSDA_SHAPES, 648, M_HEADS, M_D, M_P, "model"),
+             (1, MSDA_SHAPES, 648, M_HEADS, M_D, M_P, "uniform"),
+             (2, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4, "uniform")]
+    for B, shapes, Lq, M, D, P, locations in cases:
         value, loc, attw = _msda_inputs(B, shapes, Lq, M, D, P, g)
+        if locations == "model":
+            loc = _model_locations(B, shapes, M, P, g)
         gr = torch.randn(B, Lq, M * D, generator=g).cuda()
         got = ms_deform_attn_bwd(value, shapes, loc, attw, gr)
         want = ms_deform_attn_bwd_ref(value, shapes, loc, attw, gr)
         errs = [max_err_scaled(a, b) for a, b in zip(got, want)]
-        require(all(e[2] for e in errs), f"K4 {(B, shapes, Lq, M, D, P)} disagrees with its "
-                                         f"plain version: max abs errs {[e[0] for e in errs]}")
+        require(all(e[2] for e in errs), f"K4 {(B, shapes, Lq, M, D, P, locations)} disagrees "
+                                         f"with its plain version: max abs errs "
+                                         f"{[e[0] for e in errs]}")
         err = max(e[0] for e in errs)
         err_max = max(err_max, err)
         kern = lambda: ms_deform_attn_bwd(value, shapes, loc, attw, gr)   # noqa: E731
         live = _live_corners(loc, shapes)
         n_bytes = 4 * 2 * (value.numel() + loc.numel() + attw.numel()) + 4 * gr.numel()
         b_ms, b_by = bound_ms(n_bytes, 4.0 * D * live)
+        plan = _plan(value, shapes, loc)
         rows.append(dict(B=B, shapes=[list(s) for s in shapes], Lq=Lq, M=M, D=D, P=P,
+                         locations=locations, path=list(plan.bwd), smem=plan.bwd_smem,
                          max_abs_err=err, max_abs_err_by_output=[e[0] for e in errs],
-                         ms=device_ms(kern, ["msda_bwd_kernel"]), event_ms=cuda_time_ms(kern),
+                         ms=device_ms(kern), kernels_ms=device_ms(kern, ["msda_bwd_kernel"]),
+                         event_ms=cuda_time_ms(kern),
+                         zero_fill_ms=device_ms(lambda: torch.zeros_like(value)),
                          plain_ms=cuda_time_ms(
                              lambda: ms_deform_attn_bwd_ref(value, shapes, loc, attw, gr),
                              iters=5, warmup=1),
@@ -423,16 +514,35 @@ ATTN_EDGES = [(2, 3, 40, 64, 16, 8), (2, 2, 70, 100, 32, 37), (1, 2, 5, 7, 16, 5
               (1, 2, 1, 9, 16, 0), (1, 2, 1, 9, 64, 8), (2, 3, 17, 9, 16, 8),
               (1, 2, 17, 33, 32, 8), (2, 2, 33, 9, 64, 8), (1, 3, 33, 41, 32, 33),
               (32, 12, 70, 100, 64, 37)]
+# (B, spatial_shapes, Lq, M, D, P) of K3's edge cases, by msda_plan's path on
+# 132 SMs: gather (generic L, P) at D 8 and 32; staged at D 16 with Lq 37
+# (not a multiple of the 16 query warps) and at D 128 (2*B*M >= 132); the
+# gather kernel's compiled L 2, P 4, D 64 form at a ragged Lq; one 32x32
+# level too large for shared memory at B 16 (gather)
+MSDA_FWD_EDGES = [(2, ((9, 12), (5, 7)), 17, 2, 8, 3), (1, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4),
+                  (17, ((9, 12), (5, 7)), 37, 4, 16, 3), (9, ((10, 10), (5, 5)), 21, 8, 128, 4),
+                  (2, ((6, 6), (6, 6)), 50, 8, 64, 4), (TRAIN_B, ((32, 32),), 40, 8, 64, 4)]
+# K4's: D 16 with Lq 37; D 32 on three ragged levels with P 3; a 24x24
+# level too large for shared memory beside a staged 18x18 one (both kernels
+# in one call); D 128 with a 40x12 level (direct) and with P 5 (two groups
+# of four points, staged); an odd D (direct: the staged kernel holds
+# channel pairs)
+MSDA_BWD_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 16, 4), (2, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 3),
+                  (1, ((18, 18), (24, 24)), 50, 2, 64, 4), (1, ((40, 12),), 21, 2, 128, 2),
+                  (1, ((10, 10), (5, 5)), 21, 2, 128, 5), (2, ((6, 6), (3, 3)), 13, 2, 33, 4)]
 
 
 def kernel_edges(g):
-    """Narrow widths and ragged tiles for K1 (with its lse), K2 and K3."""
+    """Narrow widths and ragged tiles for K1 (with its lse) and K2; every
+    path of msda_plan for K3 and K4 at narrow and wide D, ragged levels and
+    query counts, and levels too large for shared memory."""
     from multi_modal_tracking_torch.ops.attention import (mixed_attention_bwd,
                                                           mixed_attention_bwd_ref,
                                                           mixed_attention_fwd,
                                                           mixed_attention_lse_ref,
                                                           mixed_attention_ref)
-    from multi_modal_tracking_torch.ops.msda import ms_deform_attn_fwd, ms_deform_attn_ref
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bwd, ms_deform_attn_bwd_ref,
+                                                     ms_deform_attn_fwd, ms_deform_attn_ref)
     edge = []
     for (B, H, Nq, Nk, D, n_mt) in ATTN_EDGES:
         q, k, v = _qkv(B, H, Nq, Nk, D, g)
@@ -454,15 +564,27 @@ def kernel_edges(g):
                                          f"max abs errs {[e[0] for e in errs]}")
         edge.append(dict(kernel="K2", shape=[B, H, Nq, Nk, D, n_mt],
                          max_abs_err=max(e[0] for e in errs)))
-    for (B, shp, Lq, M, D, P) in [(2, ((9, 12), (5, 7)), 17, 2, 8, 3),
-                                  (1, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4)]:
+    for (B, shp, Lq, M, D, P) in MSDA_FWD_EDGES:
         value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
         err, _, ok = max_err(ms_deform_attn_fwd(value, shp, loc, attw),
                              ms_deform_attn_ref(value, shp, loc, attw))
-        require(ok, f"K3 edge case {(B, shp, Lq, M, D, P)}: max abs err {err}")
-        edge.append(dict(kernel="K3", shape=[B, shp, Lq, M, D, P], max_abs_err=err))
+        path = _plan(value, shp, loc).fwd
+        require(ok, f"K3 edge case {(B, shp, Lq, M, D, P)} ({path}): max abs err {err}")
+        edge.append(dict(kernel="K3", shape=[B, shp, Lq, M, D, P], path=path, max_abs_err=err))
+    for (B, shp, Lq, M, D, P) in MSDA_BWD_EDGES:
+        value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
+        gr = torch.randn(B, Lq, M * D, generator=g).cuda()
+        errs = [max_err_scaled(a, b) for a, b in zip(
+            ms_deform_attn_bwd(value, shp, loc, attw, gr),
+            ms_deform_attn_bwd_ref(value, shp, loc, attw, gr))]
+        path = list(_plan(value, shp, loc).bwd)
+        require(all(e[2] for e in errs), f"K4 edge case {(B, shp, Lq, M, D, P)} ({path}): "
+                                         f"max abs errs {[e[0] for e in errs]}")
+        edge.append(dict(kernel="K4", shape=[B, shp, Lq, M, D, P], path=path,
+                         max_abs_err=max(e[0] for e in errs)))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "kernel": "edge cases", "cases": edge})
+    return edge
 
 
 def phase_kernels(g: torch.Generator) -> dict:
@@ -473,7 +595,12 @@ def phase_kernels(g: torch.Generator) -> dict:
     k2_rows, k2_err = kernel_k2(g)
     k3_rows, k3_err = kernel_k3(g)
     k4_rows, k4_err = kernel_k4(g)
-    kernel_edges(g)
+    edges = kernel_edges(g)
+    fwd_paths = {r["path"] for r in k3_rows} | {e["path"] for e in edges if e["kernel"] == "K3"}
+    bwd_paths = {p for r in k4_rows for p in r["path"]} | {
+        p for e in edges if e["kernel"] == "K4" for p in e["path"]}
+    require(fwd_paths == {"staged", "gather"} and bwd_paths == {"staged", "direct"},
+            f"msda_plan paths checked: K3 {fwd_paths}, K4 {bwd_paths}")
     table = {}
     for key, name, src, repl, rows, err, weight in (
             ("K1", "mixed_attention_fwd (K1)", "mixed_attention.cu", "attention.py:44",
@@ -484,7 +611,7 @@ def phase_kernels(g: torch.Generator) -> dict:
              "calls_per_frame"),
             ("K4", "msda_bwd (K4)", "msda_bwd.cu", "msda.py:301", k4_rows, k4_err,
              "calls_per_step")):
-        tot = _sum_rows(rows, weight)
+        tot = _sum_rows([r for r in rows if r.get("locations", "uniform") == "uniform"], weight)
         if key in ("K1", "K2"):
             bounds = _attn_bounds(tot["bytes"], tot["flops"])
         else:
@@ -497,11 +624,20 @@ def phase_kernels(g: torch.Generator) -> dict:
                           library_ms=lib_ms, library_ratio=tot["ms"] / lib_ms if lib_ms else None,
                           per="tracked frame" if weight == "calls_per_frame" else "training step",
                           **bounds)
-    # K1 and K3 also run in every training step: their device ms per step
+    # K1 and K3 also run in every training step: their device ms and bound
+    # per step; K3 and K4 on model-like locations beside the uniform ones
     k1_step = _sum_rows(k1_rows, "calls_per_step")
     table["K1"]["train_step_ms"] = k1_step["ms"]
+    table["K1"]["train_step_bound_ms"] = _attn_bounds(k1_step["bytes"], k1_step["flops"])["bound_ms"]
     table["K1"]["train_step_library_ms"] = k1_step["library_ms"]
-    table["K3"]["train_step_ms"] = _sum_rows(k3_rows, "calls_per_step")["ms"]
+    k3_step = _sum_rows([r for r in k3_rows if r["locations"] == "uniform"], "calls_per_step")
+    model = [r for r in k3_rows if r["locations"] == "model"]
+    table["K3"]["train_step_ms"] = k3_step["ms"]
+    table["K3"]["train_step_bound_ms"] = bound_ms(k3_step["bytes"], k3_step["flops"])[0]
+    table["K3"]["model_locations_ms"] = _sum_rows(model, "calls_per_frame")["ms"]
+    table["K3"]["model_locations_train_step_ms"] = _sum_rows(model, "calls_per_step")["ms"]
+    table["K4"]["model_locations_ms"] = _sum_rows(
+        [r for r in k4_rows if r["locations"] == "model"], "calls_per_step")["ms"]
     return table
 
 
@@ -888,8 +1024,10 @@ def main() -> None:
                                           "bound_by", "bound_f32_ms", "library_ms",
                                           "library_ratio", "event_ms", "per",
                                           "launches_by_path") + (
-            ("train_step_ms", "train_step_library_ms") if key == "K1" else
-            ("train_step_ms",) if key == "K3" else ())})
+            ("train_step_ms", "train_step_bound_ms", "train_step_library_ms") if key == "K1" else
+            ("train_step_ms", "train_step_bound_ms", "model_locations_ms",
+             "model_locations_train_step_ms") if key == "K3" else
+            ("model_locations_ms",) if key == "K4" else ())})
     # ms is device time (torch.profiler): per tracked frame for K1 and K3
     # (12 search-step calls at the CE lengths, 2 calls at B=1), per training
     # step at the final keep for K2 and K4; train_step_ms is K1's and K3's

@@ -13,48 +13,239 @@
 //     dLoc  = (d/dfx, d/dfy) of sum_c attw * w_c * dw_c, times (W_l, H_l)
 //
 // What bounds it on the H100: it reads value, loc, attw and g once and
-// writes dValue, dLoc and dAttw; each (b, q, m) touches L*P*4 rows of D
-// floats twice (a gather for dw and an atomic add into dValue), ~4 FLOP
-// per touched float, so it is bound by memory traffic (mostly L2: the
-// training value tensor is 21 MB) and by the atomics' throughput.
+// writes dValue, dLoc and dAttw (at the training shape B 16, Lq 648, M 8,
+// D 64, two 18x18 levels: 2 x 21 MB for value and dValue, 21 MB for g),
+// about 4 FLOP per touched float, so bytes bound it: 0.024 ms at 3.35 TB/s.
 //
-// Design: K3's layout. One warp per (b, q, m), the D channels across the
-// lanes, so every corner row is one coalesced 256-byte read and one
-// coalesced run of atomicAdds. Corner weights are recomputed with K3's
-// rounding (__fmul_rn(loc, W) - 0.5), a dead corner is skipped entirely,
-// dw is a warp reduction, and the chain to dAttw and dLoc runs in the
-// kernel (lane 0 writes). The TPU kernel built a dense one-hot matrix A
-// and formed A^T g by a matmul; a GPU scatters well, so the atomics do it.
-// dValue must be zeroed before the launch; the atomics make its summation
-// order vary from run to run.
+// Design, as the TPU kernel kept one head's value rows in VMEM: the staged
+// kernel gives one block one (b, m, level) slice. It stages V_l[b, :, m, :]
+// (S_l rows of D floats at a stride of M*D) into shared memory with
+// cp.async, zeroes a dValue accumulator of the same size beside it
+// (2 * 18*18 * 64 * 4 = 165,888 B at the training shape), and its 32 warps
+// walk all Lq queries, one warp per query. Each lane holds channel pairs
+// (2j, 2j+1), so every row access is one 64-bit access a lane and a warp
+// touches each bank once per half. For four points at a time, lanes 2k and
+// 2k+1 compute corner k from a coalesced load of its point's (x, y, attw)
+// and write (row offset, attw * w_c) into the warp's corner table; the warp
+// reads the table by broadcast, reads all 16 live rows for dw, then
+// scatters attw * w_c * g into the accumulator. The H100 has no native f32
+// add on shared memory: atomicAdd there compiles to a 32-bit CAS loop
+// (ATOMS.CAST.SPIN), so the scatter is one 64-bit CAS loop per channel
+// pair, half the loops. The 16 partial dw are reduced together (16
+// shuffles, not 80) into the lane that owns each corner, which chains them
+// to dAttw and dLoc in the kernel. Last, the block writes its dValue slice
+// once, coalesced: no global atomic and no zero fill of dValue. 32 warps
+// (at most 64 registers a thread) hide more of the shared-memory and CAS
+// latency than 16 warps with a prefetch of the next query did: the
+// latency of that chain, not shared-memory bandwidth, sets its time.
+//
+// Filling the card: B*M*L blocks, 256 at the training shape; with one
+// 170 KB block per SM that is two waves on 132 SMs (132 + 124 blocks, 97 %
+// of two full waves), so no query split is made: a split would need a
+// second pass to add the partial slices, or global atomics, and would
+// stage every slice twice.
+//
+// A level whose slice, accumulator and tables do not fit in shared memory
+// (8 * S_l * D + 4096 > 232,448 B, i.e. S_l > 446 at D 64), or an odd D,
+// goes to the direct kernel instead: one warp per (b, q, m) over those
+// levels, gathering from device memory and scattering with global atomics
+// into a dValue slice the wrapper zeroes. Which levels take which kernel
+// is a choice by shape, made by ops/msda.py msda_plan and passed in as
+// `staged_mask`.
+//
+// Shared (staged) or global (direct) atomics make the summation order of
+// dValue vary from run to run.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "msda_common.cuh"
+
 namespace {
 
-constexpr int MAX_LEVELS = 8;
-constexpr int MAX_CPL = 4;            // channels per lane: D <= 128
-constexpr int WARPS = 8;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int STAGED_WARPS = 32;
+constexpr int DIRECT_WARPS = 8;
+// per-warp corner tables after the two slices (ops/msda.py BWD_TABLE_BYTES)
+constexpr int TABLE_BYTES = STAGED_WARPS * 16 * 8;
 
-struct Levels {
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  int start[MAX_LEVELS];
+struct LevelList {
+  int n;
+  int id[msda::MAX_LEVELS];
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
   return x;
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
-                const float* __restrict__ attw, const float* __restrict__ grad,
-                float* __restrict__ dvalue, float* __restrict__ dloc,
-                float* __restrict__ dattw, int B, int S, int M, int D, int Lq, int L,
-                int P, Levels lv) {
-  const int warp = blockIdx.x * WARPS + threadIdx.x / 32;
+// the warp's sums of 16 values at once: returns sum over lanes of v[i] for
+// i = lane >> 1 (each halving step keeps the half of the values its lane
+// group owns and adds the partner's copy of them)
+__device__ __forceinline__ float warp_sum16(const float (&v)[16], int lane) {
+  float a[8], c[4], d[2];
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    a[k] = (b4 ? v[8 + k] : v[k]) + __shfl_xor_sync(FULL, b4 ? v[k] : v[8 + k], 16);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    c[k] = (b3 ? a[4 + k] : a[k]) + __shfl_xor_sync(FULL, b3 ? a[k] : a[4 + k], 8);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    d[k] = (b2 ? c[2 + k] : c[k]) + __shfl_xor_sync(FULL, b2 ? c[k] : c[2 + k], 4);
+  const float e = (b1 ? d[1] : d[0]) + __shfl_xor_sync(FULL, b1 ? d[0] : d[1], 2);
+  return e + __shfl_xor_sync(FULL, e, 1);
+}
+
+// dst[0] += a, dst[1] += b as one 64-bit compare-and-swap loop: the H100
+// has no native f32 add on shared memory (atomicAdd compiles to a 32-bit
+// CAS loop, ATOMS.CAST.SPIN), so one loop per channel pair halves the loops
+__device__ __forceinline__ void atomic_add_pair(float* dst, float a, float b) {
+  auto* p = reinterpret_cast<unsigned long long*>(dst);
+  unsigned long long old = *p, seen;
+  do {
+    seen = old;
+    const float2 v = make_float2(__uint_as_float((unsigned)seen) + a,
+                                 __uint_as_float((unsigned)(seen >> 32)) + b);
+    old = atomicCAS(p, seen, (unsigned long long)__float_as_uint(v.x) |
+                                 ((unsigned long long)__float_as_uint(v.y) << 32));
+  } while (old != seen);
+}
+
+// NP channel pairs per lane: pair j = lane + 32 r holds channels 2j, 2j+1
+// (D even; 64-bit shared accesses of a warp hit every bank once per half)
+template <int NP>
+__global__ void __launch_bounds__(STAGED_WARPS * 32, 1)
+msda_bwd_kernel_staged(const float* __restrict__ value, const float* __restrict__ loc,
+                       const float* __restrict__ attw, const float* __restrict__ grad,
+                       float* __restrict__ dvalue, float* __restrict__ dloc,
+                       float* __restrict__ dattw, int S, int M, int D, int Lq, int L, int P,
+                       msda::Levels lv, LevelList staged) {
+  extern __shared__ __align__(16) float smem[];
+  int blk = blockIdx.x;
+  const int l = staged.id[blk % staged.n];
+  blk /= staged.n;
+  const int m = blk % M, b = blk / M;
+  const int H = lv.h[l], W = lv.w[l], Sl = H * W;
+  const int stride = M * D;
+  const size_t slice = ((size_t)b * S + lv.start[l]) * stride + (size_t)m * D;
+  float* vs = smem;                      // (S_l, D) value rows
+  float* dvs = smem + Sl * D;            // (S_l, D) dValue accumulator
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+
+  msda::stage_slice(vs, value + slice, Sl, D, stride, tid, blockDim.x);
+  for (int x = tid; x < Sl * D; x += blockDim.x) dvs[x] = 0.f;
+  msda::cp_async_wait_all();
+  __syncthreads();
+
+  // per warp, the (offset in the slice, attw * w_c) of the 16 corners of
+  // four points; -1 marks a dead corner
+  int2* table = reinterpret_cast<int2*>(smem + 2 * Sl * D) + warp * 16;
+
+  for (int q = warp; q < Lq; q += STAGED_WARPS) {
+    const size_t bqm = (size_t)(b * Lq + q) * M + m;
+    const size_t pt0 = (bqm * L + l) * P;
+    float2 g[NP];                          // query q's g row
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+      const int ch = 2 * (lane + 32 * r);
+      g[r] = ch < D ? __ldg(reinterpret_cast<const float2*>(grad + bqm * D + ch))
+                    : make_float2(0.f, 0.f);
+    }
+
+    // lanes 2k and 2k+1 take corner k = 4 (lane >> 3) + ((lane >> 1) & 3)
+    // of the four points at p0: point p0 + (lane >> 3), corner (lane >> 1) & 3
+    for (int p0 = 0; p0 < P; p0 += 4) {
+      const int p = p0 + (lane >> 3), c = (lane >> 1) & 3;
+      float x = 0.f, y = 0.f, a = 0.f;
+      if (p < P) {
+        x = __ldg(loc + 2 * (pt0 + p));
+        y = __ldg(loc + 2 * (pt0 + p) + 1);
+        a = __ldg(attw + pt0 + p);
+      }
+      const msda::Tap t = msda::make_tap(x, y, H, W);
+      int pix;
+      const bool live = p < P && msda::corner_pixel(t, c, H, W, pix);
+      const float wc = msda::corner_weight(t, c);
+      if ((lane & 1) == 0) table[lane >> 1] = make_int2(live ? pix * D : -1, __float_as_int(a * wc));
+      __syncwarp();
+      // all 16 rows read for dw first, then all 16 scattered
+      float part[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        part[k] = 0.f;
+        const int2 ek = table[k];
+        if (ek.x < 0) continue;                 // warp-uniform
+        const float* vr = vs + ek.x;
+#pragma unroll
+        for (int r = 0; r < NP; ++r) {
+          const int ch = 2 * (lane + 32 * r);
+          if (ch < D) {
+            const float2 v = *reinterpret_cast<const float2*>(vr + ch);
+            part[k] = fmaf(g[r].y, v.y, fmaf(g[r].x, v.x, part[k]));
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const int2 ek = table[k];
+        if (ek.x < 0) continue;
+        const float wgt = __int_as_float(ek.y);
+        float* dr = dvs + ek.x;
+#pragma unroll
+        for (int r = 0; r < NP; ++r) {
+          const int ch = 2 * (lane + 32 * r);
+          if (ch < D) atomic_add_pair(dr + ch, wgt * g[r].x, wgt * g[r].y);
+        }
+      }
+      __syncwarp();
+      // lane holds dw of its own corner k = lane >> 1; chain it to dAttw
+      // and dLoc and sum over the point's four corners (lane bits 1 and 2)
+      const float dw = warp_sum16(part, lane);
+      float daw = wc * dw, dfx, dfy;
+      msda::corner_dloc(t, c, a * dw, dfx, dfy);
+#pragma unroll
+      for (int o = 2; o <= 4; o <<= 1) {
+        daw += __shfl_xor_sync(FULL, daw, o);
+        dfx += __shfl_xor_sync(FULL, dfx, o);
+        dfy += __shfl_xor_sync(FULL, dfy, o);
+      }
+      if ((lane & 7) == 0 && p < P) {
+        dattw[pt0 + p] = daw;
+        dloc[2 * (pt0 + p)] = dfx * (float)W;
+        dloc[2 * (pt0 + p) + 1] = dfy * (float)H;
+      }
+    }
+  }
+  __syncthreads();
+
+  // the slice's dValue, each element written once, rows of D floats
+  if (D % 4 == 0) {
+    const int C = D / 4;
+    for (int x = tid; x < Sl * C; x += blockDim.x) {
+      const int r = x / C, c4 = x - r * C;
+      *reinterpret_cast<float4*>(dvalue + slice + (size_t)r * stride + 4 * c4) =
+          *reinterpret_cast<const float4*>(dvs + r * D + 4 * c4);
+    }
+  } else {
+    for (int x = tid; x < Sl * D; x += blockDim.x) {
+      const int r = x / D, ch = x - r * D;
+      dvalue[slice + (size_t)r * stride + ch] = dvs[x];
+    }
+  }
+}
+
+// levels whose bit is clear in staged_mask; dValue of those levels zeroed
+// by the caller
+template <int CPL>
+__global__ void __launch_bounds__(DIRECT_WARPS * 32)
+msda_bwd_kernel_direct(const float* __restrict__ value, const float* __restrict__ loc,
+                       const float* __restrict__ attw, const float* __restrict__ grad,
+                       float* __restrict__ dvalue, float* __restrict__ dloc,
+                       float* __restrict__ dattw, int B, int S, int M, int D, int Lq, int L,
+                       int P, msda::Levels lv, unsigned staged_mask) {
+  const int warp = blockIdx.x * DIRECT_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= B * Lq * M) return;       // warp-uniform
   const int m = warp % M;
@@ -66,52 +257,46 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
   const float* awp = attw + (size_t)warp * L * P;
   const float* gp = grad + (size_t)warp * D;  // (B, Lq, M, D) == (B, Lq, M*D)
 
-  float gr[MAX_CPL];
+  float gr[CPL];
 #pragma unroll
-  for (int r = 0; r < MAX_CPL; ++r) {
+  for (int r = 0; r < CPL; ++r) {
     const int c = lane + 32 * r;
     gr[r] = c < D ? __ldg(gp + c) : 0.f;
   }
 
   for (int l = 0; l < L; ++l) {
+    if ((staged_mask >> l) & 1u) continue;
     const int H = lv.h[l], W = lv.w[l];
     const size_t lbase = vbase + (size_t)lv.start[l] * stride_s;
     for (int p = 0; p < P; ++p) {
       const int t = l * P + p;
-      const float x = __fmul_rn(__ldg(locp + 2 * t), (float)W) - 0.5f;
-      const float y = __fmul_rn(__ldg(locp + 2 * t + 1), (float)H) - 0.5f;
+      const msda::Tap tp = msda::make_tap(__ldg(locp + 2 * t), __ldg(locp + 2 * t + 1), H, W);
       const float aw = __ldg(awp + t);
-      const float x0f = floorf(x), y0f = floorf(y);
-      const float fx = x - x0f, fy = y - y0f;
-      const int x0 = (int)x0f, y0 = (int)y0f;
-      const float wc[4] = {(1.f - fx) * (1.f - fy), fx * (1.f - fy),
-                           (1.f - fx) * fy, fx * fy};
-      float dw[4];
+      float daw = 0.f, dfx = 0.f, dfy = 0.f;
 #pragma unroll
       for (int c4 = 0; c4 < 4; ++c4) {
-        const int xi = x0 + (c4 & 1), yi = y0 + (c4 >> 1);
-        dw[c4] = 0.f;
-        if (xi < 0 || xi >= W || yi < 0 || yi >= H) continue;   // warp-uniform
-        const size_t row = lbase + (size_t)(yi * W + xi) * stride_s;
-        const float wgt = aw * wc[c4];
+        int pix;
+        if (!msda::corner_pixel(tp, c4, H, W, pix)) continue;   // warp-uniform
+        const size_t row = lbase + (size_t)pix * stride_s;
+        const float wc = msda::corner_weight(tp, c4);
+        const float wgt = aw * wc;
         float part = 0.f;
 #pragma unroll
-        for (int r = 0; r < MAX_CPL; ++r) {
+        for (int r = 0; r < CPL; ++r) {
           const int c = lane + 32 * r;
           if (c < D) {
             part = fmaf(gr[r], __ldg(value + row + c), part);
             atomicAdd(dvalue + row + c, wgt * gr[r]);
           }
         }
-        dw[c4] = warp_sum(part);
+        const float dw = warp_sum(part);
+        float tx, ty;
+        msda::corner_dloc(tp, c4, aw * dw, tx, ty);
+        daw = fmaf(wc, dw, daw);
+        dfx += tx;
+        dfy += ty;
       }
       if (lane == 0) {
-        float daw = 0.f;
-#pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4) daw = fmaf(wc[c4], dw[c4], daw);
-        const float d0 = aw * dw[0], d1 = aw * dw[1], d2 = aw * dw[2], d3 = aw * dw[3];
-        const float dfx = -(1.f - fy) * d0 + (1.f - fy) * d1 - fy * d2 + fy * d3;
-        const float dfy = -(1.f - fx) * d0 - fx * d1 + (1.f - fx) * d2 + fx * d3;
         dattw[(size_t)warp * L * P + t] = daw;
         dloc[((size_t)warp * L * P + t) * 2] = dfx * (float)W;
         dloc[((size_t)warp * L * P + t) * 2 + 1] = dfy * (float)H;
@@ -120,33 +305,73 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
+template <int CPL>
+int launch(const float* value, const float* loc, const float* attw, const float* grad,
+           float* dvalue, float* dloc, float* dattw, int B, int S, int M, int D, int Lq,
+           int L, int P, const msda::Levels& lv, unsigned staged_mask, cudaStream_t s) {
+  LevelList staged{0, {}};
+  int max_sl = 0;
+  for (int l = 0; l < L; ++l) {
+    if (!((staged_mask >> l) & 1u)) continue;
+    staged.id[staged.n++] = l;
+    if (lv.h[l] * lv.w[l] > max_sl) max_sl = lv.h[l] * lv.w[l];
+  }
+  if (staged.n > 0) {
+    const long long smem = 2LL * max_sl * D * sizeof(float) + TABLE_BYTES;
+    if (smem > msda::SMEM_MAX || D % 2) return static_cast<int>(cudaErrorInvalidValue);
+    // the shared-memory attribute belongs to each device's context: set it
+    // once per device
+    constexpr int MAX_DEVICES = 64;
+    static bool attr_set[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= MAX_DEVICES || !attr_set[dev]) {
+      err = cudaFuncSetAttribute(msda_bwd_kernel_staged<(CPL + 1) / 2>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, msda::SMEM_MAX);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < MAX_DEVICES) attr_set[dev] = true;
+    }
+    msda_bwd_kernel_staged<(CPL + 1) / 2><<<(unsigned)(B * M * staged.n), STAGED_WARPS * 32, smem, s>>>(
+        value, loc, attw, grad, dvalue, dloc, dattw, S, M, D, Lq, L, P, lv, staged);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (staged.n < L) {
+    const long long warps = (long long)B * Lq * M;
+    msda_bwd_kernel_direct<CPL><<<(unsigned)((warps + DIRECT_WARPS - 1) / DIRECT_WARPS),
+                                  DIRECT_WARPS * 32, 0, s>>>(
+        value, loc, attw, grad, dvalue, dloc, dattw, B, S, M, D, Lq, L, P, lv, staged_mask);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // value (B, S, M, D), loc (B, Lq, M, L, P, 2), attw (B, Lq, M, L, P),
-// grad (B, Lq, M*D); outputs dvalue (B, S, M, D) (zeroed by the caller),
-// dloc and dattw shaped like loc and attw. All f32 and contiguous. shapes:
-// host array of L (H, W) pairs. Returns cudaGetLastError() after the launch.
+// grad (B, Lq, M*D); outputs dvalue (B, S, M, D), dloc and dattw shaped
+// like loc and attw. All f32, contiguous and 16-byte aligned. shapes: host
+// array of L (H, W) pairs. Levels whose bit is set in staged_mask take the
+// staged kernel, which writes their dValue slices whole; the others take
+// the direct kernel, whose dValue slices the caller must have zeroed.
+// Returns cudaGetLastError() after the launches.
 extern "C" int msda_bwd_f32(const void* value, const void* loc, const void* attw,
                             const void* grad, void* dvalue, void* dloc, void* dattw,
                             int B, int S, int M, int D, int Lq, int L, int P,
-                            const int* shapes, void* stream) {
-  if (L < 1 || L > MAX_LEVELS || D < 1 || D > 32 * MAX_CPL)
+                            const int* shapes, int staged_mask, void* stream) {
+  msda::Levels lv;
+  if (!msda::make_levels(shapes, L, S, lv) || D < 1 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
-  Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = shapes[2 * l];
-    lv.w[l] = shapes[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps = (long long)B * Lq * M;
-  const dim3 grid((unsigned)((warps + WARPS - 1) / WARPS));
-  msda_bwd_kernel<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(attw), static_cast<const float*>(grad),
-      static_cast<float*>(dvalue), static_cast<float*>(dloc), static_cast<float*>(dattw),
-      B, S, M, D, Lq, L, P, lv);
-  return static_cast<int>(cudaGetLastError());
+  const auto* v = static_cast<const float*>(value);
+  const auto* lc = static_cast<const float*>(loc);
+  const auto* aw = static_cast<const float*>(attw);
+  const auto* g = static_cast<const float*>(grad);
+  auto* dv = static_cast<float*>(dvalue);
+  auto* dl = static_cast<float*>(dloc);
+  auto* da = static_cast<float*>(dattw);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto mask = static_cast<unsigned>(staged_mask);
+  if (D <= 32) return launch<1>(v, lc, aw, g, dv, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
+  if (D <= 64) return launch<2>(v, lc, aw, g, dv, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
+  return launch<4>(v, lc, aw, g, dv, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
 }

@@ -46,10 +46,11 @@ SIGNATURES = {
     },
     "msda": {
         "msda_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.POINTER(_I), _C], _I),
+                          ctypes.POINTER(_I), _I, _I, _C], _I),
+        "msda_launch_floor_f32": ([_I, _I, _I, _C], _I),
     },
     "msda_bwd": {
-        "msda_bwd_f32": ([_C] * 7 + [_I] * 7 + [ctypes.POINTER(_I), _C], _I),
+        "msda_bwd_f32": ([_C] * 7 + [_I] * 7 + [ctypes.POINTER(_I), _I, _C], _I),
     },
 }
 

@@ -19,12 +19,13 @@ hand-written CUDA kernel K3 (`csrc/msda.cu`) for CUDA tensors and
 `ms_deform_attn_ref` for CPU tensors; its backward runs K4
 (`csrc/msda_bwd.cu`) for CUDA tensors and `ms_deform_attn_bwd_ref` for CPU
 tensors. Anything else raises. There is no fallback from a kernel to a
-plain version.
+plain version. Which of its kernels K3 and K4 launch at a shape is decided
+by `msda_plan`, from the shape alone.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -117,6 +118,60 @@ def ms_deform_attn_bwd_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[i
     return dvalue, dloc, dattw
 
 
+#: dynamic shared memory a block may use on the H100 (227 KB, after
+#: cudaFuncSetAttribute); csrc/msda_common.cuh holds the same number
+SMEM_MAX = 232_448
+#: the staged kernels' per-warp corner tables, after the value rows: 32
+#: warps of 32 entries of 8 bytes in K3, of 16 in K4
+FWD_TABLE_BYTES, BWD_TABLE_BYTES = 32 * 32 * 8, 32 * 16 * 8
+
+
+class MsdaPlan(NamedTuple):
+    """The kernels K3 and K4 launch at one shape.
+
+    fwd: "staged" (one block per (b, m) with value[b, :, m, :] in shared
+    memory) or "gather" (one warp per (b, q, m) reading device memory);
+    fwd_smem: a staged block's dynamic shared memory in bytes (0 for gather);
+    bwd: per level, "staged" (one block per (b, m, level) with the value
+    slice and its dValue accumulator in shared memory) or "direct" (one
+    warp per (b, q, m), global atomics into a zeroed dValue slice);
+    bwd_smem: a staged block's dynamic shared memory (0 if no level is
+    staged)."""
+    fwd: str
+    fwd_smem: int
+    bwd: Tuple[str, ...]
+    bwd_smem: int
+
+
+def msda_plan(B: int, M: int, D: int, P: int, spatial_shapes: Sequence[Tuple[int, int]],
+              n_sm: int) -> MsdaPlan:
+    """Choose K3's and K4's kernels by shape (never on failure).
+
+    K3 stages when all levels' rows of one (b, m) and the corner tables fit
+    in shared memory (4*S*D + 8192 <= SMEM_MAX: S <= 876 at D 64) and the
+    B*M blocks fill at least half of the n_sm SMs: the training shape (B 16,
+    M 8: 128 blocks). Fewer pairs (the tracking shape, B 1: 8 blocks) gather
+    instead. K4 stages each level whose value slice, dValue accumulator and
+    corner tables fit (8*S_l*D + 4096 <= SMEM_MAX: S_l <= 446 at D 64)
+    and D is even (its lanes hold channel pairs); other levels go direct.
+    P does not enter: the staged kernels take points in groups."""
+    S = sum(h * w for h, w in spatial_shapes)
+    fwd_smem = 4 * (S * D + S * D % 2) + FWD_TABLE_BYTES
+    staged = fwd_smem <= SMEM_MAX and 2 * B * M >= n_sm
+    bwd = tuple("staged" if 8 * h * w * D + BWD_TABLE_BYTES <= SMEM_MAX and D % 2 == 0
+                else "direct" for h, w in spatial_shapes)
+    bwd_smem = max((8 * h * w * D + BWD_TABLE_BYTES for (h, w), path in zip(spatial_shapes, bwd)
+                    if path == "staged"), default=0)
+    return MsdaPlan("staged" if staged else "gather", fwd_smem if staged else 0, bwd,
+                    bwd_smem)
+
+
+def _plan_for(value: torch.Tensor, spatial_shapes, sampling_locations) -> MsdaPlan:
+    B, _, M, D = value.shape
+    n_sm = torch.cuda.get_device_properties(value.device).multi_processor_count
+    return msda_plan(B, M, D, sampling_locations.shape[4], spatial_shapes, n_sm)
+
+
 def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None):
     tensors = [("value", value), ("sampling_locations", loc), ("attention_weights", attw)]
     if grad_out is not None:
@@ -131,6 +186,8 @@ def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None):
             raise ValueError(f"ms_deform_attn kernel takes contiguous {name}")
         if t.device != value.device:
             raise ValueError(f"ms_deform_attn: {name} on {t.device}, value on {value.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"ms_deform_attn kernel takes 16-byte aligned {name}")
     if value.dim() != 4:
         raise ValueError(f"ms_deform_attn: value must be (B, S, M, D), is {tuple(value.shape)}")
     B, S, M, D = value.shape
@@ -158,9 +215,9 @@ def _shapes_arg(spatial_shapes):
 def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                        sampling_locations: torch.Tensor,
                        attention_weights: torch.Tensor) -> torch.Tensor:
-    """Forward without autograd: kernel K3 for CUDA tensors (each launch
-    counted in `ms_deform_attn.launches`), `ms_deform_attn_ref` for CPU
-    tensors."""
+    """Forward without autograd: kernel K3 for CUDA tensors (its staged or
+    gather kernel, as `msda_plan` picks; each launch counted in
+    `ms_deform_attn.launches`), `ms_deform_attn_ref` for CPU tensors."""
     tensors = (value, sampling_locations, attention_weights)
     if all(t.device.type == "cpu" for t in tensors):
         return ms_deform_attn_ref(value, spatial_shapes, sampling_locations,
@@ -169,11 +226,13 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     B, S, M, D = value.shape
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
+    plan = _plan_for(value, spatial_shapes, sampling_locations)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
     lib = _build.library("msda")
     err = lib.msda_fwd_f32(value.data_ptr(), sampling_locations.data_ptr(),
                            attention_weights.data_ptr(), out.data_ptr(),
                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+                           int(plan.fwd == "staged"), 1,
                            torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_fwd_f32")
     ms_deform_attn.launches += 1
@@ -183,10 +242,12 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
 def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                        sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
                        grad_out: torch.Tensor):
-    """(dValue, dLoc, dAttw): kernel K4 for CUDA tensors (each launch counted
-    in `ms_deform_attn_bwd.launches`), `ms_deform_attn_bwd_ref` for CPU
-    tensors. K4 sums dValue with atomics, so its summation order varies
-    from run to run."""
+    """(dValue, dLoc, dAttw): kernel K4 for CUDA tensors (its staged kernel
+    for the levels `msda_plan` stages, its direct kernel for the others;
+    each call counted once in `ms_deform_attn_bwd.launches`),
+    `ms_deform_attn_bwd_ref` for CPU tensors. K4 sums dValue with atomics
+    (in shared memory for staged levels, in device memory for direct ones),
+    so its summation order varies from run to run."""
     tensors = (value, sampling_locations, attention_weights, grad_out)
     if all(t.device.type == "cpu" for t in tensors):
         return ms_deform_attn_bwd_ref(value, spatial_shapes, sampling_locations,
@@ -195,7 +256,15 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     B, S, M, D = value.shape
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
-    dvalue = torch.zeros_like(value)         # zeroed on the stream before the launch
+    plan = _plan_for(value, spatial_shapes, sampling_locations)
+    # a staged level's dValue slice is written whole by its block; a direct
+    # level's is summed with global atomics and zeroed first
+    dvalue = torch.empty_like(value)
+    start = 0
+    for (h, w), path in zip(spatial_shapes, plan.bwd):
+        if path == "direct":
+            dvalue[:, start:start + h * w].zero_()
+        start += h * w
     dloc = torch.empty_like(sampling_locations)
     dattw = torch.empty_like(attention_weights)
     lib = _build.library("msda_bwd")
@@ -203,6 +272,7 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
                            attention_weights.data_ptr(), grad_out.data_ptr(),
                            dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(),
                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+                           sum(1 << l for l, path in enumerate(plan.bwd) if path == "staged"),
                            torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_bwd_f32")
     ms_deform_attn_bwd.launches += 1
