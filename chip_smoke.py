@@ -398,11 +398,11 @@ def _model_locations(B, shapes, M, P, g, noise=0.25):
     return (ref[None, :, None, None, None, :] + off / norm[:, None, :]).contiguous().cuda()
 
 
-def _plan(value, shapes, loc):
+def _plan(value, shapes):
     from multi_modal_tracking_torch.ops.msda import msda_plan
     B, _, M, D = value.shape
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    return msda_plan(B, M, D, loc.shape[4], shapes, n_sm)
+    return msda_plan(B, M, D, shapes, n_sm)
 
 
 def _live_corners(loc, shapes):
@@ -438,7 +438,7 @@ def kernel_k3(g):
             flops = 2.0 * M_D * _live_corners(loc, MSDA_SHAPES)
             n_bytes = 4 * (value.numel() + loc.numel() + attw.numel() + got.numel())
             b_ms, b_by = bound_ms(n_bytes, flops)
-            plan = _plan(value, MSDA_SHAPES, loc)
+            plan = _plan(value, MSDA_SHAPES)
             row = dict(B=B, S=S, Lq=Lq, M=M_HEADS, D=M_D, L=M_L, P=M_P, locations=locations,
                        path=plan.fwd, smem=plan.fwd_smem, max_abs_err=err, max_rel_err=rel,
                        ms=device_ms(kern, ["msda_fwd_kernel"]), event_ms=cuda_time_ms(kern),
@@ -488,7 +488,7 @@ def kernel_k4(g):
         live = _live_corners(loc, shapes)
         n_bytes = 4 * 2 * (value.numel() + loc.numel() + attw.numel()) + 4 * gr.numel()
         b_ms, b_by = bound_ms(n_bytes, 4.0 * D * live)
-        plan = _plan(value, shapes, loc)
+        plan = _plan(value, shapes)
         rows.append(dict(B=B, shapes=[list(s) for s in shapes], Lq=Lq, M=M, D=D, P=P,
                          locations=locations, path=list(plan.bwd), smem=plan.bwd_smem,
                          max_abs_err=err, max_abs_err_by_output=[e[0] for e in errs],
@@ -516,20 +516,23 @@ ATTN_EDGES = [(2, 3, 40, 64, 16, 8), (2, 2, 70, 100, 32, 37), (1, 2, 5, 7, 16, 5
               (32, 12, 70, 100, 64, 37)]
 # (B, spatial_shapes, Lq, M, D, P) of K3's edge cases, by msda_plan's path on
 # 132 SMs: gather (generic L, P) at D 8 and 32; staged at D 16 with Lq 37
-# (not a multiple of the 16 query warps) and at D 128 (2*B*M >= 132); the
-# gather kernel's compiled L 2, P 4, D 64 form at a ragged Lq; one 32x32
-# level too large for shared memory at B 16 (gather)
+# (not a multiple of the 32 query warps), at D 128 (2*B*M >= 132) and at
+# D 18 (rows staged in 4-byte pieces); the gather kernel's compiled L 2,
+# P 4, D 64 form at a ragged Lq; one 32x32 level too large for shared
+# memory at B 16 (gather)
 MSDA_FWD_EDGES = [(2, ((9, 12), (5, 7)), 17, 2, 8, 3), (1, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4),
                   (17, ((9, 12), (5, 7)), 37, 4, 16, 3), (9, ((10, 10), (5, 5)), 21, 8, 128, 4),
-                  (2, ((6, 6), (6, 6)), 50, 8, 64, 4), (TRAIN_B, ((32, 32),), 40, 8, 64, 4)]
+                  (17, ((5, 6), (3, 4)), 21, 4, 18, 4), (2, ((6, 6), (6, 6)), 50, 8, 64, 4),
+                  (TRAIN_B, ((32, 32),), 40, 8, 64, 4)]
 # K4's: D 16 with Lq 37; D 32 on three ragged levels with P 3; a 24x24
 # level too large for shared memory beside a staged 18x18 one (both kernels
 # in one call); D 128 with a 40x12 level (direct) and with P 5 (two groups
-# of four points, staged); an odd D (direct: the staged kernel holds
-# channel pairs)
+# of four points, staged); D 18 (staged, rows in 4-byte pieces); an odd D
+# (direct: the staged kernel holds channel pairs)
 MSDA_BWD_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 16, 4), (2, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 3),
                   (1, ((18, 18), (24, 24)), 50, 2, 64, 4), (1, ((40, 12),), 21, 2, 128, 2),
-                  (1, ((10, 10), (5, 5)), 21, 2, 128, 5), (2, ((6, 6), (3, 3)), 13, 2, 33, 4)]
+                  (1, ((10, 10), (5, 5)), 21, 2, 128, 5), (2, ((5, 6), (3, 4)), 21, 2, 18, 3),
+                  (2, ((6, 6), (3, 3)), 13, 2, 33, 4)]
 
 
 def kernel_edges(g):
@@ -568,7 +571,7 @@ def kernel_edges(g):
         value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
         err, _, ok = max_err(ms_deform_attn_fwd(value, shp, loc, attw),
                              ms_deform_attn_ref(value, shp, loc, attw))
-        path = _plan(value, shp, loc).fwd
+        path = _plan(value, shp).fwd
         require(ok, f"K3 edge case {(B, shp, Lq, M, D, P)} ({path}): max abs err {err}")
         edge.append(dict(kernel="K3", shape=[B, shp, Lq, M, D, P], path=path, max_abs_err=err))
     for (B, shp, Lq, M, D, P) in MSDA_BWD_EDGES:
@@ -577,7 +580,7 @@ def kernel_edges(g):
         errs = [max_err_scaled(a, b) for a, b in zip(
             ms_deform_attn_bwd(value, shp, loc, attw, gr),
             ms_deform_attn_bwd_ref(value, shp, loc, attw, gr))]
-        path = list(_plan(value, shp, loc).bwd)
+        path = list(_plan(value, shp).bwd)
         require(all(e[2] for e in errs), f"K4 edge case {(B, shp, Lq, M, D, P)} ({path}): "
                                          f"max abs errs {[e[0] for e in errs]}")
         edge.append(dict(kernel="K4", shape=[B, shp, Lq, M, D, P], path=path,

@@ -79,12 +79,9 @@ template <int CPL>
 __global__ void __launch_bounds__(STAGED_WARPS * 32, 1)
 msda_fwd_kernel_staged(const float* __restrict__ value, const float* __restrict__ loc,
                        const float* __restrict__ attw, float* __restrict__ out, int S,
-                       int M, int D, int Lq, int L, int P, msda::Levels lv, int qsplit) {
+                       int M, int D, int Lq, int L, int P, msda::Levels lv) {
   extern __shared__ __align__(16) float smem[];   // (S, D) value rows of (b, m)
-  int blk = blockIdx.x;
-  const int part = blk % qsplit;
-  blk /= qsplit;
-  const int m = blk % M, b = blk / M;
+  const int m = blockIdx.x % M, b = blockIdx.x / M;
   const int stride = M * D, LP = L * P;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   msda::stage_slice(smem, value + (size_t)b * S * stride + (size_t)m * D, S, D, stride, tid,
@@ -95,16 +92,14 @@ msda_fwd_kernel_staged(const float* __restrict__ value, const float* __restrict_
   // per warp, the (row offset in smem, attw * w_c) of 32 corners, the four
   // corners of eight points; -1 marks a dead corner
   int2* table = reinterpret_cast<int2*>(smem + table_offset(S, D)) + warp * 32;
-  const int per = (Lq + qsplit - 1) / qsplit;
-  const int q0 = part * per, q1 = min(Lq, q0 + per);
   // lane works on corner lane & 3 of point t0 + (lane >> 2)
   float xn = 0.f, yn = 0.f, an = 0.f;
-  if (q0 + warp < q1)
-    load_point(loc, attw, (size_t)(b * Lq + q0 + warp) * M + m, LP, lane >> 2, xn, yn, an);
-  for (int q = q0 + warp; q < q1; q += STAGED_WARPS) {
+  if (warp < Lq)
+    load_point(loc, attw, (size_t)(b * Lq + warp) * M + m, LP, lane >> 2, xn, yn, an);
+  for (int q = warp; q < Lq; q += STAGED_WARPS) {
     float x = xn, y = yn, a = an;
     const size_t bqm = (size_t)(b * Lq + q) * M + m;
-    if (q + STAGED_WARPS < q1)
+    if (q + STAGED_WARPS < Lq)
       load_point(loc, attw, bqm + (size_t)STAGED_WARPS * M, LP, lane >> 2, xn, yn, an);
     float acc[CPL];
 #pragma unroll
@@ -143,25 +138,18 @@ msda_fwd_kernel_staged(const float* __restrict__ value, const float* __restrict_
   }
 }
 
-// CPL channels per lane: adjacent ones (lane * CPL + r) read as one vector
-// when VEC (D == 32 * CPL), else lane + 32 r
+// CPL channels per lane: with VEC (D 64) the adjacent pair 2 lane, 2 lane
+// + 1, read as one float2; else channel lane + 32 r
 template <int CPL, bool VEC>
 struct Row {
+  static_assert(!VEC || CPL == 2, "float2 rows hold D 64");
   float v[CPL];
   __device__ __forceinline__ void load(const float* row, int lane, int D, bool live) {
     if constexpr (VEC) {
-      if constexpr (CPL == 2) {
-        const float2 t = live ? __ldg(reinterpret_cast<const float2*>(row) + lane)
-                              : make_float2(0.f, 0.f);
-        v[0] = t.x;
-        v[1] = t.y;
-      } else if constexpr (CPL == 4) {
-        const float4 t = live ? __ldg(reinterpret_cast<const float4*>(row) + lane)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-      } else {
-        v[0] = live ? __ldg(row + lane) : 0.f;
-      }
+      const float2 t = live ? __ldg(reinterpret_cast<const float2*>(row) + lane)
+                            : make_float2(0.f, 0.f);
+      v[0] = t.x;
+      v[1] = t.y;
     } else {
 #pragma unroll
       for (int r = 0; r < CPL; ++r) {
@@ -174,12 +162,8 @@ struct Row {
 
 template <int CPL, bool VEC>
 __device__ __forceinline__ void store_row(float* op, const float (&acc)[CPL], int lane, int D) {
-  if constexpr (VEC && CPL == 2) {
+  if constexpr (VEC) {
     reinterpret_cast<float2*>(op)[lane] = make_float2(acc[0], acc[1]);
-  } else if constexpr (VEC && CPL == 4) {
-    reinterpret_cast<float4*>(op)[lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else if constexpr (VEC) {
-    op[lane] = acc[0];
   } else {
 #pragma unroll
     for (int r = 0; r < CPL; ++r) {
@@ -283,10 +267,9 @@ __global__ void __launch_bounds__(GATHER_WARPS * 32) msda_launch_floor_kernel() 
 
 template <int CPL>
 int launch_staged(const float* v, const float* lc, const float* aw, float* o, int B, int S,
-                  int M, int D, int Lq, int L, int P, const msda::Levels& lv, int qsplit,
-                  cudaStream_t s) {
+                  int M, int D, int Lq, int L, int P, const msda::Levels& lv, cudaStream_t s) {
   const long long smem = (long long)table_offset(S, D) * sizeof(float) + TABLE_BYTES;
-  if (smem > msda::SMEM_MAX || qsplit < 1)
+  if (smem > msda::SMEM_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   // the shared-memory attribute belongs to each device's context: set it
   // once per device
@@ -301,8 +284,8 @@ int launch_staged(const float* v, const float* lc, const float* aw, float* o, in
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < MAX_DEVICES) attr_set[dev] = true;
   }
-  msda_fwd_kernel_staged<CPL><<<(unsigned)(B * M * qsplit), STAGED_WARPS * 32, smem, s>>>(
-      v, lc, aw, o, S, M, D, Lq, L, P, lv, qsplit);
+  msda_fwd_kernel_staged<CPL><<<(unsigned)(B * M), STAGED_WARPS * 32, smem, s>>>(
+      v, lc, aw, o, S, M, D, Lq, L, P, lv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -315,12 +298,11 @@ dim3 gather_grid(int B, int Lq, int M) {
 
 // value (B, S, M, D), loc (B, Lq, M, L, P, 2), attw (B, Lq, M, L, P),
 // out (B, Lq, M*D), all f32, contiguous and 16-byte aligned. shapes: host
-// array of L (H, W) pairs. staged: 1 for the staged kernel (qsplit blocks
-// per (b, m)), 0 for the gather kernel. Returns cudaGetLastError() after
-// the launch.
+// array of L (H, W) pairs. staged: 1 for the staged kernel, 0 for the
+// gather kernel. Returns cudaGetLastError() after the launch.
 extern "C" int msda_fwd_f32(const void* value, const void* loc, const void* attw,
                             void* out, int B, int S, int M, int D, int Lq, int L,
-                            int P, const int* shapes, int staged, int qsplit, void* stream) {
+                            int P, const int* shapes, int staged, void* stream) {
   msda::Levels lv;
   if (!msda::make_levels(shapes, L, S, lv) || D < 1 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -330,9 +312,9 @@ extern "C" int msda_fwd_f32(const void* value, const void* loc, const void* attw
   auto* o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   if (staged) {
-    if (D <= 32) return launch_staged<1>(v, lc, aw, o, B, S, M, D, Lq, L, P, lv, qsplit, s);
-    if (D <= 64) return launch_staged<2>(v, lc, aw, o, B, S, M, D, Lq, L, P, lv, qsplit, s);
-    return launch_staged<4>(v, lc, aw, o, B, S, M, D, Lq, L, P, lv, qsplit, s);
+    if (D <= 32) return launch_staged<1>(v, lc, aw, o, B, S, M, D, Lq, L, P, lv, s);
+    if (D <= 64) return launch_staged<2>(v, lc, aw, o, B, S, M, D, Lq, L, P, lv, s);
+    return launch_staged<4>(v, lc, aw, o, B, S, M, D, Lq, L, P, lv, s);
   }
   const dim3 grid = gather_grid(B, Lq, M);
   const int threads = GATHER_WARPS * 32;

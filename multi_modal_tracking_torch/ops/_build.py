@@ -46,7 +46,7 @@ SIGNATURES = {
     },
     "msda": {
         "msda_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,
-                          ctypes.POINTER(_I), _I, _I, _C], _I),
+                          ctypes.POINTER(_I), _I, _C], _I),
         "msda_launch_floor_f32": ([_I, _I, _I, _C], _I),
     },
     "msda_bwd": {

@@ -143,7 +143,7 @@ class MsdaPlan(NamedTuple):
     bwd_smem: int
 
 
-def msda_plan(B: int, M: int, D: int, P: int, spatial_shapes: Sequence[Tuple[int, int]],
+def msda_plan(B: int, M: int, D: int, spatial_shapes: Sequence[Tuple[int, int]],
               n_sm: int) -> MsdaPlan:
     """Choose K3's and K4's kernels by shape (never on failure).
 
@@ -154,7 +154,8 @@ def msda_plan(B: int, M: int, D: int, P: int, spatial_shapes: Sequence[Tuple[int
     instead. K4 stages each level whose value slice, dValue accumulator and
     corner tables fit (8*S_l*D + 4096 <= SMEM_MAX: S_l <= 446 at D 64)
     and D is even (its lanes hold channel pairs); other levels go direct.
-    P does not enter: the staged kernels take points in groups."""
+    The number of points does not enter: the staged kernels take points in
+    groups."""
     S = sum(h * w for h, w in spatial_shapes)
     fwd_smem = 4 * (S * D + S * D % 2) + FWD_TABLE_BYTES
     staged = fwd_smem <= SMEM_MAX and 2 * B * M >= n_sm
@@ -166,10 +167,10 @@ def msda_plan(B: int, M: int, D: int, P: int, spatial_shapes: Sequence[Tuple[int
                     bwd_smem)
 
 
-def _plan_for(value: torch.Tensor, spatial_shapes, sampling_locations) -> MsdaPlan:
+def _plan_for(value: torch.Tensor, spatial_shapes) -> MsdaPlan:
     B, _, M, D = value.shape
     n_sm = torch.cuda.get_device_properties(value.device).multi_processor_count
-    return msda_plan(B, M, D, sampling_locations.shape[4], spatial_shapes, n_sm)
+    return msda_plan(B, M, D, spatial_shapes, n_sm)
 
 
 def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None):
@@ -226,13 +227,13 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     B, S, M, D = value.shape
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
-    plan = _plan_for(value, spatial_shapes, sampling_locations)
+    plan = _plan_for(value, spatial_shapes)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
     lib = _build.library("msda")
     err = lib.msda_fwd_f32(value.data_ptr(), sampling_locations.data_ptr(),
                            attention_weights.data_ptr(), out.data_ptr(),
                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-                           int(plan.fwd == "staged"), 1,
+                           int(plan.fwd == "staged"),
                            torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_fwd_f32")
     ms_deform_attn.launches += 1
@@ -256,7 +257,7 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     B, S, M, D = value.shape
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
-    plan = _plan_for(value, spatial_shapes, sampling_locations)
+    plan = _plan_for(value, spatial_shapes)
     # a staged level's dValue slice is written whole by its block; a direct
     # level's is summed with global atomics and zeroed first
     dvalue = torch.empty_like(value)
