@@ -418,8 +418,9 @@ def _live_corners(loc, shapes):
 
 def kernel_k3(g):
     """K3 at the tracking (B 1, gather kernel) and training (B 16, staged
-    kernel) shapes, on uniform locations (PR 3's cases) and model-like
-    ones; at B 1 also the gather grid's launch floor (an empty kernel)."""
+    kernel) shapes, on uniform locations (the earlier cases, kept
+    comparable) and model-like ones; at B 1 also the gather grid's launch
+    floor (an empty kernel)."""
     from multi_modal_tracking_torch.ops import _build
     from multi_modal_tracking_torch.ops.msda import ms_deform_attn_fwd, ms_deform_attn_ref
     rows, err_max = [], 0.0
@@ -464,7 +465,7 @@ def kernel_k4(g):
     """K4 at the training shape (uniform and model-like locations), at B 1
     and on three ragged levels. ms is the device time of the whole wrapper
     call (its kernels and any zero fill of dValue); zero_fill_ms is that of
-    the zeros_like(value) the PR 3 wrapper launched before its kernel."""
+    the zeros_like(value) the previous wrapper launched before its kernel."""
     from multi_modal_tracking_torch.ops.msda import ms_deform_attn_bwd, ms_deform_attn_bwd_ref
     rows, err_max = [], 0.0
     cases = [(TRAIN_B, MSDA_SHAPES, 648, M_HEADS, M_D, M_P, "uniform"),

@@ -31,8 +31,9 @@
 //   warp's corner table; the warp then reads the table by broadcast and the
 //   live corner rows, accumulates the output row in registers and writes it
 //   once, coalesced. The table replaces per-point shuffles and per-lane
-//   corner arithmetic, which left the first version issue-bound; 32 warps
-//   (not 16) hide the shared-memory latency of the table-then-row chain.
+//   corner arithmetic, which left the first version instruction-bound;
+//   32 warps (not 16) hide the shared-memory latency of the table-then-row
+//   chain.
 //
 // * gather (few (b, m) pairs, e.g. the tracker's B 1, where 8 staging
 //   blocks could not fill 132 SMs; or a value slice too large for shared
