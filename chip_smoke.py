@@ -39,8 +39,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 step time, samples/s, host data time, device busy time and
                 idle share, peak memory, loss per step; and one full-width
                 step at batch 2 (dropout and drop path off) on the GPU held
-                against the same step on the CPU.
-Then the kernel table line and, last, {"ok": true, "device": {...}}.
+                against the same step on the CPU;
+  8. lifecycle - checkpoints and the rest of the training loop, full width at
+                batch 16, in a temporary directory deleted at the end: a
+                synthetic MAE backbone file warm-starts the backbone
+                (checked equal); Trainer.train runs 2 epochs of 2 steps
+                with a SyntheticRGBT val split every epoch and a failure
+                injected into the second training pass, and the fail-safe
+                restart must resume from _ep0001 and finish at epoch 2; a
+                fresh Trainer's load_checkpoint must equal the first bit for
+                bit (weights, buffers, AdamW moments, count, epoch,
+                generator); an ACCUM_ITER 2 epoch of 4 batches must move the
+                weights after batches 2 and 4 only; create_tracker on the
+                _ep0002 checkpoint (strict load) must track 16 frames within
+                1e-6 px of a tracker on the trainer's in-memory model.
+                Prints checkpoint bytes, save / load / resume seconds, val
+                ms per batch and ms per accumulation micro-step.
+Then the kernel table line (launches by path: tracker, train, lifecycle)
+and, last, {"ok": true, "device": {...}}.
 
 Tolerances (f32 everywhere, TF32 off for cuBLAS and cuDNN):
   * kernels: 2e-5 abs or 1e-4 rel (K1 and its logsumexp, K2, K3). Both sides
@@ -70,6 +86,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -91,6 +108,8 @@ N_MT = 128                         # 2 templates x 8x8 tokens per modality
 B2, HEADS, HEAD_D = 2, 12, 64      # both modalities on the batch axis
 TRAIN_B = 16                       # the recipe's batch; 2 x 16 on the batch axis
 TRAIN_STEPS = 3                    # steps per epoch in the train phase
+LIFE_STEPS = 2                     # steps (and val batches) per epoch in the lifecycle phase
+LIFE_FRAMES = 16                   # frames tracked on the lifecycle's checkpoint
 KEEP_FINAL = 240 / 324             # keep 0.7 bucketised to a multiple of 16
 MSDA_SHAPES = ((18, 18), (18, 18))  # the fusion's two modal 18x18 maps
 M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
@@ -208,7 +227,6 @@ def phase_build():
 def ptxas_report(log: str) -> list:
     """Registers, spills and static shared memory of each kernel in an
     `nvcc -Xptxas -v` log, by (demangled) function name."""
-    import re
     out, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
@@ -914,7 +932,7 @@ def _compare_step_gpu_cpu():
                 error_over_bound=ratios, cpu_step_s=out["cpu"]["seconds"])
 
 
-def phase_train(smi: str) -> dict:
+def phase_train(smi: str, save_dir: str) -> dict:
     """The training main path: Trainer on the full-width recipe at batch 16.
     Returns the launch counts of its two epochs."""
     from torch.profiler import ProfilerActivity, profile
@@ -922,7 +940,8 @@ def phase_train(smi: str) -> dict:
     from multi_modal_tracking_torch.train.train_step import make_train_step, model_inputs
     from multi_modal_tracking_torch.train.trainer import Trainer
     cfg = _train_cfg(TRAIN_B, TRAIN_STEPS)
-    tr = Trainer(SCRIPT, cfg, device="cuda", seed=0, print_interval=TRAIN_STEPS)
+    tr = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
+                 print_interval=TRAIN_STEPS)
     per_step = {"K1": 12, "K2": 12, "K3": 2, "K4": 2}
     epochs, launches, losses = {}, {k: 0 for k in per_step}, []
     for epoch, keep in ((1, 1.0), (51, KEEP_FINAL)):
@@ -1007,6 +1026,207 @@ def phase_train(smi: str) -> dict:
     return launches
 
 
+def _mae_file(path: str, cfg) -> dict:
+    """A bare MAE-style backbone file from a seeded model: `blocks.*` and
+    `patch_embed.*` without the `backbone.` prefix, the modal LayerNorm
+    pairs folded back to norm1/norm2 (perturbed, so they differ from the
+    init), plus pos_embed and mask_token. Returns the dict it saved."""
+    from multi_modal_tracking_torch.models.build import build_model
+    g = torch.Generator().manual_seed(8)
+    sd = {}
+    for k, v in build_model(SCRIPT, cfg, device="cpu", seed=7).state_dict().items():
+        if not k.startswith("backbone.") or re.search(r"\.norm[12]_i\.", k):
+            continue
+        k = re.sub(r"\.(norm[12])_v\.", r".\1.", k[len("backbone."):])
+        sd[k] = v + 0.1 * torch.randn(v.shape, generator=g) if ".norm" in k else v
+    sd["pos_embed"] = torch.randn(1, 197, 768, generator=g)
+    sd["mask_token"] = torch.zeros(1, 1, 768)
+    torch.save({"model": sd}, path)
+    return sd
+
+
+def _lifecycle_cfg(mae_path: str):
+    """The train phase's recipe at 2 steps per epoch, with a SyntheticRGBT
+    val split every epoch (2 batches) and the MAE warm start."""
+    cfg = _train_cfg(TRAIN_B, LIFE_STEPS)
+    cfg.MODEL.BACKBONE.PRETRAINED = True
+    cfg.MODEL.BACKBONE.PRETRAINED_PATH = mae_path
+    cfg.DATA.VAL.DATASETS_NAME = ["SyntheticRGBT"]
+    cfg.DATA.VAL.DATASETS_RATIO = [1]
+    cfg.DATA.VAL.SAMPLE_PER_EPOCH = TRAIN_B * LIFE_STEPS
+    cfg.TRAIN.VAL_EPOCH_INTERVAL = 1
+    cfg.TRAIN.EPOCH = 2
+    return cfg
+
+
+def _timed(fn, out: list):
+    """fn wrapped to append its synchronised seconds to `out`."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        return res
+    return run
+
+
+def _lifecycle_train(tr) -> dict:
+    """Two epochs of train + val through Trainer.train with a failure
+    injected into the second training cycle_dataset call: the fail-safe
+    restart must resume from epoch 1's checkpoint and finish at epoch 2."""
+    from multi_modal_tracking_torch.utils import checkpoint as ckpt
+    save_s, load_s, val_s, train_calls, resumed_from = [], [], [], [], []
+    cycle, load = tr.cycle_dataset, tr.load_checkpoint
+
+    def flaky_cycle(loader=None, train=True):
+        if train:
+            train_calls.append(tr.epoch)
+            if len(train_calls) == 2:
+                raise RuntimeError("chip_smoke: injected failure")
+            return cycle(loader, train)
+        return _timed(cycle, val_s)(loader, train)
+
+    def tracked_load(path=None):
+        resumed_from.append(ckpt.latest_checkpoint(tr.ckpt_dir, tr.net_name))
+        return _timed(load, load_s)(path)
+
+    tr.cycle_dataset, tr.load_checkpoint = flaky_cycle, tracked_load
+    tr.save_checkpoint = _timed(tr.save_checkpoint, save_s)
+    tr.train(max_epochs=2, fail_safe=True)
+    require(tr.epoch == 2 and train_calls == [1, 2, 2], f"fail-safe run ended at epoch "
+                                                      f"{tr.epoch}, train calls {train_calls}")
+    require(len(resumed_from) == 1 and resumed_from[0].endswith("MixFormerRGBT_ep0001.pth.tar"),
+            f"fail-safe restart resumed from {resumed_from}")
+    with open(os.path.join(tr.stats.log_dir, "metrics.jsonl")) as f:
+        rows = [(r["loader"], r["epoch"]) for r in map(json.loads, f)]
+    require(rows == [("train", 1), ("val", 1), ("train", 2), ("val", 2)], f"metrics rows {rows}")
+    path = ckpt.latest_checkpoint(tr.ckpt_dir, tr.net_name)
+    require(path.endswith("_ep0002.pth.tar"), f"latest checkpoint {path}")
+    return dict(checkpoint=path, save_s=save_s, restart_load_s=load_s,
+                val_ms_per_batch_in_cycle=[s / len(tr.val_loader) * 1e3 for s in val_s])
+
+
+def _same_state(a, b) -> None:
+    """Trainer b resumed into exactly trainer a's state."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    require(sa.keys() == sb.keys() and not diff, f"resumed weights differ: {diff[:4]}")
+    oa, ob = a.optimizer.opt.state_dict()["state"], b.optimizer.opt.state_dict()["state"]
+    diff = [(i, k) for i in oa for k in oa[i] if not torch.equal(oa[i][k].cpu(), ob[i][k].cpu())]
+    require(oa.keys() == ob.keys() and not diff, f"resumed AdamW state differs: {diff[:4]}")
+    require((a.optimizer.count, a.epoch) == (b.optimizer.count, b.epoch),
+            f"count/epoch {(a.optimizer.count, a.epoch)} vs {(b.optimizer.count, b.epoch)}")
+    require(torch.equal(a.generator.get_state(), b.generator.get_state()),
+            "resumed generator state differs")
+
+
+def _lifecycle_accum(cfg, save_dir: str) -> dict:
+    """One epoch of 4 batches at ACCUM_ITER 2: the weights move after
+    micro-batches 2 and 4 only, and count is 2."""
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    cfg.TRAIN.ACCUM_ITER = 2
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = 4 * TRAIN_B
+    cfg.DATA.VAL.DATASETS_NAME = []
+    cfg.MODEL.BACKBONE.PRETRAINED = False
+    tr = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0, print_interval=4)
+    step, moved, step_s = tr._step, [], []
+
+    def watched(*args, **kwargs):
+        before = [p.detach().clone() for p in tr.model.parameters()]
+        m = _timed(step, step_s)(*args, **kwargs)
+        moved.append(any(not torch.equal(b, p) for b, p in zip(before, tr.model.parameters())))
+        return m
+
+    tr._step = watched
+    tr.epoch = 1
+    tr.cycle_dataset()
+    require(moved == [False, True, False, True] and tr.optimizer.count == 2
+            and tr.optimizer.mini_step == 0,
+            f"ACCUM_ITER 2: weights moved {moved}, count {tr.optimizer.count}")
+    return dict(accum_moved=moved, accum_count=tr.optimizer.count,
+                ms_per_accum_micro_step=[s * 1e3 for s in step_s],
+                ms_per_accum_micro_step_median=float(np.median(step_s)) * 1e3)
+
+
+def phase_lifecycle(smi: str, frames) -> dict:
+    """Checkpoints and the rest of the training loop at full width, batch
+    16: MAE warm start, train + val with an injected failure and the
+    fail-safe restart, an exact resume into a fresh Trainer, an ACCUM_ITER 2
+    epoch, and create_tracker on the epoch-2 checkpoint against a tracker
+    on the trainer's in-memory model. Returns the kernel launch counts."""
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.tracking.tracker import RGBTCachedTracker
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    from multi_modal_tracking_torch.utils import checkpoint as ckpt
+    with tempfile.TemporaryDirectory() as tmp:
+        mae_path = os.path.join(tmp, "mae_pretrain_vit_base.pth")
+        cfg = _lifecycle_cfg(mae_path)
+        mae = _mae_file(mae_path, cfg)
+        reset_launches()
+        tr = Trainer(SCRIPT, cfg, save_dir=tmp, device="cuda", seed=0, print_interval=LIFE_STEPS)
+        got = tr.model.state_dict()
+        for k, v in mae.items():
+            if k in ("pos_embed", "mask_token"):
+                continue
+            norm = re.search(r"\.(norm[12])\.", k)
+            targets = ([k.replace(norm.group(0), f".{norm.group(1)}{s}.") for s in ("_v", "_i")]
+                       if norm else [k])
+            require(all(torch.equal(got["backbone." + t].cpu(), v) for t in targets),
+                    f"MAE warm start: {k} differs")
+        out = _lifecycle_train(tr)
+
+        t0 = time.perf_counter()
+        state = ckpt.load_checkpoint(out["checkpoint"])
+        out["load_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = os.path.getsize(out["checkpoint"])
+        del state
+        tr2 = Trainer(SCRIPT, cfg, save_dir=tmp, device="cuda", seed=0)
+        t0 = time.perf_counter()
+        require(tr2.load_checkpoint(), "a fresh Trainer found no checkpoint")
+        torch.cuda.synchronize()
+        out["resume_s"] = time.perf_counter() - t0
+        _same_state(tr, tr2)
+        val_in = model_inputs(batch_to_model_inputs(next(iter(tr.val_loader))), "cuda")
+        out["val_step_ms"] = _wall_ms(lambda: tr._eval_step(val_in), iters=5, warmup=1)
+        del tr2, val_in
+        torch.cuda.empty_cache()
+        out.update(_lifecycle_accum(_lifecycle_cfg(mae_path), tmp))
+
+        params = _params()
+        params.checkpoint = out["checkpoint"]
+        loaded = create_tracker(params, "TRACKINGNET", seed=1)
+        in_memory = RGBTCachedTracker(tr.model.eval(), template_factor=params.template_factor,
+                                      template_size=params.template_size,
+                                      search_factor=params.search_factor,
+                                      search_size=params.search_size,
+                                      update_interval=loaded.update_interval,
+                                      ce_keep_rate=None, device="cuda")
+        boxes = []
+        for tracker in (loaded, in_memory):
+            tracker.initialize(list(frames[0]), {"init_bbox": [80.0, 60.0, 48.0, 48.0]})
+            boxes.append(np.asarray([tracker.track([fv, fi])["target_bbox"]
+                                     for fv, fi in frames[1:LIFE_FRAMES + 1]]))
+        d_px = float(np.abs(boxes[0] - boxes[1]).max())
+        require(bool(np.isfinite(boxes[0]).all()) and d_px <= 1e-6,
+                f"tracker on the checkpoint differs from the in-memory model by {d_px} px")
+        launches = read_launches()
+        n_steps = 2 * LIFE_STEPS + 4        # two epochs, then the ACCUM_ITER 2 epoch
+        require(launches["K2"] == 12 * n_steps and launches["K4"] == 2 * n_steps
+                and launches["K1"] > 0 and launches["K3"] > 0,
+                f"lifecycle launches {launches} ({n_steps} training steps)")
+        del tr, loaded, in_memory
+        torch.cuda.empty_cache()
+    out.pop("checkpoint")
+    emit({"phase": "lifecycle", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}", "batch": TRAIN_B,
+          "checks": ["MAE warm start equal", "fail-safe restart from _ep0001", "resume exact",
+                     "ACCUM_ITER 2 moves after batches 2 and 4", "checkpoint tracker equal"],
+          "tracked_frames": LIFE_FRAMES, "tracker_max_abs_px": d_px, "launches": launches, **out})
+    return launches
+
+
 def main() -> None:
     dev, smi = phase_device()
     phase_build()
@@ -1018,10 +1238,13 @@ def main() -> None:
     track_launches, tracker = phase_tracker(smi, frames[:64])
     phase_profile(tracker, frames[64:], smi)
     del tracker
-    train_launches = phase_train(smi)
+    with tempfile.TemporaryDirectory() as save_dir:
+        train_launches = phase_train(smi, save_dir)
+    life_launches = phase_lifecycle(smi, frames)
     table = []
     for key in ("K1", "K2", "K3", "K4"):
-        by_path = {"tracker": track_launches[key], "train": train_launches[key]}
+        by_path = {"tracker": track_launches[key], "train": train_launches[key],
+                   "lifecycle": life_launches[key]}
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",

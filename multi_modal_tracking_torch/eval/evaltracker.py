@@ -6,22 +6,24 @@ import torch
 from multi_modal_tracking_torch.eval.params import TrackerParams, update_interval_for
 from multi_modal_tracking_torch.models.build import build_model
 from multi_modal_tracking_torch.tracking.tracker import RGBTCachedTracker
+from multi_modal_tracking_torch.utils.checkpoint import load_variables
 
 
 def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
                    dtype=torch.float32, seed: int = 0) -> RGBTCachedTracker:
     """The cached-template tracker of an RGB-T `asymmetric_shared*` script.
 
-    Runs on the GPU unless device="cpu" (raises without one). With no
-    checkpoint the weights are random from `seed`; loading a checkpoint is
-    not ported yet. ce_keep_rate stays None, so each CE block uses its own
+    Runs on the GPU unless device="cpu" (raises without one). With
+    `params.checkpoint` set, its weights are loaded strictly (a `.pth.tar`
+    of the port or the reference, or a JAX `.msgpack`): a checkpoint that
+    does not cover the model raises. Without one the weights are random
+    from `seed`. ce_keep_rate stays None, so each CE block uses its own
     configured keep ratio, as the reference tracker does.
     """
-    if params.checkpoint:
-        raise NotImplementedError("checkpoint loading is not ported yet "
-                                  "(ROADMAP.md queue 1, item 10)")
     cfg = params.cfg
     model = build_model(params.script, cfg, device=device, dtype=dtype, seed=seed)
+    if params.checkpoint:
+        load_variables(params.checkpoint, model, strict=True)
     return RGBTCachedTracker(model, template_factor=params.template_factor,
                              template_size=params.template_size,
                              search_factor=params.search_factor,

@@ -32,7 +32,12 @@ def _experiments_dir() -> str:
 def get_parameters(script: str, training_yaml: Optional[str] = None,
                    tracking_yaml: Optional[str] = "tracking",
                    checkpoint: Optional[str] = None,
-                   search_area_scale: Optional[float] = None) -> TrackerParams:
+                   search_area_scale: Optional[float] = None,
+                   model: Optional[str] = None) -> TrackerParams:
+    """`model`, a bare checkpoint file name, resolves to `save_dir/<model>`
+    when TEST.LOAD_FROME_TRAIN_RESULT is set, else `save_dir/models/<model>`
+    (`save_dir` from `train.admin.env_settings`, "." when unset); an explicit
+    `checkpoint` path wins."""
     params = TrackerParams()
     cfg = get_default_config(script)
     exp = _experiments_dir()
@@ -42,6 +47,12 @@ def get_parameters(script: str, training_yaml: Optional[str] = None,
         path = os.path.join(exp, f"{tracking_yaml}.yaml")
         if os.path.isfile(path):
             cfg.update_from_file(path)
+    if checkpoint is None and model:
+        from multi_modal_tracking_torch.train.admin import env_settings
+        save_dir = env_settings().save_dir or "."
+        checkpoint = (os.path.join(save_dir, model)
+                      if cfg.TEST.get("LOAD_FROME_TRAIN_RESULT", False)
+                      else os.path.join(save_dir, "models", model))
     params.cfg = cfg
     params.script = script
     params.template_factor = cfg.TEST.TEMPLATE_FACTOR

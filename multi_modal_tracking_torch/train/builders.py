@@ -1,4 +1,4 @@
-"""Dataset registry and the training loader.
+"""Dataset registry and the train and val loaders.
 
 The port's counterpart of the JAX package's `train/builders.py`. The
 registry knows every name the JAX package knows; only the synthetic RGB-T
@@ -10,7 +10,7 @@ without `torch.distributed`), as each rank loads its own share.
 from __future__ import annotations
 
 import random
-from typing import List
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -55,12 +55,12 @@ def world_size() -> int:
     return torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
 
 
-def build_train_loader(cfg, seed: int = 0) -> Loader:
-    """The training loader of an RGB-T config: TrackingSampler +
-    RGBTProcessing + Loader, seeded, this rank's share of the budget."""
-    if not is_rgbt_config(cfg):
-        raise NotImplementedError("only RGB-T training is ported to multi_modal_tracking_torch "
-                                  "(ROADMAP.md queue 1)")
+def _make_loader(cfg, split_cfg, name: str, train: bool, seed: int) -> Loader:
+    """TrackingSampler + RGBTProcessing + Loader of one split, this rank's
+    share of the budget and the batch. The val split is seeded with
+    seed + 1, processes without training augmentation and runs every
+    VAL_EPOCH_INTERVAL epochs."""
+    seed = seed if train else seed + 1
     processing = RGBTProcessing(
         search_area_factor={"template": cfg.DATA.TEMPLATE.FACTOR, "search": cfg.DATA.SEARCH.FACTOR},
         output_sz={"template": cfg.DATA.TEMPLATE.SIZE, "search": cfg.DATA.SEARCH.SIZE},
@@ -68,11 +68,11 @@ def build_train_loader(cfg, seed: int = 0) -> Loader:
                               "search": cfg.DATA.SEARCH.CENTER_JITTER},
         scale_jitter_factor={"template": cfg.DATA.TEMPLATE.SCALE_JITTER,
                              "search": cfg.DATA.SEARCH.SCALE_JITTER},
-        rng=random.Random(seed), train=True)
+        rng=random.Random(seed), train=train)
     sampler = TrackingSampler(
-        datasets=names2datasets(cfg.DATA.TRAIN.DATASETS_NAME),
-        p_datasets=cfg.DATA.TRAIN.DATASETS_RATIO,
-        samples_per_epoch=max(1, cfg.DATA.TRAIN.SAMPLE_PER_EPOCH // world_size()),
+        datasets=names2datasets(split_cfg.DATASETS_NAME),
+        p_datasets=split_cfg.DATASETS_RATIO,
+        samples_per_epoch=max(1, split_cfg.SAMPLE_PER_EPOCH // world_size()),
         max_gap=cfg.DATA.MAX_SAMPLE_INTERVAL,
         num_search_frames=1,
         num_template_frames=cfg.DATA.TEMPLATE.get("NUMBER", 1),
@@ -82,4 +82,30 @@ def build_train_loader(cfg, seed: int = 0) -> Loader:
         rgbt=True,
         seed=seed)
     return Loader(sampler, batch_size=max(1, cfg.TRAIN.BATCH_SIZE // world_size()),
-                  num_workers=cfg.TRAIN.NUM_WORKER, name="train", training=True)
+                  num_workers=cfg.TRAIN.NUM_WORKER, name=name, training=train,
+                  epoch_interval=1 if train else cfg.TRAIN.VAL_EPOCH_INTERVAL)
+
+
+def build_train_loader(cfg, seed: int = 0) -> Loader:
+    """The training loader of an RGB-T config, seeded."""
+    if not is_rgbt_config(cfg):
+        raise NotImplementedError("only RGB-T training is ported to multi_modal_tracking_torch "
+                                  "(ROADMAP.md queue 1)")
+    return _make_loader(cfg, cfg.DATA.TRAIN, "train", True, seed)
+
+
+def build_dataloaders(cfg, seed: int = 0) -> Tuple[Loader, Optional[Loader]]:
+    """(train_loader, val_loader | None). A val split that cannot be built
+    (a dataset that is not ported, or not on this machine) disables
+    validation with a printed line; an unknown dataset name still raises
+    ValueError."""
+    train_loader = build_train_loader(cfg, seed)
+    val_loader = None
+    if cfg.DATA.get("VAL") and cfg.DATA.VAL.DATASETS_NAME:
+        try:
+            val_loader = _make_loader(cfg, cfg.DATA.VAL, "val", False, seed)
+        except ValueError:
+            raise
+        except Exception as e:
+            print(f"[build_dataloaders] val loader disabled: {e!r}")
+    return train_loader, val_loader

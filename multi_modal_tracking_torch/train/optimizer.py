@@ -1,17 +1,22 @@
 """Optimizer: AdamW over parameter groups by training regime, each group's
-learning-rate multiplier times an epoch schedule, and global-norm gradient
-clipping. The port's counterpart of the JAX package's `train/optimizer.py`
-(optax `multi_transform` over AdamW, `clip_by_global_norm` first).
+learning-rate multiplier times an epoch schedule, global-norm gradient
+clipping, and gradient accumulation. The port's counterpart of the JAX
+package's `train/optimizer.py` (optax `multi_transform` over AdamW,
+`clip_by_global_norm` first, `MultiSteps` around both for ACCUM_ITER > 1).
 
 Matching optax, on purpose:
   * the schedule is called with the number of updates already applied
-    (0 for the first step);
+    (0 for the first step), and an epoch is steps_per_epoch // ACCUM_ITER
+    applied updates;
   * clipping scales the gradients by max_norm / norm when norm >= max_norm,
     with no epsilon (`torch.nn.utils.clip_grad_norm_` adds 1e-6), over every
     gradient of the model, frozen groups included;
   * AdamW (b1 0.9, b2 0.999, eps 1e-8) decays every parameter of a
     trainable group; a frozen group (multiplier < 0, optax `set_to_zero`)
     takes no step at all;
+  * ACCUM_ITER k: the k micro-batch gradients are averaged as MultiSteps
+    does (acc + (g - acc) / (n + 1)); the mean is clipped and one AdamW
+    update applied per k micro-batches;
   * regimes match parameter names by substring; the port's dotted names
     have `blocks.{i}.` where flax has `blocks_{i}/`.
 """
@@ -102,17 +107,16 @@ def make_epoch_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
 
 
 class RegimeAdamW:
-    """AdamW with the regime's parameter groups, the epoch schedule and
-    global-norm clipping. `clip_()` then `step()` after each backward."""
+    """AdamW with the regime's parameter groups, the epoch schedule,
+    global-norm clipping and ACCUM_ITER accumulation. `update()` after each
+    backward (or, without accumulation, `clip_()` then `step()`)."""
 
     def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1):
-        if (cfg.TRAIN.get("ACCUM_ITER", 1) or 1) > 1:
-            raise NotImplementedError("TRAIN.ACCUM_ITER > 1 is not ported to "
-                                      "multi_modal_tracking_torch yet (ROADMAP.md queue 1)")
         lab, mults = _regime_labeler(cfg)
+        self.accum = cfg.TRAIN.get("ACCUM_ITER", 1) or 1
         self.base_lr = cfg.TRAIN.LR
         self.max_norm = cfg.TRAIN.GRAD_CLIP_NORM
-        self.scale = make_epoch_schedule(cfg, steps_per_epoch)
+        self.scale = make_epoch_schedule(cfg, max(1, steps_per_epoch // self.accum))
         self.params: List[nn.Parameter] = []
         groups: Dict[str, List[nn.Parameter]] = {}
         for name, p in model.named_parameters():
@@ -125,21 +129,31 @@ class RegimeAdamW:
             [dict(params=ps, group=g) for g, ps in groups.items()], lr=self.base_lr,
             betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.TRAIN.WEIGHT_DECAY)
         self.count = 0            # updates applied so far (optax's count)
+        self.mini_step = 0        # micro-batches in the open accumulation group
+        self._acc = None          # their gradients' running mean
 
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
 
+    def _grads(self) -> List[torch.Tensor]:
+        """Every parameter's gradient; one that got none counts as zero."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
+    @staticmethod
+    def _norm(grads: List[torch.Tensor]) -> torch.Tensor:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
     @torch.no_grad()
     def clip_(self) -> torch.Tensor:
         """Clip the gradients in place to global norm <= max_norm (optax
         clip_by_global_norm); returns the norm before clipping, a 0-d tensor
-        (no host sync). A parameter that got no gradient counts as zero."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        (no host sync)."""
+        grads = self._grads()
+        norm = self._norm(grads)
         clipped = norm >= self.max_norm
         one = torch.ones((), device=norm.device)
         torch._foreach_div_(grads, torch.where(clipped, norm, one))
@@ -152,6 +166,54 @@ class RegimeAdamW:
             group["lr"] = self.base_lr * self.mults[group["group"]] * scale
         self.opt.step()
         self.count += 1
+
+    @torch.no_grad()
+    def update(self) -> torch.Tensor:
+        """Take one micro-batch's gradients (in `.grad`); returns their
+        global norm before clipping (0-d tensor). Without accumulation, clip
+        and step. With ACCUM_ITER k, fold them into the group's running
+        mean; the k-th clips the mean and applies one AdamW update."""
+        if self.accum == 1:
+            norm = self.clip_()
+            self.step()
+            return norm
+        grads = self._grads()
+        norm = self._norm(grads)
+        if self.mini_step == 0:
+            self._acc = [g.clone() for g in grads]
+        else:
+            diff = torch._foreach_sub(grads, self._acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self._acc, diff)
+        self.mini_step += 1
+        if self.mini_step == self.accum:
+            for p, a in zip(self.params, self._acc):
+                p.grad = a
+            self._acc, self.mini_step = None, 0
+            self.clip_()
+            self.step()
+        return norm
+
+    def state_dict(self) -> dict:
+        """AdamW's state, the applied-update count and the open
+        accumulation group, on the CPU."""
+        return {"adamw": _to_cpu(self.opt.state_dict()), "count": self.count,
+                "mini_step": self.mini_step,
+                "acc": None if self._acc is None else [a.cpu() for a in self._acc]}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state["adamw"])
+        self.count, self.mini_step = state["count"], state["mini_step"]
+        self._acc = None if state["acc"] is None else [
+            a.to(p.device) for a, p in zip(state["acc"], self.params)]
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
 
 
 def make_optimizer(cfg, model: nn.Module, steps_per_epoch: int = 1) -> RegimeAdamW:

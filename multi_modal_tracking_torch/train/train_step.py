@@ -1,11 +1,14 @@
-"""One training step of the RGB-T flagship, and the CE keep-rate schedule.
+"""One training step and one val step of the RGB-T flagship, and the CE
+keep-rate schedule.
 
 The port's counterpart of the JAX package's `train/train_step.py`: forward
 on the bimodal crops in training mode, CIoU + L1 loss, backward (K2 and K4
-on the GPU), global-norm clip, AdamW step. The metrics include `grad_norm`,
-the global norm of the gradients before clipping. Metrics come back as 0-d
-device tensors, so a caller that does not read them every step does not
-synchronise with the device every step.
+on the GPU), then the optimizer's update (global-norm clip and AdamW, once
+per ACCUM_ITER micro-batches). The metrics include `grad_norm`, the global
+norm of this micro-batch's gradients before clipping. The val step runs the
+model in eval mode without gradients and without a keep rate. Metrics come
+back as 0-d device tensors, so a caller that does not read them every step
+does not synchronise with the device every step.
 """
 from __future__ import annotations
 
@@ -75,8 +78,26 @@ def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: floa
         loss, metrics = box_losses(out["pred_boxes"], x["gt_xywh"], iou_weight, l1_weight)
         optimizer.zero_grad()
         loss.backward()
-        grad_norm = optimizer.clip_()
-        optimizer.step()
+        grad_norm = optimizer.update()
         return dict({k: v.detach() for k, v in metrics.items()}, grad_norm=grad_norm)
 
     return step
+
+
+def make_eval_step(model: nn.Module, iou_weight: float = 2.0, l1_weight: float = 5.0,
+                   device="cuda"):
+    """eval_step(batch) -> the metrics of `box_losses` ("Loss/total",
+    "Loss/ciou", "Loss/l1", "IoU"; 0-d device tensors) of the model in eval
+    mode, without gradients and with ce_keep_rate None. Runs on the GPU
+    unless device="cpu"; raises without a GPU."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(batch) -> Dict[str, torch.Tensor]:
+        x = batch if "s" in batch else model_inputs(batch, dev)
+        model.eval()
+        out = model(x["t"], x["ot"], x["s"], None)
+        _, metrics = box_losses(out["pred_boxes"], x["gt_xywh"], iou_weight, l1_weight)
+        return metrics
+
+    return eval_step

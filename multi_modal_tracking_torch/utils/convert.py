@@ -1,4 +1,10 @@
-"""JAX (flax) variables -> the port's state dict.
+"""Checkpoint formats -> the port's state dict.
+
+Reference `.pth` files already carry the port's key names:
+`load_torch_state_dict` unwraps and cleans them, `add_backbone_prefix` and
+`expand_modality_lns` rewrite the keys of warm-start files (bare MAE
+backbones, unimodal nets) as the JAX package's `utils/checkpoint.py` and
+`utils/torch_convert.py` do.
 
 The port's modules carry the reference's torch key names, so a flax
 `{"params": ..., "batch_stats": ...}` tree of the flagship maps onto them
@@ -29,6 +35,56 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+
+def is_ignored_key(key: str) -> bool:
+    """Keys a load never counts as missing or unexpected: the fixed sin-cos
+    position embeddings and MAE's mask token (reference checkpoints store
+    them, the port recomputes or lacks them) and BatchNorm's step counter."""
+    return "pos_embed" in key or "mask_token" in key or key.endswith("num_batches_tracked")
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint as {key: CPU tensor}: unwraps the `net`
+    (trainer), `model` (MAE release) and `state_dict` envelopes, strips DDP's
+    `module.` prefix and drops entries that are not tensors. Unpickles
+    tensors and plain containers only (`weights_only`): a file that pickles
+    objects of other classes raises instead of running their code."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("net", "model", "state_dict"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+            break
+    return {(k[len("module."):] if k.startswith("module.") else k): v.detach()
+            for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def add_backbone_prefix(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """A bare backbone-pretrain dict (MAE ViT, ConvMAE, CvT: no `backbone.`
+    or `box_head.` key, but `blocks.` / `patch_embed.` ones) gets the
+    `backbone.` prefix; returns (dict, whether it was applied)."""
+    if not any(k.startswith(("backbone", "box_head")) for k in sd) and \
+            any(k.startswith(("blocks.", "blocks1.", "patch_embed.", "patch_embed1.", "stage0."))
+                for k in sd):
+        return {"backbone." + k: v for k, v in sd.items()}, True
+    return sd, False
+
+
+def expand_modality_lns(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """MAE / unimodal warm start: every block LayerNorm norm1/norm2 becomes
+    the modal pair norm1_v/norm1_i (norm2 alike); position embeddings and
+    mask tokens are dropped."""
+    out = {}
+    for k, v in sd.items():
+        if "pos_embed" in k or "mask_token" in k:
+            continue
+        m = re.search(r"\.(norm[12])\.(weight|bias)$", k)
+        if m and re.search(r"(^|\.)blocks\.", k):
+            for suffix in ("_v", "_i"):
+                out[k.replace(f".{m.group(1)}.", f".{m.group(1)}{suffix}.")] = v
+        else:
+            out[k] = v
+    return out
 
 
 def _flatten(tree, prefix=()) -> Iterator[Tuple[tuple, Any]]:

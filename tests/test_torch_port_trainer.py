@@ -34,8 +34,9 @@ def _cfg(get=get_default_config):
 
 
 @pytest.fixture(scope="module")
-def trained():
-    tr = Trainer("asymmetric_shared_ce", _cfg(), device="cpu", seed=0, spec_overrides=TINY)
+def trained(tmp_path_factory):
+    tr = Trainer("asymmetric_shared_ce", _cfg(), save_dir=str(tmp_path_factory.mktemp("trainer")),
+                 device="cpu", seed=0, spec_overrides=TINY)
     tr.train(max_epochs=2)
     return tr
 
