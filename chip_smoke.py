@@ -10,7 +10,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 session (`warm_profiler`);
   3. kernels  - each kernel (K1, K2 mixed-attention forward/backward, K3, K4
                 MSDA forward/backward) against its plain PyTorch version on
-                the card at the main paths' shapes (and narrow and ragged
+                the card at the main paths' shapes (the lockstep eval's
+                batch of 12 included; and narrow and ragged
                 edge cases), K1's saved logsumexp included and fed to K2,
                 timed on the device (torch.profiler) and with CUDA events,
                 beside the plain version, a PyTorch library yardstick where
@@ -54,9 +55,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 _ep0002 checkpoint (strict load) must track 16 frames within
                 1e-6 px of a tracker on the trainer's in-memory model.
                 Prints checkpoint bytes, save / load / resume seconds, val
-                ms per batch and ms per accumulation micro-step.
-Then the kernel table line (launches by path: tracker, train, lifecycle)
-and, last, {"ok": true, "device": {...}}.
+                ms per batch and ms per accumulation micro-step;
+  9. eval     - the evaluation stack on synthetic_rgbt_hard (12 sequences of
+                60 frames at 240x320), full width, seed-0 weights: run_dataset
+                one stream at a time, chunk 16 (A); run_sequences_batched at
+                N = 4 and N = 12 (B4, B12: the N sequences as one (2N, ...)
+                batch; K3 takes its gather kernel at N = 4 and its staged one
+                at N = 12); run_sequence with ROI-window uploads, margin 1.5
+                (R). Requires a result file per sequence with finite boxes
+                inside the frame, B4 and B12 within 0.05 px of A at every
+                frame, R's files byte-identical to A's and its trajectories
+                equal, a windowed chunk, and each run's K1 / K3 launches (K2
+                and K4 none). Prints frames/s on the host clock per run,
+                upload bytes per frame (full frames, ROI windows), a profiled
+                B12 block's device busy time and idle share, and the
+                success / precision tables of A and B12.
+Then the kernel table line (launches by path: tracker, train, lifecycle,
+eval) and, last, {"ok": true, "device": {...}}.
 
 Tolerances (f32 everywhere, TF32 off for cuBLAS and cuDNN):
   * kernels: 2e-5 abs or 1e-4 rel (K1 and its logsumexp, K2, K3). Both sides
@@ -69,6 +84,13 @@ Tolerances (f32 everywhere, TF32 off for cuBLAS and cuDNN):
     atomics in an order that changes from run to run, and dLoc (a factor W
     or H times sums of D products) reaches ~1e3. A wrong mask, tap or
     coordinate gives errors of order 1e-2 of the output or more.
+  * eval, lockstep against one stream: 0.05 px in frame coordinates. The
+    batch of N runs other GEMM shapes (and a batched crop) than batch 1, so
+    sums come out in another order; the model bound above (0.03 px) plus
+    what the box map-back adds. With random weights the box shrinks to the
+    10 px minimum; a difference that moved the crop's integer window (round
+    half to even of its corner, the ceil of its side) would move a
+    trajectory by pixels, which is what this bound catches.
   * model boxes (normalised to [0, 1]): 1e-4, i.e. 0.03 px at 288. The paths
     compared use other key orders, GEMM shapes and CPU vs GPU kernels
     through 12 blocks, 2 fusion layers and the head.
@@ -112,6 +134,9 @@ LIFE_STEPS = 2                     # steps (and val batches) per epoch in the li
 LIFE_FRAMES = 16                   # frames tracked on the lifecycle's checkpoint
 KEEP_FINAL = 240 / 324             # keep 0.7 bucketised to a multiple of 16
 MSDA_SHAPES = ((18, 18), (18, 18))  # the fusion's two modal 18x18 maps
+EVAL_SMALL, EVAL_BIG = 4, 12       # sequences per lockstep batch in the eval phase
+EVAL_CHUNK = 16                    # frames per dispatch in the eval phase
+EVAL_PX_TOL = 0.05                 # batched vs sequential trajectories, px
 M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
 
 
@@ -301,6 +326,8 @@ def kernel_k1(g):
     cases = [("template_step", B2, N_MT, N_MT, 0, 0, 0)]
     cases += [("search_step", B2, L, L + 2 * N_MT, 0, n, 0) for L, n in CE_LENGTHS]
     cases += [("full_forward", B2, N_MT + L, 2 * N_MT + L, N_MT, 0, 0) for L, _ in CE_LENGTHS]
+    cases += [(f"search_step_b{n_seq}", 2 * n_seq, L, L + 2 * N_MT, 0, 0, 0)
+              for n_seq in (EVAL_SMALL, EVAL_BIG) for L, _ in CE_LENGTHS]
     cases += [("train_forward", 2 * TRAIN_B, n, n + N_MT, N_MT, 0, c)
               for n, c in train_attention_lengths(KEEP_FINAL)]
     rows, err_max = [], 0.0
@@ -435,15 +462,16 @@ def _live_corners(loc, shapes):
 
 
 def kernel_k3(g):
-    """K3 at the tracking (B 1, gather kernel) and training (B 16, staged
-    kernel) shapes, on uniform locations (the earlier cases, kept
-    comparable) and model-like ones; at B 1 also the gather grid's launch
-    floor (an empty kernel)."""
+    """K3 at the tracking (B 1, gather kernel), lockstep eval (B 4, gather;
+    B 12, staged) and training (B 16, staged kernel) shapes, on uniform
+    locations (the earlier cases, kept comparable) and model-like ones; at
+    B 1 also the gather grid's launch floor (an empty kernel)."""
     from multi_modal_tracking_torch.ops import _build
     from multi_modal_tracking_torch.ops.msda import ms_deform_attn_fwd, ms_deform_attn_ref
     rows, err_max = [], 0.0
     S = Lq = 648
-    for B in (1, TRAIN_B):
+    want_plan = {EVAL_SMALL: "gather", EVAL_BIG: "staged"}
+    for B in (1, EVAL_SMALL, EVAL_BIG, TRAIN_B):
         for locations in ("uniform", "model"):
             value, loc, attw = _msda_inputs(B, MSDA_SHAPES, Lq, M_HEADS, M_D, M_P, g, -0.1, 1.1)
             if locations == "model":
@@ -458,6 +486,9 @@ def kernel_k3(g):
             n_bytes = 4 * (value.numel() + loc.numel() + attw.numel() + got.numel())
             b_ms, b_by = bound_ms(n_bytes, flops)
             plan = _plan(value, MSDA_SHAPES)
+            require(plan.fwd == want_plan.get(B, plan.fwd),
+                    f"K3 B={B}: msda_plan chose {plan.fwd}, the eval phase expects "
+                    f"{want_plan.get(B)}")
             row = dict(B=B, S=S, Lq=Lq, M=M_HEADS, D=M_D, L=M_L, P=M_P, locations=locations,
                        path=plan.fwd, smem=plan.fwd_smem, max_abs_err=err, max_rel_err=rel,
                        ms=device_ms(kern, ["msda_fwd_kernel"]), event_ms=cuda_time_ms(kern),
@@ -732,10 +763,13 @@ def _counters():
 def reset_launches() -> None:
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["K3"].launches_by_kernel.update(staged=0, gather=0)
 
 
 def read_launches() -> dict:
-    return {k: fn.launches for k, fn in _counters().items()}
+    out = {k: fn.launches for k, fn in _counters().items()}
+    out["K3_by_kernel"] = dict(_counters()["K3"].launches_by_kernel)
+    return out
 
 
 def phase_tracker(smi: str, frames) -> tuple:
@@ -1227,6 +1261,172 @@ def phase_lifecycle(smi: str, frames) -> dict:
     return launches
 
 
+def _inside(boxes: np.ndarray, H: int, W: int) -> bool:
+    return bool(np.isfinite(boxes).all() and (boxes[:, :2] >= 0).all()
+                and (boxes[:, 2:] > 0).all() and (boxes[:, 0] + boxes[:, 2] <= W).all()
+                and (boxes[:, 1] + boxes[:, 3] <= H).all())
+
+
+def _eval_run(name: str, fn, seqs, root: str, runs: dict) -> dict:
+    """Time one eval run on the host clock with the launch counts of that
+    run alone; check its files. Returns {sequence: float trajectory}."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = fn(os.path.join(root, name))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    require(launches["K1"] > 0 and launches["K3"] > 0 and launches["K2"] == launches["K4"] == 0,
+            f"eval {name}: launches {launches}")
+    H, W = seqs[0].frames[0][0].shape[:2]
+    floats = {s["seq"]: s["boxes"] for s in stats}
+    for seq in seqs:
+        path = os.path.join(root, name, f"{seq.name}.txt")
+        require(os.path.isfile(path), f"eval {name}: no result file for {seq.name}")
+        boxes = np.loadtxt(path)
+        require(boxes.shape == (len(seq.frames), 4) and _inside(boxes, H, W)
+                and _inside(floats[seq.name], H, W),
+                f"eval {name}: {seq.name} boxes not finite {len(seq.frames)}x4 inside the frame")
+    frames = sum(len(s.frames) for s in seqs)
+    runs[name] = dict(seconds=secs, frames=frames, fps=frames / secs, launches=launches)
+    return floats
+
+
+def _profile_block(bt, seqs, n_frames: int) -> dict:
+    """torch.profiler over one lockstep block of n_frames frames of every
+    sequence in `seqs` (already uploaded): device busy time and idle share
+    per lockstep step and per frame."""
+    from torch.profiler import ProfilerActivity, profile
+    N = len(seqs)
+    fv = np.stack([np.stack([s.frames[k][0] for s in seqs]) for k in range(1, n_frames + 1)])
+    fi = np.stack([np.stack([s.frames[k][1] for s in seqs]) for k in range(1, n_frames + 1)])
+    bt.initialize(fv[0], fi[0], np.stack([s.ground_truth_rect[0, 0] for s in seqs]))
+    bt.track_block(fv, fi)                               # warm
+    bt.initialize(fv[0], fi[0], np.stack([s.ground_truth_rect[0, 0] for s in seqs]))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bt.track_block(fv, fi)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ivals = _device_intervals(prof)
+    require(len(ivals) > 0, "the profiler saw no device operation in the lockstep block")
+    busy = _busy_us(ivals)
+    return dict(batch=N, steps=n_frames, wall_ms_per_step=wall_us / n_frames / 1e3,
+                device_busy_ms_per_step=busy / n_frames / 1e3,
+                device_busy_ms_per_frame=busy / n_frames / N / 1e3,
+                wall_ms_per_frame=wall_us / n_frames / N / 1e3,
+                device_idle_share=1.0 - busy / wall_us,
+                device_ops_per_step=len(ivals) / n_frames)
+
+
+def phase_eval(smi: str) -> dict:
+    """The evaluation stack on synthetic_rgbt_hard (12 sequences of 60
+    frames at 240x320), full width, seed-0 weights: run_dataset one stream
+    at a time (A), run_sequences_batched at N = 4 and 12 (B4, B12), and
+    run_sequence in ROI mode, margin 1.5 (R). Returns the launch counts of
+    the four runs together."""
+    from multi_modal_tracking_torch.eval.analysis import TrackerResults, print_results
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.eval.running import run_dataset, run_sequence
+    from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
+                                                             run_sequences_batched)
+    name = "synthetic_rgbt_hard"
+    seqs = get_dataset(name)
+    tracker = create_tracker(_params(), name, seed=0)
+    tracked = sum(len(s.frames) - 1 for s in seqs)
+    bt = BatchedRGBTCachedTracker(tracker.model, template_factor=tracker.template_factor,
+                                  template_size=tracker.template_size,
+                                  search_factor=tracker.search_factor,
+                                  search_size=tracker.search_size,
+                                  update_interval=tracker.update_interval,
+                                  ce_keep_rate=None, scan_chunk=EVAL_CHUNK)
+    # one untimed block at each batch size (first calls of new GEMM shapes)
+    for n in (EVAL_SMALL, EVAL_BIG):
+        _profile_block(bt, seqs[:n], 2)
+    uploads = {"window": 0, "full": 0, "frames": 0}
+    chunk_full, chunk_roi = tracker.track_chunk, tracker.track_chunk_roi
+
+    def counted(fn, key):
+        def run(a, b, *args, **kwargs):
+            uploads[key] += a.nbytes + b.nbytes
+            uploads["frames"] += a.shape[0]
+            return fn(a, b, *args, **kwargs)
+        return run
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        seq_floats = _eval_run("A", lambda d: run_dataset(seqs, tracker, d, chunk=EVAL_CHUNK),
+                               seqs, root, runs)
+        want_a = dict(K1=12 * (tracked + len(seqs)), K3=2 * tracked)
+        require(all(runs["A"]["launches"][k] == v for k, v in want_a.items()),
+                f"eval A: launches {runs['A']['launches']}, expected {want_a}")
+        batched = {}
+        for n in (EVAL_SMALL, EVAL_BIG):
+            def lockstep(d, n=n):
+                return [st for lo in range(0, len(seqs), n)
+                        for st in run_sequences_batched(seqs[lo:lo + n], bt, d,
+                                                        chunk=EVAL_CHUNK)]
+            batched[n] = _eval_run(f"B{n}", lockstep, seqs, root, runs)
+            steps = (len(seqs) // n) * (max(len(s.frames) for s in seqs) - 1)
+            got = runs[f"B{n}"]["launches"]
+            require(got["K3"] == 2 * steps and got["K1"] == 12 * (steps + len(seqs) // n),
+                    f"eval B{n}: launches {got} over {steps} lockstep steps")
+            kernel = "staged" if 2 * n * M_HEADS >= torch.cuda.get_device_properties(0) \
+                .multi_processor_count else "gather"
+            require(got["K3_by_kernel"][kernel] == got["K3"],
+                    f"eval B{n}: K3 kernels {got['K3_by_kernel']}, expected {kernel}")
+            worst = max(float(np.abs(batched[n][k] - seq_floats[k]).max()) for k in seq_floats)
+            runs[f"B{n}"]["max_abs_px_vs_A"] = worst
+            require(worst <= EVAL_PX_TOL, f"eval B{n}: trajectories {worst} px from the "
+                                          f"sequential ones (bound {EVAL_PX_TOL})")
+        require(runs[f"B{EVAL_BIG}"]["launches"]["K3_by_kernel"]["staged"] > 0
+                and runs[f"B{EVAL_SMALL}"]["launches"]["K3_by_kernel"]["gather"] > 0,
+                "eval: K3 staged at N=12 and gather at N=4")
+
+        tracker.track_chunk = counted(chunk_full, "full")
+        tracker.track_chunk_roi = counted(chunk_roi, "window")
+        roi_stats = []
+
+        def roi(d):
+            roi_stats.extend(run_sequence(s, tracker, d, chunk=EVAL_CHUNK, roi_margin=1.5)
+                             for s in seqs)
+            return roi_stats
+        roi_floats = _eval_run("R", roi, seqs, root, runs)
+        del tracker.track_chunk, tracker.track_chunk_roi
+        for seq in seqs:
+            with open(os.path.join(root, "A", f"{seq.name}.txt"), "rb") as fa, \
+                    open(os.path.join(root, "R", f"{seq.name}.txt"), "rb") as fr:
+                require(fa.read() == fr.read(), f"eval R: {seq.name}.txt differs from A's")
+            require(torch.equal(torch.from_numpy(roi_floats[seq.name]),
+                                torch.from_numpy(seq_floats[seq.name])),
+                    f"eval R: {seq.name} trajectory differs from A's")
+        windowed = sum(s["n_windowed"] for s in roi_stats)
+        require(windowed >= 1, "eval R: no chunk was windowed")
+        H, W = seqs[0].frames[0][0].shape[:2]
+        runs["R"].update(n_chunks=sum(s["n_chunks"] for s in roi_stats), n_windowed=windowed,
+                         n_fallback=sum(s["n_fallback"] for s in roi_stats),
+                         upload_bytes_per_frame=(uploads["window"] + uploads["full"])
+                         / tracked, upload_bytes_per_frame_full=2 * H * W * 3)
+        scores = {}
+        for key in ("A", f"B{EVAL_BIG}"):
+            sc = print_results([TrackerResults(os.path.join(root, key), key)], seqs,
+                               report_name=f"{name} {key}")
+            scores[key] = {k: float(sc[k][0]) for k in ("AUC", "OP50", "OP75", "Precision")}
+    profile = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK)
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in ("K1", "K2", "K3", "K4")}
+    emit({"phase": "eval", "card": smi, "dataset": name, "sequences": len(seqs),
+          "frames": sum(len(s.frames) for s in seqs), "tracked_frames": tracked,
+          "frame_hw": [H, W], "chunk": EVAL_CHUNK, "px_tolerance": EVAL_PX_TOL,
+          "update_interval": bt.update_interval, "runs": runs,
+          "profile_b12_block": profile, "scores": scores, "launches": launches})
+    del bt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     dev, smi = phase_device()
     phase_build()
@@ -1241,10 +1441,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as save_dir:
         train_launches = phase_train(smi, save_dir)
     life_launches = phase_lifecycle(smi, frames)
+    eval_launches = phase_eval(smi)
     table = []
     for key in ("K1", "K2", "K3", "K4"):
         by_path = {"tracker": track_launches[key], "train": train_launches[key],
-                   "lifecycle": life_launches[key]}
+                   "lifecycle": life_launches[key], "eval": eval_launches[key]}
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -1,0 +1,230 @@
+"""Sequence runner: drive a tracker over evaluation sequences and write the
+result files (the port's own counterpart of the JAX package's
+`eval/running.py`).
+
+`run_sequence` writes, per sequence, in the reference's layout:
+  <seq>.txt       the boxes, one xywh row per frame, `%d`, tab-separated;
+                  frame 0 holds the init box
+  <seq>_time.txt  seconds per frame, `%f` (amortised over the sequence on
+                  the chunked paths)
+(`<seq>_score.txt` belongs to the score-giving online trackers, which are
+not ported.) A background thread (`_Prefetcher`) stacks the next chunks of
+frames while the device tracks; the chunked path dispatches every chunk
+with `track_chunk(fetch=False)` and fetches all boxes once at the end.
+With `roi_margin` > 0 only a window around the box is uploaded per chunk
+(`track_chunk_roi`), and a chunk whose crops left the window is redone on
+full frames from a snapshot, so the files are those of the full-frame path
+byte for byte.
+
+Frames are uint8 arrays. Path frames need an image decoder, which the port
+does not have yet (ROADMAP.md queue 1 item 1); they raise.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from queue import Queue
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from multi_modal_tracking_torch.eval.data import RGBTSequence, Sequence
+from multi_modal_tracking_torch.tracking.tracker import (_select_init_box, place_window,
+                                                         roi_window)
+
+#: smallest ROI window side (pixels) and the multiple it is rounded up to;
+#: the CLI and run_dataset always use these, only small-frame tests change them
+ROI_MIN_SIZE, ROI_ALIGN = 192, 64
+
+
+def _load_frame(seq, k):
+    """Frame k of a sequence: [frame_v, frame_i] for RGB-T sequences, the
+    array for unimodal ones."""
+    fr = seq.frames[k]
+    frames = list(fr) if isinstance(seq, RGBTSequence) else [fr]
+    for f in frames:
+        if not isinstance(f, np.ndarray):
+            raise NotImplementedError(
+                f"{seq.name} frame {k} is {type(f).__name__} {f!r}, not an array: decoding "
+                f"image files is not ported (ROADMAP.md queue 1 item 1)")
+    return frames if isinstance(seq, RGBTSequence) else frames[0]
+
+
+class _Prefetcher:
+    """Background frame loader: keeps `depth` stacked chunks of frames ahead
+    of the device; an error while loading is raised in the consumer."""
+
+    def __init__(self, seq, start: int, chunk: int, depth: int = 2):
+        self.seq, self.chunk = seq, chunk
+        self.q: Queue = Queue(maxsize=depth)
+        self.n = len(seq.frames)
+        self.start = start
+        self.t = threading.Thread(target=self._work, daemon=True)
+        self.t.start()
+
+    def _work(self):
+        try:
+            for lo in range(self.start, self.n, self.chunk):
+                hi = min(lo + self.chunk, self.n)
+                frames = [_load_frame(self.seq, k) for k in range(lo, hi)]
+                if isinstance(self.seq, RGBTSequence):
+                    self.q.put((lo, hi, np.stack([f[0] for f in frames]),
+                                np.stack([f[1] for f in frames])))
+                else:
+                    self.q.put((lo, hi, np.stack(frames), None))
+        except Exception as e:          # hand it to the consumer, which would
+            self.q.put(e)               # otherwise wait for a sentinel that
+            return                      # never comes
+        self.q.put(None)
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+
+
+def _track_roi(seq, tracker, chunk, roi_margin, roi_min_size, roi_align):
+    """The ROI-window chunked path: (boxes of frames 1.., roi stats)."""
+    collected = []
+    n_fallback = n_windowed = n_chunks = 0
+    # window-size hysteresis: keep the last (re-centred) size while it
+    # still covers the size needed now, so the size changes only when the
+    # target really grows
+    prev_sz = None
+    for _, _, fv, fi in _Prefetcher(seq, 1, chunk):
+        n_chunks += 1
+        fi = fv if fi is None else fi
+        box = tracker.current_box()
+        win = roi_window(box, fv.shape[1:3], tracker.search_factor, margin=roi_margin,
+                         align=roi_align, min_size=roi_min_size)
+        if win is None:                        # the window would be the frame
+            collected.append(tracker.track_chunk(fv, fi, fetch=True))
+            continue
+        if prev_sz is not None and win[1][0] <= prev_sz[0] and win[1][1] <= prev_sz[1]:
+            win = place_window(box, fv.shape[1:3], prev_sz)
+        prev_sz = win[1]
+        (ox, oy), (hw, ww) = win
+        wv = np.ascontiguousarray(fv[:, oy:oy + hw, ox:ox + ww])
+        wi = np.ascontiguousarray(fi[:, oy:oy + hw, ox:ox + ww])
+        snap = tracker.snapshot()
+        out, oks = tracker.track_chunk_roi(wv, wi, (ox, oy), fetch=True)
+        if bool(np.all(oks)):
+            n_windowed += 1
+            collected.append(out)
+        else:                                  # the crop left the window: redo
+            n_fallback += 1
+            tracker.restore(snap)
+            collected.append(tracker.track_chunk(fv, fi, fetch=True))
+    return np.concatenate(collected), {"n_chunks": n_chunks, "n_windowed": n_windowed,
+                                       "n_fallback": n_fallback}
+
+
+def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = True,
+                 chunk: int = 16, report_fps: bool = True, save_vis: bool = False,
+                 roi_margin: float = 0.0, roi_min_size: int = ROI_MIN_SIZE,
+                 roi_align: int = ROI_ALIGN) -> Optional[dict]:
+    """Track one sequence and write <results_dir>/<seq>.txt and _time.txt.
+
+    Returns None when the result file exists and skip_if_done is set, else
+    {"seq", "n_frames", "fps", "boxes"} (boxes: the (n, 4) float64
+    trajectory the file rounds; plus "n_chunks", "n_windowed",
+    "n_fallback" in ROI mode). A tracker with `track_chunk` runs chunked
+    (`chunk` frames per dispatch), one with only `track` per frame.
+
+    roi_margin > 0 uploads, per chunk, a window of roi_margin times the
+    search region (at least roi_min_size, rounded up to roi_align) instead
+    of the frames, at the cost of one 4-float fetch per chunk; the files are
+    the full-frame path's byte for byte. save_vis (a video of the search
+    regions) needs cv2, which the port does not use, and raises."""
+    if save_vis:
+        raise NotImplementedError("save_vis writes a video with cv2, which the port does not "
+                                  "use (ROADMAP.md queue 1 item 1)")
+    os.makedirs(results_dir, exist_ok=True)
+    bbox_file = os.path.join(results_dir, f"{seq.name}.txt")
+    if skip_if_done and os.path.isfile(bbox_file):
+        return None
+
+    n = len(seq.frames)
+    boxes = np.zeros((n, 4), dtype=np.float64)
+    times = np.zeros((n,), dtype=np.float64)
+    frame0 = _load_frame(seq, 0)
+    t0 = time.time()
+    tracker.initialize(frame0, seq.init_info())
+    boxes[0] = np.asarray(_select_init_box(seq.init_info()["init_bbox"]))
+    times[0] = time.time() - t0
+
+    roi_stats = None
+    if n > 1 and roi_margin > 0 and hasattr(tracker, "track_chunk_roi"):
+        t_seq = time.time()
+        tracked, roi_stats = _track_roi(seq, tracker, chunk, roi_margin, roi_min_size,
+                                        roi_align)
+        boxes[1:] = tracked[: n - 1]
+        times[1:] = (time.time() - t_seq) / (n - 1)
+    elif n > 1 and hasattr(tracker, "track_chunk"):
+        # every chunk is dispatched without a fetch; the boxes come back in
+        # one copy at the end
+        t_seq = time.time()
+        pending = [tracker.track_chunk(fv, fv if fi is None else fi, fetch=False)
+                   for _, _, fv, fi in _Prefetcher(seq, 1, chunk)]
+        boxes[1:] = torch.cat(pending).cpu().numpy()[: n - 1]
+        times[1:] = (time.time() - t_seq) / (n - 1)   # amortised per frame
+    else:
+        for k in range(1, n):
+            frame = _load_frame(seq, k)
+            t0 = time.time()
+            boxes[k] = np.asarray(tracker.track(frame)["target_bbox"])
+            times[k] = time.time() - t0
+
+    np.savetxt(bbox_file, boxes, delimiter="\t", fmt="%d")
+    np.savetxt(os.path.join(results_dir, f"{seq.name}_time.txt"), times, fmt="%f")
+    fps = n / max(times.sum(), 1e-9)
+    stats = {"seq": seq.name, "n_frames": n, "fps": fps, "boxes": boxes}
+    roi_msg = ""
+    if roi_stats is not None:
+        stats.update(roi_stats)
+        roi_msg = (f" | roi: {roi_stats['n_windowed']}/{roi_stats['n_chunks']} chunks "
+                   f"windowed, {roi_stats['n_fallback']} fallbacks")
+    if report_fps:
+        print(f"{seq.name}: {n} frames, {fps:.1f} FPS{roi_msg}")
+    return stats
+
+
+def run_dataset(dataset, tracker, results_dir: str, skip_if_done: bool = True,
+                chunk: int = 16, threads: int = 0, tracker_factory=None, devices=None,
+                save_vis: bool = False, roi_margin: float = 0.0) -> List[dict]:
+    """Run a tracker over every sequence of `dataset`.
+
+    threads > 0 with tracker_factory maps the sequences over a thread pool
+    with one tracker per worker thread, all on the one card (host work of
+    one worker overlaps the device work of another). `devices` (workers
+    pinned to several cards) waits for the multi-GPU slice (ROADMAP.md
+    queue 1 item 7) and raises."""
+    if devices:
+        raise NotImplementedError("run_dataset(devices=...) spreads workers over several "
+                                  "GPUs, which is not ported (ROADMAP.md queue 1 item 7)")
+    kw = dict(skip_if_done=skip_if_done, chunk=chunk, save_vis=save_vis,
+              roi_margin=roi_margin)
+    if threads and tracker_factory is not None:
+        local = threading.local()
+
+        def work(seq):
+            if not hasattr(local, "tracker"):
+                local.tracker = tracker_factory()
+            return run_sequence(seq, local.tracker, results_dir, **kw)
+        with ThreadPoolExecutor(max_workers=threads) as ex:
+            stats = [s for s in ex.map(work, dataset) if s is not None]
+    else:
+        stats = [s for s in (run_sequence(seq, tracker, results_dir, **kw) for seq in dataset)
+                 if s is not None]
+    if stats:
+        total = sum(s["n_frames"] for s in stats)
+        tfps = total / max(sum(s["n_frames"] / s["fps"] for s in stats), 1e-9)
+        print(f"ran {len(stats)} sequences, {total} frames, mean {tfps:.1f} FPS")
+    return stats

@@ -218,7 +218,9 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
                        attention_weights: torch.Tensor) -> torch.Tensor:
     """Forward without autograd: kernel K3 for CUDA tensors (its staged or
     gather kernel, as `msda_plan` picks; each launch counted in
-    `ms_deform_attn.launches`), `ms_deform_attn_ref` for CPU tensors."""
+    `ms_deform_attn.launches` and, by kernel, in
+    `ms_deform_attn.launches_by_kernel`), `ms_deform_attn_ref` for CPU
+    tensors."""
     tensors = (value, sampling_locations, attention_weights)
     if all(t.device.type == "cpu" for t in tensors):
         return ms_deform_attn_ref(value, spatial_shapes, sampling_locations,
@@ -237,6 +239,7 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
                            torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_fwd_f32")
     ms_deform_attn.launches += 1
+    ms_deform_attn.launches_by_kernel[plan.fwd] += 1
     return out
 
 
@@ -311,4 +314,6 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
 
 
 ms_deform_attn.launches = 0
+#: K3 launches by the kernel `msda_plan` picked ("staged" or "gather")
+ms_deform_attn.launches_by_kernel = {"staged": 0, "gather": 0}
 ms_deform_attn_bwd.launches = 0

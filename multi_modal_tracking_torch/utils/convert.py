@@ -30,7 +30,10 @@ Input leaves are numpy arrays (or anything np.asarray accepts).
 """
 from __future__ import annotations
 
+import collections
+import pickle
 import re
+import types
 from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
@@ -44,13 +47,80 @@ def is_ignored_key(key: str) -> bool:
     return "pos_embed" in key or "mask_token" in key or key.endswith("num_batches_tracked")
 
 
+class _Inert:
+    """What every global outside the allow-list unpickles to. Building,
+    reducing, calling or filling one runs no code and gives an _Inert."""
+
+    def __new__(cls, *args, **kwargs):
+        return object.__new__(_Inert)
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, *args, **kwargs):
+        return _Inert()
+
+    def __setstate__(self, state):
+        pass
+
+    def __setitem__(self, key, value):
+        pass
+
+    def append(self, item):
+        pass
+
+    def extend(self, items):
+        pass
+
+
+def _allowed_globals() -> Dict[str, Any]:
+    """"module.name" -> object for the globals a checkpoint may use: torch's
+    tensor and storage rebuilds and whatever else torch's weights-only
+    unpickler allows, the safe globals registered with torch.serialization,
+    OrderedDict, and numpy's array reconstruction."""
+    from torch import _weights_only_unpickler
+    allowed = dict(_weights_only_unpickler._get_allowed_globals())
+    for obj in torch.serialization.get_safe_globals():
+        obj = obj[0] if isinstance(obj, tuple) else obj
+        allowed[f"{obj.__module__}.{obj.__qualname__}"] = obj
+    allowed["collections.OrderedDict"] = collections.OrderedDict
+    try:
+        from numpy._core import multiarray
+    except ImportError:                    # numpy < 2
+        from numpy.core import multiarray
+    for mod in ("numpy.core.multiarray", "numpy._core.multiarray"):
+        allowed[f"{mod}._reconstruct"] = multiarray._reconstruct
+        allowed[f"{mod}.scalar"] = multiarray.scalar
+    allowed["numpy.ndarray"] = np.ndarray
+    allowed["numpy.dtype"] = np.dtype
+    return allowed
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._allowed = _allowed_globals()
+
+    def find_class(self, module: str, name: str):
+        return self._allowed.get(f"{module}.{name}", _Inert)
+
+
+#: `torch.load`'s pickle_module for reference files: the standard pickle
+#: with every global outside `_allowed_globals` resolved to `_Inert`
+_restricted_pickle = types.ModuleType("restricted_pickle")
+_restricted_pickle.Unpickler = _RestrictedUnpickler
+_restricted_pickle.load = lambda f, **kw: _RestrictedUnpickler(f, **kw).load()
+
+
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A reference checkpoint as {key: CPU tensor}: unwraps the `net`
     (trainer), `model` (MAE release) and `state_dict` envelopes, strips DDP's
-    `module.` prefix and drops entries that are not tensors. Unpickles
-    tensors and plain containers only (`weights_only`): a file that pickles
-    objects of other classes raises instead of running their code."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+    `module.` prefix and drops entries that are not tensors. A reference
+    trainer file may pickle objects beside the weights (settings, stats);
+    they unpickle as inert stubs (`_Inert`), so no pickled code runs and the
+    tensors load as the JAX package's unrestricted load gives them."""
+    obj = torch.load(path, map_location="cpu", weights_only=False,
+                     pickle_module=_restricted_pickle)
     for key in ("net", "model", "state_dict"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]

@@ -241,6 +241,45 @@ def test_reference_pth_loads_alike(pair, tmp_path, case):
         assert not report["missing"] and not report["unexpected"]
 
 
+def _write_marker(path):
+    with open(path, "w") as f:
+        f.write("pickled code ran")
+    return {"written": path}
+
+
+class _Settings:
+    """A trainer-settings object whose unpickling runs code (writes a file)."""
+
+    def __init__(self, marker):
+        self.marker = marker
+
+    def __reduce__(self):
+        return (_write_marker, (self.marker,))
+
+
+@pytest.mark.parametrize("strict", [True, False], ids=["strict", "warm"])
+def test_reference_pth_with_objects_loads_without_running_code(pair, tmp_path, strict):
+    """A reference trainer file that pickles an object beside the weights:
+    the JAX package's unrestricted load runs its code (the marker file
+    appears) and keeps the tensors; the port loads the same weights and runs
+    none of it (the marker stays absent)."""
+    _, variables, _ = pair
+    sd = from_jax_variables(_randomise(variables, 24))
+    marker = tmp_path / "marker.txt"
+    path = str(tmp_path / "MixFormerRGBT_ep0003.pth.tar")
+    torch.save({"net": sd if strict else {k: v for k, v in sd.items() if "box_head" not in k},
+                "settings": _Settings(str(marker)), "stats": {"loss": 0.5, "epoch": 3}}, path)
+    jax_out = jax_ckpt.load_variables(path, variables, strict=strict)
+    assert marker.exists()           # the payload is live under an unrestricted load
+    marker.unlink()
+    pmodel = _port_model()
+    pmodel.load_state_dict(from_jax_variables(variables), strict=True)
+    report = port_ckpt.load_variables(path, pmodel, strict=strict)
+    assert not marker.exists()
+    _assert_same_weights(pmodel, jax_out)
+    assert not report["unexpected"] and bool(report["missing"]) is not strict
+
+
 # -------------------------------------------------------- files and names
 @pytest.mark.parametrize("keep", [(10, 5), (3, 4)], ids=["default", "last3_every4"])
 def test_keep_policy_matches_jax(tmp_path, keep):

@@ -3,7 +3,8 @@ msgpack nor cv2 (the last two are absent on the machine with the GPU), and
 its entry points run on the GPU or raise — they never fall back to the CPU
 on their own. Options that are not ported raise; the ones that are (a
 checkpoint for the tracker, ACCUM_ITER, the val split, checkpoints and the
-fail-safe restart) work."""
+fail-safe restart) work. The eval stack (eval/ and tracking/batched.py) is
+covered alike."""
 import ast
 import os
 import subprocess
@@ -49,6 +50,13 @@ def test_import_leaves_jax_unloaded():
             "multi_modal_tracking_torch.utils.convert\n"
             "import multi_modal_tracking_torch.train.trainer, "
             "multi_modal_tracking_torch.train.run, multi_modal_tracking_torch.utils.checkpoint\n"
+            "import multi_modal_tracking_torch.eval.run, multi_modal_tracking_torch.eval.running, "
+            "multi_modal_tracking_torch.eval.analysis, multi_modal_tracking_torch.eval.metrics, "
+            "multi_modal_tracking_torch.eval.datasets, "
+            "multi_modal_tracking_torch.eval.datasets_rgbt, "
+            "multi_modal_tracking_torch.eval.data, multi_modal_tracking_torch.tracking.batched\n"
+            "from multi_modal_tracking_torch.eval.datasets import get_dataset\n"
+            "get_dataset('synthetic_rgbt_hard', n_sequences=1, n_frames=2)\n"
             "from multi_modal_tracking_torch.eval.evaltracker import create_tracker\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'multi_modal_tracking_tpu', 'cv2', 'msgpack')]\n"
@@ -58,6 +66,20 @@ def test_import_leaves_jax_unloaded():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_eval_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The lockstep trackers and the eval CLI, like create_tracker."""
+    from multi_modal_tracking_torch.eval import run
+    from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
+                                                             BatchedRGBTTracker)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (BatchedRGBTTracker, BatchedRGBTCachedTracker):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(torch.nn.Linear(2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["asymmetric_shared_ce", "attention_lasher_newfusion_2layer",
+                  "--sequence", "synthetic_00"])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
