@@ -23,7 +23,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 model-like sampling locations (the fusion's reference grid
                 plus its grid-bias offsets) beside uniform ones, on every
                 path `msda_plan` can choose (each is required once), and
-                K3's gather grid is timed empty as its launch floor;
+                K3's gather grid is timed empty as its launch floor; then
+                the bf16 kernels K1-bf16 and K3-bf16 (the JAX package's
+                eval dtype) at the bf16 tracker's and the lockstep N = 12
+                shapes (K3-bf16 at B 1, 4, 12, 16, msda_plan's choice
+                required) and on edge cases, each against its plain version
+                (bf16_tol) and, with its plain version, against the f32
+                answer on the same inputs: the kernel's error at most 1.25x
+                the plain version's; SDPA at bf16 beside K1-bf16;
   4. model    - the full-width asymmetric_shared_ce recipe (seeded random
                 weights): cached path (set_online + forward_track) against
                 the full forward, and the GPU run against the same model on
@@ -69,11 +76,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 and K4 none). Prints frames/s on the host clock per run,
                 upload bytes per frame (full frames, ROI windows), a profiled
                 B12 block's device busy time and idle share, and the
-                success / precision tables of A and B12.
+                success / precision tables of A and B12;
+ 10. bf16     - the bf16 serving path: create_tracker(dtype=torch.bfloat16)
+                tracks the tracker phase's 63 frames (ms per frame, centre
+                distance to the f32 trajectory), a profile of 10 more
+                (device busy, idle share, operations per frame), then
+                synthetic_rgbt_hard one stream (A16) and in lockstep N = 12
+                (B12_16): frames/s, device busy per lockstep step, distances
+                to one bf16 stream and to the f32 run A. Every run must
+                launch K1-bf16 and K3-bf16 and no f32 kernel; the f32
+                phases must launch no bf16 kernel.
 Then the kernel table line (launches by path: tracker, train, lifecycle,
 eval) and, last, {"ok": true, "device": {...}}.
 
-Tolerances (f32 everywhere, TF32 off for cuBLAS and cuDNN):
+Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
+cuBLAS and cuDNN):
   * kernels: 2e-5 abs or 1e-4 rel (K1 and its logsumexp, K2, K3). Both sides
     are f32 sums of the same terms in another order; K1 and K2 form their
     products as 3xTF32, which drops only the small*small term (~2^-22 of a
@@ -87,10 +104,16 @@ Tolerances (f32 everywhere, TF32 off for cuBLAS and cuDNN):
   * eval, lockstep against one stream: 0.05 px in frame coordinates. The
     batch of N runs other GEMM shapes (and a batched crop) than batch 1, so
     sums come out in another order; the model bound above (0.03 px) plus
-    what the box map-back adds. With random weights the box shrinks to the
+    what the box map-back adds (f32 only: at bf16 the distance is printed
+    as drift). With random weights the box shrinks to the
     10 px minimum; a difference that moved the crop's integer window (round
     half to even of its corner, the ceil of its side) would move a
     trajectory by pixels, which is what this bound catches.
+  * bf16 kernels against their plain versions (`bf16_tol`): 2^-8 of the
+    largest |value| plus one bf16 unit (2^-7) of the output: each side
+    rounds every probability or tap weight to bf16, at another point
+    (K1-bf16 before the row-sum division, K3-bf16 per tap where the plain
+    version rounds a pixel's summed weight again), then its output.
   * model boxes (normalised to [0, 1]): 1e-4, i.e. 0.03 px at 288. The paths
     compared use other key orders, GEMM shapes and CPU vs GPU kernels
     through 12 blocks, 2 fusion layers and the head.
@@ -120,6 +143,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12         # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12             # f32 outside the tensor cores
 H100_TF32X3_FLOPS = 495e12 / 3     # f32-accurate products as 3 TF32 MMAs (K1, K2)
+H100_BF16_FLOPS = 989e12           # dense bf16 on the tensor cores (K1-bf16, K3-bf16)
 KERNEL_TOL = dict(atol=2e-5, rtol=1e-4)
 BOX_TOL = 1e-4
 SCRIPT, RECIPE = "asymmetric_shared_ce", "attention_lasher_newfusion_2layer"
@@ -161,21 +185,29 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names=None, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, sessions: int = 3) -> float:
     """Device time per call of fn from a torch.profiler trace of `iters`
     calls: the summed durations of the kernels whose names contain one of
-    `names` (None: every kernel, copy and memset)."""
+    `names` (None: every kernel, copy and memset). A session whose trace
+    holds no device event at all has lost its trace (CUPTI recorded
+    nothing: seen once on an SDPA session after many good ones), so it is
+    run again, up to `sessions` times; a trace with device events but none
+    of `names` raises at once."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e - s for s, e, n in _device_intervals(prof)
-                if names is None or any(k in n for k in names))
-    require(total > 0, f"the profiler saw no device time for {names}")
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ivals = _device_intervals(prof)
+        if ivals:
+            break
+    total = sum(e - s for s, e, n in ivals if names is None or any(k in n for k in names))
+    require(total > 0, f"the profiler saw no device time for {names} "
+                       f"({len(ivals)} device events traced)")
     return total / iters / 1e3
 
 
@@ -243,7 +275,8 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build()
     secs = time.perf_counter() - t0
-    require(set(logs) >= {"mixed_attention", "mixed_attention_bwd", "msda", "msda_bwd"},
+    require(set(logs) >= {"mixed_attention", "mixed_attention_bf16", "mixed_attention_bwd",
+                          "msda", "msda_bwd"},
             f"built {sorted(logs)}")
     emit({"phase": "build", "seconds": round(secs, 3),
           "ptxas": {name: ptxas_report(log) for name, log in logs.items()}})
@@ -585,6 +618,15 @@ MSDA_BWD_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 16, 4), (2, ((6, 7), (5, 4), (3,
                   (2, ((6, 6), (3, 3)), 13, 2, 33, 4)]
 
 
+# (B, spatial_shapes, Lq, M, D, P) of K3-bf16's edge cases on 132 SMs: the
+# generic gather at D 8 (three points) and 32 (three levels), the staged
+# kernel at D 16 with Lq 37 and at D 128, the generic gather at D 128 with
+# P 5, the compiled L 2 P 4 gather at D 16 and a ragged Lq
+MSDA_BF16_EDGES = [(2, ((9, 12), (5, 7)), 17, 2, 8, 3), (1, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4),
+                   (16, ((6, 7), (5, 4)), 37, 8, 16, 4), (16, ((9, 9), (4, 4)), 40, 8, 128, 4),
+                   (1, ((9, 9), (4, 4)), 40, 8, 128, 5), (1, ((6, 6), (6, 6)), 29, 8, 16, 4)]
+
+
 def kernel_edges(g):
     """Narrow widths and ragged tiles for K1 (with its lse) and K2; every
     path of msda_plan for K3 and K4 at narrow and wide D, ragged levels and
@@ -691,6 +733,189 @@ def phase_kernels(g: torch.Generator) -> dict:
     table["K3"]["model_locations_train_step_ms"] = _sum_rows(model, "calls_per_step")["ms"]
     table["K4"]["model_locations_ms"] = _sum_rows(
         [r for r in k4_rows if r["locations"] == "model"], "calls_per_step")["ms"]
+    table.update(_bf16_table_rows(kernel_k1_bf16(g), kernel_k3_bf16(g), kernel_edges_bf16(g)))
+    return table
+
+
+# ------------------------------------------------------------ bf16 kernels
+def bf16_tol(v: torch.Tensor) -> dict:
+    """K1-bf16's and K3-bf16's tolerance against their plain versions:
+    2^-8 of the largest |value| plus one bf16 unit (2^-7) of the output.
+    Each side rounds its probabilities or tap weights to bf16 (2^-9 of each
+    term, so at most 2^-9 of max|V| per side in the weighted sum; the
+    kernels round at another point: K1 exp(s - running max) before the
+    division by the row sum, K3 each tap weight where the plain version
+    rounds a pixel's summed weight again) and then its output (half a unit
+    each). A wrong mask, tap or tile gives errors of order 1e-1."""
+    return dict(atol=2.0 ** -8 * float(v.abs().max()), rtol=2.0 ** -7)
+
+
+def _bf16_errors(what: str, got, plain, f32, v) -> dict:
+    """Kernel against its plain version (bf16_tol), and each against the
+    f32 answer on the same inputs: the kernel's error may be at most 1.25x
+    the plain version's."""
+    err, rel, ok = max_err(got.float(), plain.float(), bf16_tol(v))
+    require(ok, f"{what} disagrees with its plain version: max abs err {err}")
+    e_kern = float((got.float() - f32).abs().max())
+    e_plain = float((plain.float() - f32).abs().max())
+    require(e_kern <= 1.25 * e_plain, f"{what}: error against f32 {e_kern} > 1.25 x the plain "
+                                      f"version's {e_plain}")
+    return dict(max_abs_err=err, max_rel_err=rel, tol_atol=bf16_tol(v)["atol"],
+                differing_share=float((got != plain).float().mean()),
+                f32_err=e_kern, plain_f32_err=e_plain, f32_err_ratio=e_kern / e_plain)
+
+
+def kernel_k1_bf16(g):
+    """K1-bf16 at the bf16 tracker's shapes (template step; search steps at
+    the CE lengths, 12 per frame) and at the lockstep N = 12 shapes (batch
+    24), against its plain version and the f32 answer; SDPA at bf16 with
+    the boolean mask as the library yardstick."""
+    import torch.nn.functional as F
+    from multi_modal_tracking_torch.ops.attention import (mixed_attention_bf16,
+                                                          mixed_attention_bf16_ref,
+                                                          mixed_attention_ref)
+    scale = HEAD_D ** -0.5
+    cases = [("template_step", B2, N_MT, N_MT, 0, 0, 0)]
+    cases += [("search_step", B2, L, L + 2 * N_MT, 0, n, 0) for L, n in CE_LENGTHS]
+    cases += [(f"search_step_b{EVAL_BIG}", 2 * EVAL_BIG, L, L + 2 * N_MT, 0, 0, n)
+              for L, n in CE_LENGTHS]
+    rows = []
+    for form, B, Nq, Nk, n_mt, calls, step_calls in cases:
+        q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, HEADS, Nq, Nk, HEAD_D, g))
+        got = mixed_attention_bf16(q, k, v, n_mt, scale)
+        plain = mixed_attention_bf16_ref(q, k, v, n_mt, scale)
+        f32 = mixed_attention_ref(q.float(), k.float(), v.float(), n_mt, scale)
+        errs = _bf16_errors(f"K1-bf16 {form} Nq={Nq} Nk={Nk}", got, plain, f32, v)
+        mask = _allowed(Nq, Nk, n_mt)
+        kern = lambda: mixed_attention_bf16(q, k, v, n_mt, scale)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
+                                                     scale=scale)
+        n_bytes = 2 * B * HEADS * HEAD_D * (2 * Nq + 2 * Nk)
+        flops = 4 * B * HEADS * HEAD_D * _pairs(Nq, Nk, n_mt)
+        b_ms, b_by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
+        row = dict(form=form, B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, calls_per_frame=calls,
+                   calls_per_lockstep_step=step_calls, **errs,
+                   ms=device_ms(kern, ["mixed_attention_fwd_bf16_kernel"]),
+                   event_ms=cuda_time_ms(kern),
+                   plain_ms=cuda_time_ms(lambda: mixed_attention_bf16_ref(q, k, v, n_mt, scale)),
+                   library_ms=device_ms(lib), bytes=n_bytes, flops=flops, bound_ms=b_ms,
+                   bound_by=b_by)
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        rows.append(row)
+    emit({"phase": "kernels", "kernel": "K1-bf16 mixed_attention_bf16",
+          "tolerance": "atol 2^-8 max|V|, rtol 2^-7; error against f32 <= 1.25 x plain's",
+          "library": "scaled_dot_product_attention at bf16 with the boolean mask",
+          "cases": rows})
+    return rows
+
+
+def kernel_k3_bf16(g):
+    """K3-bf16 at the bf16 tracker's shape (B 1: gather), the lockstep eval's
+    (B 4: gather; B 12: staged) and the training batch's (B 16: staged), on
+    uniform and model-like locations, against its plain version and the f32
+    answer; msda_plan's choice at bf16 is required."""
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bf16,
+                                                     ms_deform_attn_bf16_ref, ms_deform_attn_ref,
+                                                     msda_plan)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    Lq = 648
+    for B in (1, EVAL_SMALL, EVAL_BIG, TRAIN_B):
+        for locations in ("uniform", "model"):
+            value, loc, attw = _msda_inputs(B, MSDA_SHAPES, Lq, M_HEADS, M_D, M_P, g, -0.1, 1.1)
+            if locations == "model":
+                loc = _model_locations(B, MSDA_SHAPES, M_HEADS, M_P, g)
+            value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
+            got = ms_deform_attn_bf16(value, MSDA_SHAPES, loc, attw)
+            plain = ms_deform_attn_bf16_ref(value, MSDA_SHAPES, loc, attw)
+            f32 = ms_deform_attn_ref(value.float(), MSDA_SHAPES, loc, attw.float())
+            errs = _bf16_errors(f"K3-bf16 B={B} {locations}", got, plain, f32, value)
+            plan = msda_plan(B, M_HEADS, M_D, MSDA_SHAPES, n_sm, itemsize=2)
+            want = "staged" if 2 * B * M_HEADS >= n_sm else "gather"
+            require(plan.fwd == want, f"K3-bf16 B={B}: msda_plan chose {plan.fwd}, not {want}")
+            kern = lambda: ms_deform_attn_bf16(value, MSDA_SHAPES, loc, attw)   # noqa: E731
+            flops = 2.0 * M_D * _live_corners(loc, MSDA_SHAPES)
+            n_bytes = 2 * (value.numel() + attw.numel() + got.numel()) + 4 * loc.numel()
+            b_ms, b_by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
+            rows.append(dict(B=B, Lq=Lq, locations=locations, path=plan.fwd, smem=plan.fwd_smem,
+                             **errs, ms=device_ms(kern, ["msda_fwd_kernel"]),
+                             event_ms=cuda_time_ms(kern),
+                             plain_ms=cuda_time_ms(lambda: ms_deform_attn_bf16_ref(
+                                 value, MSDA_SHAPES, loc, attw), iters=10),
+                             library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                             flops=flops, calls_per_frame=2 if B == 1 else 0,
+                             calls_per_lockstep_step=2 if B == EVAL_BIG else 0))
+    emit({"phase": "kernels", "kernel": "K3-bf16 ms_deform_attn_bf16",
+          "tolerance": "atol 2^-8 max|V|, rtol 2^-7; error against f32 <= 1.25 x plain's",
+          "cases": rows})
+    return rows
+
+
+def kernel_edges_bf16(g):
+    """K1-bf16 on ATTN_EDGES (D 16/32/64, ragged tiles, n_mt 0, Nq != Nk);
+    K3-bf16 on every path of msda_plan at D 8 to 128, ragged levels, other
+    L and P (the generic gather), Lq not a multiple of the staged kernel's
+    32 query warps."""
+    from multi_modal_tracking_torch.ops.attention import (mixed_attention_bf16,
+                                                          mixed_attention_bf16_ref,
+                                                          mixed_attention_ref)
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bf16,
+                                                     ms_deform_attn_bf16_ref, ms_deform_attn_ref,
+                                                     msda_plan)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    edge = []
+    for (B, H, Nq, Nk, D, n_mt) in ATTN_EDGES:
+        q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, H, Nq, Nk, D, g))
+        errs = _bf16_errors(f"K1-bf16 edge case {(B, H, Nq, Nk, D, n_mt)}",
+                            mixed_attention_bf16(q, k, v, n_mt, D ** -0.5),
+                            mixed_attention_bf16_ref(q, k, v, n_mt, D ** -0.5),
+                            mixed_attention_ref(q.float(), k.float(), v.float(), n_mt,
+                                                D ** -0.5), v)
+        edge.append(dict(kernel="K1-bf16", shape=[B, H, Nq, Nk, D, n_mt], **errs))
+    paths = set()
+    for (B, shp, Lq, M, D, P) in MSDA_BF16_EDGES:
+        value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
+        value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
+        path = msda_plan(B, M, D, shp, n_sm, itemsize=2).fwd
+        paths.add(path)
+        errs = _bf16_errors(f"K3-bf16 edge case {(B, shp, Lq, M, D, P)} ({path})",
+                            ms_deform_attn_bf16(value, shp, loc, attw),
+                            ms_deform_attn_bf16_ref(value, shp, loc, attw),
+                            ms_deform_attn_ref(value.float(), shp, loc, attw.float()), value)
+        edge.append(dict(kernel="K3-bf16", shape=[B, shp, Lq, M, D, P], path=path, **errs))
+    require(paths == {"staged", "gather"}, f"K3-bf16 edge cases cover {paths}")
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "kernel": "bf16 edge cases", "cases": edge})
+    return edge
+
+
+def _bf16_table_rows(k1_rows, k3_rows, edges) -> dict:
+    """Per tracked frame (K1-bf16: 12 search steps; K3-bf16: 2 calls at
+    B 1) and per lockstep N = 12 step totals for the kernel table."""
+    table = {}
+    for key, name, src, repl, rows in (
+            ("K1-bf16", "mixed_attention_bf16 (K1-bf16)", "mixed_attention_bf16.cu",
+             "attention.py:44", k1_rows),
+            ("K3-bf16", "msda_fwd_bf16 (K3-bf16)", "msda.cu", "msda.py:171",
+             [r for r in k3_rows if r["locations"] == "uniform"])):
+        frame = _sum_rows(rows, "calls_per_frame")
+        step = _sum_rows(rows, "calls_per_lockstep_step")
+        b_ms, b_by = bound_ms(frame["bytes"], frame["flops"], H100_BF16_FLOPS)
+        lib = frame.get("library_ms")
+        errs = [r["max_abs_err"] for r in rows] + [e["max_abs_err"] for e in edges
+                                                   if e["kernel"] == key]
+        table[key] = dict(
+            name=name, route="cuda", source=f"multi_modal_tracking_torch/csrc/{src}",
+            replaces=f"multi_modal_tracking_tpu/ops/{repl}", max_abs_err=max(errs),
+            f32_err_ratio_max=max(r["f32_err_ratio"] for r in rows),
+            ms=frame["ms"], event_ms=frame["event_ms"], plain_ms=frame["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, bound_f32_ms=None, library_ms=lib,
+            library_ratio=frame["ms"] / lib if lib else None, per="tracked frame (bf16)",
+            lockstep_step_ms=step["ms"],
+            lockstep_step_bound_ms=bound_ms(step["bytes"], step["flops"], H100_BF16_FLOPS)[0],
+            lockstep_step_library_ms=step.get("library_ms"))
+    table["K3-bf16"]["model_locations_ms"] = _sum_rows(
+        [r for r in k3_rows if r["locations"] == "model"], "calls_per_frame")["ms"]
     return table
 
 
@@ -754,21 +979,29 @@ def _sequence(n, H=512, W=640, seed=0):
 
 
 def _counters():
-    from multi_modal_tracking_torch.ops.attention import mixed_attention, mixed_attention_bwd
-    from multi_modal_tracking_torch.ops.msda import ms_deform_attn, ms_deform_attn_bwd
+    from multi_modal_tracking_torch.ops.attention import (mixed_attention, mixed_attention_bf16,
+                                                          mixed_attention_bwd)
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn, ms_deform_attn_bf16,
+                                                     ms_deform_attn_bwd)
     return {"K1": mixed_attention, "K2": mixed_attention_bwd, "K3": ms_deform_attn,
-            "K4": ms_deform_attn_bwd}
+            "K4": ms_deform_attn_bwd, "K1-bf16": mixed_attention_bf16,
+            "K3-bf16": ms_deform_attn_bf16}
+
+
+F32_KERNELS, BF16_KERNELS = ("K1", "K2", "K3", "K4"), ("K1-bf16", "K3-bf16")
 
 
 def reset_launches() -> None:
     for fn in _counters().values():
         fn.launches = 0
-    _counters()["K3"].launches_by_kernel.update(staged=0, gather=0)
+    for key in ("K3", "K3-bf16"):
+        _counters()[key].launches_by_kernel.update(staged=0, gather=0)
 
 
 def read_launches() -> dict:
     out = {k: fn.launches for k, fn in _counters().items()}
-    out["K3_by_kernel"] = dict(_counters()["K3"].launches_by_kernel)
+    for key in ("K3", "K3-bf16"):
+        out[f"{key}_by_kernel"] = dict(_counters()[key].launches_by_kernel)
     return out
 
 
@@ -796,8 +1029,8 @@ def phase_tracker(smi: str, frames) -> tuple:
                                             f"{n_track} frames (need >= 12 per frame)")
     require(launches["K3"] == 2 * n_track, f"K3 launched {launches['K3']} times over "
                                            f"{n_track} frames (need 2 per frame)")
-    require(launches["K2"] == launches["K4"] == 0, f"backward kernels ran while tracking: "
-                                                   f"{launches}")
+    require(launches["K2"] == launches["K4"] == 0 and not any(launches[k] for k in BF16_KERNELS),
+            f"backward or bf16 kernels ran while tracking: {launches}")
     require(bool(np.isfinite(boxes).all()), "non-finite box")
     inside = (boxes[:, 0] >= 0) & (boxes[:, 1] >= 0) & (boxes[:, 2] > 0) & (boxes[:, 3] > 0) \
         & (boxes[:, 0] + boxes[:, 2] <= W) & (boxes[:, 1] + boxes[:, 3] <= H)
@@ -806,7 +1039,7 @@ def phase_tracker(smi: str, frames) -> tuple:
     emit({"phase": "tracker", "frames": n_track, "frame_hw": [H, W], "update_interval": 25,
           "launches": launches, "ms_per_frame": ms, "fps": 1e3 / ms,
           "timed_frames": n_track - warm, "card": smi, "last_box": boxes[-1].tolist()})
-    return launches, tracker
+    return launches, tracker, boxes
 
 
 def _wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -845,11 +1078,13 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def phase_profile(tracker, frames, smi: str) -> None:
+def phase_profile(tracker, frames, smi: str, label: str = "profile",
+                  k1: str = "mixed_attention_fwd_kernel", k3: str = "msda_fwd_kernel") -> dict:
     """Where a tracked frame's time goes: each layer of the main path on the
     host clock (launch overhead included), then a torch.profiler trace of
     whole frames for the device's busy time, its idle share, the number of
-    device operations per frame and the kernels that take the most time."""
+    device operations per frame and the kernels that take the most time
+    (K1's and K3's shares by the kernel names k1 and k3)."""
     from torch.profiler import ProfilerActivity, profile
     from multi_modal_tracking_torch.tracking.tracker import _prep_rgbt
     model = tracker.model
@@ -888,14 +1123,15 @@ def phase_profile(tracker, frames, smi: str) -> None:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     share = lambda key: sum(t for k, t in by_name.items() if key in k) / busy
-    emit({"phase": "profile", "card": smi, "layers_ms": layers, "traced_frames": n,
-          "wall_ms_per_frame_profiled": wall_us / n / 1e3,
-          "device_busy_ms_per_frame": busy / n / 1e3,
-          "device_idle_share": 1.0 - busy / wall_us,
-          "device_ops_per_frame": len(ivals) / n,
-          "K1_share_of_busy": share("mixed_attention_fwd_kernel"),
-          "K3_share_of_busy": share("msda_fwd_kernel"),
-          "top_kernels_ms_per_frame": [[k[:90], t / n / 1e3] for k, t in top]})
+    out = {"phase": label, "card": smi, "layers_ms": layers, "traced_frames": n,
+           "wall_ms_per_frame_profiled": wall_us / n / 1e3,
+           "device_busy_ms_per_frame": busy / n / 1e3,
+           "device_idle_share": 1.0 - busy / wall_us,
+           "device_ops_per_frame": len(ivals) / n,
+           "K1_share_of_busy": share(k1), "K3_share_of_busy": share(k3),
+           "top_kernels_ms_per_frame": [[k[:90], t / n / 1e3] for k, t in top]}
+    emit(out)
+    return out
 
 
 def _train_cfg(batch: int, steps: int):
@@ -1267,9 +1503,10 @@ def _inside(boxes: np.ndarray, H: int, W: int) -> bool:
                 and (boxes[:, 1] + boxes[:, 3] <= H).all())
 
 
-def _eval_run(name: str, fn, seqs, root: str, runs: dict) -> dict:
+def _eval_run(name: str, fn, seqs, root: str, runs: dict, kernels=("K1", "K3")) -> dict:
     """Time one eval run on the host clock with the launch counts of that
-    run alone; check its files. Returns {sequence: float trajectory}."""
+    run alone; check its files. `kernels` must launch, no other kernel may.
+    Returns {sequence: float trajectory}."""
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1277,7 +1514,8 @@ def _eval_run(name: str, fn, seqs, root: str, runs: dict) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches()
-    require(launches["K1"] > 0 and launches["K3"] > 0 and launches["K2"] == launches["K4"] == 0,
+    require(all(launches[k] > 0 for k in kernels)
+            and not any(launches[k] for k in F32_KERNELS + BF16_KERNELS if k not in kernels),
             f"eval {name}: launches {launches}")
     H, W = seqs[0].frames[0][0].shape[:2]
     floats = {s["seq"]: s["boxes"] for s in stats}
@@ -1424,7 +1662,114 @@ def phase_eval(smi: str) -> dict:
           "profile_b12_block": profile, "scores": scores, "launches": launches})
     del bt
     torch.cuda.empty_cache()
-    return launches
+    return launches, seq_floats
+
+
+def _centre_px(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Per-frame distance between the centres of two (n, 4) xywh tracks."""
+    return np.hypot((a[:, 0] + a[:, 2] / 2) - (b[:, 0] + b[:, 2] / 2),
+                    (a[:, 1] + a[:, 3] / 2) - (b[:, 1] + b[:, 3] / 2))
+
+
+def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> dict:
+    """The bf16 serving path, the JAX package's eval dtype: create_tracker(
+    dtype=torch.bfloat16) (float32 model loaded, then cast) tracks the
+    tracker phase's 63 frames, then a profile of 10 more; then the eval of
+    synthetic_rgbt_hard one stream at a time (A16) and in lockstep N = 12
+    (B12_16). Each run must launch K1-bf16 and K3-bf16 and no f32 kernel.
+    Prints ms per frame, device busy time, idle share and operations per
+    frame, the trajectories' distances to the f32 ones (tracker phase, eval
+    A) and lockstep's distance to one bf16 stream: drift, not bounded by
+    the f32 0.05 px (cuBLAS may take other bf16 GEMM kernels at batch 2 and
+    24). Returns the launch counts of the tracked run and of the eval
+    runs."""
+    from multi_modal_tracking_torch.eval.analysis import TrackerResults, print_results
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
+                                                             run_sequences_batched)
+    frames = all_frames[:64]
+    n_frames, warm = len(frames), 8
+    H, W = frames[0][0].shape[:2]
+    tracker = create_tracker(_params(), "TRACKINGNET", seed=0, dtype=torch.bfloat16)
+    params = list(tracker.model.parameters())
+    require({p.dtype for p in params} == {torch.bfloat16}
+            and all(b.dtype != torch.bfloat16 for b in tracker.model.buffers()),
+            "bf16 tracker: parameters not all bf16, or a buffer cast")
+    reset_launches()
+    tracker.initialize(list(frames[0]), {"init_bbox": [80.0, 60.0, 48.0, 48.0]})
+    boxes = []
+    for i, (fv, fi) in enumerate(frames[1:], start=1):
+        if i == warm + 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        boxes.append(tracker.track([fv, fi])["target_bbox"])
+    secs = time.perf_counter() - t0
+    track_launches = read_launches()
+    n_track = n_frames - 1
+    boxes = np.asarray(boxes)
+    require(track_launches["K1-bf16"] >= 12 * n_track and track_launches["K3-bf16"] == 2 * n_track
+            and not any(track_launches[k] for k in F32_KERNELS),
+            f"bf16 tracker launches {track_launches} over {n_track} frames (need K1-bf16 >= 12 "
+            f"and K3-bf16 2 per frame, no f32 kernel)")
+    require(_inside(boxes, H, W), "bf16 tracker: box not finite or outside the frame")
+    d_f32 = _centre_px(boxes, f32_boxes)
+    ms = secs / (n_track - warm) * 1e3
+    emit({"phase": "bf16 tracker", "card": smi, "frames": n_track, "launches": track_launches,
+          "ms_per_frame": ms, "fps": 1e3 / ms, "timed_frames": n_track - warm,
+          "centre_px_vs_f32_mean": float(d_f32.mean()), "centre_px_vs_f32_max": float(d_f32.max()),
+          "last_box": boxes[-1].tolist()})
+    prof = phase_profile(tracker, all_frames[64:], smi, label="bf16 profile",
+                         k1="mixed_attention_fwd_bf16_kernel", k3="msda_fwd_kernel")
+    model = tracker.model
+    del tracker
+
+    name = "synthetic_rgbt_hard"
+    seqs = get_dataset(name)
+    single = create_tracker(_params(), name, seed=0, dtype=torch.bfloat16)
+    bt = BatchedRGBTCachedTracker(single.model, template_factor=single.template_factor,
+                                  template_size=single.template_size,
+                                  search_factor=single.search_factor,
+                                  search_size=single.search_size,
+                                  update_interval=single.update_interval, ce_keep_rate=None,
+                                  scan_chunk=EVAL_CHUNK)
+    _profile_block(bt, seqs[:EVAL_BIG], 2)                  # first calls of the batch-24 shapes
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        a16 = _eval_run("A16", lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK), seqs,
+                        root, runs, kernels=BF16_KERNELS)
+
+        def lockstep(d):
+            return [st for lo in range(0, len(seqs), EVAL_BIG)
+                    for st in run_sequences_batched(seqs[lo:lo + EVAL_BIG], bt, d,
+                                                    chunk=EVAL_CHUNK)]
+        b16 = _eval_run(f"B{EVAL_BIG}_16", lockstep, seqs, root, runs, kernels=BF16_KERNELS)
+        got = runs[f"B{EVAL_BIG}_16"]["launches"]
+        require(got["K3-bf16_by_kernel"]["staged"] == got["K3-bf16"],
+                f"bf16 lockstep N={EVAL_BIG}: K3-bf16 kernels {got['K3-bf16_by_kernel']}, "
+                f"expected staged")
+        runs[f"B{EVAL_BIG}_16"]["max_abs_px_vs_A16"] = max(
+            float(np.abs(b16[k] - a16[k]).max()) for k in a16)
+        runs[f"B{EVAL_BIG}_16"]["centre_px_vs_A16_mean"] = float(np.mean(
+            [_centre_px(b16[k], a16[k]).mean() for k in a16]))
+        runs["A16"]["centre_px_vs_f32_A_mean"] = float(np.mean(
+            [_centre_px(a16[k], f32_eval[k]).mean() for k in a16]))
+        runs["A16"]["max_abs_px_vs_f32_A"] = max(float(np.abs(a16[k] - f32_eval[k]).max())
+                                                 for k in a16)
+        scores = {}
+        for key in ("A16", f"B{EVAL_BIG}_16"):
+            sc = print_results([TrackerResults(os.path.join(root, key), key)], seqs,
+                               report_name=f"{name} {key}")
+            scores[key] = {k: float(sc[k][0]) for k in ("AUC", "OP50", "OP75", "Precision")}
+    block = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK)
+    eval_launches = {k: sum(r["launches"][k] for r in runs.values()) for k in BF16_KERNELS}
+    emit({"phase": "bf16 eval", "card": smi, "dataset": name, "runs": runs,
+          "profile_b12_block": block, "scores": scores, "launches": eval_launches})
+    del bt, single, model
+    torch.cuda.empty_cache()
+    return {"tracker_bf16": {k: track_launches[k] for k in BF16_KERNELS},
+            "eval_bf16": eval_launches, "profile": prof}
 
 
 def main() -> None:
@@ -1435,15 +1780,16 @@ def main() -> None:
     kernels = phase_kernels(g)
     phase_model(g)
     frames = list(_sequence(74))
-    track_launches, tracker = phase_tracker(smi, frames[:64])
+    track_launches, tracker, f32_boxes = phase_tracker(smi, frames[:64])
     phase_profile(tracker, frames[64:], smi)
     del tracker
     with tempfile.TemporaryDirectory() as save_dir:
         train_launches = phase_train(smi, save_dir)
     life_launches = phase_lifecycle(smi, frames)
-    eval_launches = phase_eval(smi)
+    eval_launches, f32_eval = phase_eval(smi)
+    bf16 = phase_bf16(smi, frames, f32_boxes, f32_eval)
     table = []
-    for key in ("K1", "K2", "K3", "K4"):
+    for key in F32_KERNELS:
         by_path = {"tracker": track_launches[key], "train": train_launches[key],
                    "lifecycle": life_launches[key], "eval": eval_launches[key]}
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
@@ -1456,11 +1802,23 @@ def main() -> None:
             ("train_step_ms", "train_step_bound_ms", "model_locations_ms",
              "model_locations_train_step_ms") if key == "K3" else
             ("model_locations_ms",) if key == "K4" else ())})
+    for key in BF16_KERNELS:
+        by_path = {path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")}
+        row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
+        table.append({k: row[k] for k in (
+            "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_f32_ms", "library_ms", "library_ratio", "event_ms",
+            "per", "launches_by_path", "f32_err_ratio_max", "lockstep_step_ms",
+            "lockstep_step_bound_ms", "lockstep_step_library_ms") + (
+            ("model_locations_ms",) if key == "K3-bf16" else ())})
     # ms is device time (torch.profiler): per tracked frame for K1 and K3
     # (12 search-step calls at the CE lengths, 2 calls at B=1), per training
     # step at the final keep for K2 and K4; train_step_ms is K1's and K3's
     # device time per training step; bound_ms is at 165 TFLOP/s (3xTF32) for
-    # K1 and K2, bound_f32_ms at 67 TFLOP/s (f32 CUDA cores) for all four
+    # K1 and K2, bound_f32_ms at 67 TFLOP/s (f32 CUDA cores) for all four;
+    # K1-bf16's and K3-bf16's ms and bound_ms (at 989 TFLOP/s of dense bf16)
+    # are per tracked frame of the bf16 tracker, lockstep_step_* per N = 12
+    # step; their launches are those of the bf16 phase's tracker and eval
     emit({"kernels": table})
     emit({"ok": True, "device": dev})
 

@@ -6,7 +6,7 @@ import torch
 from multi_modal_tracking_torch.eval.params import TrackerParams, update_interval_for
 from multi_modal_tracking_torch.models.build import build_model
 from multi_modal_tracking_torch.tracking.tracker import RGBTCachedTracker
-from multi_modal_tracking_torch.utils.checkpoint import load_variables
+from multi_modal_tracking_torch.utils.checkpoint import cast_floating, load_variables
 
 
 def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
@@ -19,11 +19,20 @@ def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
     does not cover the model raises. Without one the weights are random
     from `seed`. ce_keep_rate stays None, so each CE block uses its own
     configured keep ratio, as the reference tracker does.
+
+    dtype=torch.bfloat16 runs the model in bf16, the JAX package's eval
+    default, in its order (eval/evaltracker.py:48-64): the float32 model is
+    built and loaded first, then its parameters are cast
+    (`cast_floating`; BatchNorm statistics stay float32). The default
+    stays float32 here, the parity path, until bf16 training is ported
+    (ROADMAP.md queue 1 item 4b).
     """
     cfg = params.cfg
     model = build_model(params.script, cfg, device=device, dtype=dtype, seed=seed)
     if params.checkpoint:
         load_variables(params.checkpoint, model, strict=True)
+    if dtype != torch.float32:
+        cast_floating(model, dtype)
     return RGBTCachedTracker(model, template_factor=params.template_factor,
                              template_size=params.template_size,
                              search_factor=params.search_factor,

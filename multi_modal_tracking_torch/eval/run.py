@@ -1,6 +1,7 @@
 """Evaluation CLI of the port: run the RGB-T tracker over a registered
 dataset and write its result files, then print the success / precision
-table. The flags are those of the root `tracking/test.py`, plus --device.
+table. The flags are those of the root `tracking/test.py`, plus --device
+and --dtype (float32, the default, or bfloat16).
 
     python -m multi_modal_tracking_torch.eval.run asymmetric_shared_ce \\
         attention_lasher_newfusion_2layer --dataset_name synthetic_rgbt_hard \\
@@ -25,6 +26,8 @@ import re
 import sys
 from typing import List, Optional
 
+import torch
+
 from multi_modal_tracking_torch.eval.analysis import TrackerResults, print_results
 from multi_modal_tracking_torch.eval.datasets import get_dataset
 from multi_modal_tracking_torch.eval.evaltracker import create_tracker
@@ -33,6 +36,8 @@ from multi_modal_tracking_torch.eval.running import _load_frame, run_dataset
 from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
                                                          run_sequences_batched)
 from multi_modal_tracking_torch.train.admin import env_settings
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -67,6 +72,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--vis_search", action="store_true",
                    help="search-region videos (need cv2; not ported)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES),
+                   help="compute dtype of the model: float32 (default) or bfloat16, the "
+                        "JAX package's eval default; result files are float32 text either way")
     return p
 
 
@@ -161,7 +169,8 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
             setattr(params, k, v)
 
         def make():
-            return create_tracker(params, dataset_name=args.dataset_name, device=args.device)
+            return create_tracker(params, dataset_name=args.dataset_name, device=args.device,
+                                  dtype=DTYPES[args.dtype])
         if args.batch_sequences > 1:
             bt = _batched_twin(make(), args.chunk)
             groups = {}

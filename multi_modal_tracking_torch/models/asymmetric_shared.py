@@ -52,7 +52,9 @@ def _t2s_attention(q_mt: torch.Tensor, k_s: torch.Tensor, scale: float,
                    ce_rows: Optional[Tuple[int, ...]]) -> torch.Tensor:
     """Template->search attention for CE ranking: its own f32 softmax over
     the concatenated bimodal search axis, over the `ce_rows` template rows
-    only (None = all rows). No gradient: only `topk` reads it."""
+    only (None = all rows). No gradient: only `topk` reads it. In a bf16
+    model the scores are a bf16 product, scaled in bf16, before the f32
+    softmax, as in the JAX model (models/asymmetric_shared.py:210, :262)."""
     if ce_rows is not None:
         q_mt = q_mt[:, :, list(ce_rows)]
     a = torch.matmul(q_mt, k_s.transpose(-2, -1)) * scale
@@ -271,6 +273,12 @@ class AsymSharedViT(nn.Module):
         self.register_buffer("pos_embed_t", torch.from_numpy(
             get_2d_sincos_pos_embed(embed_dim, self.grid_size_t))[None], persistent=False)
 
+    def _embed(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """Patch tokens plus the fixed position embedding, cast to the model's
+        dtype as the JAX model casts it (models/asymmetric_shared.py:500-502)."""
+        x = self.patch_embed(x)
+        return x + pos.to(x.dtype)
+
     def _ce_rows(self, use_mask: bool) -> Optional[Tuple[int, ...]]:
         """Template-row indices ([t_v, ot_v, t_i, ot_i] order) pooled for the
         CE ranking: the centre token (CTR_POINT) of each template copy; None
@@ -290,9 +298,8 @@ class AsymSharedViT(nn.Module):
         """x_*: stacked bimodal NHWC batches (2B, H, W, 3), [:B] RGB, [B:] TIR.
         Returns the (t, ot, s) feature maps (2B, h, w, C), search tokens
         zero-restored at pruned positions."""
-        t = self.patch_embed(x_t) + self.pos_embed_t
-        ot = self.patch_embed(x_ot) + self.pos_embed_t
-        s = self.patch_embed(x_s) + self.pos_embed_s
+        t, ot, s = self._embed(x_t, self.pos_embed_t), self._embed(x_ot, self.pos_embed_t), \
+            self._embed(x_s, self.pos_embed_s)
         B = t.shape[0] // 2
         n_t, n_s = t.shape[1], s.shape[1]
         n_mt = 2 * n_t
@@ -318,8 +325,7 @@ class AsymSharedViT(nn.Module):
         """Run the template tokens through all blocks once, collecting every
         block's attention cache. Returns {"kv": [per-block cache], "t", "ot"}
         with the final template feature maps."""
-        t = self.patch_embed(x_t) + self.pos_embed_t
-        ot = self.patch_embed(x_ot) + self.pos_embed_t
+        t, ot = self._embed(x_t, self.pos_embed_t), self._embed(x_ot, self.pos_embed_t)
         B = t.shape[0] // 2
         n_t = t.shape[1]
         x = torch.cat([t, ot], dim=1)
@@ -337,7 +343,7 @@ class AsymSharedViT(nn.Module):
                        use_ce_template_mask: bool = True):
         """Per-frame search-only forward against a template cache; the same
         function of the inputs as forward's search output."""
-        s = self.patch_embed(x_s) + self.pos_embed_s
+        s = self._embed(x_s, self.pos_embed_s)
         B = s.shape[0] // 2
         n_s = s.shape[1]
         s_v, s_i = s[:B], s[B:]

@@ -10,7 +10,7 @@ from torch import nn
 from multi_modal_tracking_torch.models.asymmetric_shared import build_mixformer_rgbt
 from multi_modal_tracking_torch.models.fusion import (DeformableAttentionFusion,
                                                       MSDeformAttnBimodal)
-from multi_modal_tracking_torch.utils.device import resolve_device, set_f32_precision
+from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 _RGBT_SHARED = {
     "asymmetric_shared": dict(with_score=False),
@@ -51,13 +51,18 @@ def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
                 seed: int = 0, spec_overrides: Optional[dict] = None) -> nn.Module:
     """Build the model of an RGB-T `asymmetric_shared*` script with random
     weights from `seed`, in eval mode on `device` (default: the GPU; raises
-    if there is none). float32 only, with TF32 turned off. `spec_overrides`
-    replace fields of the model spec read from `cfg`."""
+    if there is none), with TF32 turned off. `dtype` is the compute dtype
+    the caller will run (float32 or bfloat16; others raise), but the
+    parameters are built float32 either way, as the JAX package's are:
+    `eval.evaltracker.create_tracker` loads a checkpoint into them and then
+    casts them (`utils.checkpoint.cast_floating`), and the model computes
+    in its parameters' dtype. `spec_overrides` replace fields of the model
+    spec read from `cfg`."""
     if script not in _RGBT_SHARED:
         raise NotImplementedError(f"script {script!r} is not ported to "
                                   f"multi_modal_tracking_torch (ROADMAP.md queue 1)")
     dev = resolve_device(device)
-    set_f32_precision(dtype)
+    set_precision(dtype)
     model = init_random(build_mixformer_rgbt(cfg, **_RGBT_SHARED[script],
                                              **(spec_overrides or {})), seed)
     return model.to(dev).eval()

@@ -13,7 +13,8 @@ Module attribute names give the reference's state-dict keys, e.g.
 Each encoder layer has the reference's three dropouts (rate 0.1: after the
 deformable attention, after the FFN's ReLU, after its second linear); they
 act in training mode only and draw from the generator of `set_generator`.
-Gradients flow through K3's backward, kernel K4.
+Gradients flow through K3's backward, kernel K4. A model cast to bf16 runs
+K3-bf16: bf16 values and attention weights, f32 sampling locations.
 """
 from __future__ import annotations
 
@@ -80,7 +81,9 @@ class MSDeformAttnBimodal(nn.Module):
         off = torch.cat([off, off], dim=1)
         w = self.attention_weights(q_bi)
         w = torch.cat([w, w], dim=1).reshape(B, Lq, M, L * P)
-        w = torch.softmax(w.float(), dim=-1).reshape(B, Lq, M, L, P)
+        # f32 softmax, then the model's dtype; locations stay f32 (the JAX
+        # layer's rounding points, models/fusion.py:115-125)
+        w = torch.softmax(w.float(), dim=-1).to(value.dtype).reshape(B, Lq, M, L, P)
         normalizer = torch.tensor([[w_, h_] for h_, w_ in spatial_shapes],
                                   dtype=torch.float32, device=query.device)
         loc = reference_points[None, :, None, :, None, :] \
@@ -156,7 +159,8 @@ class DeformableAttentionFusion(nn.Module):
         spatial_shapes = ((H, W), (H, W))
         src = torch.cat([src_v.reshape(B, H * W, C), src_i.reshape(B, H * W, C)], dim=1)
         pos1, ref = self._pos_and_ref(H, W, src.device)
-        pos = torch.cat([pos1 + self.level_embed[0], pos1 + self.level_embed[1]], dim=0)[None]
+        pos = torch.cat([pos1 + self.level_embed[0], pos1 + self.level_embed[1]],
+                        dim=0)[None].to(src.dtype)
         for layer in self.encoder.layers:
             src = layer(src, pos, ref, spatial_shapes)
         return src

@@ -7,6 +7,25 @@ Module attribute names give the reference's torch state-dict keys.
 Random layers (`DropPath`, `Dropout`) draw their masks from an explicit
 `torch.Generator` that the caller owns (`set_generator`), on the device of
 the tensor, so a seeded generator gives the same masks run after run.
+
+Compute dtype. A model computes in the dtype of its parameters: float32,
+or bf16 after `utils.checkpoint.cast_floating` (buffers stay float32), with
+the rounding points of the JAX package's flax modules at dtype=bf16 and
+pre-cast params:
+  * Linear and Conv2d take bf16 inputs and weights and return bf16 (PyTorch's
+    own bf16 kernels accumulate in f32 and round once). The patch embedding
+    casts its float32 crops to the weights' dtype (`PatchEmbed`).
+  * LayerNorm and GroupNorm on bf16 compute their statistics and the
+    normalisation in f32 and round the output to bf16 once (PyTorch's bf16
+    kernels do, on the CPU and on CUDA), as flax's, which promote to f32.
+  * BatchNorm keeps its running statistics in f32 and normalises in f32
+    (`BatchNorm2d` hands F.batch_norm f32 statistics and affine, its
+    mixed-dtype form), returning bf16; FrozenBatchNorm2d forms scale and
+    shift in f32 and applies them in bf16, as the JAX package's frozen BN
+    (models/layers.py:96-98).
+  * Softmaxes that JAX takes in f32 (CE ranking, fusion attention weights,
+    head soft-argmax) are `.float()` at their call sites.
+No `torch.autocast`: its lists of ops kept in f32 are not flax's.
 """
 from __future__ import annotations
 
@@ -49,7 +68,7 @@ class PatchEmbed(nn.Module):
                               stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.proj(x.permute(0, 3, 1, 2))
+        x = self.proj(x.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
         return x.flatten(2).transpose(1, 2)
 
 
@@ -106,9 +125,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     mode it normalises with the batch statistics and updates running_var with
     the BIASED batch variance, where torch's BatchNorm2d uses the unbiased
     one (8 values 0..7 from running_var 1: flax 1.425, torch 1.5). Eval mode
-    is torch's."""
+    is torch's; with bf16 input and affine (a model cast to bf16) it
+    normalises in f32 with the f32 running statistics and returns bf16."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training and x.dtype != torch.float32:
+            return nn.functional.batch_norm(x, self.running_mean, self.running_var,
+                                            self.weight.float(), self.bias.float(), False, 0.0,
+                                            self.eps)
         if not self.training:
             return super().forward(x)
         y = nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
@@ -138,7 +162,7 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * inv
-        return x * inv[None, :, None, None] + shift[None, :, None, None]
+        return x * inv.to(x.dtype)[None, :, None, None] + shift.to(x.dtype)[None, :, None, None]
 
 
 def ConvBNRelu(in_planes: int, out_planes: int, kernel_size: int = 3,

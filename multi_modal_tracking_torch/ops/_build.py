@@ -40,6 +40,9 @@ SIGNATURES = {
     "mixed_attention": {
         "mixed_attention_fwd_f32": ([_C] * 5 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
     },
+    "mixed_attention_bf16": {
+        "mixed_attention_fwd_bf16": ([_C] * 4 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
+    },
     "mixed_attention_bwd": {
         "mixed_attention_bwd_f32": ([_C] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, _C],
                                     _I),
@@ -47,6 +50,8 @@ SIGNATURES = {
     "msda": {
         "msda_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,
                           ctypes.POINTER(_I), _I, _C], _I),
+        "msda_fwd_bf16": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,
+                           ctypes.POINTER(_I), _I, _C], _I),
         "msda_launch_floor_f32": ([_I, _I, _I, _C], _I),
     },
     "msda_bwd": {

@@ -23,12 +23,20 @@ version.
 
 Both kernels run their products on the tensor cores as 3xTF32
 (`csrc/tf32_mma.cuh`): f32-accurate, whatever the `allow_tf32` flags say.
+
+bf16 q/k/v (the JAX package's eval dtype) go to K1-bf16
+(`csrc/mixed_attention_bf16.cu`, one bf16 tensor-core pass per product)
+for CUDA tensors and `mixed_attention_bf16_ref` for CPU tensors, both with
+the rounding points of the Pallas kernel at bf16. bf16 is inference only:
+bf16 tensors that require a gradient raise (the bf16 backward is not
+ported).
 """
 from __future__ import annotations
 
 import torch
 
 from multi_modal_tracking_torch.ops import _build
+from multi_modal_tracking_torch.utils.device import TRAINING_BF16
 
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (16, 32, 64)
@@ -83,14 +91,29 @@ def mixed_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        torch.matmul(p.transpose(-2, -1), g)))
 
 
-def _check_kernel_args(tensors, n_mt):
+def mixed_attention_bf16_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             n_mt: int, scale: float) -> torch.Tensor:
+    """Plain K1-bf16: bf16 q/k/v -> bf16 output with the rounding points of
+    the JAX package's `_attn_kernel` at bf16 (ops/attention.py:44-57):
+    S = Q K^T accumulated in f32 (products of bf16 values are exact in f32)
+    and scaled in f32, the mask, the row softmax in f32 as the Pallas kernel
+    writes it (max, exp, divide by the sum), P rounded to bf16, O = P V
+    accumulated in f32, the output rounded to bf16."""
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
+    s = s.masked_fill(~_allowed(n_mt, q.shape[2], k.shape[2], q.device), NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.matmul(p.to(torch.bfloat16).float(), v.float()).to(torch.bfloat16)
+
+
+def _check_kernel_args(tensors, n_mt, dtype=torch.float32):
     q, k = tensors["q"], tensors["k"]
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"mixed_attention: {name} is on {t.device}; "
                              f"all tensors must be CPU or all CUDA tensors")
-        if t.dtype != torch.float32:
-            raise TypeError(f"mixed_attention kernel takes float32, {name} is {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"mixed_attention kernel takes {dtype}, {name} is {t.dtype}")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"mixed_attention kernel takes contiguous (B, H, N, D) "
                              f"tensors, {name} is {tuple(t.shape)} "
@@ -187,6 +210,32 @@ def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def mixed_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n_mt: int, scale: float) -> torch.Tensor:
+    """bf16 forward, inference only: kernel K1-bf16 for CUDA tensors (each
+    launch counted in `mixed_attention_bf16.launches`),
+    `mixed_attention_bf16_ref` for CPU tensors. q, k and v must all be
+    bf16; the kernel takes the f32 kernel's shapes (D in
+    `_KERNEL_HEAD_DIMS`) and raises on others."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"mixed_attention_bf16 takes bfloat16, {name} is {t.dtype}")
+    if _on_cpu(q, k, v):
+        return mixed_attention_bf16_ref(q, k, v, n_mt, scale)
+    _check_kernel_args(dict(q=q, k=k, v=v), n_mt, torch.bfloat16)
+    B, H, Nq, D = q.shape
+    out = torch.empty_like(q)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    lib = _build.library("mixed_attention_bf16")
+    err = lib.mixed_attention_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B * H, Nq, k.shape[2], D, int(n_mt), float(scale), query_warps(B * H, Nq, n_sm),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mixed_attention_fwd_bf16")
+    mixed_attention_bf16.launches += 1
+    return out
+
+
 class _MixedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, n_mt, scale):
@@ -213,11 +262,19 @@ def mixed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k and v: K1 forward and K2 backward on CUDA tensors, the plain
     versions on CPU tensors. n_mt and scale are not differentiated. Without
     a gradient to take (inference) it skips the autograd Function's
-    per-call cost."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    per-call cost. bf16 q/k/v go to `mixed_attention_bf16` and raise if a
+    gradient is to be taken."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
+        if grad:
+            raise NotImplementedError(f"mixed_attention: bf16 tensors that require a "
+                                      f"gradient; {TRAINING_BF16}")
+        return mixed_attention_bf16(q, k, v, int(n_mt), float(scale))
+    if grad:
         return _MixedAttention.apply(q, k, v, int(n_mt), float(scale))
     return mixed_attention_fwd(q, k, v, int(n_mt), float(scale))
 
 
 mixed_attention.launches = 0
+mixed_attention_bf16.launches = 0
 mixed_attention_bwd.launches = 0

@@ -21,6 +21,11 @@ hand-written CUDA kernel K3 (`csrc/msda.cu`) for CUDA tensors and
 tensors. Anything else raises. There is no fallback from a kernel to a
 plain version. Which of its kernels K3 and K4 launch at a shape is decided
 by `msda_plan`, from the shape alone.
+
+bf16 value and attention weights with f32 locations (the JAX package's
+eval dtype) go to K3-bf16 (the bf16 kernels of `csrc/msda.cu`) for CUDA
+tensors and `ms_deform_attn_bf16_ref` for CPU tensors; the output is bf16.
+bf16 is inference only: bf16 tensors that require a gradient raise.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from multi_modal_tracking_torch.ops import _build
+from multi_modal_tracking_torch.utils.device import TRAINING_BF16
 
 
 def _corners(loc_l: torch.Tensor, H: int, W: int):
@@ -78,6 +84,41 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
         out = o if out is None else out + o
         start += H * W
     return out.reshape(B, Lq, M * D)
+
+
+def ms_deform_attn_bf16_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                            sampling_locations: torch.Tensor,
+                            attention_weights: torch.Tensor) -> torch.Tensor:
+    """Plain K3-bf16: bf16 value and attention weights, f32 locations ->
+    bf16 (B, Lq, M * D), with the rounding points of the JAX package's
+    `_msda_pallas_fwd` at bf16 (ops/msda.py:133, :202-206, :224, :252): each
+    tap weight (bilinear corner weight x attention weight) formed in f32
+    and rounded to bf16; per level and (query, head) the dense row A over
+    the level's pixels, the sum in f32 of the rounded weights of the taps on
+    each pixel in tap order (point-major, then corner), rounded to bf16
+    again; A V accumulated in f32 over the bf16 values, the levels summed
+    in f32 and the output rounded to bf16."""
+    B, S, M, D = value.shape
+    Lq, P = sampling_locations.shape[1], sampling_locations.shape[4]
+    loc, aw_all = sampling_locations.float(), attention_weights.float()
+    out = None
+    start = 0
+    for lid, (H, W) in enumerate(spatial_shapes):
+        _, _, corners = _corners(loc[:, :, :, lid], H, W)          # (B, Lq, M, P) each
+        aw = aw_all[:, :, :, lid]
+        a = torch.zeros(B, Lq, M, H * W, dtype=torch.float32, device=value.device)
+        for p in range(P):
+            for xi, yi, bw in corners:
+                xi, yi = xi[..., p], yi[..., p]
+                inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+                w = (bw[..., p] * aw[..., p]).to(torch.bfloat16).float() * inside
+                idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))[..., None]
+                a.scatter_add_(3, idx, w[..., None])
+        a = a.to(torch.bfloat16).float()
+        o = torch.einsum("bqms,bsmd->bqmd", a, value[:, start:start + H * W].float())
+        out = o if out is None else out + o
+        start += H * W
+    return out.to(torch.bfloat16).reshape(B, Lq, M * D)
 
 
 def ms_deform_attn_bwd_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -144,7 +185,7 @@ class MsdaPlan(NamedTuple):
 
 
 def msda_plan(B: int, M: int, D: int, spatial_shapes: Sequence[Tuple[int, int]],
-              n_sm: int) -> MsdaPlan:
+              n_sm: int, itemsize: int = 4) -> MsdaPlan:
     """Choose K3's and K4's kernels by shape (never on failure).
 
     K3 stages when all levels' rows of one (b, m) and the corner tables fit
@@ -155,9 +196,11 @@ def msda_plan(B: int, M: int, D: int, spatial_shapes: Sequence[Tuple[int, int]],
     corner tables fit (8*S_l*D + 4096 <= SMEM_MAX: S_l <= 446 at D 64)
     and D is even (its lanes hold channel pairs); other levels go direct.
     The number of points does not enter: the staged kernels take points in
-    groups."""
+    groups. `itemsize` is the value's element size: 4 for f32, 2 for K3-bf16,
+    whose staged slice takes half the shared memory (2*S*D + 8192 <=
+    SMEM_MAX: S <= 1752 at D 64); K4 is f32 only."""
     S = sum(h * w for h, w in spatial_shapes)
-    fwd_smem = 4 * (S * D + S * D % 2) + FWD_TABLE_BYTES
+    fwd_smem = -(-itemsize * S * D // 8) * 8 + FWD_TABLE_BYTES
     staged = fwd_smem <= SMEM_MAX and 2 * B * M >= n_sm
     bwd = tuple("staged" if 8 * h * w * D + BWD_TABLE_BYTES <= SMEM_MAX and D % 2 == 0
                 else "direct" for h, w in spatial_shapes)
@@ -170,10 +213,11 @@ def msda_plan(B: int, M: int, D: int, spatial_shapes: Sequence[Tuple[int, int]],
 def _plan_for(value: torch.Tensor, spatial_shapes) -> MsdaPlan:
     B, _, M, D = value.shape
     n_sm = torch.cuda.get_device_properties(value.device).multi_processor_count
-    return msda_plan(B, M, D, spatial_shapes, n_sm)
+    return msda_plan(B, M, D, spatial_shapes, n_sm, value.element_size())
 
 
-def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None):
+def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None,
+                       value_dtype=torch.float32):
     tensors = [("value", value), ("sampling_locations", loc), ("attention_weights", attw)]
     if grad_out is not None:
         tensors.append(("grad_out", grad_out))
@@ -181,8 +225,9 @@ def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None):
         if t.device.type != "cuda":
             raise ValueError(f"ms_deform_attn: {name} is on {t.device}; all inputs "
                              f"must be CPU or all CUDA tensors")
-        if t.dtype != torch.float32:
-            raise TypeError(f"ms_deform_attn kernel takes float32, {name} is {t.dtype}")
+        want = torch.float32 if name == "sampling_locations" else value_dtype
+        if t.dtype != want:
+            raise TypeError(f"ms_deform_attn kernel takes {want} {name}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"ms_deform_attn kernel takes contiguous {name}")
         if t.device != value.device:
@@ -283,6 +328,46 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     return dvalue, dloc, dattw
 
 
+def ms_deform_attn_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                        sampling_locations: torch.Tensor,
+                        attention_weights: torch.Tensor) -> torch.Tensor:
+    """bf16 forward, inference only: kernel K3-bf16 for CUDA tensors (its
+    staged or gather kernel, as `msda_plan` picks at bf16; each launch
+    counted in `ms_deform_attn_bf16.launches` and by kernel in
+    `ms_deform_attn_bf16.launches_by_kernel`), `ms_deform_attn_bf16_ref` for
+    CPU tensors. value and attention_weights must be bf16 and
+    sampling_locations f32; the kernel takes D a multiple of 8 up to 128
+    and raises on other shapes."""
+    for name, t, want in (("value", value, torch.bfloat16),
+                          ("sampling_locations", sampling_locations, torch.float32),
+                          ("attention_weights", attention_weights, torch.bfloat16)):
+        if t.dtype != want:
+            raise TypeError(f"ms_deform_attn_bf16 takes {want} {name}, got {t.dtype}")
+    tensors = (value, sampling_locations, attention_weights)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ms_deform_attn_bf16_ref(value, spatial_shapes, sampling_locations,
+                                       attention_weights)
+    _check_kernel_args(value, spatial_shapes, sampling_locations, attention_weights,
+                       value_dtype=torch.bfloat16)
+    B, S, M, D = value.shape
+    if D % 8:
+        raise ValueError(f"ms_deform_attn_bf16 kernel takes D a multiple of 8, got {D}")
+    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
+        sampling_locations.shape[4]
+    plan = _plan_for(value, spatial_shapes)
+    out = torch.empty((B, Lq, M * D), dtype=torch.bfloat16, device=value.device)
+    lib = _build.library("msda")
+    err = lib.msda_fwd_bf16(value.data_ptr(), sampling_locations.data_ptr(),
+                            attention_weights.data_ptr(), out.data_ptr(),
+                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+                            int(plan.fwd == "staged"),
+                            torch.cuda.current_stream(value.device).cuda_stream)
+    _build.check(err, "msda_fwd_bf16")
+    ms_deform_attn_bf16.launches += 1
+    ms_deform_attn_bf16.launches_by_kernel[plan.fwd] += 1
+    return out
+
+
 class _MSDeformAttn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
@@ -305,10 +390,18 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     differentiable in value, sampling_locations and attention_weights: K3
     forward and K4 backward on CUDA tensors, the plain versions on CPU
     tensors. spatial_shapes is not differentiated. Without a gradient to
-    take (inference) it skips the autograd Function's per-call cost."""
+    take (inference) it skips the autograd Function's per-call cost. A bf16
+    value goes to `ms_deform_attn_bf16` and raises if a gradient is to be
+    taken."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     tensors = (value, sampling_locations, attention_weights)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if value.dtype == torch.bfloat16:
+        if grad:
+            raise NotImplementedError(f"ms_deform_attn: bf16 tensors that require a "
+                                      f"gradient; {TRAINING_BF16}")
+        return ms_deform_attn_bf16(value, shapes, sampling_locations, attention_weights)
+    if grad:
         return _MSDeformAttn.apply(value, shapes, sampling_locations, attention_weights)
     return ms_deform_attn_fwd(value, shapes, sampling_locations, attention_weights)
 
@@ -316,4 +409,6 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
 ms_deform_attn.launches = 0
 #: K3 launches by the kernel `msda_plan` picked ("staged" or "gather")
 ms_deform_attn.launches_by_kernel = {"staged": 0, "gather": 0}
+ms_deform_attn_bf16.launches = 0
+ms_deform_attn_bf16.launches_by_kernel = {"staged": 0, "gather": 0}
 ms_deform_attn_bwd.launches = 0

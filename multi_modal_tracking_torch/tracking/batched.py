@@ -34,7 +34,7 @@ import torch
 from multi_modal_tracking_torch.ops.boxes import clip_box
 from multi_modal_tracking_torch.tracking.tracker import (_map_box_back, _prep_rgbt_batch,
                                                          _select_init_box)
-from multi_modal_tracking_torch.utils.device import resolve_device, set_f32_precision
+from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 
 def _select(keep: torch.Tensor, new, old):
@@ -55,8 +55,9 @@ class BatchedRGBTTracker:
 
     API: initialize(frames0_v/i (N, H, W, 3), boxes (N, 4)), then
     track_block(frames_v/i (T, N, H, W, 3), valid (T, N)) -> (T, N, 4)
-    boxes. model: a float32 MixFormerRGBT in eval mode on `device` (default
-    the GPU; device="cpu" runs the kernels' plain versions)."""
+    boxes. model: a MixFormerRGBT in eval mode on `device` (default the GPU;
+    device="cpu" runs the kernels' plain versions), float32 or cast to
+    bfloat16 as for tracking.tracker.RGBTTracker; boxes stay float32."""
 
     def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
                  search_factor: float = 5.0, search_size: int = 288,
@@ -66,7 +67,7 @@ class BatchedRGBTTracker:
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, tracker device is {self.device}")
-        set_f32_precision(param.dtype)
+        set_precision(param.dtype)
         self.model = model
         self.template_factor = template_factor
         self.template_size = template_size

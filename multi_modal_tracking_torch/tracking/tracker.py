@@ -31,7 +31,7 @@ from multi_modal_tracking_torch.ops.boxes import clip_box
 from multi_modal_tracking_torch.ops.colormap import apply_jet
 from multi_modal_tracking_torch.ops.crop import (crop_resize, crop_resize_batch,
                                                  crop_resize_window, normalize_imagenet)
-from multi_modal_tracking_torch.utils.device import resolve_device, set_f32_precision
+from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 
 def _select_init_box(box):
@@ -139,9 +139,13 @@ class RGBTTracker:
     """Tracking loop of the bimodal (asymmetric-shared) models with the full
     forward every frame.
 
-    model: a float32 MixFormerRGBT in eval mode on `device` (default the GPU;
-    pass device="cpu" to run the plain versions of the kernels on the CPU).
-    TF32 is turned off for matmuls and cuDNN (utils.device.set_f32_precision).
+    model: a MixFormerRGBT in eval mode on `device` (default the GPU; pass
+    device="cpu" to run the plain versions of the kernels on the CPU), with
+    float32 parameters or parameters cast to bfloat16
+    (utils.checkpoint.cast_floating): the model computes in its parameters'
+    dtype, while crops, boxes, the state and the map back to the frame stay
+    float32. TF32 is turned off for matmuls and cuDNN
+    (utils.device.set_precision).
     """
 
     def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
@@ -152,7 +156,7 @@ class RGBTTracker:
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, tracker device is {self.device}")
-        set_f32_precision(param.dtype)
+        set_precision(param.dtype)
         self.model = model
         self.template_factor = template_factor
         self.template_size = template_size

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from multi_modal_tracking_torch.train.losses import box_losses
-from multi_modal_tracking_torch.utils.device import resolve_device
+from multi_modal_tracking_torch.utils.device import require_float32_params, resolve_device
 
 
 def adjust_keep_rate(epoch: int, warmup_epochs: int, total_epochs: int,
@@ -68,8 +68,10 @@ def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: floa
     """step(batch, ce_keep_rate=None) -> metrics {"Loss/total", "Loss/ciou",
     "Loss/l1", "IoU", "grad_norm"} (0-d device tensors). `batch` is a host
     batch of `batch_to_model_inputs` or the output of `model_inputs`.
-    Runs on the GPU unless device="cpu"; raises without a GPU."""
+    Runs on the GPU unless device="cpu"; raises without a GPU. float32
+    parameters only: a model cast to bf16 raises."""
     dev = resolve_device(device)
+    require_float32_params(model, "make_train_step")
 
     def step(batch, ce_keep_rate: Optional[float] = None) -> Dict[str, torch.Tensor]:
         x = batch if "s" in batch else model_inputs(batch, dev)
@@ -89,8 +91,10 @@ def make_eval_step(model: nn.Module, iou_weight: float = 2.0, l1_weight: float =
     """eval_step(batch) -> the metrics of `box_losses` ("Loss/total",
     "Loss/ciou", "Loss/l1", "IoU"; 0-d device tensors) of the model in eval
     mode, without gradients and with ce_keep_rate None. Runs on the GPU
-    unless device="cpu"; raises without a GPU."""
+    unless device="cpu"; raises without a GPU. float32 parameters only,
+    as for training."""
     dev = resolve_device(device)
+    require_float32_params(model, "make_eval_step")
 
     @torch.no_grad()
     def eval_step(batch) -> Dict[str, torch.Tensor]:

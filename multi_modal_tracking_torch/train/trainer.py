@@ -22,7 +22,7 @@ FloatingPointError at that point.
 
 Work is float32 with TF32 off. Not ported yet, and raising
 NotImplementedError when configured (ROADMAP.md queue 1): TRAIN_SCORE
-(SPM), FSDP / REMAT, AMP / bf16.
+(SPM), FSDP / REMAT, AMP / bf16 training (item 4b).
 """
 from __future__ import annotations
 
@@ -44,16 +44,18 @@ from multi_modal_tracking_torch.train.train_step import (adjust_keep_rate, bucke
                                                          make_eval_step, make_train_step,
                                                          model_inputs)
 from multi_modal_tracking_torch.utils import checkpoint as ckpt
-from multi_modal_tracking_torch.utils.device import resolve_device
+from multi_modal_tracking_torch.utils.device import TRAINING_BF16, resolve_device
 
 _ROADMAP = "is not ported to multi_modal_tracking_torch yet (ROADMAP.md queue 1)"
 
 
 def _check_ported(cfg) -> None:
     t = cfg.TRAIN
-    for key in ("TRAIN_SCORE", "FSDP", "REMAT", "AMP"):
+    for key in ("TRAIN_SCORE", "FSDP", "REMAT"):
         if t.get(key, False):
             raise NotImplementedError(f"TRAIN.{key} {_ROADMAP}")
+    if t.get("AMP", False):
+        raise NotImplementedError(f"TRAIN.AMP: {TRAINING_BF16}")
 
 
 def _warm_start_paths(cfg) -> List[tuple]:

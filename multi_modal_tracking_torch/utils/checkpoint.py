@@ -145,3 +145,20 @@ def _partial_load(model: nn.Module, sd: Dict[str, torch.Tensor], label: str, str
             target[k].copy_(v)
     return dict(path=label, loaded=len(loaded), total=len(target), missing=missing,
                 unexpected=unexpected)
+
+
+def cast_floating(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every floating parameter of `model` to `dtype` in place; buffers
+    keep their dtype. The port's copy of the JAX package's `cast_floating`
+    (utils/checkpoint.py:230), which casts the `params` collection only:
+    the parameters here are that collection (Linear, conv, LayerNorm,
+    GroupNorm and BatchNorm affine weights, the fusion's level embed), and
+    the buffers hold `batch_stats` (BatchNorm and FrozenBatchNorm running
+    statistics and the frozen affine), which stay float32, and the fixed
+    position embeddings, which the model casts where it adds them. So
+    `model.to(dtype)`, which casts buffers too, is not used. Returns
+    `model`."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return model

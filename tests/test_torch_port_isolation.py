@@ -113,16 +113,18 @@ def _tiny_builder(monkeypatch, overrides):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """bf16, the score branch and CE_TEMPLATE_RANGE still raise; a
-    checkpoint for the tracker is ported: it loads strictly (all weights
-    equal the file's), and one that does not cover the model raises."""
+    """A compute dtype other than float32 and bfloat16, the score branch
+    and CE_TEMPLATE_RANGE still raise (bfloat16 is ported for tracking and
+    evaluation: tests/test_torch_port_tracker_bf16.py); a checkpoint for
+    the tracker is ported: it loads strictly (all weights equal the
+    file's), and one that does not cover the model raises."""
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.eval.params import get_parameters
     from multi_modal_tracking_torch.models.build import build_model
 
     params = get_parameters("asymmetric_shared_ce", "attention_lasher_newfusion_2layer")
     with pytest.raises(NotImplementedError, match="dtype"):
-        build_model("asymmetric_shared_ce", params.cfg, device="cpu", dtype=torch.bfloat16)
+        build_model("asymmetric_shared_ce", params.cfg, device="cpu", dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="score branch"):
         build_model("asymmetric_shared_online", params.cfg, device="cpu")
     from multi_modal_tracking_torch.models.asymmetric_shared import AsymSharedViT
