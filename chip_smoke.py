@@ -6,9 +6,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device   - requires CUDA, prints the card's name and power limit,
                 turns TF32 off;
   2. build    - compiles every kernel of the main paths from csrc/ (one nvcc
-                per source, all at once), then one short untimed profiler
-                session (`warm_profiler`);
-  3. kernels  - each kernel (K1, K2 mixed-attention forward/backward, K3, K4
+                per source, all at once);
+  3. bf16 GEMM reduction - set_precision(bf16) must turn cuBLAS's bf16
+                split-K reduction off; a bf16 weight gradient at the training
+                shape (K = 14,464) against f32 accumulation rounded once,
+                with the flag off (checked) and on (printed); then one short
+                untimed profiler session (`warm_profiler`);
+  4. kernels  - each kernel (K1, K2 mixed-attention forward/backward, K3, K4
                 MSDA forward/backward) against its plain PyTorch version on
                 the card at the main paths' shapes (the lockstep eval's
                 batch of 12 included; and narrow and ragged
@@ -30,27 +34,42 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 required) and on edge cases, each against its plain version
                 (bf16_tol) and, with its plain version, against the f32
                 answer on the same inputs: the kernel's error at most 1.25x
-                the plain version's; SDPA at bf16 beside K1-bf16;
-  4. model    - the full-width asymmetric_shared_ce recipe (seeded random
+                the plain version's; SDPA at bf16 beside K1-bf16; then the
+                bf16 backward kernels at the training shapes, K2-bf16 with
+                K1-bf16's lse (both Delta sources, the f32 K2 as the f32
+                answer, SDPA's bf16 backward as the library time) and
+                K4-bf16 on uniform and model-like locations (the f32 K4 as
+                the f32 answer), and on edge cases covering both of
+                msda_plan's backward paths at bf16;
+  5. model    - the full-width asymmetric_shared_ce recipe (seeded random
                 weights): cached path (set_online + forward_track) against
                 the full forward, and the GPU run against the same model on
                 the CPU (plain versions) on the same crops;
-  5. tracker  - create_tracker -> initialize -> track over a seeded
-                synthetic 512x640 RGB-T sequence (64 frames, update interval
-                25), with every kernel's launch count read over that run;
-  6. profile  - where a frame's time goes: each layer on the host clock, and
+  6. tracker  - create_tracker(dtype=torch.float32) -> initialize -> track
+                over a seeded synthetic 512x640 RGB-T sequence (64 frames,
+                update interval 25), with every kernel's launch count read
+                over that run;
+  7. profile  - where a frame's time goes: each layer on the host clock, and
                 a torch.profiler trace of 10 more frames for the device's busy
                 time, idle share, operations per frame and top kernels;
-  7. train    - Trainer on the full-width recipe at batch 16 on SyntheticRGBT:
-                an epoch of steps at epoch 1 (keep 1.0) and one at epoch 51
-                (keep 0.7, bucketised to 240/324), launch counts per step;
+  8. train    - Trainer(dtype=torch.float32) on the full-width recipe at
+                batch 16 on SyntheticRGBT: an epoch of steps at epoch 1
+                (keep 1.0) and one at epoch 51 (keep 0.7, bucketised to
+                240/324), launch counts per step;
                 step time, samples/s, host data time, device busy time and
                 idle share, peak memory, loss per step; and one full-width
                 step at batch 2 (dropout and drop path off) on the GPU held
-                against the same step on the CPU;
-  8. lifecycle - checkpoints and the rest of the training loop, full width at
-                batch 16, in a temporary directory deleted at the end: a
-                synthetic MAE backbone file warm-starts the backbone
+                against the same step on the CPU; launches of K1-K4 only;
+  9. train bf16 - the same at the Trainer's default dtype (bf16 compute on
+                float32 parameters and AdamW moments, both checked): K1-bf16
+                and K2-bf16 12 and K3-bf16 and K4-bf16 2 launches per step and
+                no f32 kernel; finite losses that change between steps; the
+                same timings, device busy time, idle share, operations per
+                step and peak memory; a GPU bf16 step at batch 2 held against
+                the CPU bf16 step;
+ 10. lifecycle - checkpoints and the rest of the training loop, full width at
+                batch 16 at the Trainer's default (bf16), in a temporary
+                directory deleted at the end: a synthetic MAE backbone file warm-starts the backbone
                 (checked equal); Trainer.train runs 2 epochs of 2 steps
                 with a SyntheticRGBT val split every epoch and a failure
                 injected into the second training pass, and the fail-safe
@@ -59,11 +78,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 bit (weights, buffers, AdamW moments, count, epoch,
                 generator); an ACCUM_ITER 2 epoch of 4 batches must move the
                 weights after batches 2 and 4 only; create_tracker on the
-                _ep0002 checkpoint (strict load) must track 16 frames within
-                1e-6 px of a tracker on the trainer's in-memory model.
+                _ep0002 checkpoint (strict load, bf16) must track 16 frames
+                within 1e-6 px of a tracker on the trainer's in-memory model
+                cast to bf16; bf16 kernels only.
                 Prints checkpoint bytes, save / load / resume seconds, val
                 ms per batch and ms per accumulation micro-step;
-  9. eval     - the evaluation stack on synthetic_rgbt_hard (12 sequences of
+ 11. eval     - the evaluation stack on synthetic_rgbt_hard (12 sequences of
                 60 frames at 240x320), full width, seed-0 weights: run_dataset
                 one stream at a time, chunk 16 (A); run_sequences_batched at
                 N = 4 and N = 12 (B4, B12: the N sequences as one (2N, ...)
@@ -77,7 +97,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 upload bytes per frame (full frames, ROI windows), a profiled
                 B12 block's device busy time and idle share, and the
                 success / precision tables of A and B12;
- 10. bf16     - the bf16 serving path: create_tracker(dtype=torch.bfloat16)
+ 12. bf16     - the bf16 serving path: create_tracker(dtype=torch.bfloat16)
                 tracks the tracker phase's 63 frames (ms per frame, centre
                 distance to the f32 trajectory), a profile of 10 more
                 (device busy, idle share, operations per frame), then
@@ -86,8 +106,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 to one bf16 stream and to the f32 run A. Every run must
                 launch K1-bf16 and K3-bf16 and no f32 kernel; the f32
                 phases must launch no bf16 kernel.
-Then the kernel table line (launches by path: tracker, train, lifecycle,
-eval) and, last, {"ok": true, "device": {...}}.
+Then the kernel table line (launches by path: tracker, train, eval for
+the f32 kernels; train bf16, lifecycle, and for the forward kernels the
+bf16 tracker and eval) and, last, {"ok": true, "device": {...}}.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -112,8 +133,18 @@ cuBLAS and cuDNN):
   * bf16 kernels against their plain versions (`bf16_tol`): 2^-8 of the
     largest |value| plus one bf16 unit (2^-7) of the output: each side
     rounds every probability or tap weight to bf16, at another point
-    (K1-bf16 before the row-sum division, K3-bf16 per tap where the plain
-    version rounds a pixel's summed weight again), then its output.
+    (K1-bf16 before the row-sum division, K3-bf16 and K4-bf16 per tap where
+    the plain version rounds a pixel's summed weight again; K2-bf16 takes P
+    from the lse where the plain version divides by the row sum), then its
+    output. K4-bf16's dLoc is f32: K4's tolerance. Against the f32 answer
+    each kernel's error is at most 1.25x its plain version's (K2-bf16 for
+    the Delta source ops/attention.py BWD_BF16_DELTA names; K4-bf16 for
+    dValue and dAttw).
+  * bf16 train step, GPU vs CPU: parameters and gradients float32; loss
+    within 2^-6 rel (the bf16 forward drifts from f32 by a few tenths of a
+    percent); all gradients together within twice the CPU bf16 step's own
+    distance from the GPU's f32 gradients (bf16 gradients of this loss lie
+    far from f32's, in JAX too: tests/test_torch_port_train_step_bf16.py).
   * model boxes (normalised to [0, 1]): 1e-4, i.e. 0.03 px at 288. The paths
     compared use other key orders, GEMM shapes and CPU vs GPU kernels
     through 12 blocks, 2 fusion layers and the head.
@@ -129,6 +160,7 @@ cuBLAS and cuDNN):
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -143,7 +175,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12         # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12             # f32 outside the tensor cores
 H100_TF32X3_FLOPS = 495e12 / 3     # f32-accurate products as 3 TF32 MMAs (K1, K2)
-H100_BF16_FLOPS = 989e12           # dense bf16 on the tensor cores (K1-bf16, K3-bf16)
+H100_BF16_FLOPS = 989e12           # dense bf16 on the tensor cores (the bf16 kernels)
 KERNEL_TOL = dict(atol=2e-5, rtol=1e-4)
 BOX_TOL = 1e-4
 SCRIPT, RECIPE = "asymmetric_shared_ce", "attention_lasher_newfusion_2layer"
@@ -188,11 +220,11 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, sessions: int = 3) -> float:
     """Device time per call of fn from a torch.profiler trace of `iters`
     calls: the summed durations of the kernels whose names contain one of
-    `names` (None: every kernel, copy and memset). A session whose trace
-    holds no device event at all has lost its trace (CUPTI recorded
-    nothing: seen once on an SDPA session after many good ones), so it is
-    run again, up to `sessions` times; a trace with device events but none
-    of `names` raises at once."""
+    `names` (None: every kernel, copy and memset). Every fn timed here
+    launches at least one such kernel per call, so a session whose trace
+    holds fewer of them than calls has lost events (CUPTI recorded nothing
+    once on an SDPA session, and one K1-bf16 launch of 20 once): it is run
+    again, up to `sessions` times, and raises if none is whole."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -203,12 +235,13 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, sessions: int = 
                 fn()
             torch.cuda.synchronize()
         ivals = _device_intervals(prof)
-        if ivals:
+        named = [e - s for s, e, n in ivals if names is None or any(k in n for k in names)]
+        if len(named) >= iters:
             break
-    total = sum(e - s for s, e, n in ivals if names is None or any(k in n for k in names))
-    require(total > 0, f"the profiler saw no device time for {names} "
-                       f"({len(ivals)} device events traced)")
-    return total / iters / 1e3
+    require(len(named) >= iters, f"the profiler traced {len(named)} device events for "
+                                 f"{names} over {iters} calls ({len(ivals)} in all), "
+                                 f"{sessions} sessions")
+    return sum(named) / iters / 1e3
 
 
 def warm_profiler() -> None:
@@ -270,13 +303,53 @@ def phase_device():
     return dev, smi
 
 
+def phase_bf16_reduction(smi: str) -> dict:
+    """set_precision(bf16) turns cuBLAS's bf16 split-K reduction off. A bf16
+    Linear weight gradient at the training shape (fc1: 3072 x 768 over
+    K = 32 x 452 = 14,464 rows) against the same product accumulated in
+    f32 and rounded once, with the flag as set_precision leaves it and
+    with it on (PyTorch's default). With the flag off cuBLAS accumulates in
+    f32 and rounds once, so it may differ from the reference only by the
+    f32 summation order (whose absolute error grows with the sum of |terms|
+    over K, not with each output): within one bf16 unit of the largest
+    output; with the flag on the errors are printed beside it."""
+    from multi_modal_tracking_torch.utils.device import set_precision
+    set_precision(torch.bfloat16)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    require(flag is False, f"set_precision(bf16) left allow_bf16_reduced_precision_reduction "
+                           f"= {flag}")
+    g = torch.Generator().manual_seed(4)
+    K = 2 * TRAIN_B * (N_MT + 324)
+    x = torch.randn(K, 768, generator=g).cuda().to(torch.bfloat16)
+    gr = torch.randn(K, 3072, generator=g).cuda().to(torch.bfloat16)
+    want = (gr.float().t() @ x.float()).to(torch.bfloat16).float()
+    unit = 2.0 ** -7 * float(want.abs().max())
+    out = {}
+    for on in (False, True):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = on
+        diff = ((gr.t() @ x).float() - want).abs()
+        torch.cuda.synchronize()
+        out["flag_on" if on else "flag_off"] = dict(
+            max_abs_err=float(diff.max()), mean_abs_err=float(diff.mean()),
+            max_err_over_top_unit=float(diff.max()) / unit,
+            differing_share=float((diff > 0).float().mean()))
+    set_precision(torch.bfloat16)
+    err = out["flag_off"]["max_abs_err"]
+    require(err <= unit, f"bf16 weight gradient with split-K reduction off: max abs err {err} "
+                         f"> one bf16 unit of the largest output ({unit})")
+    emit({"phase": "bf16 GEMM reduction", "card": smi, "shape": [3072, K, 768],
+          "reference": "f32 accumulation, one rounding", "max_abs_reference": float(
+              want.abs().max()), **out})
+    return out
+
+
 def phase_build():
     from multi_modal_tracking_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build()
     secs = time.perf_counter() - t0
     require(set(logs) >= {"mixed_attention", "mixed_attention_bf16", "mixed_attention_bwd",
-                          "msda", "msda_bwd"},
+                          "mixed_attention_bwd_bf16", "msda", "msda_bwd"},
             f"built {sorted(logs)}")
     emit({"phase": "build", "seconds": round(secs, 3),
           "ptxas": {name: ptxas_report(log) for name, log in logs.items()}})
@@ -734,6 +807,8 @@ def phase_kernels(g: torch.Generator) -> dict:
     table["K4"]["model_locations_ms"] = _sum_rows(
         [r for r in k4_rows if r["locations"] == "model"], "calls_per_step")["ms"]
     table.update(_bf16_table_rows(kernel_k1_bf16(g), kernel_k3_bf16(g), kernel_edges_bf16(g)))
+    table.update(_bf16_bwd_table_rows(kernel_k2_bf16(g), kernel_k4_bf16(g),
+                                      kernel_edges_bf16_bwd(g)))
     return table
 
 
@@ -767,34 +842,41 @@ def _bf16_errors(what: str, got, plain, f32, v) -> dict:
 
 def kernel_k1_bf16(g):
     """K1-bf16 at the bf16 tracker's shapes (template step; search steps at
-    the CE lengths, 12 per frame) and at the lockstep N = 12 shapes (batch
-    24), against its plain version and the f32 answer; SDPA at bf16 with
-    the boolean mask as the library yardstick."""
+    the CE lengths, 12 per frame), at the lockstep N = 12 shapes (batch
+    24) and at the bf16 training forward's (batch 2 x 16 at the final
+    keep's CE lengths, writing the lse K2-bf16 reads), against its plain
+    version and the f32 answer; SDPA at bf16 with the boolean mask as the
+    library yardstick."""
     import torch.nn.functional as F
     from multi_modal_tracking_torch.ops.attention import (mixed_attention_bf16,
                                                           mixed_attention_bf16_ref,
                                                           mixed_attention_ref)
     scale = HEAD_D ** -0.5
-    cases = [("template_step", B2, N_MT, N_MT, 0, 0, 0)]
-    cases += [("search_step", B2, L, L + 2 * N_MT, 0, n, 0) for L, n in CE_LENGTHS]
-    cases += [(f"search_step_b{EVAL_BIG}", 2 * EVAL_BIG, L, L + 2 * N_MT, 0, 0, n)
+    cases = [("template_step", B2, N_MT, N_MT, 0, 0, 0, 0)]
+    cases += [("search_step", B2, L, L + 2 * N_MT, 0, n, 0, 0) for L, n in CE_LENGTHS]
+    cases += [(f"search_step_b{EVAL_BIG}", 2 * EVAL_BIG, L, L + 2 * N_MT, 0, 0, n, 0)
               for L, n in CE_LENGTHS]
+    cases += [("train_forward", 2 * TRAIN_B, n, n + N_MT, N_MT, 0, 0, c)
+              for n, c in train_attention_lengths(KEEP_FINAL)]
     rows = []
-    for form, B, Nq, Nk, n_mt, calls, step_calls in cases:
+    for form, B, Nq, Nk, n_mt, calls, step_calls, train_calls in cases:
         q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, HEADS, Nq, Nk, HEAD_D, g))
+        with_lse = form == "train_forward"
         got = mixed_attention_bf16(q, k, v, n_mt, scale)
         plain = mixed_attention_bf16_ref(q, k, v, n_mt, scale)
         f32 = mixed_attention_ref(q.float(), k.float(), v.float(), n_mt, scale)
         errs = _bf16_errors(f"K1-bf16 {form} Nq={Nq} Nk={Nk}", got, plain, f32, v)
         mask = _allowed(Nq, Nk, n_mt)
-        kern = lambda: mixed_attention_bf16(q, k, v, n_mt, scale)  # noqa: E731
+        kern = lambda: mixed_attention_bf16(q, k, v, n_mt, scale,  # noqa: E731
+                                            return_lse=with_lse)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,  # noqa: E731
                                                      scale=scale)
-        n_bytes = 2 * B * HEADS * HEAD_D * (2 * Nq + 2 * Nk)
+        n_bytes = 2 * B * HEADS * HEAD_D * (2 * Nq + 2 * Nk) + (4 * B * HEADS * Nq if with_lse
+                                                                 else 0)
         flops = 4 * B * HEADS * HEAD_D * _pairs(Nq, Nk, n_mt)
         b_ms, b_by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
         row = dict(form=form, B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, calls_per_frame=calls,
-                   calls_per_lockstep_step=step_calls, **errs,
+                   calls_per_lockstep_step=step_calls, calls_per_step=train_calls, **errs,
                    ms=device_ms(kern, ["mixed_attention_fwd_bf16_kernel"]),
                    event_ms=cuda_time_ms(kern),
                    plain_ms=cuda_time_ms(lambda: mixed_attention_bf16_ref(q, k, v, n_mt, scale)),
@@ -844,7 +926,8 @@ def kernel_k3_bf16(g):
                                  value, MSDA_SHAPES, loc, attw), iters=10),
                              library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
                              flops=flops, calls_per_frame=2 if B == 1 else 0,
-                             calls_per_lockstep_step=2 if B == EVAL_BIG else 0))
+                             calls_per_lockstep_step=2 if B == EVAL_BIG else 0,
+                             calls_per_step=2 if B == TRAIN_B else 0))
     emit({"phase": "kernels", "kernel": "K3-bf16 ms_deform_attn_bf16",
           "tolerance": "atol 2^-8 max|V|, rtol 2^-7; error against f32 <= 1.25 x plain's",
           "cases": rows})
@@ -889,6 +972,250 @@ def kernel_edges_bf16(g):
     return edge
 
 
+def _k2_bf16_case(q, k, v, gr, n_mt, scale):
+    """K2-bf16 (both Delta sources) with K1-bf16's lse, against its plain
+    version and the f32 K2 (K1 + K2 on the same bf16-exact inputs, as f32):
+    (outputs by Delta source, plain, f32, lse error, (o, lse))."""
+    from multi_modal_tracking_torch.ops.attention import (
+        mixed_attention_bf16, mixed_attention_bf16_lse_ref, mixed_attention_bwd,
+        mixed_attention_bwd_bf16, mixed_attention_bwd_bf16_ref, mixed_attention_fwd)
+    o, lse = mixed_attention_bf16(q, k, v, n_mt, scale, return_lse=True)
+    require(torch.equal(o, mixed_attention_bf16(q, k, v, n_mt, scale)),
+            f"K1-bf16 {tuple(q.shape)} n_mt={n_mt}: output depends on whether lse is written")
+    lse_err, _, ok = max_err(lse, mixed_attention_bf16_lse_ref(q, k, n_mt, scale))
+    require(ok, f"K1-bf16 {tuple(q.shape)} n_mt={n_mt}: lse max abs err {lse_err}")
+    got = {d: mixed_attention_bwd_bf16(q, k, v, o, gr, n_mt, scale, lse, delta=d)
+           for d in ("o", "recompute")}
+    plain = mixed_attention_bwd_bf16_ref(q, k, v, gr, n_mt, scale)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, gr))
+    of, lf = mixed_attention_fwd(qf, kf, vf, n_mt, scale, return_lse=True)
+    f32 = mixed_attention_bwd(qf, kf, vf, of, gf, n_mt, scale, lf)
+    return got, plain, f32, lse_err, (o, lse)
+
+
+def _k2_bf16_errors(what, got, plain, f32) -> dict:
+    """Each of dq, dk, dv against its plain version (bf16_tol of the plain
+    output) and against the f32 K2; per Delta source the worst ratio of the
+    kernel's f32 error to the plain version's. The chosen source
+    (BWD_BF16_DELTA) must keep every ratio <= 1.25."""
+    from multi_modal_tracking_torch.ops.attention import BWD_BF16_DELTA
+    out = {}
+    for src, outs in got.items():
+        errs, ratios = [], []
+        for name, x, p, f in zip(("dq", "dk", "dv"), outs, plain, f32):
+            err, _, ok = max_err(x.float(), p.float(), bf16_tol(p))
+            require(ok or src != BWD_BF16_DELTA,
+                    f"{what} {name} (Delta from {src}) disagrees with its plain version: {err}")
+            e_k, e_p = float((x.float() - f).abs().max()), float((p.float() - f).abs().max())
+            errs.append(err)
+            ratios.append(e_k / e_p)
+        out[src] = dict(max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
+                        f32_err_ratio_dq_dk_dv=ratios, f32_err_ratio=max(ratios))
+        if src == BWD_BF16_DELTA:
+            require(max(ratios) <= 1.25, f"{what}: error against the f32 K2 "
+                                         f"{ratios} x the plain version's (> 1.25)")
+    out["plain_f32_err_dq_dk_dv"] = [float((p.float() - f).abs().max())
+                                     for p, f in zip(plain, f32)]
+    return out
+
+
+def kernel_k2_bf16(g):
+    """K2-bf16 at the training shapes (B 2 x 16, H 12, D 64, n_mt 128) at keep
+    1.0 and at the bucketised CE lengths of the final keep, with K1-bf16's
+    lse; both Delta sources against the plain version and the f32 K2; SDPA
+    at bf16 (fwd+bwd minus fwd) as the library time."""
+    import torch.nn.functional as F
+    from multi_modal_tracking_torch.ops.attention import (BWD_BF16_DELTA,
+                                                          mixed_attention_bwd_bf16,
+                                                          mixed_attention_bwd_bf16_ref)
+    scale = HEAD_D ** -0.5
+    B = 2 * TRAIN_B
+    rows = []
+    lengths = [(n, c, 1.0) for n, c in train_attention_lengths(1.0)]
+    lengths += [(n, c, KEEP_FINAL) for n, c in train_attention_lengths(KEEP_FINAL)]
+    for Nq, calls, keep in lengths:
+        Nk, n_mt = Nq + N_MT, N_MT
+        q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, HEADS, Nq, Nk, HEAD_D, g))
+        gr = torch.randn(B, HEADS, Nq, HEAD_D, generator=g).cuda().to(torch.bfloat16)
+        got, plain, f32, lse_err, (o, lse) = _k2_bf16_case(q, k, v, gr, n_mt, scale)
+        errs = _k2_bf16_errors(f"K2-bf16 Nq={Nq} Nk={Nk}", got, plain, f32)
+        mask = _allowed(Nq, Nk, n_mt)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), gr)
+        n_bytes = 2 * B * HEADS * HEAD_D * (4 * Nq + 4 * Nk) + 4 * B * HEADS * Nq
+        flops = 10 * B * HEADS * HEAD_D * _pairs(Nq, Nk, n_mt)
+        b_ms, b_by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
+        by_src = {}
+        for src in ("o", "recompute"):
+            kern = lambda src=src: mixed_attention_bwd_bf16(  # noqa: E731
+                q, k, v, o, gr, n_mt, scale, lse, delta=src)
+            by_src[src] = dict(ms=device_ms(kern, ["attn_bwd_"]),
+                               event_ms=cuda_time_ms(kern, iters=20), **errs[src])
+        row = dict(B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, keep=keep,
+                   calls_per_step=calls if keep == KEEP_FINAL else 0, lse_max_abs_err=lse_err,
+                   delta=BWD_BF16_DELTA, by_delta_source=by_src,
+                   plain_f32_err_dq_dk_dv=errs["plain_f32_err_dq_dk_dv"],
+                   max_abs_err=by_src[BWD_BF16_DELTA]["max_abs_err"],
+                   f32_err_ratio=by_src[BWD_BF16_DELTA]["f32_err_ratio"],
+                   ms=by_src[BWD_BF16_DELTA]["ms"], event_ms=by_src[BWD_BF16_DELTA]["event_ms"],
+                   plain_ms=cuda_time_ms(
+                       lambda: mixed_attention_bwd_bf16_ref(q, k, v, gr, n_mt, scale), iters=5),
+                   library_ms=device_ms(sdpa_fwd_bwd) - device_ms(sdpa_fwd),
+                   bytes=n_bytes, flops=flops, bound_ms=b_ms, bound_by=b_by)
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        rows.append(row)
+    emit({"phase": "kernels", "kernel": "K2-bf16 mixed_attention_bwd_bf16",
+          "tolerance": "bf16_tol of each plain output; error against the f32 K2 <= 1.25 x "
+                       "the plain version's for the chosen Delta source",
+          "library": "scaled_dot_product_attention at bf16 with the boolean mask: fwd+bwd "
+                     "minus fwd", "cases": rows})
+    return rows
+
+
+def _k4_bf16_case(what, value, shapes, loc, attw, gr) -> dict:
+    """K4-bf16 against its plain version and the f32 K4 on the same
+    (bf16-exact) inputs. dValue and dAttw (bf16): bf16_tol of the plain
+    output, and the kernel's error against the f32 K4 at most 1.25x the
+    plain version's. dLoc (f32 from the same exact products): the f32 K4's
+    tolerance (max_err_scaled); its error against f32 is f32 rounding on
+    both sides and is printed, not compared. Also the share of dValue
+    values that differ from the plain version (the per-tap rounding)."""
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bwd, ms_deform_attn_bwd_bf16,
+                                                     ms_deform_attn_bwd_bf16_ref)
+    got = ms_deform_attn_bwd_bf16(value, shapes, loc, attw, gr)
+    plain = ms_deform_attn_bwd_bf16_ref(value, shapes, loc, attw, gr)
+    f32 = ms_deform_attn_bwd(value.float(), shapes, loc, attw.float(), gr.float())
+    require([t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.bfloat16],
+            f"{what}: gradient dtypes {[t.dtype for t in got]}")
+    out = {}
+    for name, x, p, f in zip(("dValue", "dLoc", "dAttw"), got, plain, f32):
+        if name == "dLoc":
+            err, _, ok = max_err_scaled(x, p)
+        else:
+            err, _, ok = max_err(x.float(), p.float(), bf16_tol(p))
+        require(ok, f"{what} {name} disagrees with its plain version: max abs err {err}")
+        e_k, e_p = float((x.float() - f).abs().max()), float((p.float() - f).abs().max())
+        if name != "dLoc":
+            require(e_k <= 1.25 * e_p, f"{what} {name}: error against the f32 K4 {e_k} > "
+                                       f"1.25 x the plain version's {e_p}")
+        out[name] = dict(max_abs_err=err, f32_err=e_k, plain_f32_err=e_p,
+                         f32_err_ratio=e_k / e_p if e_p else None,
+                         differing_share=float((x != p).float().mean()))
+    return out
+
+
+def kernel_k4_bf16(g):
+    """K4-bf16 at the training shape (B 16, Lq 648, M 8, D 64, two 18x18
+    levels, P 4) on uniform and model-like locations, against its plain
+    version and the f32 K4; msda_plan at bf16 must stage both levels."""
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bwd_bf16,
+                                                     ms_deform_attn_bwd_bf16_ref, msda_plan)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    Lq = 648
+    for locations in ("uniform", "model"):
+        value, loc, attw = _msda_inputs(TRAIN_B, MSDA_SHAPES, Lq, M_HEADS, M_D, M_P, g)
+        if locations == "model":
+            loc = _model_locations(TRAIN_B, MSDA_SHAPES, M_HEADS, M_P, g)
+        value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
+        gr = torch.randn(TRAIN_B, Lq, M_HEADS * M_D, generator=g).cuda().to(torch.bfloat16)
+        errs = _k4_bf16_case(f"K4-bf16 {locations}", value, MSDA_SHAPES, loc, attw, gr)
+        plan = msda_plan(TRAIN_B, M_HEADS, M_D, MSDA_SHAPES, n_sm, itemsize=2)
+        require(plan.bwd == ("staged", "staged"), f"K4-bf16 plan {plan}")
+        kern = lambda: ms_deform_attn_bwd_bf16(value, MSDA_SHAPES, loc, attw, gr)  # noqa: E731
+        live = _live_corners(loc, MSDA_SHAPES)
+        n_bytes = 2 * 2 * (value.numel() + attw.numel()) + 2 * 4 * loc.numel() + 2 * gr.numel()
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * M_D * live, H100_BF16_FLOPS)
+        rows.append(dict(B=TRAIN_B, Lq=Lq, locations=locations, path=list(plan.bwd),
+                         smem=plan.bwd_smem, by_output=errs,
+                         max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                         f32_err_ratio=max(errs[k]["f32_err_ratio"] or 0.0
+                                           for k in ("dValue", "dAttw")),
+                         ms=device_ms(kern), kernels_ms=device_ms(kern, ["msda_bwd_kernel"]),
+                         event_ms=cuda_time_ms(kern),
+                         plain_ms=cuda_time_ms(lambda: ms_deform_attn_bwd_bf16_ref(
+                             value, MSDA_SHAPES, loc, attw, gr), iters=5, warmup=1),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                         flops=4.0 * M_D * live,
+                         calls_per_step=2 if locations == "uniform" else 0))
+    emit({"phase": "kernels", "kernel": "K4-bf16 ms_deform_attn_bwd_bf16",
+          "tolerance": "dValue, dAttw: bf16_tol, error against the f32 K4 <= 1.25 x plain's; "
+                       "dLoc: 1e-5 of its largest magnitude or 1e-4 rel", "cases": rows})
+    return rows
+
+
+# K4-bf16's edge cases (D a multiple of 8): D 16 with Lq 37; D 32 on three
+# ragged levels with P 3; an 18x18 and a 24x24 level (both staged at bf16:
+# 6 * 576 * 64 + 4096 B fit); D 128 with a 40x12 level (direct) and with
+# P 5 (staged); a 25x25 level at D 64 (direct at bf16) at B 16
+MSDA_BWD_BF16_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 16, 4),
+                       (2, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 3),
+                       (1, ((18, 18), (24, 24)), 50, 2, 64, 4), (1, ((40, 12),), 21, 2, 128, 2),
+                       (1, ((10, 10), (5, 5)), 21, 2, 128, 5),
+                       (TRAIN_B, ((25, 25), (9, 9)), 40, 8, 64, 4)]
+
+
+def kernel_edges_bf16_bwd(g):
+    """K2-bf16 (with K1-bf16's lse) on ATTN_EDGES; K4-bf16 on both of
+    msda_plan's backward paths at bf16, ragged levels and query counts."""
+    from multi_modal_tracking_torch.ops.attention import BWD_BF16_DELTA
+    from multi_modal_tracking_torch.ops.msda import msda_plan
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    edge, paths = [], set()
+    for (B, H, Nq, Nk, D, n_mt) in ATTN_EDGES:
+        q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, H, Nq, Nk, D, g))
+        gr = torch.randn(B, H, Nq, D, generator=g).cuda().to(torch.bfloat16)
+        got, plain, f32, lse_err, _ = _k2_bf16_case(q, k, v, gr, n_mt, D ** -0.5)
+        errs = _k2_bf16_errors(f"K2-bf16 edge case {(B, H, Nq, Nk, D, n_mt)}", got, plain, f32)
+        edge.append(dict(kernel="K2-bf16", shape=[B, H, Nq, Nk, D, n_mt],
+                         lse_max_abs_err=lse_err,
+                         max_abs_err=errs[BWD_BF16_DELTA]["max_abs_err"], **errs))
+    for (B, shp, Lq, M, D, P) in MSDA_BWD_BF16_EDGES:
+        value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
+        value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
+        gr = torch.randn(B, Lq, M * D, generator=g).cuda().to(torch.bfloat16)
+        path = list(msda_plan(B, M, D, shp, n_sm, itemsize=2).bwd)
+        paths.update(path)
+        errs = _k4_bf16_case(f"K4-bf16 edge case {(B, shp, Lq, M, D, P)} ({path})", value, shp,
+                             loc, attw, gr)
+        edge.append(dict(kernel="K4-bf16", shape=[B, shp, Lq, M, D, P], path=path,
+                         by_output=errs,
+                         max_abs_err=max(e["max_abs_err"] for e in errs.values())))
+    require(paths == {"staged", "direct"}, f"K4-bf16 edge cases cover {paths}")
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "kernel": "bf16 backward edge cases", "cases": edge})
+    return edge
+
+
+def _bf16_bwd_table_rows(k2_rows, k4_rows, edges) -> dict:
+    """Per training step totals (final keep; K4-bf16 on uniform locations)."""
+    table = {}
+    for key, name, src, repl, rows in (
+            ("K2-bf16", "mixed_attention_bwd_bf16 (K2-bf16)", "mixed_attention_bwd_bf16.cu",
+             "attention.py:91", k2_rows),
+            ("K4-bf16", "msda_bwd_bf16 (K4-bf16)", "msda_bwd.cu", "msda.py:301", k4_rows)):
+        step = _sum_rows([r for r in rows if r["calls_per_step"]], "calls_per_step")
+        b_ms, b_by = bound_ms(step["bytes"], step["flops"], H100_BF16_FLOPS)
+        lib = step.get("library_ms")
+        errs = [r["max_abs_err"] for r in rows] + [e["max_abs_err"] for e in edges
+                                                   if e["kernel"] == key]
+        table[key] = dict(
+            name=name, route="cuda", source=f"multi_modal_tracking_torch/csrc/{src}",
+            replaces=f"multi_modal_tracking_tpu/ops/{repl}", max_abs_err=max(errs),
+            f32_err_ratio_max=max(r["f32_err_ratio"] for r in rows),
+            ms=step["ms"], event_ms=step["event_ms"], plain_ms=step["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, bound_f32_ms=None, library_ms=lib,
+            library_ratio=step["ms"] / lib if lib else None, per="training step (bf16)")
+    table["K4-bf16"]["model_locations_ms"] = sum(r["ms"] for r in k4_rows
+                                                 if r["locations"] == "model") * 2
+    return table
+
+
 def _bf16_table_rows(k1_rows, k3_rows, edges) -> dict:
     """Per tracked frame (K1-bf16: 12 search steps; K3-bf16: 2 calls at
     B 1) and per lockstep N = 12 step totals for the kernel table."""
@@ -916,6 +1243,12 @@ def _bf16_table_rows(k1_rows, k3_rows, edges) -> dict:
             lockstep_step_library_ms=step.get("library_ms"))
     table["K3-bf16"]["model_locations_ms"] = _sum_rows(
         [r for r in k3_rows if r["locations"] == "model"], "calls_per_frame")["ms"]
+    for key, rows in (("K1-bf16", k1_rows),
+                      ("K3-bf16", [r for r in k3_rows if r["locations"] == "uniform"])):
+        step = _sum_rows(rows, "calls_per_step")
+        table[key].update(train_step_ms=step["ms"], train_step_bound_ms=bound_ms(
+            step["bytes"], step["flops"], H100_BF16_FLOPS)[0],
+            train_step_library_ms=step.get("library_ms"))
     return table
 
 
@@ -980,15 +1313,22 @@ def _sequence(n, H=512, W=640, seed=0):
 
 def _counters():
     from multi_modal_tracking_torch.ops.attention import (mixed_attention, mixed_attention_bf16,
-                                                          mixed_attention_bwd)
+                                                          mixed_attention_bwd,
+                                                          mixed_attention_bwd_bf16)
     from multi_modal_tracking_torch.ops.msda import (ms_deform_attn, ms_deform_attn_bf16,
-                                                     ms_deform_attn_bwd)
+                                                     ms_deform_attn_bwd, ms_deform_attn_bwd_bf16)
     return {"K1": mixed_attention, "K2": mixed_attention_bwd, "K3": ms_deform_attn,
             "K4": ms_deform_attn_bwd, "K1-bf16": mixed_attention_bf16,
-            "K3-bf16": ms_deform_attn_bf16}
+            "K2-bf16": mixed_attention_bwd_bf16, "K3-bf16": ms_deform_attn_bf16,
+            "K4-bf16": ms_deform_attn_bwd_bf16}
 
 
-F32_KERNELS, BF16_KERNELS = ("K1", "K2", "K3", "K4"), ("K1-bf16", "K3-bf16")
+F32_KERNELS = ("K1", "K2", "K3", "K4")
+BF16_KERNELS = ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16")
+BF16_SERVING = ("K1-bf16", "K3-bf16")          # the bf16 forward kernels
+#: kernel launches per training step, by compute dtype
+TRAIN_LAUNCHES = {torch.float32: {"K1": 12, "K2": 12, "K3": 2, "K4": 2},
+                  torch.bfloat16: {"K1-bf16": 12, "K2-bf16": 12, "K3-bf16": 2, "K4-bf16": 2}}
 
 
 def reset_launches() -> None:
@@ -1009,7 +1349,8 @@ def phase_tracker(smi: str, frames) -> tuple:
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     n_frames, warm = len(frames), 8
     H, W = frames[0][0].shape[:2]
-    tracker = create_tracker(_params(), "TRACKINGNET", seed=0)   # update interval 25
+    tracker = create_tracker(_params(), "TRACKINGNET", seed=0,   # update interval 25
+                             dtype=torch.float32)
     require(tracker.update_interval == 25, f"update interval {tracker.update_interval}")
 
     reset_launches()
@@ -1165,54 +1506,89 @@ def _grads_agree(gpu, cpu):
     return dict(all=total ** 0.5 / (1e-2 * gnorm), tensor=worst_t, element=worst_e), gnorm
 
 
-def _compare_step_gpu_cpu():
+def _step_grads(cfg, batch, dev, dtype, state=None):
     """One full-width training step at batch 2 (dropout and drop path off,
-    keep 1.0) on the GPU against the same step on the CPU (plain versions)."""
+    keep 1.0) on `dev` in `dtype`, from `state` (the weights of the first
+    model built): (model, loss, grad norm, seconds)."""
     from multi_modal_tracking_torch.models.build import build_model
-    from multi_modal_tracking_torch.train.builders import build_train_loader
-    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
     from multi_modal_tracking_torch.train.losses import box_losses
     from multi_modal_tracking_torch.train.train_step import model_inputs
+    m = build_model(SCRIPT, cfg, device=dev, dtype=dtype, seed=0,
+                    spec_overrides=dict(drop_path_rate=0.0, fusion_dropout=0.0)).train()
+    if state is not None:
+        m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    x = model_inputs(batch, dev)
+    t0 = time.perf_counter()
+    loss, _ = box_losses(m(x["t"], x["ot"], x["s"], 1.0)["pred_boxes"], x["gt_xywh"],
+                         cfg.TRAIN.IOU_WEIGHT, cfg.TRAIN.L1_WEIGHT)
+    loss.backward()
+    gnorm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in m.parameters())))
+    return m, float(loss.detach()), gnorm, time.perf_counter() - t0
+
+
+def _grad_dist(a, b) -> float:
+    nb = dict(b.named_parameters())
+    return float(torch.sqrt(sum(((p.grad.detach().cpu().double()
+                                  - nb[n].grad.detach().cpu().double()) ** 2).sum()
+                                for n, p in a.named_parameters())))
+
+
+def _compare_step_gpu_cpu(dtype=torch.float32):
+    """One full-width training step at batch 2 (dropout and drop path off,
+    keep 1.0) on the GPU against the same step on the CPU (plain versions).
+    float32: the bounds of the module docstring. bf16: parameters and
+    gradients float32, the loss within 2^-6 rel and all gradients together
+    within twice the CPU's own bf16 drift, the distance of its bf16
+    gradients from the GPU's float32 ones (bf16 gradients of this loss lie
+    far from the f32 ones, ~0.5 G on the CPU test's geometry; see
+    tests/test_torch_port_train_step_bf16.py)."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
     cfg = _train_cfg(batch=2, steps=1)
     batch = batch_to_model_inputs(next(iter(build_train_loader(cfg, seed=1))))
-    off = dict(drop_path_rate=0.0, fusion_dropout=0.0)
-    out = {}
-    models = {}
-    for dev in ("cuda", "cpu"):
-        m = build_model(SCRIPT, cfg, device=dev, seed=0, spec_overrides=off).train()
-        if dev == "cpu":
-            m.load_state_dict({k: v.cpu() for k, v in models["cuda"].state_dict().items()})
-        x = model_inputs(batch, dev)
-        t0 = time.perf_counter()
-        loss, metrics = box_losses(m(x["t"], x["ot"], x["s"], 1.0)["pred_boxes"], x["gt_xywh"],
-                                   cfg.TRAIN.IOU_WEIGHT, cfg.TRAIN.L1_WEIGHT)
-        loss.backward()
-        out[dev] = dict(loss=float(loss.detach()), seconds=time.perf_counter() - t0)
-        models[dev] = m
-    ratios, gnorm_cpu = _grads_agree(models["cuda"], models["cpu"])
-    gnorm_gpu = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
-                                     for p in models["cuda"].parameters())))
-    d_loss = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"])
+    gpu, loss_gpu, gnorm_gpu, _ = _step_grads(cfg, batch, "cuda", dtype)
+    state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+    cpu, loss_cpu, gnorm_cpu, cpu_s = _step_grads(cfg, batch, "cpu", dtype, state)
+    d_loss = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     d_norm = abs(gnorm_gpu - gnorm_cpu) / gnorm_cpu
-    require(d_loss <= 1e-3 and d_norm <= 1e-3, f"GPU vs CPU step: loss rel diff {d_loss}, "
-                                               f"grad norm rel diff {d_norm}")
-    require(max(ratios.values()) <= 1.0, f"GPU vs CPU gradients beyond the bounds: {ratios}")
-    return dict(loss_gpu=out["cuda"]["loss"], loss_cpu=out["cpu"]["loss"], loss_rel_diff=d_loss,
-                grad_norm_gpu=gnorm_gpu, grad_norm_cpu=gnorm_cpu, grad_norm_rel_diff=d_norm,
-                error_over_bound=ratios, cpu_step_s=out["cpu"]["seconds"])
+    out = dict(dtype=str(dtype).replace("torch.", ""), loss_gpu=loss_gpu, loss_cpu=loss_cpu,
+               loss_rel_diff=d_loss, grad_norm_gpu=gnorm_gpu, grad_norm_cpu=gnorm_cpu,
+               grad_norm_rel_diff=d_norm, cpu_step_s=cpu_s)
+    if dtype == torch.float32:
+        require(d_loss <= 1e-3 and d_norm <= 1e-3, f"GPU vs CPU step: loss rel diff {d_loss}, "
+                                                   f"grad norm rel diff {d_norm}")
+        ratios, _ = _grads_agree(gpu, cpu)
+        require(max(ratios.values()) <= 1.0, f"GPU vs CPU gradients beyond the bounds: {ratios}")
+        return dict(out, error_over_bound=ratios)
+    require({p.grad.dtype for m in (gpu, cpu) for p in m.parameters()} == {torch.float32}
+            and {p.dtype for m in (gpu, cpu) for p in m.parameters()} == {torch.float32},
+            "bf16 step: parameters or gradients not float32")
+    f32, loss_f32, gnorm_f32, _ = _step_grads(cfg, batch, "cuda", torch.float32, state)
+    drift, d_gpu_cpu = _grad_dist(cpu, f32), _grad_dist(gpu, cpu)
+    require(d_loss <= 2.0 ** -6, f"bf16 GPU vs CPU step: loss rel diff {d_loss}")
+    require(d_gpu_cpu <= 2.0 * drift, f"bf16 GPU vs CPU gradients {d_gpu_cpu} > 2 x the CPU's "
+                                      f"bf16 drift from f32 {drift}")
+    return dict(out, grad_dist_gpu_cpu=d_gpu_cpu, cpu_bf16_drift_from_gpu_f32=drift,
+                grad_dist_over_drift=d_gpu_cpu / drift, loss_gpu_f32=loss_f32,
+                grad_norm_gpu_f32=gnorm_f32)
 
 
-def phase_train(smi: str, save_dir: str) -> dict:
-    """The training main path: Trainer on the full-width recipe at batch 16.
-    Returns the launch counts of its two epochs."""
+def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
+    """The training main path: Trainer on the full-width recipe at batch 16,
+    computing in `dtype` on float32 parameters (bf16: the Trainer's
+    default). Returns the launch counts of its two epochs."""
     from torch.profiler import ProfilerActivity, profile
     from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
     from multi_modal_tracking_torch.train.train_step import make_train_step, model_inputs
     from multi_modal_tracking_torch.train.trainer import Trainer
+    bf16 = dtype == torch.bfloat16
     cfg = _train_cfg(TRAIN_B, TRAIN_STEPS)
+    kw = {} if bf16 else dict(dtype=dtype)          # bf16 through the default
     tr = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
-                 print_interval=TRAIN_STEPS)
-    per_step = {"K1": 12, "K2": 12, "K3": 2, "K4": 2}
+                 print_interval=TRAIN_STEPS, **kw)
+    require(tr.dtype == dtype and {p.dtype for p in tr.model.parameters()} == {torch.float32},
+            f"Trainer dtype {tr.dtype}, parameters {({p.dtype for p in tr.model.parameters()})}")
+    per_step = TRAIN_LAUNCHES[dtype]
     epochs, launches, losses = {}, {k: 0 for k in per_step}, []
     for epoch, keep in ((1, 1.0), (51, KEEP_FINAL)):
         tr.epoch = epoch
@@ -1228,12 +1604,15 @@ def phase_train(smi: str, save_dir: str) -> dict:
             require(counts[k] == n * TRAIN_STEPS, f"{k} launched {counts[k]} times in "
                                                   f"{TRAIN_STEPS} steps at keep {keep}")
             launches[k] += counts[k]
+        others = [k for k in F32_KERNELS + BF16_KERNELS if k not in per_step and counts[k]]
+        require(not others, f"{dtype} training launched {others}: {counts}")
         step_losses = [m["Loss/total"] for m in tr.history]
         require(len(step_losses) == TRAIN_STEPS and all(np.isfinite(step_losses)),
                 f"losses {step_losses}")
         losses += step_losses
         epochs[epoch] = dict(keep=keep, launches=counts, ms_per_step_in_epoch=secs / TRAIN_STEPS * 1e3,
                              loss=step_losses, grad_norm=[m["grad_norm"] for m in tr.history])
+    require(len(set(losses)) > 1, f"the loss did not change between steps: {losses}")
 
     # host data time: batches from the threaded loader, after a warm one
     it = iter(tr.train_loader)
@@ -1257,6 +1636,11 @@ def phase_train(smi: str, save_dir: str) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    moments = [v for st in tr.optimizer.opt.state.values() for v in st.values()
+               if torch.is_tensor(v) and v.dim() > 0]
+    require(moments and {v.dtype for v in moments} == {torch.float32}
+            and {p.dtype for p in tr.model.parameters()} == {torch.float32},
+            "parameters or AdamW moments are not float32")
     n_prof = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1272,10 +1656,17 @@ def phase_train(smi: str, save_dir: str) -> dict:
     for s, e, name in ivals:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    share = lambda keys: sum(t for k, t in by_name.items() if any(x in k for x in keys)) / busy
+
+    def share(keys):
+        """Share of busy time of the kernels named by `keys` at this dtype
+        (the bf16 kernels' names carry bf16 or bfloat16)."""
+        return sum(t for k, t in by_name.items() if any(x in k for x in keys)
+                   and ("bf16" in k or "bfloat16" in k) == bf16) / busy
     med = float(np.median(step_ms))
-    emit({"phase": "train", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}", "batch": TRAIN_B,
-          "epochs": epochs, "loss_per_step": losses,
+    suffix = "-bf16" if bf16 else ""
+    emit({"phase": "train bf16" if bf16 else "train", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}",
+          "batch": TRAIN_B, "dtype": str(dtype).replace("torch.", ""), "epochs": epochs,
+          "loss_per_step": losses,
           "ms_per_step_median": med, "ms_per_step": step_ms, "samples_per_s": TRAIN_B / med * 1e3,
           "host_data_ms_per_batch": data_ms, "host_upload_ms_per_batch": upload_ms,
           "data_workers": cfg.TRAIN.NUM_WORKER,
@@ -1283,16 +1674,16 @@ def phase_train(smi: str, save_dir: str) -> dict:
           "device_busy_ms_per_step": busy / n_prof / 1e3,
           "device_idle_share": 1.0 - busy / wall_us,
           "device_ops_per_step": len(ivals) / n_prof,
-          "kernel_share_of_busy": {"K1": share(["mixed_attention_fwd_kernel"]),
-                                   "K2": share(["attn_bwd_"]),
-                                   "K3": share(["msda_fwd_kernel"]),
-                                   "K4": share(["msda_bwd_kernel"])},
+          "kernel_share_of_busy": {f"K1{suffix}": share(["mixed_attention_fwd"]),
+                                   f"K2{suffix}": share(["attn_bwd_"]),
+                                   f"K3{suffix}": share(["msda_fwd_kernel"]),
+                                   f"K4{suffix}": share(["msda_bwd_kernel"])},
           "peak_memory_gib": peak / 2 ** 30,
           "top_kernels_ms_per_step": [[k[:90], t / n_prof / 1e3] for k, t in top]})
     del tr, step, inputs
     torch.cuda.empty_cache()
-    emit({"phase": "train", "check": "gpu vs cpu step, batch 2, keep 1.0",
-          **_compare_step_gpu_cpu()})
+    emit({"phase": "train bf16" if bf16 else "train",
+          "check": "gpu vs cpu step, batch 2, keep 1.0", **_compare_step_gpu_cpu(dtype)})
     return launches
 
 
@@ -1421,22 +1812,27 @@ def _lifecycle_accum(cfg, save_dir: str) -> dict:
 
 def phase_lifecycle(smi: str, frames) -> dict:
     """Checkpoints and the rest of the training loop at full width, batch
-    16: MAE warm start, train + val with an injected failure and the
-    fail-safe restart, an exact resume into a fresh Trainer, an ACCUM_ITER 2
-    epoch, and create_tracker on the epoch-2 checkpoint against a tracker
-    on the trainer's in-memory model. Returns the kernel launch counts."""
+    16, at the Trainer's default compute dtype (bf16 on float32
+    parameters): MAE warm start, train + val with an injected failure and
+    the fail-safe restart, an exact resume into a fresh Trainer, an
+    ACCUM_ITER 2 epoch, and create_tracker (bf16, its default: the float32
+    checkpoint loaded, then cast) on the epoch-2 checkpoint against a
+    tracker on a copy of the trainer's in-memory model cast the same way.
+    Returns the kernel launch counts."""
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.tracking.tracker import RGBTCachedTracker
     from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
     from multi_modal_tracking_torch.train.train_step import model_inputs
     from multi_modal_tracking_torch.train.trainer import Trainer
     from multi_modal_tracking_torch.utils import checkpoint as ckpt
+    from multi_modal_tracking_torch.utils.checkpoint import cast_floating
     with tempfile.TemporaryDirectory() as tmp:
         mae_path = os.path.join(tmp, "mae_pretrain_vit_base.pth")
         cfg = _lifecycle_cfg(mae_path)
         mae = _mae_file(mae_path, cfg)
         reset_launches()
         tr = Trainer(SCRIPT, cfg, save_dir=tmp, device="cuda", seed=0, print_interval=LIFE_STEPS)
+        require(tr.dtype == torch.bfloat16, f"the Trainer's default dtype is {tr.dtype}")
         got = tr.model.state_dict()
         for k, v in mae.items():
             if k in ("pos_embed", "mask_token"):
@@ -1468,7 +1864,10 @@ def phase_lifecycle(smi: str, frames) -> dict:
         params = _params()
         params.checkpoint = out["checkpoint"]
         loaded = create_tracker(params, "TRACKINGNET", seed=1)
-        in_memory = RGBTCachedTracker(tr.model.eval(), template_factor=params.template_factor,
+        require({p.dtype for p in loaded.model.parameters()} == {torch.bfloat16},
+                "create_tracker's default is not bf16")
+        in_memory = RGBTCachedTracker(cast_floating(copy.deepcopy(tr.model).eval(), torch.bfloat16),
+                                      template_factor=params.template_factor,
                                       template_size=params.template_size,
                                       search_factor=params.search_factor,
                                       search_size=params.search_size,
@@ -1484,13 +1883,15 @@ def phase_lifecycle(smi: str, frames) -> dict:
                 f"tracker on the checkpoint differs from the in-memory model by {d_px} px")
         launches = read_launches()
         n_steps = 2 * LIFE_STEPS + 4        # two epochs, then the ACCUM_ITER 2 epoch
-        require(launches["K2"] == 12 * n_steps and launches["K4"] == 2 * n_steps
-                and launches["K1"] > 0 and launches["K3"] > 0,
-                f"lifecycle launches {launches} ({n_steps} training steps)")
+        require(launches["K2-bf16"] == 12 * n_steps and launches["K4-bf16"] == 2 * n_steps
+                and launches["K1-bf16"] > 0 and launches["K3-bf16"] > 0
+                and not any(launches[k] for k in F32_KERNELS),
+                f"lifecycle launches {launches} ({n_steps} bf16 training steps)")
         del tr, loaded, in_memory
         torch.cuda.empty_cache()
     out.pop("checkpoint")
     emit({"phase": "lifecycle", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}", "batch": TRAIN_B,
+          "dtype": "bfloat16",
           "checks": ["MAE warm start equal", "fail-safe restart from _ep0001", "resume exact",
                      "ACCUM_ITER 2 moves after batches 2 and 4", "checkpoint tracker equal"],
           "tracked_frames": LIFE_FRAMES, "tracker_max_abs_px": d_px, "launches": launches, **out})
@@ -1573,7 +1974,7 @@ def phase_eval(smi: str) -> dict:
                                                              run_sequences_batched)
     name = "synthetic_rgbt_hard"
     seqs = get_dataset(name)
-    tracker = create_tracker(_params(), name, seed=0)
+    tracker = create_tracker(_params(), name, seed=0, dtype=torch.float32)
     tracked = sum(len(s.frames) - 1 for s in seqs)
     bt = BatchedRGBTCachedTracker(tracker.model, template_factor=tracker.template_factor,
                                   template_size=tracker.template_size,
@@ -1710,7 +2111,7 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
     n_track = n_frames - 1
     boxes = np.asarray(boxes)
     require(track_launches["K1-bf16"] >= 12 * n_track and track_launches["K3-bf16"] == 2 * n_track
-            and not any(track_launches[k] for k in F32_KERNELS),
+            and not any(track_launches[k] for k in F32_KERNELS + ("K2-bf16", "K4-bf16")),
             f"bf16 tracker launches {track_launches} over {n_track} frames (need K1-bf16 >= 12 "
             f"and K3-bf16 2 per frame, no f32 kernel)")
     require(_inside(boxes, H, W), "bf16 tracker: box not finite or outside the frame")
@@ -1738,13 +2139,13 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
     runs = {}
     with tempfile.TemporaryDirectory() as root:
         a16 = _eval_run("A16", lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK), seqs,
-                        root, runs, kernels=BF16_KERNELS)
+                        root, runs, kernels=BF16_SERVING)
 
         def lockstep(d):
             return [st for lo in range(0, len(seqs), EVAL_BIG)
                     for st in run_sequences_batched(seqs[lo:lo + EVAL_BIG], bt, d,
                                                     chunk=EVAL_CHUNK)]
-        b16 = _eval_run(f"B{EVAL_BIG}_16", lockstep, seqs, root, runs, kernels=BF16_KERNELS)
+        b16 = _eval_run(f"B{EVAL_BIG}_16", lockstep, seqs, root, runs, kernels=BF16_SERVING)
         got = runs[f"B{EVAL_BIG}_16"]["launches"]
         require(got["K3-bf16_by_kernel"]["staged"] == got["K3-bf16"],
                 f"bf16 lockstep N={EVAL_BIG}: K3-bf16 kernels {got['K3-bf16_by_kernel']}, "
@@ -1763,18 +2164,19 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
                                report_name=f"{name} {key}")
             scores[key] = {k: float(sc[k][0]) for k in ("AUC", "OP50", "OP75", "Precision")}
     block = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK)
-    eval_launches = {k: sum(r["launches"][k] for r in runs.values()) for k in BF16_KERNELS}
+    eval_launches = {k: sum(r["launches"][k] for r in runs.values()) for k in BF16_SERVING}
     emit({"phase": "bf16 eval", "card": smi, "dataset": name, "runs": runs,
           "profile_b12_block": block, "scores": scores, "launches": eval_launches})
     del bt, single, model
     torch.cuda.empty_cache()
-    return {"tracker_bf16": {k: track_launches[k] for k in BF16_KERNELS},
+    return {"tracker_bf16": {k: track_launches[k] for k in BF16_SERVING},
             "eval_bf16": eval_launches, "profile": prof}
 
 
 def main() -> None:
     dev, smi = phase_device()
     phase_build()
+    phase_bf16_reduction(smi)
     warm_profiler()
     g = torch.Generator().manual_seed(0)
     kernels = phase_kernels(g)
@@ -1784,14 +2186,16 @@ def main() -> None:
     phase_profile(tracker, frames[64:], smi)
     del tracker
     with tempfile.TemporaryDirectory() as save_dir:
-        train_launches = phase_train(smi, save_dir)
+        train_launches = phase_train(smi, save_dir, torch.float32)
+    with tempfile.TemporaryDirectory() as save_dir:
+        train_bf16_launches = phase_train(smi, save_dir, torch.bfloat16)
     life_launches = phase_lifecycle(smi, frames)
     eval_launches, f32_eval = phase_eval(smi)
     bf16 = phase_bf16(smi, frames, f32_boxes, f32_eval)
     table = []
     for key in F32_KERNELS:
         by_path = {"tracker": track_launches[key], "train": train_launches[key],
-                   "lifecycle": life_launches[key], "eval": eval_launches[key]}
+                   "eval": eval_launches[key]}
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1803,14 +2207,20 @@ def main() -> None:
              "model_locations_train_step_ms") if key == "K3" else
             ("model_locations_ms",) if key == "K4" else ())})
     for key in BF16_KERNELS:
-        by_path = {path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")}
+        by_path = {"train_bf16": train_bf16_launches[key], "lifecycle": life_launches[key]}
+        if key in BF16_SERVING:
+            by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")})
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_f32_ms", "library_ms", "library_ratio", "event_ms",
-            "per", "launches_by_path", "f32_err_ratio_max", "lockstep_step_ms",
-            "lockstep_step_bound_ms", "lockstep_step_library_ms") + (
-            ("model_locations_ms",) if key == "K3-bf16" else ())})
+            "per", "launches_by_path", "f32_err_ratio_max") + (
+            ("lockstep_step_ms", "lockstep_step_bound_ms", "lockstep_step_library_ms",
+             "train_step_ms", "train_step_bound_ms", "train_step_library_ms")
+            if key in BF16_SERVING else ()) + (
+            ("model_locations_ms",) if key in ("K3-bf16", "K4-bf16") else ())})
+    require(all(r["launches"] > 0 for r in table),
+            f"a kernel of a main path never launched: {[r['name'] for r in table if not r['launches']]}")
     # ms is device time (torch.profiler): per tracked frame for K1 and K3
     # (12 search-step calls at the CE lengths, 2 calls at B=1), per training
     # step at the final keep for K2 and K4; train_step_ms is K1's and K3's
@@ -1818,7 +2228,9 @@ def main() -> None:
     # K1 and K2, bound_f32_ms at 67 TFLOP/s (f32 CUDA cores) for all four;
     # K1-bf16's and K3-bf16's ms and bound_ms (at 989 TFLOP/s of dense bf16)
     # are per tracked frame of the bf16 tracker, lockstep_step_* per N = 12
-    # step; their launches are those of the bf16 phase's tracker and eval
+    # step, train_step_* per bf16 training step; K2-bf16's and K4-bf16's per
+    # bf16 training step at the final keep; the bf16 kernels' launches are
+    # those of the bf16 train, lifecycle, tracker and eval phases
     emit({"kernels": table})
     emit({"ok": True, "device": dev})
 

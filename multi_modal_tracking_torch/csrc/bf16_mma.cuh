@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace bf16mma {
 
 using bf16 = __nv_bfloat16;
@@ -80,6 +82,22 @@ __device__ __forceinline__ void load_b_rows(uint32_t (&b)[2], const bf16* m, int
   const bf16* p = m + (k0 + 2 * t) * STR + n0 + g;
   b[0] = pack(p[0], p[STR]);
   b[1] = pack(p[8 * STR], p[9 * STR]);
+}
+
+// rows [r0, r0 + ROWS) of a row-major (n_rows, D) bf16 matrix into a tile of
+// stride STR bf16 with cp.async, 16-byte pieces; rows past n_rows are
+// zero-filled
+template <int ROWS, int D, int STR, int THREADS>
+__device__ __forceinline__ void stage_rows(bf16* tile, const bf16* src, int r0, int n_rows,
+                                           int tid) {
+  constexpr int C = D / 8;
+#pragma unroll 4
+  for (int x = tid; x < ROWS * C; x += THREADS) {
+    const int r = x / C, c = x % C;
+    const bool ok = r0 + r < n_rows;
+    const bf16* p = ok ? src + (size_t)(r0 + r) * D + 8 * c : src;
+    tf32x3::cp_async16(tile + r * STR + 8 * c, p, ok ? 16 : 0);
+  }
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {

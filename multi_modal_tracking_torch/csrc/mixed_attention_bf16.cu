@@ -10,8 +10,10 @@
 //
 // with the Pallas kernel's rounding points: S = Q K^T accumulated in f32
 // and scaled in f32, an f32 softmax, the probabilities rounded to bf16 for
-// P V, which accumulates in f32, and the output rounded to bf16. Inference
-// only: no logsumexp (the bf16 backward is not ported).
+// P V, which accumulates in f32, and the output rounded to bf16. When
+// asked (training), it also writes the f32 row logsumexp L = m + log(l) of
+// the f32 scores, which the backward K2-bf16 (mixed_attention_bwd_bf16.cu)
+// reads; the output does not depend on whether it is asked.
 //
 // One rounding point differs, as in any flash-style kernel: the Pallas
 // kernel rounds the normalised P = exp(s - m) / l of the whole row; this
@@ -47,26 +49,12 @@ namespace {
 using bf16mma::bf16;
 constexpr int KT = 32;         // keys per shared-memory tile
 
-// rows [r0, r0 + ROWS) of a row-major (n_rows, D) bf16 matrix into a tile of
-// stride STR bf16, 16-byte pieces; rows past n_rows are zero-filled
-template <int ROWS, int D, int STR, int THREADS>
-__device__ __forceinline__ void stage_rows(bf16* tile, const bf16* src, int r0, int n_rows,
-                                           int tid) {
-  constexpr int C = D / 8;
-#pragma unroll 4
-  for (int x = tid; x < ROWS * C; x += THREADS) {
-    const int r = x / C, c = x % C;
-    const bool ok = r0 + r < n_rows;
-    const bf16* p = ok ? src + (size_t)(r0 + r) * D + 8 * c : src;
-    tf32x3::cp_async16(tile + r * STR + 8 * c, p, ok ? 16 : 0);
-  }
-}
-
 template <int D, int NW>
 __global__ void __launch_bounds__(32 * NW)
 mixed_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, bf16* __restrict__ o, int Nq,
-                                int Nk, int n_mt, float scale) {
+                                const bf16* __restrict__ v, bf16* __restrict__ o,
+                                float* __restrict__ lse, int Nq, int Nk, int n_mt,
+                                float scale) {
   constexpr int STR = D + 8;
   constexpr int KS = D / 16;     // k-steps over the head dim in Q K^T
   constexpr int NT = KT / 8;     // 8-key column tiles of S
@@ -98,8 +86,8 @@ mixed_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
   const int kendB = rB < n_mt ? kend_t : Nk;
   const int ntiles = (kend_block + KT - 1) / KT;
 
-  stage_rows<KT, D, STR, THREADS>(ks[0], kg, 0, Nk, tid);
-  stage_rows<KT, D, STR, THREADS>(vs[0], vg, 0, Nk, tid);
+  bf16mma::stage_rows<KT, D, STR, THREADS>(ks[0], kg, 0, Nk, tid);
+  bf16mma::stage_rows<KT, D, STR, THREADS>(vs[0], vg, 0, Nk, tid);
   tf32x3::cp_async_commit();
 
   uint32_t qa[KS][4];
@@ -113,8 +101,8 @@ mixed_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
   for (int it = 0; it < ntiles; ++it) {
     const int buf = it & 1;
     if (it + 1 < ntiles) {
-      stage_rows<KT, D, STR, THREADS>(ks[buf ^ 1], kg, (it + 1) * KT, Nk, tid);
-      stage_rows<KT, D, STR, THREADS>(vs[buf ^ 1], vg, (it + 1) * KT, Nk, tid);
+      bf16mma::stage_rows<KT, D, STR, THREADS>(ks[buf ^ 1], kg, (it + 1) * KT, Nk, tid);
+      bf16mma::stage_rows<KT, D, STR, THREADS>(vs[buf ^ 1], vg, (it + 1) * KT, Nk, tid);
     }
     tf32x3::cp_async_commit();
     tf32x3::cp_async_wait<1>();
@@ -197,6 +185,10 @@ mixed_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
   lB += __shfl_xor_sync(0xffffffffu, lB, 1);
   lB += __shfl_xor_sync(0xffffffffu, lB, 2);
   bf16* og = o + (size_t)bh * Nq * D;
+  if (lse != nullptr && t == 0) {
+    if (rA < Nq) lse[(size_t)bh * Nq + rA] = mA + logf(lA);
+    if (rB < Nq) lse[(size_t)bh * Nq + rB] = mB + logf(lB);
+  }
   if (rA < Nq) {
     const float inv = 1.f / lA;
 #pragma unroll
@@ -214,13 +206,13 @@ mixed_attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restri
 }
 
 template <int D>
-int launch(int nw, const bf16* q, const bf16* k, const bf16* v, bf16* o, int BH, int Nq,
-           int Nk, int n_mt, float scale, cudaStream_t s) {
+int launch(int nw, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int BH,
+           int Nq, int Nk, int n_mt, float scale, cudaStream_t s) {
   const dim3 grid((Nq + 16 * nw - 1) / (16 * nw), BH);
   switch (nw) {
-    case 1: mixed_attention_fwd_bf16_kernel<D, 1><<<grid, 32, 0, s>>>(q, k, v, o, Nq, Nk, n_mt, scale); break;
-    case 2: mixed_attention_fwd_bf16_kernel<D, 2><<<grid, 64, 0, s>>>(q, k, v, o, Nq, Nk, n_mt, scale); break;
-    case 4: mixed_attention_fwd_bf16_kernel<D, 4><<<grid, 128, 0, s>>>(q, k, v, o, Nq, Nk, n_mt, scale); break;
+    case 1: mixed_attention_fwd_bf16_kernel<D, 1><<<grid, 32, 0, s>>>(q, k, v, o, lse, Nq, Nk, n_mt, scale); break;
+    case 2: mixed_attention_fwd_bf16_kernel<D, 2><<<grid, 64, 0, s>>>(q, k, v, o, lse, Nq, Nk, n_mt, scale); break;
+    case 4: mixed_attention_fwd_bf16_kernel<D, 4><<<grid, 128, 0, s>>>(q, k, v, o, lse, Nq, Nk, n_mt, scale); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -229,20 +221,22 @@ int launch(int nw, const bf16* q, const bf16* k, const bf16* v, bf16* o, int BH,
 }  // namespace
 
 // q: (BH, Nq, D), k/v: (BH, Nk, D), o: (BH, Nq, D); all bf16, contiguous,
-// 16-byte aligned. query_warps (1, 2 or 4) sets the query rows per block
-// (16 each). Returns cudaGetLastError() after the launch.
+// 16-byte aligned. lse: (BH, Nq) f32, or null to skip it. query_warps (1, 2
+// or 4) sets the query rows per block (16 each). Returns cudaGetLastError()
+// after the launch.
 extern "C" int mixed_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                        int BH, int Nq, int Nk, int D, int n_mt, float scale,
-                                        int query_warps, void* stream) {
+                                        void* lse, int BH, int Nq, int Nk, int D, int n_mt,
+                                        float scale, int query_warps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
+  float* lf = static_cast<float*>(lse);
   switch (D) {
-    case 16: return launch<16>(query_warps, qb, kb, vb, ob, BH, Nq, Nk, n_mt, scale, s);
-    case 32: return launch<32>(query_warps, qb, kb, vb, ob, BH, Nq, Nk, n_mt, scale, s);
-    case 64: return launch<64>(query_warps, qb, kb, vb, ob, BH, Nq, Nk, n_mt, scale, s);
+    case 16: return launch<16>(query_warps, qb, kb, vb, ob, lf, BH, Nq, Nk, n_mt, scale, s);
+    case 32: return launch<32>(query_warps, qb, kb, vb, ob, lf, BH, Nq, Nk, n_mt, scale, s);
+    case 64: return launch<64>(query_warps, qb, kb, vb, ob, lf, BH, Nq, Nk, n_mt, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

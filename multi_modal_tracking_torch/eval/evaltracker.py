@@ -10,7 +10,7 @@ from multi_modal_tracking_torch.utils.checkpoint import cast_floating, load_vari
 
 
 def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
-                   dtype=torch.float32, seed: int = 0) -> RGBTCachedTracker:
+                   dtype=torch.bfloat16, seed: int = 0) -> RGBTCachedTracker:
     """The cached-template tracker of an RGB-T `asymmetric_shared*` script.
 
     Runs on the GPU unless device="cpu" (raises without one). With
@@ -20,12 +20,11 @@ def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
     from `seed`. ce_keep_rate stays None, so each CE block uses its own
     configured keep ratio, as the reference tracker does.
 
-    dtype=torch.bfloat16 runs the model in bf16, the JAX package's eval
-    default, in its order (eval/evaltracker.py:48-64): the float32 model is
-    built and loaded first, then its parameters are cast
-    (`cast_floating`; BatchNorm statistics stay float32). The default
-    stays float32 here, the parity path, until bf16 training is ported
-    (ROADMAP.md queue 1 item 4b).
+    dtype=torch.bfloat16, the default as in the JAX package
+    (eval/evaltracker.py:30), runs the model in bf16 in its order
+    (eval/evaltracker.py:48-64): the float32 model is built and loaded
+    first, then its parameters are cast (`cast_floating`; BatchNorm
+    statistics stay float32). dtype=torch.float32 is the parity path.
     """
     cfg = params.cfg
     model = build_model(params.script, cfg, device=device, dtype=dtype, seed=seed)

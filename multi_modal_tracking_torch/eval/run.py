@@ -1,7 +1,7 @@
 """Evaluation CLI of the port: run the RGB-T tracker over a registered
 dataset and write its result files, then print the success / precision
 table. The flags are those of the root `tracking/test.py`, plus --device
-and --dtype (float32, the default, or bfloat16).
+and --dtype (bfloat16, the default as in the JAX package, or float32).
 
     python -m multi_modal_tracking_torch.eval.run asymmetric_shared_ce \\
         attention_lasher_newfusion_2layer --dataset_name synthetic_rgbt_hard \\
@@ -26,8 +26,6 @@ import re
 import sys
 from typing import List, Optional
 
-import torch
-
 from multi_modal_tracking_torch.eval.analysis import TrackerResults, print_results
 from multi_modal_tracking_torch.eval.datasets import get_dataset
 from multi_modal_tracking_torch.eval.evaltracker import create_tracker
@@ -36,8 +34,7 @@ from multi_modal_tracking_torch.eval.running import _load_frame, run_dataset
 from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
                                                          run_sequences_batched)
 from multi_modal_tracking_torch.train.admin import env_settings
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from multi_modal_tracking_torch.utils.device import DTYPES
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -72,9 +69,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--vis_search", action="store_true",
                    help="search-region videos (need cv2; not ported)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--dtype", type=str, default="float32", choices=sorted(DTYPES),
-                   help="compute dtype of the model: float32 (default) or bfloat16, the "
-                        "JAX package's eval default; result files are float32 text either way")
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=sorted(DTYPES),
+                   help="compute dtype of the model: bfloat16 (default, the JAX package's "
+                        "eval default) or float32; result files are float32 text either way")
     return p
 
 

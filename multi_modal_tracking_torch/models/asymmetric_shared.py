@@ -41,7 +41,8 @@ from torch import nn
 
 from multi_modal_tracking_torch.models.fusion import build_fusion
 from multi_modal_tracking_torch.models.heads import CornerPredictor, PyramidCornerPredictor
-from multi_modal_tracking_torch.models.layers import DropPath, Mlp, PatchEmbed, _heads, _merge
+from multi_modal_tracking_torch.models.layers import (DropPath, LayerNorm, Linear, Mlp,
+                                                      PatchEmbed, _heads, _merge)
 from multi_modal_tracking_torch.ops.attention import mixed_attention
 from multi_modal_tracking_torch.ops.boxes import box_xyxy_to_cxcywh
 from multi_modal_tracking_torch.ops.pos_embed import get_2d_sincos_pos_embed
@@ -67,8 +68,8 @@ class AsymCrossModalAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
         self.scale = (dim // num_heads) ** -0.5
 
     def _qkv_heads(self, x):
@@ -171,10 +172,10 @@ class SharedBlock(nn.Module):
                  qkv_bias: bool = True, drop_path: float = 0.0):
         super().__init__()
         self.dp1, self.dp2 = DropPath(drop_path), DropPath(drop_path)
-        self.norm1_v = nn.LayerNorm(dim, eps=1e-6)
-        self.norm1_i = nn.LayerNorm(dim, eps=1e-6)
-        self.norm2_v = nn.LayerNorm(dim, eps=1e-6)
-        self.norm2_i = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1_v = LayerNorm(dim, eps=1e-6)
+        self.norm1_i = LayerNorm(dim, eps=1e-6)
+        self.norm2_v = LayerNorm(dim, eps=1e-6)
+        self.norm2_i = LayerNorm(dim, eps=1e-6)
         self.attn = AsymCrossModalAttention(dim, num_heads, qkv_bias)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from multi_modal_tracking_torch.models.layers import Dropout
+from multi_modal_tracking_torch.models.layers import Conv2d, Dropout, GroupNorm, LayerNorm, Linear
 from multi_modal_tracking_torch.ops.msda import ms_deform_attn
 from multi_modal_tracking_torch.ops.pos_embed import sine_position_encoding
 
@@ -51,10 +51,10 @@ class MSDeformAttnBimodal(nn.Module):
         super().__init__()
         self.d_model, self.n_levels, self.n_heads, self.n_points = \
             d_model, n_levels, n_heads, n_points
-        self.sampling_offsets = nn.Linear(2 * d_model, n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(2 * d_model, n_heads * n_levels * n_points)
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.sampling_offsets = Linear(2 * d_model, n_heads * n_levels * n_points * 2)
+        self.attention_weights = Linear(2 * d_model, n_heads * n_levels * n_points)
+        self.value_proj = Linear(d_model, d_model)
+        self.output_proj = Linear(d_model, d_model)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -93,7 +93,7 @@ class MSDeformAttnBimodal(nn.Module):
         return self.output_proj(out)
 
 
-def _modal_layer_norm(x: torch.Tensor, norm_v: nn.LayerNorm, norm_i: nn.LayerNorm) -> torch.Tensor:
+def _modal_layer_norm(x: torch.Tensor, norm_v: LayerNorm, norm_i: LayerNorm) -> torch.Tensor:
     """LN per modality half of a (B, 2*HW, C) sequence (eps 1e-5, the torch
     default the reference's encoder uses, unlike the backbone's 1e-6)."""
     half = x.shape[1] // 2
@@ -106,12 +106,12 @@ class DeformableEncoderLayer(nn.Module):
         super().__init__()
         self.dropout1, self.dropout2, self.dropout3 = (Dropout(dropout) for _ in range(3))
         self.self_attn = MSDeformAttnBimodal(d_model, n_levels, n_heads, n_points)
-        self.norm1_v = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm1_i = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
-        self.norm2_v = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2_i = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1_v = LayerNorm(d_model, eps=1e-5)
+        self.norm1_i = LayerNorm(d_model, eps=1e-5)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
+        self.norm2_v = LayerNorm(d_model, eps=1e-5)
+        self.norm2_i = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes):
         src2 = self.dropout1(self.self_attn(src + pos, reference_points, src, spatial_shapes))
@@ -168,8 +168,8 @@ class DeformableAttentionFusion(nn.Module):
 
 def _AdjustConv(in_channels: int, out_channels: int) -> nn.Sequential:
     """1x1 conv + GroupNorm(32, eps 1e-5) channel adjust (`.0` / `.1` keys)."""
-    return nn.Sequential(nn.Conv2d(in_channels, out_channels, kernel_size=1),
-                         nn.GroupNorm(32, out_channels, eps=1e-5))
+    return nn.Sequential(Conv2d(in_channels, out_channels, kernel_size=1),
+                         GroupNorm(32, out_channels, eps=1e-5))
 
 
 def _adjust(mod: nn.Sequential, x: torch.Tensor) -> torch.Tensor:

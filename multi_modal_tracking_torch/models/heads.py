@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from multi_modal_tracking_torch.models.layers import ConvBNRelu
+from multi_modal_tracking_torch.models.layers import Conv2d, ConvBNRelu
 
 
 def soft_argmax(score_map: torch.Tensor, stride: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -59,7 +59,7 @@ class CornerPredictor(nn.Module):
             setattr(self, f"conv2_{corner}", cbr(c, c // 2))
             setattr(self, f"conv3_{corner}", cbr(c // 2, c // 4))
             setattr(self, f"conv4_{corner}", cbr(c // 4, c // 8))
-            setattr(self, f"conv5_{corner}", nn.Conv2d(c // 8, 1, kernel_size=1))
+            setattr(self, f"conv5_{corner}", Conv2d(c // 8, 1, kernel_size=1))
 
     def _tower(self, x: torch.Tensor, corner: str) -> torch.Tensor:
         for i in range(1, 6):

@@ -8,23 +8,39 @@ Random layers (`DropPath`, `Dropout`) draw their masks from an explicit
 `torch.Generator` that the caller owns (`set_generator`), on the device of
 the tensor, so a seeded generator gives the same masks run after run.
 
-Compute dtype. A model computes in the dtype of its parameters: float32,
-or bf16 after `utils.checkpoint.cast_floating` (buffers stay float32), with
-the rounding points of the JAX package's flax modules at dtype=bf16 and
-pre-cast params:
-  * Linear and Conv2d take bf16 inputs and weights and return bf16 (PyTorch's
-    own bf16 kernels accumulate in f32 and round once). The patch embedding
-    casts its float32 crops to the weights' dtype (`PatchEmbed`).
-  * LayerNorm and GroupNorm on bf16 compute their statistics and the
-    normalisation in f32 and round the output to bf16 once (PyTorch's bf16
-    kernels do, on the CPU and on CUDA), as flax's, which promote to f32.
-  * BatchNorm keeps its running statistics in f32 and normalises in f32
-    (`BatchNorm2d` hands F.batch_norm f32 statistics and affine, its
-    mixed-dtype form), returning bf16; FrozenBatchNorm2d forms scale and
-    shift in f32 and applies them in bf16, as the JAX package's frozen BN
-    (models/layers.py:96-98).
+Compute dtype. A model's parameters and buffers are float32 (the master
+weights of training) or bf16 (after `utils.checkpoint.cast_floating`, for
+serving; buffers, i.e. BN statistics, stay float32). Its compute dtype is
+set apart from them (`set_compute_dtype`; `models.build.build_model(...,
+dtype=)` sets it): float32, or bf16, as the JAX package's flax modules
+compute at dtype=bf16 with param_dtype=float32 (training) or with pre-cast
+parameters (serving). None means "the parameters' dtype". The rounding
+points are flax's:
+  * `Linear` and `Conv2d` cast input, weight and bias to the compute dtype
+    at every call (flax `promote_dtype`) and return it (PyTorch's bf16
+    kernels accumulate in f32 and round once). Under autograd the gradient
+    reaching a float32 parameter is the bf16 gradient converted back, and a
+    weight used by several calls sums those conversions in f32, as JAX's
+    transposed casts do. The patch embedding's float32 crops are cast by
+    its `Conv2d`.
+  * `LayerNorm` and `GroupNorm` compute their statistics and the
+    normalisation in f32 and round the output to the input's dtype once,
+    as flax's, which promote to f32: bf16 inputs with bf16 parameters take
+    PyTorch's bf16 kernels (which do so), bf16 inputs with float32
+    parameters go through f32 explicitly, so the f32 scale and bias are
+    applied unrounded.
+  * BatchNorm keeps its running statistics in f32 and normalises in f32,
+    returning the input's dtype (`BatchNorm2d`: batch statistics of the
+    f32 input in training; eval hands F.batch_norm f32 statistics and
+    affine, its mixed-dtype form); FrozenBatchNorm2d forms scale and shift
+    in f32 and applies them in the input's dtype, as the JAX package's
+    frozen BN (models/layers.py:96-98).
   * Softmaxes that JAX takes in f32 (CE ranking, fusion attention weights,
-    head soft-argmax) are `.float()` at their call sites.
+    head soft-argmax) are `.float()` at their call sites, so the boxes and
+    the loss are f32.
+  * Dropout and drop path divide by the keep probability in the input's
+    dtype, as the JAX package's `x / keep` on bf16 does
+    (models/layers.py:63).
 No `torch.autocast`: its lists of ops kept in f32 are not flax's.
 """
 from __future__ import annotations
@@ -47,13 +63,76 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(B, N, H * D)
 
 
+class Linear(nn.Linear):
+    """nn.Linear that casts input, weight and bias to its compute dtype at
+    every call (None: the weight's dtype); the state-dict keys are
+    nn.Linear's."""
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        return nn.functional.linear(x.to(dt), self.weight.to(dt),
+                                    None if self.bias is None else self.bias.to(dt))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that casts input, weight and bias to its compute dtype at
+    every call (None: the weight's dtype)."""
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm; an input whose dtype differs from the parameters'
+    (bf16 activations, float32 parameters) is normalised in f32 with the
+    f32 scale and bias and rounded to its dtype once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return nn.functional.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                                        self.bias.float(), self.eps).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm with LayerNorm's rule for an input of another dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return nn.functional.group_norm(x.float(), self.num_groups, self.weight.float(),
+                                        self.bias.float(), self.eps).to(x.dtype)
+
+
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> nn.Module:
+    """Make every `Linear` and `Conv2d` of `model` compute in `dtype` (None:
+    in its parameters' dtype); the parameters keep their dtype."""
+    for m in model.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            m.compute_dtype = dtype
+    return model
+
+
+def compute_dtype(model: nn.Module) -> torch.dtype:
+    """The dtype `model` computes in: that of its first `Linear` or
+    `Conv2d` (float32 for a model that has neither)."""
+    for m in model.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            return m.compute_dtype or m.weight.dtype
+    return torch.float32
+
+
 class Mlp(nn.Module):
     """Transformer FFN: Linear -> exact GELU -> Linear."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int):
         super().__init__()
-        self.fc1 = nn.Linear(in_features, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(nn.functional.gelu(self.fc1(x)))
@@ -64,11 +143,10 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, patch_size: int = 16, in_chans: int = 3, embed_dim: int = 768):
         super().__init__()
-        self.proj = nn.Conv2d(in_chans, embed_dim, kernel_size=patch_size,
-                              stride=patch_size)
+        self.proj = Conv2d(in_chans, embed_dim, kernel_size=patch_size, stride=patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.proj(x.permute(0, 3, 1, 2).to(self.proj.weight.dtype))
+        x = self.proj(x.permute(0, 3, 1, 2))
         return x.flatten(2).transpose(1, 2)
 
 
@@ -92,7 +170,9 @@ class _RandomMask(nn.Module):
                                f"needs a generator: call set_generator(model, g)")
         keep = 1.0 - self.rate
         u = torch.rand(self._mask_shape(x), generator=self.generator, device=x.device)
-        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        # keep in x's dtype, as JAX's weakly typed `x / keep` (a bf16 divisor)
+        scaled = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+        return torch.where(u < keep, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class DropPath(_RandomMask):
@@ -125,8 +205,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     mode it normalises with the batch statistics and updates running_var with
     the BIASED batch variance, where torch's BatchNorm2d uses the unbiased
     one (8 values 0..7 from running_var 1: flax 1.425, torch 1.5). Eval mode
-    is torch's; with bf16 input and affine (a model cast to bf16) it
-    normalises in f32 with the f32 running statistics and returns bf16."""
+    is torch's; a bf16 input (with bf16 or float32 affine) is normalised in
+    f32 with the f32 running statistics and returned in bf16. In training a
+    bf16 input is normalised in f32 with its f32 batch statistics and the
+    f32 affine, and rounded once (flax BatchNorm at dtype=bf16)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training and x.dtype != torch.float32:
@@ -135,9 +217,11 @@ class BatchNorm2d(nn.BatchNorm2d):
                                             self.eps)
         if not self.training:
             return super().forward(x)
-        y = nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        xf = x.float()
+        y = nn.functional.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
+                                     self.eps).to(x.dtype)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
@@ -172,7 +256,7 @@ def ConvBNRelu(in_planes: int, out_planes: int, kernel_size: int = 3,
     the BN a FrozenBatchNorm2d."""
     bn = FrozenBatchNorm2d(out_planes) if frozen else BatchNorm2d(out_planes, eps=1e-5)
     return nn.Sequential(
-        nn.Conv2d(in_planes, out_planes, kernel_size=kernel_size,
-                  padding=kernel_size // 2, bias=True),
+        Conv2d(in_planes, out_planes, kernel_size=kernel_size, padding=kernel_size // 2,
+               bias=True),
         bn,
         nn.ReLU(inplace=True))

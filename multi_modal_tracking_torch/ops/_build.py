@@ -41,11 +41,14 @@ SIGNATURES = {
         "mixed_attention_fwd_f32": ([_C] * 5 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
     },
     "mixed_attention_bf16": {
-        "mixed_attention_fwd_bf16": ([_C] * 4 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
+        "mixed_attention_fwd_bf16": ([_C] * 5 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
     },
     "mixed_attention_bwd": {
         "mixed_attention_bwd_f32": ([_C] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, _C],
                                     _I),
+    },
+    "mixed_attention_bwd_bf16": {
+        "mixed_attention_bwd_bf16": ([_C] * 10 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
     },
     "msda": {
         "msda_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,
@@ -56,6 +59,7 @@ SIGNATURES = {
     },
     "msda_bwd": {
         "msda_bwd_f32": ([_C] * 7 + [_I] * 7 + [ctypes.POINTER(_I), _I, _C], _I),
+        "msda_bwd_bf16": ([_C] * 8 + [_I] * 7 + [ctypes.POINTER(_I), _I, _C], _I),
     },
 }
 

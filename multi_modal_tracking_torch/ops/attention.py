@@ -24,19 +24,19 @@ version.
 Both kernels run their products on the tensor cores as 3xTF32
 (`csrc/tf32_mma.cuh`): f32-accurate, whatever the `allow_tf32` flags say.
 
-bf16 q/k/v (the JAX package's eval dtype) go to K1-bf16
+bf16 q/k/v (the JAX package's dtype) go to K1-bf16
 (`csrc/mixed_attention_bf16.cu`, one bf16 tensor-core pass per product)
 for CUDA tensors and `mixed_attention_bf16_ref` for CPU tensors, both with
-the rounding points of the Pallas kernel at bf16. bf16 is inference only:
-bf16 tensors that require a gradient raise (the bf16 backward is not
-ported).
+the rounding points of the Pallas kernel at bf16. Under autograd the bf16
+forward saves K1-bf16's f32 row logsumexp and the backward runs K2-bf16
+(`csrc/mixed_attention_bwd_bf16.cu`) for CUDA tensors and
+`mixed_attention_bwd_bf16_ref` for CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
 from multi_modal_tracking_torch.ops import _build
-from multi_modal_tracking_torch.utils.device import TRAINING_BF16
 
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (16, 32, 64)
@@ -91,6 +91,23 @@ def mixed_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        torch.matmul(p.transpose(-2, -1), g)))
 
 
+def _bf16_scores(q, k, n_mt, scale):
+    """Masked scores of bf16 q and k as the Pallas kernel forms them at
+    bf16: Q K^T accumulated in f32 (products of bf16 values are exact in
+    f32), scaled in f32, masked with NEG_INF; and the allowed mask."""
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
+    allowed = _allowed(n_mt, q.shape[2], k.shape[2], q.device)
+    return s.masked_fill(~allowed, NEG_INF), allowed
+
+
+def _bf16_probs(q, k, n_mt, scale):
+    """The f32 row softmax as the Pallas kernel writes it (max, exp, divide
+    by the sum), and the allowed mask."""
+    s, allowed = _bf16_scores(q, k, n_mt, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True), allowed
+
+
 def mixed_attention_bf16_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              n_mt: int, scale: float) -> torch.Tensor:
     """Plain K1-bf16: bf16 q/k/v -> bf16 output with the rounding points of
@@ -99,11 +116,35 @@ def mixed_attention_bf16_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and scaled in f32, the mask, the row softmax in f32 as the Pallas kernel
     writes it (max, exp, divide by the sum), P rounded to bf16, O = P V
     accumulated in f32, the output rounded to bf16."""
-    s = torch.matmul(q.float(), k.float().transpose(-2, -1)) * scale
-    s = s.masked_fill(~_allowed(n_mt, q.shape[2], k.shape[2], q.device), NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    p, _ = _bf16_probs(q, k, n_mt, scale)
     return torch.matmul(p.to(torch.bfloat16).float(), v.float()).to(torch.bfloat16)
+
+
+def mixed_attention_bf16_lse_ref(q: torch.Tensor, k: torch.Tensor, n_mt: int,
+                                 scale: float) -> torch.Tensor:
+    """Plain row logsumexp of bf16 q and k's f32 scores, (B, H, Nq) f32:
+    what K1-bf16 saves for K2-bf16."""
+    return torch.logsumexp(_bf16_scores(q, k, n_mt, scale)[0], dim=-1)
+
+
+def mixed_attention_bwd_bf16_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 g: torch.Tensor, n_mt: int, scale: float):
+    """Plain K2-bf16: bf16 q/k/v and incoming gradient g -> bf16 (dq, dk,
+    dv) with the rounding points of the JAX package's `_attn_bwd_kernel` at
+    bf16 (ops/attention.py:91-118): P recomputed in f32 as the forward
+    forms it, dP = g V^T accumulated in f32, dS = P o (dP - rowsum(P o dP))
+    in f32, masked and scaled; dS rounded to bf16 for dQ = dS K and
+    dK = dS^T Q, P rounded to bf16 for dV = P^T g; each product accumulated
+    in f32 and rounded to bf16 once."""
+    p, allowed = _bf16_probs(q, k, n_mt, scale)
+    q, k, v, g = (t.float() for t in (q, k, v, g))
+    dp = torch.matmul(g, v.transpose(-2, -1))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    ds = (ds.masked_fill(~allowed, 0.0) * scale).to(torch.bfloat16).float()
+    p = p.to(torch.bfloat16).float()
+    return tuple(t.to(torch.bfloat16) for t in (torch.matmul(ds, k),
+                                                torch.matmul(ds.transpose(-2, -1), q),
+                                                torch.matmul(p.transpose(-2, -1), g)))
 
 
 def _check_kernel_args(tensors, n_mt, dtype=torch.float32):
@@ -177,6 +218,18 @@ def mixed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def _check_lse(lse, q):
+    B, H, Nq, _ = q.shape
+    if lse is None:
+        raise ValueError("mixed_attention backward: the kernel needs the lse that the "
+                         "forward returned with return_lse=True")
+    if (lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or tuple(lse.shape) != (B, H, Nq)):
+        raise ValueError(f"mixed_attention backward: lse must be a contiguous float32 "
+                         f"({B}, {H}, {Nq}) tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
+
+
 def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, g: torch.Tensor, n_mt: int, scale: float,
                         lse: torch.Tensor | None = None):
@@ -189,14 +242,7 @@ def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mixed_attention_bwd_ref(q, k, v, g, n_mt, scale)
     _check_kernel_args(dict(q=q, k=k, v=v, o=o, g=g), n_mt)
     B, H, Nq, D = q.shape
-    if lse is None:
-        raise ValueError("mixed_attention_bwd: the kernel needs the lse that "
-                         "mixed_attention_fwd(..., return_lse=True) returned")
-    if (lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous()
-            or tuple(lse.shape) != (B, H, Nq)):
-        raise ValueError(f"mixed_attention_bwd: lse must be a contiguous float32 "
-                         f"({B}, {H}, {Nq}) tensor on {q.device}, got {tuple(lse.shape)} "
-                         f"{lse.dtype} on {lse.device}")
+    _check_lse(lse, q)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
     lib = _build.library("mixed_attention_bwd")
@@ -210,50 +256,100 @@ def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _check_bf16(**tensors):
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"mixed_attention bf16 kernels take bfloat16, {name} is {t.dtype}")
+
+
 def mixed_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         n_mt: int, scale: float) -> torch.Tensor:
-    """bf16 forward, inference only: kernel K1-bf16 for CUDA tensors (each
+                         n_mt: int, scale: float, return_lse: bool = False):
+    """bf16 forward without autograd: kernel K1-bf16 for CUDA tensors (each
     launch counted in `mixed_attention_bf16.launches`),
     `mixed_attention_bf16_ref` for CPU tensors. q, k and v must all be
     bf16; the kernel takes the f32 kernel's shapes (D in
-    `_KERNEL_HEAD_DIMS`) and raises on others."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"mixed_attention_bf16 takes bfloat16, {name} is {t.dtype}")
+    `_KERNEL_HEAD_DIMS`) and raises on others. With `return_lse` it returns
+    (out, lse), lse the (B, H, Nq) f32 row logsumexp of the f32 scores
+    (`mixed_attention_bf16_lse_ref` on CPU tensors); K1-bf16 writes it only
+    when asked, and its output is the same either way."""
+    _check_bf16(q=q, k=k, v=v)
     if _on_cpu(q, k, v):
-        return mixed_attention_bf16_ref(q, k, v, n_mt, scale)
+        out = mixed_attention_bf16_ref(q, k, v, n_mt, scale)
+        return (out, mixed_attention_bf16_lse_ref(q, k, n_mt, scale)) if return_lse else out
     _check_kernel_args(dict(q=q, k=k, v=v), n_mt, torch.bfloat16)
     B, H, Nq, D = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) if return_lse else None
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     lib = _build.library("mixed_attention_bf16")
     err = lib.mixed_attention_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         B * H, Nq, k.shape[2], D, int(n_mt), float(scale), query_warps(B * H, Nq, n_sm),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_fwd_bf16")
     mixed_attention_bf16.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+#: where K2-bf16 takes Delta_i = rowsum(P o dP)_i from: "o", g_i . o_i of
+#: the bf16 forward output, or "recompute", a first pass over the keys in
+#: its dQ kernel that sums P o dP in f32 as the Pallas kernel does
+#: (PERF.md §6: the choice by measurement)
+BWD_BF16_DELTA = "recompute"
+
+
+def mixed_attention_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, g: torch.Tensor, n_mt: int, scale: float,
+                             lse: torch.Tensor | None = None, delta: str = BWD_BF16_DELTA):
+    """bf16 (dq, dk, dv) for the bf16 forward output o, its bf16 incoming
+    gradient g and the f32 row logsumexp lse that K1-bf16 returned: kernel
+    K2-bf16 for CUDA tensors (each launch counted in
+    `mixed_attention_bwd_bf16.launches`; it needs lse and raises without
+    it; `delta` as `BWD_BF16_DELTA`), `mixed_attention_bwd_bf16_ref` for CPU
+    tensors (which recomputes P and needs neither o nor lse)."""
+    _check_bf16(q=q, k=k, v=v, o=o, g=g)
+    if _on_cpu(q, k, v, o, g):
+        return mixed_attention_bwd_bf16_ref(q, k, v, g, n_mt, scale)
+    if delta not in ("o", "recompute"):
+        raise ValueError(f"mixed_attention_bwd_bf16: delta {delta!r} (o or recompute)")
+    _check_kernel_args(dict(q=q, k=k, v=v, o=o, g=g), n_mt, torch.bfloat16)
+    _check_lse(lse, q)
+    B, H, Nq, D = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta_buf = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
+    lib = _build.library("mixed_attention_bwd_bf16")
+    err = lib.mixed_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta_buf.data_ptr(),
+        B * H, Nq, k.shape[2], D, int(n_mt), float(scale), int(delta == "recompute"),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "mixed_attention_bwd_bf16")
+    mixed_attention_bwd_bf16.launches += 1
+    return dq, dk, dv
 
 
 class _MixedAttention(torch.autograd.Function):
+    """K1 forward and K2 backward, or with `bf16` K1-bf16 and K2-bf16. Only
+    the kernels read the logsumexp: the CPU backward recomputes P."""
+
     @staticmethod
-    def forward(ctx, q, k, v, n_mt, scale):
-        # only K2 reads the logsumexp: the CPU backward recomputes P
+    def forward(ctx, q, k, v, n_mt, scale, bf16):
         with_lse = not _on_cpu(q, k, v)
-        out = mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=with_lse)
+        fwd = mixed_attention_bf16 if bf16 else mixed_attention_fwd
+        out = fwd(q, k, v, n_mt, scale, return_lse=with_lse)
         out, lse = out if with_lse else (out, None)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.n_mt, ctx.scale = n_mt, scale
+        ctx.n_mt, ctx.scale, ctx.bf16 = n_mt, scale, bf16
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        bwd = mixed_attention_bwd_bf16 if ctx.bf16 else mixed_attention_bwd
         # the model's head merge can hand over a non-contiguous gradient
-        dq, dk, dv = mixed_attention_bwd(q, k, v, out, g.contiguous(), ctx.n_mt, ctx.scale,
-                                         lse)
-        return dq, dk, dv, None, None
+        dq, dk, dv = bwd(q, k, v, out, g.contiguous(), ctx.n_mt, ctx.scale, lse)
+        return dq, dk, dv, None, None, None
 
 
 def mixed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -262,19 +358,18 @@ def mixed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k and v: K1 forward and K2 backward on CUDA tensors, the plain
     versions on CPU tensors. n_mt and scale are not differentiated. Without
     a gradient to take (inference) it skips the autograd Function's
-    per-call cost. bf16 q/k/v go to `mixed_attention_bf16` and raise if a
-    gradient is to be taken."""
+    per-call cost. bf16 q/k/v go to `mixed_attention_bf16`, and under
+    autograd to K1-bf16 and K2-bf16."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if torch.bfloat16 in (q.dtype, k.dtype, v.dtype):
-        if grad:
-            raise NotImplementedError(f"mixed_attention: bf16 tensors that require a "
-                                      f"gradient; {TRAINING_BF16}")
-        return mixed_attention_bf16(q, k, v, int(n_mt), float(scale))
+    bf16 = torch.bfloat16 in (q.dtype, k.dtype, v.dtype)
     if grad:
-        return _MixedAttention.apply(q, k, v, int(n_mt), float(scale))
+        return _MixedAttention.apply(q, k, v, int(n_mt), float(scale), bf16)
+    if bf16:
+        return mixed_attention_bf16(q, k, v, int(n_mt), float(scale))
     return mixed_attention_fwd(q, k, v, int(n_mt), float(scale))
 
 
 mixed_attention.launches = 0
 mixed_attention_bf16.launches = 0
 mixed_attention_bwd.launches = 0
+mixed_attention_bwd_bf16.launches = 0

@@ -23,9 +23,12 @@ plain version. Which of its kernels K3 and K4 launch at a shape is decided
 by `msda_plan`, from the shape alone.
 
 bf16 value and attention weights with f32 locations (the JAX package's
-eval dtype) go to K3-bf16 (the bf16 kernels of `csrc/msda.cu`) for CUDA
+dtype) go to K3-bf16 (the bf16 kernels of `csrc/msda.cu`) for CUDA
 tensors and `ms_deform_attn_bf16_ref` for CPU tensors; the output is bf16.
-bf16 is inference only: bf16 tensors that require a gradient raise.
+Under autograd their backward is K4-bf16 (the bf16 instantiations of
+`csrc/msda_bwd.cu`) for CUDA tensors and `ms_deform_attn_bwd_bf16_ref` for
+CPU tensors, with the gradients in the primal dtypes: dValue and dAttw
+bf16, dLoc f32.
 """
 from __future__ import annotations
 
@@ -35,7 +38,6 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from multi_modal_tracking_torch.ops import _build
-from multi_modal_tracking_torch.utils.device import TRAINING_BF16
 
 
 def _corners(loc_l: torch.Tensor, H: int, W: int):
@@ -86,39 +88,87 @@ def ms_deform_attn_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     return out.reshape(B, Lq, M * D)
 
 
+def _bf16_tap_rows(loc_l: torch.Tensor, aw_l: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The Pallas kernel's dense row A at acc_dtype bf16, (B, Lq, M, H*W) f32
+    holding bf16 values: each tap weight (bilinear corner weight x attention
+    weight) formed in f32 and rounded to bf16, the rounded weights of the
+    taps on each pixel summed in f32 in tap order (point-major, then
+    corner), the sum rounded to bf16 again (ops/msda.py:133, :202-206)."""
+    B, Lq, M, P = aw_l.shape
+    _, _, corners = _corners(loc_l, H, W)                           # (B, Lq, M, P) each
+    a = torch.zeros(B, Lq, M, H * W, dtype=torch.float32, device=loc_l.device)
+    for p in range(P):
+        for xi, yi, bw in corners:
+            xi, yi = xi[..., p], yi[..., p]
+            inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+            w = (bw[..., p] * aw_l[..., p]).to(torch.bfloat16).float() * inside
+            idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))[..., None]
+            a.scatter_add_(3, idx, w[..., None])
+    return a.to(torch.bfloat16).float()
+
+
 def ms_deform_attn_bf16_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                             sampling_locations: torch.Tensor,
                             attention_weights: torch.Tensor) -> torch.Tensor:
     """Plain K3-bf16: bf16 value and attention weights, f32 locations ->
     bf16 (B, Lq, M * D), with the rounding points of the JAX package's
-    `_msda_pallas_fwd` at bf16 (ops/msda.py:133, :202-206, :224, :252): each
-    tap weight (bilinear corner weight x attention weight) formed in f32
-    and rounded to bf16; per level and (query, head) the dense row A over
-    the level's pixels, the sum in f32 of the rounded weights of the taps on
-    each pixel in tap order (point-major, then corner), rounded to bf16
-    again; A V accumulated in f32 over the bf16 values, the levels summed
-    in f32 and the output rounded to bf16."""
+    `_msda_pallas_fwd` at bf16 (ops/msda.py:133, :202-206, :224, :252): per
+    level the dense row A of `_bf16_tap_rows`, A V accumulated in f32 over
+    the bf16 values, the levels summed in f32 and the output rounded to
+    bf16."""
     B, S, M, D = value.shape
-    Lq, P = sampling_locations.shape[1], sampling_locations.shape[4]
+    Lq = sampling_locations.shape[1]
     loc, aw_all = sampling_locations.float(), attention_weights.float()
     out = None
     start = 0
     for lid, (H, W) in enumerate(spatial_shapes):
-        _, _, corners = _corners(loc[:, :, :, lid], H, W)          # (B, Lq, M, P) each
-        aw = aw_all[:, :, :, lid]
-        a = torch.zeros(B, Lq, M, H * W, dtype=torch.float32, device=value.device)
-        for p in range(P):
-            for xi, yi, bw in corners:
-                xi, yi = xi[..., p], yi[..., p]
-                inside = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-                w = (bw[..., p] * aw[..., p]).to(torch.bfloat16).float() * inside
-                idx = (yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))[..., None]
-                a.scatter_add_(3, idx, w[..., None])
-        a = a.to(torch.bfloat16).float()
+        a = _bf16_tap_rows(loc[:, :, :, lid], aw_all[:, :, :, lid], H, W)
         o = torch.einsum("bqms,bsmd->bqmd", a, value[:, start:start + H * W].float())
         out = o if out is None else out + o
         start += H * W
     return out.to(torch.bfloat16).reshape(B, Lq, M * D)
+
+
+def ms_deform_attn_bwd_bf16_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                                sampling_locations: torch.Tensor,
+                                attention_weights: torch.Tensor, grad_out: torch.Tensor):
+    """Plain K4-bf16: the backward of `ms_deform_attn_bf16_ref` with the
+    rounding points of the JAX package's `_msda_pallas_bwd` at acc_dtype
+    bf16 (ops/msda.py:377-418): dValue = A^T g with A of `_bf16_tap_rows`
+    and the bf16 g, accumulated in f32 and rounded to bf16; the tap-weight
+    gradient dw = <g, V[corner]> of the bf16 rows in f32 (0 for a dead
+    corner); then in f32 on the unrounded attention weights and bilinear
+    weights, dAttw = sum_c w_c dw_c, rounded to bf16, and dLoc through the
+    bilinear weights, f32. Returns (dValue, dLoc, dAttw) in the primal
+    dtypes (bf16, f32, bf16)."""
+    B, S, M, D = value.shape
+    Lq = sampling_locations.shape[1]
+    loc, aw_all = sampling_locations.float(), attention_weights.float()
+    vf = value.float()
+    g = grad_out.float().reshape(B, Lq, M, D)
+    dvalue = torch.empty(B, S, M, D, dtype=torch.float32, device=value.device)
+    dloc = torch.zeros_like(loc)
+    dattw = torch.zeros_like(aw_all)
+    bidx = torch.arange(B, device=value.device)[:, None, None, None]
+    midx = torch.arange(M, device=value.device)[None, None, :, None]
+    start = 0
+    for lid, (H, W) in enumerate(spatial_shapes):
+        aw = aw_all[:, :, :, lid]                                  # (B, Lq, M, P)
+        a = _bf16_tap_rows(loc[:, :, :, lid], aw, H, W)
+        dvalue[:, start:start + H * W] = torch.einsum("bqms,bqmd->bsmd", a, g)
+        fx, fy, corners = _corners(loc[:, :, :, lid], H, W)
+        dw = []
+        for xi, yi, _ in corners:
+            live = ((xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)).float()
+            flat = start + yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)
+            index = (bidx.expand_as(flat), flat, midx.expand_as(flat))
+            dw.append((vf[index] * g[:, :, :, None]).sum(-1) * live)
+        dattw[:, :, :, lid] = sum(c[2] * d for c, d in zip(corners, dw))
+        d0, d1, d2, d3 = (aw * d for d in dw)
+        dloc[:, :, :, lid, :, 0] = (-(1 - fy) * d0 + (1 - fy) * d1 - fy * d2 + fy * d3) * W
+        dloc[:, :, :, lid, :, 1] = (-(1 - fx) * d0 - fx * d1 + (1 - fx) * d2 + fx * d3) * H
+        start += H * W
+    return dvalue.to(torch.bfloat16), dloc, dattw.to(torch.bfloat16)
 
 
 def ms_deform_attn_bwd_ref(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -196,15 +246,21 @@ def msda_plan(B: int, M: int, D: int, spatial_shapes: Sequence[Tuple[int, int]],
     corner tables fit (8*S_l*D + 4096 <= SMEM_MAX: S_l <= 446 at D 64)
     and D is even (its lanes hold channel pairs); other levels go direct.
     The number of points does not enter: the staged kernels take points in
-    groups. `itemsize` is the value's element size: 4 for f32, 2 for K3-bf16,
-    whose staged slice takes half the shared memory (2*S*D + 8192 <=
-    SMEM_MAX: S <= 1752 at D 64); K4 is f32 only."""
+    groups. `itemsize` is the value's element size: 4 for f32, 2 for the
+    bf16 kernels. K3-bf16's staged slice takes half the shared memory
+    (2*S*D + 8192 <= SMEM_MAX: S <= 1752 at D 64); K4-bf16 stages a bf16
+    slice beside an f32 dValue accumulator (6*S_l*D + 4096 <= SMEM_MAX:
+    S_l <= 594 at D 64)."""
     S = sum(h * w for h, w in spatial_shapes)
     fwd_smem = -(-itemsize * S * D // 8) * 8 + FWD_TABLE_BYTES
     staged = fwd_smem <= SMEM_MAX and 2 * B * M >= n_sm
-    bwd = tuple("staged" if 8 * h * w * D + BWD_TABLE_BYTES <= SMEM_MAX and D % 2 == 0
-                else "direct" for h, w in spatial_shapes)
-    bwd_smem = max((8 * h * w * D + BWD_TABLE_BYTES for (h, w), path in zip(spatial_shapes, bwd)
+
+    def bwd_bytes(h, w):
+        return (4 + itemsize) * h * w * D + BWD_TABLE_BYTES
+
+    bwd = tuple("staged" if bwd_bytes(h, w) <= SMEM_MAX and D % 2 == 0 else "direct"
+                for h, w in spatial_shapes)
+    bwd_smem = max((bwd_bytes(h, w) for (h, w), path in zip(spatial_shapes, bwd)
                     if path == "staged"), default=0)
     return MsdaPlan("staged" if staged else "gather", fwd_smem if staged else 0, bwd,
                     bwd_smem)
@@ -331,7 +387,7 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
 def ms_deform_attn_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                         sampling_locations: torch.Tensor,
                         attention_weights: torch.Tensor) -> torch.Tensor:
-    """bf16 forward, inference only: kernel K3-bf16 for CUDA tensors (its
+    """bf16 forward without autograd: kernel K3-bf16 for CUDA tensors (its
     staged or gather kernel, as `msda_plan` picks at bf16; each launch
     counted in `ms_deform_attn_bf16.launches` and by kernel in
     `ms_deform_attn_bf16.launches_by_kernel`), `ms_deform_attn_bf16_ref` for
@@ -368,19 +424,83 @@ def ms_deform_attn_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
     return out
 
 
+def ms_deform_attn_bwd_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                            sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                            grad_out: torch.Tensor):
+    """bf16 (dValue, dLoc, dAttw), in the primal dtypes (bf16, f32, bf16):
+    kernel K4-bf16 for CUDA tensors (its staged kernel for the levels
+    `msda_plan` stages at bf16, its direct kernel into an f32 scratch for
+    the others, rounded to bf16 here; each call counted once in
+    `ms_deform_attn_bwd_bf16.launches`), `ms_deform_attn_bwd_bf16_ref` for
+    CPU tensors. value, attention_weights and grad_out bf16,
+    sampling_locations f32; the kernel takes D a multiple of 8 up to 128.
+    Its dValue sums run in an order that varies from run to run, as K4's."""
+    for name, t, want in (("value", value, torch.bfloat16),
+                          ("sampling_locations", sampling_locations, torch.float32),
+                          ("attention_weights", attention_weights, torch.bfloat16),
+                          ("grad_out", grad_out, torch.bfloat16)):
+        if t.dtype != want:
+            raise TypeError(f"ms_deform_attn_bwd_bf16 takes {want} {name}, got {t.dtype}")
+    tensors = (value, sampling_locations, attention_weights, grad_out)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ms_deform_attn_bwd_bf16_ref(value, spatial_shapes, sampling_locations,
+                                           attention_weights, grad_out)
+    _check_kernel_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out,
+                       value_dtype=torch.bfloat16)
+    B, S, M, D = value.shape
+    if D % 8:
+        raise ValueError(f"ms_deform_attn_bwd_bf16 kernel takes D a multiple of 8, got {D}")
+    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
+        sampling_locations.shape[4]
+    plan = _plan_for(value, spatial_shapes)
+    dvalue = torch.empty_like(value)
+    # a direct level scatters into an f32 scratch with global atomics (a bf16
+    # atomic would round at every add), zeroed first and rounded afterwards
+    direct = [(start, start + h * w) for start, (h, w), path in
+              zip(_level_starts(spatial_shapes), spatial_shapes, plan.bwd) if path == "direct"]
+    scratch = torch.zeros(value.shape, dtype=torch.float32, device=value.device) \
+        if direct else None
+    dloc = torch.empty_like(sampling_locations)
+    dattw = torch.empty_like(attention_weights)
+    lib = _build.library("msda_bwd")
+    err = lib.msda_bwd_bf16(value.data_ptr(), sampling_locations.data_ptr(),
+                            attention_weights.data_ptr(), grad_out.data_ptr(),
+                            dvalue.data_ptr(), scratch.data_ptr() if direct else None,
+                            dloc.data_ptr(), dattw.data_ptr(),
+                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+                            sum(1 << l for l, path in enumerate(plan.bwd) if path == "staged"),
+                            torch.cuda.current_stream(value.device).cuda_stream)
+    _build.check(err, "msda_bwd_bf16")
+    for s0, s1 in direct:
+        dvalue[:, s0:s1].copy_(scratch[:, s0:s1])
+    ms_deform_attn_bwd_bf16.launches += 1
+    return dvalue, dloc, dattw
+
+
+def _level_starts(spatial_shapes):
+    starts, s = [], 0
+    for h, w in spatial_shapes:
+        starts.append(s)
+        s += h * w
+    return starts
+
+
 class _MSDeformAttn(torch.autograd.Function):
+    """K3 forward and K4 backward, or with `bf16` K3-bf16 and K4-bf16."""
+
     @staticmethod
-    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
-        ctx.spatial_shapes = spatial_shapes
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights, bf16):
+        ctx.spatial_shapes, ctx.bf16 = spatial_shapes, bf16
         ctx.save_for_backward(value, sampling_locations, attention_weights)
-        return ms_deform_attn_fwd(value, spatial_shapes, sampling_locations, attention_weights)
+        fwd = ms_deform_attn_bf16 if bf16 else ms_deform_attn_fwd
+        return fwd(value, spatial_shapes, sampling_locations, attention_weights)
 
     @staticmethod
     def backward(ctx, grad_out):
         value, loc, attw = ctx.saved_tensors
-        dvalue, dloc, dattw = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc, attw,
-                                                 grad_out.contiguous())
-        return dvalue, None, dloc, dattw
+        bwd = ms_deform_attn_bwd_bf16 if ctx.bf16 else ms_deform_attn_bwd
+        dvalue, dloc, dattw = bwd(value, ctx.spatial_shapes, loc, attw, grad_out.contiguous())
+        return dvalue, None, dloc, dattw, None
 
 
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -391,18 +511,16 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     forward and K4 backward on CUDA tensors, the plain versions on CPU
     tensors. spatial_shapes is not differentiated. Without a gradient to
     take (inference) it skips the autograd Function's per-call cost. A bf16
-    value goes to `ms_deform_attn_bf16` and raises if a gradient is to be
-    taken."""
+    value goes to `ms_deform_attn_bf16`, and under autograd to K3-bf16 and
+    K4-bf16."""
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     tensors = (value, sampling_locations, attention_weights)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    if value.dtype == torch.bfloat16:
-        if grad:
-            raise NotImplementedError(f"ms_deform_attn: bf16 tensors that require a "
-                                      f"gradient; {TRAINING_BF16}")
-        return ms_deform_attn_bf16(value, shapes, sampling_locations, attention_weights)
+    bf16 = value.dtype == torch.bfloat16
     if grad:
-        return _MSDeformAttn.apply(value, shapes, sampling_locations, attention_weights)
+        return _MSDeformAttn.apply(value, shapes, sampling_locations, attention_weights, bf16)
+    if bf16:
+        return ms_deform_attn_bf16(value, shapes, sampling_locations, attention_weights)
     return ms_deform_attn_fwd(value, shapes, sampling_locations, attention_weights)
 
 
@@ -412,3 +530,4 @@ ms_deform_attn.launches_by_kernel = {"staged": 0, "gather": 0}
 ms_deform_attn_bf16.launches = 0
 ms_deform_attn_bf16.launches_by_kernel = {"staged": 0, "gather": 0}
 ms_deform_attn_bwd.launches = 0
+ms_deform_attn_bwd_bf16.launches = 0

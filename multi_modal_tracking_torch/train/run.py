@@ -8,7 +8,8 @@ config and `experiments/<script>/<config>.yaml`, applies --epochs and
 --batch, writes the effective config to
 `<save_dir>/<script>_<config>.yaml`, then runs `Trainer.train` (fail-safe
 unless --no_fail_safe; --resume starts from the latest checkpoint in
-`<save_dir>/checkpoints/<script>/`). Runs on the GPU unless --device cpu.
+`<save_dir>/checkpoints/<script>/`). Runs on the GPU unless --device cpu,
+in bf16 compute on float32 parameters unless --dtype float32.
 --fsdp, --remat and the multi-process flags are not ported yet and raise
 NotImplementedError (ROADMAP.md queue 1, item 12).
 """
@@ -19,6 +20,8 @@ import os
 from typing import List, Optional
 
 import yaml
+
+from multi_modal_tracking_torch.utils.device import DTYPES
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _UNPORTED = ("fsdp", "remat", "coordinator", "num_processes", "process_id")
@@ -37,6 +40,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint")
     p.add_argument("--no_fail_safe", action="store_true")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=sorted(DTYPES),
+                   help="compute dtype: bfloat16 (default, the JAX trainer's) or float32; "
+                        "parameters and optimizer state are float32 either way")
     p.add_argument("--fsdp", action="store_true", default=None, help="not ported yet")
     p.add_argument("--remat", action="store_true", default=None, help="not ported yet")
     p.add_argument("--coordinator", type=str, default=None, help="not ported yet")
@@ -69,7 +75,7 @@ def main(argv: Optional[List[str]] = None):
         yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)
 
     trainer = Trainer(args.script, cfg, save_dir=args.save_dir, device=args.device,
-                      seed=args.seed)
+                      seed=args.seed, dtype=DTYPES[args.dtype])
     n_trainable = sum(len(g["params"]) for g in trainer.optimizer.opt.param_groups)
     print(f"model: {trainer.net_name}, {n_trainable} trainable param tensors, "
           f"{trainer.steps_per_epoch} steps/epoch", flush=True)

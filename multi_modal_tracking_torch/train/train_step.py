@@ -3,8 +3,12 @@ keep-rate schedule.
 
 The port's counterpart of the JAX package's `train/train_step.py`: forward
 on the bimodal crops in training mode, CIoU + L1 loss, backward (K2 and K4
-on the GPU), then the optimizer's update (global-norm clip and AdamW, once
-per ACCUM_ITER micro-batches). The metrics include `grad_norm`, the global
+on the GPU, or K2-bf16 and K4-bf16 in bf16), then the optimizer's update
+(global-norm clip and AdamW, once per ACCUM_ITER micro-batches). The
+model's compute dtype is its precision policy, as the JAX package's
+`dtype=bf16` is ("AMP becomes the bf16 compute policy — no loss scaler",
+train/train_step.py:9-10): parameters, gradients, optimizer state and the
+loss stay float32 whatever it is. The metrics include `grad_norm`, the global
 norm of this micro-batch's gradients before clipping. The val step runs the
 model in eval mode without gradients and without a keep rate. Metrics come
 back as 0-d device tensors, so a caller that does not read them every step
@@ -19,8 +23,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from multi_modal_tracking_torch.models.layers import compute_dtype
 from multi_modal_tracking_torch.train.losses import box_losses
-from multi_modal_tracking_torch.utils.device import require_float32_params, resolve_device
+from multi_modal_tracking_torch.utils.device import (require_float32_params, resolve_device,
+                                                     set_precision)
 
 
 def adjust_keep_rate(epoch: int, warmup_epochs: int, total_epochs: int,
@@ -68,10 +74,13 @@ def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: floa
     """step(batch, ce_keep_rate=None) -> metrics {"Loss/total", "Loss/ciou",
     "Loss/l1", "IoU", "grad_norm"} (0-d device tensors). `batch` is a host
     batch of `batch_to_model_inputs` or the output of `model_inputs`.
-    Runs on the GPU unless device="cpu"; raises without a GPU. float32
-    parameters only: a model cast to bf16 raises."""
+    Runs on the GPU unless device="cpu"; raises without a GPU. The model
+    computes in its compute dtype (`models.layers.compute_dtype`: float32 or
+    bf16) on float32 parameters; a model whose parameters were cast to bf16
+    raises."""
     dev = resolve_device(device)
     require_float32_params(model, "make_train_step")
+    set_precision(compute_dtype(model))
 
     def step(batch, ce_keep_rate: Optional[float] = None) -> Dict[str, torch.Tensor]:
         x = batch if "s" in batch else model_inputs(batch, dev)
@@ -91,10 +100,11 @@ def make_eval_step(model: nn.Module, iou_weight: float = 2.0, l1_weight: float =
     """eval_step(batch) -> the metrics of `box_losses` ("Loss/total",
     "Loss/ciou", "Loss/l1", "IoU"; 0-d device tensors) of the model in eval
     mode, without gradients and with ce_keep_rate None. Runs on the GPU
-    unless device="cpu"; raises without a GPU. float32 parameters only,
-    as for training."""
+    unless device="cpu"; raises without a GPU. The model's compute dtype
+    and float32 parameters, as for training."""
     dev = resolve_device(device)
     require_float32_params(model, "make_eval_step")
+    set_precision(compute_dtype(model))
 
     @torch.no_grad()
     def eval_step(batch) -> Dict[str, torch.Tensor]:

@@ -20,9 +20,14 @@ most `max_failures` tries). Per-epoch means go to
 device every print interval, not every step; a non-finite loss raises
 FloatingPointError at that point.
 
-Work is float32 with TF32 off. Not ported yet, and raising
-NotImplementedError when configured (ROADMAP.md queue 1): TRAIN_SCORE
-(SPM), FSDP / REMAT, AMP / bf16 training (item 4b).
+The model computes in `dtype`, bf16 by default, the JAX Trainer's only
+mode (train/trainer.py:70), on float32 parameters: the master weights, the
+AdamW moments, the clip and the update stay float32 (flax dtype=bf16,
+param_dtype=float32); `dtype=torch.float32` is the parity path. TF32 is
+off either way. TRAIN.AMP is accepted and changes nothing, as in the JAX
+package, where AMP is the bf16 compute policy with no loss scaler. Not
+ported yet, and raising NotImplementedError when configured (ROADMAP.md
+queue 1): TRAIN_SCORE (SPM), FSDP / REMAT.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from multi_modal_tracking_torch.train.train_step import (adjust_keep_rate, bucke
                                                          make_eval_step, make_train_step,
                                                          model_inputs)
 from multi_modal_tracking_torch.utils import checkpoint as ckpt
-from multi_modal_tracking_torch.utils.device import TRAINING_BF16, resolve_device
+from multi_modal_tracking_torch.utils.device import resolve_device
 
 _ROADMAP = "is not ported to multi_modal_tracking_torch yet (ROADMAP.md queue 1)"
 
@@ -54,8 +59,6 @@ def _check_ported(cfg) -> None:
     for key in ("TRAIN_SCORE", "FSDP", "REMAT"):
         if t.get(key, False):
             raise NotImplementedError(f"TRAIN.{key} {_ROADMAP}")
-    if t.get("AMP", False):
-        raise NotImplementedError(f"TRAIN.AMP: {TRAINING_BF16}")
 
 
 def _warm_start_paths(cfg) -> List[tuple]:
@@ -72,13 +75,15 @@ class Trainer:
     """`Trainer(script, cfg, save_dir="output", device="cuda", seed=...)`;
     `train(max_epochs)` runs the epoch loop, `cycle_dataset(loader, train)`
     one pass over a loader at `self.epoch`. `spec_overrides` replace fields
-    of the model spec (depth, widths, drop rates). Runs on the GPU unless
+    of the model spec (depth, widths, drop rates). `dtype` is the compute
+    dtype (bf16 by default, as in the JAX package, or float32); the
+    parameters are float32 either way. Runs on the GPU unless
     device="cpu"; raises without a GPU."""
 
     def __init__(self, script: str, cfg, save_dir: str = "output", device="cuda",
                  seed: int = 42, log_dir: Optional[str] = None,
                  print_interval: Optional[int] = None,
-                 spec_overrides: Optional[dict] = None):
+                 spec_overrides: Optional[dict] = None, dtype: torch.dtype = torch.bfloat16):
         self.device = resolve_device(device)
         _check_ported(cfg)
         warm_starts = _warm_start_paths(cfg)
@@ -91,7 +96,8 @@ class Trainer:
         self.epoch = 0
         self.train_loader, self.val_loader = build_dataloaders(cfg, seed=seed)
         self.steps_per_epoch = max(1, cfg.DATA.TRAIN.SAMPLE_PER_EPOCH // cfg.TRAIN.BATCH_SIZE)
-        self.model = build_model(script, cfg, device=self.device, seed=seed,
+        self.dtype = dtype
+        self.model = build_model(script, cfg, device=self.device, dtype=dtype, seed=seed,
                                  spec_overrides=spec_overrides).train()
         self.net_name = type(self.model).__name__
         for key, path in warm_starts:

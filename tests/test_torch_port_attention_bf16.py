@@ -73,13 +73,20 @@ def test_bf16_template_rows_ignore_search_keys():
 
 
 def test_bf16_with_gradient_raises():
-    """bf16 is inference only: no fallback to the f32 kernel or the plain
-    version when a gradient is asked for."""
+    """bf16 under autograd: CPU tensors take the bf16 autograd Function
+    (the plain bf16 forward and backward, bf16 gradients; nothing goes to
+    the f32 versions); tensors elsewhere reach the kernels' checks and
+    raise there (meta tensors stand in for a device without the kernels),
+    with no fallback to a plain version."""
     _, (q, k, v) = _bf16_inputs(1, 2, 8, 8, 16)
-    with pytest.raises(NotImplementedError, match="bf16 training.*4b"):
-        mixed_attention(q.requires_grad_(), k, v, 0, 0.25)
+    out = mixed_attention(q.requires_grad_(), k, v, 0, 0.25)
+    out.float().sum().backward()
+    assert out.dtype == torch.bfloat16 and q.grad.dtype == torch.bfloat16
     with torch.no_grad():
         assert mixed_attention(q, k, v, 0, 0.25).dtype == torch.bfloat16
+    m = torch.empty(1, 2, 8, 16, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="CPU or all CUDA"):
+        mixed_attention(m, m, m, 0, 0.25)
 
 
 def test_mixed_dtypes_raise():

@@ -473,7 +473,7 @@ def tiny_cli(pair, monkeypatch, tmp_path):
 
 
 BASE = ["asymmetric_shared_ce", "attention_lasher_newfusion_2layer", "--device", "cpu",
-        "--chunk", "8"]
+        "--chunk", "8", "--dtype", "float32"]
 
 
 def test_cli_layout_sequence_rerun_and_overrides(tiny_cli, tmp_path, capsys):

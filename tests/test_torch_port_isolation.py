@@ -136,12 +136,12 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     params.checkpoint = str(tmp_path / "MixFormerRGBT_ep0001.pth.tar")
     torch.save({"epoch": 1, "net": sd}, params.checkpoint)
     _tiny_builder(monkeypatch, TINY)
-    tracker = create_tracker(params, device="cpu")
+    tracker = create_tracker(params, device="cpu", dtype=torch.float32)
     got = tracker.model.state_dict()
     assert got.keys() == sd.keys() and all(torch.equal(got[k], sd[k]) for k in sd)
     torch.save({"net": {k: v for k, v in sd.items() if "box_head" not in k}}, params.checkpoint)
     with pytest.raises(ValueError, match="strict"):
-        create_tracker(params, device="cpu")
+        create_tracker(params, device="cpu", dtype=torch.float32)
 
 
 def _train_cfg(small: bool = False):
@@ -179,8 +179,10 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 @pytest.mark.parametrize("option", ["ACCUM_ITER", "TRAIN_SCORE", "FSDP", "REMAT", "AMP", "VAL"])
 def test_unported_training_options_raise(option, tmp_path, capsys):
-    """TRAIN_SCORE, FSDP, REMAT and AMP raise. ACCUM_ITER and the val split
-    are ported: ACCUM_ITER 2 reaches the optimizer, and a val split that
+    """TRAIN_SCORE, FSDP, REMAT raise. AMP is accepted: the Trainer computes
+    in bf16 by default, as the JAX one does, and AMP changes nothing.
+    ACCUM_ITER and the val split are ported: ACCUM_ITER 2 reaches the
+    optimizer, and a val split that
     cannot be built here (RGBT234, not ported) is disabled with the JAX
     package's printed line, while a SyntheticRGBT one builds."""
     from multi_modal_tracking_torch.train.trainer import Trainer
@@ -197,6 +199,11 @@ def test_unported_training_options_raise(option, tmp_path, capsys):
         cfg.DATA.VAL.DATASETS_NAME = ["SyntheticRGBT"]
         tr = make(cfg)
         assert tr.val_loader.name == "val" and tr.val_loader.epoch_interval == 10
+    elif option == "AMP":
+        cfg.TRAIN.AMP = True
+        tr = make(cfg)
+        assert tr.dtype == torch.bfloat16
+        assert {p.dtype for p in tr.model.parameters()} == {torch.float32}
     else:
         cfg.TRAIN[option] = True
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -226,7 +233,7 @@ def test_checkpoints_and_fail_safe_raise(tmp_path):
     from multi_modal_tracking_torch.train.trainer import Trainer
     cfg = _train_cfg(small=True)
     make = lambda: Trainer("asymmetric_shared_ce", cfg, save_dir=str(tmp_path),  # noqa: E731
-                           device="cpu", spec_overrides=TINY)
+                           device="cpu", spec_overrides=TINY, dtype=torch.float32)
     tr = make()
     tr.epoch = 3
     path = tr.save_checkpoint()

@@ -77,7 +77,7 @@ def _life_cfg(val=True, get=get_default_config):
 
 def _trainer(save_dir, cfg=None, seed=0):
     return Trainer(SCRIPT, cfg or _life_cfg(), save_dir=str(save_dir), device="cpu", seed=seed,
-                   spec_overrides=TINY)
+                   spec_overrides=TINY, dtype=torch.float32)
 
 
 @pytest.fixture(scope="module")
@@ -193,7 +193,7 @@ def test_port_checkpoint_loads_strictly_into_jax_and_trackers_agree(trained, mon
     params.template_factor, params.search_factor = 2.0, 4.5
     params.checkpoint = path
     _tiny_builder(monkeypatch, GEOM)
-    port = create_tracker(params, device="cpu", seed=3)
+    port = create_tracker(params, device="cpu", seed=3, dtype=torch.float32)
     jt = jax_tracker.RGBTCachedTrackerJit(
         model=jmodel, variables=variables, template_factor=2.0, template_size=T_SZ,
         search_factor=4.5, search_size=S_SZ, update_interval=update_interval_for(params.cfg, ""))

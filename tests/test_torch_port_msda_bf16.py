@@ -89,9 +89,18 @@ def test_plan_bf16():
 
 
 def test_bf16_with_gradient_raises():
+    """bf16 under autograd: CPU tensors take the bf16 autograd Function
+    (gradients in the primal dtypes); tensors elsewhere reach the kernels'
+    checks and raise there, with no fallback to a plain version."""
     _, (value, loc, w), shapes = _bf16_case(CASES[4], seed=1)
-    with pytest.raises(NotImplementedError, match="bf16 training.*4b"):
-        ms_deform_attn(value.requires_grad_(), shapes, loc, w)
+    out = ms_deform_attn(value.requires_grad_(), shapes, loc, w)
+    out.float().sum().backward()
+    assert out.dtype == torch.bfloat16 and value.grad.dtype == torch.bfloat16
+    mv = torch.empty(1, 16, 2, 8, dtype=torch.bfloat16, device="meta", requires_grad=True)
+    mloc = torch.empty(1, 5, 2, 1, 4, 2, device="meta")
+    mattw = torch.empty(1, 5, 2, 1, 4, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="CPU or all CUDA"):
+        ms_deform_attn(mv, ((4, 4),), mloc, mattw)
 
 
 def test_bf16_dtypes_checked():

@@ -305,10 +305,13 @@ def test_eval_cli_and_lockstep_bf16(tiny_params, monkeypatch, tmp_path):
 
 def test_other_dtypes_and_bf16_training_raise(tiny_params, tmp_path):
     """float32 and bfloat16 are the compute dtypes; anything else raises.
-    bf16 training is the next slice: TRAIN.AMP, and the train and val
-    steps of a model cast to bf16, raise, naming ROADMAP's item."""
+    bf16 training keeps float32 parameters: build_model(dtype=bf16) builds
+    float32 parameters that compute in bf16, and the train and val steps of
+    a model whose parameters were cast to bf16 (for serving) raise.
+    TRAIN.AMP is accepted: bf16 is the Trainer's default compute dtype."""
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.models.build import build_model
+    from multi_modal_tracking_torch.models.layers import compute_dtype
     from multi_modal_tracking_torch.train.train_step import make_eval_step, make_train_step
     from multi_modal_tracking_torch.utils.device import set_precision
     from tests.test_torch_port_isolation import _train_cfg
@@ -322,13 +325,15 @@ def test_other_dtypes_and_bf16_training_raise(tiny_params, tmp_path):
     model = build_model(params.script, params.cfg, device="cpu", dtype=torch.bfloat16,
                         spec_overrides=TINY)
     assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert compute_dtype(model) == torch.bfloat16
     cast_floating(model, torch.bfloat16)
     for make in (lambda: make_train_step(model, None, device="cpu"),
                  lambda: make_eval_step(model, device="cpu")):
-        with pytest.raises(NotImplementedError, match="bf16 training.*4b"):
+        with pytest.raises(NotImplementedError, match="keeps float32 parameters"):
             make()
     cfg = _train_cfg(small=True)
     cfg.TRAIN.AMP = True
-    with pytest.raises(NotImplementedError, match="TRAIN.AMP: bf16 training.*4b"):
-        Trainer("asymmetric_shared_ce", cfg, save_dir=str(tmp_path), device="cpu",
-                spec_overrides=TINY)
+    tr = Trainer("asymmetric_shared_ce", cfg, save_dir=str(tmp_path), device="cpu",
+                 spec_overrides=TINY)
+    assert compute_dtype(tr.model) == torch.bfloat16
+    assert {p.dtype for p in tr.model.parameters()} == {torch.float32}

@@ -7,6 +7,7 @@ import types
 
 import numpy as np
 import pytest
+import torch
 
 from multi_modal_tracking_tpu.config import get_default_config as jax_default_config
 from multi_modal_tracking_tpu.train.trainer import Trainer as JaxTrainer
@@ -36,7 +37,7 @@ def _cfg(get=get_default_config):
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     tr = Trainer("asymmetric_shared_ce", _cfg(), save_dir=str(tmp_path_factory.mktemp("trainer")),
-                 device="cpu", seed=0, spec_overrides=TINY)
+                 device="cpu", seed=0, spec_overrides=TINY, dtype=torch.float32)
     tr.train(max_epochs=2)
     return tr
 
