@@ -36,8 +36,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 answer on the same inputs: the kernel's error at most 1.25x
                 the plain version's; SDPA at bf16 beside K1-bf16; then the
                 bf16 backward kernels at the training shapes, K2-bf16 with
-                K1-bf16's lse (both Delta sources, the f32 K2 as the f32
-                answer, SDPA's bf16 backward as the library time) and
+                K1-bf16's lse (the f32 K2 as the f32 answer, SDPA's bf16
+                backward as the library time) and
                 K4-bf16 on uniform and model-like locations (the f32 K4 as
                 the f32 answer), and on edge cases covering both of
                 msda_plan's backward paths at bf16;
@@ -66,7 +66,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 no f32 kernel; finite losses that change between steps; the
                 same timings, device busy time, idle share, operations per
                 step and peak memory; a GPU bf16 step at batch 2 held against
-                the CPU bf16 step;
+                the CPU bf16 step and the GPU f32 step;
  10. lifecycle - checkpoints and the rest of the training loop, full width at
                 batch 16 at the Trainer's default (bf16), in a temporary
                 directory deleted at the end: a synthetic MAE backbone file warm-starts the backbone
@@ -137,14 +137,18 @@ cuBLAS and cuDNN):
     the plain version rounds a pixel's summed weight again; K2-bf16 takes P
     from the lse where the plain version divides by the row sum), then its
     output. K4-bf16's dLoc is f32: K4's tolerance. Against the f32 answer
-    each kernel's error is at most 1.25x its plain version's (K2-bf16 for
-    the Delta source ops/attention.py BWD_BF16_DELTA names; K4-bf16 for
+    each kernel's error is at most 1.25x its plain version's (K4-bf16 for
     dValue and dAttw).
-  * bf16 train step, GPU vs CPU: parameters and gradients float32; loss
-    within 2^-6 rel (the bf16 forward drifts from f32 by a few tenths of a
-    percent); all gradients together within twice the CPU bf16 step's own
-    distance from the GPU's f32 gradients (bf16 gradients of this loss lie
-    far from f32's, in JAX too: tests/test_torch_port_train_step_bf16.py).
+  * bf16 train step, GPU vs CPU and vs the GPU's f32 step: parameters and
+    gradients float32; loss within 2^-6 rel of the CPU bf16 step's and of
+    the GPU f32 step's (the bf16 forward drifts from f32 by a few tenths of
+    a percent). With the drift the CPU bf16 step's distance from the GPU's
+    f32 gradients (bf16 gradients of this loss lie far from f32's, in JAX
+    too: tests/test_torch_port_train_step_bf16.py), all gradients together
+    within 2 x drift of the CPU bf16 step's and within 1.5 x drift of the
+    GPU f32 step's, the bounds that test holds the port to against JAX's
+    bf16 and f32 steps. The second fails a gradient that is far off f32:
+    a zero gradient lies G (the grad norm) from it, the drift ~0.15 G.
   * model boxes (normalised to [0, 1]): 1e-4, i.e. 0.03 px at 288. The paths
     compared use other key orders, GEMM shapes and CPU vs GPU kernels
     through 12 blocks, 2 fusion layers and the head.
@@ -217,31 +221,46 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, sessions: int = 3) -> float:
+def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, sessions: int = 5) -> float:
     """Device time per call of fn from a torch.profiler trace of `iters`
     calls: the summed durations of the kernels whose names contain one of
     `names` (None: every kernel, copy and memset). Every fn timed here
-    launches at least one such kernel per call, so a session whose trace
-    holds fewer of them than calls has lost events (CUPTI recorded nothing
-    once on an SDPA session, and one K1-bf16 launch of 20 once): it is run
-    again, up to `sessions` times, and raises if none is whole."""
+    launches each such kernel the same number of times per call, so a
+    session in which a kernel name's count is not a multiple of `iters`
+    has lost events (CUPTI recorded nothing once on an SDPA session, one
+    K1-bf16 launch of 20 once, and 5 K1 launches of 20 in each of three
+    sessions in a row once): it is run again after a pause, up to
+    `sessions` times. If none is whole, the time comes from the session
+    that kept the most events: each kernel name's mean duration times its
+    launches per call (its count over `iters`, rounded, at least 1), and a
+    "profiler" line gives the count. It raises if no session traced any
+    such event."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(sessions):
+    best = {}
+    for attempt in range(sessions):
+        if attempt:
+            time.sleep(0.2)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        ivals = _device_intervals(prof)
-        named = [e - s for s, e, n in ivals if names is None or any(k in n for k in names)]
-        if len(named) >= iters:
-            break
-    require(len(named) >= iters, f"the profiler traced {len(named)} device events for "
-                                 f"{names} over {iters} calls ({len(ivals)} in all), "
-                                 f"{sessions} sessions")
-    return sum(named) / iters / 1e3
+        by_name = {}
+        for s, e, n in _device_intervals(prof):
+            if names is None or any(k in n for k in names):
+                by_name.setdefault(n, []).append(e - s)
+        if by_name and all(len(ds) % iters == 0 for ds in by_name.values()):
+            return sum(sum(ds) for ds in by_name.values()) / iters / 1e3
+        if sum(map(len, by_name.values())) > sum(map(len, best.values())):
+            best = by_name
+    require(best, f"the profiler traced no device event for {names} in {sessions} sessions")
+    emit({"phase": "profiler", "names": names, "calls": iters,
+          "events": {n: len(ds) for n, ds in best.items()}, "sessions": sessions,
+          "time": "per kernel name: mean duration x launches per call"})
+    return sum(sum(ds) / len(ds) * max(1, round(len(ds) / iters))
+               for ds in best.values()) / 1e3
 
 
 def warm_profiler() -> None:
@@ -973,9 +992,9 @@ def kernel_edges_bf16(g):
 
 
 def _k2_bf16_case(q, k, v, gr, n_mt, scale):
-    """K2-bf16 (both Delta sources) with K1-bf16's lse, against its plain
-    version and the f32 K2 (K1 + K2 on the same bf16-exact inputs, as f32):
-    (outputs by Delta source, plain, f32, lse error, (o, lse))."""
+    """K2-bf16 with K1-bf16's lse, against its plain version and the f32 K2
+    (K1 + K2 on the same bf16-exact inputs, as f32): (outputs, plain, f32,
+    lse error, lse)."""
     from multi_modal_tracking_torch.ops.attention import (
         mixed_attention_bf16, mixed_attention_bf16_lse_ref, mixed_attention_bwd,
         mixed_attention_bwd_bf16, mixed_attention_bwd_bf16_ref, mixed_attention_fwd)
@@ -984,49 +1003,41 @@ def _k2_bf16_case(q, k, v, gr, n_mt, scale):
             f"K1-bf16 {tuple(q.shape)} n_mt={n_mt}: output depends on whether lse is written")
     lse_err, _, ok = max_err(lse, mixed_attention_bf16_lse_ref(q, k, n_mt, scale))
     require(ok, f"K1-bf16 {tuple(q.shape)} n_mt={n_mt}: lse max abs err {lse_err}")
-    got = {d: mixed_attention_bwd_bf16(q, k, v, o, gr, n_mt, scale, lse, delta=d)
-           for d in ("o", "recompute")}
+    got = mixed_attention_bwd_bf16(q, k, v, gr, n_mt, scale, lse)
     plain = mixed_attention_bwd_bf16_ref(q, k, v, gr, n_mt, scale)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, gr))
     of, lf = mixed_attention_fwd(qf, kf, vf, n_mt, scale, return_lse=True)
     f32 = mixed_attention_bwd(qf, kf, vf, of, gf, n_mt, scale, lf)
-    return got, plain, f32, lse_err, (o, lse)
+    return got, plain, f32, lse_err, lse
 
 
 def _k2_bf16_errors(what, got, plain, f32) -> dict:
     """Each of dq, dk, dv against its plain version (bf16_tol of the plain
-    output) and against the f32 K2; per Delta source the worst ratio of the
-    kernel's f32 error to the plain version's. The chosen source
-    (BWD_BF16_DELTA) must keep every ratio <= 1.25."""
-    from multi_modal_tracking_torch.ops.attention import BWD_BF16_DELTA
-    out = {}
-    for src, outs in got.items():
-        errs, ratios = [], []
-        for name, x, p, f in zip(("dq", "dk", "dv"), outs, plain, f32):
-            err, _, ok = max_err(x.float(), p.float(), bf16_tol(p))
-            require(ok or src != BWD_BF16_DELTA,
-                    f"{what} {name} (Delta from {src}) disagrees with its plain version: {err}")
-            e_k, e_p = float((x.float() - f).abs().max()), float((p.float() - f).abs().max())
-            errs.append(err)
-            ratios.append(e_k / e_p)
-        out[src] = dict(max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
-                        f32_err_ratio_dq_dk_dv=ratios, f32_err_ratio=max(ratios))
-        if src == BWD_BF16_DELTA:
-            require(max(ratios) <= 1.25, f"{what}: error against the f32 K2 "
-                                         f"{ratios} x the plain version's (> 1.25)")
-    out["plain_f32_err_dq_dk_dv"] = [float((p.float() - f).abs().max())
-                                     for p, f in zip(plain, f32)]
-    return out
+    output) and against the f32 K2: every ratio of the kernel's f32 error
+    to the plain version's must be <= 1.25."""
+    errs, ratios = [], []
+    for name, x, p, f in zip(("dq", "dk", "dv"), got, plain, f32):
+        err, _, ok = max_err(x.float(), p.float(), bf16_tol(p))
+        require(ok, f"{what} {name} disagrees with its plain version: {err}")
+        e_k, e_p = float((x.float() - f).abs().max()), float((p.float() - f).abs().max())
+        errs.append(err)
+        ratios.append(e_k / e_p)
+    require(max(ratios) <= 1.25, f"{what}: error against the f32 K2 "
+                                 f"{ratios} x the plain version's (> 1.25)")
+    return dict(max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
+                f32_err_ratio_dq_dk_dv=ratios, f32_err_ratio=max(ratios),
+                plain_f32_err_dq_dk_dv=[float((p.float() - f).abs().max())
+                                        for p, f in zip(plain, f32)])
 
 
 def kernel_k2_bf16(g):
     """K2-bf16 at the training shapes (B 2 x 16, H 12, D 64, n_mt 128) at keep
     1.0 and at the bucketised CE lengths of the final keep, with K1-bf16's
-    lse; both Delta sources against the plain version and the f32 K2; SDPA
-    at bf16 (fwd+bwd minus fwd) as the library time."""
+    lse, against the plain version and the f32 K2; SDPA at bf16 (fwd+bwd
+    minus fwd) as the library time. The bound counts q, k, v, g, dq, dk, dv
+    and the lse: the kernel sums Delta from P and dP and reads no o."""
     import torch.nn.functional as F
-    from multi_modal_tracking_torch.ops.attention import (BWD_BF16_DELTA,
-                                                          mixed_attention_bwd_bf16,
+    from multi_modal_tracking_torch.ops.attention import (mixed_attention_bwd_bf16,
                                                           mixed_attention_bwd_bf16_ref)
     scale = HEAD_D ** -0.5
     B = 2 * TRAIN_B
@@ -1037,7 +1048,7 @@ def kernel_k2_bf16(g):
         Nk, n_mt = Nq + N_MT, N_MT
         q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, HEADS, Nq, Nk, HEAD_D, g))
         gr = torch.randn(B, HEADS, Nq, HEAD_D, generator=g).cuda().to(torch.bfloat16)
-        got, plain, f32, lse_err, (o, lse) = _k2_bf16_case(q, k, v, gr, n_mt, scale)
+        got, plain, f32, lse_err, lse = _k2_bf16_case(q, k, v, gr, n_mt, scale)
         errs = _k2_bf16_errors(f"K2-bf16 Nq={Nq} Nk={Nk}", got, plain, f32)
         mask = _allowed(Nq, Nk, n_mt)
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
@@ -1047,22 +1058,14 @@ def kernel_k2_bf16(g):
 
         def sdpa_fwd_bwd():
             torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), gr)
-        n_bytes = 2 * B * HEADS * HEAD_D * (4 * Nq + 4 * Nk) + 4 * B * HEADS * Nq
+        n_bytes = 2 * B * HEADS * HEAD_D * (3 * Nq + 4 * Nk) + 4 * B * HEADS * Nq
         flops = 10 * B * HEADS * HEAD_D * _pairs(Nq, Nk, n_mt)
         b_ms, b_by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
-        by_src = {}
-        for src in ("o", "recompute"):
-            kern = lambda src=src: mixed_attention_bwd_bf16(  # noqa: E731
-                q, k, v, o, gr, n_mt, scale, lse, delta=src)
-            by_src[src] = dict(ms=device_ms(kern, ["attn_bwd_"]),
-                               event_ms=cuda_time_ms(kern, iters=20), **errs[src])
+        kern = lambda: mixed_attention_bwd_bf16(q, k, v, gr, n_mt, scale, lse)  # noqa: E731
         row = dict(B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, keep=keep,
                    calls_per_step=calls if keep == KEEP_FINAL else 0, lse_max_abs_err=lse_err,
-                   delta=BWD_BF16_DELTA, by_delta_source=by_src,
-                   plain_f32_err_dq_dk_dv=errs["plain_f32_err_dq_dk_dv"],
-                   max_abs_err=by_src[BWD_BF16_DELTA]["max_abs_err"],
-                   f32_err_ratio=by_src[BWD_BF16_DELTA]["f32_err_ratio"],
-                   ms=by_src[BWD_BF16_DELTA]["ms"], event_ms=by_src[BWD_BF16_DELTA]["event_ms"],
+                   **errs, ms=device_ms(kern, ["attn_bwd_"]),
+                   event_ms=cuda_time_ms(kern, iters=20),
                    plain_ms=cuda_time_ms(
                        lambda: mixed_attention_bwd_bf16_ref(q, k, v, gr, n_mt, scale), iters=5),
                    library_ms=device_ms(sdpa_fwd_bwd) - device_ms(sdpa_fwd),
@@ -1071,7 +1074,7 @@ def kernel_k2_bf16(g):
         rows.append(row)
     emit({"phase": "kernels", "kernel": "K2-bf16 mixed_attention_bwd_bf16",
           "tolerance": "bf16_tol of each plain output; error against the f32 K2 <= 1.25 x "
-                       "the plain version's for the chosen Delta source",
+                       "the plain version's",
           "library": "scaled_dot_product_attention at bf16 with the boolean mask: fwd+bwd "
                      "minus fwd", "cases": rows})
     return rows
@@ -1163,7 +1166,6 @@ MSDA_BWD_BF16_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 16, 4),
 def kernel_edges_bf16_bwd(g):
     """K2-bf16 (with K1-bf16's lse) on ATTN_EDGES; K4-bf16 on both of
     msda_plan's backward paths at bf16, ragged levels and query counts."""
-    from multi_modal_tracking_torch.ops.attention import BWD_BF16_DELTA
     from multi_modal_tracking_torch.ops.msda import msda_plan
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     edge, paths = [], set()
@@ -1173,8 +1175,7 @@ def kernel_edges_bf16_bwd(g):
         got, plain, f32, lse_err, _ = _k2_bf16_case(q, k, v, gr, n_mt, D ** -0.5)
         errs = _k2_bf16_errors(f"K2-bf16 edge case {(B, H, Nq, Nk, D, n_mt)}", got, plain, f32)
         edge.append(dict(kernel="K2-bf16", shape=[B, H, Nq, Nk, D, n_mt],
-                         lse_max_abs_err=lse_err,
-                         max_abs_err=errs[BWD_BF16_DELTA]["max_abs_err"], **errs))
+                         lse_max_abs_err=lse_err, **errs))
     for (B, shp, Lq, M, D, P) in MSDA_BWD_BF16_EDGES:
         value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
         value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
@@ -1536,12 +1537,11 @@ def _grad_dist(a, b) -> float:
 def _compare_step_gpu_cpu(dtype=torch.float32):
     """One full-width training step at batch 2 (dropout and drop path off,
     keep 1.0) on the GPU against the same step on the CPU (plain versions).
-    float32: the bounds of the module docstring. bf16: parameters and
-    gradients float32, the loss within 2^-6 rel and all gradients together
-    within twice the CPU's own bf16 drift, the distance of its bf16
-    gradients from the GPU's float32 ones (bf16 gradients of this loss lie
-    far from the f32 ones, ~0.5 G on the CPU test's geometry; see
-    tests/test_torch_port_train_step_bf16.py)."""
+    float32: the bounds of the module docstring. bf16: the bounds of the
+    module docstring, against the CPU bf16 step and the GPU f32 step, with
+    the CPU's own bf16 drift (its distance from the GPU's f32 gradients) as
+    the scale (bf16 gradients of this loss lie far from the f32 ones, ~0.5 G
+    on the CPU test's geometry; see tests/test_torch_port_train_step_bf16.py)."""
     from multi_modal_tracking_torch.train.builders import build_train_loader
     from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
     cfg = _train_cfg(batch=2, steps=1)
@@ -1564,13 +1564,20 @@ def _compare_step_gpu_cpu(dtype=torch.float32):
             and {p.dtype for m in (gpu, cpu) for p in m.parameters()} == {torch.float32},
             "bf16 step: parameters or gradients not float32")
     f32, loss_f32, gnorm_f32, _ = _step_grads(cfg, batch, "cuda", torch.float32, state)
-    drift, d_gpu_cpu = _grad_dist(cpu, f32), _grad_dist(gpu, cpu)
-    require(d_loss <= 2.0 ** -6, f"bf16 GPU vs CPU step: loss rel diff {d_loss}")
+    drift = _grad_dist(cpu, f32)
+    d_gpu_cpu, d_gpu_f32 = _grad_dist(gpu, cpu), _grad_dist(gpu, f32)
+    d_loss_f32 = abs(loss_gpu - loss_f32) / abs(loss_f32)
+    require(d_loss <= 2.0 ** -6 and d_loss_f32 <= 2.0 ** -6,
+            f"bf16 GPU step: loss rel diff {d_loss} from the CPU bf16 step, {d_loss_f32} from "
+            f"the GPU f32 step")
     require(d_gpu_cpu <= 2.0 * drift, f"bf16 GPU vs CPU gradients {d_gpu_cpu} > 2 x the CPU's "
                                       f"bf16 drift from f32 {drift}")
-    return dict(out, grad_dist_gpu_cpu=d_gpu_cpu, cpu_bf16_drift_from_gpu_f32=drift,
-                grad_dist_over_drift=d_gpu_cpu / drift, loss_gpu_f32=loss_f32,
-                grad_norm_gpu_f32=gnorm_f32)
+    require(d_gpu_f32 <= 1.5 * drift, f"bf16 GPU vs GPU f32 gradients {d_gpu_f32} > 1.5 x the "
+                                      f"CPU's bf16 drift from f32 {drift}")
+    return dict(out, grad_dist_gpu_cpu=d_gpu_cpu, grad_dist_gpu_bf16_f32=d_gpu_f32,
+                cpu_bf16_drift_from_gpu_f32=drift, grad_dist_over_drift=d_gpu_cpu / drift,
+                grad_dist_f32_over_drift=d_gpu_f32 / drift, loss_gpu_f32=loss_f32,
+                loss_rel_diff_f32=d_loss_f32, grad_norm_gpu_f32=gnorm_f32)
 
 
 def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:

@@ -4,7 +4,7 @@
 // Replaces the Pallas kernel `_attn_bwd_kernel`, launched by
 // `_mixed_attention_bwd_pallas` in multi_modal_tracking_tpu/ops/attention.py,
 // at bf16, the dtype the JAX package trains in. For bf16 q (BH, Nq, D), k/v
-// (BH, Nk, D), the bf16 forward output o, its bf16 incoming gradient g
+// (BH, Nk, D), the bf16 incoming gradient g of the forward output
 // (BH, Nq, D) and the f32 row logsumexp L (BH, Nq) that K1-bf16 saved
 // (mixed_attention_bf16.cu), with allowed(i, j) = (i >= n_mt) || (j < n_mt):
 //
@@ -21,20 +21,20 @@
 // difference, so a bf16(P) or bf16(dS) may round the other way.
 //
 // Delta. The f32 K2 takes Delta_i = g_i . o_i from the saved output. Here o
-// is bf16 and was formed from probabilities K1-bf16 rounded before the sum,
-// while the Pallas kernel sums P o dP of the f32 P. Two sources are built
-// (`recompute`): 0 takes g_i . o_i of the bf16 o (one read of o); 1 makes a
-// first pass over the keys in kernel A that forms P and dP and sums P o dP
-// in f32, as the Pallas kernel does (two more products in kernel A).
-// ops/attention.py BWD_BF16_DELTA holds the one chosen by measurement
-// (PERF.md §6: the error against the f32 K2 beside the plain version's).
+// would be bf16, formed from probabilities K1-bf16 rounded before the sum,
+// while the Pallas kernel sums P o dP of the f32 P. So kernel A makes a
+// first pass over the keys that forms P and dP and sums P o dP in f32, as
+// the Pallas kernel does (two more products in kernel A), and never reads o.
+// Taking Delta from the bf16 o instead was measured and refused (PERF.md
+// §6: its error against the f32 K2 reached 2.02x the plain version's).
 //
 // What bounds it on the H100: 10 * BH * D FLOP per unmasked (i, j) pair
-// (five products the size of the forward's two) against 8 tensors of
-// BH * N * D bf16 read or written once; at the largest training shape
-// (BH = 384, Nq = 452, Nk = 580, n_mt = 128, D = 64) that is 50 GFLOP,
-// 0.051 ms at 989 TFLOP/s of dense bf16, against 204 MB, 0.061 ms at
-// 3.35 TB/s: bytes bound it, narrowly (chip_smoke.py, kernels phase).
+// (five products the size of the forward's two) against q, k, v, g, dq, dk
+// and dv, 3 * Nq + 4 * Nk rows of BH * D bf16, read or written once, and
+// the f32 L; at the largest training shape (BH = 384, Nq = 452, Nk = 580,
+// n_mt = 128, D = 64) that is 50 GFLOP, 0.051 ms at 989 TFLOP/s of dense
+// bf16, against 181 MB, 0.054 ms at 3.35 TB/s: bytes bound it, narrowly
+// (chip_smoke.py, kernels phase).
 //
 // Design: the f32 K2's two kernels (mixed_attention_bwd.cu), flash-
 // attention-2 style, no atomics, deterministic, with every 3xTF32 product
@@ -74,40 +74,20 @@ constexpr int BK = 16 * NW;    // kernel B: key rows per block
 constexpr int KT = 32;         // kernel A: keys per staged tile
 constexpr int QT = 32;         // kernel B: queries per staged tile
 
-// g_i . o_i of rows rA and rB in f32 over the quad's channels (lane t takes
-// channel pairs 2t + 8c), summed across the quad
-template <int D>
-__device__ __forceinline__ void delta_from_o(const bf16* gq, const bf16* oq, int rA, int rB,
-                                             int Nq, int t, float& dA, float& dB) {
-  dA = dB = 0.f;
-#pragma unroll
-  for (int c = 2 * t; c < D; c += 8) {
-    if (rA < Nq) {
-      const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gq + (size_t)rA * D + c));
-      const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(oq + (size_t)rA * D + c));
-      dA = fmaf(gv.y, ov.y, fmaf(gv.x, ov.x, dA));
-    }
-    if (rB < Nq) {
-      const float2 gv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gq + (size_t)rB * D + c));
-      const float2 ov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(oq + (size_t)rB * D + c));
-      dB = fmaf(gv.y, ov.y, fmaf(gv.x, ov.x, dB));
-    }
-  }
-}
-
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---------------------------------------------------------------- kernel A
+// At least 4 blocks per SM: left free, ptxas gives it 157 registers (3
+// blocks) and it runs 5 % slower at the training shapes.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ g, const float* __restrict__ lse,
-                        bf16* __restrict__ dq, float* __restrict__ delta_out, int Nq, int Nk,
-                        int n_mt, float scale, int recompute) {
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse, bf16* __restrict__ dq,
+                        float* __restrict__ delta_out, int Nq, int Nk, int n_mt, float scale) {
   constexpr int STR = D + 8;
   constexpr int KS = D / 16;     // k-steps over the head dim in S and dP
   constexpr int NT = KT / 8;     // 8-key column tiles of S and dP
@@ -144,18 +124,13 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float LA = rA < Nq ? lse[(size_t)bh * Nq + rA] : 0.f;
   const float LB = rB < Nq ? lse[(size_t)bh * Nq + rB] : 0.f;
   float dA = 0.f, dB = 0.f;
-  if (!recompute) {
-    delta_from_o<D>(g + qoff, o + qoff, rA, rB, Nq, t, dA, dB);
-    dA = quad_sum(dA);
-    dB = quad_sum(dB);
-  }
 
   float acc[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  // pass 0 (recompute only) sums Delta = rowsum(P o dP); pass 1 forms dQ
-  for (int pass = recompute ? 0 : 1; pass < 2; ++pass) {
+  // pass 0 sums Delta = rowsum(P o dP); pass 1 forms dQ
+  for (int pass = 0; pass < 2; ++pass) {
     float sA = 0.f, sB = 0.f;
     bf16mma::stage_rows<KT, D, STR, THREADS>(ks[0], kg, 0, Nk, tid);
     bf16mma::stage_rows<KT, D, STR, THREADS>(vs[0], vg, 0, Nk, tid);
@@ -406,11 +381,11 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }
 
 template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* g,
-           const float* lse, bf16* dq, bf16* dk, bf16* dv, float* delta, int BH, int Nq,
-           int Nk, int n_mt, float scale, int recompute, cudaStream_t s) {
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const float* lse,
+           bf16* dq, bf16* dk, bf16* dv, float* delta, int BH, int Nq, int Nk, int n_mt,
+           float scale, cudaStream_t s) {
   attn_bwd_dq_bf16_kernel<D><<<dim3((Nq + BQ - 1) / BQ, BH), THREADS, 0, s>>>(
-      q, k, v, o, g, lse, dq, delta, Nq, Nk, n_mt, scale, recompute);
+      q, k, v, g, lse, dq, delta, Nq, Nk, n_mt, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_bwd_dkdv_bf16_kernel<D><<<dim3((Nk + BK - 1) / BK, BH), THREADS, 0, s>>>(
@@ -420,21 +395,18 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf1
 
 }  // namespace
 
-// q, o, g, dq: (BH, Nq, D); k, v, dk, dv: (BH, Nk, D); all bf16,
-// contiguous, 16-byte aligned. lse: (BH, Nq) f32, the row logsumexp saved
-// by K1-bf16; delta: (BH, Nq) f32 scratch. recompute: 1 sums Delta from P
-// and dP, 0 takes it from g and o. Launches kernel A then B on `stream`;
+// q, g, dq: (BH, Nq, D); k, v, dk, dv: (BH, Nk, D); all bf16, contiguous,
+// 16-byte aligned. lse: (BH, Nq) f32, the row logsumexp saved by K1-bf16;
+// delta: (BH, Nq) f32 scratch. Launches kernel A then B on `stream`;
 // returns the first launch error that is not 0.
 extern "C" int mixed_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                        const void* o, const void* g, const void* lse,
-                                        void* dq, void* dk, void* dv, void* delta, int BH,
-                                        int Nq, int Nk, int D, int n_mt, float scale,
-                                        int recompute, void* stream) {
+                                        const void* g, const void* lse, void* dq, void* dk,
+                                        void* dv, void* delta, int BH, int Nq, int Nk, int D,
+                                        int n_mt, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* ob = static_cast<const bf16*>(o);
   const bf16* gb = static_cast<const bf16*>(g);
   const float* lf = static_cast<const float*>(lse);
   bf16* dqb = static_cast<bf16*>(dq);
@@ -442,9 +414,9 @@ extern "C" int mixed_attention_bwd_bf16(const void* q, const void* k, const void
   bf16* dvb = static_cast<bf16*>(dv);
   float* df = static_cast<float*>(delta);
   switch (D) {
-    case 16: return launch<16>(qb, kb, vb, ob, gb, lf, dqb, dkb, dvb, df, BH, Nq, Nk, n_mt, scale, recompute, s);
-    case 32: return launch<32>(qb, kb, vb, ob, gb, lf, dqb, dkb, dvb, df, BH, Nq, Nk, n_mt, scale, recompute, s);
-    case 64: return launch<64>(qb, kb, vb, ob, gb, lf, dqb, dkb, dvb, df, BH, Nq, Nk, n_mt, scale, recompute, s);
+    case 16: return launch<16>(qb, kb, vb, gb, lf, dqb, dkb, dvb, df, BH, Nq, Nk, n_mt, scale, s);
+    case 32: return launch<32>(qb, kb, vb, gb, lf, dqb, dkb, dvb, df, BH, Nq, Nk, n_mt, scale, s);
+    case 64: return launch<64>(qb, kb, vb, gb, lf, dqb, dkb, dvb, df, BH, Nq, Nk, n_mt, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

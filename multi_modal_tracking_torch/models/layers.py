@@ -170,8 +170,11 @@ class _RandomMask(nn.Module):
                                f"needs a generator: call set_generator(model, g)")
         keep = 1.0 - self.rate
         u = torch.rand(self._mask_shape(x), generator=self.generator, device=x.device)
-        # keep in x's dtype, as JAX's weakly typed `x / keep` (a bf16 divisor)
-        scaled = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+        # keep in x's dtype, as JAX's weakly typed `x / keep` (a bf16 divisor);
+        # filled on x's device: torch.tensor would copy from the host and
+        # synchronise the stream, and a Python float divisor turns CUDA's
+        # division into a product with its reciprocal
+        scaled = x / torch.full((), keep, dtype=x.dtype, device=x.device)
         return torch.where(u < keep, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -48,7 +48,7 @@ SIGNATURES = {
                                     _I),
     },
     "mixed_attention_bwd_bf16": {
-        "mixed_attention_bwd_bf16": ([_C] * 10 + [_I] * 5 + [ctypes.c_float, _I, _C], _I),
+        "mixed_attention_bwd_bf16": ([_C] * 9 + [_I] * 5 + [ctypes.c_float, _C], _I),
     },
     "msda": {
         "msda_fwd_f32": ([_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I,

@@ -292,37 +292,30 @@ def mixed_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-#: where K2-bf16 takes Delta_i = rowsum(P o dP)_i from: "o", g_i . o_i of
-#: the bf16 forward output, or "recompute", a first pass over the keys in
-#: its dQ kernel that sums P o dP in f32 as the Pallas kernel does
-#: (PERF.md §6: the choice by measurement)
-BWD_BF16_DELTA = "recompute"
-
-
 def mixed_attention_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             o: torch.Tensor, g: torch.Tensor, n_mt: int, scale: float,
-                             lse: torch.Tensor | None = None, delta: str = BWD_BF16_DELTA):
-    """bf16 (dq, dk, dv) for the bf16 forward output o, its bf16 incoming
-    gradient g and the f32 row logsumexp lse that K1-bf16 returned: kernel
+                             g: torch.Tensor, n_mt: int, scale: float,
+                             lse: torch.Tensor | None = None):
+    """bf16 (dq, dk, dv) for the bf16 incoming gradient g of the forward
+    output and the f32 row logsumexp lse that K1-bf16 returned: kernel
     K2-bf16 for CUDA tensors (each launch counted in
     `mixed_attention_bwd_bf16.launches`; it needs lse and raises without
-    it; `delta` as `BWD_BF16_DELTA`), `mixed_attention_bwd_bf16_ref` for CPU
-    tensors (which recomputes P and needs neither o nor lse)."""
-    _check_bf16(q=q, k=k, v=v, o=o, g=g)
-    if _on_cpu(q, k, v, o, g):
+    it), `mixed_attention_bwd_bf16_ref` for CPU tensors (which recomputes P
+    and needs no lse). Neither reads the forward output: Delta =
+    rowsum(P o dP) is summed from the f32 P and dP, as the Pallas kernel
+    does (PERF.md §6)."""
+    _check_bf16(q=q, k=k, v=v, g=g)
+    if _on_cpu(q, k, v, g):
         return mixed_attention_bwd_bf16_ref(q, k, v, g, n_mt, scale)
-    if delta not in ("o", "recompute"):
-        raise ValueError(f"mixed_attention_bwd_bf16: delta {delta!r} (o or recompute)")
-    _check_kernel_args(dict(q=q, k=k, v=v, o=o, g=g), n_mt, torch.bfloat16)
+    _check_kernel_args(dict(q=q, k=k, v=v, g=g), n_mt, torch.bfloat16)
     _check_lse(lse, q)
     B, H, Nq, D = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta_buf = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
+    delta = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
     lib = _build.library("mixed_attention_bwd_bf16")
     err = lib.mixed_attention_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta_buf.data_ptr(),
-        B * H, Nq, k.shape[2], D, int(n_mt), float(scale), int(delta == "recompute"),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        B * H, Nq, k.shape[2], D, int(n_mt), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_bwd_bf16")
     mixed_attention_bwd_bf16.launches += 1
@@ -331,7 +324,8 @@ def mixed_attention_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _MixedAttention(torch.autograd.Function):
     """K1 forward and K2 backward, or with `bf16` K1-bf16 and K2-bf16. Only
-    the kernels read the logsumexp: the CPU backward recomputes P."""
+    the kernels read the logsumexp: the CPU backward recomputes P. Only K2
+    reads the forward output, so only the f32 forward saves it."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_mt, scale, bf16):
@@ -339,16 +333,20 @@ class _MixedAttention(torch.autograd.Function):
         fwd = mixed_attention_bf16 if bf16 else mixed_attention_fwd
         out = fwd(q, k, v, n_mt, scale, return_lse=with_lse)
         out, lse = out if with_lse else (out, None)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(*((q, k, v, lse) if bf16 else (q, k, v, out, lse)))
         ctx.n_mt, ctx.scale, ctx.bf16 = n_mt, scale, bf16
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        bwd = mixed_attention_bwd_bf16 if ctx.bf16 else mixed_attention_bwd
         # the model's head merge can hand over a non-contiguous gradient
-        dq, dk, dv = bwd(q, k, v, out, g.contiguous(), ctx.n_mt, ctx.scale, lse)
+        g = g.contiguous()
+        if ctx.bf16:
+            q, k, v, lse = ctx.saved_tensors
+            dq, dk, dv = mixed_attention_bwd_bf16(q, k, v, g, ctx.n_mt, ctx.scale, lse)
+        else:
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = mixed_attention_bwd(q, k, v, out, g, ctx.n_mt, ctx.scale, lse)
         return dq, dk, dv, None, None, None
 
 

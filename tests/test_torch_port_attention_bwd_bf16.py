@@ -126,6 +126,6 @@ def test_bf16_backward_non_cpu_tensors_raise_without_fallback():
     mixed dtypes raise."""
     q = torch.empty(1, 2, 8, 16, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CPU or all CUDA"):
-        mixed_attention_bwd_bf16(q, q, q, q, q, 0, 0.25)
+        mixed_attention_bwd_bf16(q, q, q, q, 0, 0.25)
     with pytest.raises(TypeError, match="bfloat16"):
-        mixed_attention_bwd_bf16(q, q, q, q, q.float(), 0, 0.25)
+        mixed_attention_bwd_bf16(q, q, q, q.float(), 0, 0.25)
