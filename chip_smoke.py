@@ -6,7 +6,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device   - requires CUDA, prints the card's name and power limit,
                 turns TF32 off;
   2. build    - compiles every kernel of the main paths from csrc/ (one nvcc
-                per source, all at once);
+                per source, all at once) and prints ptxas's registers and
+                spills per kernel; the wgmma kernels of K1-bf16 and K2-bf16
+                must spill nothing and must not have their wgmma chains
+                serialised;
   3. bf16 GEMM reduction - set_precision(bf16) must turn cuBLAS's bf16
                 split-K reduction off; a bf16 weight gradient at the training
                 shape (K = 14,464) against f32 accumulation rounded once,
@@ -31,16 +34,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the bf16 kernels K1-bf16 and K3-bf16 (the JAX package's
                 eval dtype) at the bf16 tracker's and the lockstep N = 12
                 shapes (K3-bf16 at B 1, 4, 12, 16, msda_plan's choice
-                required) and on edge cases, each against its plain version
+                required; K1-bf16's attention_bf16_plan must split the keys
+                at the tracking shapes and not at the training and lockstep
+                ones) and on edge cases (K1-bf16 also with every key-share
+                count on K1_SPLIT_EDGES), each against its plain version
                 (bf16_tol) and, with its plain version, against the f32
                 answer on the same inputs: the kernel's error at most 1.25x
                 the plain version's; SDPA at bf16 beside K1-bf16; then the
                 bf16 backward kernels at the training shapes, K2-bf16 with
                 K1-bf16's lse (the f32 K2 as the f32 answer, SDPA's bf16
-                backward as the library time) and
+                backward as the library time; two calls on one input must
+                give the same bits) and
                 K4-bf16 on uniform and model-like locations (the f32 K4 as
                 the f32 answer), and on edge cases covering both of
-                msda_plan's backward paths at bf16;
+                msda_plan's backward paths at bf16; then K1-bf16 (training)
+                plus K2-bf16 per bf16 training step beside SDPA's fwd+bwd;
   5. model    - the full-width asymmetric_shared_ce recipe (seeded random
                 weights): cached path (set_online + forward_track) against
                 the full forward, and the GPU run against the same model on
@@ -198,6 +206,13 @@ EVAL_SMALL, EVAL_BIG = 4, 12       # sequences per lockstep batch in the eval ph
 EVAL_CHUNK = 16                    # frames per dispatch in the eval phase
 EVAL_PX_TOL = 0.05                 # batched vs sequential trajectories, px
 M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
+# device kernel names of the bf16 attention kernels (csrc/mixed_attention_bf16.cu,
+# csrc/mixed_attention_bwd_bf16.cu): the profiler's name filters
+K1_BF16_KERNELS = ["mixed_attention_fwd_bf16_wgmma"]
+K2_BF16_KERNELS = ["attn_bwd_dq_bf16_wgmma", "attn_bwd_dkdv_bf16_wgmma"]
+# the wgmma kernels whose ptxas report must show no spill and no serialised
+# wgmma chain (build phase)
+WGMMA_LIBS = ("mixed_attention_bf16", "mixed_attention_bwd_bf16")
 
 
 def emit(obj) -> None:
@@ -363,6 +378,9 @@ def phase_bf16_reduction(smi: str) -> dict:
 
 
 def phase_build():
+    """Builds every kernel library (one nvcc per source, all at once) and
+    prints each kernel's ptxas report; the wgmma kernels of K1-bf16 and
+    K2-bf16 must spill nothing and keep their wgmma chains unserialised."""
     from multi_modal_tracking_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build()
@@ -370,15 +388,32 @@ def phase_build():
     require(set(logs) >= {"mixed_attention", "mixed_attention_bf16", "mixed_attention_bwd",
                           "mixed_attention_bwd_bf16", "msda", "msda_bwd"},
             f"built {sorted(logs)}")
-    emit({"phase": "build", "seconds": round(secs, 3),
-          "ptxas": {name: ptxas_report(log) for name, log in logs.items()}})
+    for name in logs:                       # a library built earlier: its kept log
+        if not logs[name]:
+            with open(_build._lib_path(name)[:-3] + ".log") as f:
+                logs[name] = f.read()
+    reports = {name: ptxas_report(log) for name, log in logs.items()}
+    wgmma = {name: reports[name] for name in WGMMA_LIBS}
+    bad = [r for rows in wgmma.values() for r in rows
+           if r.get("spill_stores") or r.get("spill_loads") or r.get("wgmma_serialized")]
+    require(not bad, f"wgmma kernels spill or serialise their wgmma chain: {bad}")
+    emit({"phase": "build", "seconds": round(secs, 3), "ptxas": reports,
+          "wgmma_kernels": {name: [{k: r.get(k) for k in ("function", "registers", "spill_stores",
+                                                           "spill_loads", "wgmma_serialized")}
+                                   for r in rows] for name, rows in wgmma.items()}})
 
 
 def ptxas_report(log: str) -> list:
     """Registers, spills and static shared memory of each kernel in an
-    `nvcc -Xptxas -v` log, by (demangled) function name."""
-    out, cur = [], None
+    `nvcc -Xptxas -v` log, by (demangled) function name, and ptxas's reason
+    where it serialised a kernel's wgmma instructions."""
+    out, cur, serialized = [], None, {}
     for ln in log.splitlines():
+        m = re.search(r"wgmma.mma_async instructions are serialized (.*) for the function '?([\w$]+)",
+                      ln)
+        if m:
+            serialized[m.group(2)] = m.group(1)
+            continue
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
         if m and (cur is None or cur["function"] != m.group(1)):
             cur = dict(function=m.group(1))
@@ -393,6 +428,9 @@ def ptxas_report(log: str) -> list:
             cur["registers"] = int(m.group(1))
             m = re.search(r"(\d+) bytes smem", ln)
             cur["static_smem"] = int(m.group(1)) if m else 0
+    for r in out:
+        if r["function"] in serialized:
+            r["wgmma_serialized"] = serialized[r["function"]]
     names = [r["function"] for r in out]
     try:
         names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
@@ -828,6 +866,15 @@ def phase_kernels(g: torch.Generator) -> dict:
     table.update(_bf16_table_rows(kernel_k1_bf16(g), kernel_k3_bf16(g), kernel_edges_bf16(g)))
     table.update(_bf16_bwd_table_rows(kernel_k2_bf16(g), kernel_k4_bf16(g),
                                       kernel_edges_bf16_bwd(g)))
+    k1, k2 = table["K1-bf16"], table["K2-bf16"]
+    kern_ms = k1["train_step_ms"] + k2["ms"]
+    sdpa_ms = k1["train_step_library_ms"] + k2["library_ms"]
+    emit({"phase": "kernels", "bf16 attention per training step": dict(
+        k1_bf16_ms=k1["train_step_ms"], k2_bf16_ms=k2["ms"], kernels_ms=kern_ms,
+        sdpa_fwd_ms=k1["train_step_library_ms"], sdpa_bwd_ms=k2["library_ms"],
+        sdpa_fwd_bwd_ms=sdpa_ms, ratio=kern_ms / sdpa_ms,
+        note="device ms per bf16 training step at the final keep (12 calls each); SDPA's "
+             "backward is its fwd+bwd minus its fwd")})
     return table
 
 
@@ -867,10 +914,12 @@ def kernel_k1_bf16(g):
     version and the f32 answer; SDPA at bf16 with the boolean mask as the
     library yardstick."""
     import torch.nn.functional as F
-    from multi_modal_tracking_torch.ops.attention import (mixed_attention_bf16,
+    from multi_modal_tracking_torch.ops.attention import (attention_bf16_plan,
+                                                          mixed_attention_bf16,
                                                           mixed_attention_bf16_ref,
                                                           mixed_attention_ref)
     scale = HEAD_D ** -0.5
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [("template_step", B2, N_MT, N_MT, 0, 0, 0, 0)]
     cases += [("search_step", B2, L, L + 2 * N_MT, 0, n, 0, 0) for L, n in CE_LENGTHS]
     cases += [(f"search_step_b{EVAL_BIG}", 2 * EVAL_BIG, L, L + 2 * N_MT, 0, 0, n, 0)
@@ -885,6 +934,12 @@ def kernel_k1_bf16(g):
         plain = mixed_attention_bf16_ref(q, k, v, n_mt, scale)
         f32 = mixed_attention_ref(q.float(), k.float(), v.float(), n_mt, scale)
         errs = _bf16_errors(f"K1-bf16 {form} Nq={Nq} Nk={Nk}", got, plain, f32, v)
+        # key shares: split at the tracking shapes (B*H 24), one share where
+        # the blocks fill the card (training, lockstep N = 12)
+        splits = attention_bf16_plan(B * HEADS, Nq, Nk, n_sm)
+        require(splits > 1 if B == B2 else splits == 1,
+                f"K1-bf16 {form} B*H={B * HEADS} Nq={Nq}: attention_bf16_plan chose {splits} "
+                f"key shares")
         mask = _allowed(Nq, Nk, n_mt)
         kern = lambda: mixed_attention_bf16(q, k, v, n_mt, scale,  # noqa: E731
                                             return_lse=with_lse)
@@ -895,8 +950,8 @@ def kernel_k1_bf16(g):
         flops = 4 * B * HEADS * HEAD_D * _pairs(Nq, Nk, n_mt)
         b_ms, b_by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
         row = dict(form=form, B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, calls_per_frame=calls,
-                   calls_per_lockstep_step=step_calls, calls_per_step=train_calls, **errs,
-                   ms=device_ms(kern, ["mixed_attention_fwd_bf16_kernel"]),
+                   calls_per_lockstep_step=step_calls, calls_per_step=train_calls, splits=splits,
+                   **errs, ms=device_ms(kern, K1_BF16_KERNELS),
                    event_ms=cuda_time_ms(kern),
                    plain_ms=cuda_time_ms(lambda: mixed_attention_bf16_ref(q, k, v, n_mt, scale)),
                    library_ms=device_ms(lib), bytes=n_bytes, flops=flops, bound_ms=b_ms,
@@ -953,12 +1008,36 @@ def kernel_k3_bf16(g):
     return rows
 
 
+# (B, H, Nq, Nk, D, n_mt) on which K1-bf16 runs with every key-share count
+# (the plan gives one count per shape): D 16, 32 and 64, n_mt inside a
+# share, ragged shares and row tiles, template-only row tiles
+K1_SPLIT_EDGES = [(2, 3, 70, 300, 16, 37), (1, 2, 131, 197, 32, 65),
+                  (2, 2, 100, 260, 64, 130), (2, 3, 17, 200, 32, 8)]
+
+
+def _k1_bf16_shares(q, k, v, n_mt, scale, splits):
+    """K1-bf16's C entry point with a chosen number of key shares (the
+    wrapper takes attention_bf16_plan's): (out, lse). Not counted as a
+    launch of the main path."""
+    from multi_modal_tracking_torch.ops import _build
+    B, H, Nq, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device)
+    err = _build.library("mixed_attention_bf16").mixed_attention_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), B * H, Nq,
+        k.shape[2], D, n_mt, scale, splits, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"mixed_attention_fwd_bf16 with {splits} key shares")
+    return out, lse
+
+
 def kernel_edges_bf16(g):
-    """K1-bf16 on ATTN_EDGES (D 16/32/64, ragged tiles, n_mt 0, Nq != Nk);
-    K3-bf16 on every path of msda_plan at D 8 to 128, ragged levels, other
-    L and P (the generic gather), Lq not a multiple of the staged kernel's
-    32 query warps."""
-    from multi_modal_tracking_torch.ops.attention import (mixed_attention_bf16,
+    """K1-bf16 on ATTN_EDGES (D 16/32/64, ragged tiles, n_mt 0, Nq != Nk)
+    and on K1_SPLIT_EDGES with 1 to BF16_MAX_SPLITS key shares each (lse
+    included); K3-bf16 on every path of msda_plan at D 8 to 128, ragged
+    levels, other L and P (the generic gather), Lq not a multiple of the
+    staged kernel's 32 query warps."""
+    from multi_modal_tracking_torch.ops.attention import (BF16_MAX_SPLITS, mixed_attention_bf16,
+                                                          mixed_attention_bf16_lse_ref,
                                                           mixed_attention_bf16_ref,
                                                           mixed_attention_ref)
     from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bf16,
@@ -974,6 +1053,19 @@ def kernel_edges_bf16(g):
                             mixed_attention_ref(q.float(), k.float(), v.float(), n_mt,
                                                 D ** -0.5), v)
         edge.append(dict(kernel="K1-bf16", shape=[B, H, Nq, Nk, D, n_mt], **errs))
+    for (B, H, Nq, Nk, D, n_mt) in K1_SPLIT_EDGES:
+        q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, H, Nq, Nk, D, g))
+        plain = mixed_attention_bf16_ref(q, k, v, n_mt, D ** -0.5)
+        f32 = mixed_attention_ref(q.float(), k.float(), v.float(), n_mt, D ** -0.5)
+        lse_ref = mixed_attention_bf16_lse_ref(q, k, n_mt, D ** -0.5)
+        for splits in range(1, BF16_MAX_SPLITS + 1):
+            what = f"K1-bf16 edge case {(B, H, Nq, Nk, D, n_mt)} with {splits} key shares"
+            out, lse = _k1_bf16_shares(q, k, v, n_mt, D ** -0.5, splits)
+            errs = _bf16_errors(what, out, plain, f32, v)
+            lse_err, _, ok = max_err(lse, lse_ref)
+            require(ok, f"{what}: lse max abs err {lse_err}")
+            edge.append(dict(kernel="K1-bf16", shape=[B, H, Nq, Nk, D, n_mt], splits=splits,
+                             lse_max_abs_err=lse_err, **errs))
     paths = set()
     for (B, shp, Lq, M, D, P) in MSDA_BF16_EDGES:
         value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
@@ -994,7 +1086,8 @@ def kernel_edges_bf16(g):
 def _k2_bf16_case(q, k, v, gr, n_mt, scale):
     """K2-bf16 with K1-bf16's lse, against its plain version and the f32 K2
     (K1 + K2 on the same bf16-exact inputs, as f32): (outputs, plain, f32,
-    lse error, lse)."""
+    lse error, lse). A second call on the same input must give the same
+    bits (no atomics: the lifecycle phase resumes training bit for bit)."""
     from multi_modal_tracking_torch.ops.attention import (
         mixed_attention_bf16, mixed_attention_bf16_lse_ref, mixed_attention_bwd,
         mixed_attention_bwd_bf16, mixed_attention_bwd_bf16_ref, mixed_attention_fwd)
@@ -1004,6 +1097,9 @@ def _k2_bf16_case(q, k, v, gr, n_mt, scale):
     lse_err, _, ok = max_err(lse, mixed_attention_bf16_lse_ref(q, k, n_mt, scale))
     require(ok, f"K1-bf16 {tuple(q.shape)} n_mt={n_mt}: lse max abs err {lse_err}")
     got = mixed_attention_bwd_bf16(q, k, v, gr, n_mt, scale, lse)
+    again = mixed_attention_bwd_bf16(q, k, v, gr, n_mt, scale, lse)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"K2-bf16 {tuple(q.shape)} n_mt={n_mt}: two calls on one input differ")
     plain = mixed_attention_bwd_bf16_ref(q, k, v, gr, n_mt, scale)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, gr))
     of, lf = mixed_attention_fwd(qf, kf, vf, n_mt, scale, return_lse=True)
@@ -1064,7 +1160,7 @@ def kernel_k2_bf16(g):
         kern = lambda: mixed_attention_bwd_bf16(q, k, v, gr, n_mt, scale, lse)  # noqa: E731
         row = dict(B=B, Nq=Nq, Nk=Nk, n_mt=n_mt, keep=keep,
                    calls_per_step=calls if keep == KEEP_FINAL else 0, lse_max_abs_err=lse_err,
-                   **errs, ms=device_ms(kern, ["attn_bwd_"]),
+                   **errs, ms=device_ms(kern, K2_BF16_KERNELS),
                    event_ms=cuda_time_ms(kern, iters=20),
                    plain_ms=cuda_time_ms(
                        lambda: mixed_attention_bwd_bf16_ref(q, k, v, gr, n_mt, scale), iters=5),
@@ -2129,7 +2225,7 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
           "centre_px_vs_f32_mean": float(d_f32.mean()), "centre_px_vs_f32_max": float(d_f32.max()),
           "last_box": boxes[-1].tolist()})
     prof = phase_profile(tracker, all_frames[64:], smi, label="bf16 profile",
-                         k1="mixed_attention_fwd_bf16_kernel", k3="msda_fwd_kernel")
+                         k1=K1_BF16_KERNELS[0], k3="msda_fwd_kernel")
     model = tracker.model
     del tracker
 

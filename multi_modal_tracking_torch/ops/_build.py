@@ -143,7 +143,17 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: codes the bf16 attention entry points return beyond cudaError_t's
+#: (csrc/wgmma_bf16.cuh hopper_host::ERR_*)
+ERR_NO_ENCODER, ERR_ENCODE = 10000, 10001
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a kernel's C entry point returned a CUDA error."""
+    """Raise if a kernel's C entry point returned a CUDA or tensor-map
+    error."""
+    if err == ERR_NO_ENCODER:
+        raise RuntimeError(f"{what}: the CUDA driver has no cuTensorMapEncodeTiled")
+    if err > ERR_NO_ENCODER:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed, CUresult {err - ERR_ENCODE}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -25,9 +25,10 @@ Both kernels run their products on the tensor cores as 3xTF32
 (`csrc/tf32_mma.cuh`): f32-accurate, whatever the `allow_tf32` flags say.
 
 bf16 q/k/v (the JAX package's dtype) go to K1-bf16
-(`csrc/mixed_attention_bf16.cu`, one bf16 tensor-core pass per product)
-for CUDA tensors and `mixed_attention_bf16_ref` for CPU tensors, both with
-the rounding points of the Pallas kernel at bf16. Under autograd the bf16
+(`csrc/mixed_attention_bf16.cu`, wgmma on bf16 operands, TMA loads, key
+shares chosen by `attention_bf16_plan`) for CUDA tensors and
+`mixed_attention_bf16_ref` for CPU tensors, both with the rounding points
+of the Pallas kernel at bf16. Under autograd the bf16
 forward saves K1-bf16's f32 row logsumexp and the backward runs K2-bf16
 (`csrc/mixed_attention_bwd_bf16.cu`) for CUDA tensors and
 `mixed_attention_bwd_bf16_ref` for CPU tensors.
@@ -192,6 +193,26 @@ def query_warps(BH: int, Nq: int, n_sm: int) -> int:
     return 1
 
 
+#: rows of K1-bf16's query tile and keys of its key tile (one wgmma each)
+BF16_TILE = 64
+#: most key shares (consumer warpgroups) per K1-bf16 block: with a fourth,
+#: ptxas caps the block's 17 warps at 96 registers a thread, spills and
+#: serialises the wgmma chain
+BF16_MAX_SPLITS = 3
+
+
+def attention_bf16_plan(BH: int, Nq: int, Nk: int, n_sm: int) -> int:
+    """Key shares per K1-bf16 block of 64 query rows: the fewest of 1 to 3
+    that put two consumer warpgroups on every SM (else 3), and never more
+    than the 64-key tiles. 1 at the training shapes (B*H 384) and lockstep
+    N = 12 (B*H 288); 2 or 3 at the tracking shapes (B*H 24, 48 to 144
+    blocks)."""
+    blocks = BH * -(-Nq // BF16_TILE)
+    splits = next((s for s in range(1, BF16_MAX_SPLITS + 1) if blocks * s >= 2 * n_sm),
+                  BF16_MAX_SPLITS)
+    return max(1, min(splits, -(-Nk // BF16_TILE)))
+
+
 def mixed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         n_mt: int, scale: float, return_lse: bool = False):
     """Forward without autograd: kernel K1 for CUDA tensors (each launch
@@ -224,10 +245,10 @@ def _check_lse(lse, q):
         raise ValueError("mixed_attention backward: the kernel needs the lse that the "
                          "forward returned with return_lse=True")
     if (lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous()
-            or tuple(lse.shape) != (B, H, Nq)):
-        raise ValueError(f"mixed_attention backward: lse must be a contiguous float32 "
-                         f"({B}, {H}, {Nq}) tensor on {q.device}, got {tuple(lse.shape)} "
-                         f"{lse.dtype} on {lse.device}")
+            or tuple(lse.shape) != (B, H, Nq) or lse.data_ptr() % 16):
+        raise ValueError(f"mixed_attention backward: lse must be a contiguous, 16-byte "
+                         f"aligned float32 ({B}, {H}, {Nq}) tensor on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
 
 
 def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -285,7 +306,8 @@ def mixed_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.mixed_attention_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None,
-        B * H, Nq, k.shape[2], D, int(n_mt), float(scale), query_warps(B * H, Nq, n_sm),
+        B * H, Nq, k.shape[2], D, int(n_mt), float(scale),
+        attention_bf16_plan(B * H, Nq, k.shape[2], n_sm),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_fwd_bf16")
     mixed_attention_bf16.launches += 1
