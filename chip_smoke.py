@@ -60,6 +60,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   7. profile  - where a frame's time goes: each layer on the host clock, and
                 a torch.profiler trace of 10 more frames for the device's busy
                 time, idle share, operations per frame and top kernels;
+                the tracker phase's and this one's frames are CUDA graph
+                replays (create_tracker's default on the card);
+  7b. graphs  - a capture of a step that reads a value on the host must
+                raise naming the operation, and one after it must work;
+                the tracking step as CUDA graphs against the same step
+                eager (graphs=False) on one model, f32 and bf16: the 63
+                frames four times (graphed, eager, graphed, eager), every
+                trajectory bit-equal and every run's launch counts equal;
+                10 more frames profiled each way, where each kernel's
+                launch count must equal the kernels of its name the
+                profiler saw in the replays. Prints ms per frame, the
+                host's own ms and CPU ms per frame (staging and dispatch)
+                and the calling thread's, device busy, idle share and
+                operations per frame, capture ms per graph, the graph
+                pool's bytes and peak memory;
   8. train    - Trainer(dtype=torch.float32) on the full-width recipe at
                 batch 16 on SyntheticRGBT: an epoch of steps at epoch 1
                 (keep 1.0) and one at epoch 51 (keep 0.7, bucketised to
@@ -101,7 +116,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 inside the frame, B4 and B12 within 0.05 px of A at every
                 frame, R's files byte-identical to A's and its trajectories
                 equal, a windowed chunk, and each run's K1 / K3 launches (K2
-                and K4 none). Prints frames/s on the host clock per run,
+                and K4 none); A and B12 (graphed, the default) run again
+                eager (A_eager, B12_eager), bit-equal and with the same
+                launches. Prints frames/s on the host clock per run,
                 upload bytes per frame (full frames, ROI windows), a profiled
                 B12 block's device busy time and idle share, and the
                 success / precision tables of A and B12;
@@ -111,12 +128,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 (device busy, idle share, operations per frame), then
                 synthetic_rgbt_hard one stream (A16) and in lockstep N = 12
                 (B12_16): frames/s, device busy per lockstep step, distances
-                to one bf16 stream and to the f32 run A. Every run must
+                to one bf16 stream and to the f32 run A; both again eager
+                (bit-equal, the same launches), and the N = 12 block
+                profiled graphed and eager with its launch counts held
+                against the profiler's kernels. Every run must
                 launch K1-bf16 and K3-bf16 and no f32 kernel; the f32
                 phases must launch no bf16 kernel.
-Then the kernel table line (launches by path: tracker, train, eval for
-the f32 kernels; train bf16, lifecycle, and for the forward kernels the
-bf16 tracker and eval) and, last, {"ok": true, "device": {...}}.
+Then the kernel table line (launches by path: tracker, graphs, train,
+eval for the f32 kernels; train bf16, lifecycle, and for the forward
+kernels the bf16 tracker, graphs and eval) and, last, {"ok": true,
+"device": {...}}.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -1572,6 +1593,201 @@ def phase_profile(tracker, frames, smi: str, label: str = "profile",
     return out
 
 
+#: device kernel names of the forward kernels on the tracking path, by the
+#: compute dtype of the tracker (substrings of the profiler's names)
+TRACK_KERNEL_NAMES = {torch.float32: {"K1": "mixed_attention_fwd_kernel",
+                                      "K3": "msda_fwd_kernel"},
+                      torch.bfloat16: {"K1-bf16": K1_BF16_KERNELS[0],
+                                       "K3-bf16": "msda_fwd_kernel"}}
+INIT_BOX = [80.0, 60.0, 48.0, 48.0]
+
+
+#: profiler sessions tried for a launch count check: a session can lose
+#: kernel events (device_ms), so one that saw fewer kernels of a name than
+#: were launched is run again; more than were launched is a fault at once
+PROFILE_SESSIONS = 3
+
+
+def _lost_events(launches: dict, by_name: dict) -> bool:
+    return any(by_name[k] < launches[k] for k in launches) and \
+        all(by_name[k] <= launches[k] for k in launches)
+
+
+def _name_counts(ivals, names: dict) -> dict:
+    """Device intervals whose kernel name holds each of `names`' values."""
+    return {k: sum(1 for _, _, n in ivals if sub in n) for k, sub in names.items()}
+
+
+class _HostClock:
+    """Sums the host clock (`seconds`) and the calling thread's CPU time
+    (`cpu_seconds`) inside a tracker's frame staging
+    (`StaticInputs.load_host`) and step dispatch (`_step`: a graph replay
+    or the eager launches): the host's own work of `track`, which waits
+    for nothing. The thread time of the whole call also holds the
+    spin-wait of its 4-float download. The thread clock ticks in 10 ms
+    steps on the card's machine, so over a few hundred short calls it is
+    a sample: the host clock is the finer reading."""
+
+    def __init__(self, tracker):
+        self.tracker, self.seconds, self.cpu_seconds = tracker, 0.0, 0.0
+
+    def _clocked(self, fn):
+        def run(*args, **kwargs):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.cpu_seconds += time.thread_time() - c0
+        return run
+
+    def __enter__(self):
+        from multi_modal_tracking_torch.tracking.graphs import StaticInputs
+        self.load_host = StaticInputs.load_host
+        StaticInputs.load_host = self._clocked(self.load_host)
+        self.tracker._step = self._clocked(self.tracker._step)
+        return self
+
+    def __exit__(self, *exc):
+        from multi_modal_tracking_torch.tracking.graphs import StaticInputs
+        StaticInputs.load_host = self.load_host
+        del self.tracker._step
+
+
+def _track_run(tracker, frames, timed_from: int = 9) -> dict:
+    """initialize on frames[0], then track every other frame: the boxes,
+    and from frame `timed_from` on the host clock (ms per frame), the
+    calling thread's CPU ms per frame in the whole of `track`, the host
+    and CPU ms per frame in its own work (_HostClock), the kernel launches
+    of the whole run and the peak device memory."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tracker.initialize(list(frames[0]), {"init_bbox": INIT_BOX})
+    boxes = []
+    with _HostClock(tracker) as clock:
+        for i, (fv, fi) in enumerate(frames[1:], start=1):
+            if i == timed_from:
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), time.thread_time()
+                h0, hc0 = clock.seconds, clock.cpu_seconds
+            boxes.append(tracker.track([fv, fi])["target_bbox"])
+        torch.cuda.synchronize()
+    n = len(frames) - timed_from
+    return dict(boxes=np.asarray(boxes, np.float32),
+                ms_per_frame=(time.perf_counter() - t0) / n * 1e3,
+                thread_cpu_ms_per_frame=(time.thread_time() - c0) / n * 1e3,
+                host_ms_per_frame=(clock.seconds - h0) / n * 1e3,
+                host_cpu_ms_per_frame=(clock.cpu_seconds - hc0) / n * 1e3,
+                launches=read_launches(), peak_allocated=torch.cuda.max_memory_allocated(),
+                peak_reserved=torch.cuda.max_memory_reserved())
+
+
+def _profile_track(tracker, frames, names: dict) -> dict:
+    """torch.profiler over `frames` tracked one by one: device busy ms,
+    idle share and operations per frame, and per kernel the launch count
+    and the number of device kernels of its name (a graph replay's
+    kernels are the graph's nodes)."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(PROFILE_SESSIONS):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for fv, fi in frames:
+                tracker.track([fv, fi])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launches = {k: read_launches()[k] for k in names}
+        ivals = _device_intervals(prof)
+        require(len(ivals) > 0, "the profiler saw no device operation in the traced frames")
+        by_name = _name_counts(ivals, names)
+        if not _lost_events(launches, by_name):
+            break
+    busy, n = _busy_us(ivals), len(frames)
+    return dict(wall_ms_per_frame=wall_us / n / 1e3, device_busy_ms_per_frame=busy / n / 1e3,
+                device_idle_share=1.0 - busy / wall_us, device_ops_per_frame=len(ivals) / n,
+                launches=launches, kernels_by_name=by_name, profiler_sessions=attempt + 1)
+
+
+def phase_graphs(smi: str, frames) -> dict:
+    """The tracking step as CUDA graphs (tracking/graphs.py) against the
+    same step eager (graphs=False) on the same model. First a capture of a
+    step that reads a value on the host must raise naming that operation,
+    and a capture after it must work. Then, f32 and bf16: the
+    tracker phase's 63 frames at 512x640 (template updates at frames 25
+    and 50) four times, graphed (this run captures the graphs), eager,
+    graphed, eager; every trajectory bit-equal to the first, and the
+    kernel launches of every run equal. Then a profile of the next 10
+    frames each way: device busy, idle share and operations per frame,
+    and the launch counts against the kernels the profiler saw by name.
+    Prints ms per frame on the host clock, the host's own ms and CPU ms
+    per frame (_HostClock) and the calling thread's, capture ms per graph, the graph
+    pool's bytes, peak memory and the capture warm-ups' launches. Returns
+    the launch counts of a graphed run by kernel."""
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.tracking.graphs import StepGraphs
+    x = torch.ones(4, device="cuda")
+    try:
+        StepGraphs(x.device).replay(("host read",), lambda: x.sum().item(), [x])
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    require("aten._local_scalar_dense" in raised,
+            f"capturing a step that reads a value on the host must raise naming "
+            f"aten._local_scalar_dense, raised {raised!r}")
+    StepGraphs(x.device).replay(("after a failed capture",), lambda: x.mul_(2.0), [x])
+    require(x.tolist() == [2.0] * 4, f"a capture after a failed one gave {x.tolist()}")
+    out, launches = {"failed_capture_raises": True}, {}
+    for dtype, names in TRACK_KERNEL_NAMES.items():
+        label = "f32" if dtype == torch.float32 else "bf16"
+        graphed = create_tracker(_params(), "TRACKINGNET", seed=0, dtype=dtype)
+        eager = _eager_twin(graphed)
+        require(graphed.graphs is not None and eager.graphs is None,
+                "create_tracker on CUDA must return a graphed tracker")
+        runs = [(name, _track_run(tr, frames[:64]))
+                for name, tr in (("graphed_capture", graphed), ("eager", eager),
+                                 ("graphed", graphed), ("eager_2", eager))]
+        first = runs[0][1]
+        for name, run in runs[1:]:
+            if not np.array_equal(run["boxes"], first["boxes"]):
+                bad = np.flatnonzero((run["boxes"] != first["boxes"]).any(axis=1))
+                raise RuntimeError(f"chip_smoke: {label} {name} trajectory differs from the "
+                                   f"graphed one from frame {bad[0] + 1} on (frames "
+                                   f"{(bad + 1).tolist()}), by up to "
+                                   f"{float(np.abs(run['boxes'] - first['boxes']).max())} px")
+            require(run["launches"] == first["launches"],
+                    f"{label} {name} launches {run['launches']} != graphed {first['launches']}")
+        require(len(graphed.graphs) == 2, f"{label}: {len(graphed.graphs)} graphs, expected "
+                                         f"2 (search; search + template update)")
+        require(all(first["launches"][k] > 0 for k in names), f"{label}: {first['launches']}")
+        prof = {"graphed": _profile_track(graphed, frames[64:], names),
+                "eager": _profile_track(eager, frames[64:], names)}
+        for p in prof.values():
+            require(p["launches"] == prof["eager"]["launches"] == p["kernels_by_name"],
+                    f"{label}: launches {p['launches']} against eager "
+                    f"{prof['eager']['launches']} and the profiler's kernels "
+                    f"{p['kernels_by_name']}")
+        launches[label] = runs[2][1]["launches"]
+        n = 63
+        out[label] = dict(
+            bit_equal_runs=[name for name, _ in runs[1:]], frames=n,
+            ms_per_frame={name: r["ms_per_frame"] for name, r in runs},
+            host_ms_per_frame={name: r["host_ms_per_frame"] for name, r in runs},
+            host_cpu_ms_per_frame={name: r["host_cpu_ms_per_frame"] for name, r in runs},
+            thread_cpu_ms_per_frame={name: r["thread_cpu_ms_per_frame"] for name, r in runs},
+            launches_per_run={k: first["launches"][k] for k in names},   # init + 63 frames
+            profile=prof, capture_ms={("search_update" if k[-1] else "search"): v
+                                      for k, v in graphed.graphs.capture_ms.items()},
+            graph_pool_bytes=graphed.graphs.pool_bytes(),
+            peak_allocated={name: r["peak_allocated"] for name, r in runs},
+            peak_reserved={name: r["peak_reserved"] for name, r in runs},
+            warmup_launches=graphed.graphs.warmup_launches)
+        del graphed, eager
+        torch.cuda.empty_cache()
+    emit({"phase": "graphs", "card": smi, **out})
+    return launches
+
+
 def _train_cfg(batch: int, steps: int):
     """The flagship recipe with the synthetic set, no val split and no warm
     starts (their weight files are not in the repository)."""
@@ -2035,27 +2251,43 @@ def _eval_run(name: str, fn, seqs, root: str, runs: dict, kernels=("K1", "K3")) 
     return floats
 
 
-def _profile_block(bt, seqs, n_frames: int) -> dict:
+def _profile_block(bt, seqs, n_frames: int, names=None) -> dict:
     """torch.profiler over one lockstep block of n_frames frames of every
     sequence in `seqs` (already uploaded): device busy time and idle share
-    per lockstep step and per frame."""
+    per lockstep step and per frame; with `names` (TRACK_KERNEL_NAMES) the
+    block's launch counts must equal the kernels the profiler saw by
+    name."""
     from torch.profiler import ProfilerActivity, profile
     N = len(seqs)
     fv = np.stack([np.stack([s.frames[k][0] for s in seqs]) for k in range(1, n_frames + 1)])
     fi = np.stack([np.stack([s.frames[k][1] for s in seqs]) for k in range(1, n_frames + 1)])
     bt.initialize(fv[0], fi[0], np.stack([s.ground_truth_rect[0, 0] for s in seqs]))
     bt.track_block(fv, fi)                               # warm
-    bt.initialize(fv[0], fi[0], np.stack([s.ground_truth_rect[0, 0] for s in seqs]))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bt.track_block(fv, fi)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    ivals = _device_intervals(prof)
-    require(len(ivals) > 0, "the profiler saw no device operation in the lockstep block")
+    for attempt in range(PROFILE_SESSIONS):
+        bt.initialize(fv[0], fi[0], np.stack([s.ground_truth_rect[0, 0] for s in seqs]))
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bt.track_block(fv, fi)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        launches = read_launches()
+        ivals = _device_intervals(prof)
+        require(len(ivals) > 0, "the profiler saw no device operation in the lockstep block")
+        extra = {}
+        if names is None:
+            break
+        extra = dict(launches={k: launches[k] for k in names},
+                     kernels_by_name=_name_counts(ivals, names), profiler_sessions=attempt + 1)
+        if not _lost_events(extra["launches"], extra["kernels_by_name"]):
+            break
+    if names is not None:
+        require(extra["launches"] == extra["kernels_by_name"],
+                f"lockstep block: launches {extra['launches']} against the profiler's kernels "
+                f"{extra['kernels_by_name']}")
     busy = _busy_us(ivals)
-    return dict(batch=N, steps=n_frames, wall_ms_per_step=wall_us / n_frames / 1e3,
+    return dict(batch=N, steps=n_frames, wall_ms_per_step=wall_us / n_frames / 1e3, **extra,
                 device_busy_ms_per_step=busy / n_frames / 1e3,
                 device_busy_ms_per_frame=busy / n_frames / N / 1e3,
                 wall_ms_per_frame=wall_us / n_frames / N / 1e3,
@@ -2063,28 +2295,69 @@ def _profile_block(bt, seqs, n_frames: int) -> dict:
                 device_ops_per_step=len(ivals) / n_frames)
 
 
+def _eager_twin(tracker):
+    """The single-stream tracker's step run eager, on the same model."""
+    from multi_modal_tracking_torch.tracking.tracker import RGBTCachedTracker
+    t = tracker
+    return RGBTCachedTracker(t.model, template_factor=t.template_factor,
+                             template_size=t.template_size, search_factor=t.search_factor,
+                             search_size=t.search_size, update_interval=t.update_interval,
+                             ce_keep_rate=None, graphs=False)
+
+
+def _lockstep_twin(tracker, graphs: bool = True):
+    """The lockstep tracker on a single-stream tracker's model and settings."""
+    from multi_modal_tracking_torch.tracking.batched import BatchedRGBTCachedTracker
+    t = tracker
+    return BatchedRGBTCachedTracker(t.model, template_factor=t.template_factor,
+                                    template_size=t.template_size,
+                                    search_factor=t.search_factor, search_size=t.search_size,
+                                    update_interval=t.update_interval, ce_keep_rate=None,
+                                    scan_chunk=EVAL_CHUNK, graphs=graphs)
+
+
+def _lockstep_runs(seqs, bt, d: str, n: int) -> list:
+    """run_sequences_batched over `seqs` in groups of n."""
+    from multi_modal_tracking_torch.tracking.batched import run_sequences_batched
+    return [st for lo in range(0, len(seqs), n)
+            for st in run_sequences_batched(seqs[lo:lo + n], bt, d, chunk=EVAL_CHUNK)]
+
+
+def _eval_eager_runs(seqs, root: str, runs: dict, single, bt, one_stream: dict,
+                     lockstep: dict, names, kernels=("K1", "K3")) -> None:
+    """The one-stream and lockstep N = 12 eval runs again with their steps
+    eager (graphs=False): every trajectory must equal the graphed run's
+    bit for bit. Adds the runs `<name>_eager` to `runs`."""
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    for name, fn, want in (
+            (names[0], lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK), one_stream),
+            (names[1], lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG), lockstep)):
+        got = _eval_run(f"{name}_eager", fn, seqs, root, runs, kernels)
+        bad = [k for k in want if not np.array_equal(got[k], want[k])]
+        require(not bad, f"eval {name}_eager: trajectories of {bad} differ from the graphed "
+                         f"run's (by up to "
+                         f"{max(float(np.abs(got[k] - want[k]).max()) for k in bad or want)} px)")
+        require(runs[f"{name}_eager"]["launches"] == runs[name]["launches"],
+                f"eval {name}_eager: launches {runs[f'{name}_eager']['launches']}, graphed "
+                f"{runs[name]['launches']}")
+
+
 def phase_eval(smi: str) -> dict:
     """The evaluation stack on synthetic_rgbt_hard (12 sequences of 60
     frames at 240x320), full width, seed-0 weights: run_dataset one stream
     at a time (A), run_sequences_batched at N = 4 and 12 (B4, B12), and
-    run_sequence in ROI mode, margin 1.5 (R). Returns the launch counts of
-    the four runs together."""
+    run_sequence in ROI mode, margin 1.5 (R); A and B12 again eager.
+    Returns the launch counts of the runs together."""
     from multi_modal_tracking_torch.eval.analysis import TrackerResults, print_results
     from multi_modal_tracking_torch.eval.datasets import get_dataset
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.eval.running import run_dataset, run_sequence
-    from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
-                                                             run_sequences_batched)
     name = "synthetic_rgbt_hard"
     seqs = get_dataset(name)
     tracker = create_tracker(_params(), name, seed=0, dtype=torch.float32)
     tracked = sum(len(s.frames) - 1 for s in seqs)
-    bt = BatchedRGBTCachedTracker(tracker.model, template_factor=tracker.template_factor,
-                                  template_size=tracker.template_size,
-                                  search_factor=tracker.search_factor,
-                                  search_size=tracker.search_size,
-                                  update_interval=tracker.update_interval,
-                                  ce_keep_rate=None, scan_chunk=EVAL_CHUNK)
+    bt = _lockstep_twin(tracker)
+    tracker_eager, bt_eager = _eager_twin(tracker), _lockstep_twin(tracker, graphs=False)
     # one untimed block at each batch size (first calls of new GEMM shapes)
     for n in (EVAL_SMALL, EVAL_BIG):
         _profile_block(bt, seqs[:n], 2)
@@ -2107,11 +2380,8 @@ def phase_eval(smi: str) -> dict:
                 f"eval A: launches {runs['A']['launches']}, expected {want_a}")
         batched = {}
         for n in (EVAL_SMALL, EVAL_BIG):
-            def lockstep(d, n=n):
-                return [st for lo in range(0, len(seqs), n)
-                        for st in run_sequences_batched(seqs[lo:lo + n], bt, d,
-                                                        chunk=EVAL_CHUNK)]
-            batched[n] = _eval_run(f"B{n}", lockstep, seqs, root, runs)
+            batched[n] = _eval_run(f"B{n}", lambda d, n=n: _lockstep_runs(seqs, bt, d, n),
+                                   seqs, root, runs)
             steps = (len(seqs) // n) * (max(len(s.frames) for s in seqs) - 1)
             got = runs[f"B{n}"]["launches"]
             require(got["K3"] == 2 * steps and got["K1"] == 12 * (steps + len(seqs) // n),
@@ -2127,6 +2397,9 @@ def phase_eval(smi: str) -> dict:
         require(runs[f"B{EVAL_BIG}"]["launches"]["K3_by_kernel"]["staged"] > 0
                 and runs[f"B{EVAL_SMALL}"]["launches"]["K3_by_kernel"]["gather"] > 0,
                 "eval: K3 staged at N=12 and gather at N=4")
+
+        _eval_eager_runs(seqs, root, runs, tracker_eager, bt_eager, seq_floats,
+                         batched[EVAL_BIG], ("A", f"B{EVAL_BIG}"))
 
         tracker.track_chunk = counted(chunk_full, "full")
         tracker.track_chunk_roi = counted(chunk_roi, "window")
@@ -2157,14 +2430,17 @@ def phase_eval(smi: str) -> dict:
             sc = print_results([TrackerResults(os.path.join(root, key), key)], seqs,
                                report_name=f"{name} {key}")
             scores[key] = {k: float(sc[k][0]) for k in ("AUC", "OP50", "OP75", "Precision")}
-    profile = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK)
+    profile = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK, TRACK_KERNEL_NAMES[torch.float32])
+    profile_eager = _profile_block(bt_eager, seqs[:EVAL_BIG], EVAL_CHUNK,
+                                   TRACK_KERNEL_NAMES[torch.float32])
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in ("K1", "K2", "K3", "K4")}
     emit({"phase": "eval", "card": smi, "dataset": name, "sequences": len(seqs),
           "frames": sum(len(s.frames) for s in seqs), "tracked_frames": tracked,
           "frame_hw": [H, W], "chunk": EVAL_CHUNK, "px_tolerance": EVAL_PX_TOL,
           "update_interval": bt.update_interval, "runs": runs,
-          "profile_b12_block": profile, "scores": scores, "launches": launches})
-    del bt
+          "profile_b12_block": profile, "profile_b12_block_eager": profile_eager,
+          "scores": scores, "launches": launches})
+    del bt, bt_eager, tracker, tracker_eager
     torch.cuda.empty_cache()
     return launches, seq_floats
 
@@ -2191,8 +2467,6 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
     from multi_modal_tracking_torch.eval.datasets import get_dataset
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.eval.running import run_dataset
-    from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
-                                                             run_sequences_batched)
     frames = all_frames[:64]
     n_frames, warm = len(frames), 8
     H, W = frames[0][0].shape[:2]
@@ -2232,23 +2506,17 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
     name = "synthetic_rgbt_hard"
     seqs = get_dataset(name)
     single = create_tracker(_params(), name, seed=0, dtype=torch.bfloat16)
-    bt = BatchedRGBTCachedTracker(single.model, template_factor=single.template_factor,
-                                  template_size=single.template_size,
-                                  search_factor=single.search_factor,
-                                  search_size=single.search_size,
-                                  update_interval=single.update_interval, ce_keep_rate=None,
-                                  scan_chunk=EVAL_CHUNK)
+    bt = _lockstep_twin(single)
+    single_eager, bt_eager = _eager_twin(single), _lockstep_twin(single, graphs=False)
     _profile_block(bt, seqs[:EVAL_BIG], 2)                  # first calls of the batch-24 shapes
     runs = {}
     with tempfile.TemporaryDirectory() as root:
         a16 = _eval_run("A16", lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK), seqs,
                         root, runs, kernels=BF16_SERVING)
-
-        def lockstep(d):
-            return [st for lo in range(0, len(seqs), EVAL_BIG)
-                    for st in run_sequences_batched(seqs[lo:lo + EVAL_BIG], bt, d,
-                                                    chunk=EVAL_CHUNK)]
-        b16 = _eval_run(f"B{EVAL_BIG}_16", lockstep, seqs, root, runs, kernels=BF16_SERVING)
+        b16 = _eval_run(f"B{EVAL_BIG}_16", lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG), seqs,
+                        root, runs, kernels=BF16_SERVING)
+        _eval_eager_runs(seqs, root, runs, single_eager, bt_eager, a16, b16,
+                         ("A16", f"B{EVAL_BIG}_16"), kernels=BF16_SERVING)
         got = runs[f"B{EVAL_BIG}_16"]["launches"]
         require(got["K3-bf16_by_kernel"]["staged"] == got["K3-bf16"],
                 f"bf16 lockstep N={EVAL_BIG}: K3-bf16 kernels {got['K3-bf16_by_kernel']}, "
@@ -2266,11 +2534,17 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
             sc = print_results([TrackerResults(os.path.join(root, key), key)], seqs,
                                report_name=f"{name} {key}")
             scores[key] = {k: float(sc[k][0]) for k in ("AUC", "OP50", "OP75", "Precision")}
-    block = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK)
+    names = TRACK_KERNEL_NAMES[torch.bfloat16]
+    block = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK, names)
+    block_eager = _profile_block(bt_eager, seqs[:EVAL_BIG], EVAL_CHUNK, names)
     eval_launches = {k: sum(r["launches"][k] for r in runs.values()) for k in BF16_SERVING}
     emit({"phase": "bf16 eval", "card": smi, "dataset": name, "runs": runs,
-          "profile_b12_block": block, "scores": scores, "launches": eval_launches})
-    del bt, single, model
+          "profile_b12_block": block, "profile_b12_block_eager": block_eager,
+          "lockstep_graph_capture_ms": {str(k[0]) + ("_update" if k[-1] else ""): v
+                                        for k, v in bt.graphs.capture_ms.items()},
+          "lockstep_graph_pool_bytes": bt.graphs.pool_bytes(),
+          "scores": scores, "launches": eval_launches})
+    del bt, bt_eager, single, single_eager, model
     torch.cuda.empty_cache()
     return {"tracker_bf16": {k: track_launches[k] for k in BF16_SERVING},
             "eval_bf16": eval_launches, "profile": prof}
@@ -2288,6 +2562,7 @@ def main() -> None:
     track_launches, tracker, f32_boxes = phase_tracker(smi, frames[:64])
     phase_profile(tracker, frames[64:], smi)
     del tracker
+    graph_launches = phase_graphs(smi, frames)
     with tempfile.TemporaryDirectory() as save_dir:
         train_launches = phase_train(smi, save_dir, torch.float32)
     with tempfile.TemporaryDirectory() as save_dir:
@@ -2297,8 +2572,8 @@ def main() -> None:
     bf16 = phase_bf16(smi, frames, f32_boxes, f32_eval)
     table = []
     for key in F32_KERNELS:
-        by_path = {"tracker": track_launches[key], "train": train_launches[key],
-                   "eval": eval_launches[key]}
+        by_path = {"tracker": track_launches[key], "graphs": graph_launches["f32"][key],
+                   "train": train_launches[key], "eval": eval_launches[key]}
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2312,7 +2587,8 @@ def main() -> None:
     for key in BF16_KERNELS:
         by_path = {"train_bf16": train_bf16_launches[key], "lifecycle": life_launches[key]}
         if key in BF16_SERVING:
-            by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")})
+            by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
+                           graphs_bf16=graph_launches["bf16"][key])
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -10,7 +10,7 @@ from multi_modal_tracking_torch.utils.checkpoint import cast_floating, load_vari
 
 
 def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
-                   dtype=torch.bfloat16, seed: int = 0) -> RGBTCachedTracker:
+                   dtype=torch.bfloat16, seed: int = 0, graphs: bool = True) -> RGBTCachedTracker:
     """The cached-template tracker of an RGB-T `asymmetric_shared*` script.
 
     Runs on the GPU unless device="cpu" (raises without one). With
@@ -25,6 +25,9 @@ def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
     (eval/evaltracker.py:48-64): the float32 model is built and loaded
     first, then its parameters are cast (`cast_floating`; BatchNorm
     statistics stay float32). dtype=torch.float32 is the parity path.
+
+    On the GPU the tracker runs each frame as a CUDA graph replay;
+    graphs=False runs the same step eager (tracking/graphs.py).
     """
     cfg = params.cfg
     model = build_model(params.script, cfg, device=device, dtype=dtype, seed=seed)
@@ -37,4 +40,4 @@ def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
                              search_factor=params.search_factor,
                              search_size=params.search_size,
                              update_interval=update_interval_for(cfg, dataset_name),
-                             ce_keep_rate=None, device=device)
+                             ce_keep_rate=None, device=device, graphs=graphs)

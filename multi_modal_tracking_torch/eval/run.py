@@ -120,13 +120,14 @@ def _epoch_of(path: Optional[str]) -> int:
 
 
 def _batched_twin(tracker, chunk: int):
-    """The lockstep tracker of the CLI's (cached) tracker, on its model."""
+    """The lockstep tracker of the CLI's (cached) tracker, on its model
+    (graphed on CUDA as the tracker is)."""
     t = tracker
     return BatchedRGBTCachedTracker(
         t.model, template_factor=t.template_factor, template_size=t.template_size,
         search_factor=t.search_factor, search_size=t.search_size,
         update_interval=t.update_interval, ce_keep_rate=t.ce_keep_rate, scan_chunk=chunk,
-        device=t.device)
+        device=t.device, graphs=t.graphs is not None)
 
 
 def main(argv: Optional[List[str]] = None) -> List[str]:

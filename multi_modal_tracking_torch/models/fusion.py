@@ -70,8 +70,10 @@ class MSDeformAttnBimodal(nn.Module):
             nn.init.zeros_(lin.bias)
 
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
-                src: torch.Tensor, spatial_shapes: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
-        """query/src: (B, 2*HW, C); reference_points: (Lq, L, 2)."""
+                src: torch.Tensor, spatial_shapes: Tuple[Tuple[int, int], ...],
+                normalizer: torch.Tensor) -> torch.Tensor:
+        """query/src: (B, 2*HW, C); reference_points: (Lq, L, 2); normalizer:
+        (L, 2) float32 (W_l, H_l) of spatial_shapes, on query's device."""
         B, Lq, C = query.shape
         M, L, P = self.n_heads, self.n_levels, self.n_points
         half = Lq // 2
@@ -84,8 +86,6 @@ class MSDeformAttnBimodal(nn.Module):
         # f32 softmax, then the model's dtype; locations stay f32 (the JAX
         # layer's rounding points, models/fusion.py:115-125)
         w = torch.softmax(w.float(), dim=-1).to(value.dtype).reshape(B, Lq, M, L, P)
-        normalizer = torch.tensor([[w_, h_] for h_, w_ in spatial_shapes],
-                                  dtype=torch.float32, device=query.device)
         loc = reference_points[None, :, None, :, None, :] \
             + off / normalizer[None, None, None, :, None, :]
         out = ms_deform_attn(value.contiguous(), spatial_shapes, loc.contiguous(),
@@ -113,8 +113,9 @@ class DeformableEncoderLayer(nn.Module):
         self.norm2_v = LayerNorm(d_model, eps=1e-5)
         self.norm2_i = LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, src, pos, reference_points, spatial_shapes):
-        src2 = self.dropout1(self.self_attn(src + pos, reference_points, src, spatial_shapes))
+    def forward(self, src, pos, reference_points, spatial_shapes, normalizer):
+        src2 = self.dropout1(self.self_attn(src + pos, reference_points, src, spatial_shapes,
+                                            normalizer))
         src = _modal_layer_norm(src + src2, self.norm1_v, self.norm1_i)
         ff = self.dropout3(self.linear2(self.dropout2(torch.relu(self.linear1(src)))))
         return _modal_layer_norm(src + ff, self.norm2_v, self.norm2_i)
@@ -140,8 +141,11 @@ class DeformableAttentionFusion(nn.Module):
         self._geometry = {}
 
     def _pos_and_ref(self, H: int, W: int, device):
-        """Sine position encoding (HW, C) and reference points (2HW, 2, 2),
-        computed once per map size and device."""
+        """Sine position encoding (HW, C), reference points (2HW, 2, 2) and
+        the MSDA level normaliser (2, 2) of (W, H) per level, computed once
+        per map size and device: a tensor made from host data would be a
+        copy from the host at every call, which synchronises the stream and
+        cannot be captured in a CUDA graph."""
         key = (H, W, str(device))
         if key not in self._geometry:
             pos1 = torch.from_numpy(sine_position_encoding(H, W, self.d_model // 2))
@@ -149,8 +153,10 @@ class DeformableAttentionFusion(nn.Module):
                                  np.linspace(0.5, W - 0.5, W) / W, indexing="ij")
             ref1 = np.stack([xs.reshape(-1), ys.reshape(-1)], -1)
             ref = np.tile(np.concatenate([ref1, ref1], 0)[:, None, :], (1, 2, 1))
+            norm = np.asarray([[W, H], [W, H]], np.float32)
             self._geometry[key] = (pos1.to(device),
-                                   torch.from_numpy(ref.astype(np.float32)).to(device))
+                                   torch.from_numpy(ref.astype(np.float32)).to(device),
+                                   torch.from_numpy(norm).to(device))
         return self._geometry[key]
 
     def forward(self, src_v: torch.Tensor, src_i: torch.Tensor) -> torch.Tensor:
@@ -158,11 +164,11 @@ class DeformableAttentionFusion(nn.Module):
         B, H, W, C = src_v.shape
         spatial_shapes = ((H, W), (H, W))
         src = torch.cat([src_v.reshape(B, H * W, C), src_i.reshape(B, H * W, C)], dim=1)
-        pos1, ref = self._pos_and_ref(H, W, src.device)
+        pos1, ref, normalizer = self._pos_and_ref(H, W, src.device)
         pos = torch.cat([pos1 + self.level_embed[0], pos1 + self.level_embed[1]],
                         dim=0)[None].to(src.dtype)
         for layer in self.encoder.layers:
-            src = layer(src, pos, ref, spatial_shapes)
+            src = layer(src, pos, ref, spatial_shapes, normalizer)
         return src
 
 

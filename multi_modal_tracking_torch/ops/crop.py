@@ -22,6 +22,8 @@ import torch
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+#: device -> (mean, std) float32 tensors, made once per device
+_IMAGENET = {}
 
 
 def _resample_matrix(full_extent: int, out_sz: int, lo: torch.Tensor,
@@ -146,7 +148,14 @@ def crop_resize_window(window: torch.Tensor, box_xywh: torch.Tensor, offset_xy, 
 
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
-    """0..255-scale (..., 3) image -> ImageNet-normalised float32."""
-    mean = torch.tensor(_IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(_IMAGENET_STD, dtype=torch.float32, device=x.device)
+    """0..255-scale (..., 3) image -> ImageNet-normalised float32. The mean
+    and std are made on x's device once (a tensor made from host data at
+    every call would be a copy from the host: a synchronise, and not
+    capturable in a CUDA graph)."""
+    consts = _IMAGENET.get(x.device)
+    if consts is None:
+        consts = _IMAGENET[x.device] = tuple(
+            torch.tensor(c, dtype=torch.float32, device=x.device)
+            for c in (_IMAGENET_MEAN, _IMAGENET_STD))
+    mean, std = consts
     return (x.float() / 255.0 - mean) / std

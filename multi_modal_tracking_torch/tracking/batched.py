@@ -17,7 +17,9 @@ frame count, online template and template cache keep their values. The
 mask must be suffix-style per sequence (True... then False...): the
 template update runs on the scalar cadence max(frame id) % interval == 0
 for the live sequences, which is each live sequence's own cadence only
-because lockstep sequences stop only at their end.
+because lockstep sequences stop only at their end. The mask reaches the
+step as a static device tensor (`live`), all True while every sequence
+runs: `_select` with an all-True mask returns the new values bit for bit.
 
 `run_sequences_batched` evaluates a group of same-size sequences this way
 and writes the result files of eval/running.py.
@@ -32,6 +34,8 @@ import numpy as np
 import torch
 
 from multi_modal_tracking_torch.ops.boxes import clip_box
+from multi_modal_tracking_torch.tracking.graphs import (StaticInputs, StepGraphs, bind_state,
+                                                        copy_tree, leaves)
 from multi_modal_tracking_torch.tracking.tracker import (_map_box_back, _prep_rgbt_batch,
                                                          _select_init_box)
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
@@ -57,12 +61,19 @@ class BatchedRGBTTracker:
     track_block(frames_v/i (T, N, H, W, 3), valid (T, N)) -> (T, N, 4)
     boxes. model: a MixFormerRGBT in eval mode on `device` (default the GPU;
     device="cpu" runs the kernels' plain versions), float32 or cast to
-    bfloat16 as for tracking.tracker.RGBTTracker; boxes stay float32."""
+    bfloat16 as for tracking.tracker.RGBTTracker; boxes stay float32.
+
+    The step reads the frames and the `live` mask (the frame's valid row)
+    from static inputs and the state from static buffers, one set per N,
+    and writes the state and the frame's boxes into them: on CUDA with
+    graphs=True (the default) as CUDA graphs, one per (N, frame shape) and
+    per template update or not (tracking/graphs.py); graphs=False, and any
+    CPU tracker, runs the same step eager."""
 
     def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
                  search_factor: float = 5.0, search_size: int = 288,
                  update_interval: int = 200, ce_keep_rate: Optional[float] = None,
-                 scan_chunk: int = 16, device="cuda"):
+                 scan_chunk: int = 16, device="cuda", graphs: bool = True):
         self.device = resolve_device(device)
         param = next(model.parameters())
         if param.device.type != self.device.type:
@@ -76,43 +87,52 @@ class BatchedRGBTTracker:
         self.update_interval = update_interval
         self.ce_keep_rate = ce_keep_rate
         self.scan_chunk = scan_chunk
+        self.graphs = StepGraphs(self.device) if graphs and self.device.type == "cuda" else None
+        self._slots = {}            # state shapes (N) -> state buffers
+        self._inputs = {}           # frame shapes -> StaticInputs
 
     def _upload(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(self.device)
 
     # ------------------------------------------------------- model steps
-    def _init_model(self, tv, ti):
-        self._template = torch.cat([tv, ti], dim=0)
-        self._online = self._template
+    #: the state buffers; `_boxes` holds the step's output
+    _STATE = ("_state", "_template", "_online", "_boxes")
+
+    def _init_model(self, tv, ti) -> dict:
+        t = torch.cat([tv, ti], dim=0)
+        return {"_template": t, "_online": t}
 
     def _predict(self, s_vi):
         return self.model(self._template, self._online, s_vi, self.ce_keep_rate,
                           use_ce_template_mask=False)
 
-    def _update_template(self, tv, ti, live: Optional[torch.Tensor]):
-        online = torch.cat([tv, ti], dim=0)
-        self._online = online if live is None else _select(live, online, self._online)
+    def _update_template(self, tv, ti, live: torch.Tensor):
+        self._online.copy_(_select(live, torch.cat([tv, ti], dim=0), self._online))
 
     # ------------------------------------------------------------ host API
     @torch.no_grad()
     def initialize(self, frames_v: np.ndarray, frames_i: np.ndarray, boxes: np.ndarray) -> None:
         """frames_*: (N, H, W, 3) uint8 frame-0 stacks (TIR may be (N, H, W));
-        boxes: (N, 4) xywh init boxes."""
+        boxes: (N, 4) xywh init boxes. Runs eager."""
         fv, fi = self._upload(frames_v), self._upload(frames_i)
         self._shape = tuple(fv.shape[1:3])
-        self._state = torch.as_tensor(np.asarray(boxes, np.float32).reshape(-1, 4),
-                                      device=self.device)
+        state = torch.as_tensor(np.asarray(boxes, np.float32).reshape(-1, 4),
+                                device=self.device)
         self._frame_ids = np.zeros(fv.shape[0], np.int64)
-        tv, ti, _ = _prep_rgbt_batch(fv, fi, self._state, self.template_factor,
+        tv, ti, _ = _prep_rgbt_batch(fv, fi, state, self.template_factor,
                                      self.template_size)
-        self._init_model(tv, ti)
+        bufs = bind_state(self._slots, {"_state": state, "_boxes": state,
+                                        **self._init_model(tv, ti)})
+        for name in self._STATE:
+            setattr(self, name, bufs[name])
 
     @torch.no_grad()
-    def _step(self, fv: torch.Tensor, fi: torch.Tensor, ok: np.ndarray) -> torch.Tensor:
-        """One lockstep frame: fv/fi (N, H, W, ...) on the device, ok (N,)
-        host bools. Returns the (N, 4) boxes of this frame."""
+    def _advance(self, fv: torch.Tensor, fi: torch.Tensor, live: torch.Tensor, update: bool):
+        """One lockstep frame on the device: fv/fi (N, H, W, ...), live (N,)
+        bool. Writes the frame's (N, 4) boxes into `_boxes` and, for the
+        live sequences, the state; `update` rebuilds the live sequences'
+        templates at the new state."""
         H, W = self._shape
-        live = None if ok.all() else torch.as_tensor(ok, device=self.device)
         sv, si, rf = _prep_rgbt_batch(fv, fi, self._state, self.search_factor,
                                       self.search_size)
         out = self._predict(torch.cat([sv, si], dim=0))
@@ -120,33 +140,53 @@ class BatchedRGBTTracker:
             * (self.search_size / rf)[:, None]
         boxes = clip_box(_map_box_back(pred, self._state, self.search_size, rf),
                          H, W, margin=10)
-        self._state = boxes if live is None else _select(live, boxes, self._state)
-        self._frame_ids += ok
-        if ok.any() and self._frame_ids.max() % self.update_interval == 0:
+        self._boxes.copy_(boxes)
+        self._state.copy_(_select(live, boxes, self._state))
+        if update:
             tv, ti, _ = _prep_rgbt_batch(fv, fi, self._state, self.template_factor,
                                          self.template_size)
             self._update_template(tv, ti, live)
-        return boxes
+
+    def _step(self, inputs: StaticInputs, ok: np.ndarray) -> None:
+        """One lockstep frame from the static inputs (frames and live mask);
+        ok (N,) host bools, the live mask's values: the host's frame ids
+        pick the graph, on the scalar cadence of the live sequences."""
+        self._frame_ids += ok
+        update = bool(ok.any()) and self._frame_ids.max() % self.update_interval == 0
+        step = lambda: self._advance(*inputs.tensors, update)   # noqa: E731
+        if self.graphs is None:
+            step()
+        else:
+            state = [t for name in self._STATE for t in leaves(getattr(self, name))]
+            self.graphs.replay((len(ok), self._shape, inputs.key, update), step, state)
 
     def track_block(self, frames_v: np.ndarray, frames_i: np.ndarray,
                     valid: Optional[np.ndarray] = None, fetch: bool = True):
         """frames_*: (T, N, H, W, 3) uint8; valid: (T, N) bool, suffix-style
         per sequence (False freezes that sequence for the frame). Uploads
-        `scan_chunk` frames at a time and returns the (T, N, 4) boxes, as
-        numpy or, with fetch=False, as a device tensor without a host
-        sync."""
+        `scan_chunk` frames (and their valid rows) at a time and returns the
+        (T, N, 4) boxes, as numpy or, with fetch=False, as a device tensor
+        without a host sync."""
         T, N = frames_v.shape[:2]
         valid = np.ones((T, N), np.bool_) if valid is None else np.asarray(valid, bool)
         if np.any(valid[1:] & ~valid[:-1]):
             raise ValueError("track_block valid mask must be suffix-style per sequence "
                              "(no True after a False): the template update runs on the "
                              "batch's frame cadence")
-        out = []
+        boxes = torch.empty((T, N, 4), dtype=torch.float32, device=self.device)
         for lo in range(0, T, self.scan_chunk):
             hi = min(lo + self.scan_chunk, T)
             bv, bi = self._upload(frames_v[lo:hi]), self._upload(frames_i[lo:hi])
-            out += [self._step(bv[t], bi[t], valid[lo + t]) for t in range(hi - lo)]
-        boxes = torch.stack(out)
+            bl = self._upload(valid[lo:hi])
+            key = (bv.shape[1:], bi.shape[1:], bl.shape[1:])
+            if key not in self._inputs:
+                self._inputs[key] = StaticInputs(key, (bv.dtype, bi.dtype, torch.bool),
+                                                 self.device)
+            inputs = self._inputs[key]
+            for t in range(hi - lo):
+                inputs.load_device((bv[t], bi[t], bl[t]))
+                self._step(inputs, valid[lo + t])
+                boxes[lo + t].copy_(self._boxes)
         return boxes.cpu().numpy() if fetch else boxes
 
 
@@ -157,17 +197,19 @@ class BatchedRGBTCachedTracker(BatchedRGBTTracker):
     once on the scalar cadence, and a finished sequence keeps its old
     cache."""
 
-    def _init_model(self, tv, ti):
-        self._template = torch.cat([tv, ti], dim=0)
-        self._cache = self.model.set_online(self._template, self._template)
+    _STATE = ("_state", "_template", "_cache", "_boxes")
+
+    def _init_model(self, tv, ti) -> dict:
+        t = torch.cat([tv, ti], dim=0)
+        return {"_template": t, "_cache": self.model.set_online(t, t)}
 
     def _predict(self, s_vi):
         return self.model.forward_track(self._cache, s_vi, self.ce_keep_rate,
                                         use_ce_template_mask=False)
 
-    def _update_template(self, tv, ti, live: Optional[torch.Tensor]):
+    def _update_template(self, tv, ti, live: torch.Tensor):
         cache = self.model.set_online(self._template, torch.cat([tv, ti], dim=0))
-        self._cache = cache if live is None else _select(live, cache, self._cache)
+        copy_tree(self._cache, _select(live, cache, self._cache))
 
 
 def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_dir: str,

@@ -7,6 +7,9 @@ mapped back to the frame and clipped with margin 10; every
 `update_interval` frames the online template is re-cropped at the new
 state. The box state stays on the device: a frame costs one upload of the
 two uint8 frames, and `track` one 4-float download for its return value.
+On CUDA each frame is one CUDA graph replay (tracking/graphs.py): the
+frames go into the graph's static inputs, the state lives in static
+buffers.
 
 `RGBTCachedTracker` runs only the search tokens through the backbone
 against a per-block template q/k/v cache (MixFormerRGBT.set_online /
@@ -16,7 +19,8 @@ For the eval runner: `track_chunk(fetch=False)` leaves a chunk's boxes on
 the device; `track_chunk_roi` tracks windows cut around the box (ROI upload
 mode, `roi_window` places them) and reports per frame whether the crops
 equalled the full-frame ones; `snapshot` / `restore` take the state back
-to before a chunk whose window the box left. The lockstep trackers of
+to before a chunk whose window the box left (the ROI path runs eager, on
+the same state buffers). The lockstep trackers of
 several sequences are in tracking/batched.py.
 """
 from __future__ import annotations
@@ -31,6 +35,8 @@ from multi_modal_tracking_torch.ops.boxes import clip_box
 from multi_modal_tracking_torch.ops.colormap import apply_jet
 from multi_modal_tracking_torch.ops.crop import (crop_resize, crop_resize_batch,
                                                  crop_resize_window, normalize_imagenet)
+from multi_modal_tracking_torch.tracking.graphs import (StaticInputs, StepGraphs, bind_state,
+                                                        clone_tree, copy_tree, leaves)
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 
@@ -146,12 +152,18 @@ class RGBTTracker:
     dtype, while crops, boxes, the state and the map back to the frame stay
     float32. TF32 is turned off for matmuls and cuDNN
     (utils.device.set_precision).
+
+    The step (`_advance`) reads the frames from static input tensors and
+    the state from static buffers, and writes the new state into them. On
+    CUDA with graphs=True (the default) it runs as CUDA graphs, one per
+    frame shape and per template update or not (tracking/graphs.py);
+    graphs=False, and any CPU tracker, runs the same step eager.
     """
 
     def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
                  search_factor: float = 5.0, search_size: int = 288,
                  update_interval: int = 200, ce_keep_rate: Optional[float] = None,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         self.device = resolve_device(device)
         param = next(model.parameters())
         if param.device.type != self.device.type:
@@ -164,9 +176,18 @@ class RGBTTracker:
         self.search_size = search_size
         self.update_interval = update_interval
         self.ce_keep_rate = ce_keep_rate
+        self.graphs = StepGraphs(self.device) if graphs and self.device.type == "cuda" else None
+        self._slots = {}            # state shapes -> state buffers
+        self._inputs = {}           # frame shapes -> StaticInputs
 
     def _upload(self, img) -> torch.Tensor:
         return torch.as_tensor(np.asarray(img)).to(self.device)
+
+    def _inputs_for(self, shape_v, shape_i, dtype=torch.uint8) -> StaticInputs:
+        key = (tuple(shape_v), tuple(shape_i), dtype)
+        if key not in self._inputs:
+            self._inputs[key] = StaticInputs(key[:2], (dtype, dtype), self.device)
+        return self._inputs[key]
 
     def _crop(self, img_v, img_i, box, template: bool, offset=None):
         """(v, i, resize_factor, ok): ok is None for full frames, else the
@@ -178,16 +199,16 @@ class RGBTTracker:
         return _prep_rgbt_window(img_v, img_i, box, offset, self._shape, factor, size)
 
     # ------------------------------------------------------- model steps
-    #: the attributes that hold the tracking state (snapshot / restore); a
-    #: step rebinds them and never writes into their tensors
-    _STATE = ("_state", "_frame_id", "_template", "_online")
+    #: the state buffers (snapshot / restore; the frame id is a host int
+    #: beside them); a step writes into them, never rebinds them
+    _STATE = ("_state", "_template", "_online")
 
-    def _init_model(self, tv, ti):
-        self._template = torch.cat([tv, ti], dim=0)
-        self._online = self._template
+    def _init_model(self, tv, ti) -> dict:
+        t = torch.cat([tv, ti], dim=0)
+        return {"_template": t, "_online": t}
 
     def _update_template(self, tv, ti):
-        self._online = torch.cat([tv, ti], dim=0)
+        self._online.copy_(torch.cat([tv, ti], dim=0))
 
     def _predict(self, s_vi):
         return self.model(self._template, self._online, s_vi, self.ce_keep_rate,
@@ -197,64 +218,96 @@ class RGBTTracker:
     @torch.no_grad()
     def initialize(self, image, info: dict) -> None:
         """image: [img_v, img_i] uint8 HWC arrays; info['init_bbox'] xywh
-        (or an RGB-T pair of boxes, of which the RGB one is used)."""
+        (or an RGB-T pair of boxes, of which the RGB one is used). Runs
+        eager (the JAX tracker's init is a program of its own too)."""
         img_v, img_i = (self._upload(x) for x in image)
         self._shape = tuple(img_v.shape[:2])
-        self._state = torch.as_tensor(np.asarray(_select_init_box(info["init_bbox"]),
-                                                 np.float32), device=self.device)
+        state = torch.as_tensor(np.asarray(_select_init_box(info["init_bbox"]), np.float32),
+                                device=self.device)
         self._frame_id = 0
-        tv, ti, _, _ = self._crop(img_v, img_i, self._state, template=True)
-        self._init_model(tv, ti)
+        tv, ti, _, _ = self._crop(img_v, img_i, state, template=True)
+        bufs = bind_state(self._slots, {"_state": state, **self._init_model(tv, ti)})
+        for name in self._STATE:
+            setattr(self, name, bufs[name])
 
     @torch.no_grad()
-    def _step(self, img_v: torch.Tensor, img_i: torch.Tensor, offset=None):
-        """One frame on the device, no host sync. With `offset` = (ox, oy)
-        the images are windows of the frame at that pixel (ROI mode).
-        Returns (state, ok): ok is None for full frames, else a bool tensor,
-        True iff every crop of the step equals its full-frame crop."""
+    def _advance(self, img_v: torch.Tensor, img_i: torch.Tensor, update: bool, offset=None):
+        """One frame on the device, no host sync, from the state buffers
+        into them; `update` re-crops the template at the new state. With
+        `offset` = (ox, oy) the images are windows of the frame at that
+        pixel (ROI mode). Returns ok: None for full frames, else a bool
+        tensor, True iff every crop of the step equals its full-frame
+        crop."""
         H, W = self._shape
-        self._frame_id += 1
         sv, si, rf, ok = self._crop(img_v, img_i, self._state, False, offset)
         # test-time CE pools over ALL template rows (use_ce_template_mask off)
         out = self._predict(torch.cat([sv, si], dim=0))
         pred = out["pred_boxes"].reshape(-1, 4).mean(dim=0) * (self.search_size / rf)
-        self._state = clip_box(_map_box_back(pred, self._state, self.search_size, rf),
-                               H, W, margin=10)
-        if self._frame_id % self.update_interval == 0:
+        self._state.copy_(clip_box(_map_box_back(pred, self._state, self.search_size, rf),
+                                   H, W, margin=10))
+        if update:
             tv, ti, _, ok_t = self._crop(img_v, img_i, self._state, True, offset)
             self._update_template(tv, ti)
             ok = ok if ok is None else ok & ok_t
-        return self._state, ok
+        return ok
+
+    def _tick(self) -> bool:
+        """Count a frame; True if its step updates the template."""
+        self._frame_id += 1
+        return self._frame_id % self.update_interval == 0
+
+    def _step(self, inputs: StaticInputs) -> torch.Tensor:
+        """One frame from the static inputs: a graph replay on CUDA (the
+        host's frame id picks the graph), else the eager step. Returns the
+        state buffer."""
+        update = self._tick()
+        step = lambda: self._advance(*inputs.tensors, update)   # noqa: E731
+        if self.graphs is None:
+            step()
+        else:
+            state = [t for name in self._STATE for t in leaves(getattr(self, name))]
+            self.graphs.replay((self._shape, inputs.key, update), step, state)
+        return self._state
 
     def track(self, image, info: Optional[dict] = None) -> dict:
         """One frame: returns {"target_bbox": [x, y, w, h]}."""
-        state, _ = self._step(*(self._upload(x) for x in image))
-        return {"target_bbox": [float(b) for b in state.cpu()]}
+        img_v, img_i = (np.asarray(x) for x in image)
+        inputs = self._inputs_for(img_v.shape, img_i.shape)
+        inputs.load_host((img_v, img_i))
+        return {"target_bbox": [float(b) for b in self._step(inputs).cpu()]}
 
     def track_chunk(self, frames_v: np.ndarray, frames_i: np.ndarray, fetch: bool = True):
         """Track (N, H, W, 3) uint8 frames (TIR (N, H, W) or (N, H, W, 3)):
-        one upload per modality for the chunk, then the frames step on the
-        device. Returns the (N, 4) boxes as numpy, or with fetch=False as the
-        device tensor, without a host sync (the trajectory is that of
-        per-frame track either way)."""
+        one upload per modality for the chunk, then per frame a copy on the
+        device into the static inputs and the step. Returns the (N, 4)
+        boxes as numpy, or with fetch=False as the device tensor, without a
+        host sync (the trajectory is that of per-frame track either way)."""
         fv, fi = self._upload(frames_v), self._upload(frames_i)
-        boxes = torch.stack([self._step(fv[k], fi[k])[0] for k in range(fv.shape[0])])
+        inputs = self._inputs_for(fv.shape[1:], fi.shape[1:])
+        boxes = torch.empty((fv.shape[0], 4), dtype=torch.float32, device=self.device)
+        for k in range(fv.shape[0]):
+            inputs.load_device((fv[k], fi[k]))
+            boxes[k].copy_(self._step(inputs))
         return boxes.cpu().numpy() if fetch else boxes
 
+    @torch.no_grad()
     def track_chunk_roi(self, win_v: np.ndarray, win_i: np.ndarray, offset_xy,
                         fetch: bool = True):
         """track_chunk over windows (N, Hw, Ww, 3) / (N, Hw, Ww[, 3]) cut from
         the frames at frame pixel offset_xy = (ox, oy), one window for the
-        chunk: uploads only the windows. Returns (boxes, oks); oks[k] False
-        means frame k's crops needed pixels outside the window, and the
-        caller must `restore` the `snapshot` taken before the chunk and redo
-        it on full frames. Where every ok is True the boxes are the
-        full-frame ones bit for bit."""
+        chunk: uploads only the windows, and runs eager. Returns (boxes,
+        oks); oks[k] False means frame k's crops needed pixels outside the
+        window, and the caller must `restore` the `snapshot` taken before
+        the chunk and redo it on full frames. Where every ok is True the
+        boxes are the full-frame ones bit for bit."""
         offset = (int(offset_xy[0]), int(offset_xy[1]))
         wv, wi = self._upload(win_v), self._upload(win_i)
-        steps = [self._step(wv[k], wi[k], offset) for k in range(wv.shape[0])]
-        boxes = torch.stack([s for s, _ in steps])
-        oks = torch.stack([ok for _, ok in steps])
+        boxes = torch.empty((wv.shape[0], 4), dtype=torch.float32, device=self.device)
+        oks = []
+        for k in range(wv.shape[0]):
+            oks.append(self._advance(wv[k], wi[k], self._tick(), offset))
+            boxes[k].copy_(self._state)
+        oks = torch.stack(oks)
         return (boxes.cpu().numpy(), oks.cpu().numpy()) if fetch else (boxes, oks)
 
     def current_box(self) -> np.ndarray:
@@ -262,14 +315,16 @@ class RGBTTracker:
         return self._state.cpu().numpy()
 
     def snapshot(self) -> dict:
-        """The tracking state (box, frame id, templates or template cache)
-        by reference; steps rebind it rather than write into it, so it stays
-        valid for `restore`."""
-        return {k: getattr(self, k) for k in self._STATE}
+        """The tracking state (frame id, box, templates or template cache),
+        copied: the steps write into the state buffers."""
+        return {"_frame_id": self._frame_id,
+                **{k: clone_tree(getattr(self, k)) for k in self._STATE}}
 
     def restore(self, snap: dict) -> None:
-        for k, v in snap.items():
-            setattr(self, k, v)
+        """Put a snapshot's state back into the state buffers."""
+        self._frame_id = snap["_frame_id"]
+        for k in self._STATE:
+            copy_tree(getattr(self, k), snap[k])
 
 
 class RGBTCachedTracker(RGBTTracker):
@@ -278,14 +333,14 @@ class RGBTCachedTracker(RGBTTracker):
     the per-block template q/k/v come from a cache built at initialize and
     rebuilt at every template update."""
 
-    _STATE = ("_state", "_frame_id", "_template", "_cache")
+    _STATE = ("_state", "_template", "_cache")
 
-    def _init_model(self, tv, ti):
-        self._template = torch.cat([tv, ti], dim=0)
-        self._cache = self.model.set_online(self._template, self._template)
+    def _init_model(self, tv, ti) -> dict:
+        t = torch.cat([tv, ti], dim=0)
+        return {"_template": t, "_cache": self.model.set_online(t, t)}
 
     def _update_template(self, tv, ti):
-        self._cache = self.model.set_online(self._template, torch.cat([tv, ti], dim=0))
+        copy_tree(self._cache, self.model.set_online(self._template, torch.cat([tv, ti], dim=0)))
 
     def _predict(self, s_vi):
         return self.model.forward_track(self._cache, s_vi, self.ce_keep_rate,
