@@ -8,8 +8,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. build    - compiles every kernel of the main paths from csrc/ (one nvcc
                 per source, all at once) and prints ptxas's registers and
                 spills per kernel; the wgmma kernels of K1-bf16 and K2-bf16
-                must spill nothing and must not have their wgmma chains
-                serialised;
+                and the tap kernels of K3-bf16 and K4-bf16 must spill
+                nothing and must not have their wgmma chains serialised;
   3. bf16 GEMM reduction - set_precision(bf16) must turn cuBLAS's bf16
                 split-K reduction off; a bf16 weight gradient at the training
                 shape (K = 14,464) against f32 accumulation rounded once,
@@ -33,8 +33,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 K3's gather grid is timed empty as its launch floor; then
                 the bf16 kernels K1-bf16 and K3-bf16 (the JAX package's
                 eval dtype) at the bf16 tracker's and the lockstep N = 12
-                shapes (K3-bf16 at B 1, 4, 12, 16, msda_plan's choice
-                required; K1-bf16's attention_bf16_plan must split the keys
+                shapes (K3-bf16 at B 1, 4, 12, 16 on uniform and model-like
+                locations, msda_plan's tap kernel required, at most
+                MAX_DIFFERING of its outputs not bit-equal to the plain
+                version; K1-bf16's attention_bf16_plan must split the keys
                 at the tracking shapes and not at the training and lockstep
                 ones) and on edge cases (K1-bf16 also with every key-share
                 count on K1_SPLIT_EDGES), each against its plain version
@@ -46,8 +48,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 backward as the library time; two calls on one input must
                 give the same bits) and
                 K4-bf16 on uniform and model-like locations (the f32 K4 as
-                the f32 answer), and on edge cases covering both of
-                msda_plan's backward paths at bf16; then K1-bf16 (training)
+                the f32 answer; its tap kernel's dValue and dAttw at most
+                MAX_DIFFERING not bit-equal to the plain version, and the
+                same bits on a second call), and on edge cases covering
+                both of msda_plan's backward paths at bf16; each MSDA tap
+                row also prints the dense tensor-core floor of its
+                products beside the bound; then K1-bf16 (training)
                 plus K2-bf16 per bf16 training step beside SDPA's fwd+bwd;
   5. model    - the full-width asymmetric_shared_ce recipe (seeded random
                 weights): cached path (set_online + forward_track) against
@@ -124,7 +130,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 success / precision tables of A and B12;
  12. bf16     - the bf16 serving path: create_tracker(dtype=torch.bfloat16)
                 tracks the tracker phase's 63 frames (ms per frame, centre
-                distance to the f32 trajectory), a profile of 10 more
+                distance to the f32 trajectory; the same distance eager
+                with K1-bf16, K3-bf16 or both replaced by their plain
+                versions on the same CUDA tensors), a profile of 10 more
                 (device busy, idle share, operations per frame), then
                 synthetic_rgbt_hard one stream (A16) and in lockstep N = 12
                 (B12_16): frames/s, device busy per lockstep step, distances
@@ -161,11 +169,12 @@ cuBLAS and cuDNN):
     trajectory by pixels, which is what this bound catches.
   * bf16 kernels against their plain versions (`bf16_tol`): 2^-8 of the
     largest |value| plus one bf16 unit (2^-7) of the output: each side
-    rounds every probability or tap weight to bf16, at another point
-    (K1-bf16 before the row-sum division, K3-bf16 and K4-bf16 per tap where
-    the plain version rounds a pixel's summed weight again; K2-bf16 takes P
-    from the lse where the plain version divides by the row sum), then its
-    output. K4-bf16's dLoc is f32: K4's tolerance. Against the f32 answer
+    rounds every probability or tap weight to bf16, K1-bf16 at another
+    point (before the row-sum division; K2-bf16 takes P from the lse where
+    the plain version divides by the row sum), then its output. The MSDA
+    kernels round where the plain version rounds: at most MAX_DIFFERING
+    (1%) of their bf16 outputs may differ from its bits (the order of f32
+    sums). K4-bf16's dLoc is f32: K4's tolerance. Against the f32 answer
     each kernel's error is at most 1.25x its plain version's (K4-bf16 for
     dValue and dAttw).
   * bf16 train step, GPU vs CPU and vs the GPU's f32 step: parameters and
@@ -211,6 +220,7 @@ H100_TF32X3_FLOPS = 495e12 / 3     # f32-accurate products as 3 TF32 MMAs (K1, K
 H100_BF16_FLOPS = 989e12           # dense bf16 on the tensor cores (the bf16 kernels)
 KERNEL_TOL = dict(atol=2e-5, rtol=1e-4)
 BOX_TOL = 1e-4
+MAX_DIFFERING = 0.01               # MSDA tap kernels' outputs not bit-equal to the plain version
 SCRIPT, RECIPE = "asymmetric_shared_ce", "attention_lasher_newfusion_2layer"
 # the recipe's backbone attention shapes: search lengths per block after CE
 # at blocks 3/6/9 (keep 0.7): 4 blocks at 324, 3 at 227, 3 at 159, 2 at 112
@@ -232,8 +242,10 @@ M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
 K1_BF16_KERNELS = ["mixed_attention_fwd_bf16_wgmma"]
 K2_BF16_KERNELS = ["attn_bwd_dq_bf16_wgmma", "attn_bwd_dkdv_bf16_wgmma"]
 # the wgmma kernels whose ptxas report must show no spill and no serialised
-# wgmma chain (build phase)
-WGMMA_LIBS = ("mixed_attention_bf16", "mixed_attention_bwd_bf16")
+# wgmma chain (build phase): every kernel of the bf16 attention libraries,
+# and the MSDA libraries' tap kernels
+WGMMA_LIBS = ("mixed_attention_bf16", "mixed_attention_bwd_bf16", "msda", "msda_bwd")
+WGMMA_KERNELS = {"msda": "tap_bf16", "msda_bwd": "tap_bf16"}
 
 
 def emit(obj) -> None:
@@ -333,7 +345,7 @@ def max_err_scaled(got, want):
 def _sum_rows(rows, weight_key):
     """Per-step or per-frame totals of per-launch numbers."""
     out = {}
-    for key in ("ms", "event_ms", "plain_ms", "library_ms", "bytes", "flops"):
+    for key in ("ms", "event_ms", "plain_ms", "library_ms", "bytes", "flops", "dense_flops"):
         if all(r.get(key) is not None for r in rows):
             out[key] = sum(r[weight_key] * r[key] for r in rows)
     return out
@@ -414,7 +426,9 @@ def phase_build():
             with open(_build._lib_path(name)[:-3] + ".log") as f:
                 logs[name] = f.read()
     reports = {name: ptxas_report(log) for name, log in logs.items()}
-    wgmma = {name: reports[name] for name in WGMMA_LIBS}
+    wgmma = {name: [r for r in reports[name] if WGMMA_KERNELS.get(name, "") in r["function"]]
+             for name in WGMMA_LIBS}
+    require(all(wgmma.values()), f"no wgmma kernel found in a ptxas report: {wgmma}")
     bad = [r for rows in wgmma.values() for r in rows
            if r.get("spill_stores") or r.get("spill_loads") or r.get("wgmma_serialized")]
     require(not bad, f"wgmma kernels spill or serialise their wgmma chain: {bad}")
@@ -430,8 +444,8 @@ def ptxas_report(log: str) -> list:
     where it serialised a kernel's wgmma instructions."""
     out, cur, serialized = [], None, {}
     for ln in log.splitlines():
-        m = re.search(r"wgmma.mma_async instructions are serialized (.*) for the function '?([\w$]+)",
-                      ln)
+        m = re.search(r"wgmma.mma_async instructions are serialized (.*) (?:for|in) the function "
+                      r"'?([\w$]+)", ln)
         if m:
             serialized[m.group(2)] = m.group(1)
             continue
@@ -770,12 +784,19 @@ MSDA_BWD_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 16, 4), (2, ((6, 7), (5, 4), (3,
 
 
 # (B, spatial_shapes, Lq, M, D, P) of K3-bf16's edge cases on 132 SMs: the
-# generic gather at D 8 (three points) and 32 (three levels), the staged
-# kernel at D 16 with Lq 37 and at D 128, the generic gather at D 128 with
-# P 5, the compiled L 2 P 4 gather at D 16 and a ragged Lq
-MSDA_BF16_EDGES = [(2, ((9, 12), (5, 7)), 17, 2, 8, 3), (1, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4),
-                   (16, ((6, 7), (5, 4)), 37, 8, 16, 4), (16, ((9, 9), (4, 4)), 40, 8, 128, 4),
-                   (1, ((9, 9), (4, 4)), 40, 8, 128, 5), (1, ((6, 6), (6, 6)), 29, 8, 16, 4)]
+# tap kernel with P 2 on mixed levels at Lq 17, on three levels (two rows a
+# thread) at Lq 130 (three query tiles, one a block), P 2 at B 16 (two
+# tiles a block), one 21x21 level (7 tap blocks), tiny levels; the gather
+# kernel where the tap kernel does not reach: five levels, P 5, 3 and 1 at
+# D 64, D 8, 32, 16 and 128, and a 25x40 level at D 64 (too large)
+MSDA_BF16_EDGES = [(2, ((9, 12), (5, 7)), 17, 2, 64, 2), (1, ((6, 7), (5, 4), (3, 3)), 130, 4, 64, 4),
+                   (16, MSDA_SHAPES, 100, 8, 64, 2), (3, ((21, 21),), 70, 8, 64, 4),
+                   (2, ((1, 1), (2, 3)), 9, 2, 64, 2), (1, ((3, 3),) * 5, 20, 2, 64, 4),
+                   (2, MSDA_SHAPES, 30, 4, 64, 5), (2, ((9, 12), (5, 7)), 17, 2, 64, 3),
+                   (1, ((6, 6), (3, 3)), 21, 2, 64, 1),
+                   (2, ((9, 12), (5, 7)), 17, 2, 8, 3), (1, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 4),
+                   (16, ((6, 7), (5, 4)), 37, 8, 16, 4), (1, ((9, 9), (4, 4)), 40, 8, 128, 4),
+                   (2, ((25, 40),), 40, 8, 64, 4)]
 
 
 def kernel_edges(g):
@@ -901,30 +922,34 @@ def phase_kernels(g: torch.Generator) -> dict:
 
 # ------------------------------------------------------------ bf16 kernels
 def bf16_tol(v: torch.Tensor) -> dict:
-    """K1-bf16's and K3-bf16's tolerance against their plain versions:
-    2^-8 of the largest |value| plus one bf16 unit (2^-7) of the output.
-    Each side rounds its probabilities or tap weights to bf16 (2^-9 of each
-    term, so at most 2^-9 of max|V| per side in the weighted sum; the
-    kernels round at another point: K1 exp(s - running max) before the
-    division by the row sum, K3 each tap weight where the plain version
-    rounds a pixel's summed weight again) and then its output (half a unit
-    each). A wrong mask, tap or tile gives errors of order 1e-1."""
+    """The bf16 kernels' tolerance against their plain versions: 2^-8 of the
+    largest |value| plus one bf16 unit (2^-7) of the output. Each side
+    rounds its probabilities or tap weights to bf16 (2^-9 of each term, so
+    at most 2^-9 of max|V| per side in the weighted sum; K1-bf16 rounds at
+    another point, exp(s - running max) before the division by the row
+    sum) and then its output (half a unit each). A wrong mask, tap or tile gives errors of order
+    1e-1."""
     return dict(atol=2.0 ** -8 * float(v.abs().max()), rtol=2.0 ** -7)
 
 
-def _bf16_errors(what: str, got, plain, f32, v) -> dict:
+def _bf16_errors(what: str, got, plain, f32, v, exact: bool = False) -> dict:
     """Kernel against its plain version (bf16_tol), and each against the
     f32 answer on the same inputs: the kernel's error may be at most 1.25x
-    the plain version's."""
+    the plain version's. `exact` (the MSDA kernels, which round where the
+    plain version rounds): at most MAX_DIFFERING of the outputs may differ
+    from the plain version's bits."""
     err, rel, ok = max_err(got.float(), plain.float(), bf16_tol(v))
     require(ok, f"{what} disagrees with its plain version: max abs err {err}")
     e_kern = float((got.float() - f32).abs().max())
     e_plain = float((plain.float() - f32).abs().max())
     require(e_kern <= 1.25 * e_plain, f"{what}: error against f32 {e_kern} > 1.25 x the plain "
                                       f"version's {e_plain}")
+    share = float((got != plain).float().mean())
+    require(not exact or share <= MAX_DIFFERING,
+            f"{what}: {share} of the outputs differ from the plain version (> {MAX_DIFFERING})")
     return dict(max_abs_err=err, max_rel_err=rel, tol_atol=bf16_tol(v)["atol"],
-                differing_share=float((got != plain).float().mean()),
-                f32_err=e_kern, plain_f32_err=e_plain, f32_err_ratio=e_kern / e_plain)
+                differing_share=share, f32_err=e_kern, plain_f32_err=e_plain,
+                f32_err_ratio=e_kern / e_plain)
 
 
 def kernel_k1_bf16(g):
@@ -986,15 +1011,37 @@ def kernel_k1_bf16(g):
     return rows
 
 
-def kernel_k3_bf16(g):
-    """K3-bf16 at the bf16 tracker's shape (B 1: gather), the lockstep eval's
-    (B 4: gather; B 12: staged) and the training batch's (B 16: staged), on
-    uniform and model-like locations, against its plain version and the f32
-    answer; msda_plan's choice at bf16 is required."""
-    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bf16,
-                                                     ms_deform_attn_bf16_ref, ms_deform_attn_ref,
-                                                     msda_plan)
+def _plan_bf16(B, M, D, shapes, Lq, P):
+    from multi_modal_tracking_torch.ops.msda import msda_plan
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return msda_plan(B, M, D, shapes, n_sm, itemsize=2, Lq=Lq, P=P)
+
+
+def _tap_fwd_flops(B, M, D, shapes, Lq) -> float:
+    """The dense products K3-bf16's tap kernel runs: per (b, m) and query
+    tile of 64 rows, each level's tap tile (its pixels rounded up to 32)
+    times V_l, the two warpgroups the same count (the larger level's): its
+    tensor-core floor at 989 TFLOP/s beside the bound."""
+    slices = max(-(-h * w // 32) * 32 for h, w in shapes)
+    return 2.0 * B * M * -(-Lq // 64) * 64 * 2 * -(-len(shapes) // 2) * slices * D
+
+
+def _tap_bwd_flops(B, M, D, shapes, Lq, path) -> float:
+    """K4-bf16's tap kernel: per (b, m, tap level) and query tile, A^T g and
+    g V^T over its six 64-pixel blocks."""
+    from multi_modal_tracking_torch.ops.msda import TAP_BWD_MAX_BLOCKS
+    levels = sum(1 for p in path if p == "tap")
+    return 2 * 2.0 * B * M * -(-Lq // 64) * 64 * 64 * TAP_BWD_MAX_BLOCKS * levels * D
+
+
+def kernel_k3_bf16(g):
+    """K3-bf16 at the bf16 tracker's shape (B 1: one query tile a block),
+    the lockstep eval's (B 4: three tiles a block; B 12) and the training
+    batch's (B 16), on uniform and model-like locations, against its plain
+    version and the f32 answer; msda_plan's tap kernel required, and at
+    most MAX_DIFFERING of the outputs not bit-equal to the plain version."""
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bf16,
+                                                     ms_deform_attn_bf16_ref, ms_deform_attn_ref)
     rows = []
     Lq = 648
     for B in (1, EVAL_SMALL, EVAL_BIG, TRAIN_B):
@@ -1006,26 +1053,30 @@ def kernel_k3_bf16(g):
             got = ms_deform_attn_bf16(value, MSDA_SHAPES, loc, attw)
             plain = ms_deform_attn_bf16_ref(value, MSDA_SHAPES, loc, attw)
             f32 = ms_deform_attn_ref(value.float(), MSDA_SHAPES, loc, attw.float())
-            errs = _bf16_errors(f"K3-bf16 B={B} {locations}", got, plain, f32, value)
-            plan = msda_plan(B, M_HEADS, M_D, MSDA_SHAPES, n_sm, itemsize=2)
-            want = "staged" if 2 * B * M_HEADS >= n_sm else "gather"
-            require(plan.fwd == want, f"K3-bf16 B={B}: msda_plan chose {plan.fwd}, not {want}")
+            errs = _bf16_errors(f"K3-bf16 B={B} {locations}", got, plain, f32, value, exact=True)
+            plan = _plan_bf16(B, M_HEADS, M_D, MSDA_SHAPES, Lq, M_P)
+            require(plan.fwd == "tap", f"K3-bf16 B={B}: msda_plan chose {plan.fwd}, not tap")
             kern = lambda: ms_deform_attn_bf16(value, MSDA_SHAPES, loc, attw)   # noqa: E731
             flops = 2.0 * M_D * _live_corners(loc, MSDA_SHAPES)
             n_bytes = 2 * (value.numel() + attw.numel() + got.numel()) + 4 * loc.numel()
             b_ms, b_by = bound_ms(n_bytes, flops, H100_BF16_FLOPS)
+            dense = _tap_fwd_flops(B, M_HEADS, M_D, MSDA_SHAPES, Lq)
             rows.append(dict(B=B, Lq=Lq, locations=locations, path=plan.fwd, smem=plan.fwd_smem,
-                             **errs, ms=device_ms(kern, ["msda_fwd_kernel"]),
+                             tiles_per_block=plan.fwd_tiles, **errs,
+                             ms=device_ms(kern, ["msda_fwd_kernel"]),
                              event_ms=cuda_time_ms(kern),
                              plain_ms=cuda_time_ms(lambda: ms_deform_attn_bf16_ref(
                                  value, MSDA_SHAPES, loc, attw), iters=10),
                              library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-                             flops=flops, calls_per_frame=2 if B == 1 else 0,
+                             flops=flops, dense_flops=dense,
+                             dense_floor_ms=dense / H100_BF16_FLOPS * 1e3,
+                             calls_per_frame=2 if B == 1 else 0,
                              calls_per_lockstep_step=2 if B == EVAL_BIG else 0,
                              calls_per_step=2 if B == TRAIN_B else 0))
     emit({"phase": "kernels", "kernel": "K3-bf16 ms_deform_attn_bf16",
-          "tolerance": "atol 2^-8 max|V|, rtol 2^-7; error against f32 <= 1.25 x plain's",
-          "cases": rows})
+          "tolerance": "atol 2^-8 max|V|, rtol 2^-7; error against f32 <= 1.25 x plain's; "
+                       f"at most {MAX_DIFFERING} of the outputs not bit-equal to plain's",
+          "dense_floor": "the tap kernel's dense products at 989 TFLOP/s", "cases": rows})
     return rows
 
 
@@ -1054,17 +1105,16 @@ def _k1_bf16_shares(q, k, v, n_mt, scale, splits):
 def kernel_edges_bf16(g):
     """K1-bf16 on ATTN_EDGES (D 16/32/64, ragged tiles, n_mt 0, Nq != Nk)
     and on K1_SPLIT_EDGES with 1 to BF16_MAX_SPLITS key shares each (lse
-    included); K3-bf16 on every path of msda_plan at D 8 to 128, ragged
-    levels, other L and P (the generic gather), Lq not a multiple of the
-    staged kernel's 32 query warps."""
+    included); K3-bf16 on both paths of msda_plan (MSDA_BF16_EDGES): the
+    tap kernel at P 2 and 4, one to three levels, ragged query tiles and
+    the query split, the gather kernel at D 8 to 128, P 1, 3 and 5, five
+    levels and a level too large for the tap kernel."""
     from multi_modal_tracking_torch.ops.attention import (BF16_MAX_SPLITS, mixed_attention_bf16,
                                                           mixed_attention_bf16_lse_ref,
                                                           mixed_attention_bf16_ref,
                                                           mixed_attention_ref)
     from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bf16,
-                                                     ms_deform_attn_bf16_ref, ms_deform_attn_ref,
-                                                     msda_plan)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+                                                     ms_deform_attn_bf16_ref, ms_deform_attn_ref)
     edge = []
     for (B, H, Nq, Nk, D, n_mt) in ATTN_EDGES:
         q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, H, Nq, Nk, D, g))
@@ -1091,14 +1141,16 @@ def kernel_edges_bf16(g):
     for (B, shp, Lq, M, D, P) in MSDA_BF16_EDGES:
         value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
         value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
-        path = msda_plan(B, M, D, shp, n_sm, itemsize=2).fwd
-        paths.add(path)
-        errs = _bf16_errors(f"K3-bf16 edge case {(B, shp, Lq, M, D, P)} ({path})",
+        plan = _plan_bf16(B, M, D, shp, Lq, P)
+        paths.add(plan.fwd)
+        errs = _bf16_errors(f"K3-bf16 edge case {(B, shp, Lq, M, D, P)} ({plan.fwd})",
                             ms_deform_attn_bf16(value, shp, loc, attw),
                             ms_deform_attn_bf16_ref(value, shp, loc, attw),
-                            ms_deform_attn_ref(value.float(), shp, loc, attw.float()), value)
-        edge.append(dict(kernel="K3-bf16", shape=[B, shp, Lq, M, D, P], path=path, **errs))
-    require(paths == {"staged", "gather"}, f"K3-bf16 edge cases cover {paths}")
+                            ms_deform_attn_ref(value.float(), shp, loc, attw.float()), value,
+                            exact=True)
+        edge.append(dict(kernel="K3-bf16", shape=[B, shp, Lq, M, D, P], path=plan.fwd,
+                         tiles_per_block=plan.fwd_tiles, **errs))
+    require(paths == {"tap", "gather"}, f"K3-bf16 edge cases cover {paths}")
     torch.cuda.synchronize()
     emit({"phase": "kernels", "kernel": "bf16 edge cases", "cases": edge})
     return edge
@@ -1197,22 +1249,27 @@ def kernel_k2_bf16(g):
     return rows
 
 
-def _k4_bf16_case(what, value, shapes, loc, attw, gr) -> dict:
+def _k4_bf16_case(what, value, shapes, loc, attw, gr, tap_only: bool) -> dict:
     """K4-bf16 against its plain version and the f32 K4 on the same
     (bf16-exact) inputs. dValue and dAttw (bf16): bf16_tol of the plain
     output, and the kernel's error against the f32 K4 at most 1.25x the
     plain version's. dLoc (f32 from the same exact products): the f32 K4's
     tolerance (max_err_scaled); its error against f32 is f32 rounding on
-    both sides and is printed, not compared. Also the share of dValue
-    values that differ from the plain version (the per-tap rounding)."""
+    both sides and is printed, not compared. dValue and dAttw round where
+    the plain version rounds: at most MAX_DIFFERING of their values may
+    differ from its bits. `tap_only` (every level on the tap kernel, which
+    has no atomics): a second call on the same input gives the same bits."""
     from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bwd, ms_deform_attn_bwd_bf16,
                                                      ms_deform_attn_bwd_bf16_ref)
     got = ms_deform_attn_bwd_bf16(value, shapes, loc, attw, gr)
+    again = ms_deform_attn_bwd_bf16(value, shapes, loc, attw, gr)
+    repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+    require(repeatable or not tap_only, f"{what}: two calls on one input differ")
     plain = ms_deform_attn_bwd_bf16_ref(value, shapes, loc, attw, gr)
     f32 = ms_deform_attn_bwd(value.float(), shapes, loc, attw.float(), gr.float())
     require([t.dtype for t in got] == [torch.bfloat16, torch.float32, torch.bfloat16],
             f"{what}: gradient dtypes {[t.dtype for t in got]}")
-    out = {}
+    out = {"repeatable": repeatable}
     for name, x, p, f in zip(("dValue", "dLoc", "dAttw"), got, plain, f32):
         if name == "dLoc":
             err, _, ok = max_err_scaled(x, p)
@@ -1220,22 +1277,24 @@ def _k4_bf16_case(what, value, shapes, loc, attw, gr) -> dict:
             err, _, ok = max_err(x.float(), p.float(), bf16_tol(p))
         require(ok, f"{what} {name} disagrees with its plain version: max abs err {err}")
         e_k, e_p = float((x.float() - f).abs().max()), float((p.float() - f).abs().max())
+        share = float((x != p).float().mean())
         if name != "dLoc":
             require(e_k <= 1.25 * e_p, f"{what} {name}: error against the f32 K4 {e_k} > "
                                        f"1.25 x the plain version's {e_p}")
+            require(share <= MAX_DIFFERING,
+                    f"{what} {name}: {share} of the values differ from the plain version")
         out[name] = dict(max_abs_err=err, f32_err=e_k, plain_f32_err=e_p,
-                         f32_err_ratio=e_k / e_p if e_p else None,
-                         differing_share=float((x != p).float().mean()))
+                         f32_err_ratio=e_k / e_p if e_p else None, differing_share=share)
     return out
 
 
 def kernel_k4_bf16(g):
     """K4-bf16 at the training shape (B 16, Lq 648, M 8, D 64, two 18x18
     levels, P 4) on uniform and model-like locations, against its plain
-    version and the f32 K4; msda_plan at bf16 must stage both levels."""
+    version and the f32 K4; msda_plan at bf16 must give both levels the tap
+    kernel, whose dValue must be the same bits from call to call."""
     from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bwd_bf16,
-                                                     ms_deform_attn_bwd_bf16_ref, msda_plan)
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+                                                     ms_deform_attn_bwd_bf16_ref)
     rows = []
     Lq = 648
     for locations in ("uniform", "model"):
@@ -1244,16 +1303,18 @@ def kernel_k4_bf16(g):
             loc = _model_locations(TRAIN_B, MSDA_SHAPES, M_HEADS, M_P, g)
         value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
         gr = torch.randn(TRAIN_B, Lq, M_HEADS * M_D, generator=g).cuda().to(torch.bfloat16)
-        errs = _k4_bf16_case(f"K4-bf16 {locations}", value, MSDA_SHAPES, loc, attw, gr)
-        plan = msda_plan(TRAIN_B, M_HEADS, M_D, MSDA_SHAPES, n_sm, itemsize=2)
-        require(plan.bwd == ("staged", "staged"), f"K4-bf16 plan {plan}")
+        plan = _plan_bf16(TRAIN_B, M_HEADS, M_D, MSDA_SHAPES, Lq, M_P)
+        require(plan.bwd == ("tap", "tap"), f"K4-bf16 plan {plan}")
+        errs = _k4_bf16_case(f"K4-bf16 {locations}", value, MSDA_SHAPES, loc, attw, gr, True)
         kern = lambda: ms_deform_attn_bwd_bf16(value, MSDA_SHAPES, loc, attw, gr)  # noqa: E731
         live = _live_corners(loc, MSDA_SHAPES)
         n_bytes = 2 * 2 * (value.numel() + attw.numel()) + 2 * 4 * loc.numel() + 2 * gr.numel()
         b_ms, b_by = bound_ms(n_bytes, 4.0 * M_D * live, H100_BF16_FLOPS)
+        dense = _tap_bwd_flops(TRAIN_B, M_HEADS, M_D, MSDA_SHAPES, Lq, plan.bwd)
         rows.append(dict(B=TRAIN_B, Lq=Lq, locations=locations, path=list(plan.bwd),
-                         smem=plan.bwd_smem, by_output=errs,
-                         max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                         smem=plan.bwd_smem, by_output=errs, repeatable=errs["repeatable"],
+                         max_abs_err=max(e["max_abs_err"] for k, e in errs.items()
+                                         if k != "repeatable"),
                          f32_err_ratio=max(errs[k]["f32_err_ratio"] or 0.0
                                            for k in ("dValue", "dAttw")),
                          ms=device_ms(kern), kernels_ms=device_ms(kern, ["msda_bwd_kernel"]),
@@ -1261,30 +1322,36 @@ def kernel_k4_bf16(g):
                          plain_ms=cuda_time_ms(lambda: ms_deform_attn_bwd_bf16_ref(
                              value, MSDA_SHAPES, loc, attw, gr), iters=5, warmup=1),
                          library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-                         flops=4.0 * M_D * live,
+                         flops=4.0 * M_D * live, dense_flops=dense,
+                         dense_floor_ms=dense / H100_BF16_FLOPS * 1e3,
                          calls_per_step=2 if locations == "uniform" else 0))
     emit({"phase": "kernels", "kernel": "K4-bf16 ms_deform_attn_bwd_bf16",
-          "tolerance": "dValue, dAttw: bf16_tol, error against the f32 K4 <= 1.25 x plain's; "
-                       "dLoc: 1e-5 of its largest magnitude or 1e-4 rel", "cases": rows})
+          "tolerance": "dValue, dAttw: bf16_tol, error against the f32 K4 <= 1.25 x plain's, "
+                       f"at most {MAX_DIFFERING} not bit-equal to plain's; dLoc: 1e-5 of its "
+                       "largest magnitude or 1e-4 rel; dValue the same bits on a second call",
+          "dense_floor": "the tap kernel's dense products at 989 TFLOP/s", "cases": rows})
     return rows
 
 
-# K4-bf16's edge cases (D a multiple of 8): D 16 with Lq 37; D 32 on three
-# ragged levels with P 3; an 18x18 and a 24x24 level (both staged at bf16:
-# 6 * 576 * 64 + 4096 B fit); D 128 with a 40x12 level (direct) and with
-# P 5 (staged); a 25x25 level at D 64 (direct at bf16) at B 16
-MSDA_BWD_BF16_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 16, 4),
-                       (2, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 3),
-                       (1, ((18, 18), (24, 24)), 50, 2, 64, 4), (1, ((40, 12),), 21, 2, 128, 2),
-                       (1, ((10, 10), (5, 5)), 21, 2, 128, 5),
-                       (TRAIN_B, ((25, 25), (9, 9)), 40, 8, 64, 4)]
+# K4-bf16's edge cases (D a multiple of 8): the tap kernel at P 2 with
+# Lq 37, on three levels over three query tiles, on a 16x24 level (384
+# pixels, 6 blocks), at P 2 on tiny levels (blocks without pixels); both
+# kernels in one call (an 18x18 tap level beside a 24x24 direct one; a
+# 25x25 direct level beside a 9x9 tap one at B 16); the direct kernel at
+# P 5 and 3 (D 64) and at D 16, 32 and 128
+MSDA_BWD_BF16_EDGES = [(2, ((9, 12), (5, 7)), 37, 4, 64, 2),
+                       (1, ((6, 7), (5, 4), (3, 3)), 130, 2, 64, 4),
+                       (2, ((16, 24),), 70, 4, 64, 4), (2, ((1, 1), (2, 3)), 9, 2, 64, 2),
+                       (1, ((18, 18), (24, 24)), 50, 2, 64, 4),
+                       (TRAIN_B, ((25, 25), (9, 9)), 40, 8, 64, 4),
+                       (2, ((6, 6), (3, 3)), 20, 2, 64, 5), (2, ((6, 6), (3, 3)), 20, 2, 64, 3),
+                       (2, ((9, 12), (5, 7)), 37, 4, 16, 4),
+                       (2, ((6, 7), (5, 4), (3, 3)), 30, 4, 32, 3), (1, ((40, 12),), 21, 2, 128, 2)]
 
 
 def kernel_edges_bf16_bwd(g):
     """K2-bf16 (with K1-bf16's lse) on ATTN_EDGES; K4-bf16 on both of
     msda_plan's backward paths at bf16, ragged levels and query counts."""
-    from multi_modal_tracking_torch.ops.msda import msda_plan
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     edge, paths = [], set()
     for (B, H, Nq, Nk, D, n_mt) in ATTN_EDGES:
         q, k, v = (t.to(torch.bfloat16) for t in _qkv(B, H, Nq, Nk, D, g))
@@ -1297,14 +1364,14 @@ def kernel_edges_bf16_bwd(g):
         value, loc, attw = _msda_inputs(B, shp, Lq, M, D, P, g)
         value, attw = value.to(torch.bfloat16), attw.to(torch.bfloat16)
         gr = torch.randn(B, Lq, M * D, generator=g).cuda().to(torch.bfloat16)
-        path = list(msda_plan(B, M, D, shp, n_sm, itemsize=2).bwd)
+        path = list(_plan_bf16(B, M, D, shp, Lq, P).bwd)
         paths.update(path)
         errs = _k4_bf16_case(f"K4-bf16 edge case {(B, shp, Lq, M, D, P)} ({path})", value, shp,
-                             loc, attw, gr)
+                             loc, attw, gr, set(path) == {"tap"})
         edge.append(dict(kernel="K4-bf16", shape=[B, shp, Lq, M, D, P], path=path,
-                         by_output=errs,
-                         max_abs_err=max(e["max_abs_err"] for e in errs.values())))
-    require(paths == {"staged", "direct"}, f"K4-bf16 edge cases cover {paths}")
+                         by_output=errs, max_abs_err=max(e["max_abs_err"] for k, e in errs.items()
+                                                         if k != "repeatable")))
+    require(paths == {"tap", "direct"}, f"K4-bf16 edge cases cover {paths}")
     torch.cuda.synchronize()
     emit({"phase": "kernels", "kernel": "bf16 backward edge cases", "cases": edge})
     return edge
@@ -1331,6 +1398,11 @@ def _bf16_bwd_table_rows(k2_rows, k4_rows, edges) -> dict:
             library_ratio=step["ms"] / lib if lib else None, per="training step (bf16)")
     table["K4-bf16"]["model_locations_ms"] = sum(r["ms"] for r in k4_rows
                                                  if r["locations"] == "model") * 2
+    step = _sum_rows([r for r in k4_rows if r["calls_per_step"]], "calls_per_step")
+    table["K4-bf16"]["dense_floor_ms"] = step["dense_flops"] / H100_BF16_FLOPS * 1e3
+    table["K4-bf16"]["repeatable"] = all(r["repeatable"] for r in k4_rows)
+    table["K4-bf16"]["differing_share_max"] = max(r["by_output"][k]["differing_share"]
+                                                  for r in k4_rows for k in ("dValue", "dAttw"))
     return table
 
 
@@ -1367,6 +1439,12 @@ def _bf16_table_rows(k1_rows, k3_rows, edges) -> dict:
         table[key].update(train_step_ms=step["ms"], train_step_bound_ms=bound_ms(
             step["bytes"], step["flops"], H100_BF16_FLOPS)[0],
             train_step_library_ms=step.get("library_ms"))
+    uniform = [r for r in k3_rows if r["locations"] == "uniform"]
+    table["K3-bf16"].update(
+        dense_floor_ms=_sum_rows(uniform, "calls_per_frame")["dense_flops"] / H100_BF16_FLOPS * 1e3,
+        train_step_dense_floor_ms=_sum_rows(uniform, "calls_per_step")["dense_flops"]
+        / H100_BF16_FLOPS * 1e3,
+        differing_share_max=max(r["differing_share"] for r in k3_rows))
     return table
 
 
@@ -1449,18 +1527,31 @@ TRAIN_LAUNCHES = {torch.float32: {"K1": 12, "K2": 12, "K3": 2, "K4": 2},
                   torch.bfloat16: {"K1-bf16": 12, "K2-bf16": 12, "K3-bf16": 2, "K4-bf16": 2}}
 
 
+#: the wrappers that count their launches by kernel too
+BY_KERNEL = ("K3", "K3-bf16", "K4-bf16")
+
+
 def reset_launches() -> None:
     for fn in _counters().values():
         fn.launches = 0
-    for key in ("K3", "K3-bf16"):
-        _counters()[key].launches_by_kernel.update(staged=0, gather=0)
+    for key in BY_KERNEL:
+        by_kernel = _counters()[key].launches_by_kernel
+        by_kernel.update(dict.fromkeys(by_kernel, 0))
 
 
 def read_launches() -> dict:
     out = {k: fn.launches for k, fn in _counters().items()}
-    for key in ("K3", "K3-bf16"):
+    for key in BY_KERNEL:
         out[f"{key}_by_kernel"] = dict(_counters()[key].launches_by_kernel)
     return out
+
+
+def _all_tap(counts: dict) -> bool:
+    """Every K3-bf16 and K4-bf16 launch of a run went to the tap kernels
+    (msda_plan's choice at every recipe shape)."""
+    return (counts["K3-bf16_by_kernel"]["tap"] == counts["K3-bf16"]
+            and counts["K4-bf16_by_kernel"]["tap"] == counts["K4-bf16"]
+            and not counts["K4-bf16_by_kernel"]["direct"])
 
 
 def phase_tracker(smi: str, frames) -> tuple:
@@ -1925,6 +2016,9 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
             launches[k] += counts[k]
         others = [k for k in F32_KERNELS + BF16_KERNELS if k not in per_step and counts[k]]
         require(not others, f"{dtype} training launched {others}: {counts}")
+        if bf16:
+            require(_all_tap(counts), f"bf16 training: MSDA kernels {counts['K3-bf16_by_kernel']}, "
+                                      f"{counts['K4-bf16_by_kernel']}, expected the tap kernels")
         step_losses = [m["Loss/total"] for m in tr.history]
         require(len(step_losses) == TRAIN_STEPS and all(np.isfinite(step_losses)),
                 f"losses {step_losses}")
@@ -2204,7 +2298,7 @@ def phase_lifecycle(smi: str, frames) -> dict:
         n_steps = 2 * LIFE_STEPS + 4        # two epochs, then the ACCUM_ITER 2 epoch
         require(launches["K2-bf16"] == 12 * n_steps and launches["K4-bf16"] == 2 * n_steps
                 and launches["K1-bf16"] > 0 and launches["K3-bf16"] > 0
-                and not any(launches[k] for k in F32_KERNELS),
+                and not any(launches[k] for k in F32_KERNELS) and _all_tap(launches),
                 f"lifecycle launches {launches} ({n_steps} bf16 training steps)")
         del tr, loaded, in_memory
         torch.cuda.empty_cache()
@@ -2235,7 +2329,8 @@ def _eval_run(name: str, fn, seqs, root: str, runs: dict, kernels=("K1", "K3")) 
     secs = time.perf_counter() - t0
     launches = read_launches()
     require(all(launches[k] > 0 for k in kernels)
-            and not any(launches[k] for k in F32_KERNELS + BF16_KERNELS if k not in kernels),
+            and not any(launches[k] for k in F32_KERNELS + BF16_KERNELS if k not in kernels)
+            and ("K3-bf16" not in kernels or _all_tap(launches)),
             f"eval {name}: launches {launches}")
     H, W = seqs[0].frames[0][0].shape[:2]
     floats = {s["seq"]: s["boxes"] for s in stats}
@@ -2451,6 +2546,48 @@ def _centre_px(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                     (a[:, 1] + a[:, 3] / 2) - (b[:, 1] + b[:, 3] / 2))
 
 
+def _bf16_drift(frames, f32_boxes: np.ndarray, graphed_boxes: np.ndarray) -> dict:
+    """The bf16 tracker's centre distance from the f32 trajectory over the
+    tracker phase's frames, eager (graphs=False) on the same weights and
+    frames: with the bf16 forward kernels (bit-equal to the graphed run),
+    with K1-bf16 and with K3-bf16 replaced by their plain versions on the
+    same CUDA tensors, with both, and, as a control, with K1-bf16's plain
+    version at an attention scale 2^-20 larger (an f32-sized change). Which
+    kernel, if any, moves the trajectory away from f32 more than an f32
+    perturbation does: with random weights the box sits at its 10 px
+    minimum and the trajectory is chaotic."""
+    import multi_modal_tracking_torch.ops.attention as attention
+    import multi_modal_tracking_torch.ops.msda as msda
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    k1, k3 = attention.mixed_attention_bf16, msda.ms_deform_attn_bf16
+    p1, p3 = attention.mixed_attention_bf16_ref, msda.ms_deform_attn_bf16_ref
+    out = {}
+
+    def p1_scaled(q, k, v, n_mt, scale):
+        return p1(q, k, v, n_mt, scale * (1.0 + 2.0 ** -20))
+
+    for name, f1, f3 in (("kernels", k1, k3), ("plain_K1-bf16", p1, k3),
+                         ("plain_K3-bf16", k1, p3), ("plain_both", p1, p3),
+                         ("plain_K1-bf16_scale_plus_2^-20", p1_scaled, k3)):
+        attention.mixed_attention_bf16, msda.ms_deform_attn_bf16 = f1, f3
+        try:
+            tracker = create_tracker(_params(), "TRACKINGNET", seed=0, dtype=torch.bfloat16,
+                                     graphs=False)
+            tracker.initialize(list(frames[0]), {"init_bbox": INIT_BOX})
+            boxes = np.asarray([tracker.track([fv, fi])["target_bbox"] for fv, fi in frames[1:]])
+        finally:
+            attention.mixed_attention_bf16, msda.ms_deform_attn_bf16 = k1, k3
+        if name == "kernels":
+            require(np.array_equal(boxes, graphed_boxes),
+                    "bf16 tracker eager with its kernels differs from the graphed run")
+        d = _centre_px(boxes, f32_boxes)
+        out[name] = dict(centre_px_vs_f32_mean=float(d.mean()),
+                         centre_px_vs_f32_max=float(d.max()),
+                         max_abs_px_vs_kernels=float(np.abs(boxes - graphed_boxes).max()))
+        del tracker
+    return out
+
+
 def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> dict:
     """The bf16 serving path, the JAX package's eval dtype: create_tracker(
     dtype=torch.bfloat16) (float32 model loaded, then cast) tracks the
@@ -2488,16 +2625,18 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
     n_track = n_frames - 1
     boxes = np.asarray(boxes)
     require(track_launches["K1-bf16"] >= 12 * n_track and track_launches["K3-bf16"] == 2 * n_track
-            and not any(track_launches[k] for k in F32_KERNELS + ("K2-bf16", "K4-bf16")),
+            and not any(track_launches[k] for k in F32_KERNELS + ("K2-bf16", "K4-bf16"))
+            and _all_tap(track_launches),
             f"bf16 tracker launches {track_launches} over {n_track} frames (need K1-bf16 >= 12 "
-            f"and K3-bf16 2 per frame, no f32 kernel)")
+            f"and K3-bf16 2 per frame, on its tap kernel; no f32 kernel)")
     require(_inside(boxes, H, W), "bf16 tracker: box not finite or outside the frame")
     d_f32 = _centre_px(boxes, f32_boxes)
     ms = secs / (n_track - warm) * 1e3
     emit({"phase": "bf16 tracker", "card": smi, "frames": n_track, "launches": track_launches,
           "ms_per_frame": ms, "fps": 1e3 / ms, "timed_frames": n_track - warm,
           "centre_px_vs_f32_mean": float(d_f32.mean()), "centre_px_vs_f32_max": float(d_f32.max()),
-          "last_box": boxes[-1].tolist()})
+          "last_box": boxes[-1].tolist(),
+          "drift_by_kernel": _bf16_drift(frames, f32_boxes, boxes)})
     prof = phase_profile(tracker, all_frames[64:], smi, label="bf16 profile",
                          k1=K1_BF16_KERNELS[0], k3="msda_fwd_kernel")
     model = tracker.model
@@ -2518,9 +2657,9 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
         _eval_eager_runs(seqs, root, runs, single_eager, bt_eager, a16, b16,
                          ("A16", f"B{EVAL_BIG}_16"), kernels=BF16_SERVING)
         got = runs[f"B{EVAL_BIG}_16"]["launches"]
-        require(got["K3-bf16_by_kernel"]["staged"] == got["K3-bf16"],
+        require(got["K3-bf16_by_kernel"]["tap"] == got["K3-bf16"],
                 f"bf16 lockstep N={EVAL_BIG}: K3-bf16 kernels {got['K3-bf16_by_kernel']}, "
-                f"expected staged")
+                f"expected the tap kernel")
         runs[f"B{EVAL_BIG}_16"]["max_abs_px_vs_A16"] = max(
             float(np.abs(b16[k] - a16[k]).max()) for k in a16)
         runs[f"B{EVAL_BIG}_16"]["centre_px_vs_A16_mean"] = float(np.mean(
@@ -2597,7 +2736,10 @@ def main() -> None:
             ("lockstep_step_ms", "lockstep_step_bound_ms", "lockstep_step_library_ms",
              "train_step_ms", "train_step_bound_ms", "train_step_library_ms")
             if key in BF16_SERVING else ()) + (
-            ("model_locations_ms",) if key in ("K3-bf16", "K4-bf16") else ())})
+            ("model_locations_ms", "dense_floor_ms", "differing_share_max")
+            if key in ("K3-bf16", "K4-bf16") else ()) + (
+            ("train_step_dense_floor_ms",) if key == "K3-bf16" else ()) + (
+            ("repeatable",) if key == "K4-bf16" else ())})
     require(all(r["launches"] > 0 for r in table),
             f"a kernel of a main path never launched: {[r['name'] for r in table if not r['launches']]}")
     # ms is device time (torch.profiler): per tracked frame for K1 and K3

@@ -1,4 +1,5 @@
-// Multi-scale deformable attention backward (K4) for Hopper (sm_90a), f32.
+// Multi-scale deformable attention backward (K4) for Hopper (sm_90a), f32;
+// its bf16 form (K4-bf16) is described at the end of this comment.
 //
 // Replaces the Pallas kernel `_msda_bwd_kernel`, launched by
 // `_msda_pallas_bwd` in multi_modal_tracking_tpu/ops/msda.py, and the
@@ -56,32 +57,56 @@
 // Shared (staged) or global (direct) atomics make the summation order of
 // dValue vary from run to run.
 //
-// bf16 (K4-bf16). Both kernels are templates of the element type T of
-// value, attw, g, dValue and dAttw (locations and dLoc stay f32), and the
-// bf16 instantiations replace `_msda_bwd_kernel` at acc_dtype bf16, the
-// dtype the JAX package trains in, with its rounding points
-// (ops/msda.py:377-418): each tap weight attw * w_c is formed in f32 and
-// rounded to bf16 for dValue; dValue = A^T g accumulates in f32 (each
-// product of two bf16 values is exact in f32) and is rounded to bf16 once;
-// dw = <g, V> of the bf16 rows accumulates in f32; the chain into dLoc
-// (f32) and dAttw (rounded to bf16) runs in f32 on the unrounded attw and
-// bilinear weights. Bytes bound it as they bound K4, half of them bf16:
-// 45 MB a call at the training shape, 0.013 ms at 3.35 TB/s. The staged
-// slice is bf16 beside an f32 accumulator (18*18*64*2 + 18*18*64*4 =
-// 124,416 B at the training shape); a direct level scatters into an f32
-// scratch with global atomics, which the wrapper zeroes and then rounds to
-// bf16 (a bf16 atomic would round at every add). Drift from the Pallas kernel: it sums the rounded weights of
-// the taps of one query and head that fall on the same source pixel and
-// rounds that sum again before A^T g; these kernels scatter each rounded
-// tap weight on its own, as K3-bf16 applies them (msda.cu), one rounding
-// fewer: where taps share a pixel, dValue moves by at most 2^-9 of that
-// pixel's summed weight times g (measured in chip_smoke.py and PERF.md).
+// bf16 (K4-bf16) replaces `_msda_bwd_kernel` at acc_dtype bf16, the dtype
+// the JAX package trains in, with its rounding points (ops/msda.py:377-418):
+// dValue_l = A_l^T g with the tap matrix A_l of msda_tap.cuh (tap weights
+// attw * w_c rounded to bf16, a query's taps on one pixel summed in f32 in
+// tap order and rounded again) and the bf16 g, accumulated in f32 over all
+// queries and rounded to bf16 once; dw = <g, V[corner]> of the bf16 rows in
+// f32; the chain into dLoc (f32) and dAttw (rounded to bf16) in f32 on the
+// unrounded attw and bilinear weights, each summed over the four corners in
+// corner order as the plain version sums them.
+//
+// What bounds it: at the training shape a call reads value, g (10.6 MB
+// each), locations and weights (6.6 MB) and writes dValue, dLoc and dAttw
+// (17.2 MB): 45 MB, 13.4 us at 3.35 TB/s. Its two dense products, A^T g
+// and g V^T, take 2 x 6.9 GFLOP, 14 us at 989 TFLOP/s of dense bf16.
+//
+// The tap kernel: one block per (b, m, level), two warpgroups, no atomic.
+// It stages V_l (S_l rows of 64 channels, 128-byte swizzle) once and walks
+// the query tiles of 64 rows; the g tile of the next tile loads by cp.async
+// while the current one is worked on. Thread i holds point i % P of row
+// i / P of each tile (msda_tap.cuh: a row's points in consecutive lanes).
+// Per tile each warpgroup runs
+//   dV[its three 64-pixel tiles] += A^T g   (A MN-major: the transpose bit),
+//   dWf[q, s] = g V^T for the same three 64-pixel chunks (both K-major),
+// while its threads merge the next tile's taps; dWf goes through
+// registers into an f32 (64 x 6 blocks) buffer in shared memory, from
+// which each thread picks the dw = dWf[q, pixel] of its point's corners,
+// as the Pallas kernel picks them with its one-hot rows, and chains them
+// to the point's dAttw and dLoc, written by this block only. dV lives in
+// the warpgroups' registers (384 x 64 f32 over the two) until the last
+// tile, then is rounded and written once: dValue is the same bits from run
+// to run. Device-memory accesses follow the shared-memory proxy fences,
+// which would otherwise wait for them. Shared memory (any level of at most
+// 384 pixels): 48 KB of value rows, a 48 KB tap tile, two 8 KB g tiles and
+// a 98 KB dWf buffer, 217,088 B. As in K3-bf16 the CUDA-core work around
+// the products, not the products, sets its time (PERF.md).
+//
+// A level the tap kernel does not take (D other than 64, P other than 2
+// or 4, S_l over 384) goes to the direct kernel, which scatters the Pallas
+// kernel's merged weights (msda_tap::merged_weight: the first tap on a
+// pixel scatters the rounded sum of the row's taps there) into an f32
+// scratch with global atomics; the wrapper zeroes it first and rounds it
+// to bf16 afterwards, and the order of the atomics varies from run to run.
+// No main path of the recipe reaches it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <type_traits>
 
 #include "msda_common.cuh"
+#include "msda_tap.cuh"
 
 namespace {
 
@@ -98,35 +123,19 @@ struct LevelList {
 
 using bf16 = __nv_bfloat16;
 
-// element access of the two instantiations, float (K4) and bf16 (K4-bf16):
-// a read-only global element or channel pair as f32, a shared-memory pair
-// as f32, a rounded store
+// element access: a read-only global element (float in K4, bf16 in the
+// direct kernel's K4-bf16 instantiation) or channel pair as f32, a
+// shared-memory pair, a rounded store
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const bf16* p) { return __bfloat162float(__ldg(p)); }
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
-__device__ __forceinline__ float2 load_pair(const bf16* p) {
-  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
-}
 __device__ __forceinline__ float2 smem_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 smem_pair(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// the weight a tap scatters into dValue: attw * w_c, rounded to bf16 at
-// bf16 (the Pallas kernel's w.astype(acc_dtype))
-template <typename T>
-__device__ __forceinline__ float scatter_weight(float a, float wc) {
-  if constexpr (std::is_same<T, bf16>::value)
-    return __bfloat162float(__float2bfloat16_rn(a * wc));
-  else
-    return a * wc;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -169,14 +178,14 @@ __device__ __forceinline__ void atomic_add_pair(float* dst, float a, float b) {
 }
 
 // NP channel pairs per lane: pair j = lane + 32 r holds channels 2j, 2j+1
-// (D even; 64-bit (f32) or 32-bit (bf16) shared accesses of a warp hit
-// every bank once per half)
-template <typename T, int NP>
+// (D even; the 64-bit shared accesses of a warp hit every bank once per
+// half); f32 only
+template <int NP>
 __global__ void __launch_bounds__(STAGED_WARPS * 32, 1)
-msda_bwd_kernel_staged(const T* __restrict__ value, const float* __restrict__ loc,
-                       const T* __restrict__ attw, const T* __restrict__ grad,
-                       T* __restrict__ dvalue, float* __restrict__ dloc,
-                       T* __restrict__ dattw, int S, int M, int D, int Lq, int L, int P,
+msda_bwd_kernel_staged(const float* __restrict__ value, const float* __restrict__ loc,
+                       const float* __restrict__ attw, const float* __restrict__ grad,
+                       float* __restrict__ dvalue, float* __restrict__ dloc,
+                       float* __restrict__ dattw, int S, int M, int D, int Lq, int L, int P,
                        msda::Levels lv, LevelList staged) {
   extern __shared__ __align__(16) float smem[];
   int blk = blockIdx.x;
@@ -187,18 +196,10 @@ msda_bwd_kernel_staged(const T* __restrict__ value, const float* __restrict__ lo
   const int stride = M * D;
   const size_t slice = ((size_t)b * S + lv.start[l]) * stride + (size_t)m * D;
   float* dvs = smem;                                   // (S_l, D) f32 dValue accumulator
-  T* vs = reinterpret_cast<T*>(smem + Sl * D);         // (S_l, D) value rows
+  float* vs = smem + Sl * D;                           // (S_l, D) value rows
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
 
-  if constexpr (std::is_same<T, float>::value) {
-    msda::stage_slice(vs, value + slice, Sl, D, stride, tid, blockDim.x);
-  } else {                                             // D % 8 == 0 (the wrapper's check)
-    const int C = D / 8;
-    for (int x = tid; x < Sl * C; x += blockDim.x) {
-      const int r = x / C, c = x - r * C;
-      msda::cp_async16(vs + r * D + 8 * c, value + slice + (size_t)r * stride + 8 * c);
-    }
-  }
+  msda::stage_slice(vs, value + slice, Sl, D, stride, tid, blockDim.x);
   for (int x = tid; x < Sl * D; x += blockDim.x) dvs[x] = 0.f;
   msda::cp_async_wait_all();
   __syncthreads();
@@ -232,7 +233,7 @@ msda_bwd_kernel_staged(const T* __restrict__ value, const float* __restrict__ lo
       const bool live = p < P && msda::corner_pixel(t, c, H, W, pix);
       const float wc = msda::corner_weight(t, c);
       if ((lane & 1) == 0)
-        table[lane >> 1] = make_int2(live ? pix * D : -1, __float_as_int(scatter_weight<T>(a, wc)));
+        table[lane >> 1] = make_int2(live ? pix * D : -1, __float_as_int(a * wc));
       __syncwarp();
       // all 16 rows read for dw first, then all 16 scattered
       float part[16];
@@ -241,7 +242,7 @@ msda_bwd_kernel_staged(const T* __restrict__ value, const float* __restrict__ lo
         part[k] = 0.f;
         const int2 ek = table[k];
         if (ek.x < 0) continue;                 // warp-uniform
-        const T* vr = vs + ek.x;
+        const float* vr = vs + ek.x;
 #pragma unroll
         for (int r = 0; r < NP; ++r) {
           const int ch = 2 * (lane + 32 * r);
@@ -284,32 +285,18 @@ msda_bwd_kernel_staged(const T* __restrict__ value, const float* __restrict__ lo
   }
   __syncthreads();
 
-  // the slice's dValue, each element written once (rounded once at bf16)
-  if constexpr (std::is_same<T, float>::value) {
-    if (D % 4 == 0) {
-      const int C = D / 4;
-      for (int x = tid; x < Sl * C; x += blockDim.x) {
-        const int r = x / C, c4 = x - r * C;
-        *reinterpret_cast<float4*>(dvalue + slice + (size_t)r * stride + 4 * c4) =
-            *reinterpret_cast<const float4*>(dvs + r * D + 4 * c4);
-      }
-    } else {
-      for (int x = tid; x < Sl * D; x += blockDim.x) {
-        const int r = x / D, ch = x - r * D;
-        dvalue[slice + (size_t)r * stride + ch] = dvs[x];
-      }
-    }
-  } else {                                             // D % 8 == 0
+  // the slice's dValue, each element written once
+  if (D % 4 == 0) {
     const int C = D / 4;
     for (int x = tid; x < Sl * C; x += blockDim.x) {
       const int r = x / C, c4 = x - r * C;
-      const float4 f = *reinterpret_cast<const float4*>(dvs + r * D + 4 * c4);
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(f.x, f.y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(f.z, f.w);
-      uint2 packed;
-      packed.x = *reinterpret_cast<const uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<const uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(dvalue + slice + (size_t)r * stride + 4 * c4) = packed;
+      *reinterpret_cast<float4*>(dvalue + slice + (size_t)r * stride + 4 * c4) =
+          *reinterpret_cast<const float4*>(dvs + r * D + 4 * c4);
+    }
+  } else {
+    for (int x = tid; x < Sl * D; x += blockDim.x) {
+      const int r = x / D, ch = x - r * D;
+      dvalue[slice + (size_t)r * stride + ch] = dvs[x];
     }
   }
 }
@@ -358,14 +345,20 @@ msda_bwd_kernel_direct(const T* __restrict__ value, const float* __restrict__ lo
         if (!msda::corner_pixel(tp, c4, H, W, pix)) continue;   // warp-uniform
         const size_t row = lbase + (size_t)pix * stride_s;
         const float wc = msda::corner_weight(tp, c4);
-        const float wgt = scatter_weight<T>(aw, wc);
+        // the weight the tap scatters into dValue: attw * w_c at f32; at
+        // bf16 the Pallas kernel's (msda_tap::merged_weight), none but the
+        // first tap on a pixel scattering
+        bool first = true;
+        float wgt = aw * wc;
+        if constexpr (std::is_same<T, bf16>::value)
+          wgt = msda_tap::merged_weight(locp + 2 * l * P, awp + l * P, P, H, W, p, c4, pix, first);
         float part = 0.f;
 #pragma unroll
         for (int r = 0; r < CPL; ++r) {
           const int c = lane + 32 * r;
           if (c < D) {
             part = fmaf(gr[r], load(value + row + c), part);
-            atomicAdd(dvalue32 + row + c, wgt * gr[r]);
+            if (first) atomicAdd(dvalue32 + row + c, wgt * gr[r]);
           }
         }
         const float dw = warp_sum(part);
@@ -384,67 +377,284 @@ msda_bwd_kernel_direct(const T* __restrict__ value, const float* __restrict__ lo
   }
 }
 
-template <typename T, int CPL>
-int launch(const T* value, const float* loc, const T* attw, const T* grad, T* dvalue,
-           float* dvalue32, float* dloc, T* dattw, int B, int S, int M, int D, int Lq, int L,
-           int P, const msda::Levels& lv, unsigned staged_mask, cudaStream_t s) {
-  LevelList staged{0, {}};
-  int max_sl = 0;
+LevelList levels_in(unsigned mask, int L, int& max_sl, const msda::Levels& lv) {
+  LevelList list{0, {}};
+  max_sl = 0;
   for (int l = 0; l < L; ++l) {
-    if (!((staged_mask >> l) & 1u)) continue;
-    staged.id[staged.n++] = l;
+    if (!((mask >> l) & 1u)) continue;
+    list.id[list.n++] = l;
     if (lv.h[l] * lv.w[l] > max_sl) max_sl = lv.h[l] * lv.w[l];
   }
+  return list;
+}
+
+// the direct kernel over the levels whose bit is clear in `mask`
+template <typename T, int CPL>
+void launch_direct(const T* value, const float* loc, const T* attw, const T* grad,
+                   float* dvalue32, float* dloc, T* dattw, int B, int S, int M, int D, int Lq,
+                   int L, int P, const msda::Levels& lv, unsigned mask, cudaStream_t s) {
+  const long long warps = (long long)B * Lq * M;
+  msda_bwd_kernel_direct<T, CPL><<<(unsigned)((warps + DIRECT_WARPS - 1) / DIRECT_WARPS),
+                                   DIRECT_WARPS * 32, 0, s>>>(
+      value, loc, attw, grad, dvalue32, dloc, dattw, B, S, M, D, Lq, L, P, lv, mask);
+}
+
+template <int CPL>
+int launch_f32(const float* value, const float* loc, const float* attw, const float* grad,
+               float* dvalue, float* dloc, float* dattw, int B, int S, int M, int D, int Lq,
+               int L, int P, const msda::Levels& lv, unsigned staged_mask, cudaStream_t s) {
+  int max_sl;
+  const LevelList staged = levels_in(staged_mask, L, max_sl, lv);
   if (staged.n > 0) {
-    const long long smem = (long long)(sizeof(float) + sizeof(T)) * max_sl * D + TABLE_BYTES;
+    const long long smem = (long long)(2 * sizeof(float)) * max_sl * D + TABLE_BYTES;
     if (smem > msda::SMEM_MAX || D % 2) return static_cast<int>(cudaErrorInvalidValue);
-    // the shared-memory attribute belongs to each device's context: set it
-    // once per device
-    constexpr int MAX_DEVICES = 64;
-    static bool attr_set[MAX_DEVICES] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev >= MAX_DEVICES || !attr_set[dev]) {
-      err = cudaFuncSetAttribute(msda_bwd_kernel_staged<T, (CPL + 1) / 2>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, msda::SMEM_MAX);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      if (dev < MAX_DEVICES) attr_set[dev] = true;
-    }
-    msda_bwd_kernel_staged<T, (CPL + 1) / 2><<<(unsigned)(B * M * staged.n), STAGED_WARPS * 32, smem, s>>>(
+    static bool attr_set[16] = {};
+    const int err = hopper_host::allow_smem(msda_bwd_kernel_staged<(CPL + 1) / 2>,
+                                            msda::SMEM_MAX, attr_set);
+    if (err) return err;
+    msda_bwd_kernel_staged<(CPL + 1) / 2><<<(unsigned)(B * M * staged.n), STAGED_WARPS * 32, smem, s>>>(
         value, loc, attw, grad, dvalue, dloc, dattw, S, M, D, Lq, L, P, lv, staged);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (staged.n < L) {
-    const long long warps = (long long)B * Lq * M;
-    msda_bwd_kernel_direct<T, CPL><<<(unsigned)((warps + DIRECT_WARPS - 1) / DIRECT_WARPS),
-                                     DIRECT_WARPS * 32, 0, s>>>(
-        value, loc, attw, grad, dvalue32, dloc, dattw, B, S, M, D, Lq, L, P, lv, staged_mask);
-  }
+  if (staged.n < L)
+    launch_direct<float, CPL>(value, loc, attw, grad, dvalue, dloc, dattw, B, S, M, D, Lq, L, P,
+                              lv, staged_mask, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_any(const void* value, const void* loc, const void* attw, const void* grad,
-               void* dvalue, void* dvalue32, void* dloc, void* dattw, int B, int S, int M,
-               int D, int Lq, int L, int P, const int* shapes, int staged_mask, void* stream) {
-  msda::Levels lv;
-  if (!msda::make_levels(shapes, L, S, lv) || D < 1 || D > 128)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto* v = static_cast<const T*>(value);
-  const auto* lc = static_cast<const float*>(loc);
-  const auto* aw = static_cast<const T*>(attw);
-  const auto* g = static_cast<const T*>(grad);
-  auto* dv = static_cast<T*>(dvalue);
-  auto* dv32 = static_cast<float*>(dvalue32);
-  auto* dl = static_cast<float*>(dloc);
-  auto* da = static_cast<T*>(dattw);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto mask = static_cast<unsigned>(staged_mask);
-  if (D <= 32) return launch<T, 1>(v, lc, aw, g, dv, dv32, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
-  if (D <= 64) return launch<T, 2>(v, lc, aw, g, dv, dv32, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
-  return launch<T, 4>(v, lc, aw, g, dv, dv32, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
+// ------------------------------------------------------ K4-bf16 tap kernel
+using msda_tap::TILE_BYTES;
+constexpr int TAP_WG = 2;                  // warpgroups of the tap kernel
+constexpr int TAP_MT = 3;                  // 64-pixel tiles (and chunks) a warpgroup
+constexpr int TAP_MAX_BLOCKS = TAP_WG * TAP_MT;   // S_l <= 384
+// byte offsets in the tap kernel's shared memory, from its base aligned to
+// 1024 bytes (ops/msda.py TAP_BWD_SMEM counts the same bytes): value rows
+// and the tap tile in TAP_MAX_BLOCKS blocks of 64 pixels, two g tiles, dWf
+// as 64 rows of DW_STRIDE floats (rows 8 banks apart: the 64-bit stores of
+// a half-warp hit 32 banks), 4 bytes a thread of scratch
+constexpr int DW_STRIDE = 64 * TAP_MAX_BLOCKS + 8;
+constexpr int OFF_V = 0, OFF_A = TAP_MAX_BLOCKS * TILE_BYTES, OFF_G = 2 * OFF_A;
+constexpr int OFF_DW = OFF_G + 2 * TILE_BYTES;
+constexpr int OFF_TRASH = OFF_DW + 64 * DW_STRIDE * 4;
+constexpr int TAP_BWD_BYTES = OFF_TRASH + TAP_WG * 128 * 4 + 1024;
+
+// rows q0.. q0 + 63 of g[b, :, m, :] into a swizzled tile, zero past Lq
+__device__ __forceinline__ void stage_g(uint8_t* dst, const bf16* grad, int b, int m, int M,
+                                        int Lq, int q0, int tid, int threads) {
+  for (int x = tid; x < msda_tap::ROWS * 8; x += threads) {
+    const int r = x >> 3, k = x & 7;
+    uint8_t* d = dst + r * 128 + (((k ^ r) & 7) << 4);
+    if (q0 + r < Lq)
+      msda::cp_async16(d, grad + ((size_t)(b * Lq + q0 + r) * M + m) * msda_tap::D + 8 * k);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Thread i holds point i % P of query row i / P of the tile (the row's P
+// points in consecutive lanes of one warp): its four taps, merged with the
+// row's others while the products of the previous tile run, and the chain
+// of their dw into the point's dAttw and dLoc. All threads issue the
+// products of their warpgroup's pixel tiles: dV for tiles wg, wg + 2,
+// wg + 4 and dWf for the same chunks, all chains of four products (a level
+// of fewer blocks runs the missing ones on zero rows and keeps nothing of
+// them).
+template <int P>
+__global__ void __launch_bounds__(TAP_WG * 128, 1)
+msda_bwd_kernel_tap_bf16(const bf16* __restrict__ value, const float* __restrict__ loc,
+                         const bf16* __restrict__ attw, const bf16* __restrict__ grad,
+                         bf16* __restrict__ dvalue, float* __restrict__ dloc,
+                         bf16* __restrict__ dattw, int S, int M, int Lq, int L,
+                         msda::Levels lv, LevelList tap) {
+  using msda_tap::D;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  int blk = blockIdx.x;
+  const int l = tap.id[blk % tap.n];
+  blk /= tap.n;
+  const int m = blk % M, b = blk / M;
+  const int H = lv.h[l], W = lv.w[l], Sl = H * W;
+  const size_t stride = (size_t)M * D;
+  const size_t slice = ((size_t)b * S + lv.start[l]) * stride + (size_t)m * D;
+  uint8_t* V = smem + OFF_V;
+  uint8_t* A = smem + OFF_A;
+  uint8_t* G = smem + OFF_G;
+  float* DW = reinterpret_cast<float*>(smem + OFF_DW);
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int n_tiles = (Lq + msda_tap::ROWS - 1) / msda_tap::ROWS;
+  const int row = tid / P, point = tid % P;
+
+  // V_l and zero rows up to TAP_MAX_BLOCKS blocks, the first g tile, the
+  // tap tile zeroed once
+  msda_tap::stage_rows(V, value + slice, Sl, stride, tid, blockDim.x);
+  msda_tap::zero_bytes(V + Sl * 128, (64 * TAP_MAX_BLOCKS - Sl) * 128, tid, blockDim.x);
+  stage_g(G, grad, b, m, M, Lq, 0, tid, blockDim.x);
+  msda_tap::cp_async_commit();
+  msda_tap::zero_bytes(A, TAP_MAX_BLOCKS * TILE_BYTES, tid, blockDim.x);
+  __syncthreads();
+
+  // this thread's point index in tile t; whether it has a point there
+  auto index = [&](int t) {
+    return (((size_t)(b * Lq + t * msda_tap::ROWS + row) * M + m) * L + l) * P + point;
+  };
+  auto valid = [&](int t) {
+    return row < msda_tap::ROWS && t < n_tiles && t * msda_tap::ROWS + row < Lq;
+  };
+  msda_tap::PointTaps cur, nxt;                    // this point's taps in this tile, the next
+  msda_tap::Point pt = msda_tap::load_point(loc, attw, index(0), valid(0));
+  msda_tap::merge_point<P>(pt, point, valid(0), H, W, cur);
+  uint8_t* trash = smem + OFF_TRASH + 4 * tid;
+  msda_tap::write_point(A, trash, row, cur, false);
+  pt = msda_tap::load_point(loc, attw, index(1), valid(1));
+  float sa = 0.f, sx = 0.f, sy = 0.f;              // the chain of the previous tile
+
+  float dv[TAP_MT][32];
+#pragma unroll
+  for (int k = 0; k < TAP_MT; ++k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dv[k][i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    msda_tap::cp_async_wait<0>();                  // this tile's g (and, first, V_l)
+    hopper::fence_async_smem();
+    __syncthreads();                               // this tile's taps and g are whole
+    // device memory after the fence, which would wait for it: the next g
+    // tile, the previous tile's dAttw and dLoc, the points of tile t + 2
+    if (t + 1 < n_tiles)
+      stage_g(G + ((t + 1) & 1) * TILE_BYTES, grad, b, m, M, Lq, (t + 1) * msda_tap::ROWS, tid,
+              blockDim.x);
+    msda_tap::cp_async_commit();
+    if (t > 0 && valid(t - 1)) {
+      const size_t i = index(t - 1);
+      dattw[i] = __float2bfloat16_rn(sa);
+      *reinterpret_cast<float2*>(dloc + 2 * i) = make_float2(sx * (float)W, sy * (float)H);
+    }
+    const msda_tap::Point pt2 = msda_tap::load_point(loc, attw, index(t + 2), valid(t + 2));
+
+    // dV[tiles wg + 2k] += A^T g (A MN-major); dWf[:, chunks wg + 2k] = g V^T,
+    // the first two chunks beside dV, the third after them
+    const uint8_t* gt = G + (t & 1) * TILE_BYTES;
+    const int ra = hopper::acc_row(wt, 0), rb = hopper::acc_row(wt, 2);
+    float w[2][32];
+    auto chunk = [&](int k, float (&acc)[32], int kk) {
+      hopper::wgmma_ss_n64(acc, hopper::desc<64>(gt + 32 * kk),
+                           hopper::desc<64>(V + (wg + TAP_WG * k) * TILE_BYTES + 32 * kk), kk > 0);
+    };
+    auto store = [&](int k, const float (&acc)[32]) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = 64 * (wg + TAP_WG * k) + hopper::acc_col(wt, jj, 0);
+        *reinterpret_cast<float2*>(DW + ra * DW_STRIDE + c) = make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        *reinterpret_cast<float2*>(DW + rb * DW_STRIDE + c) =
+            make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
+    };
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int k = 0; k < TAP_MT; ++k)
+        hopper::wgmma_ss_n64_t<1, 1>(
+            dv[k], hopper::desc<64>(A + (wg + TAP_WG * k) * TILE_BYTES + kk * 2048),
+            hopper::desc<64>(gt + kk * 2048), 1);
+      chunk(0, w[0], kk);
+      chunk(1, w[1], kk);
+    }
+    hopper::wg_commit();
+    msda_tap::merge_point<P>(pt, point, valid(t + 1), H, W, nxt);   // the next tile's taps
+    pt = pt2;
+    hopper::wg_wait<0>();
+    hopper::fence_regs(w[0]);
+    hopper::fence_regs(w[1]);
+    store(0, w[0]);
+    store(1, w[1]);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) chunk(2, w[0], kk);
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+    hopper::fence_regs(w[0]);
+#pragma unroll
+    for (int k = 0; k < TAP_MT; ++k) hopper::fence_regs(dv[k]);
+    store(2, w[0]);
+    __syncthreads();                               // the tap tile read; dWf whole
+
+    // the chain of this point's taps: dw picked from dWf, summed over its
+    // four corners in corner order as the plain version sums them
+    if (valid(t)) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float dw = cur.pix[c] >= 0 ? DW[row * DW_STRIDE + cur.pix[c]] : 0.f;
+        float dfx, dfy;
+        msda::corner_dloc(cur.tap, c, cur.a * dw, dfx, dfy);
+        const float da = msda::corner_weight(cur.tap, c) * dw;
+        sa = c ? sa + da : da;
+        sx = c ? sx + dfx : dfx;
+        sy = c ? sy + dfy : dfy;
+      }
+    }
+    // this tile's entries out, the next's in; the row's other points are
+    // in this warp and may write where this lane clears
+    msda_tap::write_point(A, trash, row, cur, true);
+    __syncwarp();
+    msda_tap::write_point(A, trash, row, nxt, false);
+    cur = nxt;
+  }
+  if (valid(n_tiles - 1)) {                        // the last tile's dAttw and dLoc
+    const size_t i = index(n_tiles - 1);
+    dattw[i] = __float2bfloat16_rn(sa);
+    *reinterpret_cast<float2*>(dloc + 2 * i) = make_float2(sx * (float)W, sy * (float)H);
+  }
+
+  // dValue of the slice, rounded once
+  const int ra = hopper::acc_row(wt, 0), rb = hopper::acc_row(wt, 2);
+#pragma unroll
+  for (int k = 0; k < TAP_MT; ++k) {
+    const int i = wg + TAP_WG * k;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = hopper::acc_col(wt, jj, 0);
+      const int sa = 64 * i + ra, sb = 64 * i + rb;
+      if (sa < Sl)
+        *reinterpret_cast<__nv_bfloat162*>(dvalue + slice + (size_t)sa * stride + c) =
+            __floats2bfloat162_rn(dv[k][4 * jj], dv[k][4 * jj + 1]);
+      if (sb < Sl)
+        *reinterpret_cast<__nv_bfloat162*>(dvalue + slice + (size_t)sb * stride + c) =
+            __floats2bfloat162_rn(dv[k][4 * jj + 2], dv[k][4 * jj + 3]);
+    }
+  }
+}
+
+template <int P>
+int launch_tap_p(const bf16* v, const float* lc, const bf16* aw, const bf16* g, bf16* dv,
+                 float* dl, bf16* da, int B, int S, int M, int Lq, int L,
+                 const msda::Levels& lv, const LevelList& tap, cudaStream_t s) {
+  static bool attr_set[16] = {};
+  const int err = hopper_host::allow_smem(msda_bwd_kernel_tap_bf16<P>, msda::SMEM_MAX, attr_set);
+  if (err) return err;
+  msda_bwd_kernel_tap_bf16<P><<<(unsigned)(B * M * tap.n), TAP_WG * 128, TAP_BWD_BYTES, s>>>(
+      v, lc, aw, g, dv, dl, da, S, M, Lq, L, lv, tap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int CPL>
+int launch_bf16(const bf16* v, const float* lc, const bf16* aw, const bf16* g, bf16* dv,
+                float* dv32, float* dl, bf16* da, int B, int S, int M, int D, int Lq, int L,
+                int P, const msda::Levels& lv, unsigned tap_mask, cudaStream_t s) {
+  int max_sl;
+  const LevelList tap = levels_in(tap_mask, L, max_sl, lv);
+  if (tap.n > 0 && B * M > 0 && Lq > 0) {
+    if (D != msda_tap::D || (P != 2 && P != 4) ||
+        max_sl > 64 * TAP_MAX_BLOCKS || TAP_BWD_BYTES > msda::SMEM_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int err = P == 2 ? launch_tap_p<2>(v, lc, aw, g, dv, dl, da, B, S, M, Lq, L, lv, tap, s)
+                           : launch_tap_p<4>(v, lc, aw, g, dv, dl, da, B, S, M, Lq, L, lv, tap, s);
+    if (err) return err;
+  }
+  if (tap.n < L)
+    launch_direct<bf16, CPL>(v, lc, aw, g, dv32, dl, da, B, S, M, D, Lq, L, P, lv, tap_mask, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -460,20 +670,49 @@ extern "C" int msda_bwd_f32(const void* value, const void* loc, const void* attw
                             const void* grad, void* dvalue, void* dloc, void* dattw,
                             int B, int S, int M, int D, int Lq, int L, int P,
                             const int* shapes, int staged_mask, void* stream) {
-  return launch_any<float>(value, loc, attw, grad, dvalue, dvalue, dloc, dattw, B, S, M, D, Lq,
-                           L, P, shapes, staged_mask, stream);
+  msda::Levels lv;
+  if (!msda::make_levels(shapes, L, S, lv) || D < 1 || D > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* v = static_cast<const float*>(value);
+  const auto* lc = static_cast<const float*>(loc);
+  const auto* aw = static_cast<const float*>(attw);
+  const auto* g = static_cast<const float*>(grad);
+  auto* dv = static_cast<float*>(dvalue);
+  auto* dl = static_cast<float*>(dloc);
+  auto* da = static_cast<float*>(dattw);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto mask = static_cast<unsigned>(staged_mask);
+  if (D <= 32) return launch_f32<1>(v, lc, aw, g, dv, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
+  if (D <= 64) return launch_f32<2>(v, lc, aw, g, dv, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
+  return launch_f32<4>(v, lc, aw, g, dv, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
 }
 
 // K4-bf16: value, attw, grad, dvalue and dattw bf16, loc and dloc f32;
-// D a multiple of 8 up to 128. The direct kernel's levels scatter into
-// dvalue32, an f32 (B, S, M, D) scratch whose slices of those levels the
-// caller has zeroed and afterwards rounds into dvalue (unused, may be null,
-// when every level is staged). Otherwise as msda_bwd_f32.
+// D a multiple of 8 up to 128. Levels whose bit is set in tap_mask take the
+// tap kernel (D 64, P 2 or 4, S_l <= 384), which writes their dValue slices
+// whole; the others take the direct kernel, which scatters into dvalue32,
+// an f32 (B, S, M, D) scratch whose slices of those levels the caller has
+// zeroed and afterwards rounds into dvalue (unused, may be null, when every
+// level takes the tap kernel). Returns cudaGetLastError() after the
+// launches.
 extern "C" int msda_bwd_bf16(const void* value, const void* loc, const void* attw,
                              const void* grad, void* dvalue, void* dvalue32, void* dloc,
                              void* dattw, int B, int S, int M, int D, int Lq, int L, int P,
-                             const int* shapes, int staged_mask, void* stream) {
-  if (D % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any<bf16>(value, loc, attw, grad, dvalue, dvalue32, dloc, dattw, B, S, M, D,
-                          Lq, L, P, shapes, staged_mask, stream);
+                             const int* shapes, int tap_mask, void* stream) {
+  msda::Levels lv;
+  if (!msda::make_levels(shapes, L, S, lv) || D < 8 || D > 128 || D % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* v = static_cast<const bf16*>(value);
+  const auto* lc = static_cast<const float*>(loc);
+  const auto* aw = static_cast<const bf16*>(attw);
+  const auto* g = static_cast<const bf16*>(grad);
+  auto* dv = static_cast<bf16*>(dvalue);
+  auto* dv32 = static_cast<float*>(dvalue32);
+  auto* dl = static_cast<float*>(dloc);
+  auto* da = static_cast<bf16*>(dattw);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto mask = static_cast<unsigned>(tap_mask);
+  if (D <= 32) return launch_bf16<1>(v, lc, aw, g, dv, dv32, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
+  if (D <= 64) return launch_bf16<2>(v, lc, aw, g, dv, dv32, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
+  return launch_bf16<4>(v, lc, aw, g, dv, dv32, dl, da, B, S, M, D, Lq, L, P, lv, mask, s);
 }

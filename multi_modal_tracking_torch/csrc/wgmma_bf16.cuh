@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels K1-bf16
-// (mixed_attention_bf16.cu) and K2-bf16 (mixed_attention_bwd_bf16.cu):
-// warpgroup MMAs (wgmma) with bf16 operands and f32 accumulators, TMA tile
-// loads completed on mbarriers, and the host-side tensor maps.
+// (mixed_attention_bf16.cu) and K2-bf16 (mixed_attention_bwd_bf16.cu) and
+// of the bf16 MSDA tap kernels (msda_tap.cuh): warpgroup MMAs (wgmma) with
+// bf16 operands and f32 accumulators, TMA tile loads completed on
+// mbarriers, and the host-side tensor maps.
 //
 // Tiles. Every operand tile is rows x D bf16, row-major, D in {16, 32, 64},
 // so a row is 32, 64 or 128 bytes; TMA writes it swizzled to its width
@@ -163,22 +164,40 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
-// D (64 x 64) += A B^T, A (64 x 16) and B (64 x 16) both K-major in shared
-// memory; scale_d 0 overwrites D
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                             int scale_d) {
+// D (64 x 64) += A B, A (64 x 16) and B (16 x 64) in shared memory, each
+// K-major (0) or MN-major (1, read through the transpose bit): S = Q K^T
+// (0, 0; B transposed), the MSDA tap-matrix products out = A V (0, 1) and
+// dV = A^T g (1, 1); scale_d 0 overwrites D
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64_t(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                               int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64) += A B^T, A (64 x 16) and B (64 x 16) both K-major in shared
+// memory; scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  wgmma_ss_n64_t<0, 0>(d, desc_a, desc_b, scale_d);
+}
+
+// generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// to the async proxy that wgmma reads through; before the barrier that
+// hands the tile to the warpgroups. It waits for the thread's device-memory
+// accesses still in flight too: issue those after it.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // D (64 x 16) += A B, A (64 x 16) bf16 in registers (the m16n8k16 A fragment

@@ -25,10 +25,11 @@ by `msda_plan`, from the shape alone.
 bf16 value and attention weights with f32 locations (the JAX package's
 dtype) go to K3-bf16 (the bf16 kernels of `csrc/msda.cu`) for CUDA
 tensors and `ms_deform_attn_bf16_ref` for CPU tensors; the output is bf16.
-Under autograd their backward is K4-bf16 (the bf16 instantiations of
+Under autograd their backward is K4-bf16 (the bf16 kernels of
 `csrc/msda_bwd.cu`) for CUDA tensors and `ms_deform_attn_bwd_bf16_ref` for
 CPU tensors, with the gradients in the primal dtypes: dValue and dAttw
-bf16, dLoc f32.
+bf16, dLoc f32. Both take the Pallas kernel's tap matrix A (`_bf16_tap_rows`)
+into the tensor cores where `msda_plan` gives them their tap kernels.
 """
 from __future__ import annotations
 
@@ -215,48 +216,102 @@ SMEM_MAX = 232_448
 #: the staged kernels' per-warp corner tables, after the value rows: 32
 #: warps of 32 entries of 8 bytes in K3, of 16 in K4
 FWD_TABLE_BYTES, BWD_TABLE_BYTES = 32 * 32 * 8, 32 * 16 * 8
+#: the bf16 tap kernels (csrc/msda_tap.cuh): 64 channels, query tiles of
+#: 64 rows, 64-pixel column blocks of 8 KB, 2 or 4 points a level (a row's
+#: points in consecutive lanes, which trade their taps by shuffles); the
+#: forward takes at most 4 levels, the backward levels of at most 6 blocks
+#: (its two warpgroups' dV registers) in a fixed 217,088 B of shared memory
+TAP_D, TAP_ROWS, TAP_BLOCK_BYTES, TAP_POINTS = 64, 64, 8192, (2, 4)
+TAP_FWD_MAX_LEVELS, TAP_BWD_MAX_BLOCKS = 4, 6
+TAP_BWD_SMEM = (2 * TAP_BWD_MAX_BLOCKS * TAP_BLOCK_BYTES + 2 * TAP_BLOCK_BYTES
+                + 4 * 64 * (64 * TAP_BWD_MAX_BLOCKS + 8) + 256 * 4 + 1024)
 
 
 class MsdaPlan(NamedTuple):
-    """The kernels K3 and K4 launch at one shape.
+    """The kernels K3 and K4 (or K3-bf16 and K4-bf16) launch at one shape.
 
-    fwd: "staged" (one block per (b, m) with value[b, :, m, :] in shared
-    memory) or "gather" (one warp per (b, q, m) reading device memory);
-    fwd_smem: a staged block's dynamic shared memory in bytes (0 for gather);
-    bwd: per level, "staged" (one block per (b, m, level) with the value
-    slice and its dValue accumulator in shared memory) or "direct" (one
-    warp per (b, q, m), global atomics into a zeroed dValue slice);
-    bwd_smem: a staged block's dynamic shared memory (0 if no level is
-    staged)."""
+    fwd: f32 "staged" (one block per (b, m) with value[b, :, m, :] in
+    shared memory) or "gather" (one warp per (b, q, m) reading device
+    memory); bf16 "tap" (the tap-matrix kernel) or "gather";
+    fwd_smem: a staged or tap block's dynamic shared memory in bytes (0 for
+    gather);
+    bwd: per level, f32 "staged" (one block per (b, m, level) with the value
+    slice and its dValue accumulator in shared memory), bf16 "tap" (one
+    block per (b, m, level), the tap-matrix kernel), or "direct" (one warp
+    per (b, q, m), global atomics into a zeroed dValue slice);
+    bwd_smem: a staged or tap block's dynamic shared memory (0 if no level
+    takes one);
+    fwd_tiles: the forward tap kernel's query tiles of 64 rows a block (0
+    unless fwd is "tap")."""
     fwd: str
     fwd_smem: int
     bwd: Tuple[str, ...]
     bwd_smem: int
+    fwd_tiles: int = 0
+
+
+def tap_fwd_smem(spatial_shapes: Sequence[Tuple[int, int]]) -> int:
+    """Dynamic shared memory of K3-bf16's tap kernel (csrc/msda.cu
+    `tap_fwd_layout`): each level's value rows padded to 32 (128 bytes a
+    row) and its tap tile of 64-pixel blocks, a zero block, one
+    warpgroup's f32 output tile (16 KB), 4 bytes a thread of scratch, 1024
+    bytes to align the base."""
+    sizes = [h * w for h, w in spatial_shapes]
+    return (sum(128 * -(-s // 32) * 32 + -(-s // 64) * TAP_BLOCK_BYTES for s in sizes)
+            + TAP_BLOCK_BYTES + 128 * 32 * 4 + 256 * 4 + 1024)
 
 
 def msda_plan(B: int, M: int, D: int, spatial_shapes: Sequence[Tuple[int, int]],
-              n_sm: int, itemsize: int = 4) -> MsdaPlan:
+              n_sm: int, itemsize: int = 4, Lq: int | None = None,
+              P: int | None = None) -> MsdaPlan:
     """Choose K3's and K4's kernels by shape (never on failure).
 
-    K3 stages when all levels' rows of one (b, m) and the corner tables fit
-    in shared memory (4*S*D + 8192 <= SMEM_MAX: S <= 876 at D 64) and the
-    B*M blocks fill at least half of the n_sm SMs: the training shape (B 16,
-    M 8: 128 blocks). Fewer pairs (the tracking shape, B 1: 8 blocks) gather
-    instead. K4 stages each level whose value slice, dValue accumulator and
-    corner tables fit (8*S_l*D + 4096 <= SMEM_MAX: S_l <= 446 at D 64)
-    and D is even (its lanes hold channel pairs); other levels go direct.
-    The number of points does not enter: the staged kernels take points in
-    groups. `itemsize` is the value's element size: 4 for f32, 2 for the
-    bf16 kernels. K3-bf16's staged slice takes half the shared memory
-    (2*S*D + 8192 <= SMEM_MAX: S <= 1752 at D 64); K4-bf16 stages a bf16
-    slice beside an f32 dValue accumulator (6*S_l*D + 4096 <= SMEM_MAX:
-    S_l <= 594 at D 64)."""
+    f32 (itemsize 4). K3 stages when all levels' rows of one (b, m) and the
+    corner tables fit in shared memory (4*S*D + 8192 <= SMEM_MAX: S <= 876
+    at D 64) and the B*M blocks fill at least half of the n_sm SMs: the
+    training shape (B 16, M 8: 128 blocks). Fewer pairs (the tracking
+    shape, B 1: 8 blocks) gather instead. K4 stages each level whose value
+    slice, dValue accumulator and corner tables fit (8*S_l*D + 4096 <=
+    SMEM_MAX: S_l <= 446 at D 64) and D is even (its lanes hold channel
+    pairs); other levels go direct. The number of points does not enter:
+    the staged kernels take points in groups.
+
+    bf16 (itemsize 2; Lq and P required). The tap kernels take D 64 and 2
+    or 4 points (a thread holds a level's 4P taps of a query). K3-bf16
+    takes its tap kernel for at most 4 levels whose value rows and tap
+    tiles fit (`tap_fwd_smem`: 215,040 B at the recipe's two 18x18 levels;
+    S_l <= 384 at two equal levels), else it gathers. Its blocks walk the
+    query tiles of one (b, m) where the B*M pairs fill half the card (B 12
+    and 16 at M 8 on 132 SMs); fewer pairs split the ceil(Lq / 64) tiles
+    over ceil(n_sm / (B*M)) blocks each at most (B 1: one tile a block, 88
+    blocks; B 4: three, 128 blocks). K4-bf16 takes its tap kernel for each
+    level of at most 6 blocks of 64 pixels (S_l <= 384; TAP_BWD_SMEM), its
+    direct kernel for the others."""
+    if itemsize == 2:
+        if Lq is None or P is None:
+            raise TypeError("msda_plan at itemsize 2 needs Lq and P")
+        tap = D == TAP_D and P in TAP_POINTS
+        fwd_smem = tap_fwd_smem(spatial_shapes)
+        fwd_tap = tap and len(spatial_shapes) <= TAP_FWD_MAX_LEVELS and fwd_smem <= SMEM_MAX
+        tiles = 0
+        if fwd_tap:
+            n_tiles = max(1, -(-Lq // TAP_ROWS))
+            pairs = B * M
+            per_pair = 1 if 2 * pairs >= n_sm else min(n_tiles, -(-n_sm // pairs))
+            tiles = -(-n_tiles // per_pair)
+        bwd = tuple("tap" if tap and h * w <= 64 * TAP_BWD_MAX_BLOCKS else "direct"
+                    for h, w in spatial_shapes)
+        bwd_smem = TAP_BWD_SMEM if "tap" in bwd else 0
+        return MsdaPlan("tap" if fwd_tap else "gather", fwd_smem if fwd_tap else 0, bwd,
+                        bwd_smem, tiles)
+    if itemsize != 4:
+        raise ValueError(f"msda_plan: itemsize 4 (f32) or 2 (bf16), got {itemsize}")
     S = sum(h * w for h, w in spatial_shapes)
-    fwd_smem = -(-itemsize * S * D // 8) * 8 + FWD_TABLE_BYTES
+    fwd_smem = -(-4 * S * D // 8) * 8 + FWD_TABLE_BYTES
     staged = fwd_smem <= SMEM_MAX and 2 * B * M >= n_sm
 
     def bwd_bytes(h, w):
-        return (4 + itemsize) * h * w * D + BWD_TABLE_BYTES
+        return 8 * h * w * D + BWD_TABLE_BYTES
 
     bwd = tuple("staged" if bwd_bytes(h, w) <= SMEM_MAX and D % 2 == 0 else "direct"
                 for h, w in spatial_shapes)
@@ -266,10 +321,11 @@ def msda_plan(B: int, M: int, D: int, spatial_shapes: Sequence[Tuple[int, int]],
                     bwd_smem)
 
 
-def _plan_for(value: torch.Tensor, spatial_shapes) -> MsdaPlan:
+def _plan_for(value: torch.Tensor, spatial_shapes, loc: torch.Tensor) -> MsdaPlan:
     B, _, M, D = value.shape
     n_sm = torch.cuda.get_device_properties(value.device).multi_processor_count
-    return msda_plan(B, M, D, spatial_shapes, n_sm, value.element_size())
+    return msda_plan(B, M, D, spatial_shapes, n_sm, value.element_size(), Lq=loc.shape[1],
+                     P=loc.shape[4])
 
 
 def _check_kernel_args(value, spatial_shapes, loc, attw, grad_out=None,
@@ -330,7 +386,7 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     B, S, M, D = value.shape
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
-    plan = _plan_for(value, spatial_shapes)
+    plan = _plan_for(value, spatial_shapes, sampling_locations)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
     lib = _build.library("msda")
     err = lib.msda_fwd_f32(value.data_ptr(), sampling_locations.data_ptr(),
@@ -361,7 +417,7 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     B, S, M, D = value.shape
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
-    plan = _plan_for(value, spatial_shapes)
+    plan = _plan_for(value, spatial_shapes, sampling_locations)
     # a staged level's dValue slice is written whole by its block; a direct
     # level's is summed with global atomics and zeroed first
     dvalue = torch.empty_like(value)
@@ -388,8 +444,8 @@ def ms_deform_attn_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
                         sampling_locations: torch.Tensor,
                         attention_weights: torch.Tensor) -> torch.Tensor:
     """bf16 forward without autograd: kernel K3-bf16 for CUDA tensors (its
-    staged or gather kernel, as `msda_plan` picks at bf16; each launch
-    counted in `ms_deform_attn_bf16.launches` and by kernel in
+    tap or gather kernel, as `msda_plan` picks at bf16; each launch counted
+    in `ms_deform_attn_bf16.launches` and by kernel in
     `ms_deform_attn_bf16.launches_by_kernel`), `ms_deform_attn_bf16_ref` for
     CPU tensors. value and attention_weights must be bf16 and
     sampling_locations f32; the kernel takes D a multiple of 8 up to 128
@@ -410,13 +466,12 @@ def ms_deform_attn_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
         raise ValueError(f"ms_deform_attn_bf16 kernel takes D a multiple of 8, got {D}")
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
-    plan = _plan_for(value, spatial_shapes)
+    plan = _plan_for(value, spatial_shapes, sampling_locations)
     out = torch.empty((B, Lq, M * D), dtype=torch.bfloat16, device=value.device)
     lib = _build.library("msda")
     err = lib.msda_fwd_bf16(value.data_ptr(), sampling_locations.data_ptr(),
                             attention_weights.data_ptr(), out.data_ptr(),
-                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-                            int(plan.fwd == "staged"),
+                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), plan.fwd_tiles,
                             torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_fwd_bf16")
     ms_deform_attn_bf16.launches += 1
@@ -428,13 +483,16 @@ def ms_deform_attn_bwd_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[
                             sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
                             grad_out: torch.Tensor):
     """bf16 (dValue, dLoc, dAttw), in the primal dtypes (bf16, f32, bf16):
-    kernel K4-bf16 for CUDA tensors (its staged kernel for the levels
-    `msda_plan` stages at bf16, its direct kernel into an f32 scratch for
+    kernel K4-bf16 for CUDA tensors (its tap kernel for the levels
+    `msda_plan` gives it at bf16, its direct kernel into an f32 scratch for
     the others, rounded to bf16 here; each call counted once in
-    `ms_deform_attn_bwd_bf16.launches`), `ms_deform_attn_bwd_bf16_ref` for
-    CPU tensors. value, attention_weights and grad_out bf16,
+    `ms_deform_attn_bwd_bf16.launches`, each kernel it launches in
+    `ms_deform_attn_bwd_bf16.launches_by_kernel`), `ms_deform_attn_bwd_bf16_ref`
+    for CPU tensors. value, attention_weights and grad_out bf16,
     sampling_locations f32; the kernel takes D a multiple of 8 up to 128.
-    Its dValue sums run in an order that varies from run to run, as K4's."""
+    The tap kernel sums dValue in a fixed order without atomics, so the
+    levels it takes give the same bits from run to run; the direct
+    kernel's atomics do not."""
     for name, t, want in (("value", value, torch.bfloat16),
                           ("sampling_locations", sampling_locations, torch.float32),
                           ("attention_weights", attention_weights, torch.bfloat16),
@@ -452,7 +510,7 @@ def ms_deform_attn_bwd_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[
         raise ValueError(f"ms_deform_attn_bwd_bf16 kernel takes D a multiple of 8, got {D}")
     Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], \
         sampling_locations.shape[4]
-    plan = _plan_for(value, spatial_shapes)
+    plan = _plan_for(value, spatial_shapes, sampling_locations)
     dvalue = torch.empty_like(value)
     # a direct level scatters into an f32 scratch with global atomics (a bf16
     # atomic would round at every add), zeroed first and rounded afterwards
@@ -468,12 +526,14 @@ def ms_deform_attn_bwd_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[
                             dvalue.data_ptr(), scratch.data_ptr() if direct else None,
                             dloc.data_ptr(), dattw.data_ptr(),
                             B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-                            sum(1 << l for l, path in enumerate(plan.bwd) if path == "staged"),
+                            sum(1 << l for l, path in enumerate(plan.bwd) if path == "tap"),
                             torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_bwd_bf16")
     for s0, s1 in direct:
         dvalue[:, s0:s1].copy_(scratch[:, s0:s1])
     ms_deform_attn_bwd_bf16.launches += 1
+    for kernel in set(plan.bwd):
+        ms_deform_attn_bwd_bf16.launches_by_kernel[kernel] += 1
     return dvalue, dloc, dattw
 
 
@@ -528,6 +588,10 @@ ms_deform_attn.launches = 0
 #: K3 launches by the kernel `msda_plan` picked ("staged" or "gather")
 ms_deform_attn.launches_by_kernel = {"staged": 0, "gather": 0}
 ms_deform_attn_bf16.launches = 0
-ms_deform_attn_bf16.launches_by_kernel = {"staged": 0, "gather": 0}
+#: K3-bf16 launches by the kernel `msda_plan` picked ("tap" or "gather")
+ms_deform_attn_bf16.launches_by_kernel = {"tap": 0, "gather": 0}
 ms_deform_attn_bwd.launches = 0
 ms_deform_attn_bwd_bf16.launches = 0
+#: K4-bf16's kernel launches: a call launches "tap" if msda_plan gives a
+#: level the tap kernel, "direct" if it gives one the direct kernel
+ms_deform_attn_bwd_bf16.launches_by_kernel = {"tap": 0, "direct": 0}

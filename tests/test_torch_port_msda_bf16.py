@@ -10,7 +10,7 @@ Tolerance: one bf16 unit of the output (rtol 2^-7; atol 1e-5), with at most
 per-pixel sums and the output at the same points and differ only in the
 order of f32 sums; measured, every output is bit-equal.
 
-Also `msda_plan` at bf16 (itemsize 2) and the bf16 guards.
+Also `msda_plan` at bf16 (itemsize 2: the tap kernel) and the bf16 guards.
 """
 import numpy as np
 import pytest
@@ -20,9 +20,8 @@ import jax.numpy as jnp
 
 from multi_modal_tracking_tpu.ops import msda as jax_msda
 
-from multi_modal_tracking_torch.ops.msda import (SMEM_MAX, FWD_TABLE_BYTES, ms_deform_attn,
-                                                 ms_deform_attn_bf16, ms_deform_attn_ref,
-                                                 msda_plan)
+from multi_modal_tracking_torch.ops.msda import (SMEM_MAX, ms_deform_attn, ms_deform_attn_bf16,
+                                                 ms_deform_attn_ref, msda_plan, tap_fwd_smem)
 
 from tests.test_torch_port_msda import _inputs
 
@@ -72,20 +71,23 @@ def test_bf16_within_rounding_of_f32():
 
 
 def test_plan_bf16():
-    """At bf16 the staged slice takes half the shared memory of f32; the
-    kernel is chosen by shape as at f32 (B 1 and 4 gather, B 12 and 16
-    stage at the recipe's shapes on 132 SMs), and a slice too large for f32
-    shared memory still stages at bf16."""
+    """At bf16 the forward takes its tap kernel (csrc/msda.cu) at every
+    recipe batch: the B*M pairs of B 12 and 16 fill half of 132 SMs and walk
+    all 11 query tiles a block; B 1 and 4 split the tiles over blocks. The
+    tap kernel stages every level's value rows beside two tap tiles; a
+    value slice too large for them gathers (a 25x40 level: 1000 rows of
+    value and 16 tap blocks, 288,768 B), as do widths other than 64."""
     shapes = ((18, 18), (18, 18))
-    for B, want in ((1, "gather"), (4, "gather"), (12, "staged"), (16, "staged")):
-        plan = msda_plan(B, 8, 64, shapes, 132, itemsize=2)
-        assert plan.fwd == want, (B, plan)
-        assert plan.fwd_smem == (2 * 648 * 64 + FWD_TABLE_BYTES if want == "staged" else 0)
-    big = ((25, 40),)                     # S 1000: 264,192 B at f32, 136,192 at bf16
-    assert msda_plan(16, 8, 64, big, 132).fwd == "gather"
-    assert msda_plan(16, 8, 64, big, 132, itemsize=2).fwd == "staged"
-    assert msda_plan(16, 8, 64, big, 132, itemsize=2).fwd_smem == 2 * 1000 * 64 + 8192
-    assert 2 * 1000 * 64 + 8192 <= SMEM_MAX < 4 * 1000 * 64 + 8192
+    for B, tiles in ((1, 1), (4, 3), (12, 11), (16, 11)):
+        plan = msda_plan(B, 8, 64, shapes, 132, itemsize=2, Lq=648, P=4)
+        assert (plan.fwd, plan.fwd_tiles) == ("tap", tiles), (B, plan)
+        assert plan.fwd_smem == tap_fwd_smem(shapes) == 215_040 <= SMEM_MAX
+    big = ((25, 40),)
+    plan = msda_plan(16, 8, 64, big, 132, itemsize=2, Lq=648, P=4)
+    assert (plan.fwd, plan.fwd_smem, plan.fwd_tiles) == ("gather", 0, 0)
+    assert tap_fwd_smem(big) == 128 * 1024 + 16 * 8192 + 8192 + 16384 + 1024 + 1024 > SMEM_MAX
+    assert msda_plan(16, 8, 32, shapes, 132, itemsize=2, Lq=648, P=4).fwd == "gather"
+    assert msda_plan(16, 8, 64, shapes, 132).fwd == "staged"     # f32 as before
 
 
 def test_bf16_with_gradient_raises():

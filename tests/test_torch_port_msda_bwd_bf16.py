@@ -11,9 +11,9 @@ The plain version follows the Pallas kernel's rounding points exactly,
 taps that share a source pixel included: per level the dense row A of the
 rounded tap weights, summed per pixel in tap order and rounded again
 (`_bf16_tap_rows`, the forward's too). So no location needs a looser
-bound here; the drift of the kernel, which scatters each rounded tap
-weight on its own, is measured against this plain version on the card
-(chip_smoke.py, kernels phase).
+bound here; the kernel, whose tap kernel builds the same A
+(tests/test_torch_port_msda_bf16_hopper.py models it), is held to this
+plain version on the card (chip_smoke.py, kernels phase).
 
 Tolerances:
   * dValue and dAttw (bf16): one bf16 unit of each value (rtol 2^-7) plus
@@ -34,7 +34,7 @@ import torch
 
 from multi_modal_tracking_tpu.ops import msda as jax_msda
 
-from multi_modal_tracking_torch.ops.msda import (BWD_TABLE_BYTES, SMEM_MAX, ms_deform_attn,
+from multi_modal_tracking_torch.ops.msda import (SMEM_MAX, TAP_BWD_SMEM, ms_deform_attn,
                                                  ms_deform_attn_bwd_bf16,
                                                  ms_deform_attn_bwd_bf16_ref,
                                                  ms_deform_attn_bwd_ref, msda_plan)
@@ -120,18 +120,22 @@ def test_bf16_backward_within_rounding_of_f32():
 
 
 def test_plan_bf16_plans_the_backward():
-    """At bf16 K4-bf16 stages a bf16 slice beside an f32 dValue accumulator:
-    6 * S_l * D bytes plus the corner tables. The recipe's 18x18 levels
-    stage at both dtypes; a level of 500 pixels at D 64 stages at bf16 only."""
+    """At bf16 K4-bf16 takes its tap kernel (csrc/msda_bwd.cu) for each level
+    of at most 6 blocks of 64 pixels, the blocks whose dV its two
+    warpgroups hold in registers, in a fixed shared memory (value rows and
+    the tap tile in those blocks, two g tiles and the f32 dWf rows,
+    TAP_BWD_SMEM). The recipe's 18x18 levels take it; a level of 500
+    pixels (8 blocks) goes direct, as do widths other than 64."""
     shapes = ((18, 18), (18, 18))
-    plan = msda_plan(16, 8, 64, shapes, 132, itemsize=2)
-    assert plan.bwd == ("staged", "staged")
-    assert plan.bwd_smem == 6 * 324 * 64 + BWD_TABLE_BYTES
+    plan = msda_plan(16, 8, 64, shapes, 132, itemsize=2, Lq=648, P=4)
+    assert plan.bwd == ("tap", "tap")
+    assert plan.bwd_smem == TAP_BWD_SMEM == 2 * 6 * 8192 + 2 * 8192 + 4 * 64 * 392 + 1024 + 1024
+    assert TAP_BWD_SMEM <= SMEM_MAX
     big = ((20, 25),)
     assert msda_plan(16, 8, 64, big, 132).bwd == ("direct",)
-    assert msda_plan(16, 8, 64, big, 132, itemsize=2).bwd == ("staged",)
-    assert 6 * 500 * 64 + BWD_TABLE_BYTES <= SMEM_MAX < 8 * 500 * 64 + BWD_TABLE_BYTES
-    assert msda_plan(16, 8, 64, ((25, 25),), 132, itemsize=2).bwd == ("direct",)
+    assert msda_plan(16, 8, 64, big, 132, itemsize=2, Lq=648, P=4).bwd == ("direct",)
+    assert msda_plan(16, 8, 64, ((16, 24),), 132, itemsize=2, Lq=648, P=4).bwd == ("tap",)
+    assert msda_plan(16, 8, 16, shapes, 132, itemsize=2, Lq=648, P=4).bwd == ("direct", "direct")
 
 
 def test_bf16_backward_checks_without_fallback():
