@@ -6,8 +6,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device   - requires CUDA, prints the card's name and power limit,
                 turns TF32 off;
   2. build    - compiles every kernel of the main paths from csrc/ (one nvcc
-                per source, all at once) and prints ptxas's registers and
-                spills per kernel; the wgmma kernels of K1-bf16 and K2-bf16
+                per source, all at once) and, beside them with g++, the host
+                data library of the training input pipeline
+                (csrc/host/data.cpp; its seconds printed), and prints
+                ptxas's registers and spills per kernel; the wgmma kernels of K1-bf16 and K2-bf16
                 and the tap kernels of K3-bf16 and K4-bf16 must spill
                 nothing and must not have their wgmma chains serialised;
   3. bf16 GEMM reduction - set_precision(bf16) must turn cuBLAS's bf16
@@ -81,12 +83,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 and the calling thread's, device busy, idle share and
                 operations per frame, capture ms per graph, the graph
                 pool's bytes and peak memory;
+  7c. train data - the training input pipeline on this machine's host at
+                the recipe's settings (batch 16, 8 loader threads): the
+                native loader (the C++ host data library, the Trainer's)
+                against the plain one (numpy) on one seed, every key of 9
+                batches bit for bit; ms per batch of each (after a first
+                batch), the host's CPU count; and one line saying whether
+                the machine has libjpeg (jpeglib.h, libjpeg.so);
   8. train    - Trainer(dtype=torch.float32) on the full-width recipe at
                 batch 16 on SyntheticRGBT: an epoch of steps at epoch 1
                 (keep 1.0) and one at epoch 51 (keep 0.7, bucketised to
                 240/324), launch counts per step;
                 step time, samples/s, host data time, device busy time and
-                idle share, peak memory, loss per step; and one full-width
+                idle share, peak memory, loss per step; an epoch of 16 steps
+                (32 at bf16) through cycle_dataset at the recipe's print
+                interval, with the loader and the one-batch look-ahead
+                (pinned buffers, side-stream uploads) running as in
+                training: ms per step after the first 4 against the
+                isolated step (5 steps before the epoch, 5 after it, all
+                before the profiler, which slows host-bound steps after
+                it), the device stream's wait on each upload
+                (CUDA events) and the loop's wait for each batch; and one full-width
                 step at batch 2 (dropout and drop path off) on the GPU held
                 against the same step on the CPU; launches of K1-K4 only;
   9. train bf16 - the same at the Trainer's default dtype (bf16 compute on
@@ -94,7 +111,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 and K2-bf16 12 and K3-bf16 and K4-bf16 2 launches per step and
                 no f32 kernel; finite losses that change between steps; the
                 same timings, device busy time, idle share, operations per
-                step and peak memory; a GPU bf16 step at batch 2 held against
+                step and peak memory; the epoch at the training pace also
+                with its batches collated before the epoch (no loader
+                thread beside the steps); a GPU bf16 step at batch 2 held against
                 the CPU bf16 step and the GPU f32 step;
  10. lifecycle - checkpoints and the rest of the training loop, full width at
                 batch 16 at the Trainer's default (bf16), in a temporary
@@ -111,7 +130,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 within 1e-6 px of a tracker on the trainer's in-memory model
                 cast to bf16; bf16 kernels only.
                 Prints checkpoint bytes, save / load / resume seconds, val
-                ms per batch and ms per accumulation micro-step;
+                ms per batch and ms per accumulation micro-step beside the
+                isolated bf16 step of phase 9;
  11. eval     - the evaluation stack on synthetic_rgbt_hard (12 sequences of
                 60 frames at 240x320), full width, seed-0 weights: run_dataset
                 one stream at a time, chunk 16 (A); run_sequences_batched at
@@ -230,6 +250,11 @@ B2, HEADS, HEAD_D = 2, 12, 64      # both modalities on the batch axis
 TRAIN_B = 16                       # the recipe's batch; 2 x 16 on the batch axis
 TRAIN_STEPS = 3                    # steps per epoch in the train phase
 LIFE_STEPS = 2                     # steps (and val batches) per epoch in the lifecycle phase
+#: steps of the epoch run at the training pace (train phases), the first
+#: EPOCH_WARM of them untimed
+EPOCH_STEPS = {torch.float32: 16, torch.bfloat16: 32}
+EPOCH_WARM = 4
+DATA_BATCHES = 9                   # batches of 16 compared native vs plain (train data phase)
 LIFE_FRAMES = 16                   # frames tracked on the lifecycle's checkpoint
 KEEP_FINAL = 240 / 324             # keep 0.7 bucketised to a multiple of 16
 MSDA_SHAPES = ((18, 18), (18, 18))  # the fusion's two modal 18x18 maps
@@ -414,10 +439,27 @@ def phase_build():
     """Builds every kernel library (one nvcc per source, all at once) and
     prints each kernel's ptxas report; the wgmma kernels of K1-bf16 and
     K2-bf16 must spill nothing and keep their wgmma chains unserialised."""
+    import threading
+    from multi_modal_tracking_torch import native
     from multi_modal_tracking_torch.ops import _build
+    host = {}
+
+    def build_host():                       # g++ beside the nvcc processes
+        t = time.perf_counter()
+        try:
+            native.library()
+        except Exception as e:              # raised below, in this thread
+            host["error"] = e
+        host["seconds"] = time.perf_counter() - t
+
+    g = threading.Thread(target=build_host)
     t0 = time.perf_counter()
+    g.start()
     logs = _build.build()
+    g.join()
     secs = time.perf_counter() - t0
+    if "error" in host:
+        raise host["error"]
     require(set(logs) >= {"mixed_attention", "mixed_attention_bf16", "mixed_attention_bwd",
                           "mixed_attention_bwd_bf16", "msda", "msda_bwd"},
             f"built {sorted(logs)}")
@@ -432,7 +474,11 @@ def phase_build():
     bad = [r for rows in wgmma.values() for r in rows
            if r.get("spill_stores") or r.get("spill_loads") or r.get("wgmma_serialized")]
     require(not bad, f"wgmma kernels spill or serialise their wgmma chain: {bad}")
-    emit({"phase": "build", "seconds": round(secs, 3), "ptxas": reports,
+    emit({"phase": "build", "seconds": round(secs, 3),
+          "host_library": {"source": os.path.relpath(native.SOURCE, os.path.dirname(
+              os.path.abspath(__file__))), "seconds": round(host["seconds"], 3),
+              "flags": _build.HOST_FLAGS},
+          "ptxas": reports,
           "wgmma_kernels": {name: [{k: r.get(k) for k in ("function", "registers", "spill_stores",
                                                            "spill_loads", "wgmma_serialized")}
                                    for r in rows] for name, rows in wgmma.items()}})
@@ -1983,6 +2029,133 @@ def _compare_step_gpu_cpu(dtype=torch.float32):
                 loss_rel_diff_f32=d_loss_f32, grad_norm_gpu_f32=gnorm_f32)
 
 
+def _libjpeg() -> dict:
+    """Whether this machine has libjpeg's header (as the C++ compiler finds
+    it) and its shared library (as ctypes finds it): what the file-based
+    datasets would decode with."""
+    import ctypes.util
+    probe = subprocess.run([os.environ.get("CXX") or "g++", "-fsyntax-only", "-x", "c++", "-"],
+                           input="#include <cstdio>\n#include <jpeglib.h>\n",
+                           capture_output=True, text=True)
+    return {"jpeglib_h": probe.returncode == 0, "libjpeg": ctypes.util.find_library("jpeg"),
+            "libturbojpeg": ctypes.util.find_library("turbojpeg")}
+
+
+def _timed_batches(loader, n: int) -> tuple:
+    """All n batches of `loader` and its ms per batch after the first
+    (which starts the threads). The synthetic sequences are rendered
+    first: a file dataset would decode instead, and the rendering is
+    cached for the life of the dataset object."""
+    for ds in loader.sampler.datasets:
+        for seq in range(ds.get_num_sequences()):
+            ds.get_sequence_info(seq)
+    it = iter(loader)
+    batches = [next(it)]
+    t0 = time.perf_counter()
+    batches += list(it)
+    require(len(batches) == n, f"the loader gave {len(batches)} batches, expected {n}")
+    return batches, (time.perf_counter() - t0) / (n - 1) * 1e3
+
+
+def phase_train_data(smi: str) -> dict:
+    """The training input pipeline on this machine's host at the recipe's
+    settings (batch 16, search 288 at 4.5, two templates of 128 at 2.0,
+    TRAIN.NUM_WORKER threads): the native loader (the C++ host data
+    library, the Trainer's) against the plain one (numpy) on the same seed,
+    every key of DATA_BATCHES batches bit for bit, and each one's ms per
+    batch; and whether the machine has libjpeg."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    cfg = _train_cfg(TRAIN_B, DATA_BATCHES)
+    native_loader = build_train_loader(cfg, seed=3)
+    plain_loader = build_train_loader(cfg, seed=3)
+    require(native_loader.sampler.processing.pixels == "native",
+            f"the Trainer's loader runs {native_loader.sampler.processing.pixels!r} pixels")
+    plain_loader.sampler.processing.pixels = "plain"
+    got, native_ms = _timed_batches(native_loader, DATA_BATCHES)
+    want, plain_ms = _timed_batches(plain_loader, DATA_BATCHES)
+    for b, (x, y) in enumerate(zip(got, want)):
+        require(x.keys() == y.keys(), f"batch {b}: keys {sorted(x)} vs {sorted(y)}")
+        bad = [k for k in x if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k])]
+        require(not bad, f"batch {b}: native and plain batches differ in {bad}")
+    jpeg = _libjpeg()
+    print(f"libjpeg on this machine: jpeglib.h {'found' if jpeg['jpeglib_h'] else 'not found'}, "
+          f"shared library {jpeg['libjpeg'] or 'not found'}", flush=True)
+    out = dict(batches_compared=len(got), batch=TRAIN_B,
+               keys=sorted(got[0]), host_data_ms_per_batch=native_ms,
+               host_data_ms_per_batch_plain=plain_ms, plain_over_native=plain_ms / native_ms,
+               data_workers=cfg.TRAIN.NUM_WORKER, host_cpus=len(os.sched_getaffinity(0)),
+               libjpeg=jpeg)
+    emit({"phase": "train data", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}",
+          "check": "native == plain, every key, bit for bit", **out})
+    return out
+
+
+class _Preloaded:
+    """A loader's batches collated before the epoch: the epoch loop and the
+    look-ahead without the loader's threads."""
+
+    def __init__(self, loader):
+        self.name, self.batches = loader.name, list(loader)
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def _epoch_at_pace(tr, dtype, isolated_ms: float, preloaded: bool = False) -> tuple:
+    """One epoch of EPOCH_STEPS[dtype] steps through Trainer.cycle_dataset
+    at the final keep and the recipe's print interval, the loader and the
+    look-ahead running as in training (`preloaded`: the batches collated
+    before the epoch, so no loader thread runs beside the steps): ms per
+    step over the steps after the first EPOCH_WARM (the clock starts at a
+    synchronise before step EPOCH_WARM + 1 and stops at one after the
+    epoch), against the isolated step; the device stream's wait on each
+    batch's upload (CUDA events) and the loop's wait for the look-ahead's
+    batch (host clock). Returns (fields, launch counts)."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    n = EPOCH_STEPS[dtype]
+    loader = build_train_loader(_train_cfg(TRAIN_B, n), seed=2)
+    if preloaded:
+        loader = _Preloaded(loader)
+    step, calls, started = tr._step, [], []
+
+    def clocked(*args, **kwargs):
+        if len(calls) == EPOCH_WARM:
+            torch.cuda.synchronize()
+            started.append(time.perf_counter())
+        calls.append(1)
+        return step(*args, **kwargs)
+
+    interval = tr.stats.print_interval
+    tr._step, tr.stats.print_interval, tr.epoch = clocked, tr.cfg.TRAIN.PRINT_INTERVAL, 51
+    reset_launches()
+    try:
+        tr.cycle_dataset(loader)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - started[0]
+    finally:
+        tr._step, tr.stats.print_interval = step, interval
+    counts = read_launches()
+    for k, per in TRAIN_LAUNCHES[dtype].items():
+        require(counts[k] == per * n, f"{k} launched {counts[k]} times in an epoch of {n} steps")
+    waits = tr.input_waits[EPOCH_WARM:]
+    require(len(tr.history) == n and len(waits) == n - EPOCH_WARM
+            and all(w is not None for _, w in waits), "the epoch did not run through the "
+                                                      "look-ahead's uploads")
+    upload = [a.elapsed_time(b) for _, (a, b) in waits]
+    ms = secs / (n - EPOCH_WARM) * 1e3
+    return dict(steps=n, timed_steps=n - EPOCH_WARM, preloaded=preloaded,
+                print_interval=tr.cfg.TRAIN.PRINT_INTERVAL,
+                ms_per_step_in_epoch=ms, ms_per_step_median=isolated_ms,
+                in_epoch_over_isolated=ms / isolated_ms,
+                upload_wait_ms_per_step=float(np.mean(upload)),
+                upload_wait_ms_max=float(np.max(upload)),
+                loader_wait_ms_per_step=float(np.mean([h for h, _ in waits])) * 1e3,
+                loss=[m["Loss/total"] for m in tr.history]), counts
+
+
 def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
     """The training main path: Trainer on the full-width recipe at batch 16,
     computing in `dtype` on float32 parameters (bf16: the Trainer's
@@ -2040,15 +2213,30 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
     del it
 
     step = make_train_step(tr.model, tr.optimizer)
+
+    def isolated_steps():
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(inputs, KEEP_FINAL)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
     torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(inputs, KEEP_FINAL)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = isolated_steps()
     peak = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_ms))
+    # the epochs at the training pace beside the isolated steps, before the
+    # profiler: after a torch.profiler session host-bound steps run slower
+    pace, counts = _epoch_at_pace(tr, dtype, med)
+    for k in per_step:
+        launches[k] += counts[k]
+    if bf16:                # the host-bound step: the same epoch without loader threads
+        pace_preloaded, counts = _epoch_at_pace(tr, dtype, med, preloaded=True)
+        for k in per_step:
+            launches[k] += counts[k]
+    step_ms_after = isolated_steps()
     moments = [v for st in tr.optimizer.opt.state.values() for v in st.values()
                if torch.is_tensor(v) and v.dim() > 0]
     require(moments and {v.dtype for v in moments} == {torch.float32}
@@ -2075,14 +2263,16 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
         (the bf16 kernels' names carry bf16 or bfloat16)."""
         return sum(t for k, t in by_name.items() if any(x in k for x in keys)
                    and ("bf16" in k or "bfloat16" in k) == bf16) / busy
-    med = float(np.median(step_ms))
     suffix = "-bf16" if bf16 else ""
     emit({"phase": "train bf16" if bf16 else "train", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}",
           "batch": TRAIN_B, "dtype": str(dtype).replace("torch.", ""), "epochs": epochs,
           "loss_per_step": losses,
           "ms_per_step_median": med, "ms_per_step": step_ms, "samples_per_s": TRAIN_B / med * 1e3,
+          "ms_per_step_after_epochs": step_ms_after,
           "host_data_ms_per_batch": data_ms, "host_upload_ms_per_batch": upload_ms,
-          "data_workers": cfg.TRAIN.NUM_WORKER,
+          "data_workers": cfg.TRAIN.NUM_WORKER, "host_cpus": len(os.sched_getaffinity(0)),
+          "epoch_at_pace": pace,
+          **({"epoch_at_pace_preloaded": pace_preloaded} if bf16 else {}),
           "profiled_steps": n_prof, "wall_ms_per_step_profiled": wall_us / n_prof / 1e3,
           "device_busy_ms_per_step": busy / n_prof / 1e3,
           "device_idle_share": 1.0 - busy / wall_us,
@@ -2097,7 +2287,7 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
     torch.cuda.empty_cache()
     emit({"phase": "train bf16" if bf16 else "train",
           "check": "gpu vs cpu step, batch 2, keep 1.0", **_compare_step_gpu_cpu(dtype)})
-    return launches
+    return launches, med
 
 
 def _mae_file(path: str, cfg) -> dict:
@@ -2223,7 +2413,7 @@ def _lifecycle_accum(cfg, save_dir: str) -> dict:
                 ms_per_accum_micro_step_median=float(np.median(step_s)) * 1e3)
 
 
-def phase_lifecycle(smi: str, frames) -> dict:
+def phase_lifecycle(smi: str, frames, bf16_step_ms: float) -> dict:
     """Checkpoints and the rest of the training loop at full width, batch
     16, at the Trainer's default compute dtype (bf16 on float32
     parameters): MAE warm start, train + val with an injected failure and
@@ -2307,7 +2497,10 @@ def phase_lifecycle(smi: str, frames) -> dict:
           "dtype": "bfloat16",
           "checks": ["MAE warm start equal", "fail-safe restart from _ep0001", "resume exact",
                      "ACCUM_ITER 2 moves after batches 2 and 4", "checkpoint tracker equal"],
-          "tracked_frames": LIFE_FRAMES, "tracker_max_abs_px": d_px, "launches": launches, **out})
+          "tracked_frames": LIFE_FRAMES, "tracker_max_abs_px": d_px, "launches": launches,
+          "isolated_bf16_step_ms": bf16_step_ms,
+          "accum_micro_step_over_isolated": out["ms_per_accum_micro_step_median"] / bf16_step_ms,
+          **out})
     return launches
 
 
@@ -2702,11 +2895,12 @@ def main() -> None:
     phase_profile(tracker, frames[64:], smi)
     del tracker
     graph_launches = phase_graphs(smi, frames)
+    phase_train_data(smi)
     with tempfile.TemporaryDirectory() as save_dir:
-        train_launches = phase_train(smi, save_dir, torch.float32)
+        train_launches, _ = phase_train(smi, save_dir, torch.float32)
     with tempfile.TemporaryDirectory() as save_dir:
-        train_bf16_launches = phase_train(smi, save_dir, torch.bfloat16)
-    life_launches = phase_lifecycle(smi, frames)
+        train_bf16_launches, bf16_step_ms = phase_train(smi, save_dir, torch.bfloat16)
+    life_launches = phase_lifecycle(smi, frames, bf16_step_ms)
     eval_launches, f32_eval = phase_eval(smi)
     bf16 = phase_bf16(smi, frames, f32_boxes, f32_eval)
     table = []

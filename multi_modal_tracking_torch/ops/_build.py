@@ -12,7 +12,9 @@ name carries a hash of the source, of every header under `csrc/` (`*.cuh`,
 rebuilt and a stale library is never loaded. All missing libraries are
 compiled by concurrent nvcc processes. The compiler's output (ptxas
 register and shared-memory report) is kept beside each library as
-`lib<name>-<hash>.log`.
+`lib<name>-<hash>.log`. The host C++ libraries (`csrc/host/*.cpp`, the
+training data pipeline's pixel work) are compiled the same way with g++
+(`build_host`).
 
 Nothing here runs at import time: the CPU tests import every module and
 have no nvcc.
@@ -141,6 +143,49 @@ def library(name: str) -> ctypes.CDLL:
         build([name])
         lib = _libs[name]
     return lib
+
+
+#: host C++ libraries (csrc/host/<name>.cpp): no -ffast-math, no
+#: -march=native and no contraction to FMA, each of which changes float32 bits
+HOST_DIR = os.path.join(CSRC_DIR, "host")
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off"]
+
+
+def host_library_path(src: str, build_dir: str = BUILD_DIR) -> str:
+    """`<build_dir>/lib<name>-<hash>.so` of the C++ source `src`: the hash
+    covers the source, every header beside it and the flags."""
+    h = hashlib.sha256()
+    folder = os.path.dirname(os.path.abspath(src))
+    headers = sorted(f for f in os.listdir(folder) if f.endswith((".h", ".hpp")))
+    for path in [src, *(os.path.join(folder, f) for f in headers)]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(HOST_FLAGS).encode())
+    name = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(build_dir, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def build_host(src: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile the C++ source `src` with g++ into `host_library_path` unless
+    it is there; returns the path. Concurrent processes each compile into a
+    file of their own and rename it into place, so a reader never sees a
+    partial library. Raises RuntimeError with the compiler's output."""
+    path = host_library_path(src, build_dir)
+    if os.path.isfile(path):
+        return path
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+    try:
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, src], capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{cxx} could not run to build {src}: {e}") from e
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"{cxx} failed for {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path
 
 
 #: codes the bf16 attention entry points return beyond cudaError_t's

@@ -1,30 +1,87 @@
 """Batch loader: thread-pool prefetching over a sampler + numpy collation.
 The port's own copy of the JAX package's `train/data/loader.py`. The
-workers are threads (numpy releases the GIL in its array work); the
-sampler's per-index seeded random streams keep batches deterministic under
-concurrent loading.
+workers are threads (the pixel work runs in the C++ host data library,
+which releases the interpreter lock); the sampler's per-index seeded random
+streams keep batches deterministic under concurrent loading.
+Each worker's sample goes straight into the batch's arrays (the processing
+writes its images there; `BatchArrays`), so the collation runs in parallel
+too, and the workers start on the next batch while one is collated.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import traceback
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 
-def collate(samples: List[dict]) -> Dict[str, np.ndarray]:
+def _is_frames(v) -> bool:
+    return isinstance(v, list) and bool(v) and all(isinstance(a, np.ndarray) for a in v)
+
+
+class BatchArrays:
+    """The (n_frames, B, ...) arrays of a batch's list-of-frames fields,
+    each allocated when a sample first asks for it. A worker puts sample j
+    into slot j: the processing writes its images there itself
+    (`destination(j)`), and `fill(j, sample)` copies whatever is not there
+    yet. Thread-safe."""
+
+    def __init__(self, batch_size: int):
+        self.batch_size = batch_size
+        self.arrays: Dict[str, np.ndarray] = {}
+        self._lock = threading.Lock()
+
+    def _array(self, key: str, n_frames: int, shape: tuple, dtype) -> np.ndarray:
+        want = (n_frames, self.batch_size) + tuple(shape)
+        with self._lock:
+            arr = self.arrays.get(key)
+            if arr is None:
+                arr = self.arrays[key] = np.empty(want, dtype)
+        if arr.shape != want or arr.dtype != dtype:
+            raise ValueError(f"field {key}: {np.dtype(dtype)} {want} does not match the "
+                             f"batch's {arr.dtype} {arr.shape}")
+        return arr
+
+    def destination(self, j: int):
+        """out(key, n_frames, frame, shape) -> the float32 slot of sample j's
+        frame `frame` in field `key`, for the processing to write into."""
+        return lambda key, n_frames, frame, shape: self._array(
+            key, n_frames, shape, np.float32)[frame, j]
+
+    def fill(self, j: int, sample: dict) -> None:
+        for k, v in sample.items():
+            if not _is_frames(v):
+                continue
+            for f, a in enumerate(v):
+                slot = self._array(k, len(v), a.shape, a.dtype)[f, j]
+                if slot.ctypes.data != a.ctypes.data:
+                    slot[...] = a
+
+
+def collate(samples: List[dict], filled: Optional[Dict[str, np.ndarray]] = None
+            ) -> Dict[str, np.ndarray]:
     """Stack a list of processed sample dicts into batch arrays.
 
     List-of-frames fields (e.g. template_images_v = [t, ot]) become
     per-index keys: template_images_v -> stacked (n_frames, B, ...) array.
+    `filled`: such arrays already filled (`BatchArrays`), used as they are;
+    every sample must have exactly their list-of-frames fields.
     """
+    if filled is not None:
+        for i, s in enumerate(samples):
+            if {k for k, v in s.items() if _is_frames(v)} != filled.keys():
+                raise ValueError(f"sample {i}: frame fields differ from the batch's "
+                                 f"{sorted(filled)}")
     out: Dict[str, np.ndarray] = {}
     keys = samples[0].keys()
     for k in keys:
         v0 = samples[0][k]
-        if isinstance(v0, list):
+        if filled is not None and k in filled:
+            out[k] = filled[k]
+        elif isinstance(v0, list):
             out[k] = np.stack([np.stack([s[k][i] for s in samples]) for i in range(len(v0))])
         elif isinstance(v0, np.ndarray) or np.isscalar(v0):
             out[k] = np.stack([np.asarray(s[k]) for s in samples])
@@ -67,24 +124,37 @@ class Loader:
                     continue
             return False
 
+        def load(index: int, j: int, arrays: BatchArrays) -> dict:
+            sample = self.sampler.sample(index, out=arrays.destination(j))
+            arrays.fill(j, sample)
+            return sample
+
         def produce():
-            with ThreadPoolExecutor(self.num_workers) as pool:
+            pool = ThreadPoolExecutor(self.num_workers, thread_name_prefix=f"loader-{self.name}")
+
+            def submit(b):
+                arrays = BatchArrays(self.batch_size)
+                return arrays, [pool.submit(load, b * self.batch_size + i, i, arrays)
+                                for i in range(self.batch_size)]
+            try:
+                ahead = submit(0) if self.n_batches else None
                 for b in range(self.n_batches):
                     if stop.is_set():
                         return
-                    futs = [pool.submit(self.sampler.__getitem__, b * self.batch_size + i)
-                            for i in range(self.batch_size)]
+                    arrays, futs = ahead
+                    ahead = submit(b + 1) if b + 1 < self.n_batches else None
                     try:
-                        batch = collate([f.result() for f in futs])
+                        batch = collate([f.result() for f in futs], arrays.arrays)
                     except Exception:
-                        import traceback
                         traceback.print_exc()
                         continue
                     if not put_guarded(batch):
                         return
-            put_guarded(None)
+                put_guarded(None)
+            finally:
+                pool.shutdown(wait=True, cancel_futures=True)
 
-        t = threading.Thread(target=produce, daemon=True)
+        t = threading.Thread(target=produce, daemon=True, name=f"loader-{self.name}")
         t.start()
         try:
             while True:

@@ -139,11 +139,16 @@ class TrackingSampler:
 
     # ---------------------------------------------------------------- getitem
     def __getitem__(self, index):
+        return self.sample(index)
+
+    def sample(self, index, out=None):
+        """Sample `index`; `out` (or None) goes to the processing, which may
+        write the sample's images there (`loader.BatchArrays.destination`)."""
         # Per-index RNG: deterministic under concurrent (threaded) loading.
         self._tls.rng = random.Random(hash((self.seed, index)))
-        return self.getitem_cls() if self.train_cls else self.getitem()
+        return self.getitem_cls(out) if self.train_cls else self.getitem(out)
 
-    def getitem(self):
+    def getitem(self, out=None):
         while True:
             dataset = self.rng.choices(self.datasets, self.p_datasets)[0]
             is_video = dataset.is_video_sequence()
@@ -169,7 +174,7 @@ class TrackingSampler:
                 data = {"template_images": t_frames, "template_anno": t_anno["bbox"],
                         "search_images": s_frames, "search_anno": s_anno["bbox"],
                         "dataset": dataset.get_name()}
-                data = self.processing(data, rng=self.rng)
+                data = self.processing(data, rng=self.rng, out=out)
                 if data.get("valid"):
                     return data
             except Exception:
@@ -193,7 +198,7 @@ class TrackingSampler:
             s_ids = [0]
         return dataset.get_frames(seq_id, s_ids, info)
 
-    def getitem_cls(self):
+    def getitem_cls(self, out=None):
         """SPM stage-2 sample: label 1 with a real search box, label 0 with an
         invisible frame or a centred dummy box from another sequence
         (sampler_rgbt.py:114-207)."""
@@ -240,7 +245,7 @@ class TrackingSampler:
                 data = {"template_images": t_frames, "template_anno": t_anno["bbox"],
                         "search_images": s_frames, "search_anno": s_anno["bbox"],
                         "dataset": dataset.get_name(), "label": np.float32(label)}
-                data = self.processing(data, rng=self.rng)
+                data = self.processing(data, rng=self.rng, out=out)
                 if data.get("valid"):
                     return data
             except Exception:

@@ -61,14 +61,19 @@ class JointAugment:
         return np.asarray(box_xywh, dtype=np.float32)
 
 
+def brightness_factors(brightness_jitter: float, rng: Optional[random.Random] = None):
+    """(RGB, TIR) brightness factors, independent draws from U[1 - b, 1 + b]."""
+    rnd = rng or random
+    lo, hi = max(0, 1 - brightness_jitter), 1 + brightness_jitter
+    return rnd.uniform(lo, hi), rnd.uniform(lo, hi)
+
+
 def tensor_and_jitter_rgbt(img_v: np.ndarray, img_i: np.ndarray,
                            brightness_jitter: float = 0.2,
                            rng: Optional[random.Random] = None):
     """uint8 crops -> normalised float32 (HWC) pair with brightness jitter and
     the TIR JET map."""
-    rnd = rng or random
-    bf = rnd.uniform(max(0, 1 - brightness_jitter), 1 + brightness_jitter)
-    tir_f = rnd.uniform(max(0, 1 - brightness_jitter), 1 + brightness_jitter)
+    bf, tir_f = brightness_factors(brightness_jitter, rng)
 
     v = np.clip(img_v.astype(np.float32) * (bf / 255.0), 0.0, 1.0)
     i8 = np.clip(img_i.astype(np.float32) * tir_f, 0.0, 255.0).astype(np.uint8)
@@ -82,7 +87,11 @@ def tensor_and_jitter_rgbt(img_v: np.ndarray, img_i: np.ndarray,
 def flip_norm(img: np.ndarray, box_norm: np.ndarray):
     """Horizontal flip of a processed crop and its [0, 1]-normalised xywh
     box: (x, y, w, h) -> (1 - x - w, y, w, h)."""
-    flipped = np.ascontiguousarray(img[:, ::-1])
+    return np.ascontiguousarray(img[:, ::-1]), flip_box_norm(box_norm)
+
+
+def flip_box_norm(box_norm: np.ndarray) -> np.ndarray:
+    """The box half of `flip_norm`: (x, y, w, h) -> (1 - x - w, y, w, h)."""
     b = np.asarray(box_norm, np.float32).copy()
     b[0] = 1.0 - b[0] - b[2]
-    return flipped, b
+    return b

@@ -57,16 +57,37 @@ def bucketize_keep_rate(rate: Optional[float], n_search: int, bucket: int = 16) 
     return keep_b / n_search
 
 
-def model_inputs(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+#: each model input and the host batch fields it concatenates, RGB first
+MODEL_INPUTS = {"t": ("template_v", "template_i"),
+                "ot": ("online_template_v", "online_template_i"),
+                "s": ("search_v", "search_i"), "gt_xywh": ("gt_xywh",)}
+
+
+def input_buffers(batch: Dict[str, np.ndarray], pin: bool = False) -> Dict[str, torch.Tensor]:
+    """Empty float32 host tensors for `model_inputs(batch, ..., out=)`,
+    page-locked if `pin` (so that their copies to the GPU need not block)."""
+    return {k: torch.empty((sum(batch[f].shape[0] for f in fields),) + batch[fields[0]].shape[1:],
+                           dtype=torch.float32, pin_memory=pin)
+            for k, fields in MODEL_INPUTS.items()}
+
+
+def model_inputs(batch: Dict[str, np.ndarray], device,
+                 out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """Host batch (`batch_to_model_inputs`) -> the model's stacked bimodal
     inputs on `device`: t/ot/s (2B, H, W, 3), [:B] RGB, [B:] TIR, and
-    gt_xywh (B, 4)."""
-    def up(*keys):
-        x = np.concatenate([batch[k] for k in keys], axis=0)
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
-    return {"t": up("template_v", "template_i"),
-            "ot": up("online_template_v", "online_template_i"),
-            "s": up("search_v", "search_i"), "gt_xywh": up("gt_xywh")}
+    gt_xywh (B, 4). With `out` (`input_buffers`), the host arrays are
+    concatenated into those buffers and copied from them with
+    non_blocking=True on the current stream: the caller keeps a buffer
+    untouched until that copy has completed. On the CPU the buffers are
+    what it returns."""
+    if out is None:
+        def up(*keys):
+            x = np.concatenate([batch[k] for k in keys], axis=0)
+            return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+        return {k: up(*fields) for k, fields in MODEL_INPUTS.items()}
+    for k, fields in MODEL_INPUTS.items():
+        np.concatenate([batch[f] for f in fields], axis=0, out=out[k].numpy())
+    return {k: out[k].to(device, non_blocking=True) for k in MODEL_INPUTS}
 
 
 def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: float = 2.0,

@@ -32,6 +32,8 @@ queue 1): TRAIN_SCORE (SPM), FSDP / REMAT.
 from __future__ import annotations
 
 import os
+import queue
+import threading
 import time
 import traceback
 from typing import Dict, List, Optional
@@ -46,12 +48,15 @@ from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
 from multi_modal_tracking_torch.train.optimizer import make_optimizer
 from multi_modal_tracking_torch.train.stats import StatsTracker
 from multi_modal_tracking_torch.train.train_step import (adjust_keep_rate, bucketize_keep_rate,
-                                                         make_eval_step, make_train_step,
-                                                         model_inputs)
+                                                         input_buffers, make_eval_step,
+                                                         make_train_step, model_inputs)
 from multi_modal_tracking_torch.utils import checkpoint as ckpt
 from multi_modal_tracking_torch.utils.device import resolve_device
 
 _ROADMAP = "is not ported to multi_modal_tracking_torch yet (ROADMAP.md queue 1)"
+#: pinned host buffers of the look-ahead: one being filled while the other's
+#: copy may still run
+_RING = 2
 
 
 def _check_ported(cfg) -> None:
@@ -116,6 +121,10 @@ class Trainer:
                                   print_interval or cfg.TRAIN.PRINT_INTERVAL)
         #: per-step metrics (floats) of the last cycle_dataset, in order
         self.history: List[Dict[str, float]] = []
+        #: per step of the last cycle_dataset: (seconds the loop waited for the
+        #: look-ahead's batch on the host, the two timing events around the
+        #: device stream's wait on its upload, or None on the CPU)
+        self.input_waits: List[tuple] = []
 
     # ------------------------------------------------------------ ckpt/resume
     def save_checkpoint(self) -> Optional[str]:
@@ -159,16 +168,108 @@ class Trainer:
         return bucketize_keep_rate(rate, (cfg.DATA.SEARCH.SIZE // 16) ** 2)
 
     # ------------------------------------------------------------- epoch loop
+    def _prepared_batches(self, loader):
+        """(inputs, batch size) of each batch of `loader`, converted and
+        uploaded one batch ahead on a thread while the device runs the
+        current one (the JAX Trainer's `_prepared_batches`). On the GPU the
+        thread fills a ring of pinned host buffers (`model_inputs(out=)`),
+        copies each to the device without blocking on a side stream and
+        records an event; the consumer's stream waits on that event, and a
+        buffer is refilled only after its copy's event has completed. On the
+        CPU the same look-ahead runs without pinning or streams. Closing
+        the generator (an abandoned epoch: the fail-safe restart, the NaN
+        abort) stops the thread and the loader."""
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+        q: "queue.Queue" = queue.Queue(maxsize=1)
+        stop = threading.Event()
+
+        def put_guarded(item) -> bool:
+            # never block forever on an abandoned consumer: the thread, its
+            # loader and the batches it holds would leak on every restart
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            ring, copied = [], []           # pinned buffers, each one's last copy
+            batches = iter(loader)
+            try:
+                for k, batch in enumerate(batches):
+                    host = batch_to_model_inputs(batch, rgbt=True)
+                    if not cuda:
+                        item = (model_inputs(host, self.device), None)
+                    else:
+                        slot = k % _RING
+                        if slot == len(ring):
+                            ring.append(input_buffers(host, pin=True))
+                            copied.append(None)
+                        if copied[slot] is not None:
+                            copied[slot].synchronize()
+                        with torch.cuda.stream(side):
+                            inputs = model_inputs(host, self.device, out=ring[slot])
+                            copied[slot] = torch.cuda.Event()
+                            copied[slot].record(side)
+                        item = (inputs, copied[slot])
+                    if not put_guarded(item):
+                        return
+                put_guarded(None)
+            except BaseException as e:      # surface loader errors in the loop
+                put_guarded(e)
+            finally:
+                close = getattr(batches, "close", None)
+                if close is not None:
+                    close()
+
+        thread = threading.Thread(target=produce, daemon=True, name="trainer-lookahead")
+        thread.start()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                item = q.get()
+                host_wait = time.perf_counter() - t0
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                inputs, copied = item
+                waited = None
+                if copied is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    waited = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                    waited[0].record(stream)
+                    stream.wait_event(copied)
+                    waited[1].record(stream)
+                    for t in inputs.values():
+                        t.record_stream(stream)
+                self.input_waits.append((host_wait, waited))
+                yield inputs, inputs["gt_xywh"].shape[0]
+        finally:
+            stop.set()
+            try:                            # unblock + free any queued batches
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            thread.join(timeout=30.0)
+
     def cycle_dataset(self, loader=None, train: bool = True) -> dict:
         """One pass over `loader` (default: the train loader) at
-        `self.epoch`: train steps, or val steps with train=False. Returns
-        the epoch's record (loader, epoch, mean metrics), also appended to
-        metrics.jsonl; keeps the per-step metrics in `self.history`."""
+        `self.epoch`: train steps, or val steps with train=False, on batches
+        prepared one ahead (`_prepared_batches`). Returns the epoch's record
+        (loader, epoch, mean metrics), also appended to metrics.jsonl; keeps
+        the per-step metrics in `self.history`."""
         loader = self.train_loader if loader is None else loader
         self.stats.new_epoch()
         keep_rate = self._keep_rate(self.epoch) if train else None
         n = len(loader)
         self.history = []
+        self.input_waits = []
         pending = []
 
         def drain():
@@ -181,19 +282,19 @@ class Trainer:
                 self.history.append(m)
             pending.clear()
 
-        i = 0
-        for batch in loader:
-            i += 1
-            inputs = model_inputs(batch_to_model_inputs(batch, rgbt=True), self.device)
-            bsz = inputs["gt_xywh"].shape[0]
-            if train:
-                pending.append((self._step(inputs, ce_keep_rate=keep_rate), bsz))
-            else:
-                pending.append((self._eval_step(inputs), bsz))
-            if i % self.stats.print_interval == 0 or i == n:
-                drain()
-                print(self.stats.line(loader.name, self.epoch, i, n), flush=True)
-        drain()
+        batches = self._prepared_batches(loader)
+        try:
+            for i, (inputs, bsz) in enumerate(batches, start=1):
+                if train:
+                    pending.append((self._step(inputs, ce_keep_rate=keep_rate), bsz))
+                else:
+                    pending.append((self._eval_step(inputs), bsz))
+                if i % self.stats.print_interval == 0 or i == n:
+                    drain()
+                    print(self.stats.line(loader.name, self.epoch, i, n), flush=True)
+            drain()
+        finally:
+            batches.close()
         return self.stats.log_epoch(loader.name, self.epoch)
 
     def train_epoch(self) -> dict:

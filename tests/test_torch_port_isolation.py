@@ -4,9 +4,12 @@ its entry points run on the GPU or raise — they never fall back to the CPU
 on their own. Options that are not ported raise; the ones that are (a
 checkpoint for the tracker, ACCUM_ITER, the val split, checkpoints and the
 fail-safe restart) work. The eval stack (eval/ and tracking/batched.py) is
-covered alike."""
+covered alike. The port's C++ and CUDA sources include nothing outside
+multi_modal_tracking_torch/csrc/, in particular nothing of the repo's
+native/."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -41,6 +44,37 @@ def _imported_modules(path):
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def _cxx_sources():
+    for dirpath, _, files in os.walk(os.path.join(PORT, "csrc")):
+        for f in files:
+            if f.endswith((".cpp", ".cu", ".cuh", ".h", ".hpp")):
+                yield os.path.join(dirpath, f)
+
+
+@pytest.mark.parametrize("path", sorted(_cxx_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_cxx_sources_include_nothing_outside_csrc(path):
+    """The port's C++ and CUDA sources include only system headers and files
+    under multi_modal_tracking_torch/csrc/: nothing of the repo's native/
+    (the JAX package's host runtime) or of anything else in the repo."""
+    csrc = os.path.join(PORT, "csrc")
+    for line in open(path):
+        m = re.match(r'\s*#\s*include\s*([<"])([^>"]+)[>"]', line)
+        if not m:
+            continue
+        name = m.group(2)
+        assert "native" not in name and "mmtrk" not in name and "jet_lut" not in name, line
+        if m.group(1) == '"':
+            target = os.path.realpath(os.path.join(os.path.dirname(path), name))
+            assert target.startswith(csrc + os.sep) and os.path.isfile(target), line
+
+
+def test_host_build_reaches_nothing_outside_csrc():
+    from multi_modal_tracking_torch import native
+    from multi_modal_tracking_torch.ops import _build
+    assert not [f for f in _build.HOST_FLAGS if f.startswith(("-I", "-L", "-l", "-include"))]
+    assert os.path.realpath(native.SOURCE).startswith(os.path.join(PORT, "csrc", "host") + os.sep)
 
 
 def test_import_leaves_jax_unloaded():
