@@ -91,7 +91,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 batch), the host's CPU count; and one line saying whether
                 the machine has libjpeg (jpeglib.h, libjpeg.so);
   8. train    - Trainer(dtype=torch.float32) on the full-width recipe at
-                batch 16 on SyntheticRGBT: an epoch of steps at epoch 1
+                batch 16 on SyntheticRGBT, its step a CUDA graph replay
+                (the Trainer's default on the card; one graph per keep
+                bucket), held against eager twins (graphs=False) from the
+                same seed over 6 steps on the same batches (keep 1.0 twice,
+                the final bucket twice, 1.0, the bucket): the same launch
+                counts, and since f32's K4 sums dValue with atomics (two
+                eager runs differ, and more with each step), the counters,
+                generator state, BN batch counts and the first step's
+                forward metrics bit for bit, then one replay from the eager
+                run's state (loaded in place) against an eager step: the
+                forward bit for bit, the gradients within 1e-4 of their
+                norm; then an epoch of steps at epoch 1
                 (keep 1.0) and one at epoch 51 (keep 0.7, bucketised to
                 240/324), launch counts per step;
                 step time, samples/s, host data time, device busy time and
@@ -102,12 +113,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 training: ms per step after the first 4 against the
                 isolated step (5 steps before the epoch, 5 after it, all
                 before the profiler, which slows host-bound steps after
-                it), the device stream's wait on each upload
+                it; the isolated and profiled steps also eager, with the
+                host's CPU ms per step, the memory beyond the Trainer's
+                state and the graph pool's bytes, capture ms per graph; a
+                replay's device operations and K1-K4 kernels per step must
+                equal the eager step's), the device stream's wait on each upload
                 (CUDA events) and the loop's wait for each batch; and one full-width
                 step at batch 2 (dropout and drop path off) on the GPU held
                 against the same step on the CPU; launches of K1-K4 only;
   9. train bf16 - the same at the Trainer's default dtype (bf16 compute on
-                float32 parameters and AdamW moments, both checked): K1-bf16
+                float32 parameters and AdamW moments, both checked), where
+                the graphed 6 steps must equal the eager ones bit for bit
+                (weights, BN buffers, moments, counters, generator state,
+                every step's metrics): K1-bf16
                 and K2-bf16 12 and K3-bf16 and K4-bf16 2 launches per step and
                 no f32 kernel; finite losses that change between steps; the
                 same timings, device busy time, idle share, operations per
@@ -121,11 +139,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 (checked equal); Trainer.train runs 2 epochs of 2 steps
                 with a SyntheticRGBT val split every epoch and a failure
                 injected into the second training pass, and the fail-safe
-                restart must resume from _ep0001 and finish at epoch 2; a
+                restart (after that pass ran, so the state has moved on)
+                must resume from _ep0001, loading it into the tensors the
+                step's graphs hold, finish at epoch 2 and equal an
+                uninterrupted two-epoch run bit for bit; a
                 fresh Trainer's load_checkpoint must equal the first bit for
                 bit (weights, buffers, AdamW moments, count, epoch,
                 generator); an ACCUM_ITER 2 epoch of 4 batches must move the
-                weights after batches 2 and 4 only; create_tracker on the
+                weights after batches 2 and 4 only, through two role graphs
+                (accumulate, update), and equal an eager twin's epoch bit
+                for bit; create_tracker on the
                 _ep0002 checkpoint (strict load, bf16) must track 16 frames
                 within 1e-6 px of a tracker on the trainer's in-memory model
                 cast to bf16; bf16 kernels only.
@@ -223,6 +246,7 @@ cuBLAS and cuDNN):
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import re
@@ -1823,9 +1847,12 @@ def _profile_track(tracker, frames, names: dict) -> dict:
     """torch.profiler over `frames` tracked one by one: device busy ms,
     idle share and operations per frame, and per kernel the launch count
     and the number of device kernels of its name (a graph replay's
-    kernels are the graph's nodes)."""
+    kernels are the graph's nodes). A session run again (lost events)
+    tracks the same frames from the same state."""
     from torch.profiler import ProfilerActivity, profile
+    snap = tracker.snapshot()
     for attempt in range(PROFILE_SESSIONS):
+        tracker.restore(snap)
         reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -2156,23 +2183,253 @@ def _epoch_at_pace(tr, dtype, isolated_ms: float, preloaded: bool = False) -> tu
                 loss=[m["Loss/total"] for m in tr.history]), counts
 
 
+#: keep rate of each step of the graphed-vs-eager check: keep 1.0 twice, the
+#: final bucket twice, 1.0 again (a replay of the first graph), the bucket
+#: once more
+GRAPH_KEEPS = (1.0, 1.0, KEEP_FINAL, KEEP_FINAL, 1.0, KEEP_FINAL)
+#: the training kernels' device names (substrings) for the profiles' counts
+TRAIN_KERNEL_NAMES = {"K1": "mixed_attention_fwd", "K2": "attn_bwd_", "K3": "msda_fwd_kernel",
+                      "K4": "msda_bwd_kernel"}
+
+
+def _train_batches(n: int, seed: int = 4) -> list:
+    """n batches of 16 from the recipe's loader, uploaded as model inputs."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    loader = build_train_loader(_train_cfg(TRAIN_B, n), seed=seed)
+    return [model_inputs(batch_to_model_inputs(b), "cuda") for b in loader]
+
+
+def _train_state(tr) -> dict:
+    """Every tensor of a Trainer's training state by name: weights and BN
+    buffers, AdamW's moments, the open accumulation group's mean, the
+    host's counters and the generator's state."""
+    opt = tr.optimizer
+    out = {f"net/{k}": v for k, v in tr.model.state_dict().items()}
+    for g in opt.groups:
+        for i, (m, v) in enumerate(zip(opt.mu[g], opt.nu[g])):
+            out[f"mu/{g}/{i}"], out[f"nu/{g}/{i}"] = m, v
+    for i, a in enumerate(opt._acc or ()):
+        out[f"acc/{i}"] = a
+    out["counters"] = torch.tensor([opt.count, opt.mini_step, tr.epoch])
+    out["generator"] = tr.generator.get_state()
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers (so -0.0 differs from 0.0 and a NaN
+    equals itself)."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype)
+    return t.detach().view(view) if view is not None else t.detach()
+
+
+def _differing(a: dict, b: dict) -> list:
+    """The names of `a` whose tensors are not the same bits in `b`."""
+    require(a.keys() == b.keys(), f"states of different keys: {sorted(a.keys() ^ b.keys())[:4]}")
+    return [k for k in a if a[k].shape != b[k].shape or a[k].dtype != b[k].dtype
+            or not torch.equal(_bits(a[k]), _bits(b[k].to(a[k].device)))]
+
+
+def _rel_dist(a: dict, b: dict, prefixes) -> float:
+    """||a - b|| / ||b|| over the floating tensors whose names start with
+    one of `prefixes`, all together."""
+    keys = [k for k in a if k.startswith(prefixes) and a[k].is_floating_point()]
+    num = sum(float((a[k].double() - b[k].double()).pow(2).sum()) for k in keys)
+    den = sum(float(b[k].double().pow(2).sum()) for k in keys)
+    return (num / den) ** 0.5
+
+
+def _graphed_vs_eager(graphed, eager, batches, keeps, eager2=None) -> dict:
+    """The same steps from the same state on the same batches through the
+    graphed Trainer and its eager twin (graphs=False), with equal launch
+    counts. Without `eager2` (bf16): weights, BN buffers, AdamW moments,
+    accumulator, counters, generator state and every step's metrics must
+    be the same bits. With a second eager twin `eager2` (f32, whose K4
+    sums dValue with atomics, so that two eager runs differ and the
+    difference grows step by step: module docstring): the counters, the
+    generator state, the BN batch counts and the first step's forward
+    metrics must be the same bits, the three runs' distances are printed,
+    and one replay from the eager run's state is held to it
+    (`_one_replay_f32`)."""
+    runs, states = {}, {}
+    for name, tr in (("graphed", graphed), ("eager", eager), ("eager2", eager2)):
+        if tr is None:
+            continue
+        reset_launches()
+        metrics = [tr._step(x, keep) for x, keep in zip(batches, keeps)]
+        torch.cuda.synchronize()
+        runs[name] = ({f"step{i}/{k}": v for i, m in enumerate(metrics) for k, v in m.items()},
+                      read_launches())
+        states[name] = _train_state(tr)
+    out = dict(steps=len(keeps), keeps=list(keeps), launches=runs["graphed"][1],
+               graphs=len(graphed._step.graphs))
+    for name in runs:
+        require(runs[name][1] == runs["graphed"][1],
+                f"launches graphed {runs['graphed'][1]} vs {name} {runs[name][1]}")
+    g, e = states["graphed"], states["eager"]
+    if eager2 is None:
+        diff = _differing(g, e) + _differing(runs["graphed"][0], runs["eager"][0])
+        require(not diff, f"graphed and eager training differ in {len(diff)} tensors: {diff[:6]}")
+        return dict(out, check="graphed == eager, bit for bit",
+                    tensors_compared=len(g) + len(runs["graphed"][0]))
+    exact = [k for k in g if k in ("counters", "generator") or k.endswith("num_batches_tracked")]
+    first = [f"step0/{k}" for k in ("Loss/total", "Loss/ciou", "Loss/l1", "IoU")]
+    diff = _differing({k: g[k] for k in exact}, {k: e[k] for k in exact}) + _differing(
+        {k: runs["graphed"][0][k] for k in first}, {k: runs["eager"][0][k] for k in first})
+    require(not diff, f"graphed and eager f32 training differ in {diff}")
+    e2 = states["eager2"]
+    dist = {f"{what}_{pair}": _rel_dist(x, y, prefixes)
+            for what, prefixes in (("weights", ("net/",)), ("moments", ("mu/", "nu/")))
+            for pair, x, y in (("graphed_eager", g, e), ("graphed_eager2", g, e2),
+                               ("eager_eager2", e, e2))}
+    return dict(out, check="f32: counters, generator, BN counts, first forward bit for bit",
+                eager_runs_same_bits=not _differing(e, e2), rel_dist_after_steps=dist,
+                tensors_compared=len(exact) + len(first), tensors_differing=len(_differing(g, e)),
+                one_replay=_one_replay_f32(graphed, eager, batches[-1]))
+
+
+#: f32, one step from the same state: the gradients' distance K4's atomics
+#: may leave (measured ~1e-7 of their norm; a wrong capture gives O(1))
+F32_GRAD_REL = 1e-4
+
+
+def _one_replay_f32(graphed, eager, x) -> dict:
+    """One f32 step at the final keep from the same state: the eager
+    Trainer's state loaded into the graphed one's tensors in place (as a
+    resume does), then a replay against an eager step on the same batch.
+    The forward (losses, IoU, BN statistics), the counters and the
+    generator state must be the same bits; the (clipped) gradients within
+    F32_GRAD_REL of their norm, the grad norm within 1e-5 of it."""
+    graphed.model.load_state_dict(eager.model.state_dict())
+    graphed.optimizer.load_state_dict(eager.optimizer.state_dict())
+    graphed.generator.set_state(eager.generator.get_state())
+    require(not _differing(_train_state(graphed), _train_state(eager)), "state load failed")
+    n_graphs = len(graphed._step.graphs)
+    mg, me = graphed._step(x, KEEP_FINAL), eager._step(x, KEEP_FINAL)
+    torch.cuda.synchronize()
+    require(len(graphed._step.graphs) == n_graphs, "the one-step check captured a new graph")
+    sg, se = _train_state(graphed), _train_state(eager)
+    exact = [k for k in sg if k in ("counters", "generator") or "running_" in k
+             or k.endswith("num_batches_tracked")]
+    fwd = ("Loss/total", "Loss/ciou", "Loss/l1", "IoU")
+    diff = _differing({k: sg[k] for k in exact}, {k: se[k] for k in exact}) + _differing(
+        {k: mg[k] for k in fwd}, {k: me[k] for k in fwd})
+    require(not diff, f"f32 replay and eager step from one state differ in {diff}")
+    grads = {f"{i}": t for i, t in enumerate(graphed.optimizer.grads)}
+    grad_rel = _rel_dist(grads, {f"{i}": t for i, t in enumerate(eager.optimizer.grads)}, ("",))
+    norm_rel = abs(float(mg["grad_norm"]) - float(me["grad_norm"])) / float(me["grad_norm"])
+    require(grad_rel <= F32_GRAD_REL and norm_rel <= 1e-5,
+            f"f32 replay vs eager from one state: gradients {grad_rel} of their norm apart, "
+            f"grad norms {norm_rel}")
+    return dict(bit_equal=len(exact) + len(fwd), grad_rel_dist=grad_rel,
+                grad_norm_rel_diff=norm_rel, weights_rel_dist=_rel_dist(sg, se, ("net/",)))
+
+
+def _state_bytes(tr) -> int:
+    """Device bytes a Trainer's training state holds outside any pool:
+    weights, buffers, static gradients, AdamW's moments, the accumulator,
+    the step's static inputs and metrics."""
+    opt, step = tr.optimizer, tr._step
+    ts = list(tr.model.parameters()) + list(tr.model.buffers()) + (opt.grads or []) + \
+        [t for g in opt.groups for t in opt.mu[g] + opt.nu[g]] + (opt._acc or []) + \
+        [t for inputs in step._inputs.values() for t in inputs.tensors] + [step._out]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _isolated_steps(step, inputs, n: int = 5) -> dict:
+    """n synchronised steps at the final keep: host clock ms per step; the
+    host clock ms until the step call returns (its dispatch; the device may
+    still run); and the host's CPU ms in the step calls (time.process_time,
+    every thread of the process, the synchronise after each call left out;
+    summed over the n calls, as the clock ticks coarsely, then divided)."""
+    ms, call, cpu = [], [], 0.0
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        step(inputs, KEEP_FINAL)
+        cpu += time.process_time() - c0
+        call.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(ms_per_step=ms, ms_per_step_median=float(np.median(ms)),
+                host_call_ms_per_step=float(np.median(call)), host_cpu_ms_per_step=cpu / n * 1e3)
+
+
+def _profile_steps(step, inputs, bf16: bool, n: int = 3) -> dict:
+    """torch.profiler over n steps at the final keep: device busy ms, idle
+    share and operations per step, the kernels of K1-K4 (their device
+    names, TRAIN_KERNEL_NAMES) per step, their shares of busy time and the
+    top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(inputs, KEEP_FINAL)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ivals = _device_intervals(prof)
+    require(len(ivals) > 0, "the profiler saw no device operation in the traced steps")
+    busy = _busy_us(ivals)
+    by_name = {}
+    for s, e, name in ivals:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    suffix = "-bf16" if bf16 else ""
+    ops_by_name = {}
+    for _, _, name in ivals:
+        ops_by_name[name] = ops_by_name.get(name, 0) + 1
+
+    def mine(k):            # the bf16 kernels' names carry bf16 or bfloat16
+        return ("bf16" in k or "bfloat16" in k) == bf16
+    return dict(profiled_steps=n, wall_ms_per_step_profiled=wall_us / n / 1e3,
+                ops_by_name=ops_by_name,
+                device_busy_ms_per_step=busy / n / 1e3, device_idle_share=1.0 - busy / wall_us,
+                device_ops_per_step=len(ivals) / n,
+                kernels_per_step={k + suffix: sum(1 for _, _, nm in ivals if sub in nm and mine(nm))
+                                  / n for k, sub in TRAIN_KERNEL_NAMES.items()},
+                kernel_share_of_busy={k + suffix: sum(t for nm, t in by_name.items()
+                                                      if sub in nm and mine(nm)) / busy
+                                      for k, sub in TRAIN_KERNEL_NAMES.items()},
+                top_kernels_ms_per_step=[[k[:90], t / n / 1e3] for k, t in top])
+
+
 def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
     """The training main path: Trainer on the full-width recipe at batch 16,
     computing in `dtype` on float32 parameters (bf16: the Trainer's
-    default). Returns the launch counts of its two epochs."""
-    from torch.profiler import ProfilerActivity, profile
+    default), its step a CUDA graph replay (the default), against an eager
+    twin (graphs=False) from the same seed. Returns the launch counts of
+    the graphed Trainer's runs and its isolated step's median ms."""
     from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
-    from multi_modal_tracking_torch.train.train_step import make_train_step, model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
     from multi_modal_tracking_torch.train.trainer import Trainer
     bf16 = dtype == torch.bfloat16
     cfg = _train_cfg(TRAIN_B, TRAIN_STEPS)
     kw = {} if bf16 else dict(dtype=dtype)          # bf16 through the default
     tr = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
                  print_interval=TRAIN_STEPS, **kw)
+    eager = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
+                    print_interval=TRAIN_STEPS, graphs=False, **kw)
     require(tr.dtype == dtype and {p.dtype for p in tr.model.parameters()} == {torch.float32},
             f"Trainer dtype {tr.dtype}, parameters {({p.dtype for p in tr.model.parameters()})}")
+    require(tr._step.graphs is not None and eager._step.graphs is None,
+            "the Trainer does not capture its step by default on the card")
     per_step = TRAIN_LAUNCHES[dtype]
-    epochs, launches, losses = {}, {k: 0 for k in per_step}, []
+    launches = {k: 0 for k in per_step}
+    # f32: a second eager twin gives the eager runs' own spread (K4's atomics)
+    eager2 = None if bf16 else Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
+                                       print_interval=TRAIN_STEPS, graphs=False, **kw)
+    twin = _graphed_vs_eager(tr, eager, _train_batches(len(GRAPH_KEEPS)), GRAPH_KEEPS, eager2)
+    del eager2
+    torch.cuda.empty_cache()
+    for k, n in per_step.items():
+        require(twin["launches"][k] == n * len(GRAPH_KEEPS),
+                f"{k} launched {twin['launches'][k]} times in {len(GRAPH_KEEPS)} steps")
+        launches[k] += twin["launches"][k]
+    emit({"phase": "train bf16" if bf16 else "train", "card": smi, **twin})
+
+    epochs, losses = {}, []
     for epoch, keep in ((1, 1.0), (51, KEEP_FINAL)):
         tr.epoch = epoch
         require(tr._keep_rate(epoch) == keep, f"keep rate {tr._keep_rate(epoch)} at epoch {epoch}")
@@ -2212,78 +2469,80 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
     upload_ms = (time.perf_counter() - t0) * 1e3
     del it
 
-    step = make_train_step(tr.model, tr.optimizer)
-
-    def isolated_steps():
-        out = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(inputs, KEEP_FINAL)
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = isolated_steps()
-    peak = torch.cuda.max_memory_allocated()
-    med = float(np.median(step_ms))
+    # the isolated step graphed and eager; the memory a step takes beyond
+    # the Trainer's state (both Trainers' states are allocated throughout)
+    mem, iso = {}, {}
+    for name, t in (("graphed", tr), ("eager", eager)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        iso[name] = _isolated_steps(t._step, inputs)
+        mem[name] = dict(state_gib=_state_bytes(t) / 2 ** 30,
+                         step_peak_beyond_state_gib=(torch.cuda.max_memory_allocated() - base)
+                         / 2 ** 30)
+    graphs = tr._step.graphs
+    mem["graphed"]["pool_gib"] = graphs.pool_bytes() / 2 ** 30
+    for name, m in mem.items():
+        m["peak_gib"] = m["state_gib"] + m["step_peak_beyond_state_gib"] + m.get("pool_gib", 0.0)
+    med = iso["graphed"]["ms_per_step_median"]
     # the epochs at the training pace beside the isolated steps, before the
     # profiler: after a torch.profiler session host-bound steps run slower
     pace, counts = _epoch_at_pace(tr, dtype, med)
     for k in per_step:
         launches[k] += counts[k]
-    if bf16:                # the host-bound step: the same epoch without loader threads
+    if bf16:                # the same epoch without loader threads
         pace_preloaded, counts = _epoch_at_pace(tr, dtype, med, preloaded=True)
         for k in per_step:
             launches[k] += counts[k]
-    step_ms_after = isolated_steps()
-    moments = [v for st in tr.optimizer.opt.state.values() for v in st.values()
-               if torch.is_tensor(v) and v.dim() > 0]
+    step_ms_after = _isolated_steps(tr._step, inputs)["ms_per_step"]
+    moments = [v for st in tr.optimizer.opt.state.values() for v in st.values() if v.dim() > 0]
     require(moments and {v.dtype for v in moments} == {torch.float32}
             and {p.dtype for p in tr.model.parameters()} == {torch.float32},
             "parameters or AdamW moments are not float32")
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            step(inputs, KEEP_FINAL)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    ivals = _device_intervals(prof)
-    require(len(ivals) > 0, "the profiler saw no device operation in the traced steps")
-    busy = _busy_us(ivals)
-    by_name = {}
-    for s, e, name in ivals:
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-
-    def share(keys):
-        """Share of busy time of the kernels named by `keys` at this dtype
-        (the bf16 kernels' names carry bf16 or bfloat16)."""
-        return sum(t for k, t in by_name.items() if any(x in k for x in keys)
-                   and ("bf16" in k or "bfloat16" in k) == bf16) / busy
-    suffix = "-bf16" if bf16 else ""
+    # a replay runs every kernel of the eager step (by name and count), K1-K4
+    # as many times, and may add its own (the generators' offsets written at
+    # each replay); a session that lost events is run again. Copies and
+    # memsets are counted, not required: the profiler sees a graph's copy
+    # and memset nodes in some sessions and not in others
+    for attempt in range(PROFILE_SESSIONS):
+        prof = {name: _profile_steps(t._step, inputs, bf16) for name, t in (("graphed", tr),
+                                                                           ("eager", eager))}
+        by_g, by_e = (prof[k].pop("ops_by_name") for k in ("graphed", "eager"))
+        missing = {k: v - by_g.get(k, 0) for k, v in by_e.items()
+                   if by_g.get(k, 0) < v and not k.startswith(("Memcpy", "Memset"))}
+        if not missing and \
+                prof["graphed"]["kernels_per_step"] == prof["eager"]["kernels_per_step"]:
+            break
+    prof["graphed"]["profiler_sessions"] = attempt + 1
+    n_prof = prof["graphed"]["profiled_steps"]
+    extra = {k[:90]: (v - by_e.get(k, 0)) / n_prof for k, v in by_g.items() if v > by_e.get(k, 0)}
+    require(not missing
+            and prof["graphed"]["kernels_per_step"] == prof["eager"]["kernels_per_step"],
+            f"a replay lacks kernels of the eager step: {dict(list(missing.items())[:6])}, "
+            f"K1-K4 {prof['graphed']['kernels_per_step']} vs {prof['eager']['kernels_per_step']}")
+    prof["graphed"]["extra_ops_per_step_in_replay"] = extra
     emit({"phase": "train bf16" if bf16 else "train", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}",
           "batch": TRAIN_B, "dtype": str(dtype).replace("torch.", ""), "epochs": epochs,
           "loss_per_step": losses,
-          "ms_per_step_median": med, "ms_per_step": step_ms, "samples_per_s": TRAIN_B / med * 1e3,
+          "ms_per_step_median": med, "ms_per_step": iso["graphed"]["ms_per_step"],
+          "samples_per_s": TRAIN_B / med * 1e3,
+          "host_call_ms_per_step": iso["graphed"]["host_call_ms_per_step"],
+          "host_cpu_ms_per_step": iso["graphed"]["host_cpu_ms_per_step"],
+          "eager": dict(iso["eager"], samples_per_s=TRAIN_B / iso["eager"]["ms_per_step_median"]
+                        * 1e3, **prof["eager"], memory=mem["eager"]),
+          "eager_over_graphed": iso["eager"]["ms_per_step_median"] / med,
           "ms_per_step_after_epochs": step_ms_after,
           "host_data_ms_per_batch": data_ms, "host_upload_ms_per_batch": upload_ms,
           "data_workers": cfg.TRAIN.NUM_WORKER, "host_cpus": len(os.sched_getaffinity(0)),
           "epoch_at_pace": pace,
           **({"epoch_at_pace_preloaded": pace_preloaded} if bf16 else {}),
-          "profiled_steps": n_prof, "wall_ms_per_step_profiled": wall_us / n_prof / 1e3,
-          "device_busy_ms_per_step": busy / n_prof / 1e3,
-          "device_idle_share": 1.0 - busy / wall_us,
-          "device_ops_per_step": len(ivals) / n_prof,
-          "kernel_share_of_busy": {f"K1{suffix}": share(["mixed_attention_fwd"]),
-                                   f"K2{suffix}": share(["attn_bwd_"]),
-                                   f"K3{suffix}": share(["msda_fwd_kernel"]),
-                                   f"K4{suffix}": share(["msda_bwd_kernel"])},
-          "peak_memory_gib": peak / 2 ** 30,
-          "top_kernels_ms_per_step": [[k[:90], t / n_prof / 1e3] for k, t in top]})
-    del tr, step, inputs
+          **prof["graphed"], "memory": mem["graphed"],
+          "peak_memory_gib": mem["graphed"]["peak_gib"],
+          "graphed_over_eager_memory": mem["graphed"]["peak_gib"] / mem["eager"]["peak_gib"],
+          "graphs": len(graphs),
+          "capture_ms": {str(k[:3]): v for k, v in graphs.capture_ms.items()}})
+    del tr, eager, inputs
+    gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "train bf16" if bf16 else "train",
           "check": "gpu vs cpu step, batch 2, keep 1.0", **_compare_step_gpu_cpu(dtype)})
@@ -2337,8 +2596,10 @@ def _timed(fn, out: list):
 
 def _lifecycle_train(tr) -> dict:
     """Two epochs of train + val through Trainer.train with a failure
-    injected into the second training cycle_dataset call: the fail-safe
-    restart must resume from epoch 1's checkpoint and finish at epoch 2."""
+    injected after the second training cycle_dataset call has run (the
+    weights, moments and generator have moved on from the checkpoint): the
+    fail-safe restart must resume from epoch 1's checkpoint, loading it
+    into the tensors the step's graphs hold, and finish at epoch 2."""
     from multi_modal_tracking_torch.utils import checkpoint as ckpt
     save_s, load_s, val_s, train_calls, resumed_from = [], [], [], [], []
     cycle, load = tr.cycle_dataset, tr.load_checkpoint
@@ -2346,9 +2607,10 @@ def _lifecycle_train(tr) -> dict:
     def flaky_cycle(loader=None, train=True):
         if train:
             train_calls.append(tr.epoch)
+            rec = cycle(loader, train)
             if len(train_calls) == 2:
                 raise RuntimeError("chip_smoke: injected failure")
-            return cycle(loader, train)
+            return rec
         return _timed(cycle, val_s)(loader, train)
 
     def tracked_load(path=None):
@@ -2364,36 +2626,37 @@ def _lifecycle_train(tr) -> dict:
             f"fail-safe restart resumed from {resumed_from}")
     with open(os.path.join(tr.stats.log_dir, "metrics.jsonl")) as f:
         rows = [(r["loader"], r["epoch"]) for r in map(json.loads, f)]
-    require(rows == [("train", 1), ("val", 1), ("train", 2), ("val", 2)], f"metrics rows {rows}")
+    # the failed pass logged its epoch before the failure
+    require(rows == [("train", 1), ("val", 1), ("train", 2), ("train", 2), ("val", 2)],
+            f"metrics rows {rows}")
     path = ckpt.latest_checkpoint(tr.ckpt_dir, tr.net_name)
     require(path.endswith("_ep0002.pth.tar"), f"latest checkpoint {path}")
     return dict(checkpoint=path, save_s=save_s, restart_load_s=load_s,
                 val_ms_per_batch_in_cycle=[s / len(tr.val_loader) * 1e3 for s in val_s])
 
 
-def _same_state(a, b) -> None:
-    """Trainer b resumed into exactly trainer a's state."""
-    sa, sb = a.model.state_dict(), b.model.state_dict()
-    diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
-    require(sa.keys() == sb.keys() and not diff, f"resumed weights differ: {diff[:4]}")
-    oa, ob = a.optimizer.opt.state_dict()["state"], b.optimizer.opt.state_dict()["state"]
-    diff = [(i, k) for i in oa for k in oa[i] if not torch.equal(oa[i][k].cpu(), ob[i][k].cpu())]
-    require(oa.keys() == ob.keys() and not diff, f"resumed AdamW state differs: {diff[:4]}")
-    require((a.optimizer.count, a.epoch) == (b.optimizer.count, b.epoch),
-            f"count/epoch {(a.optimizer.count, a.epoch)} vs {(b.optimizer.count, b.epoch)}")
-    require(torch.equal(a.generator.get_state(), b.generator.get_state()),
-            "resumed generator state differs")
+def _same_state(a, b, what: str = "resumed") -> int:
+    """Trainer b holds exactly trainer a's training state (`_train_state`,
+    bit for bit); returns the number of tensors compared."""
+    sa, sb = _train_state(a), _train_state(b)
+    diff = _differing(sa, sb)
+    require(not diff, f"{what} state differs in {len(diff)} tensors: {diff[:4]}")
+    return len(sa)
 
 
 def _lifecycle_accum(cfg, save_dir: str) -> dict:
-    """One epoch of 4 batches at ACCUM_ITER 2: the weights move after
-    micro-batches 2 and 4 only, and count is 2."""
+    """One epoch of 4 batches at ACCUM_ITER 2, graphed (its two role graphs,
+    accumulate and update): the weights move after micro-batches 2 and 4
+    only, count is 2, and an eager twin (graphs=False) on the same batches
+    ends in the same state and metrics, bit for bit."""
     from multi_modal_tracking_torch.train.trainer import Trainer
     cfg.TRAIN.ACCUM_ITER = 2
     cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = 4 * TRAIN_B
     cfg.DATA.VAL.DATASETS_NAME = []
     cfg.MODEL.BACKBONE.PRETRAINED = False
     tr = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0, print_interval=4)
+    eager = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0, print_interval=4,
+                    graphs=False)
     step, moved, step_s = tr._step, [], []
 
     def watched(*args, **kwargs):
@@ -2403,12 +2666,20 @@ def _lifecycle_accum(cfg, save_dir: str) -> dict:
         return m
 
     tr._step = watched
-    tr.epoch = 1
+    tr.epoch = eager.epoch = 1
     tr.cycle_dataset()
+    tr._step = step
     require(moved == [False, True, False, True] and tr.optimizer.count == 2
             and tr.optimizer.mini_step == 0,
             f"ACCUM_ITER 2: weights moved {moved}, count {tr.optimizer.count}")
-    return dict(accum_moved=moved, accum_count=tr.optimizer.count,
+    roles = sorted(k[2] for k in step.graphs.capture_ms)
+    require(roles == ["accumulate", "update"], f"ACCUM_ITER 2 graphs {roles}")
+    eager.cycle_dataset()
+    n = _same_state(tr, eager, "ACCUM_ITER 2 graphed vs eager")
+    require(tr.history == eager.history, f"ACCUM_ITER 2 metrics graphed {tr.history} vs eager "
+                                         f"{eager.history}")
+    return dict(accum_moved=moved, accum_count=tr.optimizer.count, accum_graphs=roles,
+                accum_tensors_compared=n,
                 ms_per_accum_micro_step=[s * 1e3 for s in step_s],
                 ms_per_accum_micro_step_median=float(np.median(step_s)) * 1e3)
 
@@ -2446,6 +2717,17 @@ def phase_lifecycle(smi: str, frames, bf16_step_ms: float) -> dict:
             require(all(torch.equal(got["backbone." + t].cpu(), v) for t in targets),
                     f"MAE warm start: {k} differs")
         out = _lifecycle_train(tr)
+        # the same two epochs uninterrupted, in a directory of their own
+        whole_dir = os.path.join(tmp, "uninterrupted")
+        whole = Trainer(SCRIPT, cfg, save_dir=whole_dir, device="cuda", seed=0,
+                        print_interval=LIFE_STEPS)
+        whole.train(max_epochs=2, fail_safe=False)
+        out["resume_tensors_compared"] = _same_state(whole, tr, "fail-safe restart vs "
+                                                                "uninterrupted")
+        require(whole.history == tr.history, f"val metrics after the restart {tr.history} "
+                                              f"vs uninterrupted {whole.history}")
+        out["graphs_after_restart"] = len(tr._step.graphs)
+        del whole
 
         t0 = time.perf_counter()
         state = ckpt.load_checkpoint(out["checkpoint"])
@@ -2485,7 +2767,9 @@ def phase_lifecycle(smi: str, frames, bf16_step_ms: float) -> dict:
         require(bool(np.isfinite(boxes[0]).all()) and d_px <= 1e-6,
                 f"tracker on the checkpoint differs from the in-memory model by {d_px} px")
         launches = read_launches()
-        n_steps = 2 * LIFE_STEPS + 4        # two epochs, then the ACCUM_ITER 2 epoch
+        # two epochs with epoch 2 twice (the restart), the uninterrupted two,
+        # then the ACCUM_ITER 2 epoch graphed and eager
+        n_steps = 5 * LIFE_STEPS + 8
         require(launches["K2-bf16"] == 12 * n_steps and launches["K4-bf16"] == 2 * n_steps
                 and launches["K1-bf16"] > 0 and launches["K3-bf16"] > 0
                 and not any(launches[k] for k in F32_KERNELS) and _all_tap(launches),
@@ -2495,8 +2779,10 @@ def phase_lifecycle(smi: str, frames, bf16_step_ms: float) -> dict:
     out.pop("checkpoint")
     emit({"phase": "lifecycle", "card": smi, "recipe": f"{SCRIPT}/{RECIPE}", "batch": TRAIN_B,
           "dtype": "bfloat16",
-          "checks": ["MAE warm start equal", "fail-safe restart from _ep0001", "resume exact",
-                     "ACCUM_ITER 2 moves after batches 2 and 4", "checkpoint tracker equal"],
+          "checks": ["MAE warm start equal", "fail-safe restart from _ep0001",
+                     "restart == uninterrupted, bit for bit", "resume exact",
+                     "ACCUM_ITER 2 moves after batches 2 and 4",
+                     "ACCUM_ITER 2 graphed == eager, bit for bit", "checkpoint tracker equal"],
           "tracked_frames": LIFE_FRAMES, "tracker_max_abs_px": d_px, "launches": launches,
           "isolated_bf16_step_ms": bf16_step_ms,
           "accum_micro_step_over_isolated": out["ms_per_accum_micro_step_median"] / bf16_step_ms,

@@ -7,7 +7,8 @@ torch and never jax, flax, cv2 or anything of multi_modal_tracking_tpu; the
 JAX package is its reference, and only the tests import both.
 
 What it covers so far, for the RGB-T flagship (`asymmetric_shared_ce` with
-the LNSpecific fusion and the CORNER_UP head), in float32:
+the LNSpecific fusion and the CORNER_UP head), in bf16 by default and in
+float32:
   * tracking: eval.evaltracker.create_tracker and the tracker classes in
     tracking.tracker;
   * training: train.trainer.Trainer (epoch loop, CE keep-rate schedule),
@@ -21,7 +22,8 @@ JAX package's four Pallas kernels (mixed-attention forward and backward,
 MSDA forward and backward) are hand-written CUDA in csrc/, built with nvcc
 on first use (ops/_build.py) and differentiable through
 torch.autograd.Function; on CPU tensors their wrappers run the plain
-PyTorch versions.
+PyTorch versions. On the GPU the trackers' per-frame step and the
+Trainer's step run as CUDA graphs (tracking/graphs.py).
 """
 
 __version__ = "0.2.0"

@@ -50,14 +50,17 @@ from multi_modal_tracking_torch.ops.pos_embed import get_2d_sincos_pos_embed
 
 @torch.no_grad()
 def _t2s_attention(q_mt: torch.Tensor, k_s: torch.Tensor, scale: float,
-                   ce_rows: Optional[Tuple[int, ...]]) -> torch.Tensor:
+                   ce_rows: Optional[slice]) -> torch.Tensor:
     """Template->search attention for CE ranking: its own f32 softmax over
     the concatenated bimodal search axis, over the `ce_rows` template rows
     only (None = all rows). No gradient: only `topk` reads it. In a bf16
     model the scores are a bf16 product, scaled in bf16, before the f32
-    softmax, as in the JAX model (models/asymmetric_shared.py:210, :262)."""
+    softmax, as in the JAX model (models/asymmetric_shared.py:210, :262).
+    `ce_rows` is a slice, so the rows are a strided view of q_mt and no
+    index tensor is copied from the host (a CUDA graph can hold the step);
+    made contiguous, they are the product's operand an index would give."""
     if ce_rows is not None:
-        q_mt = q_mt[:, :, list(ce_rows)]
+        q_mt = q_mt[:, :, ce_rows].contiguous()
     a = torch.matmul(q_mt, k_s.transpose(-2, -1)) * scale
     return torch.softmax(a.float(), dim=-1)
 
@@ -79,7 +82,7 @@ class AsymCrossModalAttention(nn.Module):
 
     def forward(self, x_v: torch.Tensor, x_i: torch.Tensor, n_mt: int,
                 return_attention: bool = False,
-                ce_rows: Optional[Tuple[int, ...]] = None):
+                ce_rows: Optional[slice] = None):
         """x_v/x_i: (B, n_mt + n_s, C) -> (x_v, x_i, attn_t2s | None)."""
         B = x_v.shape[0]
         q, k, v = self._qkv_heads(torch.cat([x_v, x_i], dim=0))
@@ -119,7 +122,7 @@ class AsymCrossModalAttention(nn.Module):
 
     def search_step(self, nsv: torch.Tensor, nsi: torch.Tensor, cache,
                     return_attention: bool = False,
-                    ce_rows: Optional[Tuple[int, ...]] = None):
+                    ce_rows: Optional[slice] = None):
         """Normed search tokens (B, n_s, C) per modality + the cached
         template q/k/v -> attention output of the search rows + the t->s CE
         attention. Keys per modality: [RGB templates; TIR templates; own
@@ -186,7 +189,7 @@ class SharedBlock(nn.Module):
 
     def forward(self, x_v, x_i, n_mt: int, gidx_v, gidx_i,
                 lens_keep: Optional[int] = None,
-                ce_rows: Optional[Tuple[int, ...]] = None):
+                ce_rows: Optional[slice] = None):
         """lens_keep: keep count (None = no CE at this block); ce_rows:
         template rows pooled for the CE ranking (None = all rows)."""
         exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
@@ -211,7 +214,7 @@ class SharedBlock(nn.Module):
 
     def search_step(self, s_v, s_i, cache, gidx_v, gidx_i,
                     lens_keep: Optional[int] = None,
-                    ce_rows: Optional[Tuple[int, ...]] = None):
+                    ce_rows: Optional[slice] = None):
         """Search-only block step against a template cache; CE selects among
         pure search tokens."""
         exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
@@ -280,15 +283,16 @@ class AsymSharedViT(nn.Module):
         x = self.patch_embed(x)
         return x + pos.to(x.dtype)
 
-    def _ce_rows(self, use_mask: bool) -> Optional[Tuple[int, ...]]:
-        """Template-row indices ([t_v, ot_v, t_i, ot_i] order) pooled for the
-        CE ranking: the centre token (CTR_POINT) of each template copy; None
-        pools every row."""
+    def _ce_rows(self, use_mask: bool) -> Optional[slice]:
+        """Template rows ([t_v, ot_v, t_i, ot_i] order, F*F rows each) pooled
+        for the CE ranking: the centre token (CTR_POINT) of each template
+        copy, rows c*F + c + g*F*F for g = 0..3, as a slice with step F*F;
+        None pools every row."""
         if not use_mask:
             return None
         F = self.grid_size_t
         c = (F - 1) // 2
-        return tuple(c * F + c + g * F * F for g in range(4))
+        return slice(c * F + c, None, F * F)
 
     def _keeps(self, n_s: int, ce_keep_rate: Optional[float]):
         return ce_keep_schedule(n_s, self.depth, self.ce_loc or (),

@@ -1,5 +1,7 @@
-"""CUDA graphs of the trackers' per-frame step: the port's counterpart of
-the JAX tracker's jitted step, one compiled program per frame shape.
+"""CUDA graphs of the trackers' per-frame step and of the trainer's step:
+the port's counterparts of the JAX tracker's jitted step, one compiled
+program per frame shape, and of the JAX trainer's jitted step, one per CE
+keep bucket (train/train_step.py).
 
 A tracker's step reads and writes only static tensors: its inputs (the
 two uint8 frames, and for the lockstep tracker the `live` mask), its state
@@ -27,13 +29,23 @@ addresses of the capture. That is right only because those addresses never
 change: every tensor of a captured step is a static buffer or a block of
 the graph's pool, at the same address at every replay.
 
+The trainer's step (`StepGraphs.run`) has no warm-up of its own: the
+first step of a key runs eager on the side stream as the real step (and
+fills the caches), and is captured after it for the next one, so no step
+is run twice and no state needs putting back. Its dropout and drop-path
+masks come from the Trainer's own CUDA generator, registered with each of
+its graphs (`register_generator_state`): a replay draws from the
+generator's offset at that replay and advances it by what the step draws,
+as the eager step does.
+
 Launch counts: a wrapper counts its kernel when its Python code runs
 (`mixed_attention*.launches`, `ms_deform_attn*.launches` and
 `launches_by_kernel`), which a replay does not. The runner records each
 graph's counts at capture and adds them at each replay, so a graphed frame
 counts what an eager one does. The warm-up's launches are moved to the
 runner's `warmup_launches` (set-up, like a compile), and the capture
-launches nothing.
+launches nothing. `run`'s first step of a key is a real step and counts
+as one.
 """
 from __future__ import annotations
 
@@ -185,14 +197,17 @@ class StaticInputs:
 
 
 class StepGraphs:
-    """The CUDA graphs of one tracker's step, one per key, all from one
-    memory pool. `capture_ms` (per key), `warmup_launches` (read_counts'
-    keys, summed over the captures) and `pool_bytes()` are kept for the
-    reports."""
+    """The CUDA graphs of one tracker's or trainer's step, one per key, all
+    from one memory pool. `capture_ms` (per key), `warmup_launches`
+    (read_counts' keys, summed over the captures) and `pool_bytes()` are
+    kept for the reports (`run`'s capture_ms leave out its eager first
+    step). `what` names the step in a capture's error."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, what: str = "tracking step"):
         self.device = device
+        self.what = what
         self.pool = None
+        self._side = None           # the stream of run()'s eager first steps
         self._graphs: Dict[tuple, tuple] = {}
         self.capture_ms: Dict[tuple, float] = {}
         self.warmup_launches: Dict[str, int] = {}
@@ -215,9 +230,34 @@ class StepGraphs:
         if entry is None:
             with _CAPTURE_LOCK:
                 entry = self._graphs[key] = self._capture(key, step, state)
+        self._replay(entry)
+
+    @staticmethod
+    def _replay(entry) -> None:
         graph, counts = entry
         graph.replay()
         add_counts(counts)
+
+    def run(self, key: tuple, step, generators=tuple) -> None:
+        """Run `step` once for `key`: a replay of its graph if it has one;
+        else `step` itself, eager on a side stream (the real step and the
+        warm-up of its capture at once), then its capture for the next
+        call. `generators()`: the CUDA generators `step` draws from, each
+        registered with the graph (called only to capture)."""
+        entry = self._graphs.get(key)
+        if entry is not None:
+            self._replay(entry)
+            return
+        with _CAPTURE_LOCK:
+            main = torch.cuda.current_stream(self.device)
+            if self._side is None:
+                self._side = torch.cuda.Stream(self.device)
+            self._side.wait_stream(main)
+            with torch.cuda.stream(self._side):
+                step()
+            main.wait_stream(self._side)
+            torch.cuda.synchronize(self.device)
+            self._graphs[key] = self._capture_graph(key, step, generators(), time.perf_counter())
 
     def _capture(self, key, step, state):
         t0 = time.perf_counter()
@@ -235,11 +275,15 @@ class StepGraphs:
         add_counts(warm, -1)
         for k, n in warm.items():
             self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
-        torch.cuda.synchronize(self.device)
+        return self._capture_graph(key, step, (), t0)
 
+    def _capture_graph(self, key, step, generators, t0: float):
+        torch.cuda.synchronize(self.device)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
         log = OpLog()
         before = read_counts()
         try:
@@ -249,7 +293,7 @@ class StepGraphs:
         except Exception as e:
             at = log.ops[-1] if log.ops else "its first operation"
             cause = f"; first error: {e.__context__}" if e.__context__ is not None else ""
-            raise RuntimeError(f"capturing the tracking step {key} failed at {at} (operation "
+            raise RuntimeError(f"capturing the {self.what} {key} failed at {at} (operation "
                                f"{len(log.ops)} of the step): {e}{cause}") from e
         counts = _diff(read_counts(), before)
         add_counts(counts, -1)

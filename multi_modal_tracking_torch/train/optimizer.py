@@ -18,12 +18,25 @@ Matching optax, on purpose:
     does (acc + (g - acc) / (n + 1)); the mean is clipped and one AdamW
     update applied per k micro-batches;
   * regimes match parameter names by substring; the port's dotted names
-    have `blocks.{i}.` where flax has `blocks_{i}/`.
+    have `blocks.{i}.` where flax has `blocks_{i}/`;
+  * AdamW's arithmetic is optax's, in its order (`adamw_`): the moments,
+    their bias correction in f32 from the update count, the decayed
+    weights added to the update, then the update times -lr.
+
+The whole state lives on the device, so that a CUDA graph can hold an
+update (train/train_step.py): the gradients are static buffers bound as
+`.grad` once (`bind_grads`) and zeroed in place, the moments and the
+accumulator are allocated once and written in place, and each group's
+learning rate and the update count are device tensors that `prepare()`
+fills from the host's counters before each micro-batch. The counters
+(`count`, `mini_step`) stay on the host, where they pick the schedule and
+the micro-batch's role: "accumulate" or, on the ACCUM_ITER-th,
+"update" (clip and AdamW). The same code runs on the CPU.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -106,35 +119,151 @@ def make_epoch_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
     raise ValueError(f"Unsupported scheduler {sched_type}")
 
 
+#: AdamW's constants (optax.adamw's defaults, which the JAX package uses)
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the 2-norm of all gradients together (0-d)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Clip `grads` in place to global norm <= max_norm (optax
+    clip_by_global_norm: scaled by max_norm / norm when norm >= max_norm,
+    no epsilon); returns the norm before clipping, a 0-d tensor (no host
+    sync)."""
+    norm = global_norm(grads)
+    clipped = norm >= max_norm
+    one = torch.ones((), device=norm.device)
+    torch._foreach_div_(grads, torch.where(clipped, norm, one))
+    torch._foreach_mul_(grads, torch.where(clipped, torch.full_like(one, max_norm), one))
+    return norm
+
+
+def adamw_(params: List[torch.Tensor], grads: List[torch.Tensor], mu: List[torch.Tensor],
+           nu: List[torch.Tensor], neg_lr: torch.Tensor, count: torch.Tensor,
+           weight_decay: float) -> None:
+    """One optax.adamw update of one parameter group, in place, in optax's
+    order: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, each divided
+    by its bias correction 1 - b^count (f32, `count` the update count after
+    this update, a 0-d f32 tensor), u = mu_hat / (sqrt(nu_hat) + eps), plus
+    weight_decay * p, times -lr (`neg_lr`, a 0-d f32 tensor), added to p.
+    Only elementwise operations, each rounded once in f32, so the CPU and
+    the GPU give the same bits."""
+    t = torch._foreach_mul(grads, 1.0 - B1)
+    torch._foreach_mul_(mu, B1)
+    torch._foreach_add_(mu, t)
+    t = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(t, 1.0 - B2)
+    torch._foreach_mul_(nu, B2)
+    torch._foreach_add_(nu, t)
+    del t
+    u = torch._foreach_div(mu, 1.0 - torch.pow(B1, count))
+    den = torch._foreach_div(nu, 1.0 - torch.pow(B2, count))
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, EPS)
+    torch._foreach_div_(u, den)
+    del den
+    if weight_decay:
+        torch._foreach_add_(u, torch._foreach_mul(params, weight_decay))
+    torch._foreach_mul_(u, neg_lr)
+    torch._foreach_add_(params, u)
+
+
+class _AdamWView:
+    """The optimizer's groups and moments in torch.optim's layout
+    (`param_groups`: dicts with "params" and "group"; `state`: parameter ->
+    {"exp_avg", "exp_avg_sq"}), for callers that count or read them."""
+
+    def __init__(self, groups: Dict[str, List[nn.Parameter]], mu, nu):
+        self.param_groups = [dict(params=ps, group=g) for g, ps in groups.items()]
+        self.state = {p: {"exp_avg": m, "exp_avg_sq": v} for g, ps in groups.items()
+                      for p, m, v in zip(ps, mu[g], nu[g])}
+
+
 class RegimeAdamW:
     """AdamW with the regime's parameter groups, the epoch schedule,
-    global-norm clipping and ACCUM_ITER accumulation. `update()` after each
-    backward (or, without accumulation, `clip_()` then `step()`)."""
+    global-norm clipping and ACCUM_ITER accumulation, its state on the
+    device (module docstring). `update()` after each backward (or, without
+    accumulation, `clip_()` then `step()`); the training step calls
+    `bind_grads()` and `prepare()` on the host, `zero_grad()` and
+    `apply(role)` in the step, then `finish(role)`."""
 
     def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1):
         lab, mults = _regime_labeler(cfg)
         self.accum = cfg.TRAIN.get("ACCUM_ITER", 1) or 1
         self.base_lr = cfg.TRAIN.LR
         self.max_norm = cfg.TRAIN.GRAD_CLIP_NORM
+        self.weight_decay = cfg.TRAIN.WEIGHT_DECAY
         self.scale = make_epoch_schedule(cfg, max(1, steps_per_epoch // self.accum))
         self.params: List[nn.Parameter] = []
-        groups: Dict[str, List[nn.Parameter]] = {}
+        self.groups: Dict[str, List[nn.Parameter]] = {}
+        index = {}
         for name, p in model.named_parameters():
+            index[p] = len(self.params)
             self.params.append(p)
             g = lab(name)
             if mults[g] >= 0:
-                groups.setdefault(g, []).append(p)
-        self.mults = {g: mults[g] for g in groups}
-        self.opt = torch.optim.AdamW(
-            [dict(params=ps, group=g) for g, ps in groups.items()], lr=self.base_lr,
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.TRAIN.WEIGHT_DECAY)
+                self.groups.setdefault(g, []).append(p)
+        self.mults = {g: mults[g] for g in self.groups}
+        self._index = {g: [index[p] for p in ps] for g, ps in self.groups.items()}
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        self.mu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.groups.items()}
+        self.nu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.groups.items()}
+        self._neg_lr = {g: torch.zeros((), device=dev) for g in self.groups}
+        self._count = torch.zeros((), device=dev)       # the update count after this update
+        self._n = torch.ones((), device=dev)            # micro-batches in the group, this one too
+        self._acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else None
+        self.grads: Optional[List[torch.Tensor]] = None
         self.count = 0            # updates applied so far (optax's count)
         self.mini_step = 0        # micro-batches in the open accumulation group
-        self._acc = None          # their gradients' running mean
+        self.opt = _AdamWView(self.groups, self.mu, self.nu)
 
+    # ------------------------------------------------------------- host side
+    def bind_grads(self) -> None:
+        """Make every parameter's `.grad` its static gradient buffer
+        (allocated on the first call, zero): backward then accumulates into
+        the same tensors at every step."""
+        if self.grads is None:
+            self.grads = [torch.zeros_like(p) for p in self.params]
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                p.grad = g
+
+    def prepare(self) -> str:
+        """Fill the device scalars that the next micro-batch reads from the
+        host's counters (the groups' -lr and the update count if it
+        updates, the accumulation divisor); returns its role, "update" or
+        "accumulate"."""
+        update = self.mini_step + 1 == self.accum
+        if update:
+            self._fill_update_scalars()
+        if self.accum > 1:
+            self._n.fill_(self.mini_step + 1)
+        return "update" if update else "accumulate"
+
+    def _fill_update_scalars(self) -> None:
+        """Each group's -lr at the schedule's value for the updates applied
+        so far, and the update count after this update."""
+        scale = self.scale(self.count)
+        for g, t in self._neg_lr.items():
+            t.fill_(-(self.base_lr * self.mults[g] * scale))
+        self._count.fill_(self.count + 1)
+
+    def finish(self, role: str) -> None:
+        """Advance the host's counters past a micro-batch of `role`."""
+        if role == "update":
+            self.count += 1
+            self.mini_step = 0
+        else:
+            self.mini_step += 1
+
+    # ----------------------------------------------------------- device side
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        """Zero the static gradient buffers in place (binding them first)."""
+        self.bind_grads()
+        torch._foreach_zero_(self.grads)
 
     def _grads(self) -> List[torch.Tensor]:
         """Every parameter's gradient; one that got none counts as zero."""
@@ -143,77 +272,107 @@ class RegimeAdamW:
                 p.grad = torch.zeros_like(p)
         return [p.grad for p in self.params]
 
-    @staticmethod
-    def _norm(grads: List[torch.Tensor]) -> torch.Tensor:
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    def _adamw(self, grads: List[torch.Tensor]) -> None:
+        for g, ps in self.groups.items():
+            adamw_(ps, [grads[i] for i in self._index[g]], self.mu[g], self.nu[g],
+                   self._neg_lr[g], self._count, self.weight_decay)
+
+    @torch.no_grad()
+    def apply(self, role: str) -> torch.Tensor:
+        """The device part of a micro-batch of `role` (from `prepare`), on
+        the gradients in `.grad`; returns their global norm before clipping
+        (0-d tensor). Without accumulation, clip and AdamW. With ACCUM_ITER
+        k, fold them into the group's running mean as MultiSteps does (acc +
+        (g - acc) / n); on "update" the mean becomes the gradient, is
+        clipped and applied, and the accumulator is zeroed for the next
+        group. Reads no value on the host."""
+        grads = self._grads()
+        if self.accum == 1:
+            norm = clip_by_global_norm_(grads, self.max_norm)
+            self._adamw(grads)
+            return norm
+        norm = global_norm(grads)
+        diff = torch._foreach_sub(grads, self._acc)
+        torch._foreach_div_(diff, self._n)
+        torch._foreach_add_(self._acc, diff)
+        del diff
+        if role == "update":
+            torch._foreach_copy_(grads, self._acc)
+            torch._foreach_zero_(self._acc)
+            clip_by_global_norm_(grads, self.max_norm)
+            self._adamw(grads)
+        return norm
 
     @torch.no_grad()
     def clip_(self) -> torch.Tensor:
-        """Clip the gradients in place to global norm <= max_norm (optax
-        clip_by_global_norm); returns the norm before clipping, a 0-d tensor
-        (no host sync)."""
-        grads = self._grads()
-        norm = self._norm(grads)
-        clipped = norm >= self.max_norm
-        one = torch.ones((), device=norm.device)
-        torch._foreach_div_(grads, torch.where(clipped, norm, one))
-        torch._foreach_mul_(grads, torch.where(clipped, torch.full_like(one, self.max_norm), one))
-        return norm
-
-    def step(self) -> None:
-        scale = self.scale(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = self.base_lr * self.mults[group["group"]] * scale
-        self.opt.step()
-        self.count += 1
+        """Clip the gradients in place to global norm <= max_norm; returns
+        the norm before clipping, a 0-d tensor (no host sync)."""
+        return clip_by_global_norm_(self._grads(), self.max_norm)
 
     @torch.no_grad()
+    def step(self) -> None:
+        """One AdamW update with the gradients in `.grad` as they are."""
+        self._fill_update_scalars()
+        self._adamw(self._grads())
+        self.count += 1
+
     def update(self) -> torch.Tensor:
         """Take one micro-batch's gradients (in `.grad`); returns their
-        global norm before clipping (0-d tensor). Without accumulation, clip
-        and step. With ACCUM_ITER k, fold them into the group's running
-        mean; the k-th clips the mean and applies one AdamW update."""
-        if self.accum == 1:
-            norm = self.clip_()
-            self.step()
-            return norm
-        grads = self._grads()
-        norm = self._norm(grads)
-        if self.mini_step == 0:
-            self._acc = [g.clone() for g in grads]
-        else:
-            diff = torch._foreach_sub(grads, self._acc)
-            torch._foreach_div_(diff, float(self.mini_step + 1))
-            torch._foreach_add_(self._acc, diff)
-        self.mini_step += 1
-        if self.mini_step == self.accum:
-            for p, a in zip(self.params, self._acc):
-                p.grad = a
-            self._acc, self.mini_step = None, 0
-            self.clip_()
-            self.step()
+        global norm before clipping (0-d tensor): `prepare`, `apply` and
+        `finish` in one call."""
+        role = self.prepare()
+        norm = self.apply(role)
+        self.finish(role)
         return norm
 
+    # ------------------------------------------------------------ checkpoint
     def state_dict(self) -> dict:
-        """AdamW's state, the applied-update count and the open
-        accumulation group, on the CPU."""
-        return {"adamw": _to_cpu(self.opt.state_dict()), "count": self.count,
+        """AdamW's state in torch.optim.AdamW's layout (parameters numbered
+        across the groups in order), the applied-update count and the open
+        accumulation group's running mean (None when none is open), on the
+        CPU."""
+        state, groups, k = {}, [], 0
+        for g, ps in self.groups.items():
+            idx = list(range(k, k + len(ps)))
+            k += len(ps)
+            groups.append(dict(group=g, lr=self.base_lr * self.mults[g], betas=(B1, B2),
+                               eps=EPS, weight_decay=self.weight_decay, params=idx))
+            for i, m, v in zip(idx, self.mu[g], self.nu[g]):
+                state[i] = {"step": torch.tensor(float(self.count)), "exp_avg": m.cpu(),
+                            "exp_avg_sq": v.cpu()}
+        return {"adamw": {"state": state, "param_groups": groups}, "count": self.count,
                 "mini_step": self.mini_step,
-                "acc": None if self._acc is None else [a.cpu() for a in self._acc]}
+                "acc": [a.cpu() for a in self._acc] if self.mini_step else None}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        self.opt.load_state_dict(state["adamw"])
+        """Load `state_dict()`'s output (or torch.optim.AdamW's of earlier
+        checkpoints, whose state lacks the parameters that never stepped)
+        into the existing tensors, in place: a CUDA graph that holds them
+        stays valid."""
+        adamw = state["adamw"]
+        sizes = [len(g["params"]) for g in adamw["param_groups"]]
+        if sizes != [len(ps) for ps in self.groups.values()]:
+            raise ValueError(f"optimizer state has groups of {sizes} parameters, this "
+                             f"optimizer {[len(ps) for ps in self.groups.values()]}")
+        for saved, (g, ps) in zip(adamw["param_groups"], self.groups.items()):
+            for i, m, v in zip(saved["params"], self.mu[g], self.nu[g]):
+                st = adamw["state"].get(i)
+                if st is None:
+                    m.zero_()
+                    v.zero_()
+                else:
+                    m.copy_(st["exp_avg"])
+                    v.copy_(st["exp_avg_sq"])
         self.count, self.mini_step = state["count"], state["mini_step"]
-        self._acc = None if state["acc"] is None else [
-            a.to(p.device) for a, p in zip(state["acc"], self.params)]
-
-
-def _to_cpu(tree):
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_cpu(v) for v in tree]
-    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+        if state["acc"] is not None and self._acc is None:
+            raise ValueError("optimizer state has an open accumulation group; ACCUM_ITER is 1")
+        if self._acc is not None:
+            if state["acc"] is None:
+                torch._foreach_zero_(self._acc)
+            else:
+                for a, s in zip(self._acc, state["acc"], strict=True):
+                    a.copy_(s)
 
 
 def make_optimizer(cfg, model: nn.Module, steps_per_epoch: int = 1) -> RegimeAdamW:

@@ -13,6 +13,22 @@ norm of this micro-batch's gradients before clipping. The val step runs the
 model in eval mode without gradients and without a keep rate. Metrics come
 back as 0-d device tensors, so a caller that does not read them every step
 does not synchronise with the device every step.
+
+The training step is the port's counterpart of the JAX package's
+`_jitted(ce_keep_rate)` (train/train_step.py:125-147: one jitted program
+per CE keep bucket, the state donated). It reads and writes only static
+tensors: its inputs (copied into static buffers of their shapes), the
+parameters, BN buffers, gradients and optimizer state, the optimizer's
+learning-rate and count tensors, and a static vector of its metrics, which
+each call clones out. On CUDA with graphs=True (the default) it runs as
+CUDA graphs (tracking/graphs.py `StepGraphs.run`), one per key: the keep
+rate, the compute dtype, the micro-batch's role under ACCUM_ITER
+("accumulate", or "update": clip and AdamW) and the input shapes, which the
+host's counters pick as `lax.cond` and the jit cache do on the JAX side.
+The first step of a key runs eager and is captured after it; later ones
+are replays. The recipe's keep schedule gives at most 8 keys in a run (keep
+1.0 and the buckets of 240 to 320 of 324 search tokens). graphs=False, and
+any CPU step, runs the same static-buffer step eager.
 """
 from __future__ import annotations
 
@@ -23,7 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from multi_modal_tracking_torch.models.layers import compute_dtype
+from multi_modal_tracking_torch.models.layers import _RandomMask, compute_dtype
+from multi_modal_tracking_torch.tracking.graphs import StaticInputs, StepGraphs
 from multi_modal_tracking_torch.train.losses import box_losses
 from multi_modal_tracking_torch.utils.device import (require_float32_params, resolve_device,
                                                      set_precision)
@@ -90,30 +107,77 @@ def model_inputs(batch: Dict[str, np.ndarray], device,
     return {k: out[k].to(device, non_blocking=True) for k in MODEL_INPUTS}
 
 
+#: the training step's metrics, in the order of its static output vector
+METRICS = ("Loss/total", "Loss/ciou", "Loss/l1", "IoU", "grad_norm")
+
+
+class TrainStep:
+    """The training step of `make_train_step` (module docstring): call it
+    with (batch, ce_keep_rate). `graphs` is its StepGraphs on CUDA with
+    graphs=True, else None."""
+
+    def __init__(self, model: nn.Module, optimizer, device: torch.device, iou_weight: float,
+                 l1_weight: float, graphs: bool):
+        self.model, self.optimizer, self.device = model, optimizer, device
+        self.iou_weight, self.l1_weight = iou_weight, l1_weight
+        self.dtype = compute_dtype(model)
+        self.graphs = StepGraphs(device, "training step") \
+            if graphs and device.type == "cuda" else None
+        self._inputs: Dict[tuple, StaticInputs] = {}
+        self._out = torch.zeros(len(METRICS), device=device)
+
+    def _generators(self):
+        gens = {id(m.generator): m.generator for m in self.model.modules()
+                if isinstance(m, _RandomMask) and m.generator is not None}
+        return list(gens.values())
+
+    def _device_step(self, t, ot, s, gt_xywh, ce_keep_rate: Optional[float], role: str) -> None:
+        """Forward, loss, backward and the optimizer's part of `role`, from
+        and into static tensors; reads no value on the host."""
+        self.model.train()
+        self.optimizer.zero_grad()
+        out = self.model(t, ot, s, ce_keep_rate)
+        loss, metrics = box_losses(out["pred_boxes"], gt_xywh, self.iou_weight, self.l1_weight)
+        loss.backward()
+        norm = self.optimizer.apply(role)
+        self._out.copy_(torch.stack([metrics[k].detach() for k in METRICS[:-1]] + [norm]))
+
+    def __call__(self, batch, ce_keep_rate: Optional[float] = None) -> Dict[str, torch.Tensor]:
+        x = batch if "s" in batch else model_inputs(batch, self.device)
+        src = [x[k] for k in MODEL_INPUTS]
+        shapes = tuple((tuple(t.shape), t.dtype) for t in src)
+        inputs = self._inputs.get(shapes)
+        if inputs is None:
+            inputs = self._inputs[shapes] = StaticInputs(*zip(*shapes), device=self.device)
+        inputs.load_device(src)
+        self.optimizer.bind_grads()
+        role = self.optimizer.prepare()
+        step = lambda: self._device_step(*inputs.tensors, ce_keep_rate, role)   # noqa: E731
+        if self.graphs is None:
+            step()
+        else:
+            self.graphs.run((ce_keep_rate, self.dtype, role, inputs.key), step,
+                            self._generators)
+        self.optimizer.finish(role)
+        out = self._out.clone()
+        return {k: out[i] for i, k in enumerate(METRICS)}
+
+
 def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: float = 2.0,
-                    l1_weight: float = 5.0):
+                    l1_weight: float = 5.0, graphs: bool = True) -> TrainStep:
     """step(batch, ce_keep_rate=None) -> metrics {"Loss/total", "Loss/ciou",
-    "Loss/l1", "IoU", "grad_norm"} (0-d device tensors). `batch` is a host
-    batch of `batch_to_model_inputs` or the output of `model_inputs`.
-    Runs on the GPU unless device="cpu"; raises without a GPU. The model
-    computes in its compute dtype (`models.layers.compute_dtype`: float32 or
-    bf16) on float32 parameters; a model whose parameters were cast to bf16
-    raises."""
+    "Loss/l1", "IoU", "grad_norm"} (0-d device tensors, copies that later
+    steps leave alone). `batch` is a host batch of `batch_to_model_inputs`
+    or the output of `model_inputs`. Runs on the GPU unless device="cpu";
+    raises without a GPU. On the GPU each step is a CUDA graph replay
+    unless graphs=False (module docstring); a capture that fails raises.
+    The model computes in its compute dtype (`models.layers.compute_dtype`:
+    float32 or bf16) on float32 parameters; a model whose parameters were
+    cast to bf16 raises."""
     dev = resolve_device(device)
     require_float32_params(model, "make_train_step")
     set_precision(compute_dtype(model))
-
-    def step(batch, ce_keep_rate: Optional[float] = None) -> Dict[str, torch.Tensor]:
-        x = batch if "s" in batch else model_inputs(batch, dev)
-        model.train()
-        out = model(x["t"], x["ot"], x["s"], ce_keep_rate)
-        loss, metrics = box_losses(out["pred_boxes"], x["gt_xywh"], iou_weight, l1_weight)
-        optimizer.zero_grad()
-        loss.backward()
-        grad_norm = optimizer.update()
-        return dict({k: v.detach() for k, v in metrics.items()}, grad_norm=grad_norm)
-
-    return step
+    return TrainStep(model, optimizer, dev, iou_weight, l1_weight, graphs)
 
 
 def make_eval_step(model: nn.Module, iou_weight: float = 2.0, l1_weight: float = 5.0,

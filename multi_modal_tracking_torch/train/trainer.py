@@ -25,9 +25,17 @@ mode (train/trainer.py:70), on float32 parameters: the master weights, the
 AdamW moments, the clip and the update stay float32 (flax dtype=bf16,
 param_dtype=float32); `dtype=torch.float32` is the parity path. TF32 is
 off either way. TRAIN.AMP is accepted and changes nothing, as in the JAX
-package, where AMP is the bf16 compute policy with no loss scaler. Not
-ported yet, and raising NotImplementedError when configured (ROADMAP.md
-queue 1): TRAIN_SCORE (SPM), FSDP / REMAT.
+package, where AMP is the bf16 compute policy with no loss scaler.
+
+On the GPU each training step is a CUDA graph replay (`graphs=True`, the
+default; train/train_step.py), one graph per CE keep bucket and
+accumulation role, all from one memory pool; `graphs=False` runs the same
+static-buffer step eager, as the CPU always does. A resume or the
+fail-safe restart loads the checkpoint into the step's static tensors in
+place (model, optimizer, generator), so the graphs stay bound to the
+state. The val step runs eager. Not ported yet, and raising
+NotImplementedError when configured (ROADMAP.md queue 1): TRAIN_SCORE
+(SPM), FSDP / REMAT.
 """
 from __future__ import annotations
 
@@ -83,12 +91,14 @@ class Trainer:
     of the model spec (depth, widths, drop rates). `dtype` is the compute
     dtype (bf16 by default, as in the JAX package, or float32); the
     parameters are float32 either way. Runs on the GPU unless
-    device="cpu"; raises without a GPU."""
+    device="cpu"; raises without a GPU. `graphs=False` runs the training
+    step eager on the GPU too."""
 
     def __init__(self, script: str, cfg, save_dir: str = "output", device="cuda",
                  seed: int = 42, log_dir: Optional[str] = None,
                  print_interval: Optional[int] = None,
-                 spec_overrides: Optional[dict] = None, dtype: torch.dtype = torch.bfloat16):
+                 spec_overrides: Optional[dict] = None, dtype: torch.dtype = torch.bfloat16,
+                 graphs: bool = True):
         self.device = resolve_device(device)
         _check_ported(cfg)
         warm_starts = _warm_start_paths(cfg)
@@ -114,7 +124,7 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, self.model, self.steps_per_epoch)
         self._step = make_train_step(self.model, self.optimizer, device=self.device,
                                      iou_weight=cfg.TRAIN.IOU_WEIGHT,
-                                     l1_weight=cfg.TRAIN.L1_WEIGHT)
+                                     l1_weight=cfg.TRAIN.L1_WEIGHT, graphs=graphs)
         self._eval_step = make_eval_step(self.model, iou_weight=cfg.TRAIN.IOU_WEIGHT,
                                          l1_weight=cfg.TRAIN.L1_WEIGHT, device=self.device)
         self.stats = StatsTracker(log_dir or os.path.join(save_dir, "logs", script),
@@ -139,7 +149,9 @@ class Trainer:
 
     def load_checkpoint(self, path: Optional[str] = None) -> bool:
         """Resume from `path` (default: the latest epoch in ckpt_dir);
-        False if there is none."""
+        False if there is none. Weights, buffers, optimizer state and the
+        generator's state are copied into the tensors the training step's
+        graphs hold, in place."""
         path = path or ckpt.latest_checkpoint(self.ckpt_dir, self.net_name)
         if not path or not os.path.isfile(path):
             return False
