@@ -57,6 +57,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 row also prints the dense tensor-core floor of its
                 products beside the bound; then K1-bf16 (training)
                 plus K2-bf16 per bf16 training step beside SDPA's fwd+bwd;
+                last the fused AdamW update (csrc/adamw.cu) over the
+                recipe's trainable parameters in their regime groups: the
+                same bits as its plain version on the card and on the CPU,
+                timed beside torch._fused_adamw_;
   5. model    - the full-width asymmetric_shared_ce recipe (seeded random
                 weights): cached path (set_online + forward_track) against
                 the full forward, and the GPU run against the same model on
@@ -71,7 +75,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the tracker phase's and this one's frames are CUDA graph
                 replays (create_tracker's default on the card);
   7b. graphs  - a capture of a step that reads a value on the host must
-                raise naming the operation, and one after it must work;
+                raise naming the operation and leave the thread's stream
+                and the caching allocator as before (what torch alone
+                leaves after such a capture is printed beside it), and
+                one after it must work;
                 the tracking step as CUDA graphs against the same step
                 eager (graphs=False) on one model, f32 and bf16: the 63
                 frames four times (graphed, eager, graphed, eager), every
@@ -102,7 +109,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 forward metrics bit for bit, then one replay from the eager
                 run's state (loaded in place) against an eager step: the
                 forward bit for bit, the gradients within 1e-4 of their
-                norm; then an epoch of steps at epoch 1
+                norm, the weights after the update within 1e-6 and the
+                AdamW moments within 1e-5; then one step at each other keep
+                rate of the recipe's 150-epoch schedule (7 graphs in one
+                pool; the pool's and the process's reserved bytes after
+                each capture); then an epoch of steps at epoch 1
                 (keep 1.0) and one at epoch 51 (keep 0.7, bucketised to
                 240/324), launch counts per step;
                 step time, samples/s, host data time, device busy time and
@@ -120,7 +131,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 equal the eager step's), the device stream's wait on each upload
                 (CUDA events) and the loop's wait for each batch; and one full-width
                 step at batch 2 (dropout and drop path off) on the GPU held
-                against the same step on the CPU; launches of K1-K4 only;
+                against the same step on the CPU; launches of K1-K4 and
+                one AdamW update per step only;
   9. train bf16 - the same at the Trainer's default dtype (bf16 compute on
                 float32 parameters and AdamW moments, both checked), where
                 the graphed 6 steps must equal the eager ones bit for bit
@@ -187,8 +199,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 phases must launch no bf16 kernel.
 Then the kernel table line (launches by path: tracker, graphs, train,
 eval for the f32 kernels; train bf16, lifecycle, and for the forward
-kernels the bf16 tracker, graphs and eval) and, last, {"ok": true,
-"device": {...}}.
+kernels the bf16 tracker, graphs and eval; train, train bf16 and
+lifecycle for AdamW) and, last, {"ok": true, "device": {...}}.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -823,6 +835,108 @@ def kernel_k4(g):
     return rows, err_max
 
 
+#: elements of each group held CPU against card in the AdamW check (the CPU
+#: plain version of all 104 M would take about a minute)
+ADAMW_CPU_ELEMENTS = 1 << 21
+
+
+def kernel_adamw():
+    """The fused AdamW update (ops/adamw.py, csrc/adamw.cu) at the main
+    path's shapes: every trainable parameter of the flagship recipe in the
+    optimizer's regime groups (each with its own -lr), random gradients and
+    moments made on the card from a seed, three updates (counts 1 to 3)
+    from one state. The kernel must give the same bits as its plain version
+    on the card, and as the plain version on the CPU for the first tensors
+    of each group (ADAMW_CPU_ELEMENTS). Device ms (profiler) of one update,
+    CUDA-event ms, the plain version's ms, and torch's own fused AdamW
+    (`torch._fused_adamw_`, one call per group: the same update, rounded in
+    its own order) as the library time; the bound is the bytes of 7 floats
+    an element (15 operations an element at 67 TFLOP/s is far below)."""
+    from multi_modal_tracking_torch.models.build import build_model
+    from multi_modal_tracking_torch.ops.adamw import (B1, B2, EPS, AdamWTable, adamw_fused,
+                                                      adamw_ref)
+    from multi_modal_tracking_torch.train.optimizer import make_optimizer
+    cfg = _train_cfg(TRAIN_B, 1)
+    model = build_model(SCRIPT, cfg, device="cuda", seed=0)
+    opt = make_optimizer(cfg, model)
+    shapes = [[p.shape for p in ps] for ps in opt.groups.values()]
+    mults, wd = list(opt.mults.values()), opt.weight_decay
+    del model, opt
+    gc_ = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(s, scale, pos=False):
+        x = torch.randn(s, device="cuda", generator=gc_) * scale
+        return x.abs() if pos else x
+
+    state = [tuple([rand(s, scale, i == 3) for s in ss]
+                   for i, scale in enumerate((2e-2, 1e-2, 1e-3, 1e-5))) for ss in shapes]
+    n = sum(s.numel() for ss in shapes for s in ss)
+    neg_lr = torch.tensor([-1e-4 * m for m in mults], device="cuda")
+
+    def copy(groups, dev="cuda", first=None):
+        out = []
+        for g in groups:
+            k, total = 0, 0
+            while k < len(g[0]) and (first is None or total < first):
+                total += g[0][k].numel()
+                k += 1
+            out.append(tuple([t.to(dev, copy=True) for t in ts[:k]] for ts in g))
+        return out
+
+    def bc_of(count, dev="cuda"):
+        return torch.tensor([1.0 - B1 ** count, 1.0 - B2 ** count], device=dev)
+
+    def bits_differing(a, b):
+        return sum(int((x.view(torch.int32) != y.to(x.device).view(torch.int32)).sum())
+                   for ga, gb in zip(a, b) for ta, tb in zip(ga, gb) for x, y in zip(ta, tb))
+
+    kern, plain = copy(state), copy(state)
+    cpu_kern, cpu_plain = copy(state, first=ADAMW_CPU_ELEMENTS), \
+        copy(state, "cpu", ADAMW_CPU_ELEMENTS)
+    for count in (1, 2, 3):
+        adamw_fused(kern, neg_lr, bc_of(count), wd)
+        adamw_fused(cpu_kern, neg_lr, bc_of(count), wd)
+        adamw_fused(cpu_plain, neg_lr.cpu(), bc_of(count, "cpu"), wd)
+        for gi, (ps, gs, ms, vs) in enumerate(plain):
+            adamw_ref(ps, gs, ms, vs, neg_lr[gi], bc_of(count)[0], bc_of(count)[1], wd)
+    torch.cuda.synchronize()
+    card, cpu = bits_differing(kern, plain), bits_differing(cpu_kern, cpu_plain)
+    err = max(float((x - y).abs().max()) for ga, gb in zip(kern, plain)
+              for ta, tb in zip(ga, gb) for x, y in zip(ta, tb))
+    n_cpu = sum(t.numel() for g in cpu_plain for t in g[0])
+    require(card == 0 and cpu == 0,
+            f"AdamW kernel vs its plain version: {card} of {4 * n} values differ on the card, "
+            f"{cpu} of {4 * n_cpu} against the CPU")
+    table, bc = AdamWTable(kern), bc_of(3)
+    update = lambda: adamw_fused(kern, neg_lr, bc, wd, table)   # noqa: E731
+
+    def plain_update():
+        for gi, (ps, gs, ms, vs) in enumerate(plain):
+            adamw_ref(ps, gs, ms, vs, neg_lr[gi], bc[0], bc[1], wd)
+
+    steps = [[torch.full((), 3.0, device="cuda") for _ in g[0]] for g in plain]
+
+    def library():
+        for (ps, gs, ms, vs), st, m in zip(plain, steps, mults):
+            torch._fused_adamw_(ps, gs, ms, vs, [], st, lr=1e-4 * m, beta1=B1, beta2=B2,
+                                weight_decay=wd, eps=EPS, amsgrad=False, maximize=False)
+
+    n_bytes = 7 * 4 * n             # each parameter, gradient and moment read once, 3 written
+    b_ms, b_by = bound_ms(n_bytes, 15.0 * n)
+    ms, lib_ms = device_ms(update, ["adamw_f32_kernel"]), cuda_time_ms(library, iters=10)
+    row = dict(name="adamw_f32 (AdamW)", route="cuda",
+               source="multi_modal_tracking_torch/csrc/adamw.cu",
+               replaces="multi_modal_tracking_tpu/train/optimizer.py:171", max_abs_err=err,
+               ms=ms, event_ms=cuda_time_ms(update, iters=10),
+               plain_ms=cuda_time_ms(plain_update, iters=5, warmup=1), library_ms=lib_ms,
+               library_ratio=ms / lib_ms, bound_ms=b_ms, bound_by=b_by, bound_f32_ms=b_ms,
+               per="training step (one update)", parameters=n, groups=len(shapes),
+               tensors=sum(len(ss) for ss in shapes), chunks=table.n_chunks,
+               bits_equal_on_card=4 * n, bits_equal_against_cpu=4 * n_cpu)
+    emit({"phase": "kernels", "kernel": "AdamW adamw_fused", "tolerance": "the same bits", **row})
+    return row
+
+
 # (B, H, Nq, Nk, D, n_mt) of K1/K2's edge cases: n_mt 0, inside a tile, = Nq =
 # Nk; Nq != Nk; one query row, Nq 17 and 33 past 16-row tiles, Nk 9 inside a
 # 32-key tile, n_mt 8 inside a 16-row tile, at D 16/32/64; the last one is
@@ -978,6 +1092,7 @@ def phase_kernels(g: torch.Generator) -> dict:
     table.update(_bf16_table_rows(kernel_k1_bf16(g), kernel_k3_bf16(g), kernel_edges_bf16(g)))
     table.update(_bf16_bwd_table_rows(kernel_k2_bf16(g), kernel_k4_bf16(g),
                                       kernel_edges_bf16_bwd(g)))
+    table["AdamW"] = kernel_adamw()
     k1, k2 = table["K1-bf16"], table["K2-bf16"]
     kern_ms = k1["train_step_ms"] + k2["ms"]
     sdpa_ms = k1["train_step_library_ms"] + k2["library_ms"]
@@ -1578,6 +1693,7 @@ def _sequence(n, H=512, W=640, seed=0):
 
 
 def _counters():
+    from multi_modal_tracking_torch.ops.adamw import adamw_fused
     from multi_modal_tracking_torch.ops.attention import (mixed_attention, mixed_attention_bf16,
                                                           mixed_attention_bwd,
                                                           mixed_attention_bwd_bf16)
@@ -1586,15 +1702,16 @@ def _counters():
     return {"K1": mixed_attention, "K2": mixed_attention_bwd, "K3": ms_deform_attn,
             "K4": ms_deform_attn_bwd, "K1-bf16": mixed_attention_bf16,
             "K2-bf16": mixed_attention_bwd_bf16, "K3-bf16": ms_deform_attn_bf16,
-            "K4-bf16": ms_deform_attn_bwd_bf16}
+            "K4-bf16": ms_deform_attn_bwd_bf16, "AdamW": adamw_fused}
 
 
 F32_KERNELS = ("K1", "K2", "K3", "K4")
 BF16_KERNELS = ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16")
 BF16_SERVING = ("K1-bf16", "K3-bf16")          # the bf16 forward kernels
-#: kernel launches per training step, by compute dtype
-TRAIN_LAUNCHES = {torch.float32: {"K1": 12, "K2": 12, "K3": 2, "K4": 2},
-                  torch.bfloat16: {"K1-bf16": 12, "K2-bf16": 12, "K3-bf16": 2, "K4-bf16": 2}}
+#: kernel launches per training step (one that updates), by compute dtype
+TRAIN_LAUNCHES = {torch.float32: {"K1": 12, "K2": 12, "K3": 2, "K4": 2, "AdamW": 1},
+                  torch.bfloat16: {"K1-bf16": 12, "K2-bf16": 12, "K3-bf16": 2, "K4-bf16": 2,
+                                   "AdamW": 1}}
 
 
 #: the wrappers that count their launches by kernel too
@@ -1873,11 +1990,61 @@ def _profile_track(tracker, frames, names: dict) -> dict:
                 launches=launches, kernels_by_name=by_name, profiler_sessions=attempt + 1)
 
 
+def _allocator_releases() -> dict:
+    """Whether the caching allocator still gives back what it caches: about
+    60% of the free memory is cached for a side stream, then asked for on
+    the current stream (the allocator must free the other stream's cache
+    when cudaMalloc fails), then `empty_cache` must release it. Both stop
+    for good while the allocator takes a graph capture to be under way."""
+    n = int(torch.cuda.mem_get_info()[0] * 0.6) // 4
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.empty(n, device="cuda").fill_(0)
+    torch.cuda.synchronize()
+    try:
+        torch.empty(n, device="cuda")
+        reused = True
+    except torch.OutOfMemoryError:
+        reused = False
+    cached = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_reserved()
+    return dict(ok=reused and cached - left >= 3.6 * n, other_stream_cache_reused=reused,
+                reserved_gib_before_empty_cache=cached / 2 ** 30,
+                reserved_gib_after=left / 2 ** 30)
+
+
+def _unrepaired_failed_capture() -> dict:
+    """What torch.cuda.graph alone leaves after a capture that raised, before
+    the repair the runner makes (tracking/graphs.py undo_failed_capture),
+    which then runs: whether the thread's stream is the one before, and
+    `_allocator_releases`. Printed, not required (a later torch may clean
+    up by itself)."""
+    from multi_modal_tracking_torch.tracking.graphs import undo_failed_capture
+    x = torch.ones(4, device="cuda")
+    stream, pool = torch.cuda.current_stream(), torch.cuda.graph_pool_handle()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            x.sum().item()
+        raised = None
+    except Exception as e:          # the capture's own error: what is probed here
+        raised = type(e).__name__
+    left = dict(raised=raised, stream_is_the_one_before=torch.cuda.current_stream() == stream,
+                allocator=_allocator_releases())
+    undo_failed_capture(x.device, pool, stream)
+    del graph
+    torch.cuda.empty_cache()
+    return left
+
+
 def phase_graphs(smi: str, frames) -> dict:
     """The tracking step as CUDA graphs (tracking/graphs.py) against the
     same step eager (graphs=False) on the same model. First a capture of a
-    step that reads a value on the host must raise naming that operation,
-    and a capture after it must work. Then, f32 and bf16: the
+    step that reads a value on the host must raise naming that operation
+    and leave the thread's current stream and the caching allocator as they
+    were (`_allocator_releases` before and after), and a capture after it
+    must work. Then, f32 and bf16: the
     tracker phase's 63 frames at 512x640 (template updates at frames 25
     and 50) four times, graphed (this run captures the graphs), eager,
     graphed, eager; every trajectory bit-equal to the first, and the
@@ -1885,23 +2052,33 @@ def phase_graphs(smi: str, frames) -> dict:
     frames each way: device busy, idle share and operations per frame,
     and the launch counts against the kernels the profiler saw by name.
     Prints ms per frame on the host clock, the host's own ms and CPU ms
-    per frame (_HostClock) and the calling thread's, capture ms per graph, the graph
-    pool's bytes, peak memory and the capture warm-ups' launches. Returns
-    the launch counts of a graphed run by kernel."""
+    per frame (_HostClock) and the calling thread's, capture ms per graph,
+    the graph pool's bytes and peak memory. Returns the launch counts of a
+    graphed run by kernel."""
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.tracking.graphs import StepGraphs
+    unrepaired = _unrepaired_failed_capture()
     x = torch.ones(4, device="cuda")
+    stream, before = torch.cuda.current_stream(), _allocator_releases()
+    runner = StepGraphs(x.device)
     try:
-        StepGraphs(x.device).replay(("host read",), lambda: x.sum().item(), [x])
+        runner.run(("host read",), lambda: x.sum().item())
         raised = ""
     except RuntimeError as e:
         raised = str(e)
     require("aten._local_scalar_dense" in raised,
             f"capturing a step that reads a value on the host must raise naming "
             f"aten._local_scalar_dense, raised {raised!r}")
-    StepGraphs(x.device).replay(("after a failed capture",), lambda: x.mul_(2.0), [x])
-    require(x.tolist() == [2.0] * 4, f"a capture after a failed one gave {x.tolist()}")
-    out, launches = {"failed_capture_raises": True}, {}
+    after = _allocator_releases()
+    require(torch.cuda.current_stream() == stream and before["ok"] and after["ok"],
+            f"after a failed capture: current stream {torch.cuda.current_stream()} (was "
+            f"{stream}); the allocator before {before}, after {after}")
+    for _ in range(2):          # the key's eager step and its capture, then a replay
+        runner.run(("after a failed capture",), lambda: x.mul_(2.0))
+    require(x.tolist() == [4.0] * 4 and len(runner) == 1,
+            f"a capture after a failed one gave {x.tolist()}, {len(runner)} graphs")
+    out, launches = {"failed_capture_raises": True, "torch_alone_after_a_failed_capture":
+                     unrepaired, "runner_before_and_after_a_failed_capture": [before, after]}, {}
     for dtype, names in TRACK_KERNEL_NAMES.items():
         label = "f32" if dtype == torch.float32 else "bf16"
         graphed = create_tracker(_params(), "TRACKINGNET", seed=0, dtype=dtype)
@@ -1944,8 +2121,7 @@ def phase_graphs(smi: str, frames) -> dict:
                                       for k, v in graphed.graphs.capture_ms.items()},
             graph_pool_bytes=graphed.graphs.pool_bytes(),
             peak_allocated={name: r["peak_allocated"] for name, r in runs},
-            peak_reserved={name: r["peak_reserved"] for name, r in runs},
-            warmup_launches=graphed.graphs.warmup_launches)
+            peak_reserved={name: r["peak_reserved"] for name, r in runs})
         del graphed, eager
         torch.cuda.empty_cache()
     emit({"phase": "graphs", "card": smi, **out})
@@ -2292,6 +2468,10 @@ def _graphed_vs_eager(graphed, eager, batches, keeps, eager2=None) -> dict:
 #: f32, one step from the same state: the gradients' distance K4's atomics
 #: may leave (measured ~1e-7 of their norm; a wrong capture gives O(1))
 F32_GRAD_REL = 1e-4
+#: and the distances that leaves in the weights (measured 2.7e-9 of their
+#: norm) and in AdamW's moments (about 0.4x the gradients': mu takes 0.1 of
+#: the gradient); a stale learning rate, count or moment gives 1e-3 or more
+F32_WEIGHTS_REL, F32_MOMENTS_REL = 1e-6, 1e-5
 
 
 def _one_replay_f32(graphed, eager, x) -> dict:
@@ -2300,7 +2480,9 @@ def _one_replay_f32(graphed, eager, x) -> dict:
     resume does), then a replay against an eager step on the same batch.
     The forward (losses, IoU, BN statistics), the counters and the
     generator state must be the same bits; the (clipped) gradients within
-    F32_GRAD_REL of their norm, the grad norm within 1e-5 of it."""
+    F32_GRAD_REL of their norm, the grad norm within 1e-5 of it, and after
+    the update the weights within F32_WEIGHTS_REL and the moments within
+    F32_MOMENTS_REL of theirs."""
     graphed.model.load_state_dict(eager.model.state_dict())
     graphed.optimizer.load_state_dict(eager.optimizer.state_dict())
     graphed.generator.set_state(eager.generator.get_state())
@@ -2319,11 +2501,51 @@ def _one_replay_f32(graphed, eager, x) -> dict:
     grads = {f"{i}": t for i, t in enumerate(graphed.optimizer.grads)}
     grad_rel = _rel_dist(grads, {f"{i}": t for i, t in enumerate(eager.optimizer.grads)}, ("",))
     norm_rel = abs(float(mg["grad_norm"]) - float(me["grad_norm"])) / float(me["grad_norm"])
-    require(grad_rel <= F32_GRAD_REL and norm_rel <= 1e-5,
+    weights_rel, moments_rel = _rel_dist(sg, se, ("net/",)), _rel_dist(sg, se, ("mu/", "nu/"))
+    require(grad_rel <= F32_GRAD_REL and norm_rel <= 1e-5 and weights_rel <= F32_WEIGHTS_REL
+            and moments_rel <= F32_MOMENTS_REL,
             f"f32 replay vs eager from one state: gradients {grad_rel} of their norm apart, "
-            f"grad norms {norm_rel}")
+            f"grad norms {norm_rel}, weights after the update {weights_rel}, moments "
+            f"{moments_rel}")
     return dict(bit_equal=len(exact) + len(fwd), grad_rel_dist=grad_rel,
-                grad_norm_rel_diff=norm_rel, weights_rel_dist=_rel_dist(sg, se, ("net/",)))
+                grad_norm_rel_diff=norm_rel, weights_rel_dist=weights_rel,
+                moments_rel_dist=moments_rel)
+
+
+def _every_recipe_key(tr, cfg, x) -> tuple:
+    """The graphed Trainer captures a graph for every keep rate that the
+    recipe's keep schedule gives over its TRAIN.EPOCH epochs (bucketed,
+    `Trainer._keep_rate`), one step each on batch `x` for the keys it has
+    not captured yet, all into its one pool: before them and after each
+    capture the pool's bytes and the bytes reserved and allocated in the
+    process, and each capture's ms. Returns (fields, launch counts of those
+    steps)."""
+    keeps = sorted({tr._keep_rate(e) for e in range(cfg.TRAIN.EPOCH)}, reverse=True)
+    graphs = tr._step.graphs
+    have = {k[0] for k in graphs.capture_ms}
+    torch.cuda.synchronize()
+    rows = [dict(keep=k, key="captured before") for k in keeps if k in have]
+    before = dict(graphs=len(graphs), pool_gib=graphs.pool_bytes() / 2 ** 30,
+                  reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+                  allocated_gib=torch.cuda.memory_allocated() / 2 ** 30)
+    reset_launches()
+    for keep in keeps:
+        if keep in have:
+            continue
+        tr._step(x, keep)
+        torch.cuda.synchronize()
+        key = next(k for k in graphs.capture_ms if k[0] == keep)
+        rows.append(dict(keep=keep, keep_tokens=round(keep * (cfg.DATA.SEARCH.SIZE // 16) ** 2),
+                         pool_gib=graphs.pool_bytes() / 2 ** 30,
+                         reserved_gib=torch.cuda.memory_reserved() / 2 ** 30,
+                         allocated_gib=torch.cuda.memory_allocated() / 2 ** 30,
+                         capture_ms=graphs.capture_ms[key]))
+    counts = read_launches()
+    require(len(graphs) == len(keeps) and {k[0] for k in graphs.capture_ms} == set(keeps),
+            f"{len(graphs)} graphs for the recipe's {len(keeps)} keep rates {keeps}")
+    return dict(check="every keep rate of the recipe's schedule captured in one pool",
+                epochs=cfg.TRAIN.EPOCH, keep_rates=keeps, graphs=len(graphs), before=before,
+                captures=rows, pool_gib=graphs.pool_bytes() / 2 ** 30), counts
 
 
 def _state_bytes(tr) -> int:
@@ -2420,7 +2642,8 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
     # f32: a second eager twin gives the eager runs' own spread (K4's atomics)
     eager2 = None if bf16 else Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
                                        print_interval=TRAIN_STEPS, graphs=False, **kw)
-    twin = _graphed_vs_eager(tr, eager, _train_batches(len(GRAPH_KEEPS)), GRAPH_KEEPS, eager2)
+    batches = _train_batches(len(GRAPH_KEEPS))
+    twin = _graphed_vs_eager(tr, eager, batches, GRAPH_KEEPS, eager2)
     del eager2
     torch.cuda.empty_cache()
     for k, n in per_step.items():
@@ -2428,6 +2651,10 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
                 f"{k} launched {twin['launches'][k]} times in {len(GRAPH_KEEPS)} steps")
         launches[k] += twin["launches"][k]
     emit({"phase": "train bf16" if bf16 else "train", "card": smi, **twin})
+    keys, counts = _every_recipe_key(tr, cfg, batches[0])
+    for k in per_step:
+        launches[k] += counts[k]
+    emit({"phase": "train bf16" if bf16 else "train", "card": smi, **keys})
 
     epochs, losses = {}, []
     for epoch, keep in ((1, 1.0), (51, KEEP_FINAL)):
@@ -2495,7 +2722,7 @@ def phase_train(smi: str, save_dir: str, dtype=torch.float32) -> dict:
         for k in per_step:
             launches[k] += counts[k]
     step_ms_after = _isolated_steps(tr._step, inputs)["ms_per_step"]
-    moments = [v for st in tr.optimizer.opt.state.values() for v in st.values() if v.dim() > 0]
+    moments = [v for g in tr.optimizer.groups for v in tr.optimizer.mu[g] + tr.optimizer.nu[g]]
     require(moments and {v.dtype for v in moments} == {torch.float32}
             and {p.dtype for p in tr.model.parameters()} == {torch.float32},
             "parameters or AdamW moments are not float32")
@@ -2717,6 +2944,12 @@ def phase_lifecycle(smi: str, frames, bf16_step_ms: float) -> dict:
             require(all(torch.equal(got["backbone." + t].cpu(), v) for t in targets),
                     f"MAE warm start: {k} differs")
         out = _lifecycle_train(tr)
+        # where an earlier run of this script ran out of memory: device
+        # memory in use and reserved, with the restarted Trainer alive
+        out["memory_before_uninterrupted_gib"] = dict(
+            allocated=torch.cuda.memory_allocated() / 2 ** 30,
+            reserved=torch.cuda.memory_reserved() / 2 ** 30,
+            pool=tr._step.graphs.pool_bytes() / 2 ** 30)
         # the same two epochs uninterrupted, in a directory of their own
         whole_dir = os.path.join(tmp, "uninterrupted")
         whole = Trainer(SCRIPT, cfg, save_dir=whole_dir, device="cuda", seed=0,
@@ -2768,9 +3001,11 @@ def phase_lifecycle(smi: str, frames, bf16_step_ms: float) -> dict:
                 f"tracker on the checkpoint differs from the in-memory model by {d_px} px")
         launches = read_launches()
         # two epochs with epoch 2 twice (the restart), the uninterrupted two,
-        # then the ACCUM_ITER 2 epoch graphed and eager
+        # then the ACCUM_ITER 2 epoch graphed and eager (4 micro-batches, 2
+        # updates, each)
         n_steps = 5 * LIFE_STEPS + 8
         require(launches["K2-bf16"] == 12 * n_steps and launches["K4-bf16"] == 2 * n_steps
+                and launches["AdamW"] == n_steps - 4
                 and launches["K1-bf16"] > 0 and launches["K3-bf16"] > 0
                 and not any(launches[k] for k in F32_KERNELS) and _all_tap(launches),
                 f"lifecycle launches {launches} ({n_steps} bf16 training steps)")
@@ -3220,6 +3455,13 @@ def main() -> None:
             if key in ("K3-bf16", "K4-bf16") else ()) + (
             ("train_step_dense_floor_ms",) if key == "K3-bf16" else ()) + (
             ("repeatable",) if key == "K4-bf16" else ())})
+    by_path = {"train": train_launches["AdamW"], "train_bf16": train_bf16_launches["AdamW"],
+               "lifecycle": life_launches["AdamW"]}
+    row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
+    table.append({k: row[k] for k in (
+        "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+        "bound_ms", "bound_by", "bound_f32_ms", "library_ms", "library_ratio", "event_ms", "per",
+        "launches_by_path", "parameters")})
     require(all(r["launches"] > 0 for r in table),
             f"a kernel of a main path never launched: {[r['name'] for r in table if not r['launches']]}")
     # ms is device time (torch.profiler): per tracked frame for K1 and K3
@@ -3231,7 +3473,10 @@ def main() -> None:
     # are per tracked frame of the bf16 tracker, lockstep_step_* per N = 12
     # step, train_step_* per bf16 training step; K2-bf16's and K4-bf16's per
     # bf16 training step at the final keep; the bf16 kernels' launches are
-    # those of the bf16 train, lifecycle, tracker and eval phases
+    # those of the bf16 train, lifecycle, tracker and eval phases; AdamW
+    # (no Pallas kernel: it replaces the optax update XLA fuses) per update
+    # of every trainable parameter, launched once per update of the train
+    # and lifecycle phases
     emit({"kernels": table})
     emit({"ok": True, "device": dev})
 

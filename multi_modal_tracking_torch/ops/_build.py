@@ -59,6 +59,9 @@ SIGNATURES = {
                            ctypes.POINTER(_I), _I, _C], _I),
         "msda_launch_floor_f32": ([_I, _I, _I, _C], _I),
     },
+    "adamw": {
+        "adamw_f32": ([_C] * 5 + [_I, _I, _C, _C] + [ctypes.c_float] * 6 + [_C], _I),
+    },
     "msda_bwd": {
         "msda_bwd_f32": ([_C] * 7 + [_I] * 7 + [ctypes.POINTER(_I), _I, _C], _I),
         "msda_bwd_bf16": ([_C] * 8 + [_I] * 7 + [ctypes.POINTER(_I), _I, _C], _I),

@@ -35,7 +35,7 @@ import torch
 
 from multi_modal_tracking_torch.ops.boxes import clip_box
 from multi_modal_tracking_torch.tracking.graphs import (StaticInputs, StepGraphs, bind_state,
-                                                        copy_tree, leaves)
+                                                        copy_tree)
 from multi_modal_tracking_torch.tracking.tracker import (_map_box_back, _prep_rgbt_batch,
                                                          _select_init_box)
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
@@ -157,8 +157,7 @@ class BatchedRGBTTracker:
         if self.graphs is None:
             step()
         else:
-            state = [t for name in self._STATE for t in leaves(getattr(self, name))]
-            self.graphs.replay((len(ok), self._shape, inputs.key, update), step, state)
+            self.graphs.run((len(ok), self._shape, inputs.key, update), step)
 
     def track_block(self, frames_v: np.ndarray, frames_i: np.ndarray,
                     valid: Optional[np.ndarray] = None, fetch: bool = True):

@@ -12,15 +12,23 @@ counter picks the key, as `lax.cond` picks the branch inside the JAX step)
 and replays it after that; the step then costs the host one graph launch
 instead of about a thousand kernel launches.
 
-Capture: the step first runs once on a side stream (the warm-up), which
-builds the kernel libraries and fills every first-use cache (the fusion's
-`_pos_and_ref`, the crop's constants, cuBLAS's workspaces); the state it
-wrote is put back, then the step is captured into a `torch.cuda.CUDAGraph`
-from the tracker's one memory pool, shared by all its graphs (they never
-run concurrently, and every tensor a graph leaves behind lives in a
-static buffer outside the pool), and replayed for the frame. A capture
-that fails raises with the operation at fault; nothing falls back to
-running eager.
+Capture (`StepGraphs.run`): the first step of a key runs eager on the
+runner's side stream, as the real step: it builds the kernel libraries and
+fills every first-use cache (the fusion's `_pos_and_ref`, the crop's
+constants, cuBLAS's workspaces). The step is then captured into a
+`torch.cuda.CUDAGraph` for the next call of that key: a capture records
+the kernels and runs none, so no step runs twice and no state needs
+putting back. All the graphs of a runner come from its one memory pool
+(they never run concurrently, and every tensor a graph leaves behind lives
+in a static buffer outside the pool). A capture that fails raises with the
+operation at fault; nothing falls back to running eager. Before it
+raises, the runner undoes what the failed capture left behind in the
+process: torch.cuda.graph does not restore the thread's current stream,
+and the caching allocator would go on treating the capture as under way
+(after which `empty_cache` releases nothing, an allocation that needs
+memory cached for another stream fails, and a block freed after
+`record_stream` is never reused), and the pool would keep the failed
+capture's reference.
 
 The bf16 attention kernels encode their TMA tensor maps on the host at
 each call (csrc/wgmma_bf16.cuh), with the addresses of q, k and v. A
@@ -29,23 +37,17 @@ addresses of the capture. That is right only because those addresses never
 change: every tensor of a captured step is a static buffer or a block of
 the graph's pool, at the same address at every replay.
 
-The trainer's step (`StepGraphs.run`) has no warm-up of its own: the
-first step of a key runs eager on the side stream as the real step (and
-fills the caches), and is captured after it for the next one, so no step
-is run twice and no state needs putting back. Its dropout and drop-path
-masks come from the Trainer's own CUDA generator, registered with each of
-its graphs (`register_generator_state`): a replay draws from the
-generator's offset at that replay and advances it by what the step draws,
-as the eager step does.
+The trainer's dropout and drop-path masks come from the Trainer's own CUDA
+generator, registered with each of its graphs (`register_generator_state`):
+a replay draws from the generator's offset at that replay and advances it
+by what the step draws, as the eager step does.
 
 Launch counts: a wrapper counts its kernel when its Python code runs
-(`mixed_attention*.launches`, `ms_deform_attn*.launches` and
-`launches_by_kernel`), which a replay does not. The runner records each
-graph's counts at capture and adds them at each replay, so a graphed frame
-counts what an eager one does. The warm-up's launches are moved to the
-runner's `warmup_launches` (set-up, like a compile), and the capture
-launches nothing. `run`'s first step of a key is a real step and counts
-as one.
+(`mixed_attention*.launches`, `ms_deform_attn*.launches`,
+`launches_by_kernel` and `adamw_fused.launches`), which a replay does not.
+The runner records each graph's counts at capture and adds them at each
+replay, so a graphed step counts what an eager one does; a key's eager
+first step counts as the step it is, and the capture launches nothing.
 """
 from __future__ import annotations
 
@@ -59,6 +61,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def _counters():
+    from multi_modal_tracking_torch.ops.adamw import adamw_fused
     from multi_modal_tracking_torch.ops.attention import (mixed_attention,
                                                           mixed_attention_bf16,
                                                           mixed_attention_bwd,
@@ -68,7 +71,7 @@ def _counters():
                                                      ms_deform_attn_bwd_bf16)
     return (mixed_attention, mixed_attention_bf16, mixed_attention_bwd,
             mixed_attention_bwd_bf16, ms_deform_attn, ms_deform_attn_bf16,
-            ms_deform_attn_bwd, ms_deform_attn_bwd_bf16)
+            ms_deform_attn_bwd, ms_deform_attn_bwd_bf16, adamw_fused)
 
 
 def read_counts() -> Dict[str, int]:
@@ -198,19 +201,17 @@ class StaticInputs:
 
 class StepGraphs:
     """The CUDA graphs of one tracker's or trainer's step, one per key, all
-    from one memory pool. `capture_ms` (per key), `warmup_launches`
-    (read_counts' keys, summed over the captures) and `pool_bytes()` are
-    kept for the reports (`run`'s capture_ms leave out its eager first
-    step). `what` names the step in a capture's error."""
+    from one memory pool (module docstring). `capture_ms` (per key; the
+    capture alone, without the key's eager first step) and `pool_bytes()`
+    are kept for the reports. `what` names the step in a capture's error."""
 
     def __init__(self, device: torch.device, what: str = "tracking step"):
         self.device = device
         self.what = what
         self.pool = None
-        self._side = None           # the stream of run()'s eager first steps
+        self._side = None           # the stream of the keys' eager first steps
         self._graphs: Dict[tuple, tuple] = {}
         self.capture_ms: Dict[tuple, float] = {}
-        self.warmup_launches: Dict[str, int] = {}
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -222,31 +223,18 @@ class StepGraphs:
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg["segment_pool_id"]) == tuple(self.pool))
 
-    def replay(self, key: tuple, step, state: Sequence[torch.Tensor]) -> None:
-        """Run the graph of `key`, capturing `step` (a function of the
-        static tensors only) first if it has none. `state`: every tensor
-        `step` writes, put back after the warm-up."""
-        entry = self._graphs.get(key)
-        if entry is None:
-            with _CAPTURE_LOCK:
-                entry = self._graphs[key] = self._capture(key, step, state)
-        self._replay(entry)
-
-    @staticmethod
-    def _replay(entry) -> None:
-        graph, counts = entry
-        graph.replay()
-        add_counts(counts)
-
     def run(self, key: tuple, step, generators=tuple) -> None:
-        """Run `step` once for `key`: a replay of its graph if it has one;
-        else `step` itself, eager on a side stream (the real step and the
-        warm-up of its capture at once), then its capture for the next
-        call. `generators()`: the CUDA generators `step` draws from, each
-        registered with the graph (called only to capture)."""
+        """Run `step` (a function of static tensors only) once for `key`: a
+        replay of its graph if it has one; else `step` itself, eager on the
+        side stream (the real step, which also fills the first-use caches),
+        then its capture for the next call. `generators()`: the CUDA
+        generators `step` draws from, each registered with the graph
+        (called only to capture)."""
         entry = self._graphs.get(key)
         if entry is not None:
-            self._replay(entry)
+            graph, counts = entry
+            graph.replay()
+            add_counts(counts)
             return
         with _CAPTURE_LOCK:
             main = torch.cuda.current_stream(self.device)
@@ -256,29 +244,11 @@ class StepGraphs:
             with torch.cuda.stream(self._side):
                 step()
             main.wait_stream(self._side)
-            torch.cuda.synchronize(self.device)
-            self._graphs[key] = self._capture_graph(key, step, generators(), time.perf_counter())
+            self._graphs[key] = self._capture(key, step, generators())
 
-    def _capture(self, key, step, state):
-        t0 = time.perf_counter()
-        main = torch.cuda.current_stream(self.device)
-        saved = [t.clone() for t in state]
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        before = read_counts()
-        with torch.cuda.stream(side):
-            step()
-            for t, s in zip(state, saved):
-                t.copy_(s)
-        main.wait_stream(side)
-        warm = _diff(read_counts(), before)
-        add_counts(warm, -1)
-        for k, n in warm.items():
-            self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
-        return self._capture_graph(key, step, (), t0)
-
-    def _capture_graph(self, key, step, generators, t0: float):
+    def _capture(self, key, step, generators):
         torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -286,11 +256,16 @@ class StepGraphs:
             graph.register_generator_state(g)
         log = OpLog()
         before = read_counts()
+        stream = torch.cuda.current_stream(self.device)
         try:
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                 with log:
                     step()
         except Exception as e:
+            undo_failed_capture(self.device, self.pool, stream)
+            if not self._graphs:        # the pool is let go: the next capture starts a new one
+                self.pool = None
+            add_counts(_diff(read_counts(), before), -1)
             at = log.ops[-1] if log.ops else "its first operation"
             cause = f"; first error: {e.__context__}" if e.__context__ is not None else ""
             raise RuntimeError(f"capturing the {self.what} {key} failed at {at} (operation "
@@ -300,3 +275,17 @@ class StepGraphs:
         torch.cuda.synchronize(self.device)
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         return graph, counts
+
+
+def undo_failed_capture(device: torch.device, pool, stream: torch.cuda.Stream) -> None:
+    """Undo what a `torch.cuda.graph` capture into `pool` that raised leaves
+    behind (module docstring; torch 2.11 does not clean up): the
+    capture stream as the thread's current stream (`stream` was current
+    before), the caching allocator's capture into the pool still open, and
+    the capture's reference to the pool, which the unfinished graph never
+    drops; a pool that no graph holds any more is freed at the next
+    `empty_cache`."""
+    torch.cuda.set_stream(stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    torch._C._cuda_endAllocateToPool(index, pool)
+    torch._C._cuda_releasePool(index, pool)

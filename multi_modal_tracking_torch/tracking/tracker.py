@@ -36,7 +36,7 @@ from multi_modal_tracking_torch.ops.colormap import apply_jet
 from multi_modal_tracking_torch.ops.crop import (crop_resize, crop_resize_batch,
                                                  crop_resize_window, normalize_imagenet)
 from multi_modal_tracking_torch.tracking.graphs import (StaticInputs, StepGraphs, bind_state,
-                                                        clone_tree, copy_tree, leaves)
+                                                        clone_tree, copy_tree)
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 
@@ -265,8 +265,7 @@ class RGBTTracker:
         if self.graphs is None:
             step()
         else:
-            state = [t for name in self._STATE for t in leaves(getattr(self, name))]
-            self.graphs.replay((self._shape, inputs.key, update), step, state)
+            self.graphs.run((self._shape, inputs.key, update), step)
         return self._state
 
     def track(self, image, info: Optional[dict] = None) -> dict:

@@ -19,19 +19,20 @@ Matching optax, on purpose:
     update applied per k micro-batches;
   * regimes match parameter names by substring; the port's dotted names
     have `blocks.{i}.` where flax has `blocks_{i}/`;
-  * AdamW's arithmetic is optax's, in its order (`adamw_`): the moments,
-    their bias correction in f32 from the update count, the decayed
-    weights added to the update, then the update times -lr.
+  * AdamW's arithmetic is optax's, in its order, each operation rounded
+    once: the fused update of ops/adamw.py (kernel `csrc/adamw.cu` on the
+    card, its plain version on the CPU, the same bits), with the bias
+    corrections 1 - b^count computed on the host from the update count.
 
 The whole state lives on the device, so that a CUDA graph can hold an
 update (train/train_step.py): the gradients are static buffers bound as
 `.grad` once (`bind_grads`) and zeroed in place, the moments and the
 accumulator are allocated once and written in place, and each group's
-learning rate and the update count are device tensors that `prepare()`
-fills from the host's counters before each micro-batch. The counters
-(`count`, `mini_step`) stay on the host, where they pick the schedule and
-the micro-batch's role: "accumulate" or, on the ACCUM_ITER-th,
-"update" (clip and AdamW). The same code runs on the CPU.
+learning rate and the two bias corrections are device tensors that
+`prepare()` fills from the host's counters before each micro-batch. The
+counters (`count`, `mini_step`) stay on the host, where they pick the
+schedule and the micro-batch's role: "accumulate" or, on the
+ACCUM_ITER-th, "update" (clip and AdamW). The same code runs on the CPU.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from multi_modal_tracking_torch.ops.adamw import B1, B2, EPS, adamw_fused
 
 
 def _regime_labeler(cfg) -> Tuple[Callable[[str], str], Dict[str, float]]:
@@ -119,10 +122,6 @@ def make_epoch_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
     raise ValueError(f"Unsupported scheduler {sched_type}")
 
 
-#: AdamW's constants (optax.adamw's defaults, which the JAX package uses)
-B1, B2, EPS = 0.9, 0.999, 1e-8
-
-
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """optax.global_norm: the 2-norm of all gradients together (0-d)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -141,54 +140,13 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
-def adamw_(params: List[torch.Tensor], grads: List[torch.Tensor], mu: List[torch.Tensor],
-           nu: List[torch.Tensor], neg_lr: torch.Tensor, count: torch.Tensor,
-           weight_decay: float) -> None:
-    """One optax.adamw update of one parameter group, in place, in optax's
-    order: mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, each divided
-    by its bias correction 1 - b^count (f32, `count` the update count after
-    this update, a 0-d f32 tensor), u = mu_hat / (sqrt(nu_hat) + eps), plus
-    weight_decay * p, times -lr (`neg_lr`, a 0-d f32 tensor), added to p.
-    Only elementwise operations, each rounded once in f32, so the CPU and
-    the GPU give the same bits."""
-    t = torch._foreach_mul(grads, 1.0 - B1)
-    torch._foreach_mul_(mu, B1)
-    torch._foreach_add_(mu, t)
-    t = torch._foreach_mul(grads, grads)
-    torch._foreach_mul_(t, 1.0 - B2)
-    torch._foreach_mul_(nu, B2)
-    torch._foreach_add_(nu, t)
-    del t
-    u = torch._foreach_div(mu, 1.0 - torch.pow(B1, count))
-    den = torch._foreach_div(nu, 1.0 - torch.pow(B2, count))
-    torch._foreach_sqrt_(den)
-    torch._foreach_add_(den, EPS)
-    torch._foreach_div_(u, den)
-    del den
-    if weight_decay:
-        torch._foreach_add_(u, torch._foreach_mul(params, weight_decay))
-    torch._foreach_mul_(u, neg_lr)
-    torch._foreach_add_(params, u)
-
-
-class _AdamWView:
-    """The optimizer's groups and moments in torch.optim's layout
-    (`param_groups`: dicts with "params" and "group"; `state`: parameter ->
-    {"exp_avg", "exp_avg_sq"}), for callers that count or read them."""
-
-    def __init__(self, groups: Dict[str, List[nn.Parameter]], mu, nu):
-        self.param_groups = [dict(params=ps, group=g) for g, ps in groups.items()]
-        self.state = {p: {"exp_avg": m, "exp_avg_sq": v} for g, ps in groups.items()
-                      for p, m, v in zip(ps, mu[g], nu[g])}
-
-
 class RegimeAdamW:
     """AdamW with the regime's parameter groups, the epoch schedule,
     global-norm clipping and ACCUM_ITER accumulation, its state on the
-    device (module docstring). `update()` after each backward (or, without
-    accumulation, `clip_()` then `step()`); the training step calls
-    `bind_grads()` and `prepare()` on the host, `zero_grad()` and
-    `apply(role)` in the step, then `finish(role)`."""
+    device (module docstring). The training step calls `bind_grads()` and
+    `prepare()` on the host, `zero_grad()` and `apply(role)` in the step,
+    then `finish(role)`; `update()` does the last three in one call, after
+    a backward that left its gradients in `.grad`."""
 
     def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1):
         lab, mults = _regime_labeler(cfg)
@@ -211,14 +169,14 @@ class RegimeAdamW:
         dev = self.params[0].device if self.params else torch.device("cpu")
         self.mu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.groups.items()}
         self.nu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.groups.items()}
-        self._neg_lr = {g: torch.zeros((), device=dev) for g in self.groups}
-        self._count = torch.zeros((), device=dev)       # the update count after this update
+        self._neg_lr = torch.zeros(len(self.groups), device=dev)     # each group's -lr
+        self._bc = torch.ones(2, device=dev)            # 1 - b1^count, 1 - b2^count
         self._n = torch.ones((), device=dev)            # micro-batches in the group, this one too
         self._acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else None
         self.grads: Optional[List[torch.Tensor]] = None
+        self._table = None        # the fused update's device tables (ops/adamw.py)
         self.count = 0            # updates applied so far (optax's count)
         self.mini_step = 0        # micro-batches in the open accumulation group
-        self.opt = _AdamWView(self.groups, self.mu, self.nu)
 
     # ------------------------------------------------------------- host side
     def bind_grads(self) -> None:
@@ -233,23 +191,21 @@ class RegimeAdamW:
 
     def prepare(self) -> str:
         """Fill the device scalars that the next micro-batch reads from the
-        host's counters (the groups' -lr and the update count if it
-        updates, the accumulation divisor); returns its role, "update" or
+        host's counters (if it updates: each group's -lr at the schedule's
+        value for the updates applied so far, and the bias corrections at
+        the update count after this update; under ACCUM_ITER, the
+        accumulation divisor); returns its role, "update" or
         "accumulate"."""
         update = self.mini_step + 1 == self.accum
         if update:
-            self._fill_update_scalars()
+            scale = self.scale(self.count)
+            for i, g in enumerate(self.groups):
+                self._neg_lr[i].fill_(-(self.base_lr * self.mults[g] * scale))
+            self._bc[0].fill_(1.0 - B1 ** (self.count + 1))
+            self._bc[1].fill_(1.0 - B2 ** (self.count + 1))
         if self.accum > 1:
             self._n.fill_(self.mini_step + 1)
         return "update" if update else "accumulate"
-
-    def _fill_update_scalars(self) -> None:
-        """Each group's -lr at the schedule's value for the updates applied
-        so far, and the update count after this update."""
-        scale = self.scale(self.count)
-        for g, t in self._neg_lr.items():
-            t.fill_(-(self.base_lr * self.mults[g] * scale))
-        self._count.fill_(self.count + 1)
 
     def finish(self, role: str) -> None:
         """Advance the host's counters past a micro-batch of `role`."""
@@ -273,9 +229,12 @@ class RegimeAdamW:
         return [p.grad for p in self.params]
 
     def _adamw(self, grads: List[torch.Tensor]) -> None:
-        for g, ps in self.groups.items():
-            adamw_(ps, [grads[i] for i in self._index[g]], self.mu[g], self.nu[g],
-                   self._neg_lr[g], self._count, self.weight_decay)
+        if not self.groups:
+            return
+        groups = [(ps, [grads[i] for i in self._index[g]], self.mu[g], self.nu[g])
+                  for g, ps in self.groups.items()]
+        self._table = adamw_fused(groups, self._neg_lr, self._bc, self.weight_decay,
+                                  self._table)
 
     @torch.no_grad()
     def apply(self, role: str) -> torch.Tensor:
@@ -302,19 +261,6 @@ class RegimeAdamW:
             clip_by_global_norm_(grads, self.max_norm)
             self._adamw(grads)
         return norm
-
-    @torch.no_grad()
-    def clip_(self) -> torch.Tensor:
-        """Clip the gradients in place to global norm <= max_norm; returns
-        the norm before clipping, a 0-d tensor (no host sync)."""
-        return clip_by_global_norm_(self._grads(), self.max_norm)
-
-    @torch.no_grad()
-    def step(self) -> None:
-        """One AdamW update with the gradients in `.grad` as they are."""
-        self._fill_update_scalars()
-        self._adamw(self._grads())
-        self.count += 1
 
     def update(self) -> torch.Tensor:
         """Take one micro-batch's gradients (in `.grad`); returns their

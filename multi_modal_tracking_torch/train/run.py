@@ -76,7 +76,7 @@ def main(argv: Optional[List[str]] = None):
 
     trainer = Trainer(args.script, cfg, save_dir=args.save_dir, device=args.device,
                       seed=args.seed, dtype=DTYPES[args.dtype])
-    n_trainable = sum(len(g["params"]) for g in trainer.optimizer.opt.param_groups)
+    n_trainable = sum(len(ps) for ps in trainer.optimizer.groups.values())
     print(f"model: {trainer.net_name}, {n_trainable} trainable param tensors, "
           f"{trainer.steps_per_epoch} steps/epoch", flush=True)
     trainer.train(load_latest=args.resume, fail_safe=not args.no_fail_safe)

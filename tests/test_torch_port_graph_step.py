@@ -215,7 +215,8 @@ def test_snapshot_restore_around_chunk(pair, cached):
 @pytest.mark.parametrize("lockstep", [False, True], ids=["single", "lockstep"])
 def test_step_dispatches_nothing_from_the_host(models, lockstep, update):
     """After a first step (which fills the first-use caches, as the graph
-    runner's warm-up does), one step records none of FORBIDDEN."""
+    runner's eager first step of a key does), one step records none of
+    FORBIDDEN."""
     model = models["bf16"]
     fv, fi, ok = _lockstep_frames(60)
     if lockstep:

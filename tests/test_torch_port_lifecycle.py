@@ -398,7 +398,7 @@ class _FakeTrainer:
     def __init__(self, script, cfg, save_dir="output", device="cuda", seed=42, **kw):
         self.args = dict(script=script, cfg=cfg, save_dir=save_dir, device=device, seed=seed, **kw)
         self.net_name, self.steps_per_epoch = "MixFormerRGBT", 1
-        self.optimizer = type("O", (), {"opt": type("A", (), {"param_groups": []})})()
+        self.optimizer = type("O", (), {"groups": {}})()
         _FakeTrainer.made.append(self)
 
     def train(self, **kw):

@@ -10,7 +10,7 @@ the fusion's dropout on:
     set to None before each backward, a fresh accumulator per group, the
     CE ranking's template rows gathered with a Python list, the learning
     rate and the accumulation divisor from the host), with the same
-    optimizer arithmetic (`optimizer.adamw_`, `clip_by_global_norm_`):
+    optimizer arithmetic (`ops.adamw.adamw_ref`, `clip_by_global_norm_`):
     parameters, AdamW moments, BN buffers, every step's metrics, the
     generator's state and the host's counters; f32 and bf16, keep 1.0 and
     a bucketed keep < 1, ACCUM_ITER 1 and 2. The optimizer against optax
@@ -34,6 +34,7 @@ import torch
 from multi_modal_tracking_torch.models import asymmetric_shared as port_as
 from multi_modal_tracking_torch.models.build import build_model
 from multi_modal_tracking_torch.models.layers import set_generator
+from multi_modal_tracking_torch.ops import adamw as port_adamw
 from multi_modal_tracking_torch.tracking.graphs import OpLog
 from multi_modal_tracking_torch.train import optimizer as port_opt
 from multi_modal_tracking_torch.train import train_step as port_ts
@@ -119,10 +120,11 @@ class _ReferenceStep:
             self.acc, self.mini_step = None, 0
             grads = [p.grad for p in o.params]
             port_opt.clip_by_global_norm_(grads, o.max_norm)
-        count = torch.tensor(float(self.count + 1))
+        bc1, bc2 = (torch.tensor(1.0 - b ** (self.count + 1)) for b in (port_adamw.B1,
+                                                                      port_adamw.B2))
         for g, ps in o.groups.items():
-            port_opt.adamw_(ps, [grads[i] for i in o._index[g]], o.mu[g], o.nu[g],
-                            self.neg_lr(g), count, o.weight_decay)
+            port_adamw.adamw_ref(ps, [grads[i] for i in o._index[g]], o.mu[g], o.nu[g],
+                                 self.neg_lr(g), bc1, bc2, o.weight_decay)
         self.count += 1
         return norm
 
@@ -234,7 +236,7 @@ def test_load_checkpoint_writes_into_the_step_tensors(tmp_path):
     opt = tr.optimizer
     state = list(opt.params) + list(tr.model.buffers()) + opt._acc + \
         [t for g in opt.groups for t in opt.mu[g] + opt.nu[g]]
-    held = state + opt.grads + list(opt._neg_lr.values()) + [opt._count, opt._n]
+    held = state + opt.grads + [opt._neg_lr, opt._bc, opt._n]
     ptrs = [t.data_ptr() for t in held]
     saved = [t.detach().clone() for t in state]
     tr.cycle_dataset()                                  # move everything on
@@ -263,10 +265,10 @@ def test_optimizer_loads_torch_adamw_layout():
     old.step()
     ptrs = [t.data_ptr() for g in opt.groups for t in opt.mu[g] + opt.nu[g]]
     opt.load_state_dict({"adamw": old.state_dict(), "count": 1, "mini_step": 0, "acc": None})
-    for p in model.parameters():
-        st = old.state[p]
-        assert torch.equal(opt.opt.state[p]["exp_avg"], st["exp_avg"])
-        assert torch.equal(opt.opt.state[p]["exp_avg_sq"], st["exp_avg_sq"])
+    for g, ps in opt.groups.items():
+        for p, m, v in zip(ps, opt.mu[g], opt.nu[g]):
+            assert torch.equal(m, old.state[p]["exp_avg"])
+            assert torch.equal(v, old.state[p]["exp_avg_sq"])
     assert opt.count == 1
     assert [t.data_ptr() for g in opt.groups for t in opt.mu[g] + opt.nu[g]] == ptrs
     sd = opt.state_dict()

@@ -155,8 +155,7 @@ def test_bf16_step_with_ce_and_optimizer_keeps_float32_state(setup):
         assert float(g.abs().max()) > 1e-6, name
         assert not torch.equal(named[name].detach(), before[name]), name
     assert {p.dtype for p in pmodel.parameters()} == {torch.float32}
-    moments = [v for st in opt.opt.state.values() for v in st.values()
-               if torch.is_tensor(v) and v.dim() > 0]
+    moments = [v for g in opt.groups for v in opt.mu[g] + opt.nu[g]]
     assert moments and {v.dtype for v in moments} == {torch.float32}
     assert compute_dtype(pmodel) == torch.bfloat16
 
