@@ -197,10 +197,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 against the profiler's kernels. Every run must
                 launch K1-bf16 and K3-bf16 and no f32 kernel; the f32
                 phases must launch no bf16 kernel.
+ 13. online   - asymmetric_shared_online at full width (phase_online): the
+                score-gated cached tracker from create_tracker, f32 and
+                bf16, on the tracker phase's 63 frames at update interval
+                25, its score bias centred so that scores fall on both
+                sides of 0.5: graphed, eager, graphed bit for bit (boxes,
+                scores, state buffers), a commit of a taken candidate
+                required; f32: the full-forward online tracker within 1e-4
+                px of the cached one, a CPU tracker within ONLINE_CPU_PX
+                over 8 frames; 10 frames profiled (busy, idle, launches
+                against the profiler's kernels), the SPM's and PrRoI's
+                device ms and share of a frame; synthetic_rgbt_hard one
+                stream against lockstep N = 12 (f32: 0.05 px, identical
+                score files; bf16: the drift printed);
+ 14. stage2   - TRAIN_SCORE (phase_stage2): the online recipe's Trainer at
+                batch 64 in bf16, graphed against an eager twin bit for bit
+                over 3 steps, then an epoch through cycle_dataset; f32 at
+                batch 16 graphed; frozen parameters and BN statistics the
+                same bits, score parameters moved, the clipped gradients'
+                norm min(grad_norm, GRAD_CLIP_NORM) with the frozen ones
+                nonzero; ms per step, busy, idle, memory; one f32 step at
+                batch 2 on the GPU against the CPU.
 Then the kernel table line (launches by path: tracker, graphs, train,
-eval for the f32 kernels; train bf16, lifecycle, and for the forward
-kernels the bf16 tracker, graphs and eval; train, train bf16 and
-lifecycle for AdamW) and, last, {"ok": true, "device": {...}}.
+eval, online, stage2 for the f32 kernels; train bf16, lifecycle, stage2
+bf16, and for the forward kernels the bf16 tracker, graphs, eval and
+online; train, train bf16, lifecycle and both stage-2 runs for AdamW)
+and, last, {"ok": true, "device": {...}}.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -3403,6 +3425,523 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
             "eval_bf16": eval_launches, "profile": prof}
 
 
+# ------------------------------------------------ online tracker and stage 2
+ONLINE_SCRIPT = "asymmetric_shared_online"
+#: the dataset whose TEST.UPDATE_INTERVALS entry (25) the online phases use,
+#: so that 63 frames hold two commits (synthetic_rgbt_hard's own entry would
+#: never update)
+ONLINE_INTERVAL_FROM = "TRACKINGNET"
+ONLINE_CPU_FRAMES = 8              # frames of the GPU vs CPU online trajectory
+ONLINE_CPU_PX = 0.02               # its bound, px (the CPU tests' tracker tolerance)
+SCORE_TOL = 1e-4                   # scores, where boxes are held to 1e-4 too
+STAGE2_B, STAGE2_F32_B = 64, 16    # the recipe's batch (bf16) and f32's batch
+STAGE2_STEPS = 3
+
+
+def _online_params():
+    from multi_modal_tracking_torch.eval.params import get_parameters
+    return get_parameters(ONLINE_SCRIPT, RECIPE)
+
+
+def _score_head_bias(model) -> torch.Tensor:
+    return model.score_branch.score_head.layers[-1].bias
+
+
+def _centre_score_bias(tracker, frames) -> float:
+    """Track `frames` eager with the score head's last bias as built, then
+    shift the bias by minus the median logit of that run, so that the
+    scores of a run land on both sides of 0.5 (random weights put them all
+    on one side). Returns the shift."""
+    from multi_modal_tracking_torch.tracking.tracker import RGBTOnlineCachedTracker
+    probe = RGBTOnlineCachedTracker(tracker.model, **_tracker_kw(tracker), graphs=False)
+    s = _online_run(probe, frames)["scores"].astype(np.float64)
+    shift = -float(np.median(np.log(s / (1.0 - s))))
+    with torch.no_grad():
+        _score_head_bias(tracker.model).add_(shift)
+    return shift
+
+
+def _tracker_kw(t) -> dict:
+    return dict(template_factor=t.template_factor, template_size=t.template_size,
+                search_factor=t.search_factor, search_size=t.search_size,
+                update_interval=t.update_interval, max_score_decay=t.max_score_decay,
+                ce_keep_rate=None)
+
+
+def _flat_state(snap: dict) -> dict:
+    """A tracker snapshot as {name/i: tensor}, the frame id as a tensor."""
+    from multi_modal_tracking_torch.tracking.graphs import leaves
+    out = {"_frame_id": torch.tensor(snap["_frame_id"])}
+    for k, v in snap.items():
+        if k != "_frame_id":
+            out.update({f"{k}/{i}": t for i, t in enumerate(leaves(v))})
+    return out
+
+
+def _online_run(tracker, frames, timed_from: int = 9) -> dict:
+    """initialize on frames[0], track the rest with `track`: the boxes and
+    scores, ms per frame on the host clock from frame `timed_from` on, the
+    launches of the run, the state buffers at the end."""
+    reset_launches()
+    tracker.initialize(list(frames[0]), {"init_bbox": INIT_BOX})
+    boxes, scores = [], []
+    for i, (fv, fi) in enumerate(frames[1:], start=1):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = tracker.track([fv, fi])
+        boxes.append(out["target_bbox"])
+        scores.append(out["pred_score"])
+    torch.cuda.synchronize()
+    n = len(frames) - timed_from
+    return dict(boxes=np.asarray(boxes, np.float32), scores=np.asarray(scores, np.float32),
+                ms_per_frame=(time.perf_counter() - t0) / n * 1e3 if n > 0 else None,
+                launches=read_launches(), state=_flat_state(tracker.snapshot()))
+
+
+def _candidates(scores: np.ndarray, interval: int, decay: float) -> tuple:
+    """The online trackers' rule replayed on the host over a run's scores
+    (frames 1, 2, ...): the frames whose template candidate was taken, and
+    per commit (every `interval` frames) whether it installed a taken
+    candidate rather than the base template."""
+    best, taken, commits, since = np.float32(-1.0), [], [], False
+    for k, s in enumerate(scores, start=1):
+        best = np.float32(best * np.float32(decay))
+        if s > 0.5 and s > best:
+            taken.append(k)
+            best, since = s, True
+        if k % interval == 0:
+            commits.append(since)
+            best, since = np.float32(-1.0), False
+    return taken, commits
+
+
+def _add_launches(total: dict, counts: dict, keys) -> None:
+    for k in keys:
+        total[k] = total.get(k, 0) + counts[k]
+
+
+def _profiled_ms(fn, iters: int = 20) -> tuple:
+    """Device ms per call of `fn` from one torch.profiler session of
+    `iters` calls (after 3 untimed ones): the summed durations of every
+    kernel, copy and memset over `iters`, and the events per call. The
+    score branch is some forty small kernels, of which a session has been
+    seen to lose one or two in twenty calls (device_ms's check); that
+    biases the time low by at most their share."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ivals = _device_intervals(prof)
+    require(len(ivals) > 0, "the profiler traced no device event")
+    return sum(e - s for s, e, _ in ivals) / iters / 1e3, len(ivals) / iters
+
+
+def _spm_ms(model) -> dict:
+    """Device ms (torch.profiler, `_profiled_ms`) of one call of the score
+    branch and of its PrRoI pooling at the tracking shapes (the fused 18x18
+    search map, the two 8x8 templates stacked, one box), in the model's
+    compute dtype."""
+    from multi_modal_tracking_torch.models.layers import compute_dtype
+    from multi_modal_tracking_torch.ops.prroi import prroi_pool
+    dt, c = compute_dtype(model), model.spec.embed_dim
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fused = torch.randn(1, 18, 18, c, device="cuda", generator=g).to(dt)
+    tmpl = torch.randn(1, 16, 8, c, device="cuda", generator=g).to(dt)
+    box = torch.tensor([[0.4, 0.42, 0.55, 0.6]], device="cuda")
+    rois = torch.cat([torch.zeros(1, 1, device="cuda"), box * 18], dim=1)
+    with torch.no_grad():
+        spm, spm_ops = _profiled_ms(lambda: model.score_branch(fused, tmpl, box))
+        prroi, prroi_ops = _profiled_ms(lambda: prroi_pool(fused, rois, 4, 4))
+    return dict(spm_ms=spm, spm_ops_per_call=spm_ops, prroi_ms=prroi,
+                prroi_ops_per_call=prroi_ops)
+
+
+def _online_eval(dtype, bias_shift: float, root: str, runs: dict) -> dict:
+    """synthetic_rgbt_hard one stream (run_dataset) and in lockstep N = 12
+    (run_sequences_batched with eval.run's online twin) at update interval
+    25, the score bias shifted as the tracking run's. f32: trajectories
+    within EVAL_PX_TOL of one stream and the `_score.txt` files
+    byte-identical. bf16: the distance and the differing score files are
+    printed, not bounded: the bf16 kernels and cuBLAS's bf16 GEMMs round
+    differently at batch 2 and 24 (K1-bf16's key shares, other GEMM
+    kernels), and with random weights the trajectory is chaotic, as for
+    the bf16 cached tracker (bf16 phase, `max_abs_px_vs_A16`)."""
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.eval.run import _batched_twin
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    from multi_modal_tracking_torch.tracking.batched import BatchedRGBTOnlineCachedTracker
+    seqs = get_dataset("synthetic_rgbt_hard")
+    single = create_tracker(_online_params(), ONLINE_INTERVAL_FROM, seed=0, dtype=dtype)
+    with torch.no_grad():
+        _score_head_bias(single.model).add_(bias_shift)
+    bt = _batched_twin(single, EVAL_CHUNK)
+    require(type(bt) is BatchedRGBTOnlineCachedTracker and bt.update_interval == 25,
+            f"eval.run's lockstep twin of the online tracker: {type(bt).__name__}")
+    kernels = ("K1", "K3") if dtype == torch.float32 else BF16_SERVING
+    label = "f32" if dtype == torch.float32 else "bf16"
+    _profile_block(bt, seqs[:EVAL_BIG], 2)          # first calls of the batch-24 shapes
+    one = _eval_run(f"online_A_{label}", lambda d: run_dataset(seqs, single, d,
+                                                               chunk=EVAL_CHUNK),
+                    seqs, root, runs, kernels)
+    lock = _eval_run(f"online_B12_{label}", lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG),
+                     seqs, root, runs, kernels)
+    worst = max(float(np.abs(lock[k] - one[k]).max()) for k in one)
+    differ = []
+    for s in seqs:
+        with open(os.path.join(root, f"online_A_{label}", f"{s.name}_score.txt"), "rb") as fa, \
+                open(os.path.join(root, f"online_B12_{label}", f"{s.name}_score.txt"),
+                     "rb") as fb:
+            if fa.read() != fb.read():
+                differ.append(s.name)
+    centre = float(np.mean([_centre_px(lock[k], one[k]).mean() for k in one]))
+    runs[f"online_B12_{label}"].update(max_abs_px_vs_one_stream=worst,
+                                        centre_px_vs_one_stream_mean=centre,
+                                        score_files_differing=differ)
+    require(dtype != torch.float32 or (worst <= EVAL_PX_TOL and not differ),
+            f"online lockstep N={EVAL_BIG} {label}: {worst} px from one stream (bound "
+            f"{EVAL_PX_TOL}), score files differing {differ}")
+    del bt, single
+    torch.cuda.empty_cache()
+    return {k: sum(runs[f"online_{w}_{label}"]["launches"][k] for w in ("A", "B12"))
+            for k in kernels}
+
+
+def phase_online(smi: str, frames) -> dict:
+    """The online score-gated tracker of asymmetric_shared_online at full
+    width (ViT-B, no CE, LNSpecific fusion x 2, CORNER_UP, the SPM), seed-0
+    weights, create_tracker -> RGBTOnlineCachedTracker, update interval 25,
+    f32 and bf16. The score head's last bias is centred on one eager run
+    (`_centre_score_bias`). Then the tracker phase's 63 frames three times
+    (graphed with its captures, eager, graphed): boxes, scores and every
+    state buffer bit for bit; at least one commit must install a taken
+    candidate (the host replays the rule on the scores, and the state's
+    online template must differ from the base exactly when the last commit
+    did). f32 only: the full-forward RGBTOnlineTracker on the same model
+    within 1e-4 px and 1e-4 in score of the cached one, and a CPU tracker on
+    the same weights within ONLINE_CPU_PX over ONLINE_CPU_FRAMES frames (its
+    forward's boxes and logits within BOX_TOL on one crop). Then 10 more
+    frames profiled graphed and eager (device busy, idle share, launches
+    against the profiler's kernels), the score branch's and PrRoI's device
+    ms, and synthetic_rgbt_hard one stream against lockstep N = 12
+    (`_online_eval`). Prints a line per dtype and one per eval; returns the
+    launch counts by dtype."""
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.models.build import build_model
+    from multi_modal_tracking_torch.tracking.tracker import (RGBTOnlineCachedTracker,
+                                                             RGBTOnlineTracker)
+    seq = frames[:64]
+    H, W = seq[0][0].shape[:2]
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        for dtype, names in TRACK_KERNEL_NAMES.items():
+            label = "f32" if dtype == torch.float32 else "bf16"
+            kernels = tuple(names)
+            total = launches.setdefault(label, {})
+            tracker = create_tracker(_online_params(), ONLINE_INTERVAL_FROM, seed=0, dtype=dtype)
+            require(type(tracker) is RGBTOnlineCachedTracker and tracker.update_interval == 25
+                    and tracker.graphs is not None and tracker.model.with_score,
+                    f"create_tracker({ONLINE_SCRIPT}) gave {type(tracker).__name__}")
+            shift = _centre_score_bias(tracker, seq)
+            eager = RGBTOnlineCachedTracker(tracker.model, **_tracker_kw(tracker), graphs=False)
+            runs = [(name, _online_run(tr, seq)) for name, tr in
+                    (("graphed_capture", tracker), ("eager", eager), ("graphed", tracker))]
+            first = runs[0][1]
+            for name, run in runs[1:]:
+                diff = [k for k in ("boxes", "scores")
+                        if not np.array_equal(run[k].view(np.int32), first[k].view(np.int32))]
+                diff += _differing(run["state"], first["state"])
+                require(not diff, f"online {label}: {name} run differs from the graphed one in "
+                                  f"{diff[:6]}")
+                require(run["launches"] == first["launches"],
+                        f"online {label}: {name} launches {run['launches']} != graphed "
+                        f"{first['launches']}")
+            for _, run in runs:
+                _add_launches(total, run["launches"], kernels)
+            require(all(first["launches"][k] > 0 for k in kernels)
+                    and not any(first["launches"][k] for k in F32_KERNELS + BF16_KERNELS
+                                if k not in kernels),
+                    f"online {label}: launches {first['launches']}")
+            require(_inside(first["boxes"].astype(np.float64), H, W)
+                    and bool(np.isfinite(first["scores"]).all()),
+                    f"online {label}: a box outside the frame or a score not finite")
+            taken, commits = _candidates(first["scores"], 25, tracker.max_score_decay)
+            require(len(commits) == 2 and any(commits),
+                    f"online {label}: commits {commits}, candidates taken at {taken}: no "
+                    f"commit installed a taken candidate")
+            base = torch.equal(tracker._online, tracker._template)
+            require(base == (not commits[-1]),
+                    f"online {label}: the online template is{'' if base else ' not'} the base "
+                    f"template after the last commit, which the scores say "
+                    f"{'took' if commits[-1] else 'did not take'} a candidate")
+            res = dict(score_bias_shift=shift, candidates_taken=len(taken),
+                       taken_at=taken, commits=len(commits),
+                       commits_of_a_taken_candidate=int(sum(commits)),
+                       scores_above_half=int((first["scores"] > 0.5).sum()),
+                       bit_equal_runs=[name for name, _ in runs[1:]],
+                       ms_per_frame={name: r["ms_per_frame"] for name, r in runs},
+                       graphs=len(tracker.graphs), graph_pool_bytes=tracker.graphs.pool_bytes(),
+                       capture_ms={("search_commit" if k[-1] else "search"): v
+                                   for k, v in tracker.graphs.capture_ms.items()})
+            if dtype == torch.float32:
+                full = RGBTOnlineTracker(tracker.model, **_tracker_kw(tracker))
+                fr = _online_run(full, seq)
+                _add_launches(total, fr["launches"], kernels)
+                d_box = float(np.abs(fr["boxes"] - first["boxes"]).max())
+                d_score = float(np.abs(fr["scores"] - first["scores"]).max())
+                require(d_box <= BOX_TOL and d_score <= SCORE_TOL,
+                        f"online full vs cached: {d_box} px, scores {d_score} apart")
+                res.update(full_vs_cached_max_abs_px=d_box, full_vs_cached_max_abs_score=d_score,
+                           full_ms_per_frame=fr["ms_per_frame"])
+                del full
+                cpu_model = build_model(ONLINE_SCRIPT, _online_params().cfg, device="cpu",
+                                        seed=0)
+                cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                           tracker.model.state_dict().items()})
+                cpu = RGBTOnlineCachedTracker(cpu_model, **_tracker_kw(tracker), device="cpu")
+                cr = _online_run(cpu, seq[:ONLINE_CPU_FRAMES + 1], timed_from=ONLINE_CPU_FRAMES + 1)
+                d_cpu = float(np.abs(cr["boxes"] - first["boxes"][:ONLINE_CPU_FRAMES]).max())
+                s_cpu = float(np.abs(cr["scores"] - first["scores"][:ONLINE_CPU_FRAMES]).max())
+                g = torch.Generator().manual_seed(5)
+                ts, ss = tracker.template_size, tracker.search_size
+                t, s = torch.randn(2, ts, ts, 3, generator=g), torch.randn(2, ss, ss, 3, generator=g)
+                with torch.no_grad():
+                    want = cpu_model.forward_track(cpu_model.set_online(t, t), s,
+                                                   use_ce_template_mask=False, run_score_head=True)
+                    got = tracker.model.forward_track(tracker.model.set_online(t.cuda(), t.cuda()),
+                                                      s.cuda(), use_ce_template_mask=False,
+                                                      run_score_head=True)
+                d_fwd = max(float((got[k].cpu() - want[k]).abs().max())
+                            for k in ("pred_boxes", "pred_scores"))
+                require(d_cpu <= ONLINE_CPU_PX and s_cpu <= SCORE_TOL and d_fwd <= BOX_TOL,
+                        f"online GPU vs CPU: trajectory {d_cpu} px, scores {s_cpu}, forward "
+                        f"{d_fwd}")
+                res.update(gpu_vs_cpu_frames=ONLINE_CPU_FRAMES, gpu_vs_cpu_max_abs_px=d_cpu,
+                           gpu_vs_cpu_max_abs_score=s_cpu, gpu_vs_cpu_forward_max_abs=d_fwd)
+                del cpu, cpu_model
+            prof = {"graphed": _profile_track(tracker, frames[64:], names),
+                    "eager": _profile_track(eager, frames[64:], names)}
+            for p in prof.values():
+                require(p["launches"] == prof["eager"]["launches"] == p["kernels_by_name"],
+                        f"online {label}: launches {p['launches']} against eager "
+                        f"{prof['eager']['launches']} and the profiler's kernels "
+                        f"{p['kernels_by_name']}")
+                _add_launches(total, p["launches"], kernels)
+            spm = _spm_ms(tracker.model)
+            busy = prof["graphed"]["device_busy_ms_per_frame"]
+            res.update(profile=prof, **spm, spm_share_of_busy=spm["spm_ms"] / busy,
+                       prroi_share_of_busy=spm["prroi_ms"] / busy)
+            del tracker, eager
+            torch.cuda.empty_cache()
+            emit({"phase": f"online {label}", "card": smi, "script": ONLINE_SCRIPT,
+                  "recipe": RECIPE, "frames": len(seq) - 1, "frame_hw": [H, W],
+                  "update_interval": 25, **res})
+            runs = {}
+            _add_launches(total, _online_eval(dtype, shift, root, runs), kernels)
+            emit({"phase": f"online eval {label}", "card": smi, "runs": runs,
+                  "launches": dict(total)})
+    return launches
+
+
+def _stage2_cfg(batch: int, steps: int):
+    """The online recipe (TRAIN_SCORE) with the synthetic set, no val split
+    and no warm starts (the stage-1 checkpoint and the MAE file are not in
+    the repository)."""
+    from multi_modal_tracking_torch.config import get_default_config
+    cfg = get_default_config(ONLINE_SCRIPT)
+    cfg.update_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "experiments", ONLINE_SCRIPT, f"{RECIPE}.yaml"))
+    cfg.DATA.TRAIN.DATASETS_NAME = ["SyntheticRGBT"]
+    cfg.DATA.VAL.DATASETS_NAME = []
+    cfg.MODEL.BACKBONE.PRETRAINED = False
+    cfg.MODEL.TRACKER_PRETRAINED_PATH = ""
+    cfg.MODEL.RGBT_PRETRAINED_PATH = ""
+    cfg.TRAIN.BATCH_SIZE = batch
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = batch * steps
+    return cfg
+
+
+def _stage2_batches(batch: int, n: int, seed: int = 6) -> list:
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    loader = build_train_loader(_stage2_cfg(batch, n), seed=seed)
+    out = [model_inputs(batch_to_model_inputs(b), "cuda") for b in loader]
+    require(all({"gt_xyxy", "labels"} <= x.keys() for x in out),
+            "stage-2 batches without gt_xyxy or labels")
+    return out
+
+
+def _frozen_check(tr, before: dict) -> dict:
+    """After stage-2 steps: every parameter outside the score branch and
+    every buffer (BN statistics) the same bits as `before`, and every score
+    parameter moved. Then the gradients of the last step, which the
+    optimizer clipped in place: the frozen ones nonzero, and the norm of
+    all of them min(grad_norm, GRAD_CLIP_NORM), i.e. the printed grad_norm
+    and the clip were taken over the frozen gradients too."""
+    after = tr.model.state_dict()
+    score = {n for n, _ in tr.model.named_parameters() if n.startswith("score_branch.")}
+    moved = [k for k in after if not torch.equal(_bits(after[k]), _bits(before[k]))]
+    bad = [k for k in moved if k not in score] + [k for k in score if k not in moved]
+    require(score and not bad, f"stage 2: frozen tensors moved or score parameters did not: "
+                               f"{bad[:6]}")
+    names = [n for n, _ in tr.model.named_parameters()]
+    grads = dict(zip(names, tr.optimizer.grads))
+    norm = lambda ks: float(torch.sqrt(sum((grads[k].double() ** 2).sum() for k in ks)))  # noqa: E731
+    frozen = [k for k in names if k not in score]
+    g_all, g_score, g_frozen = norm(names), norm(score), norm(frozen)
+    reported = tr.history[-1]["grad_norm"] if tr.history else None
+    return dict(moved=len(moved), score_tensors=len(score), frozen_unchanged=len(after) - len(moved),
+                clipped_grad_norm=g_all, clipped_score_grad_norm=g_score,
+                clipped_frozen_grad_norm=g_frozen, reported_grad_norm=reported)
+
+
+def _score_step_grads(cfg, batch, dev, dtype, state=None):
+    """One stage-2 step's forward and backward at batch 2 (the net in eval
+    mode, the score loss) on `dev`: (model, loss, grad norm)."""
+    from multi_modal_tracking_torch.models.build import build_model
+    from multi_modal_tracking_torch.train.losses import score_loss
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    m = build_model(ONLINE_SCRIPT, cfg, device=dev, dtype=dtype, seed=0).eval()
+    if state is not None:
+        m.load_state_dict({k: v.to(dev) for k, v in state.items()})
+    x = model_inputs(batch, dev)
+    out = m(x["t"], x["ot"], x["s"], None, run_score_head=True, gt_bboxes=x["gt_xyxy"])
+    loss, _ = score_loss(out["pred_scores"], x["labels"], cfg.TRAIN.SCORE_WEIGHT)
+    loss.backward()
+    for p in m.parameters():                # the box head takes no part in stage 2
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    gnorm = float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in m.parameters())))
+    return m, float(loss.detach()), gnorm
+
+
+def _stage2_timing(tr, x, bf16: bool) -> dict:
+    """The isolated step (5 synchronised steps) and a profile of 3, each
+    without a keep rate (no CE: the graph key stays that of the steps
+    before), and the memory beyond the Trainer's state."""
+    step = lambda inputs, _keep: tr._step(inputs, None)    # noqa: E731
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    iso = _isolated_steps(step, x)
+    mem = dict(state_gib=_state_bytes(tr) / 2 ** 30,
+               step_peak_beyond_state_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    if tr._step.graphs is not None:
+        mem["pool_gib"] = tr._step.graphs.pool_bytes() / 2 ** 30
+    prof = _profile_steps(step, x, bf16)
+    prof.pop("ops_by_name")
+    return dict(iso, **prof, memory=mem)
+
+
+def phase_stage2(smi: str, save_dir: str) -> dict:
+    """Stage 2 of the online recipe (TRAIN_SCORE: the SPM score branch
+    trains, everything else is frozen and runs in eval mode): a Trainer at
+    the recipe's batch 64 in bf16 (its default), graphed, against an eager
+    twin (graphs=False) from the same seed over STAGE2_STEPS steps on the
+    same batches, bit for bit (weights, buffers, moments, counters,
+    generator, metrics); the frozen parameters and BN statistics unchanged
+    bit for bit and the score parameters moved (`_frozen_check`); then bf16
+    and f32 at batch 16, graphed, the same checks but the twin (f32: K4's
+    atomics); one f32 step at batch 2 on the GPU against the CPU. Prints
+    ms per step graphed (and eager at batch 64), device busy, idle share
+    and memory. Returns the launch counts by dtype."""
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    out, launches = {}, {}
+    for dtype, batch, twin in ((torch.bfloat16, STAGE2_B, True),
+                               (torch.bfloat16, STAGE2_F32_B, False),
+                               (torch.float32, STAGE2_F32_B, False)):
+        bf16 = dtype == torch.bfloat16
+        label = "bf16" if bf16 else "f32"
+        run = f"{label}_b{batch}"
+        cfg = _stage2_cfg(batch, STAGE2_STEPS)
+        kw = {} if bf16 else dict(dtype=dtype)
+        tr = Trainer(ONLINE_SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
+                     print_interval=STAGE2_STEPS, **kw)
+        require(tr._step.train_score and tr.dtype == dtype and tr._step.graphs is not None
+                and list(tr.optimizer.groups) == ["main"],
+                f"stage 2 {run}: Trainer step {tr._step.train_score}, groups "
+                f"{list(tr.optimizer.groups)}")
+        batches = _stage2_batches(batch, STAGE2_STEPS)
+        before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        per = TRAIN_LAUNCHES[dtype]
+        res = dict(batch=batch)
+        if twin:
+            eager = Trainer(ONLINE_SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
+                            print_interval=STAGE2_STEPS, graphs=False, **kw)
+            twin = _graphed_vs_eager(tr, eager, batches, (None,) * STAGE2_STEPS)
+            counts = twin["launches"]
+            res["graphed_vs_eager"] = twin
+        else:
+            reset_launches()
+            for x in batches:
+                tr._step(x, None)
+            torch.cuda.synchronize()
+            counts = read_launches()
+        for k, n in per.items():
+            require(counts[k] == n * STAGE2_STEPS,
+                    f"stage 2 {run}: {k} launched {counts[k]} times in {STAGE2_STEPS} steps")
+        others = [k for k in F32_KERNELS + BF16_KERNELS if k not in per and counts[k]]
+        require(not others, f"stage 2 {run}: launched {others}")
+        total = launches.setdefault(label, dict.fromkeys(per, 0))
+        _add_launches(total, counts, per)
+        # the history of one epoch through cycle_dataset: metrics per step
+        reset_launches()
+        tr.cycle_dataset(build_train_loader(cfg, seed=7))
+        _add_launches(total, read_launches(), per)
+        losses = [m["Loss/total"] for m in tr.history]
+        require(len(losses) == STAGE2_STEPS and all(np.isfinite(losses))
+                and set(tr.history[0]) == {"Loss/total", "Loss/scores", "grad_norm"},
+                f"stage 2 {run}: epoch metrics {tr.history}")
+        check = _frozen_check(tr, before)
+        clip = cfg.TRAIN.GRAD_CLIP_NORM
+        want = min(check["reported_grad_norm"], clip)
+        require(check["clipped_frozen_grad_norm"] > 0.0
+                and abs(check["clipped_grad_norm"] - want) <= 1e-3 * want,
+                f"stage 2 {run}: the clipped gradients' norm {check['clipped_grad_norm']} is "
+                f"not min(grad_norm, {clip}) = {want}, frozen part "
+                f"{check['clipped_frozen_grad_norm']}")
+        reset_launches()
+        res.update(frozen=check, loss=losses, grad_norm=[m["grad_norm"] for m in tr.history],
+                   graphed=_stage2_timing(tr, batches[0], bf16))
+        _add_launches(total, read_launches(), per)
+        if twin:
+            res["eager"] = _stage2_timing(eager, batches[0], bf16)
+            res["eager_over_graphed"] = (res["eager"]["ms_per_step_median"]
+                                         / res["graphed"]["ms_per_step_median"])
+            del eager
+        res["samples_per_s"] = batch / res["graphed"]["ms_per_step_median"] * 1e3
+        out[run] = res
+        del tr, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one f32 step at batch 2 on the GPU against the CPU
+    cfg = _stage2_cfg(2, 1)
+    batch = batch_to_model_inputs(next(iter(build_train_loader(cfg, seed=1))))
+    gpu, loss_gpu, gnorm_gpu = _score_step_grads(cfg, batch, "cuda", torch.float32)
+    cpu, loss_cpu, gnorm_cpu = _score_step_grads(
+        cfg, batch, "cpu", torch.float32, {k: v.cpu() for k, v in gpu.state_dict().items()})
+    d_loss, d_norm = abs(loss_gpu - loss_cpu) / abs(loss_cpu), abs(gnorm_gpu - gnorm_cpu) / gnorm_cpu
+    ratios, _ = _grads_agree(gpu, cpu)
+    require(d_loss <= 1e-3 and d_norm <= 1e-3 and max(ratios.values()) <= 1.0,
+            f"stage 2 GPU vs CPU step: loss {d_loss}, grad norm {d_norm}, gradients {ratios}")
+    out["gpu_vs_cpu"] = dict(batch=2, loss_gpu=loss_gpu, loss_cpu=loss_cpu, loss_rel_diff=d_loss,
+                             grad_norm_gpu=gnorm_gpu, grad_norm_cpu=gnorm_cpu,
+                             grad_norm_rel_diff=d_norm, error_over_bound=ratios)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    emit({"phase": "stage2", "card": smi, "script": ONLINE_SCRIPT, "recipe": RECIPE, **out,
+          "launches": launches})
+    return launches
+
+
 def main() -> None:
     dev, smi = phase_device()
     phase_build()
@@ -3424,10 +3963,16 @@ def main() -> None:
     life_launches = phase_lifecycle(smi, frames, bf16_step_ms)
     eval_launches, f32_eval = phase_eval(smi)
     bf16 = phase_bf16(smi, frames, f32_boxes, f32_eval)
+    online = phase_online(smi, frames)
+    with tempfile.TemporaryDirectory() as save_dir:
+        stage2 = phase_stage2(smi, save_dir)
     table = []
     for key in F32_KERNELS:
         by_path = {"tracker": track_launches[key], "graphs": graph_launches["f32"][key],
-                   "train": train_launches[key], "eval": eval_launches[key]}
+                   "train": train_launches[key], "eval": eval_launches[key],
+                   "stage2": stage2["f32"][key]}
+        if key in online["f32"]:
+            by_path["online"] = online["f32"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3439,10 +3984,12 @@ def main() -> None:
              "model_locations_train_step_ms") if key == "K3" else
             ("model_locations_ms",) if key == "K4" else ())})
     for key in BF16_KERNELS:
-        by_path = {"train_bf16": train_bf16_launches[key], "lifecycle": life_launches[key]}
+        by_path = {"train_bf16": train_bf16_launches[key], "lifecycle": life_launches[key],
+                   "stage2_bf16": stage2["bf16"][key]}
         if key in BF16_SERVING:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
-                           graphs_bf16=graph_launches["bf16"][key])
+                           graphs_bf16=graph_launches["bf16"][key],
+                           online_bf16=online["bf16"][key])
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -3456,7 +4003,8 @@ def main() -> None:
             ("train_step_dense_floor_ms",) if key == "K3-bf16" else ()) + (
             ("repeatable",) if key == "K4-bf16" else ())})
     by_path = {"train": train_launches["AdamW"], "train_bf16": train_bf16_launches["AdamW"],
-               "lifecycle": life_launches["AdamW"]}
+               "lifecycle": life_launches["AdamW"], "stage2": stage2["f32"]["AdamW"],
+               "stage2_bf16": stage2["bf16"]["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -3473,7 +4021,8 @@ def main() -> None:
     # are per tracked frame of the bf16 tracker, lockstep_step_* per N = 12
     # step, train_step_* per bf16 training step; K2-bf16's and K4-bf16's per
     # bf16 training step at the final keep; the bf16 kernels' launches are
-    # those of the bf16 train, lifecycle, tracker and eval phases; AdamW
+    # those of the bf16 train, lifecycle, tracker and eval phases (and of
+    # the online and stage-2 phases: launches_by_path); AdamW
     # (no Pallas kernel: it replaces the optax update XLA fuses) per update
     # of every trainable parameter, launched once per update of the train
     # and lifecycle phases

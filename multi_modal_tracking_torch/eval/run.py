@@ -32,6 +32,7 @@ from multi_modal_tracking_torch.eval.evaltracker import create_tracker
 from multi_modal_tracking_torch.eval.params import get_parameters
 from multi_modal_tracking_torch.eval.running import _load_frame, run_dataset
 from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
+                                                         BatchedRGBTOnlineCachedTracker,
                                                          run_sequences_batched)
 from multi_modal_tracking_torch.train.admin import env_settings
 from multi_modal_tracking_torch.utils.device import DTYPES
@@ -121,13 +122,16 @@ def _epoch_of(path: Optional[str]) -> int:
 
 def _batched_twin(tracker, chunk: int):
     """The lockstep tracker of the CLI's (cached) tracker, on its model
-    (graphed on CUDA as the tracker is)."""
+    (graphed on CUDA as the tracker is): the online twin for an online
+    tracker."""
     t = tracker
-    return BatchedRGBTCachedTracker(
-        t.model, template_factor=t.template_factor, template_size=t.template_size,
-        search_factor=t.search_factor, search_size=t.search_size,
-        update_interval=t.update_interval, ce_keep_rate=t.ce_keep_rate, scan_chunk=chunk,
-        device=t.device, graphs=t.graphs is not None)
+    kw = dict(template_factor=t.template_factor, template_size=t.template_size,
+              search_factor=t.search_factor, search_size=t.search_size,
+              update_interval=t.update_interval, ce_keep_rate=t.ce_keep_rate, scan_chunk=chunk,
+              device=t.device, graphs=t.graphs is not None)
+    if getattr(t, "online", False):
+        return BatchedRGBTOnlineCachedTracker(t.model, max_score_decay=t.max_score_decay, **kw)
+    return BatchedRGBTCachedTracker(t.model, **kw)
 
 
 def main(argv: Optional[List[str]] = None) -> List[str]:

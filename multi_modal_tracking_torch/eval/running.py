@@ -7,14 +7,15 @@ result files (the port's own counterpart of the JAX package's
                   frame 0 holds the init box
   <seq>_time.txt  seconds per frame, `%f` (amortised over the sequence on
                   the chunked paths)
-(`<seq>_score.txt` belongs to the score-giving online trackers, which are
-not ported.) A background thread (`_Prefetcher`) stacks the next chunks of
+  <seq>_score.txt the online trackers' confidence per frame, `%.2f`,
+                  frame 0 at 1.0
+A background thread (`_Prefetcher`) stacks the next chunks of
 frames while the device tracks; the chunked path dispatches every chunk
 with `track_chunk(fetch=False)` and fetches all boxes once at the end.
 With `roi_margin` > 0 only a window around the box is uploaded per chunk
 (`track_chunk_roi`), and a chunk whose crops left the window is redone on
 full frames from a snapshot, so the files are those of the full-frame path
-byte for byte.
+byte for byte; the online trackers have no ROI mode yet and raise.
 
 Frames are uint8 arrays. Path frames need an image decoder, which the port
 does not have yet (ROADMAP.md queue 1 item 1); they raise.
@@ -134,7 +135,8 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
 
     Returns None when the result file exists and skip_if_done is set, else
     {"seq", "n_frames", "fps", "boxes"} (boxes: the (n, 4) float64
-    trajectory the file rounds; plus "n_chunks", "n_windowed",
+    trajectory the file rounds; plus "scores" from an online tracker, which
+    also writes <seq>_score.txt, and "n_chunks", "n_windowed",
     "n_fallback" in ROI mode). A tracker with `track_chunk` runs chunked
     (`chunk` frames per dispatch), one with only `track` per frame.
 
@@ -146,6 +148,11 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
     if save_vis:
         raise NotImplementedError("save_vis writes a video with cv2, which the port does not "
                                   "use (ROADMAP.md queue 1 item 1)")
+    online = getattr(tracker, "online", False)
+    if roi_margin > 0 and online:
+        raise NotImplementedError("roi_margin > 0 with an online tracker: ROI-window uploads "
+                                  "are not ported for the online trackers (ROADMAP.md queue 1 "
+                                  "item 1)")
     os.makedirs(results_dir, exist_ok=True)
     bbox_file = os.path.join(results_dir, f"{seq.name}.txt")
     if skip_if_done and os.path.isfile(bbox_file):
@@ -154,6 +161,7 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
     n = len(seq.frames)
     boxes = np.zeros((n, 4), dtype=np.float64)
     times = np.zeros((n,), dtype=np.float64)
+    scores = np.ones((n,), dtype=np.float64) if online else None
     frame0 = _load_frame(seq, 0)
     t0 = time.time()
     tracker.initialize(frame0, seq.init_info())
@@ -173,19 +181,30 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
         t_seq = time.time()
         pending = [tracker.track_chunk(fv, fv if fi is None else fi, fetch=False)
                    for _, _, fv, fi in _Prefetcher(seq, 1, chunk)]
+        if online:
+            scores[1:] = torch.cat([p[1] for p in pending]).cpu().numpy()[: n - 1]
+            pending = [p[0] for p in pending]
         boxes[1:] = torch.cat(pending).cpu().numpy()[: n - 1]
         times[1:] = (time.time() - t_seq) / (n - 1)   # amortised per frame
     else:
         for k in range(1, n):
             frame = _load_frame(seq, k)
             t0 = time.time()
-            boxes[k] = np.asarray(tracker.track(frame)["target_bbox"])
+            out = tracker.track(frame)
+            boxes[k] = np.asarray(out["target_bbox"])
             times[k] = time.time() - t0
+            if online:
+                scores[k] = out["pred_score"]
 
     np.savetxt(bbox_file, boxes, delimiter="\t", fmt="%d")
+    if online:
+        np.savetxt(os.path.join(results_dir, f"{seq.name}_score.txt"), scores, delimiter="\t",
+                   fmt="%.2f")
     np.savetxt(os.path.join(results_dir, f"{seq.name}_time.txt"), times, fmt="%f")
     fps = n / max(times.sum(), 1e-9)
     stats = {"seq": seq.name, "n_frames": n, "fps": fps, "boxes": boxes}
+    if online:
+        stats["scores"] = scores
     roi_msg = ""
     if roi_stats is not None:
         stats.update(roi_stats)

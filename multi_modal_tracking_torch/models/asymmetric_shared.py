@@ -28,6 +28,12 @@ runtime keep rate (`ce_keep_rate`), the fusion's dropouts and the head's
 BatchNorm statistics; the random layers draw from the generator given
 with `models.layers.set_generator`.
 
+The online scripts (`asymmetric_shared_online`) add the SPM score branch
+(`models/score_decoder.py`): with `run_score_head` the forward also
+returns `pred_scores`, the branch reading the fused search features, the
+two modalities' template features stacked on the height axis and the box
+(`gt_bboxes` in training, else the predicted box without its gradient).
+
 Inputs are NHWC at the public functions, as in the JAX package.
 """
 from __future__ import annotations
@@ -43,6 +49,7 @@ from multi_modal_tracking_torch.models.fusion import build_fusion
 from multi_modal_tracking_torch.models.heads import CornerPredictor, PyramidCornerPredictor
 from multi_modal_tracking_torch.models.layers import (DropPath, LayerNorm, Linear, Mlp,
                                                       PatchEmbed, _heads, _merge)
+from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
 from multi_modal_tracking_torch.ops.attention import mixed_attention
 from multi_modal_tracking_torch.ops.boxes import box_xyxy_to_cxcywh
 from multi_modal_tracking_torch.ops.pos_embed import get_2d_sincos_pos_embed
@@ -382,6 +389,7 @@ class RGBTSpec:
     ce_template_range: str = "CTR_POINT"
     drop_path_rate: float = 0.1
     fusion_dropout: float = 0.1
+    nlayer_head: int = 3
 
     @staticmethod
     def from_cfg(cfg) -> "RGBTSpec":
@@ -395,7 +403,8 @@ class RGBTSpec:
             fusion_class=cfg.MODEL.FUSION_CLASS, fusion_layers=cfg.MODEL.FUSION_LAYERS,
             ce_loc=tuple(bb.CE_LOC) if "CE_LOC" in bb else None,
             ce_keep_ratio=tuple(bb.CE_KEEP_RATIO) if "CE_KEEP_RATIO" in bb else None,
-            ce_template_range=bb.get("CE_TEMPLATE_RANGE", "CTR_POINT"))
+            ce_template_range=bb.get("CE_TEMPLATE_RANGE", "CTR_POINT"),
+            nlayer_head=cfg.MODEL.get("NLAYER_HEAD", 3))
 
 
 def _build_head(sp: RGBTSpec) -> nn.Module:
@@ -410,11 +419,13 @@ def _build_head(sp: RGBTSpec) -> nn.Module:
 
 
 class MixFormerRGBT(nn.Module):
-    """Backbone + deformable fusion + corner head."""
+    """Backbone + deformable fusion + corner head (+ the SPM score branch
+    with `with_score`)."""
 
-    def __init__(self, spec: RGBTSpec):
+    def __init__(self, spec: RGBTSpec, with_score: bool = False):
         super().__init__()
         sp = self.spec = spec
+        self.with_score = with_score
         self.backbone = AsymSharedViT(
             img_size_s=sp.search_size, img_size_t=sp.template_size,
             embed_dim=sp.embed_dim, depth=sp.depth, num_heads=sp.num_heads,
@@ -424,19 +435,34 @@ class MixFormerRGBT(nn.Module):
         self.fusion_vi = build_fusion(sp.fusion_class, sp.embed_dim, 512, sp.fusion_layers,
                                       sp.fusion_dropout)
         self.box_head = _build_head(sp)
+        if with_score:
+            self.score_branch = ScoreDecoder(sp.num_heads, sp.embed_dim, sp.nlayer_head)
 
-    def _head(self, s: torch.Tensor):
+    def _head(self, s: torch.Tensor, t: Optional[torch.Tensor], run_score_head: bool,
+              gt_bboxes: Optional[torch.Tensor] = None):
         B = s.shape[0] // 2
         fused = self.fusion_vi(s[:B], s[B:])
         box_xyxy = self.box_head(fused)
-        return {"pred_boxes": box_xyxy_to_cxcywh(box_xyxy).reshape(B, 1, 4)}
+        out = {"pred_boxes": box_xyxy_to_cxcywh(box_xyxy).reshape(B, 1, 4)}
+        if run_score_head and self.with_score:
+            box = gt_bboxes if gt_bboxes is not None else box_xyxy.detach()
+            # the modalities' template maps stacked on the HEIGHT axis, as
+            # the reference concatenates NCHW dim 2: the width would permute
+            # the tokens the SPM attends over
+            out["pred_scores"] = self.score_branch(fused, torch.cat([t[:B], t[B:]], dim=1),
+                                                   box.reshape(B, 4))
+        return out
 
     def forward(self, t_vi, ot_vi, s_vi, ce_keep_rate: Optional[float] = None,
-                use_ce_template_mask: bool = True):
+                use_ce_template_mask: bool = True, run_score_head: bool = False,
+                gt_bboxes: Optional[torch.Tensor] = None):
         """t_vi/ot_vi/s_vi: (2B, H, W, 3) bimodal stacks ([:B] RGB, [B:] TIR).
-        Returns {'pred_boxes': (B, 1, 4) cxcywh in [0, 1]}."""
-        _, _, s = self.backbone(t_vi, ot_vi, s_vi, ce_keep_rate, use_ce_template_mask)
-        return self._head(s)
+        Returns {'pred_boxes': (B, 1, 4) cxcywh in [0, 1]}, and with
+        run_score_head (a model with the score branch) 'pred_scores' (B, 1,
+        1) logits; gt_bboxes (B, 4) normalised xyxy replaces the predicted
+        box the score branch pools."""
+        t, _, s = self.backbone(t_vi, ot_vi, s_vi, ce_keep_rate, use_ce_template_mask)
+        return self._head(s, t, run_score_head, gt_bboxes)
 
     # ------------------------------------------------- cached-template path
     def set_online(self, t_vi, ot_vi):
@@ -445,16 +471,16 @@ class MixFormerRGBT(nn.Module):
         return self.backbone.build_template_cache(t_vi, ot_vi)
 
     def forward_track(self, cache, s_vi, ce_keep_rate: Optional[float] = None,
-                      use_ce_template_mask: bool = True):
-        """Per-frame tracking forward over the search tokens only."""
+                      use_ce_template_mask: bool = True, run_score_head: bool = False):
+        """Per-frame tracking forward over the search tokens only; the score
+        branch reads the cache's template features."""
         s = self.backbone.forward_search(cache, s_vi, ce_keep_rate, use_ce_template_mask)
-        return self._head(s)
+        return self._head(s, cache["t"], run_score_head)
 
 
 def build_mixformer_rgbt(cfg, with_score: bool = False, **spec_overrides) -> MixFormerRGBT:
-    """The flagship model of a config; `spec_overrides` replace fields of
-    the spec read from it (e.g. depth, or the drop rates)."""
-    if with_score:
-        raise NotImplementedError("the SPM score branch (asymmetric_shared_online) is not "
-                                  "ported yet (ROADMAP.md queue 1)")
-    return MixFormerRGBT(dataclasses.replace(RGBTSpec.from_cfg(cfg), **spec_overrides))
+    """The flagship model of a config, with the SPM score branch if
+    `with_score`; `spec_overrides` replace fields of the spec read from it
+    (e.g. depth, or the drop rates)."""
+    return MixFormerRGBT(dataclasses.replace(RGBTSpec.from_cfg(cfg), **spec_overrides),
+                         with_score=with_score)

@@ -11,6 +11,7 @@ from multi_modal_tracking_torch.models.asymmetric_shared import build_mixformer_
 from multi_modal_tracking_torch.models.fusion import (DeformableAttentionFusion,
                                                       MSDeformAttnBimodal)
 from multi_modal_tracking_torch.models.layers import set_compute_dtype
+from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 _RGBT_SHARED = {
@@ -25,7 +26,8 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     """Initialise every weight from one torch.Generator: xavier-uniform
     Linear weights, PyTorch's default fan-in uniform for convolutions, zero
     biases, unit/zero norms, the MSDA layers' own reference init and a
-    unit-normal fusion level embed."""
+    unit-normal fusion level embed; the score branch's token from a normal
+    of deviation 0.02 truncated at two deviations."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.Linear):
@@ -45,6 +47,8 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
             m.reset_parameters(g)
         elif isinstance(m, DeformableAttentionFusion):
             nn.init.normal_(m.level_embed, generator=g)
+        elif isinstance(m, ScoreDecoder):
+            nn.init.trunc_normal_(m.score_token, std=0.02, a=-0.04, b=0.04, generator=g)
     return model
 
 

@@ -235,6 +235,6 @@ def build_fusion(fusion_class: str, channels: int, d_model: int,
     if fusion_class not in _FUSION_MODES:
         raise NotImplementedError(
             f"FUSION_CLASS {fusion_class!r} is not ported to multi_modal_tracking_torch "
-            f"yet (ROADMAP.md queue 1, item 6: the rest of the fusion zoo)")
+            f"yet (ROADMAP.md queue 1, item 9: the rest of the fusion zoo)")
     return AttentionFusionBimodal(channels, d_model, num_encoder_layers,
                                   _FUSION_MODES[fusion_class], dropout)

@@ -1,4 +1,5 @@
-"""Corner box heads: CORNER (stride 16) and CORNER_UP (pyramid, stride 4).
+"""Corner box heads: CORNER (stride 16) and CORNER_UP (pyramid, stride 4),
+and the MLP of the score branch (`MLPHead`).
 
 Both decode top-left / bottom-right score maps by soft-argmax over a
 stride-spaced coordinate mesh and return an xyxy box normalised by
@@ -16,7 +17,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from multi_modal_tracking_torch.models.layers import Conv2d, ConvBNRelu
+from multi_modal_tracking_torch.models.layers import Conv2d, ConvBNRelu, Linear
 
 
 def soft_argmax(score_map: torch.Tensor, stride: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -106,3 +107,20 @@ class PyramidCornerPredictor(CornerPredictor):
         a3 = m("adjust3")(x2)
         a4 = m("adjust4")(x3)
         return (score + _upsample4x(a3) + _upsample2x(a4))[:, 0]
+
+
+class MLPHead(nn.Module):
+    """`num_layers` Linear layers with a ReLU between them (the JAX package's
+    `models/heads.py MLPHead`); the reference's keys `layers.{j}`."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int, num_layers: int = 3):
+        super().__init__()
+        dims = [in_dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < len(self.layers) - 1:
+                x = torch.relu(x)
+        return x

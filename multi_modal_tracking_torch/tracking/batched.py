@@ -21,8 +21,15 @@ because lockstep sequences stop only at their end. The mask reaches the
 step as a static device tensor (`live`), all True while every sequence
 runs: `_select` with an all-True mask returns the new values bit for bit.
 
+The online twins (`BatchedRGBTOnlineTracker`, `BatchedRGBTOnlineCachedTracker`)
+run the score-gated step of tracking/tracker.py's online trackers per
+sequence: candidate, decay and commit are per sequence, the commit on the
+same scalar cadence; `track_block` returns the boxes and the (T, N)
+scores.
+
 `run_sequences_batched` evaluates a group of same-size sequences this way
-and writes the result files of eval/running.py.
+and writes the result files of eval/running.py (with `<seq>_score.txt`
+for the online twins).
 """
 from __future__ import annotations
 
@@ -97,6 +104,8 @@ class BatchedRGBTTracker:
     # ------------------------------------------------------- model steps
     #: the state buffers; `_boxes` holds the step's output
     _STATE = ("_state", "_template", "_online", "_boxes")
+    #: the buffers of a step's outputs, which track_block collects
+    _OUTPUTS = ("_boxes",)
 
     def _init_model(self, tv, ti) -> dict:
         t = torch.cat([tv, ti], dim=0)
@@ -126,12 +135,10 @@ class BatchedRGBTTracker:
         for name in self._STATE:
             setattr(self, name, bufs[name])
 
-    @torch.no_grad()
-    def _advance(self, fv: torch.Tensor, fi: torch.Tensor, live: torch.Tensor, update: bool):
-        """One lockstep frame on the device: fv/fi (N, H, W, ...), live (N,)
-        bool. Writes the frame's (N, 4) boxes into `_boxes` and, for the
-        live sequences, the state; `update` rebuilds the live sequences'
-        templates at the new state."""
+    def _search(self, fv: torch.Tensor, fi: torch.Tensor, live: torch.Tensor):
+        """The N search crops at the states, the network, and the frame's
+        boxes written into `_boxes` and, for the live sequences, into the
+        state. Returns (the network's outputs, the boxes)."""
         H, W = self._shape
         sv, si, rf = _prep_rgbt_batch(fv, fi, self._state, self.search_factor,
                                       self.search_size)
@@ -142,6 +149,15 @@ class BatchedRGBTTracker:
                          H, W, margin=10)
         self._boxes.copy_(boxes)
         self._state.copy_(_select(live, boxes, self._state))
+        return out, boxes
+
+    @torch.no_grad()
+    def _advance(self, fv: torch.Tensor, fi: torch.Tensor, live: torch.Tensor, update: bool):
+        """One lockstep frame on the device: fv/fi (N, H, W, ...), live (N,)
+        bool. Writes the frame's (N, 4) boxes into `_boxes` and, for the
+        live sequences, the state; `update` rebuilds the live sequences'
+        templates at the new state."""
+        self._search(fv, fi, live)
         if update:
             tv, ti, _ = _prep_rgbt_batch(fv, fi, self._state, self.template_factor,
                                          self.template_size)
@@ -164,15 +180,17 @@ class BatchedRGBTTracker:
         """frames_*: (T, N, H, W, 3) uint8; valid: (T, N) bool, suffix-style
         per sequence (False freezes that sequence for the frame). Uploads
         `scan_chunk` frames (and their valid rows) at a time and returns the
-        (T, N, 4) boxes, as numpy or, with fetch=False, as a device tensor
-        without a host sync."""
+        (T, N, 4) boxes (the online twins: boxes and the (T, N) scores), as
+        numpy or, with fetch=False, as device tensors without a host
+        sync."""
         T, N = frames_v.shape[:2]
         valid = np.ones((T, N), np.bool_) if valid is None else np.asarray(valid, bool)
         if np.any(valid[1:] & ~valid[:-1]):
             raise ValueError("track_block valid mask must be suffix-style per sequence "
                              "(no True after a False): the template update runs on the "
                              "batch's frame cadence")
-        boxes = torch.empty((T, N, 4), dtype=torch.float32, device=self.device)
+        outs = [torch.empty((T,) + tuple(getattr(self, name).shape), dtype=torch.float32,
+                            device=self.device) for name in self._OUTPUTS]
         for lo in range(0, T, self.scan_chunk):
             hi = min(lo + self.scan_chunk, T)
             bv, bi = self._upload(frames_v[lo:hi]), self._upload(frames_i[lo:hi])
@@ -185,8 +203,11 @@ class BatchedRGBTTracker:
             for t in range(hi - lo):
                 inputs.load_device((bv[t], bi[t], bl[t]))
                 self._step(inputs, valid[lo + t])
-                boxes[lo + t].copy_(self._boxes)
-        return boxes.cpu().numpy() if fetch else boxes
+                for out, name in zip(outs, self._OUTPUTS):
+                    out[lo + t].copy_(getattr(self, name))
+        if fetch:
+            outs = [o.cpu().numpy() for o in outs]
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 class BatchedRGBTCachedTracker(BatchedRGBTTracker):
@@ -211,17 +232,102 @@ class BatchedRGBTCachedTracker(BatchedRGBTTracker):
         copy_tree(self._cache, _select(live, cache, self._cache))
 
 
+class BatchedRGBTOnlineTracker(BatchedRGBTTracker):
+    """Lockstep twin of tracking.tracker.RGBTOnlineTracker (the JAX
+    package's `BatchedRGBTOnlineTrackerJit`): the full forward with the
+    score head every frame; each sequence keeps its own candidate and
+    decayed score, and the commit installs each live sequence's candidate
+    on the batch's cadence. track_block returns (boxes (T, N, 4), scores
+    (T, N))."""
+
+    online = True
+    _STATE = ("_state", "_template", "_online", "_candidate", "_max_score", "_boxes",
+              "_scores")
+    _OUTPUTS = ("_boxes", "_scores")
+
+    def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
+                 search_factor: float = 5.0, search_size: int = 288,
+                 update_interval: int = 25, max_score_decay: float = 1.0,
+                 ce_keep_rate: Optional[float] = None, scan_chunk: int = 16, device="cuda",
+                 graphs: bool = True):
+        super().__init__(model, template_factor, template_size, search_factor, search_size,
+                         update_interval, ce_keep_rate, scan_chunk, device, graphs)
+        self.max_score_decay = max_score_decay
+
+    def _init_model(self, tv, ti) -> dict:
+        t = torch.cat([tv, ti], dim=0)
+        n = tv.shape[0]
+        return {"_template": t, "_online": t, "_candidate": t,
+                "_max_score": torch.full((n,), -1.0, device=t.device),
+                "_scores": torch.zeros((n,), device=t.device)}
+
+    def _predict(self, s_vi):
+        return self.model(self._template, self._online, s_vi, self.ce_keep_rate,
+                          use_ce_template_mask=False, run_score_head=True)
+
+    def _commit(self, live: torch.Tensor) -> None:
+        """After the live sequences' candidates were copied into `_online`:
+        nothing more for the full forward (the cached twin rebuilds its
+        cache)."""
+
+    @torch.no_grad()
+    def _advance(self, fv: torch.Tensor, fi: torch.Tensor, live: torch.Tensor, update: bool):
+        """One lockstep frame (BatchedRGBTTracker._advance) with the score
+        head, each sequence's candidate and, with `update`, the commit."""
+        out, boxes = self._search(fv, fi, live)
+        score = torch.sigmoid(out["pred_scores"].reshape(boxes.shape[0], -1)[:, 0].float())
+        self._scores.copy_(score)
+        max_score = self._max_score * self.max_score_decay
+        better = (score > 0.5) & (score > max_score)
+        tv, ti, _ = _prep_rgbt_batch(fv, fi, boxes, self.template_factor, self.template_size)
+        candidate = _select(better, torch.cat([tv, ti], dim=0), self._candidate)
+        if update:
+            self._online.copy_(_select(live, candidate, self._online))
+            self._commit(live)
+            candidate = self._template
+            max_score = torch.full_like(max_score, -1.0)
+        else:
+            max_score = torch.where(better, score, max_score)
+        self._candidate.copy_(_select(live, candidate, self._candidate))
+        self._max_score.copy_(torch.where(live, max_score, self._max_score))
+
+
+class BatchedRGBTOnlineCachedTracker(BatchedRGBTOnlineTracker):
+    """Online lockstep through the cached-template fast path (the JAX
+    package's `BatchedRGBTOnlineCachedTrackerJit`): search tokens only per
+    frame; at a commit frame the cache of every live sequence is rebuilt
+    from its base and committed templates, once for the batch."""
+
+    _STATE = ("_state", "_template", "_online", "_cache", "_candidate", "_max_score",
+              "_boxes", "_scores")
+
+    def _init_model(self, tv, ti) -> dict:
+        out = super()._init_model(tv, ti)
+        out["_cache"] = self.model.set_online(out["_template"], out["_online"])
+        return out
+
+    def _predict(self, s_vi):
+        return self.model.forward_track(self._cache, s_vi, self.ce_keep_rate,
+                                        use_ce_template_mask=False, run_score_head=True)
+
+    def _commit(self, live: torch.Tensor) -> None:
+        cache = self.model.set_online(self._template, self._online)
+        copy_tree(self._cache, _select(live, cache, self._cache))
+
+
 def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_dir: str,
                           chunk: Optional[int] = None, skip_if_done: bool = True) -> List[dict]:
     """Evaluate a group of RGB-T sequences of one frame size in lockstep and
     write their result files (eval/running.py's layout; `_time.txt` holds
-    the group's time shared out per frame).
+    the group's time shared out per frame; an online tracker's scores go
+    to `_score.txt`, frame 0 at 1.0).
 
     Sequences run padded to the longest; a finished one is frozen by the
     valid mask, and its padded frames replay its last real frame. Every
     block of `chunk` frames is dispatched without a fetch; the boxes come
     back in one copy at the end. Returns per sequence {"seq", "n_frames",
-    "fps", "boxes"} as run_sequence does."""
+    "fps", "boxes"} (and "scores" from an online tracker) as run_sequence
+    does."""
     from multi_modal_tracking_torch.eval.running import _load_frame
 
     os.makedirs(results_dir, exist_ok=True)
@@ -256,6 +362,10 @@ def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_
                 blk_v[t - lo, j], blk_i[t - lo, j] = fr
         valid = np.arange(lo, hi)[:, None] < np.asarray(lengths)[None, :]
         pending.append(tracker.track_block(blk_v, blk_i, valid, fetch=False))
+    online = bool(pending) and isinstance(pending[0], tuple)
+    if online:
+        all_scores = torch.cat([p[1] for p in pending]).cpu().numpy()
+        pending = [p[0] for p in pending]
     all_boxes = torch.cat(pending).cpu().numpy() if pending else np.zeros((0, N, 4))
     elapsed = time.time() - t_start
 
@@ -267,10 +377,18 @@ def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_
         out[0] = boxes0[j]
         out[1:] = all_boxes[: n - 1, j]
         np.savetxt(os.path.join(results_dir, f"{s.name}.txt"), out, delimiter="\t", fmt="%d")
+        extra = {}
+        if online:
+            scores = np.ones((n,), np.float64)
+            scores[1:] = all_scores[: n - 1, j]
+            np.savetxt(os.path.join(results_dir, f"{s.name}_score.txt"), scores,
+                       delimiter="\t", fmt="%.2f")
+            extra["scores"] = scores
         per = elapsed * (n / total_frames)
         np.savetxt(os.path.join(results_dir, f"{s.name}_time.txt"), np.full((n,), per / n),
                    fmt="%f")
-        stats.append({"seq": s.name, "n_frames": n, "fps": n / max(per, 1e-9), "boxes": out})
+        stats.append({"seq": s.name, "n_frames": n, "fps": n / max(per, 1e-9), "boxes": out,
+                      **extra})
     print(f"batched eval: {N} sequences x {T} frames in {elapsed:.1f}s "
           f"({total_frames / max(elapsed, 1e-9):.1f} aggregate FPS)")
     return stats

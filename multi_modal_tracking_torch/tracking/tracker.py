@@ -15,6 +15,11 @@ buffers.
 against a per-block template q/k/v cache (MixFormerRGBT.set_online /
 forward_track), rebuilt at each template update.
 
+`RGBTOnlineTracker` and `RGBTOnlineCachedTracker` are the score-gated
+trackers of the online scripts (the SPM score branch): each frame also
+gives a confidence, and the template is updated from the best-scoring
+frame since the last update instead of the current one (their docstring).
+
 For the eval runner: `track_chunk(fetch=False)` leaves a chunk's boxes on
 the device; `track_chunk_roi` tracks windows cut around the box (ROI upload
 mode, `roi_window` places them) and reports per frame whether the crops
@@ -230,6 +235,20 @@ class RGBTTracker:
         for name in self._STATE:
             setattr(self, name, bufs[name])
 
+    def _search(self, img_v: torch.Tensor, img_i: torch.Tensor, offset=None):
+        """The search crop at the state, the network, and the new state
+        (the mean predicted box mapped back to the frame and clipped)
+        written into the state buffer. Returns (the network's outputs, the
+        crop's ok)."""
+        H, W = self._shape
+        sv, si, rf, ok = self._crop(img_v, img_i, self._state, False, offset)
+        # test-time CE pools over ALL template rows (use_ce_template_mask off)
+        out = self._predict(torch.cat([sv, si], dim=0))
+        pred = out["pred_boxes"].reshape(-1, 4).mean(dim=0) * (self.search_size / rf)
+        self._state.copy_(clip_box(_map_box_back(pred, self._state, self.search_size, rf),
+                                   H, W, margin=10))
+        return out, ok
+
     @torch.no_grad()
     def _advance(self, img_v: torch.Tensor, img_i: torch.Tensor, update: bool, offset=None):
         """One frame on the device, no host sync, from the state buffers
@@ -238,13 +257,7 @@ class RGBTTracker:
         pixel (ROI mode). Returns ok: None for full frames, else a bool
         tensor, True iff every crop of the step equals its full-frame
         crop."""
-        H, W = self._shape
-        sv, si, rf, ok = self._crop(img_v, img_i, self._state, False, offset)
-        # test-time CE pools over ALL template rows (use_ce_template_mask off)
-        out = self._predict(torch.cat([sv, si], dim=0))
-        pred = out["pred_boxes"].reshape(-1, 4).mean(dim=0) * (self.search_size / rf)
-        self._state.copy_(clip_box(_map_box_back(pred, self._state, self.search_size, rf),
-                                   H, W, margin=10))
+        _, ok = self._search(img_v, img_i, offset)
         if update:
             tv, ti, _, ok_t = self._crop(img_v, img_i, self._state, True, offset)
             self._update_template(tv, ti)
@@ -344,3 +357,127 @@ class RGBTCachedTracker(RGBTTracker):
     def _predict(self, s_vi):
         return self.model.forward_track(self._cache, s_vi, self.ce_keep_rate,
                                         use_ce_template_mask=False)
+
+
+class RGBTOnlineTracker(RGBTTracker):
+    """Score-gated online tracking of the models with the SPM score branch
+    (asymmetric_shared_online): the JAX package's `RGBTOnlineTrackerJit`.
+
+    Every frame runs the full forward with the score head; pred_score =
+    sigmoid(logit). The template candidate is the template crop at the new
+    state of the best frame since the last commit: a frame replaces it
+    when its score is above 0.5 and above the candidate's score times
+    max_score_decay (decayed once per frame). Every `update_interval`
+    frames the candidate is committed as the online template, and the
+    candidate goes back to the base template with score -1.
+
+    The candidate crops and its score are state buffers, and the choice is
+    a `torch.where` on the device: the host never reads a score. The
+    host's frame counter picks the commit graph, as it picks the template
+    update's graph of RGBTTracker. `track` returns {"target_bbox",
+    "pred_score"}, `track_chunk` (boxes (N, 4), scores (N,)). The ROI
+    upload mode is not ported for these trackers (ROADMAP.md queue 1
+    item 1) and raises."""
+
+    online = True
+    _STATE = ("_state", "_template", "_online", "_candidate", "_max_score", "_score")
+
+    def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
+                 search_factor: float = 5.0, search_size: int = 288,
+                 update_interval: int = 25, max_score_decay: float = 1.0,
+                 ce_keep_rate: Optional[float] = None, device="cuda", graphs: bool = True):
+        super().__init__(model, template_factor, template_size, search_factor, search_size,
+                         update_interval, ce_keep_rate, device, graphs)
+        self.max_score_decay = max_score_decay
+
+    def _init_model(self, tv, ti) -> dict:
+        t = torch.cat([tv, ti], dim=0)
+        return {"_template": t, "_online": t, "_candidate": t,
+                "_max_score": torch.full((), -1.0, device=t.device),
+                "_score": torch.zeros((), device=t.device)}
+
+    def _predict(self, s_vi):
+        return self.model(self._template, self._online, s_vi, self.ce_keep_rate,
+                          use_ce_template_mask=False, run_score_head=True)
+
+    def _commit(self) -> None:
+        """After the candidate was copied into `_online`: nothing more for
+        the full forward, which reads `_online` (the cached tracker
+        rebuilds its cache)."""
+
+    @torch.no_grad()
+    def _advance(self, img_v: torch.Tensor, img_i: torch.Tensor, update: bool, offset=None):
+        """One frame on the device, from the state buffers into them;
+        `update` commits the candidate (RGBTOnlineTrackerJit._step_w)."""
+        if offset is not None:
+            raise NotImplementedError(_ONLINE_ROI)
+        out, _ = self._search(img_v, img_i)
+        score = torch.sigmoid(out["pred_scores"].reshape(-1)[0].float())
+        self._score.copy_(score)
+        max_score = self._max_score * self.max_score_decay
+        better = (score > 0.5) & (score > max_score)
+        tv, ti, _, _ = self._crop(img_v, img_i, self._state, True)
+        candidate = torch.where(better, torch.cat([tv, ti], dim=0), self._candidate)
+        if update:
+            self._online.copy_(candidate)
+            self._commit()
+            self._candidate.copy_(self._template)
+            self._max_score.fill_(-1.0)
+        else:
+            self._candidate.copy_(candidate)
+            self._max_score.copy_(torch.where(better, score, max_score))
+
+    def track(self, image, info: Optional[dict] = None) -> dict:
+        """One frame: returns {"target_bbox": [x, y, w, h], "pred_score": s}
+        (one 5-float download)."""
+        img_v, img_i = (np.asarray(x) for x in image)
+        inputs = self._inputs_for(img_v.shape, img_i.shape)
+        inputs.load_host((img_v, img_i))
+        out = torch.cat([self._step(inputs), self._score[None]]).cpu()
+        return {"target_bbox": [float(b) for b in out[:4]], "pred_score": float(out[4])}
+
+    def track_chunk(self, frames_v: np.ndarray, frames_i: np.ndarray, fetch: bool = True):
+        """RGBTTracker.track_chunk with the scores: returns (boxes (N, 4),
+        scores (N,)), as numpy or, with fetch=False, as device tensors
+        without a host sync."""
+        fv, fi = self._upload(frames_v), self._upload(frames_i)
+        inputs = self._inputs_for(fv.shape[1:], fi.shape[1:])
+        n = fv.shape[0]
+        boxes = torch.empty((n, 4), dtype=torch.float32, device=self.device)
+        scores = torch.empty((n,), dtype=torch.float32, device=self.device)
+        for k in range(n):
+            inputs.load_device((fv[k], fi[k]))
+            boxes[k].copy_(self._step(inputs))
+            scores[k].copy_(self._score)
+        return (boxes.cpu().numpy(), scores.cpu().numpy()) if fetch else (boxes, scores)
+
+    def track_chunk_roi(self, win_v, win_i, offset_xy, fetch: bool = True):
+        raise NotImplementedError(_ONLINE_ROI)
+
+
+_ONLINE_ROI = ("ROI-window uploads (roi_margin > 0) are not ported for the online trackers; "
+               "they wait on the keep-or-delete rule of the ROI path (ROADMAP.md queue 1 "
+               "item 1)")
+
+
+class RGBTOnlineCachedTracker(RGBTOnlineTracker):
+    """RGBTOnlineTracker with the cached-template fast path (the JAX
+    package's `RGBTOnlineCachedTrackerJit`): per frame only the search
+    tokens run the backbone against the template cache, and the score
+    branch reads the cache's template features; at a commit the cache is
+    rebuilt from the base template and the committed online template."""
+
+    _STATE = ("_state", "_template", "_online", "_cache", "_candidate", "_max_score",
+              "_score")
+
+    def _init_model(self, tv, ti) -> dict:
+        out = super()._init_model(tv, ti)
+        out["_cache"] = self.model.set_online(out["_template"], out["_online"])
+        return out
+
+    def _predict(self, s_vi):
+        return self.model.forward_track(self._cache, s_vi, self.ce_keep_rate,
+                                        use_ce_template_mask=False, run_score_head=True)
+
+    def _commit(self) -> None:
+        copy_tree(self._cache, self.model.set_online(self._template, self._online))

@@ -1,6 +1,8 @@
-"""Training objective of the box head (the JAX package's
-`train/losses.py box_losses`): CIoU + L1 on xyxy box vectors, the ground
-truth clamped to [0, 1], weighted by TRAIN.IOU_WEIGHT / TRAIN.L1_WEIGHT."""
+"""Training objectives (the JAX package's `train/losses.py`): the box
+head's CIoU + L1 on xyxy box vectors, the ground truth clamped to [0, 1],
+weighted by TRAIN.IOU_WEIGHT / TRAIN.L1_WEIGHT (`box_losses`); in stage 2
+(TRAIN_SCORE) the score branch's binary cross-entropy on its logits,
+weighted by TRAIN.SCORE_WEIGHT, in place of the box loss (`score_loss`)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -26,3 +28,18 @@ def box_losses(pred_boxes: torch.Tensor, gt_xywh: torch.Tensor, iou_weight: floa
     total = iou_weight * ciou_l + l1_weight * l1
     return total, {"Loss/total": total, "Loss/ciou": ciou_l, "Loss/l1": l1,
                    "IoU": ious.detach().mean()}
+
+
+def score_loss(pred_scores: torch.Tensor, labels: torch.Tensor,
+               score_weight: float) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean binary cross-entropy of the SPM's logits against the 0/1
+    labels, as optax.sigmoid_binary_cross_entropy writes it (-y log
+    sigmoid(x) - (1 - y) log sigmoid(-x)) and in the logits' dtype, as
+    optax computes it (bf16 in a bf16 model), times score_weight. Returns
+    (total, {"Loss/total", "Loss/scores"})."""
+    x = pred_scores.reshape(-1)
+    y = labels.reshape(-1).to(x.dtype)
+    bce = (-y * torch.nn.functional.logsigmoid(x)
+           - (1.0 - y) * torch.nn.functional.logsigmoid(-x)).mean()
+    total = score_weight * bce
+    return total, {"Loss/total": total, "Loss/scores": bce}

@@ -11,7 +11,7 @@ unless --no_fail_safe; --resume starts from the latest checkpoint in
 `<save_dir>/checkpoints/<script>/`). Runs on the GPU unless --device cpu,
 in bf16 compute on float32 parameters unless --dtype float32.
 --fsdp, --remat and the multi-process flags are not ported yet and raise
-NotImplementedError (ROADMAP.md queue 1, item 12).
+NotImplementedError (ROADMAP.md queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ def main(argv: Optional[List[str]] = None):
     if given:
         raise NotImplementedError(f"{', '.join(given)}: FSDP, remat and multi-process "
                                   f"training are not ported to multi_modal_tracking_torch yet "
-                                  f"(ROADMAP.md queue 1, item 12)")
+                                  f"(ROADMAP.md queue 1, item 7)")
     from multi_modal_tracking_torch.config import get_default_config
     from multi_modal_tracking_torch.train.trainer import Trainer
 

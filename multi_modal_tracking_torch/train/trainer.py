@@ -33,9 +33,17 @@ accumulation role, all from one memory pool; `graphs=False` runs the same
 static-buffer step eager, as the CPU always does. A resume or the
 fail-safe restart loads the checkpoint into the step's static tensors in
 place (model, optimizer, generator), so the graphs stay bound to the
-state. The val step runs eager. Not ported yet, and raising
-NotImplementedError when configured (ROADMAP.md queue 1): TRAIN_SCORE
-(SPM), FSDP / REMAT.
+state. The val step runs eager.
+
+TRAIN_SCORE (stage 2 of the online scripts) trains the SPM score branch
+alone: the regime freezes every other parameter, the training step runs
+the net in eval mode with the score loss (train/train_step.py), and the
+val step keeps the box losses, as the JAX package's `make_eval_step`
+does. A stage-1 checkpoint without the score branch's keys warm-starts it
+(the loads are non-strict); the branch starts from `init_random`; a
+script without the branch raises ValueError. Not ported yet, and raising
+NotImplementedError when configured (ROADMAP.md queue 1 item 7): FSDP /
+REMAT.
 """
 from __future__ import annotations
 
@@ -61,7 +69,7 @@ from multi_modal_tracking_torch.train.train_step import (adjust_keep_rate, bucke
 from multi_modal_tracking_torch.utils import checkpoint as ckpt
 from multi_modal_tracking_torch.utils.device import resolve_device
 
-_ROADMAP = "is not ported to multi_modal_tracking_torch yet (ROADMAP.md queue 1)"
+_ROADMAP = "is not ported to multi_modal_tracking_torch yet (ROADMAP.md queue 1 item 7)"
 #: pinned host buffers of the look-ahead: one being filled while the other's
 #: copy may still run
 _RING = 2
@@ -69,7 +77,7 @@ _RING = 2
 
 def _check_ported(cfg) -> None:
     t = cfg.TRAIN
-    for key in ("TRAIN_SCORE", "FSDP", "REMAT"):
+    for key in ("FSDP", "REMAT"):
         if t.get(key, False):
             raise NotImplementedError(f"TRAIN.{key} {_ROADMAP}")
 
@@ -115,6 +123,10 @@ class Trainer:
         self.model = build_model(script, cfg, device=self.device, dtype=dtype, seed=seed,
                                  spec_overrides=spec_overrides).train()
         self.net_name = type(self.model).__name__
+        train_score = cfg.TRAIN.get("TRAIN_SCORE", False)
+        if train_score and not self.model.with_score:
+            raise ValueError(f"TRAIN.TRAIN_SCORE trains the score branch, which {script!r} "
+                             f"does not build (an *_online script does)")
         for key, path in warm_starts:
             ckpt.load_variables(path, self.model, strict=False)
             print(f"warm start from {key} = {path}", flush=True)
@@ -124,7 +136,9 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, self.model, self.steps_per_epoch)
         self._step = make_train_step(self.model, self.optimizer, device=self.device,
                                      iou_weight=cfg.TRAIN.IOU_WEIGHT,
-                                     l1_weight=cfg.TRAIN.L1_WEIGHT, graphs=graphs)
+                                     l1_weight=cfg.TRAIN.L1_WEIGHT, graphs=graphs,
+                                     train_score=train_score,
+                                     score_weight=cfg.TRAIN.get("SCORE_WEIGHT", 1.0))
         self._eval_step = make_eval_step(self.model, iou_weight=cfg.TRAIN.IOU_WEIGHT,
                                          l1_weight=cfg.TRAIN.L1_WEIGHT, device=self.device)
         self.stats = StatsTracker(log_dir or os.path.join(save_dir, "logs", script),

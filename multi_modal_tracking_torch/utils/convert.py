@@ -25,6 +25,8 @@ and these path renames:
   tower_tl / conv1 / conv | bn        -> conv1_tl.0 | .1
   tower_tl / adjust3_1 / conv         -> adjust3_tl.1.0
   <adjust> / conv | gn (1x1 + GN)     -> <adjust>.0 | .1
+  score_branch / proj_q_0 | norm2_1   -> score_branch.proj_q.0 | .norm2.1
+  score_branch / score_head / layers_2 -> score_branch.score_head.layers.2
 
 Input leaves are numpy arrays (or anything np.asarray accepts).
 """
@@ -165,7 +167,17 @@ def _flatten(tree, prefix=()) -> Iterator[Tuple[tuple, Any]]:
         yield prefix, tree
 
 
+def _score_path(path: Tuple[str, ...]) -> str:
+    """The SPM's reference names: flax `proj_q_0`, `norm2_1` and
+    `score_head/layers_2` are the ModuleList entries `proj_q.0`, `norm2.1`
+    and `score_head.layers.2` (utils/torch_convert.py _map_score_key)."""
+    return ".".join(re.sub(r"^(proj_q|proj_k|proj_v|proj|norm2|layers)_(\d+)$", r"\1.\2", s)
+                    for s in path)
+
+
 def _module_path(path: Tuple[str, ...]) -> str:
+    if path[:1] == ("score_branch",):
+        return _score_path(path)
     out = []
     i = 0
     while i < len(path):

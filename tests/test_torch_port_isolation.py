@@ -147,9 +147,10 @@ def _tiny_builder(monkeypatch, overrides):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """A compute dtype other than float32 and bfloat16, the score branch
-    and CE_TEMPLATE_RANGE still raise (bfloat16 is ported for tracking and
-    evaluation: tests/test_torch_port_tracker_bf16.py); a checkpoint for
+    """A compute dtype other than float32 and bfloat16 and
+    CE_TEMPLATE_RANGE still raise (bfloat16 is ported for tracking and
+    evaluation: tests/test_torch_port_tracker_bf16.py); the online script
+    builds its score branch (tests/test_torch_port_spm.py); a checkpoint for
     the tracker is ported: it loads strictly (all weights equal the
     file's), and one that does not cover the model raises."""
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
@@ -159,8 +160,9 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     params = get_parameters("asymmetric_shared_ce", "attention_lasher_newfusion_2layer")
     with pytest.raises(NotImplementedError, match="dtype"):
         build_model("asymmetric_shared_ce", params.cfg, device="cpu", dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="score branch"):
-        build_model("asymmetric_shared_online", params.cfg, device="cpu")
+    online = build_model("asymmetric_shared_online", params.cfg, device="cpu",
+                         spec_overrides=TINY)
+    assert online.with_score and hasattr(online, "score_branch")
     from multi_modal_tracking_torch.models.asymmetric_shared import AsymSharedViT
     with pytest.raises(NotImplementedError, match="CE_TEMPLATE_RANGE"):
         AsymSharedViT(ce_template_range="CTR_REC")
@@ -213,8 +215,10 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 @pytest.mark.parametrize("option", ["ACCUM_ITER", "TRAIN_SCORE", "FSDP", "REMAT", "AMP", "VAL"])
 def test_unported_training_options_raise(option, tmp_path, capsys):
-    """TRAIN_SCORE, FSDP, REMAT raise. AMP is accepted: the Trainer computes
+    """FSDP, REMAT raise. AMP is accepted: the Trainer computes
     in bf16 by default, as the JAX one does, and AMP changes nothing.
+    TRAIN_SCORE is ported: on the online script it trains the score branch
+    alone, and on a script without the branch it raises.
     ACCUM_ITER and the val split are ported: ACCUM_ITER 2 reaches the
     optimizer, and a val split that
     cannot be built here (RGBT234, not ported) is disabled with the JAX
@@ -233,6 +237,15 @@ def test_unported_training_options_raise(option, tmp_path, capsys):
         cfg.DATA.VAL.DATASETS_NAME = ["SyntheticRGBT"]
         tr = make(cfg)
         assert tr.val_loader.name == "val" and tr.val_loader.epoch_interval == 10
+    elif option == "TRAIN_SCORE":
+        cfg.TRAIN.TRAIN_SCORE = True
+        with pytest.raises(ValueError, match="score branch"):
+            make(cfg)
+        tr = Trainer("asymmetric_shared_online", cfg, save_dir=str(tmp_path), device="cpu",
+                     spec_overrides=TINY)
+        assert tr._step.train_score and list(tr.optimizer.groups) == ["main"]
+        assert all(p_.startswith("score_branch.") for p_, p in tr.model.named_parameters()
+                   if any(p is q for q in tr.optimizer.groups["main"]))
     elif option == "AMP":
         cfg.TRAIN.AMP = True
         tr = make(cfg)

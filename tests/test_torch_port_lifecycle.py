@@ -432,6 +432,6 @@ def test_cli_flags_map_onto_cfg_and_trainer(tmp_path, monkeypatch):
                                   ["--num_processes", "2"], ["--process_id", "0"]],
                          ids=lambda f: f[0])
 def test_cli_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         run.main(["--script", SCRIPT, "--save_dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)
