@@ -3525,7 +3525,7 @@ def _profiled_ms(fn, iters: int = 20) -> tuple:
     """Device ms per call of `fn` from one torch.profiler session of
     `iters` calls (after 3 untimed ones): the summed durations of every
     kernel, copy and memset over `iters`, and the events per call. The
-    score branch is some forty small kernels, of which a session has been
+    score branch is about a hundred small kernels, of which a session has been
     seen to lose one or two in twenty calls (device_ms's check); that
     biases the time low by at most their share."""
     from torch.profiler import ProfilerActivity, profile
