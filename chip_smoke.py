@@ -218,11 +218,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 norm min(grad_norm, GRAD_CLIP_NORM) with the frozen ones
                 nonzero; ms per step, busy, idle, memory; one f32 step at
                 batch 2 on the GPU against the CPU.
+ 15. families - the RGB-T families beside the flagship (phase_families),
+                full width, seeded random weights: two-stream
+                (mixformer_vit_rgbt), shared-LN, unibackbone,
+                asymmetric_shared with RGBT_Fusion_Cat and two-stream with
+                the SPM. Each: the f32 forward on the card against the CPU
+                (1e-4); create_tracker's tracker (full forward for the ViT
+                family) at f32 and bf16 on the 63 frames, graphed against
+                eager bit for bit, ms per frame, busy, idle, pool bytes; 3
+                bf16 batch-16 Trainer steps graphed against eager bit for
+                bit (BN statistics included), ms per step, busy, idle,
+                memory. Then two-stream lockstep N = 12 at bf16 on
+                synthetic_rgbt_hard; the 11 fusion classes at full width,
+                forward and backward, against their plain versions; K1 /
+                K1-bf16 at N 452 (B*H 12 to 384, plans printed), K2 /
+                K2-bf16 at the training ones, K3 / K4 and their bf16 forms
+                at head dim 96; the deformable conv's device ms.
+                `python3 chip_smoke.py families` runs the device and build
+                phases and this phase alone.
 Then the kernel table line (launches by path: tracker, graphs, train,
-eval, online, stage2 for the f32 kernels; train bf16, lifecycle, stage2
-bf16, and for the forward kernels the bf16 tracker, graphs, eval and
-online; train, train bf16, lifecycle and both stage-2 runs for AdamW)
-and, last, {"ok": true, "device": {...}}.
+eval, online, stage2, families for the f32 kernels; train bf16,
+lifecycle, stage2 bf16, families bf16, and for the forward kernels the
+bf16 tracker, graphs, eval and online; train, train bf16, lifecycle, both
+stage-2 runs and families bf16 for AdamW) and, last, {"ok": true,
+"device": {...}}.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -3573,7 +3592,7 @@ def _online_eval(dtype, bias_shift: float, root: str, runs: dict) -> dict:
     the bf16 cached tracker (bf16 phase, `max_abs_px_vs_A16`)."""
     from multi_modal_tracking_torch.eval.datasets import get_dataset
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
-    from multi_modal_tracking_torch.eval.run import _batched_twin
+    from multi_modal_tracking_torch.eval.run import _batched_twin, main as eval_cli
     from multi_modal_tracking_torch.eval.running import run_dataset
     from multi_modal_tracking_torch.tracking.batched import BatchedRGBTOnlineCachedTracker
     seqs = get_dataset("synthetic_rgbt_hard")
@@ -3942,9 +3961,562 @@ def phase_stage2(smi: str, save_dir: str) -> dict:
     return launches
 
 
-def main() -> None:
+# ---------------------------------------------------------------- families
+#: the RGB-T families of the families phase: (label, script, the script whose
+#: config it builds from, recipe, K1 calls a backbone pass: 12 a ViT, two
+#: ViTs in two-stream); the online two-stream model has no default config
+#: (in the JAX package neither) and builds from the two-stream one
+FAMILIES = (
+    ("two_stream", "mixformer_vit_rgbt", "mixformer_vit_rgbt",
+     "attention_lasher_newfusion_2layer", 24),
+    ("shared", "mixformer_vit_rgbt_shared", "mixformer_vit_rgbt_shared",
+     "baseline_attention_lasher_newfusion_2layer", 12),
+    ("unibackbone", "mixformer_vit_rgbt_unibackbone", "mixformer_vit_rgbt_unibackbone",
+     "baseline", 12),
+    ("fusion_cat", "asymmetric_shared", "asymmetric_shared", "attention_lasher_cat_3layer", 12),
+    ("two_stream_online", "mixformer_vit_rgbt_online", "mixformer_vit_rgbt",
+     "attention_lasher_newfusion_2layer", 24),
+)
+FAMILY_STEPS = 3                   # bf16 training steps, graphed then eager
+#: (B*H, N) of the ViT family's attention: tracking one stream (two-stream:
+#: one modality a backbone call; shared and uni: the stack), lockstep N = 12
+#: two-stream, training at batch 16 (two-stream, then shared / uni)
+VIT_ATTN_BH = (12, 24, 144, 192, 384)
+VIT_N = 452                        # 2 x 64 template tokens + 324 search tokens
+FUSION_B = 16                      # the fusion table's batch (training)
+#: the fusion table's gradients, kernels against plain versions, with G
+#: the norm of all of them: each tensor within FUSION_GRAD_REL of its norm
+#: plus FUSION_GRAD_FLOOR G, all together within FUSION_GRAD_ALL G, the
+#: bounds tests/test_torch_port_train_step.py holds the port to against
+#: JAX. The two sides sum in other orders, and where an input of a ReLU
+#: (the FFN) or a bilinear corner choice lies near its switch, the switch
+#: flips: a weight in front of a ReLU took 1.07e-3 of its norm at
+#: Attention_Fusion_1's 768 channels (my chip run, PR 15). A gradient that
+#: is zero but for rounding (a conv bias in front of a GroupNorm) is noise
+#: on both sides; a missing or wrong backward path gives O(1)
+FUSION_GRAD_REL, FUSION_GRAD_FLOOR, FUSION_GRAD_ALL = 5e-2, 1e-6, 1e-2
+DEFORM_SHAPES = ((1, 2), (1, 1), (TRAIN_B, 2))   # (batch, deform groups) timed
+
+
+def _family_params(script: str, cfg_script: str, recipe: str):
+    from multi_modal_tracking_torch.eval.params import get_parameters
+    params = get_parameters(cfg_script, recipe)
+    params.script = script
+    return params
+
+
+def _tracker_twin(t, graphs: bool):
+    """A tracker of the same class on the same model and settings."""
+    kw = dict(template_factor=t.template_factor, template_size=t.template_size,
+              search_factor=t.search_factor, search_size=t.search_size,
+              update_interval=t.update_interval, ce_keep_rate=None, device=t.device,
+              graphs=graphs)
+    if getattr(t, "online", False):
+        kw["max_score_decay"] = t.max_score_decay
+    return type(t)(t.model, **kw)
+
+
+def _family_run(tracker, frames, timed_from: int = 9) -> dict:
+    """initialize on frames[0], track the rest: boxes (and scores of an
+    online tracker), ms per frame on the host clock from frame `timed_from`
+    on, the launches of the run."""
+    reset_launches()
+    tracker.initialize(list(frames[0]), {"init_bbox": INIT_BOX})
+    boxes, scores = [], []
+    for i, (fv, fi) in enumerate(frames[1:], start=1):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        out = tracker.track([fv, fi])
+        boxes.append(out["target_bbox"])
+        scores.append(out.get("pred_score", 0.0))
+    torch.cuda.synchronize()
+    return dict(boxes=np.asarray(boxes, np.float32), scores=np.asarray(scores, np.float32),
+                ms_per_frame=(time.perf_counter() - t0) / (len(frames) - timed_from) * 1e3,
+                launches=read_launches())
+
+
+def _family_gpu_vs_cpu(model) -> dict:
+    """The f32 model's forward (boxes, and scores with the score branch) on
+    the card against a copy on the CPU (the kernels' plain versions) on the
+    same random crops (batch 1)."""
+    g = torch.Generator().manual_seed(9)
+    ts, ss = model.spec.template_size, model.spec.search_size
+    t, ot = torch.randn(2, ts, ts, 3, generator=g), torch.randn(2, ts, ts, 3, generator=g)
+    s = torch.randn(2, ss, ss, 3, generator=g)
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        want = cpu(t, ot, s, run_score_head=True)
+        got = model(t.cuda(), ot.cuda(), s.cuda(), run_score_head=True)
+    d = {k: float((got[k].cpu() - want[k]).abs().max()) for k in want}
+    require(all(bool(torch.isfinite(v).all()) for v in got.values()) and max(d.values()) <= BOX_TOL,
+            f"GPU forward vs CPU: {d} (tolerance {BOX_TOL})")
+    del cpu
+    return d
+
+
+def _family_tracking(params, dtype, frames, layers: int, blocks: int) -> dict:
+    """create_tracker at `dtype` on the family's script, update interval 25:
+    the 63 frames graphed (with its captures), eager (graphs=False, same
+    model) and graphed again, bit for bit with the same launches; 10 more
+    frames profiled (busy, idle, launches against the profiler's kernels).
+    K1 runs at least `blocks` times a frame, K3 `layers` times. Returns
+    (line, tracker)."""
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    names = TRACK_KERNEL_NAMES[dtype]
+    k1, k3 = names
+    tracker = create_tracker(params, ONLINE_INTERVAL_FROM, seed=0, dtype=dtype)
+    require(tracker.update_interval == 25 and tracker.graphs is not None,
+            f"{params.script}: create_tracker gave {type(tracker).__name__}")
+    eager = _tracker_twin(tracker, graphs=False)
+    seq = frames[:64]
+    torch.cuda.reset_peak_memory_stats()
+    runs = [(name, _family_run(tr, seq)) for name, tr in
+            (("graphed_capture", tracker), ("eager", eager), ("graphed", tracker))]
+    first, n = runs[0][1], len(seq) - 1
+    for name, run in runs[1:]:
+        diff = [k for k in ("boxes", "scores")
+                if not np.array_equal(run[k].view(np.int32), first[k].view(np.int32))]
+        require(not diff and run["launches"] == first["launches"],
+                f"{params.script} {dtype}: {name} run differs from the graphed one in {diff} "
+                f"or launches {run['launches']} vs {first['launches']}")
+    got = first["launches"]
+    others = [k for k in F32_KERNELS + BF16_KERNELS if k not in names and got[k]]
+    require(got[k1] >= blocks * n and got[k3] == layers * n and not others,
+            f"{params.script} {dtype}: launches {got} over {n} frames ({blocks} {k1} a frame "
+            f"at least, {layers} {k3})")
+    H, W = seq[0][0].shape[:2]
+    require(_inside(first["boxes"].astype(np.float64), H, W) and
+            bool(np.isfinite(first["scores"]).all()),
+            f"{params.script} {dtype}: a box outside the frame or a score not finite")
+    prof = _profile_track(tracker, frames[64:], names)
+    require(prof["launches"] == prof["kernels_by_name"],
+            f"{params.script} {dtype}: launches {prof['launches']} against the profiler's "
+            f"kernels {prof['kernels_by_name']}")
+    out = dict(tracker=type(tracker).__name__, frames=n, bit_equal_runs=["eager", "graphed"],
+               launches=got, ms_per_frame={name: r["ms_per_frame"] for name, r in runs},
+               graphs=len(tracker.graphs), graph_pool_bytes=tracker.graphs.pool_bytes(),
+               peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30, profile=prof)
+    return out, tracker
+
+
+def _family_train_cfg(cfg_script: str, recipe: str, steps: int):
+    """The recipe at batch 16 on the synthetic set: no val split, no warm
+    starts (the MAE and unimodal files are not in the repository)."""
+    from multi_modal_tracking_torch.config import get_default_config
+    cfg = get_default_config(cfg_script)
+    cfg.update_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "experiments", cfg_script, f"{recipe}.yaml"))
+    cfg.DATA.TRAIN.DATASETS_NAME = ["SyntheticRGBT"]
+    cfg.DATA.VAL.DATASETS_NAME = []
+    cfg.MODEL.BACKBONE.PRETRAINED = False
+    cfg.MODEL.RGBT_PRETRAINED_PATH = ""
+    cfg.TRAIN.BATCH_SIZE = TRAIN_B
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = TRAIN_B * steps
+    return cfg
+
+
+def _cloned_state(tr) -> dict:
+    return {k: v.detach().clone() for k, v in _train_state(tr).items()}
+
+
+def _graphed_vs_eager_in_place(tr, batches) -> dict:
+    """The steps graphed, then, from the state before them (model, AdamW,
+    counters and generator loaded back in place), the same steps eager on
+    the same Trainer (its step's graphs set aside): weights, BN buffers
+    and statistics, moments, counters, generator state and every step's
+    metrics the same bits, and the same launches."""
+    # copies: on the CPU the optimizer's state_dict holds its live moments
+    before = ({k: v.clone() for k, v in tr.model.state_dict().items()},
+              copy.deepcopy(tr.optimizer.state_dict()), tr.generator.get_state())
+    graphs, runs = tr._step.graphs, {}
+    for name in ("graphed", "eager"):
+        if name == "eager":
+            tr.model.load_state_dict(before[0])
+            tr.optimizer.load_state_dict(before[1])
+            tr.generator.set_state(before[2])
+            tr._step.graphs = None
+        reset_launches()
+        metrics = [tr._step(x, None) for x in batches]
+        torch.cuda.synchronize()
+        runs[name] = ({f"step{i}/{k}": v for i, m in enumerate(metrics) for k, v in m.items()},
+                      read_launches(), _cloned_state(tr))
+    tr._step.graphs = graphs
+    (mg, lg, sg), (me, le, se) = runs["graphed"], runs["eager"]
+    diff = _differing(sg, se) + _differing(mg, me)
+    require(not diff and lg == le, f"graphed and eager training differ in {diff[:6]} or in "
+                                   f"launches {lg} vs {le}")
+    losses = [float(mg[f"step{i}/Loss/total"]) for i in range(len(batches))]
+    require(all(np.isfinite(losses)) and len(set(losses)) > 1, f"losses {losses}")
+    return dict(check="graphed == eager, bit for bit", steps=len(batches),
+                tensors_compared=len(sg) + len(mg), launches=lg, loss=losses,
+                graphs=len(graphs or ()))
+
+
+def _family_training(script: str, cfg_script: str, recipe: str, save_dir: str,
+                     layers: int, blocks: int) -> tuple:
+    """The Trainer's default (bf16, graphed) at batch 16: FAMILY_STEPS steps
+    graphed against eager (`_graphed_vs_eager_in_place`), `blocks` K1-bf16
+    and K2-bf16 and `layers` K3-bf16 and K4-bf16 launches a step, one
+    AdamW update; then ms per step, busy, idle and memory
+    (`_stage2_timing`). Returns (line, launches)."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    cfg = _family_train_cfg(cfg_script, recipe, FAMILY_STEPS)
+    tr = Trainer(script, cfg, save_dir=save_dir, device="cuda", seed=0,
+                 print_interval=FAMILY_STEPS)
+    require(tr.dtype == torch.bfloat16 and tr._step.graphs is not None
+            and tr._keep_rate(1) is None, f"{script}: Trainer {tr.dtype}, keep {tr._keep_rate(1)}")
+    batches = [model_inputs(batch_to_model_inputs(b), "cuda")
+               for b in build_train_loader(cfg, seed=4)]
+    twin = _graphed_vs_eager_in_place(tr, batches)
+    got, steps = twin["launches"], FAMILY_STEPS
+    want = {"K1-bf16": blocks * steps, "K2-bf16": blocks * steps, "K3-bf16": layers * steps,
+            "K4-bf16": layers * steps, "AdamW": steps}
+    require(all(got[k] == v for k, v in want.items())
+            and not any(got[k] for k in F32_KERNELS), f"{script} training: launches {got}, "
+                                                      f"expected {want}")
+    reset_launches()
+    timing = _stage2_timing(tr, batches[0], True)
+    launches = {k: got[k] + read_launches()[k] for k in BF16_KERNELS + ("AdamW",)}
+    line = dict(batch=TRAIN_B, dtype="bf16", graphed_vs_eager=twin, **timing,
+                regime={g: tr.optimizer.mults[g] for g in tr.optimizer.groups},
+                params=sum(p.numel() for p in tr.model.parameters()),
+                samples_per_s=TRAIN_B / timing["ms_per_step_median"] * 1e3)
+    del tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def _family_lockstep(params, root: str) -> tuple:
+    """Two-stream lockstep N = 12 at bf16 on synthetic_rgbt_hard through the
+    CLI's twin of create_tracker's tracker (eval.run._batched_twin: the
+    full-forward BatchedRGBTTracker): frames/s, a profiled block; then the
+    same through `python -m multi_modal_tracking_torch.eval.run
+    mixformer_vit_rgbt attention_lasher_newfusion_2layer --dataset_name
+    synthetic_rgbt_hard --batch_sequences 12` (its main, in process):
+    a result file per sequence, the bf16 kernels launched."""
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.eval.run import _batched_twin, main as eval_cli
+    from multi_modal_tracking_torch.tracking.batched import BatchedRGBTTracker
+    name = "synthetic_rgbt_hard"
+    seqs = get_dataset(name)
+    tracker = create_tracker(params, name, seed=0)              # bf16, the default
+    bt = _batched_twin(tracker, EVAL_CHUNK)
+    require(type(bt) is BatchedRGBTTracker and bt.graphs is not None,
+            f"lockstep twin {type(bt).__name__}")
+    _profile_block(bt, seqs[:EVAL_BIG], 2)                      # first calls untimed
+    runs = {}
+    _eval_run("B12_bf16", lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG), seqs, root, runs,
+              kernels=("K1-bf16", "K3-bf16"))
+    launches = dict(runs["B12_bf16"]["launches"])
+    reset_launches()
+    prof = _profile_block(bt, seqs[:EVAL_BIG], EVAL_CHUNK)
+    for k in ("K1-bf16", "K3-bf16"):
+        launches[k] += read_launches()[k]
+    del bt, tracker
+    torch.cuda.empty_cache()
+    # the same through the command line a user runs
+    reset_launches()
+    t0 = time.perf_counter()
+    dirs = eval_cli([params.script, "attention_lasher_newfusion_2layer", "--dataset_name", name,
+                     "--batch_sequences", str(EVAL_BIG), "--results_dir",
+                     os.path.join(root, "cli")])
+    cli = dict(seconds=time.perf_counter() - t0, launches=read_launches())
+    require(len(dirs) == 1 and all(os.path.isfile(os.path.join(dirs[0], f"{s.name}.txt"))
+                                   for s in seqs)
+            and cli["launches"]["K1-bf16"] > 0 and cli["launches"]["K3-bf16"] > 0
+            and not any(cli["launches"][k] for k in F32_KERNELS),
+            f"eval.run {params.script} --batch_sequences {EVAL_BIG}: {dirs}, {cli['launches']}")
+    for k in ("K1-bf16", "K3-bf16"):
+        launches[k] += cli["launches"][k]
+    torch.cuda.empty_cache()
+    return dict(dataset=name, run=runs["B12_bf16"], profile_block=prof, cli=cli), launches
+
+
+def _plain_msda_fusion(fusion_module, bf16: bool):
+    """The fusion module's MSDA call swapped for the plain version (on the
+    same CUDA tensors, differentiable by autograd); returns the kernel to
+    put back."""
+    from multi_modal_tracking_torch.ops.msda import ms_deform_attn_bf16_ref, ms_deform_attn_ref
+    kernel = fusion_module.ms_deform_attn
+    fusion_module.ms_deform_attn = ms_deform_attn_bf16_ref if bf16 else ms_deform_attn_ref
+    return kernel
+
+
+def _fusion_zoo(g: torch.Generator) -> tuple:
+    """All 11 FUSION_CLASS entries at full width (channels 768, d_model 512,
+    2 layers; Attention_Fusion_1 at d_model 768, MSDA head dim 96) at batch
+    16 on two 18x18 maps, f32, in training mode without dropout: the output
+    and the gradients of the inputs and every parameter with K3 and K4
+    against the same module with MSDA's plain version on the same CUDA
+    tensors (FUSION_GRAD_*); the module on the CPU beside it for the
+    forward (batch 2, eval mode). ms of a forward + backward (CUDA events).
+    Returns (rows, launches)."""
+    import multi_modal_tracking_torch.models.fusion as fusion_module
+    from multi_modal_tracking_torch.models.build import init_random
+    from multi_modal_tracking_torch.models.fusion import FUSION_CLASSES, build_fusion
+    rows, launches = [], dict.fromkeys(F32_KERNELS, 0)
+    x_v = torch.randn(FUSION_B, 18, 18, 768, generator=g).cuda()
+    x_i = torch.randn(FUSION_B, 18, 18, 768, generator=g).cuda()
+    proj = torch.randn(FUSION_B, 18, 18, 768, generator=g).cuda()
+    for cls in FUSION_CLASSES:
+        mod = init_random(build_fusion(cls, 768, 512, 2, dropout=0.0), 0)
+        with torch.no_grad():               # act the zero-initialised offset kernels
+            for p in mod.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g))
+        mod = mod.cuda().train()
+        state = {k: v.clone() for k, v in mod.state_dict().items()}
+
+        def fwd_bwd():
+            mod.zero_grad(set_to_none=True)
+            a, b = x_v.clone().requires_grad_(), x_i.clone().requires_grad_()
+            out = mod(a, b)
+            (out * proj).sum().backward()
+            return [out.detach(), a.grad, b.grad] + [p.grad for p in mod.parameters()]
+
+        reset_launches()
+        got = fwd_bwd()
+        counts = read_launches()
+        for k in F32_KERNELS:
+            launches[k] += counts[k]
+        mod.load_state_dict(state)
+        kernel = _plain_msda_fusion(fusion_module, False)
+        try:
+            want = fwd_bwd()
+        finally:
+            fusion_module.ms_deform_attn = kernel
+        mod.load_state_dict(state)
+        err, _, ok = max_err(got[0], want[0])
+        names = ["x_v", "x_i"] + [n for n, _ in mod.named_parameters()]
+        G = float(torch.sqrt(sum((b.double() ** 2).sum() for b in want[1:])))
+        apart = {n: float((a - b).double().norm()) for n, a, b in zip(names, got[1:], want[1:])}
+        dist = {n: apart[n] / (float(b.norm()) + FUSION_GRAD_FLOOR / FUSION_GRAD_REL * G)
+                for n, b in zip(names, want[1:])}
+        worst = max(dist, key=dist.get)
+        g_all = float(np.sqrt(sum(v ** 2 for v in apart.values()))) / G
+        g_err, g_ok = dist[worst], dist[worst] <= FUSION_GRAD_REL and g_all <= FUSION_GRAD_ALL
+        attention = cls.startswith("Attention")
+        require(ok and g_ok and (counts["K3"] == counts["K4"] == 2) == attention,
+                f"fusion {cls}: output error {err}, gradient {worst} {g_err} of its norm "
+                f"apart, all {g_all} of theirs, launches {counts}")
+        with torch.no_grad():
+            cpu = copy.deepcopy(mod).cpu().eval()
+            d_cpu = float((cpu(x_v[:2].cpu(), x_i[:2].cpu()) - mod.eval()(x_v[:2], x_i[:2]).cpu())
+                          .abs().max())
+            mod.train()
+        require(d_cpu <= 1e-4, f"fusion {cls}: GPU vs CPU forward {d_cpu}")
+        rows.append(dict(fusion_class=cls, out_max_abs_err=err, grad_max_rel_dist=g_err,
+                         grad_worst=worst, grad_all_rel_dist=g_all,
+                         gpu_vs_cpu_max_abs=d_cpu, launches=counts,
+                         msda_head_dim=(768 if cls == "Attention_Fusion_1" else 512) // 8
+                         if attention else None,
+                         fwd_bwd_event_ms=cuda_time_ms(fwd_bwd, iters=5, warmup=1),
+                         params=sum(p.numel() for p in mod.parameters())))
+        mod.load_state_dict(state)
+        del mod, cpu, got, want
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def _vit_attention_checks(g: torch.Generator) -> list:
+    """K1 and K1-bf16 at the ViT family's shapes (N 452, n_mt 128: the plain
+    ViT's mixed attention, VIT_ATTN_BH) against their plain versions, the
+    plans printed, ms per call (CUDA events over 50 calls); K2 and K2-bf16
+    at the training shapes (B*H 192, 384)."""
+    from multi_modal_tracking_torch.ops.attention import (
+        attention_bf16_plan, mixed_attention_bf16, mixed_attention_bf16_ref,
+        mixed_attention_bwd, mixed_attention_bwd_bf16, mixed_attention_bwd_bf16_ref,
+        mixed_attention_bwd_ref, mixed_attention_fwd, mixed_attention_ref, query_warps)
+    scale, n_sm, rows = HEAD_D ** -0.5, torch.cuda.get_device_properties(0).multi_processor_count, []
+    for bh in VIT_ATTN_BH:
+        B = bh // HEADS
+        q, k, v = _qkv(B, HEADS, VIT_N, VIT_N, HEAD_D, g)
+        out, lse = mixed_attention_fwd(q, k, v, N_MT, scale, return_lse=True)
+        err, _, ok = max_err(out, mixed_attention_ref(q, k, v, N_MT, scale))
+        require(ok, f"K1 B*H={bh} N={VIT_N} disagrees with its plain version: {err}")
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        errs = _bf16_errors(f"K1-bf16 B*H={bh} N={VIT_N}",
+                            mixed_attention_bf16(qb, kb, vb, N_MT, scale),
+                            mixed_attention_bf16_ref(qb, kb, vb, N_MT, scale),
+                            mixed_attention_ref(qb.float(), kb.float(), vb.float(), N_MT, scale),
+                            vb)
+        row = dict(BH=bh, Nq=VIT_N, Nk=VIT_N, n_mt=N_MT, k1_max_abs_err=err,
+                   k1_query_warps=query_warps(bh, VIT_N, n_sm),
+                   k1_bf16_key_shares=attention_bf16_plan(bh, VIT_N, VIT_N, n_sm),
+                   k1_bf16=errs,
+                   k1_event_ms=cuda_time_ms(lambda: mixed_attention_fwd(q, k, v, N_MT, scale)),
+                   k1_bf16_event_ms=cuda_time_ms(
+                       lambda: mixed_attention_bf16(qb, kb, vb, N_MT, scale)))
+        if bh >= 192:
+            gr = torch.randn(B, HEADS, VIT_N, HEAD_D, generator=g).cuda()
+            got = mixed_attention_bwd(q, k, v, out, gr, N_MT, scale, lse)
+            want = mixed_attention_bwd_ref(q, k, v, gr, N_MT, scale)
+            e2 = [max_err_scaled(a, b) for a, b in zip(got, want)]
+            require(all(e[2] for e in e2), f"K2 B*H={bh}: {[e[0] for e in e2]}")
+            _, lse_b = mixed_attention_bf16(qb, kb, vb, N_MT, scale, return_lse=True)
+            grb = gr.to(torch.bfloat16)
+            gotb = mixed_attention_bwd_bf16(qb, kb, vb, grb, N_MT, scale, lse_b)
+            plainb = mixed_attention_bwd_bf16_ref(qb, kb, vb, grb, N_MT, scale)
+            e2b = [max_err(a.float(), b.float(), bf16_tol(b)) for a, b in zip(gotb, plainb)]
+            require(all(e[2] for e in e2b), f"K2-bf16 B*H={bh}: {[e[0] for e in e2b]}")
+            row.update(k2_max_abs_err=[e[0] for e in e2], k2_bf16_max_abs_err=[e[0] for e in e2b])
+        rows.append(row)
+    return rows
+
+
+def _msda_d96_checks(g: torch.Generator) -> list:
+    """K3, K4, K3-bf16 and K4-bf16 at Attention_Fusion_1's head dim 96
+    (d_model 768 / 8 heads) on the fusion's two 18x18 levels, at batch 1
+    and 16, uniform and model-like locations, against their plain versions;
+    msda_plan's choice printed (f32: gather and direct, the shared memory
+    holds no 648 x 96 slice; bf16: gather and direct, the tap kernels take
+    D 64)."""
+    from multi_modal_tracking_torch.ops.msda import (ms_deform_attn_bf16, ms_deform_attn_bf16_ref,
+                                                     ms_deform_attn_bwd, ms_deform_attn_bwd_ref,
+                                                     ms_deform_attn_fwd, ms_deform_attn_ref)
+    from multi_modal_tracking_torch.ops.msda import msda_plan
+    D, Lq, rows = 96, 648, []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for B in (1, TRAIN_B):
+        for locations in ("uniform", "model"):
+            value, loc, attw = _msda_inputs(B, MSDA_SHAPES, Lq, M_HEADS, D, M_P, g, -0.1, 1.1)
+            if locations == "model":
+                loc = _model_locations(B, MSDA_SHAPES, M_HEADS, M_P, g)
+            gr = torch.randn(B, Lq, M_HEADS * D, generator=g).cuda()
+            err3, _, ok3 = max_err(ms_deform_attn_fwd(value, MSDA_SHAPES, loc, attw),
+                                   ms_deform_attn_ref(value, MSDA_SHAPES, loc, attw))
+            e4 = [max_err_scaled(a, b) for a, b in
+                  zip(ms_deform_attn_bwd(value, MSDA_SHAPES, loc, attw, gr),
+                      ms_deform_attn_bwd_ref(value, MSDA_SHAPES, loc, attw, gr))]
+            require(ok3 and all(e[2] for e in e4),
+                    f"K3/K4 D=96 B={B} {locations}: {err3}, {[e[0] for e in e4]}")
+            vb, ab, gb = value.to(torch.bfloat16), attw.to(torch.bfloat16), gr.to(torch.bfloat16)
+            errs3 = _bf16_errors(f"K3-bf16 D=96 B={B} {locations}",
+                                 ms_deform_attn_bf16(vb, MSDA_SHAPES, loc, ab),
+                                 ms_deform_attn_bf16_ref(vb, MSDA_SHAPES, loc, ab),
+                                 ms_deform_attn_ref(vb.float(), MSDA_SHAPES, loc, ab.float()),
+                                 vb, exact=True)
+            errs4 = _k4_bf16_case(f"K4-bf16 D=96 B={B} {locations}", vb, MSDA_SHAPES, loc, ab,
+                                  gb, tap_only=False)
+            p32 = msda_plan(B, M_HEADS, D, MSDA_SHAPES, n_sm)
+            p16 = msda_plan(B, M_HEADS, D, MSDA_SHAPES, n_sm, itemsize=2, Lq=Lq, P=M_P)
+            rows.append(dict(B=B, D=D, Lq=Lq, locations=locations, k3_max_abs_err=err3,
+                             k4_max_abs_err=[e[0] for e in e4], k3_bf16=errs3, k4_bf16=errs4,
+                             plan_f32=p32._asdict(), plan_bf16=p16._asdict()))
+    return rows
+
+
+def _deform_conv_ms(g: torch.Generator) -> list:
+    """The modulated deformable conv (plain PyTorch, ops/deform_conv.py) at
+    the deform fusions' shape (2 x 768 channels in, 768 out, 18x18, 3x3):
+    device ms (CUDA events over 10 calls) of a forward at tracking batch 1
+    (deform groups 2 and 1; a CUDA graph replayed) and of forward +
+    backward at training batch 16 (eager); one call a frame or step."""
+    from multi_modal_tracking_torch.ops.deform_conv import modulated_deform_conv2d
+    rows = []
+    for B, dg in DEFORM_SHAPES:
+        x = torch.randn(B, 18, 18, 1536, generator=g).cuda()
+        off = (2 * torch.randn(B, 18, 18, dg * 18, generator=g)).cuda()
+        mask = torch.rand(B, 18, 18, dg * 9, generator=g).cuda()
+        w = (0.01 * torch.randn(768, 1536, 3, 3, generator=g)).cuda()
+        if B == 1:
+            # a CUDA graph of the forward, replayed: the eager call's ~100
+            # small kernels are paced by the host at batch 1, and a graph
+            # replay is what the tracker's frame runs
+            torch.cuda.synchronize()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                modulated_deform_conv2d(x, off, mask, w, deform_groups=dg)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                modulated_deform_conv2d(x, off, mask, w, deform_groups=dg)
+            fn = graph.replay
+        else:
+            xs = [t.requires_grad_() for t in (x, off, mask, w)]
+
+            def fn():
+                modulated_deform_conv2d(*xs, deform_groups=dg).sum().backward()
+        flops = 2.0 * B * 18 * 18 * 9 * 1536 * 768 * (1 if B == 1 else 3)
+        rows.append(dict(batch=B, deform_groups=dg, what="forward" if B == 1 else
+                         "forward+backward", event_ms=cuda_time_ms(fn, iters=10),
+                         matmul_flops=flops, calls_per=("frame" if B == 1 else "step")))
+    return rows
+
+
+def phase_families(smi: str, frames, save_dir: str) -> dict:
+    """The RGB-T families beside the flagship (FAMILIES) at full width
+    (ViT-B, template 128, search 288, fusion d_model 512, the recipes'
+    heads), seeded random weights. For each: the f32 forward on the card
+    against the same model on the CPU (BOX_TOL); create_tracker's tracker
+    at f32 and bf16 on the tracker phase's 63 frames, graphed against eager
+    bit for bit (`_family_tracking`); a few bf16 batch-16 Trainer steps
+    graphed against eager bit for bit, BN statistics included
+    (`_family_training`). Then two-stream lockstep N = 12 at bf16 on
+    synthetic_rgbt_hard; the 11 fusion classes at full width against their
+    plain versions (`_fusion_zoo`); K1 / K1-bf16 at the ViT shapes and K3 /
+    K4 and their bf16 forms at head dim 96 against their plain versions;
+    the deformable conv's device ms. Returns the launch counts: f32 and
+    bf16."""
+    g = torch.Generator().manual_seed(15)
+    f32 = dict.fromkeys(F32_KERNELS, 0)
+    bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    for label, script, cfg_script, recipe, blocks in FAMILIES:
+        t0 = time.perf_counter()
+        params = _family_params(script, cfg_script, recipe)
+        layers = 0 if params.cfg.MODEL.FUSION_CLASS.startswith("RGBT_Fusion") \
+            else params.cfg.MODEL.FUSION_LAYERS
+        res = {}
+        for dtype, total in ((torch.float32, f32), (torch.bfloat16, bf16)):
+            line, tracker = _family_tracking(params, dtype, frames, layers, blocks)
+            _add_launches(total, line["launches"], TRACK_KERNEL_NAMES[dtype])
+            _add_launches(total, line["profile"]["launches"], TRACK_KERNEL_NAMES[dtype])
+            if dtype == torch.float32:
+                res["gpu_vs_cpu_max_abs"] = _family_gpu_vs_cpu(tracker.model)
+                res["params"] = sum(p.numel() for p in tracker.model.parameters())
+            res[f"track_{'f32' if dtype == torch.float32 else 'bf16'}"] = line
+            del tracker
+            torch.cuda.empty_cache()
+        res["train_bf16"], counts = _family_training(script, cfg_script, recipe, save_dir,
+                                                     layers, blocks)
+        _add_launches(bf16, counts, counts)
+        emit({"phase": f"families {label}", "card": smi, "script": script,
+              "recipe": f"{cfg_script}/{recipe}", "fusion_class": params.cfg.MODEL.FUSION_CLASS,
+              "head_type": params.cfg.MODEL.HEAD_TYPE, "tolerance": BOX_TOL, **res,
+              "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as root:
+        line, counts = _family_lockstep(_family_params(*FAMILIES[0][1:4]), root)
+    _add_launches(bf16, counts, ("K1-bf16", "K3-bf16"))
+    emit({"phase": "families lockstep", "card": smi, "script": FAMILIES[0][1], **line})
+    emit({"phase": "families kernel shapes", "card": smi,
+          "k1_vit": _vit_attention_checks(g), "msda_d96": _msda_d96_checks(g)})
+    emit({"phase": "families deform conv", "card": smi, "cases": _deform_conv_ms(g)})
+    rows, counts = _fusion_zoo(g)
+    _add_launches(f32, counts, F32_KERNELS)
+    emit({"phase": "families fusion table", "card": smi, "batch": FUSION_B,
+          "tolerance": dict(out=KERNEL_TOL, grad_rel_dist=FUSION_GRAD_REL,
+                            grad_floor_of_norm=FUSION_GRAD_FLOOR,
+                            grad_all_of_norm=FUSION_GRAD_ALL), "classes": rows})
+    return {"f32": f32, "bf16": bf16}
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
     dev, smi = phase_device()
     phase_build()
+    if argv == ["families"]:            # the families phase alone (module docstring)
+        frames = list(_sequence(74))
+        with tempfile.TemporaryDirectory() as save_dir:
+            launches = phase_families(smi, frames, save_dir)
+        emit({"phase": "families launches", **launches})
+        return
+    require(not argv, f"unknown arguments {argv}: none, or `families`")
     phase_bf16_reduction(smi)
     warm_profiler()
     g = torch.Generator().manual_seed(0)
@@ -3966,11 +4538,13 @@ def main() -> None:
     online = phase_online(smi, frames)
     with tempfile.TemporaryDirectory() as save_dir:
         stage2 = phase_stage2(smi, save_dir)
+    with tempfile.TemporaryDirectory() as save_dir:
+        families = phase_families(smi, frames, save_dir)
     table = []
     for key in F32_KERNELS:
         by_path = {"tracker": track_launches[key], "graphs": graph_launches["f32"][key],
                    "train": train_launches[key], "eval": eval_launches[key],
-                   "stage2": stage2["f32"][key]}
+                   "stage2": stage2["f32"][key], "families": families["f32"][key]}
         if key in online["f32"]:
             by_path["online"] = online["f32"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
@@ -3985,7 +4559,7 @@ def main() -> None:
             ("model_locations_ms",) if key == "K4" else ())})
     for key in BF16_KERNELS:
         by_path = {"train_bf16": train_bf16_launches[key], "lifecycle": life_launches[key],
-                   "stage2_bf16": stage2["bf16"][key]}
+                   "stage2_bf16": stage2["bf16"][key], "families_bf16": families["bf16"][key]}
         if key in BF16_SERVING:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
                            graphs_bf16=graph_launches["bf16"][key],
@@ -4004,7 +4578,7 @@ def main() -> None:
             ("repeatable",) if key == "K4-bf16" else ())})
     by_path = {"train": train_launches["AdamW"], "train_bf16": train_bf16_launches["AdamW"],
                "lifecycle": life_launches["AdamW"], "stage2": stage2["f32"]["AdamW"],
-               "stage2_bf16": stage2["bf16"]["AdamW"]}
+               "stage2_bf16": stage2["bf16"]["AdamW"], "families_bf16": families["bf16"]["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -6,11 +6,12 @@ A package of its own beside the JAX package, with the same layout
 torch and never jax, flax, cv2 or anything of multi_modal_tracking_tpu; the
 JAX package is its reference, and only the tests import both.
 
-What it covers so far, for the RGB-T flagship (`asymmetric_shared_ce` with
-the LNSpecific fusion and the CORNER_UP head), in bf16 by default and in
-float32:
-  * tracking: eval.evaltracker.create_tracker and the tracker classes in
-    tracking.tracker;
+What it covers so far, for every RGB-T script (the `asymmetric_shared*`
+flagship family and the `mixformer_vit_rgbt*` family: two-stream,
+shared-LN, unibackbone, two-stream online) with any FUSION_CLASS of the
+JAX package's table, in bf16 by default and in float32:
+  * tracking: eval.evaltracker.create_tracker, the tracker classes in
+    tracking.tracker and their lockstep twins in tracking.batched;
   * training: train.trainer.Trainer (epoch loop, CE keep-rate schedule),
     train.train_step.make_train_step, the regime AdamW of train.optimizer,
     and the numpy data pipeline of train.data on the synthetic RGB-T set.

@@ -1,8 +1,11 @@
-"""Default config trees of the RGB-T `asymmetric_shared*` scripts.
+"""Default config trees of the RGB-T scripts: the `asymmetric_shared*`
+flagship family and the `mixformer_vit_rgbt*` family.
 
 The port's own copy of the RGB-T branches of the JAX package's
 `config/defaults.py` (`_rgbt_base`, `_with_ce`, `_with_score`): the same
 default tree, so the same `experiments/*.yaml` recipes overlay onto it.
+`mixformer_vit_rgbt_online` has no default tree there, nor here: its model
+builds from a config the caller passes (`models.build.build_model`).
 """
 from __future__ import annotations
 
@@ -106,8 +109,14 @@ def _with_score(c: CfgNode) -> CfgNode:
 
 
 def get_default_config(script: str) -> CfgNode:
-    if script == "asymmetric_shared":
-        return _rgbt_base()
+    if script in ("asymmetric_shared", "mixformer_vit_rgbt", "mixformer_vit_rgbt_shared",
+                  "mixformer_vit_rgbt_unibackbone"):
+        c = _rgbt_base()
+        if script == "mixformer_vit_rgbt":
+            c.TRAIN.RGBT_TRACK = True
+        if script == "mixformer_vit_rgbt_unibackbone":
+            c.TRAIN.RGBT_TRACK_UNIBACKBONE = True
+        return c
     if script == "asymmetric_shared_ce":
         return _with_ce(_rgbt_base())
     if script == "asymmetric_shared_online":

@@ -6,16 +6,20 @@ import torch
 from multi_modal_tracking_torch.eval.params import TrackerParams, update_interval_for
 from multi_modal_tracking_torch.models.build import build_model
 from multi_modal_tracking_torch.tracking.tracker import (RGBTCachedTracker,
-                                                         RGBTOnlineCachedTracker, RGBTTracker)
+                                                         RGBTOnlineCachedTracker,
+                                                         RGBTOnlineTracker, RGBTTracker)
 from multi_modal_tracking_torch.utils.checkpoint import cast_floating, load_variables
 
 
 def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
                    dtype=torch.bfloat16, seed: int = 0, graphs: bool = True) -> RGBTTracker:
-    """The cached-template tracker of an RGB-T `asymmetric_shared*` script:
-    for an online one (`*_online`, with the SPM score branch) the
-    score-gated `RGBTOnlineCachedTracker`, its max_score_decay from
-    `online_size_decay`.
+    """The tracker of an RGB-T script, chosen as the JAX package chooses
+    (eval/evaltracker.py:89-98): the cached-template trackers for a model
+    with `set_online` and `forward_track` (the `asymmetric_shared*`
+    family), else the full-forward ones (the `mixformer_vit_rgbt*`
+    family); for an online script (`*_online`, with the SPM score branch)
+    the score-gated one (`RGBTOnlineCachedTracker` or `RGBTOnlineTracker`),
+    its max_score_decay from `online_size_decay`.
 
     Runs on the GPU unless device="cpu" (raises without one). With
     `params.checkpoint` set, its weights are loaded strictly (a `.pth.tar`
@@ -43,10 +47,11 @@ def create_tracker(params: TrackerParams, dataset_name: str = "", device="cuda",
                   search_factor=params.search_factor, search_size=params.search_size,
                   update_interval=update_interval_for(cfg, dataset_name), ce_keep_rate=None,
                   device=device, graphs=graphs)
+    cached = hasattr(type(model), "set_online") and hasattr(type(model), "forward_track")
     if params.script.endswith("_online"):
-        return RGBTOnlineCachedTracker(model, max_score_decay=online_size_decay(cfg)[1],
-                                       **common)
-    return RGBTCachedTracker(model, **common)
+        cls = RGBTOnlineCachedTracker if cached else RGBTOnlineTracker
+        return cls(model, max_score_decay=online_size_decay(cfg)[1], **common)
+    return (RGBTCachedTracker if cached else RGBTTracker)(model, **common)
 
 
 def online_size_decay(cfg, dataset_name: str = "") -> tuple:

@@ -9,9 +9,11 @@ from torch import nn
 
 from multi_modal_tracking_torch.models.asymmetric_shared import build_mixformer_rgbt
 from multi_modal_tracking_torch.models.fusion import (DeformableAttentionFusion,
+                                                      DeformConvFusion, ModulatedDeformConv2d,
                                                       MSDeformAttnBimodal)
 from multi_modal_tracking_torch.models.layers import set_compute_dtype
 from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
+from multi_modal_tracking_torch.models.vit_rgbt import build_vit_rgbt
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 _RGBT_SHARED = {
@@ -19,6 +21,24 @@ _RGBT_SHARED = {
     "asymmetric_shared_ce": dict(with_score=False),
     "asymmetric_shared_online": dict(with_score=True),
 }
+#: the RGB-T MixFormer-ViT scripts: backbone variant and score branch
+_VIT_RGBT = {
+    "mixformer_vit_rgbt": dict(variant="two_stream", with_score=False),
+    "mixformer_vit_rgbt_online": dict(variant="two_stream", with_score=True),
+    "mixformer_vit_rgbt_shared": dict(variant="shared", with_score=False),
+    "mixformer_vit_rgbt_unibackbone": dict(variant="unibackbone", with_score=False),
+}
+#: every script build_model builds
+SCRIPTS = tuple(_RGBT_SHARED) + tuple(_VIT_RGBT)
+
+
+def _he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's he_normal: a normal of deviation sqrt(2 / fan_in) truncated at
+    two deviations (variance scaling 2.0, fan_in, truncated_normal: the
+    deviation divided by 0.8796..., that of the unit normal truncated at
+    +-2); fan_in = Cin * kh * kw."""
+    std = math.sqrt(2.0 / w[0].numel()) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 @torch.no_grad()
@@ -27,7 +47,9 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
     Linear weights, PyTorch's default fan-in uniform for convolutions, zero
     biases, unit/zero norms, the MSDA layers' own reference init and a
     unit-normal fusion level embed; the score branch's token from a normal
-    of deviation 0.02 truncated at two deviations."""
+    of deviation 0.02 truncated at two deviations; the deform fusions'
+    offset convolution zero and their deformable kernel he-normal (the
+    JAX package's init, models/fusion.py:320-333)."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.Linear):
@@ -49,12 +71,18 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
             nn.init.normal_(m.level_embed, generator=g)
         elif isinstance(m, ScoreDecoder):
             nn.init.trunc_normal_(m.score_token, std=0.02, a=-0.04, b=0.04, generator=g)
+        elif isinstance(m, ModulatedDeformConv2d):
+            _he_normal_(m.weight, g)
+        elif isinstance(m, DeformConvFusion):
+            nn.init.zeros_(m.offset_conv.weight)
+            nn.init.zeros_(m.offset_conv.bias)
     return model
 
 
 def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
                 seed: int = 0, spec_overrides: Optional[dict] = None) -> nn.Module:
-    """Build the model of an RGB-T `asymmetric_shared*` script with random
+    """Build the model of an RGB-T script (`SCRIPTS`: the `asymmetric_shared*`
+    flagship family and the `mixformer_vit_rgbt*` family) with random
     float32 weights from `seed`, in eval mode on `device` (default: the
     GPU; raises if there is none), computing in `dtype` (float32 or
     bfloat16; others raise; `models.layers.set_compute_dtype`), with the
@@ -64,11 +92,13 @@ def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
     `eval.evaltracker.create_tracker` loads a checkpoint into them before
     it casts them for serving (`utils.checkpoint.cast_floating`).
     `spec_overrides` replace fields of the model spec read from `cfg`."""
-    if script not in _RGBT_SHARED:
+    if script not in SCRIPTS:
         raise NotImplementedError(f"script {script!r} is not ported to "
-                                  f"multi_modal_tracking_torch (ROADMAP.md queue 1)")
+                                  f"multi_modal_tracking_torch (ROADMAP.md queue 1 item 9)")
     dev = resolve_device(device)
     set_precision(dtype)
-    model = init_random(build_mixformer_rgbt(cfg, **_RGBT_SHARED[script],
-                                             **(spec_overrides or {})), seed)
-    return set_compute_dtype(model, dtype).to(dev).eval()
+    if script in _RGBT_SHARED:
+        model = build_mixformer_rgbt(cfg, **_RGBT_SHARED[script], **(spec_overrides or {}))
+    else:
+        model = build_vit_rgbt(cfg, **_VIT_RGBT[script], **(spec_overrides or {}))
+    return set_compute_dtype(init_random(model, seed), dtype).to(dev).eval()

@@ -24,8 +24,8 @@ from torch import nn
 
 from multi_modal_tracking_torch.utils import flax_msgpack
 from multi_modal_tracking_torch.utils.convert import (add_backbone_prefix, expand_modality_lns,
-                                                      from_jax_variables, is_ignored_key,
-                                                      load_torch_state_dict)
+                                                      expand_two_stream, from_jax_variables,
+                                                      is_ignored_key, load_torch_state_dict)
 
 _EPOCH_RE = re.compile(r"_ep(\d+)\.pth\.tar$")
 
@@ -77,9 +77,10 @@ def load_variables(path: str, model: nn.Module, strict: bool = True) -> Dict[str
 
     `.pth` / `.pth.tar` / `.pt`: a reference or port file (`net`, `model`
     and `state_dict` envelopes); a bare backbone dict gets the `backbone.`
-    prefix, and a unimodal one (norm1/norm2) gets the modal LayerNorm pair
-    when the model has it. Either expansion is a warm start and makes the
-    load non-strict. `.msgpack`: a JAX checkpoint, a TrainState (params and
+    prefix; a unimodal one (`backbone.*`, norm1/norm2) fills both backbones
+    of a two-stream model (`backbone_v.*`, `backbone_i.*`), or gets the
+    modal LayerNorm pair when the model has it. Any expansion is a warm
+    start and makes the load non-strict. `.msgpack`: a JAX checkpoint, a TrainState (params and
     batch_stats; opt_state is ignored, also inside the trainer's `state`
     envelope) or a bare variables dict, mapped by `from_jax_variables`.
 
@@ -91,10 +92,13 @@ def load_variables(path: str, model: nn.Module, strict: bool = True) -> Dict[str
     extra = []
     if path.endswith((".pth", ".pth.tar", ".pt")):
         sd, warm = add_backbone_prefix(load_torch_state_dict(path))
-        target_modal = any(re.match(r"backbone\.blocks\.\d+\.norm1_v\.", k)
-                           for k in model.state_dict())
-        if target_modal and any(k.startswith("backbone.") for k in sd) and \
-                not any(".norm1_v." in k for k in sd):
+        target = model.state_dict()
+        two_stream = any(k.startswith("backbone_v.") for k in target)
+        target_modal = any(re.match(r"backbone\.blocks\.\d+\.norm1_v\.", k) for k in target)
+        unimodal = any(k.startswith("backbone.") for k in sd)
+        if two_stream and unimodal and not any(k.startswith("backbone_v.") for k in sd):
+            sd, warm = expand_two_stream(sd), True
+        elif target_modal and unimodal and not any(".norm1_v." in k for k in sd):
             sd, warm = expand_modality_lns(sd), True
         return _partial_load(model, sd, path, strict and not warm)
     with open(path, "rb") as f:

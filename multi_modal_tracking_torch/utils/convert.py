@@ -1,13 +1,13 @@
 """Checkpoint formats -> the port's state dict.
 
 Reference `.pth` files already carry the port's key names:
-`load_torch_state_dict` unwraps and cleans them, `add_backbone_prefix` and
-`expand_modality_lns` rewrite the keys of warm-start files (bare MAE
-backbones, unimodal nets) as the JAX package's `utils/checkpoint.py` and
-`utils/torch_convert.py` do.
+`load_torch_state_dict` unwraps and cleans them, `add_backbone_prefix`,
+`expand_two_stream` and `expand_modality_lns` rewrite the keys of
+warm-start files (bare MAE backbones, unimodal nets) as the JAX package's
+`utils/checkpoint.py` and `utils/torch_convert.py` do.
 
 The port's modules carry the reference's torch key names, so a flax
-`{"params": ..., "batch_stats": ...}` tree of the flagship maps onto them
+`{"params": ..., "batch_stats": ...}` tree of an RGB-T model maps onto them
 with layout changes only:
 
   Dense kernel (in, out)      -> Linear weight (out, in)
@@ -22,6 +22,9 @@ and these path renames:
 
   blocks_N / layers_N                 -> blocks.N / encoder.layers.N
   norm1 / norm_v (modal LN pair)      -> norm1_v
+  norm1 / norm (shared encoder LN)    -> norm1
+  fusion_kernel (deformable conv)     -> fusion.weight
+  fusion_offset (one deform group)    -> fusion.conv_offset
   tower_tl / conv1 / conv | bn        -> conv1_tl.0 | .1
   tower_tl / adjust3_1 / conv         -> adjust3_tl.1.0
   <adjust> / conv | gn (1x1 + GN)     -> <adjust>.0 | .1
@@ -142,6 +145,23 @@ def add_backbone_prefix(sd: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Te
     return sd, False
 
 
+def expand_two_stream(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Unimodal warm start of the two-stream model: every `backbone.*` key
+    becomes a `backbone_v.*` and a `backbone_i.*` key (the JAX package's
+    utils/torch_convert.py:75-87); position embeddings and mask tokens are
+    dropped."""
+    out = {}
+    for k, v in sd.items():
+        if "pos_embed" in k or "mask_token" in k:
+            continue
+        if k.startswith("backbone."):
+            out["backbone_v." + k[len("backbone."):]] = v
+            out["backbone_i." + k[len("backbone."):]] = v
+        else:
+            out[k] = v
+    return out
+
+
 def expand_modality_lns(sd: Dict[str, Any]) -> Dict[str, Any]:
     """MAE / unimodal warm start: every block LayerNorm norm1/norm2 becomes
     the modal pair norm1_v/norm1_i (norm2 alike); position embeddings and
@@ -190,7 +210,8 @@ def _module_path(path: Tuple[str, ...]) -> str:
             stage = re.fullmatch(r"(adjust[34])_(\d)", path[i])
             out += ([f"{stage.group(1)}_{s[-2:]}", stage.group(2)] if stage
                     else [f"{path[i]}_{s[-2:]}"])
-        elif s in ("norm1", "norm2") and i + 1 < len(path) and path[i + 1] in ("norm_v", "norm_i"):
+        elif s in ("norm1", "norm2") and i + 1 < len(path) and \
+                path[i + 1] in ("norm_v", "norm_i", "norm"):
             i += 1
             out.append(s + path[i][4:])
         elif s == "conv":
@@ -221,14 +242,30 @@ def _leaf(coll: str, name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     return name, arr
 
 
+def _deform_paths(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """The deform fusions' flax leaves under their reference names:
+    `fusion_kernel` (HWIO) is the deformable conv's `fusion.weight`; the
+    offset conv `fusion_offset` is RGBT_Fusion_2's own, or, in RGBT_Fusion_3
+    (the only class with one deform group: 3 * 9 = 27 output channels), the
+    pack's `fusion.conv_offset` (utils/torch_convert.py:328-333 maps both
+    names onto it)."""
+    if path[-1] == "fusion_kernel":
+        return path[:-1] + ("fusion", "kernel"), arr
+    if len(path) >= 2 and path[-2] == "fusion_offset" and arr.shape[-1] == 27:
+        return path[:-2] + ("fusion", "conv_offset", path[-1]), arr
+    return path, arr
+
+
 def from_jax_variables(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax variables of MixFormerRGBT (numpy leaves) -> the port's
-    state_dict, loadable with `load_state_dict(..., strict=True)` (every
-    BatchNorm also gets num_batches_tracked = 0; a frozen one has none)."""
+    """flax variables of an RGB-T model (MixFormerRGBT, MixFormerViTRGBT;
+    numpy leaves) -> the port's state_dict, loadable with
+    `load_state_dict(..., strict=True)` (every BatchNorm also gets
+    num_batches_tracked = 0; a frozen one has none)."""
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables_np.get(coll, {})):
-            name, arr = _leaf(coll, path[-1], np.asarray(leaf))
+            path, leaf = _deform_paths(path, np.asarray(leaf))
+            name, arr = _leaf(coll, path[-1], leaf)
             mod = _module_path(path[:-1]) + (".1" if path[-1] in _FROZEN_BN else "")
             key = f"{mod}.{name}" if mod else name
             sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))

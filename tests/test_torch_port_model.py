@@ -222,9 +222,11 @@ def test_corner_heads_match_jax(name, feat_sz, stride, in_sz):
 
 
 def test_build_fusion_rejects_unported_classes():
+    """Every FUSION_CLASS of the JAX table is ported
+    (tests/test_torch_port_fusion_zoo.py); a name outside it raises."""
     from multi_modal_tracking_torch.models.fusion import build_fusion
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_fusion("RGBT_Fusion_1", 64, 64, 2)
+    with pytest.raises(ValueError, match="FUSION_CLASS"):
+        build_fusion("RGBT_Fusion_4", 64, 64, 2)
 
 
 def test_from_jax_variables_round_trips(ce_pair):

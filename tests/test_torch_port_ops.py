@@ -126,6 +126,9 @@ def test_pos_embeds_equal_jax():
     ("asymmetric_shared_ce", "attention_lasher_newfusion_2layer"),
     ("asymmetric_shared", "attention_lasher_newfusion_2layer"),
     ("asymmetric_shared_online", "attention_lasher_newfusion_2layer"),
+    ("mixformer_vit_rgbt", "attention_lasher_newfusion_2layer"),
+    ("mixformer_vit_rgbt_shared", "baseline"),
+    ("mixformer_vit_rgbt_unibackbone", "baseline"),
 ])
 def test_parameters_match_jax(script, yaml):
     want = jax_params.get_parameters(script, yaml)
