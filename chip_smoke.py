@@ -3991,7 +3991,7 @@ FUSION_B = 16                      # the fusion table's batch (training)
 #: JAX. The two sides sum in other orders, and where an input of a ReLU
 #: (the FFN) or a bilinear corner choice lies near its switch, the switch
 #: flips: a weight in front of a ReLU took 1.07e-3 of its norm at
-#: Attention_Fusion_1's 768 channels (my chip run, PR 15). A gradient that
+#: Attention_Fusion_1's 768 channels (measured on one H100). A gradient that
 #: is zero but for rounding (a conv bias in front of a GroupNorm) is noise
 #: on both sides; a missing or wrong backward path gives O(1)
 FUSION_GRAD_REL, FUSION_GRAD_FLOOR, FUSION_GRAD_ALL = 5e-2, 1e-6, 1e-2
