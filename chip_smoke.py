@@ -236,12 +236,57 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 at head dim 96; the deformable conv's device ms.
                 `python3 chip_smoke.py families` runs the device and build
                 phases and this phase alone.
+ 16. unimodal - the unimodal MixFormer-ViT family (phase_unimodal), full
+                width, seeded random weights: mixformer_vit/baseline (ViT-B,
+                CORNER_UP, 128/288, search factor 4.5): the f32 forward and
+                cached path on the card against the CPU (BOX_TOL);
+                create_tracker's RGBCachedTracker in RGB, TIR and Prompt,
+                f32 and bf16, on the 63 frames at update interval 25, graphed
+                against eager bit for bit, no hand-written kernel launched
+                (the cached path's attention is plain), 10 frames profiled;
+                the f32 cached tracker against the full-forward RGBTracker
+                (K1) within UNI_CACHED_PX; 3 Trainer steps at batch 32 on
+                SyntheticVideo graphed against eager, bf16 bit for bit, f32
+                as the flagship's f32 (an f32 step is not repeatable bit for
+                bit: counters, generator and first forward bit for bit, one
+                replay from one state within the f32 bounds; K1 and K2 on a
+                unimodal path).
+                mixformer_vit_online/baseline: OnlineTracker (online size
+                3, the ring growing at frames 25 and 50), its score bias
+                centred, f32 and bf16, graphed against eager bit for bit,
+                the commits printed; stage 2 at batch 32 bf16 graphed
+                against eager, frozen tensors unchanged. The device ms of
+                the cached path's plain attention in the profiled bf16
+                frames of both trackers, and its share of their busy time
+                (`_attend_in_frames`). Then `eval.run
+                mixformer_vit_online baseline --dataset_name
+                synthetic_rgbt_hard --type TIR --batch_sequences 12`, and
+                lockstep N = 12 against one stream in TIR mode (f32 within
+                UNI_LOCKSTEP_PX, the same score files; bf16 printed); the
+                RGB-T online tracker's bf16 lockstep drift with K1-bf16 in
+                both runs, with its plain version in both, and, as the
+                control, the plain version with the lockstep run's scale
+                times 1 ± 2^-18, 2^-20 or 2^-22. ViT-L: mixformer_vit/baseline_large (GPU vs
+                CPU in f32, 63 bf16 frames graphed, ACCUM_ITER's 3 bf16
+                steps at batch 12 graphed against eager, parameters, peak
+                memory) and mixformer_vit_rgbt/baseline_large (its own
+                TEST sizes 192 / 384, without the tracking overlay's 128 /
+                288: 63 bf16 frames graphed against eager, one update of 3
+                micro-batches of 12); K1 / K1-bf16 and K2 / K2-bf16 at the ViT-L shapes
+                and ViT-B's batch 32 against their plain versions.
+                `python3 chip_smoke.py unimodal` runs the device and build
+                phases and this phase alone.
 Then the kernel table line (launches by path: tracker, graphs, train,
-eval, online, stage2, families for the f32 kernels; train bf16,
-lifecycle, stage2 bf16, families bf16, and for the forward kernels the
-bf16 tracker, graphs, eval and online; train, train bf16, lifecycle, both
-stage-2 runs and families bf16 for AdamW) and, last, {"ok": true,
-"device": {...}}.
+eval, online, stage2, families, unimodal for the f32 kernels; train bf16,
+lifecycle, stage2 bf16, families bf16, unimodal bf16, and for the forward
+kernels the bf16 tracker, graphs, eval and online; train, train bf16,
+lifecycle, both stage-2 runs, families bf16 and both unimodal runs for
+AdamW; the unimodal phase's RGB-T runs count under online bf16 and
+families bf16) and, last, {"ok": true, "device": {...}}.
+
+`python3 chip_smoke.py drift` runs the device and build phases and, alone,
+the spread study behind the drift check of phase 16 (`phase_drift`): the
+kernels, their plain version and the control at three score-bias offsets.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -1833,16 +1878,27 @@ def _wall_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def _device_intervals(prof) -> list:
-    """(start_us, end_us, name) of every kernel, copy and memset in a
-    torch.profiler run, read from its Chrome trace."""
+def _trace_events(prof) -> list:
+    """The events of a torch.profiler run, read from its Chrome trace."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+            return json.load(f)["traceEvents"]
+
+
+def _device_events(events) -> list:
+    """Every kernel, copy and memset of a trace, in start order."""
+    return sorted((e for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda e: float(e["ts"]))
+
+
+def _device_intervals(prof) -> list:
+    """(start_us, end_us, name) of every kernel, copy and memset in a
+    torch.profiler run, in start order."""
+    return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+            for e in _device_events(_trace_events(prof))]
 
 
 def _busy_us(intervals) -> float:
@@ -2001,12 +2057,13 @@ def _track_run(tracker, frames, timed_from: int = 9) -> dict:
                 peak_reserved=torch.cuda.max_memory_reserved())
 
 
-def _profile_track(tracker, frames, names: dict) -> dict:
+def _profile_track(tracker, frames, names: dict, keep: list | None = None) -> dict:
     """torch.profiler over `frames` tracked one by one: device busy ms,
     idle share and operations per frame, and per kernel the launch count
     and the number of device kernels of its name (a graph replay's
     kernels are the graph's nodes). A session run again (lost events)
-    tracks the same frames from the same state."""
+    tracks the same frames from the same state. `keep`, a list, gets the
+    device intervals of the session kept."""
     from torch.profiler import ProfilerActivity, profile
     snap = tracker.snapshot()
     for attempt in range(PROFILE_SESSIONS):
@@ -2026,6 +2083,8 @@ def _profile_track(tracker, frames, names: dict) -> dict:
         if not _lost_events(launches, by_name):
             break
     busy, n = _busy_us(ivals), len(frames)
+    if keep is not None:
+        keep.extend(ivals)
     return dict(wall_ms_per_frame=wall_us / n / 1e3, device_busy_ms_per_frame=busy / n / 1e3,
                 device_idle_share=1.0 - busy / wall_us, device_ops_per_frame=len(ivals) / n,
                 launches=launches, kernels_by_name=by_name, profiler_sessions=attempt + 1)
@@ -2532,15 +2591,25 @@ def _one_replay_f32(graphed, eager, x) -> dict:
     mg, me = graphed._step(x, KEEP_FINAL), eager._step(x, KEEP_FINAL)
     torch.cuda.synchronize()
     require(len(graphed._step.graphs) == n_graphs, "the one-step check captured a new graph")
-    sg, se = _train_state(graphed), _train_state(eager)
+    return _one_step_bounds((mg, _train_state(graphed), _grads(graphed)),
+                            (me, _train_state(eager), _grads(eager)))
+
+
+def _grads(tr) -> dict:
+    return {f"{i}": t for i, t in enumerate(tr.optimizer.grads)}
+
+
+def _one_step_bounds(replay: tuple, eager: tuple) -> dict:
+    """`_one_replay_f32`'s checks on the (metrics, training state,
+    gradients) of a replay and of an eager step from one state."""
+    (mg, sg, gg), (me, se, ge) = replay, eager
     exact = [k for k in sg if k in ("counters", "generator") or "running_" in k
              or k.endswith("num_batches_tracked")]
     fwd = ("Loss/total", "Loss/ciou", "Loss/l1", "IoU")
     diff = _differing({k: sg[k] for k in exact}, {k: se[k] for k in exact}) + _differing(
         {k: mg[k] for k in fwd}, {k: me[k] for k in fwd})
     require(not diff, f"f32 replay and eager step from one state differ in {diff}")
-    grads = {f"{i}": t for i, t in enumerate(graphed.optimizer.grads)}
-    grad_rel = _rel_dist(grads, {f"{i}": t for i, t in enumerate(eager.optimizer.grads)}, ("",))
+    grad_rel = _rel_dist(gg, ge, ("",))
     norm_rel = abs(float(mg["grad_norm"]) - float(me["grad_norm"])) / float(me["grad_norm"])
     weights_rel, moments_rel = _rel_dist(sg, se, ("net/",)), _rel_dist(sg, se, ("mu/", "nu/"))
     require(grad_rel <= F32_GRAD_REL and norm_rel <= 1e-5 and weights_rel <= F32_WEIGHTS_REL
@@ -4153,6 +4222,67 @@ def _graphed_vs_eager_in_place(tr, batches) -> dict:
                 graphs=len(graphs or ()))
 
 
+def _f32_graphed_vs_eager_in_place(tr, batches) -> dict:
+    """The f32 form of `_graphed_vs_eager_in_place`. An f32 step is not
+    repeatable bit for bit even without K4 (two eager runs are compared
+    below), so it follows the flagship's f32 check (`_graphed_vs_eager`):
+    the steps graphed, then twice eager, each from the state before them
+    loaded back in place; the counters, the generator state, the BN batch
+    counts and the first step's forward metrics the same bits, the same
+    launches, the runs' distances printed; then, from one state, one
+    replay against one eager step on the last batch, held to
+    `_one_replay_f32`'s bounds (forward and BN statistics the same bits,
+    gradients within F32_GRAD_REL of their norm, weights and moments after
+    the update within F32_WEIGHTS_REL and F32_MOMENTS_REL)."""
+    graphs = tr._step.graphs
+
+    def load(state):
+        tr.model.load_state_dict(state[0])
+        tr.optimizer.load_state_dict(state[1])
+        tr.generator.set_state(state[2])
+
+    def saved():
+        return ({k: v.clone() for k, v in tr.model.state_dict().items()},
+                copy.deepcopy(tr.optimizer.state_dict()), tr.generator.get_state())
+
+    before, runs = saved(), {}
+    for name in ("graphed", "eager", "eager2"):
+        load(before)
+        tr._step.graphs = graphs if name == "graphed" else None
+        reset_launches()
+        metrics = [tr._step(x, None) for x in batches]
+        torch.cuda.synchronize()
+        runs[name] = ({f"step{i}/{k}": v for i, m in enumerate(metrics) for k, v in m.items()},
+                      read_launches(), _cloned_state(tr))
+    (mg, lg, g), (me, le, e), (_, le2, e2) = runs["graphed"], runs["eager"], runs["eager2"]
+    exact = [k for k in g if k in ("counters", "generator") or k.endswith("num_batches_tracked")]
+    first = [f"step0/{k}" for k in ("Loss/total", "Loss/ciou", "Loss/l1", "IoU")]
+    diff = _differing({k: g[k] for k in exact}, {k: e[k] for k in exact}) + _differing(
+        {k: mg[k] for k in first}, {k: me[k] for k in first})
+    require(not diff and lg == le == le2,
+            f"graphed and eager f32 training differ in {diff} or launches {lg} vs {le} vs {le2}")
+    losses = [float(mg[f"step{i}/Loss/total"]) for i in range(len(batches))]
+    require(all(np.isfinite(losses)) and len(set(losses)) > 1, f"losses {losses}")
+    dist = {f"{what}_{pair}": _rel_dist(x, y, prefixes)
+            for what, prefixes in (("weights", ("net/",)), ("moments", ("mu/", "nu/")))
+            for pair, x, y in (("graphed_eager", g, e), ("eager_eager2", e, e2))}
+
+    # one step from one state: a replay, then the same step eager
+    state, one = saved(), {}
+    for name in ("graphed", "eager"):
+        load(state)
+        tr._step.graphs = graphs if name == "graphed" else None
+        m = tr._step(batches[-1], None)
+        torch.cuda.synchronize()
+        one[name] = (m, _cloned_state(tr), {k: t.clone() for k, t in _grads(tr).items()})
+    tr._step.graphs = graphs
+    return dict(check="f32: counters, generator, BN counts, first forward bit for bit",
+                steps=len(batches), launches=lg, loss=losses, graphs=len(graphs or ()),
+                eager_runs_same_bits=not _differing(e, e2),
+                tensors_differing_graphed_eager=len(_differing(g, e)), rel_dist_after_steps=dist,
+                one_replay=_one_step_bounds(one["graphed"], one["eager"]))
+
+
 def _family_training(script: str, cfg_script: str, recipe: str, save_dir: str,
                      layers: int, blocks: int) -> tuple:
     """The Trainer's default (bf16, graphed) at batch 16: FAMILY_STEPS steps
@@ -4506,17 +4636,682 @@ def phase_families(smi: str, frames, save_dir: str) -> dict:
     return {"f32": f32, "bf16": bf16}
 
 
+# ---------------------------------------------------------------- unimodal
+UNI_SCRIPT, UNI_ONLINE = "mixformer_vit", "mixformer_vit_online"
+UNI_B, UNI_LARGE_B = 32, 12        # the recipes' batches (ViT-B, ViT-L)
+UNI_STEPS = 3                      # bf16 training steps, graphed then eager
+MODES = ("RGB", "TIR", "Prompt")
+#: cached tracker against the full forward over the 63 frames (px): the
+#: cached path attends through the plain f32 einsum, the full forward
+#: through K1 (3xTF32), so each frame's box differs by rounding (~1e-5 of
+#: the 288 px crop), and the chaotic random-weight trajectory may carry it
+#: along; this is eval's lockstep bound, where the same holds
+UNI_CACHED_PX = EVAL_PX_TOL
+UNI_LOCKSTEP_PX = 1e-3             # f32 lockstep N = 12 against one stream, px
+#: (B*H, N, n_mt) of K1 / K2 on this phase's paths at ViT-L's recipe shapes
+#: (template 192: 2 x 144 template tokens; search 384: 576 tokens): one
+#: stream tracked by the RGB-T ViT-L (one backbone a call), training at
+#: batch 12; and ViT-B's training at batch 32 (N 452, n_mt 128)
+UNI_ATTN = ((16, 864, 288), (192, 864, 288), (384, 452, 128))
+#: the drift check's control: the lockstep run's attention scale times
+#: 1 ± each factor; the drift phase also at these score-bias offsets
+DRIFT_FACTORS = (2.0 ** -18, 2.0 ** -20, 2.0 ** -22)
+DRIFT_OFFSETS = (0.0, 0.5, -0.5)
+
+
+def _uni_tracker(params, dtype, mode: str, seed: int = 0):
+    """create_tracker on a unimodal script at update interval 25
+    (ONLINE_INTERVAL_FROM; online size 3 for the online one)."""
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    return create_tracker(params, ONLINE_INTERVAL_FROM, seed=seed, dtype=dtype, mode=mode)
+
+
+def _uni_twin(t, graphs: bool):
+    """A tracker of the same class on the same model and settings."""
+    kw = dict(template_factor=t.template_factor, template_size=t.template_size,
+              search_factor=t.search_factor, search_size=t.search_size,
+              update_interval=t.update_interval, mode=t.mode, device=t.device, graphs=graphs)
+    if t.online:
+        kw.update(online_size=t.online_size, max_score_decay=t.max_score_decay)
+    return type(t)(t.model, **kw)
+
+
+def _uni_run(tracker, frames) -> dict:
+    """`_family_run` with the online tracker's ring at the end."""
+    out = _family_run(tracker, frames)
+    out["state"] = _flat_state(tracker.snapshot())
+    if tracker.online:
+        out["n_filled"], out["forget_id"] = int(tracker._n_filled), int(tracker._forget_id)
+    return out
+
+
+def _aligned(names_e: list, names_g: list) -> tuple:
+    """(what was matched, eager positions, graphed positions) of two device
+    operation sequences: every operation, or where they differ (a graph's
+    copies and memsets may be traced otherwise) the kernels alone; the
+    positions are None where even those differ."""
+    if names_e == names_g:
+        return "every operation", range(len(names_e)), range(len(names_g))
+    kernel = lambda names: [i for i, m in enumerate(names)      # noqa: E731
+                            if not m.startswith(("Memcpy", "Memset"))]
+    idx_e, idx_g = kernel(names_e), kernel(names_g)
+    if [names_e[i] for i in idx_e] == [names_g[i] for i in idx_g]:
+        return "kernels", idx_e, idx_g
+    return "kernels", None, None
+
+
+def _attend_in_frames(eager, snap: dict, frames, graphed: list, busy_ms: float) -> dict:
+    """Device ms a frame of the cached path's plain attention (models/vit.py
+    `_attend`, an einsum, a masked f32 softmax and an einsum a block) in the
+    profiled graphed frames (`graphed`, `_profile_track`'s intervals, and
+    their busy ms a frame), and its share of that busy time. A graph
+    replay's kernels carry no host call, so they are found by position:
+    the eager twin tracks the same frames from the same state (`snap`)
+    under torch.profiler with every `_attend` call in a record_function
+    range; the device operations launched inside those ranges mark
+    positions in the eager run's sequence, and the graphed run's
+    operations at those positions are `_attend`'s, where the two name
+    sequences are the same (`_aligned`). The eager run's own figures are
+    printed beside them."""
+    import multi_modal_tracking_torch.models.vit as vit
+    from torch.profiler import ProfilerActivity, profile, record_function
+    plain, n = vit._attend, len(frames)
+    names_g = [x[2] for x in graphed]
+
+    def tagged(*args, **kw):
+        with record_function("_attend"):
+            return plain(*args, **kw)
+
+    vit._attend = tagged
+    try:
+        for attempt in range(PROFILE_SESSIONS):       # again if the profiler lost events
+            eager.restore(snap)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for fv, fi in frames:
+                    eager.track([fv, fi])
+                torch.cuda.synchronize()
+            events = _trace_events(prof)
+            dev = _device_events(events)
+            matched_on, idx_e, idx_g = _aligned([e["name"] for e in dev], names_g)
+            if idx_e is not None:
+                break
+    finally:
+        vit._attend = plain
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+              and e.get("name") == "_attend"]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and any(a <= float(e["ts"]) <= b for a, b in ranges)}
+    marked = [i for i, e in enumerate(dev) if e.get("args", {}).get("correlation") in inside]
+    eager_ms = sum(float(dev[i]["dur"]) for i in marked) / n / 1e3
+    eager_busy = _busy_us([(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                           for e in dev]) / n / 1e3
+    out = dict(calls_per_frame=len(ranges) / n, operations_per_frame=len(marked) / n,
+               eager_ms_per_frame=eager_ms, eager_busy_ms_per_frame=eager_busy,
+               eager_share_of_busy=eager_ms / eager_busy, profiler_sessions=attempt + 1,
+               graphed_sequence_matches_eager=idx_e is not None, matched_on=matched_on)
+    if idx_e is not None:
+        pos = dict(zip(idx_e, idx_g))
+        ms = sum(graphed[pos[i]][1] - graphed[pos[i]][0] for i in marked if i in pos) / n / 1e3
+        out.update(ms_per_frame=ms, busy_ms_per_frame=busy_ms, share_of_busy=ms / busy_ms)
+    else:
+        out.update(ms_per_frame="not measured", eager_operations=len(dev),
+                   graphed_operations=len(names_g))
+    return out
+
+
+def _uni_tracking(params, dtype, mode: str, frames, shift: float = 0.0, base=None,
+                  attend: bool = False) -> tuple:
+    """create_tracker's tracker (or, with `base`, a tracker of base's class
+    and settings on its model in `mode`) on the 63 frames graphed (with its
+    captures), eager and graphed again, bit for bit (boxes, scores, every
+    state buffer) with the same launches; 10 more frames profiled, with
+    `attend` the plain attention's share of them (`_attend_in_frames`).
+    `shift` moves the online tracker's score bias. Returns (line, tracker,
+    the first run)."""
+    names = TRACK_KERNEL_NAMES[dtype]
+    if base is None:
+        tracker = _uni_tracker(params, dtype, mode)
+    else:
+        tracker = _uni_twin(base, graphs=True)
+        tracker.mode = mode
+    if shift:
+        with torch.no_grad():
+            _score_head_bias(tracker.model).add_(shift)
+    require(tracker.update_interval == 25 and tracker.graphs is not None and tracker.mode == mode,
+            f"{params.script} {mode}: create_tracker gave {type(tracker).__name__}")
+    eager = _uni_twin(tracker, graphs=False)
+    seq = frames[:64]
+    torch.cuda.reset_peak_memory_stats()
+    runs = [(name, _uni_run(tr, seq)) for name, tr in
+            (("graphed_capture", tracker), ("eager", eager), ("graphed", tracker))]
+    first, n = runs[0][1], len(seq) - 1
+    for name, run in runs[1:]:
+        diff = [k for k in ("boxes", "scores")
+                if not np.array_equal(run[k].view(np.int32), first[k].view(np.int32))]
+        diff += _differing(run["state"], first["state"])
+        require(not diff and run["launches"] == first["launches"],
+                f"{params.script} {mode} {dtype}: {name} run differs from the graphed one in "
+                f"{diff[:6]} or launches {run['launches']} vs {first['launches']}")
+    H, W = seq[0][0].shape[:2]
+    require(_inside(first["boxes"].astype(np.float64), H, W)
+            and bool(np.isfinite(first["scores"]).all()),
+            f"{params.script} {mode} {dtype}: a box outside the frame or a score not finite")
+    snap, graphed = tracker.snapshot(), []
+    prof = _profile_track(tracker, frames[64:], names, graphed)
+    require(prof["launches"] == prof["kernels_by_name"],
+            f"{params.script} {mode} {dtype}: launches {prof['launches']} against the "
+            f"profiler's kernels {prof['kernels_by_name']}")
+    if attend:
+        prof["attend"] = _attend_in_frames(eager, snap, frames[64:], graphed,
+                                           prof["device_busy_ms_per_frame"])
+    line = dict(tracker=type(tracker).__name__, mode=mode, frames=n,
+                bit_equal_runs=["eager", "graphed"], launches=first["launches"],
+                ms_per_frame={name: r["ms_per_frame"] for name, r in runs},
+                graphs=len(tracker.graphs), graph_pool_bytes=tracker.graphs.pool_bytes(),
+                peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30, profile=prof)
+    if tracker.online:
+        taken, commits = _candidates(first["scores"], 25, tracker.max_score_decay)
+        line.update(scores_above_half=int((first["scores"] > 0.5).sum()), taken_at=taken,
+                    commit_frames=[25 * (i + 1) for i in range(len(commits))],
+                    commits_of_a_taken_candidate=commits, n_filled=first["n_filled"],
+                    forget_id=first["forget_id"], online_size=tracker.online_size)
+    return line, tracker, first
+
+
+def _uni_gpu_vs_cpu(model) -> dict:
+    """The f32 model on the card against a copy on the CPU on the same
+    random crops (batch 1): the full forward (K1 against its plain version)
+    and the cached path (set_online + forward_test), boxes and scores."""
+    g = torch.Generator().manual_seed(9)
+    ts, ss = model.spec.template_size, model.spec.search_size
+    t, ot = torch.randn(1, ts, ts, 3, generator=g), torch.randn(1, ts, ts, 3, generator=g)
+    s = torch.randn(1, ss, ss, 3, generator=g)
+    cpu = copy.deepcopy(model).cpu()
+    d = {}
+    with torch.no_grad():
+        for path in ("full", "cached"):
+            if path == "full":
+                want, got = (m(*(x.to(dev) for x in (t, ot, s)), run_score_head=True)
+                             for m, dev in ((cpu, "cpu"), (model, "cuda")))
+            else:
+                want, got = (m.forward_test(s.to(dev), m.set_online(t.to(dev), ot.to(dev)),
+                                            run_score_head=True)
+                             for m, dev in ((cpu, "cpu"), (model, "cuda")))
+            for k in want:
+                d[f"{path}/{k}"] = float((got[k].cpu() - want[k]).abs().max())
+                require(bool(torch.isfinite(got[k]).all()), f"GPU {path} {k} not finite")
+    require(max(d.values()) <= BOX_TOL, f"GPU forward vs CPU: {d} (tolerance {BOX_TOL})")
+    del cpu
+    return d
+
+
+def _uni_train_cfg(script: str, recipe: str, batch: int, steps: int):
+    """The recipe on the synthetic set (SyntheticVideo for a unimodal one,
+    SyntheticRGBT for the RGB-T one): no val split, no warm starts."""
+    from multi_modal_tracking_torch.config import get_default_config
+    cfg = get_default_config(script)
+    cfg.update_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                      "experiments", script, f"{recipe}.yaml"))
+    cfg.DATA.TRAIN.DATASETS_NAME = ["SyntheticRGBT" if "rgbt" in script else "SyntheticVideo"]
+    cfg.DATA.TRAIN.DATASETS_RATIO = [1]
+    cfg.DATA.VAL.DATASETS_NAME = []
+    cfg.MODEL.BACKBONE.PRETRAINED = False
+    for key in ("TRACKER_PRETRAINED_PATH", "RGBT_PRETRAINED_PATH"):
+        if key in cfg.MODEL:
+            cfg.MODEL[key] = ""
+    cfg.TRAIN.BATCH_SIZE = batch
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = batch * steps
+    return cfg
+
+
+def _uni_training(script: str, recipe: str, batch: int, save_dir: str, steps: int = UNI_STEPS,
+                  twin: bool = True, dtype=torch.bfloat16) -> tuple:
+    """The Trainer, graphed, on the recipe at its default bf16 or at `dtype`:
+    `steps` steps graphed against eager (`_graphed_vs_eager_in_place`, bit
+    for bit; f32 `_f32_graphed_vs_eager_in_place`), or with twin=False
+    graphed alone; the dtype's K1 and K2
+    launched, no kernel of the other dtype; ms per step, busy, idle, memory
+    (`_stage2_timing`); stage 2 also the frozen check. Returns (line,
+    launches)."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    bf16 = dtype == torch.bfloat16
+    kernels, other = (BF16_KERNELS, F32_KERNELS) if bf16 else (F32_KERNELS, BF16_KERNELS)
+    cfg = _uni_train_cfg(script, recipe, batch, steps)
+    kw = {} if bf16 else dict(dtype=dtype)
+    tr = Trainer(script, cfg, save_dir=save_dir, device="cuda", seed=0, print_interval=steps,
+                 **kw)
+    require(tr.dtype == dtype and tr._step.graphs is not None,
+            f"{script}/{recipe}: Trainer {tr.dtype}")
+    batches = [model_inputs(batch_to_model_inputs(b, rgbt=tr.rgbt), "cuda")
+               for b in build_train_loader(cfg, seed=4)]
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    if twin:
+        check = _graphed_vs_eager_in_place if bf16 else _f32_graphed_vs_eager_in_place
+        line = dict(graphed_vs_eager=check(tr, batches))
+        got = line["graphed_vs_eager"]["launches"]
+    else:
+        reset_launches()
+        metrics = [tr._step(x, None) for x in batches]
+        torch.cuda.synchronize()
+        got = read_launches()
+        losses = [float(m["Loss/total"]) for m in metrics]
+        require(all(np.isfinite(losses)), f"{script}/{recipe}: losses {losses}")
+        line = dict(loss=losses)
+    require(got[kernels[0]] > 0 and got[kernels[1]] > 0 and not any(got[k] for k in other),
+            f"{script}/{recipe} training: launches {got}")
+    if tr._step.train_score:
+        line["frozen"] = _frozen_check(tr, before)
+    reset_launches()
+    timing = _stage2_timing(tr, batches[0], bf16)
+    launches = {k: got[k] + read_launches()[k] for k in kernels + ("AdamW",)}
+    line.update(batch=batch, dtype="bf16" if bf16 else "f32", steps=steps,
+                accum_iter=cfg.TRAIN.ACCUM_ITER,
+                train_score=tr._step.train_score, **timing,
+                regime={g: tr.optimizer.mults[g] for g in tr.optimizer.groups},
+                params=sum(p.numel() for p in tr.model.parameters()),
+                samples_per_s=batch / timing["ms_per_step_median"] * 1e3,
+                peak_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR") -> tuple:
+    """The online unimodal tracker on synthetic_rgbt_hard in `mode` at update
+    interval 25 and online size 3, the score bias shifted: one stream
+    (run_dataset) against lockstep N = 12 (eval.run's twin,
+    BatchedOnlineTracker). The score bias is shifted by `shift`, or with
+    None by minus the median logit of the first sequence tracked eager.
+    f32: within UNI_LOCKSTEP_PX of one stream with byte-equal score files;
+    bf16: the drift printed. No hand-written kernel runs (the cached path's
+    attention is plain). Returns (line, shift)."""
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.run import _batched_twin
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    from multi_modal_tracking_torch.tracking.batched import BatchedOnlineTracker
+    seqs = get_dataset("synthetic_rgbt_hard")
+    single = _uni_tracker(_family_params(UNI_ONLINE, UNI_ONLINE, "baseline"), dtype, mode)
+    if shift is None:               # centre the scores of the first sequence
+        probe = _uni_twin(single, graphs=False)
+        probe.initialize(list(seqs[0].frames[0]), seqs[0].init_info())
+        s = np.asarray([probe.track(list(f))["pred_score"] for f in seqs[0].frames[1:]])
+        shift = -float(np.median(np.log(s / (1.0 - s))))
+        del probe
+    with torch.no_grad():
+        _score_head_bias(single.model).add_(shift)
+    bt = _batched_twin(single, EVAL_CHUNK)
+    require(type(bt) is BatchedOnlineTracker and bt.online_size == 3 and bt.mode == mode,
+            f"eval.run's lockstep twin of OnlineTracker: {type(bt).__name__}")
+    label = "f32" if dtype == torch.float32 else "bf16"
+    one = _eval_run(f"uni_A_{label}", lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK),
+                    seqs, root, runs, kernels=())
+    lock = _eval_run(f"uni_B12_{label}", lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG),
+                     seqs, root, runs, kernels=())
+    res = _lockstep_vs_one(one, lock, seqs, root, f"uni_A_{label}", f"uni_B12_{label}", runs,
+                           UNI_LOCKSTEP_PX if dtype == torch.float32 else None)
+    scores = np.concatenate([np.loadtxt(os.path.join(root, f"uni_A_{label}", f"{q.name}_score.txt"))
+                             for q in seqs])
+    res.update(score_bias_shift=shift, scores_above_half_share=float((scores > 0.5).mean()))
+    return res, shift
+
+
+def _lockstep_vs_one(one, lock, seqs, root, a: str, b: str, runs: dict, bound) -> dict:
+    """Lockstep against one stream: the largest box difference, the mean
+    centre distance and the sequences whose score files differ, kept in
+    runs[b]; with a bound, the difference must be within it and the score
+    files byte-equal."""
+    worst = max(float(np.abs(lock[k] - one[k]).max()) for k in one)
+    differ = []
+    for s in seqs:
+        with open(os.path.join(root, a, f"{s.name}_score.txt"), "rb") as fa, \
+                open(os.path.join(root, b, f"{s.name}_score.txt"), "rb") as fb:
+            if fa.read() != fb.read():
+                differ.append(s.name)
+    centre = float(np.mean([_centre_px(lock[k], one[k]).mean() for k in one]))
+    res = dict(max_abs_px_vs_one_stream=worst, centre_px_vs_one_stream_mean=centre,
+               score_files_differing=differ)
+    runs[b].update(res)
+    require(bound is None or (worst <= bound and not differ),
+            f"lockstep {b}: {worst} px from one stream (bound {bound}), score files "
+            f"differing {differ}")
+    return res
+
+
+def _rgbt_online_drift(frames, root: str, runs: dict, offsets=(0.0,)) -> dict:
+    """The open check on the RGB-T online tracker's bf16 lockstep drift
+    (asymmetric_shared_online, bf16, synthetic_rgbt_hard one stream against
+    lockstep N = 12, the score bias centred as phase_online centres it and
+    moved by each of `offsets`), the two runs' attention by turns: both
+    with K1-bf16 (whose key shares differ between batch 1 and 12,
+    attention_bf16_plan); both with its plain version (batch-invariant but
+    for cuBLAS's GEMMs); and, as the control, the plain version in both
+    with the lockstep run's attention scale larger or smaller by each of
+    DRIFT_FACTORS (an f32-sized difference between the two runs, as the bf16
+    phase's drift_by_kernel uses one). Each offset's summary says whether
+    the kernels' distance lies within the control's spread (at most its
+    largest). The runs' lines and launches go to `runs`."""
+    import multi_modal_tracking_torch.ops.attention as attention
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.eval.run import _batched_twin
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    seqs = get_dataset("synthetic_rgbt_hard")
+    k1, p1 = attention.mixed_attention_bf16, attention.mixed_attention_bf16_ref
+
+    def scaled(factor):
+        def p1_scaled(q, k, v, n_mt, scale, **kw):
+            return p1(q, k, v, n_mt, scale * factor, **kw)
+        return p1_scaled
+
+    probe = create_tracker(_online_params(), ONLINE_INTERVAL_FROM, seed=0, dtype=torch.bfloat16)
+    shift = _centre_score_bias(probe, frames[:64])
+    del probe
+    out = dict(score_bias_shift=shift)
+    for offset in offsets:
+        tag = f"offset {offset:+g}"
+        cases = [("kernels", k1, k1), ("plain_K1-bf16", p1, p1)]
+        cases += [(f"plain, lockstep scale x (1 {sign} 2^{int(np.log2(f))})", p1,
+                   scaled(1.0 + f if sign == "+" else 1.0 - f))
+                  for f in DRIFT_FACTORS for sign in "+-"]
+        res, alone = {}, {}
+        for name, f_one, f_lock in cases:
+            try:
+                single = create_tracker(_online_params(), ONLINE_INTERVAL_FROM, seed=0,
+                                        dtype=torch.bfloat16)
+                with torch.no_grad():
+                    _score_head_bias(single.model).add_(shift + offset)
+                bt = _batched_twin(single, EVAL_CHUNK)
+                kernels = BF16_SERVING if name == "kernels" else ("K3-bf16",)
+                # swapped before each run: its launch counts are read from
+                # the function in place (reset_launches gives it a count);
+                # one stream runs once per function (the controls share the
+                # plain one)
+                if f_one not in alone:
+                    attention.mixed_attention_bf16 = f_one
+                    a = f"rgbt_A_{tag}_{name}"
+                    alone[f_one] = (a, _eval_run(
+                        a, lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK),
+                        seqs, root, runs, kernels))
+                a, one = alone[f_one]
+                attention.mixed_attention_bf16 = f_lock
+                b = f"rgbt_B12_{tag}_{name}"
+                lock = _eval_run(b, lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG),
+                                 seqs, root, runs, kernels)
+                res[name] = _lockstep_vs_one(one, lock, seqs, root, a, b, runs, None)
+                res[name]["one_stream_fps"] = runs[a]["fps"]
+            finally:
+                attention.mixed_attention_bf16 = k1
+            del single, bt
+            torch.cuda.empty_cache()
+        control = [r["max_abs_px_vs_one_stream"] for n, r in res.items() if "scale" in n]
+        worst = res["kernels"]["max_abs_px_vs_one_stream"]
+        res["summary"] = dict(kernels_px=worst, control_px=control,
+                              control_px_range=[min(control), max(control)],
+                              plain_px=res["plain_K1-bf16"]["max_abs_px_vs_one_stream"],
+                              kernels_within_control_spread=worst <= max(control))
+        out[tag] = res
+    return out
+
+
+def phase_drift(smi: str, frames, save_dir: str) -> dict:
+    """The spread behind the RGB-T online bf16 drift check
+    (`_rgbt_online_drift`): the kernels, their plain version and the
+    control at each of DRIFT_OFFSETS (the score bias moved from its
+    centred value, which moves the commits and so the trajectories); the
+    unimodal phase runs the first alone. Run alone by
+    `python3 chip_smoke.py drift`; not part of the whole script. Returns
+    the launch counts (the online tracker's path)."""
+    launches = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        runs = {}
+        res = _rgbt_online_drift(frames, root, runs, DRIFT_OFFSETS)
+        for k in BF16_SERVING:
+            launches[k] += sum(r["launches"][k] for r in runs.values())
+    within = [res[t]["summary"]["kernels_within_control_spread"]
+              for t in res if t != "score_bias_shift"]
+    emit({"phase": "drift study", "card": smi, "script": ONLINE_SCRIPT, "runs": runs, **res,
+          "offsets_with_kernels_within_control_spread": sum(within), "offsets": len(within),
+          "seconds": time.perf_counter() - t0})
+    return {"online_bf16": launches}
+
+
+def _uni_attention_checks(g: torch.Generator) -> list:
+    """K1 and K1-bf16 at UNI_ATTN's shapes against their plain versions (ms
+    per call, CUDA events), K2 and K2-bf16 at the training ones (B*H 192
+    and 384)."""
+    from multi_modal_tracking_torch.ops.attention import (
+        mixed_attention_bf16, mixed_attention_bf16_ref, mixed_attention_bwd,
+        mixed_attention_bwd_bf16, mixed_attention_bwd_bf16_ref, mixed_attention_bwd_ref,
+        mixed_attention_fwd, mixed_attention_ref)
+    rows = []
+    for bh, n, n_mt in UNI_ATTN:
+        heads = 16 if n == 864 else HEADS
+        B, scale = bh // heads, HEAD_D ** -0.5
+        q, k, v = _qkv(B, heads, n, n, HEAD_D, g)
+        out, lse = mixed_attention_fwd(q, k, v, n_mt, scale, return_lse=True)
+        err, _, ok = max_err(out, mixed_attention_ref(q, k, v, n_mt, scale))
+        require(ok, f"K1 B*H={bh} N={n} disagrees with its plain version: {err}")
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        errs = _bf16_errors(f"K1-bf16 B*H={bh} N={n}",
+                            mixed_attention_bf16(qb, kb, vb, n_mt, scale),
+                            mixed_attention_bf16_ref(qb, kb, vb, n_mt, scale),
+                            mixed_attention_ref(qb.float(), kb.float(), vb.float(), n_mt, scale),
+                            vb)
+        row = dict(BH=bh, heads=heads, N=n, n_mt=n_mt, k1_max_abs_err=err, k1_bf16=errs,
+                   k1_event_ms=cuda_time_ms(lambda: mixed_attention_fwd(q, k, v, n_mt, scale)),
+                   k1_bf16_event_ms=cuda_time_ms(
+                       lambda: mixed_attention_bf16(qb, kb, vb, n_mt, scale)))
+        if bh >= 192:
+            gr = torch.randn(B, heads, n, HEAD_D, generator=g).cuda()
+            got = mixed_attention_bwd(q, k, v, out, gr, n_mt, scale, lse)
+            want = mixed_attention_bwd_ref(q, k, v, gr, n_mt, scale)
+            e2 = [max_err_scaled(a, b) for a, b in zip(got, want)]
+            require(all(e[2] for e in e2), f"K2 B*H={bh} N={n}: {[e[0] for e in e2]}")
+            _, lse_b = mixed_attention_bf16(qb, kb, vb, n_mt, scale, return_lse=True)
+            grb = gr.to(torch.bfloat16)
+            gotb = mixed_attention_bwd_bf16(qb, kb, vb, grb, n_mt, scale, lse_b)
+            plainb = mixed_attention_bwd_bf16_ref(qb, kb, vb, grb, n_mt, scale)
+            e2b = [max_err(a.float(), b.float(), bf16_tol(b)) for a, b in zip(gotb, plainb)]
+            require(all(e[2] for e in e2b), f"K2-bf16 B*H={bh} N={n}: {[e[0] for e in e2b]}")
+            row.update(k2_max_abs_err=[e[0] for e in e2], k2_bf16_max_abs_err=[e[0] for e in e2b],
+                       k2_event_ms=cuda_time_ms(
+                           lambda: mixed_attention_bwd(q, k, v, out, gr, n_mt, scale, lse), 10),
+                       k2_bf16_event_ms=cuda_time_ms(
+                           lambda: mixed_attention_bwd_bf16(qb, kb, vb, grb, n_mt, scale, lse_b),
+                           10))
+        rows.append(row)
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
+    """The unimodal MixFormer-ViT family at full width, seeded random
+    weights (module docstring, phase 16). Returns the launch counts by
+    path: the unimodal paths' f32 and bf16, and those of the RGB-T runs the
+    phase makes beside them, the online tracker's drift runs
+    (`online_bf16`) and the RGB-T ViT-L recipe (`families_bf16`)."""
+    from multi_modal_tracking_torch.eval.run import main as eval_cli
+    from multi_modal_tracking_torch.tracking.tracker import RGBTracker
+    g = torch.Generator().manual_seed(16)
+    f32 = dict.fromkeys(F32_KERNELS + ("AdamW",), 0)
+    bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    online_bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    families_bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    totals = {torch.float32: f32, torch.bfloat16: bf16}
+    attend = {}
+
+    # mixformer_vit/baseline: three modes, f32 and bf16, the cached tracker
+    t0 = time.perf_counter()
+    params = _family_params(UNI_SCRIPT, UNI_SCRIPT, "baseline")
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "f32" if dtype == torch.float32 else "bf16"
+        base = None             # create_tracker's for RGB; the other modes on its model
+        for mode in MODES:
+            line, tracker, first = _uni_tracking(params, dtype, mode, frames, base=base,
+                                                 attend=dtype == torch.bfloat16 and mode == "RGB")
+            base = base or tracker
+            _add_launches(totals[dtype], line["launches"], totals[dtype])
+            require(line["tracker"] == "RGBCachedTracker"
+                    and not any(line["launches"][k] for k in F32_KERNELS + BF16_KERNELS),
+                    f"{UNI_SCRIPT} {mode} {label}: {line['tracker']}, launches "
+                    f"{line['launches']} (the cached path runs no hand-written kernel)")
+            if "attend" in line["profile"]:
+                attend["RGBCachedTracker"] = line["profile"]["attend"]
+            if dtype == torch.float32 and mode == "RGB":
+                res["gpu_vs_cpu_max_abs"] = _uni_gpu_vs_cpu(tracker.model)
+                res["params"] = sum(p.numel() for p in tracker.model.parameters())
+                full = RGBTracker(tracker.model, **{k: getattr(tracker, k) for k in (
+                    "template_factor", "template_size", "search_factor", "search_size",
+                    "update_interval", "mode")})
+                fr = _family_run(full, frames[:64])
+                _add_launches(f32, fr["launches"], f32)
+                d = float(np.abs(fr["boxes"] - first["boxes"]).max())
+                require(fr["launches"]["K1"] == 12 * 63 and d <= UNI_CACHED_PX,
+                        f"{UNI_SCRIPT}: cached vs full forward {d} px (bound {UNI_CACHED_PX}), "
+                        f"full-forward launches {fr['launches']}")
+                res["cached_vs_full"] = dict(max_abs_px=d, bound_px=UNI_CACHED_PX,
+                                             full_ms_per_frame=fr["ms_per_frame"],
+                                             full_launches={"K1": fr["launches"]["K1"]})
+                del full
+            res[f"track_{label}_{mode}"] = line
+            del tracker
+        del base
+        torch.cuda.empty_cache()
+    res["train_bf16"], counts = _uni_training(UNI_SCRIPT, "baseline", UNI_B, save_dir)
+    _add_launches(bf16, counts, counts)
+    res["train_f32"], counts = _uni_training(UNI_SCRIPT, "baseline", UNI_B, save_dir,
+                                             dtype=torch.float32)
+    _add_launches(f32, counts, counts)
+    emit({"phase": "unimodal mixformer_vit", "card": smi, "recipe": f"{UNI_SCRIPT}/baseline",
+          "tolerance": BOX_TOL, **res, "seconds": time.perf_counter() - t0})
+
+    # mixformer_vit_online/baseline: the ring, the score gate, stage 2
+    t0 = time.perf_counter()
+    params = _family_params(UNI_ONLINE, UNI_ONLINE, "baseline")
+    probe = _uni_twin(_uni_tracker(params, torch.float32, "RGB"), graphs=False)
+    s = _family_run(probe, frames[:64])["scores"].astype(np.float64)
+    shift = -float(np.median(np.log(s / (1.0 - s))))
+    del probe
+    res = dict(score_bias_shift=shift)
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "f32" if dtype == torch.float32 else "bf16"
+        line, tracker, first = _uni_tracking(params, dtype, "RGB", frames, shift,
+                                             attend=dtype == torch.bfloat16)
+        _add_launches(totals[dtype], line["launches"], totals[dtype])
+        require(line["tracker"] == "OnlineTracker" and line["online_size"] == 3
+                and line["n_filled"] == 3 and line["forget_id"] == 0
+                and any(line["commits_of_a_taken_candidate"]),
+                f"{UNI_ONLINE} {label}: {line['tracker']}, ring {line.get('n_filled')} / "
+                f"{line.get('forget_id')}, commits {line.get('commits_of_a_taken_candidate')}")
+        if "attend" in line["profile"]:
+            attend["OnlineTracker"] = line["profile"]["attend"]
+        res[f"track_{label}"] = line
+        del tracker
+        torch.cuda.empty_cache()
+    res["stage2_bf16"], counts = _uni_training(UNI_ONLINE, "baseline", UNI_B, save_dir)
+    _add_launches(bf16, counts, counts)
+    emit({"phase": "unimodal mixformer_vit_online", "card": smi,
+          "recipe": f"{UNI_ONLINE}/baseline", **res, "seconds": time.perf_counter() - t0})
+    emit({"phase": "unimodal cached attention", "card": smi,
+          "what": "device ms a bf16 frame of the cached path's plain attention (models/vit.py "
+                  "_attend) in the 10 profiled graphed frames, found by position from the "
+                  "eager twin's trace of the same frames, and its share of their device "
+                  "busy time", **attend})
+
+    # lockstep: the CLI, then N = 12 against one stream; the RGB-T drift check
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        reset_launches()
+        dirs = eval_cli([UNI_ONLINE, "baseline", "--dataset_name", "synthetic_rgbt_hard",
+                         "--type", "TIR", "--batch_sequences", str(EVAL_BIG), "--results_dir",
+                         os.path.join(root, "cli")])
+        from multi_modal_tracking_torch.eval.datasets import get_dataset
+        names = [s.name for s in get_dataset("synthetic_rgbt_hard")]
+        require(len(dirs) == 1 and all(os.path.isfile(os.path.join(dirs[0], f"{n}{x}.txt"))
+                                       for n in names for x in ("", "_score")),
+                f"eval.run {UNI_ONLINE} --type TIR --batch_sequences {EVAL_BIG}: {dirs}")
+        cli = dict(seconds=time.perf_counter() - t0, launches=read_launches())
+        runs, drift, tir_shift = {}, {}, None
+        for dtype in (torch.float32, torch.bfloat16):
+            label = "f32" if dtype == torch.float32 else "bf16"
+            drift[label], tir_shift = _uni_online_eval(dtype, tir_shift, root, runs)
+        rgbt = _rgbt_online_drift(frames, root, runs)
+        for k in BF16_SERVING:
+            online_bf16[k] += sum(r["launches"][k] for n, r in runs.items()
+                                  if n.startswith("rgbt_"))
+    emit({"phase": "unimodal lockstep", "card": smi, "script": UNI_ONLINE, "mode": "TIR",
+          "cli": cli, "runs": runs, "unimodal_online_drift": drift,
+          "rgbt_online_bf16_drift": rgbt, "seconds": time.perf_counter() - t0})
+
+    # ViT-L: mixformer_vit/baseline_large and mixformer_vit_rgbt/baseline_large
+    t0 = time.perf_counter()
+    res = {}
+    params = _family_params(UNI_SCRIPT, UNI_SCRIPT, "baseline_large")
+    line, tracker, _ = _uni_tracking(params, torch.bfloat16, "RGB", frames)
+    res["track_bf16"] = line
+    del tracker
+    torch.cuda.empty_cache()
+    tracker = _uni_tracker(params, torch.float32, "RGB")
+    res["gpu_vs_cpu_max_abs"] = _uni_gpu_vs_cpu(tracker.model)
+    res["params"] = sum(p.numel() for p in tracker.model.parameters())
+    del tracker
+    torch.cuda.empty_cache()
+    res["train_bf16"], counts = _uni_training(UNI_SCRIPT, "baseline_large", UNI_LARGE_B, save_dir)
+    _add_launches(bf16, counts, counts)
+    emit({"phase": "unimodal vit_large", "card": smi, "recipe": f"{UNI_SCRIPT}/baseline_large",
+          "tolerance": BOX_TOL, **res, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    # the recipe's own TEST sizes (192 / 384): experiments/tracking.yaml,
+    # which get_parameters lays over every RGB-T recipe, sets 128 / 288
+    from multi_modal_tracking_torch.eval.params import get_parameters
+    params = get_parameters("mixformer_vit_rgbt", "baseline_large", tracking_yaml=None)
+    require(params.template_size == 192 and params.search_size == 384,
+            f"mixformer_vit_rgbt/baseline_large: TEST sizes {params.template_size}, "
+            f"{params.search_size}")
+    layers = 0 if params.cfg.MODEL.FUSION_CLASS.startswith("RGBT_Fusion") \
+        else params.cfg.MODEL.FUSION_LAYERS
+    line, tracker = _family_tracking(params, torch.bfloat16, frames, layers, 48)
+    _add_launches(families_bf16, line["launches"], BF16_SERVING)
+    _add_launches(families_bf16, line["profile"]["launches"], BF16_SERVING)
+    n_params = sum(p.numel() for p in tracker.model.parameters())
+    del tracker
+    torch.cuda.empty_cache()
+    # one update: ACCUM_ITER (3) micro-batches of the recipe's 12
+    train, counts = _uni_training("mixformer_vit_rgbt", "baseline_large", UNI_LARGE_B, save_dir,
+                                  twin=False)
+    require(train["accum_iter"] == UNI_STEPS and counts["AdamW"] > 0,
+            f"mixformer_vit_rgbt/baseline_large: ACCUM_ITER {train['accum_iter']}, AdamW "
+            f"launches {counts['AdamW']}")
+    _add_launches(families_bf16, counts, counts)
+    emit({"phase": "unimodal vit_large rgbt", "card": smi,
+          "recipe": "mixformer_vit_rgbt/baseline_large", "params": n_params, "track_bf16": line,
+          "train_bf16": train, "seconds": time.perf_counter() - t0})
+    emit({"phase": "unimodal kernel shapes", "card": smi, "k1_k2": _uni_attention_checks(g)})
+    return {"f32": f32, "bf16": bf16, "online_bf16": online_bf16, "families_bf16": families_bf16}
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     dev, smi = phase_device()
     phase_build()
-    if argv == ["families"]:            # the families phase alone (module docstring)
+    phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift}
+    if len(argv) == 1 and argv[0] in phases:    # one phase alone (module docstring)
         frames = list(_sequence(74))
         with tempfile.TemporaryDirectory() as save_dir:
-            launches = phase_families(smi, frames, save_dir)
-        emit({"phase": "families launches", **launches})
+            launches = phases[argv[0]](smi, frames, save_dir)
+        emit({"phase": f"{argv[0]} launches", **launches})
         return
-    require(not argv, f"unknown arguments {argv}: none, or `families`")
+    require(not argv, f"unknown arguments {argv}: none, `families`, `unimodal` or `drift`")
     phase_bf16_reduction(smi)
     warm_profiler()
     g = torch.Generator().manual_seed(0)
@@ -4540,11 +5335,14 @@ def main(argv=None) -> None:
         stage2 = phase_stage2(smi, save_dir)
     with tempfile.TemporaryDirectory() as save_dir:
         families = phase_families(smi, frames, save_dir)
+    with tempfile.TemporaryDirectory() as save_dir:
+        unimodal = phase_unimodal(smi, frames, save_dir)
     table = []
     for key in F32_KERNELS:
         by_path = {"tracker": track_launches[key], "graphs": graph_launches["f32"][key],
                    "train": train_launches[key], "eval": eval_launches[key],
-                   "stage2": stage2["f32"][key], "families": families["f32"][key]}
+                   "stage2": stage2["f32"][key], "families": families["f32"][key],
+                   "unimodal": unimodal["f32"][key]}
         if key in online["f32"]:
             by_path["online"] = online["f32"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
@@ -4559,11 +5357,13 @@ def main(argv=None) -> None:
             ("model_locations_ms",) if key == "K4" else ())})
     for key in BF16_KERNELS:
         by_path = {"train_bf16": train_bf16_launches[key], "lifecycle": life_launches[key],
-                   "stage2_bf16": stage2["bf16"][key], "families_bf16": families["bf16"][key]}
+                   "stage2_bf16": stage2["bf16"][key],
+                   "families_bf16": families["bf16"][key] + unimodal["families_bf16"][key],
+                   "unimodal_bf16": unimodal["bf16"][key]}
         if key in BF16_SERVING:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
                            graphs_bf16=graph_launches["bf16"][key],
-                           online_bf16=online["bf16"][key])
+                           online_bf16=online["bf16"][key] + unimodal["online_bf16"][key])
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -4578,7 +5378,9 @@ def main(argv=None) -> None:
             ("repeatable",) if key == "K4-bf16" else ())})
     by_path = {"train": train_launches["AdamW"], "train_bf16": train_bf16_launches["AdamW"],
                "lifecycle": life_launches["AdamW"], "stage2": stage2["f32"]["AdamW"],
-               "stage2_bf16": stage2["bf16"]["AdamW"], "families_bf16": families["bf16"]["AdamW"]}
+               "stage2_bf16": stage2["bf16"]["AdamW"],
+               "families_bf16": families["bf16"]["AdamW"] + unimodal["families_bf16"]["AdamW"],
+               "unimodal": unimodal["f32"]["AdamW"], "unimodal_bf16": unimodal["bf16"]["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

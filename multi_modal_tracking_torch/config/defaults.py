@@ -1,11 +1,14 @@
-"""Default config trees of the RGB-T scripts: the `asymmetric_shared*`
-flagship family and the `mixformer_vit_rgbt*` family.
+"""Default config trees of the ported scripts: the `asymmetric_shared*`
+flagship family, the `mixformer_vit_rgbt*` family and the unimodal
+`mixformer_vit` and `mixformer_vit_online`.
 
-The port's own copy of the RGB-T branches of the JAX package's
-`config/defaults.py` (`_rgbt_base`, `_with_ce`, `_with_score`): the same
-default tree, so the same `experiments/*.yaml` recipes overlay onto it.
-`mixformer_vit_rgbt_online` has no default tree there, nor here: its model
-builds from a config the caller passes (`models.build.build_model`).
+The port's own copy of those branches of the JAX package's
+`config/defaults.py` (`_rgbt_base`, `_with_ce`, `_with_score`,
+`_unimodal_vit`): the same default trees, so the same `experiments/*.yaml`
+recipes overlay onto them. `mixformer_vit_rgbt_online` has no default tree
+there, nor here: its model builds from a config the caller passes
+(`models.build.build_model`). The CvT and ConvMAE scripts raise (ROADMAP.md
+queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -108,6 +111,15 @@ def _with_score(c: CfgNode) -> CfgNode:
     return c
 
 
+def _unimodal_vit() -> CfgNode:
+    c = _rgbt_base()
+    del c.MODEL["RGBT_PRETRAINED_PATH"], c.MODEL["FUSION_LAYERS"], c.MODEL["FUSION_CLASS"]
+    del c.TRAIN["RGBT_TRACK"], c.TRAIN["RGBT_TRACK_SHARED"]
+    c.MODEL.RGB_PRETRAINED_PATH = ""
+    c.DATA.MAX_SAMPLE_INTERVAL = 200
+    return c
+
+
 def get_default_config(script: str) -> CfgNode:
     if script in ("asymmetric_shared", "mixformer_vit_rgbt", "mixformer_vit_rgbt_shared",
                   "mixformer_vit_rgbt_unibackbone"):
@@ -123,5 +135,18 @@ def get_default_config(script: str) -> CfgNode:
         c = _rgbt_base()
         del c.MODEL["RGBT_PRETRAINED_PATH"]
         return _with_score(c)
+    if script == "mixformer_vit":
+        c = _unimodal_vit()
+        # a key the reference keeps in this script's defaults, so that the
+        # recipes overlay strictly
+        c.MODEL.FUSION_LAYERS = 6
+        return c
+    if script == "mixformer_vit_online":
+        c = _unimodal_vit()
+        c.MODEL.PRETRAINED_STAGE1 = False
+        _with_score(c)
+        c.TRAIN.HINGE_WEIGHT = 100
+        c.TRAIN.EPOCH = 500
+        return c
     raise KeyError(f"script {script!r} is not ported to multi_modal_tracking_torch "
-                   f"(ROADMAP.md queue 1)")
+                   f"(ROADMAP.md queue 1 item 9)")

@@ -12,7 +12,8 @@
 //                           for one frame or an RGB-T pair;
 //   mmt_jitter_jet_normalise transforms.py tensor_and_jitter_rgbt (+ the
 //                           pixel half of flip_norm), float32 operation by
-//                           operation;
+//                           operation; without a TIR crop, the unimodal
+//                           tensor_and_jitter;
 //   mmt_apply_jet           ops/colormap.py apply_jet_np.
 //
 // Built with g++ -O3 -fPIC -std=c++17 -shared -ffp-contract=off: no
@@ -235,7 +236,8 @@ int mmt_sample_target(const uint8_t* img, const uint8_t* img2, int H, int W, int
 // half of flip_norm when flip is set: out_v = (clip(f32(v) * f32(bf / 255),
 // 0, 1) - mean) / std; out_i = (f32(jet(u8(clip(f32(i) * f32(tir_f), 0,
 // 255)))) / 255 - mean) / std, with the JET map on cv2's BGR2GRAY of the
-// TIR crop. out_v, out_i: (h, w, 3) float32.
+// TIR crop. out_v, out_i: (h, w, 3) float32. With i null (a unimodal crop)
+// only out_v is written, and out_i and tir_f are not read.
 void mmt_jitter_jet_normalise(const uint8_t* v, const uint8_t* i, int h, int w, double bf,
                               double tir_f, int flip, float* out_v, float* out_i) {
   // transforms.py IMAGENET_MEAN / IMAGENET_STD: Python floats rounded to float32
@@ -249,10 +251,13 @@ void mmt_jitter_jet_normalise(const uint8_t* v, const uint8_t* i, int h, int w, 
     for (int c = 0; c < w; ++c) {
       const size_t src = (static_cast<size_t>(r) * w + c) * 3;
       const size_t dst = (static_cast<size_t>(r) * w + (flip ? w - 1 - c : c)) * 3;
-      int u[3];
       for (int k = 0; k < 3; ++k) {
         const float a = std::min(std::max(static_cast<float>(v[src + k]) * vs, 0.0f), 1.0f);
         out_v[dst + k] = (a - mean[k]) / stdv[k];
+      }
+      if (!i) continue;
+      int u[3];
+      for (int k = 0; k < 3; ++k) {
         const float t = std::min(std::max(static_cast<float>(i[src + k]) * ts, 0.0f), 255.0f);
         u[k] = static_cast<int>(t);
       }

@@ -1,9 +1,9 @@
 """Evaluation dataset registry (the port's own copy of the JAX package's
 `eval/datasets.py`): name -> (module, class, kwargs), resolved lazily.
 
-Every name of the JAX registry is here. The in-memory synthetic RGB-T sets
-load; the file-based sets need an image decoder (ROADMAP.md queue 1 item 1)
-and the unimodal ones the unimodal trackers (queue 1 item 9), so loading
+Every name of the JAX registry is here. The in-memory synthetic sets load
+(RGB-T, and the unimodal `synthetic_rgb`); the file-based sets, RGB-T and
+unimodal, need an image decoder (ROADMAP.md queue 1 item 1), so loading
 one of those raises NotImplementedError instead of returning an empty set.
 """
 from __future__ import annotations
@@ -17,21 +17,19 @@ DatasetInfo = namedtuple("DatasetInfo", ["module", "class_name", "kwargs"])
 
 _BASE = "multi_modal_tracking_torch.eval."
 _FILES = "file-based: it needs an image decoder (ROADMAP.md queue 1 item 1)"
-_UNIMODAL = "unimodal: it needs the unimodal trackers (ROADMAP.md queue 1 item 9)"
 
 dataset_dict = dict(
     synthetic_rgbt=DatasetInfo(_BASE + "datasets_rgbt", "SyntheticRGBTEvalDataset", dict()),
     synthetic_rgbt_hard=DatasetInfo(_BASE + "datasets_rgbt", "SyntheticRGBTHardEvalDataset",
                                     dict()),
+    synthetic_rgb=DatasetInfo(_BASE + "datasets_rgbt", "SyntheticRGBEvalDataset", dict()),
 )
 
 #: registry names of the JAX package that the port does not load yet, with why
-pending = dict(
-    {name: _FILES for name in ("lasher", "rgbt234", "gtot", "vtuav", "vtuav_short",
-                               "vtuav_long", "vtuav_train", "depthtrack")},
-    **{name: _UNIMODAL for name in ("synthetic_rgb", "lasot", "lasot_lmdb", "got10k_test",
-                                    "got10k_val", "got10k_ltrval", "trackingnet", "otb",
-                                    "uav", "nfs", "tc128", "tc128ce", "tnl2k")})
+pending = {name: _FILES for name in (
+    "lasher", "rgbt234", "gtot", "vtuav", "vtuav_short", "vtuav_long", "vtuav_train",
+    "depthtrack", "lasot", "lasot_lmdb", "got10k_test", "got10k_val", "got10k_ltrval",
+    "trackingnet", "otb", "uav", "nfs", "tc128", "tc128ce", "tnl2k")}
 
 
 def load_dataset(name: str, **overrides) -> SequenceList:

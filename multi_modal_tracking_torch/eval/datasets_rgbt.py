@@ -1,13 +1,14 @@
-"""In-memory RGB-T evaluation sets (the port's own copies of
-`SyntheticRGBTEvalDataset` and `SyntheticRGBTHardEvalDataset` from the JAX
-package's `eval/datasets_rgbt.py`). Their frames are uint8 arrays, so they
-need no image decoder. The file-based sets (LasHeR, RGBT234, GTOT, VTUAV,
-DepthTrack) wait for one (ROADMAP.md queue 1 item 1)."""
+"""In-memory evaluation sets (the port's own copies of
+`SyntheticRGBTEvalDataset`, `SyntheticRGBTHardEvalDataset` and the unimodal
+`SyntheticRGBEvalDataset` from the JAX package's `eval/datasets_rgbt.py`).
+Their frames are uint8 arrays, so they need no image decoder. The
+file-based sets (LasHeR, RGBT234, GTOT, VTUAV, DepthTrack) wait for one
+(ROADMAP.md queue 1 item 1)."""
 from __future__ import annotations
 
 import numpy as np
 
-from multi_modal_tracking_torch.eval.data import BaseDataset, RGBTSequence, SequenceList
+from multi_modal_tracking_torch.eval.data import BaseDataset, RGBTSequence, Sequence, SequenceList
 
 
 class SyntheticRGBTEvalDataset(BaseDataset):
@@ -28,6 +29,24 @@ class SyntheticRGBTEvalDataset(BaseDataset):
             gt = np.stack([boxes, boxes], axis=1).astype(np.float64)
             seqs.append(RGBTSequence(f"synthetic_{k:02d}", list(zip(frames_v, frames_i)),
                                      "SyntheticRGBT", gt))
+        return SequenceList(seqs)
+
+
+class SyntheticRGBEvalDataset(BaseDataset):
+    """The RGB stream of the procedural `SyntheticRGBT` set as unimodal
+    sequences `synthetic_00`, ... (the unimodal trackers' in-memory set)."""
+
+    def __init__(self, n_sequences: int = 3, n_frames: int = 40, H: int = 240, W: int = 320):
+        self.n_sequences, self.n_frames, self.H, self.W = n_sequences, n_frames, H, W
+
+    def get_sequence_list(self):
+        from multi_modal_tracking_torch.train.data.datasets.synthetic import SyntheticRGBT
+        src = SyntheticRGBT(self.n_sequences, self.n_frames, self.H, self.W)
+        seqs = []
+        for k in range(self.n_sequences):
+            frames_v, _, boxes = src._seq(k)
+            seqs.append(Sequence(f"synthetic_{k:02d}", list(frames_v), "SyntheticRGB",
+                                 boxes.astype(np.float64)))
         return SequenceList(seqs)
 
 

@@ -1,4 +1,4 @@
-"""Tracking-time parameter resolution for the RGB-T scripts.
+"""Tracking-time parameter resolution.
 
 The port's own copy of the JAX package's `eval/params.py`: load the
 script's default config, overlay the training experiment YAML, then the
@@ -11,6 +11,7 @@ import os
 from typing import Optional
 
 from multi_modal_tracking_torch.config import get_default_config
+from multi_modal_tracking_torch.models.build import is_rgbt_script
 
 
 class TrackerParams:
@@ -30,19 +31,23 @@ def _experiments_dir() -> str:
 
 
 def get_parameters(script: str, training_yaml: Optional[str] = None,
-                   tracking_yaml: Optional[str] = "tracking",
+                   tracking_yaml: Optional[str] = "auto",
                    checkpoint: Optional[str] = None,
                    search_area_scale: Optional[float] = None,
                    model: Optional[str] = None) -> TrackerParams:
     """`model`, a bare checkpoint file name, resolves to `save_dir/<model>`
     when TEST.LOAD_FROME_TRAIN_RESULT is set, else `save_dir/models/<model>`
     (`save_dir` from `train.admin.env_settings`, "." when unset); an explicit
-    `checkpoint` path wins."""
+    `checkpoint` path wins. tracking_yaml "auto" is "tracking" for the RGB-T
+    scripts and none for the unimodal ones, whose parameter files take
+    their training recipe alone (the JAX package's eval/params.py:48-57)."""
     params = TrackerParams()
     cfg = get_default_config(script)
     exp = _experiments_dir()
     if training_yaml:
         cfg.update_from_file(os.path.join(exp, script, f"{training_yaml}.yaml"))
+    if tracking_yaml == "auto":
+        tracking_yaml = "tracking" if is_rgbt_script(script) else None
     if tracking_yaml:
         path = os.path.join(exp, f"{tracking_yaml}.yaml")
         if os.path.isfile(path):

@@ -1,7 +1,10 @@
-"""Evaluation CLI of the port: run the RGB-T tracker over a registered
+"""Evaluation CLI of the port: run a script's tracker over a registered
 dataset and write its result files, then print the success / precision
 table. The flags are those of the root `tracking/test.py`, plus --device
 and --dtype (bfloat16, the default as in the JAX package, or float32).
+--type picks the unimodal trackers' input mode (RGB, TIR or Prompt; the
+default RGB for a unimodal script, RGBT for an RGB-T one, which ignores
+it): `--type TIR` on an RGB-T dataset tracks its TIR stream.
 
     python -m multi_modal_tracking_torch.eval.run asymmetric_shared_ce \\
         attention_lasher_newfusion_2layer --dataset_name synthetic_rgbt_hard \\
@@ -12,9 +15,8 @@ Results go to <results_dir>/<dataset>/, by default
 train.admin.env_settings, else output/tracking_results). --checkpoint_dir
 sweeps the `*_ep*.pth.tar` epoch files there (epochs > 10 unless the script
 is an online one), each into its own _epN directory. Without a checkpoint
-the weights are random from seed 0. --type other than RGBT (the unimodal
-trackers, ROADMAP.md queue 1 item 9) and --vis_search (videos through cv2)
-raise.
+the weights are random from seed 0. --vis_search (videos through cv2)
+raises.
 """
 from __future__ import annotations
 
@@ -31,13 +33,9 @@ from multi_modal_tracking_torch.eval.datasets import get_dataset
 from multi_modal_tracking_torch.eval.evaltracker import create_tracker
 from multi_modal_tracking_torch.eval.params import get_parameters
 from multi_modal_tracking_torch.eval.running import _load_frame, run_dataset
-from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
-                                                         BatchedRGBTOnlineCachedTracker,
-                                                         BatchedRGBTOnlineTracker,
-                                                         BatchedRGBTTracker,
-                                                         run_sequences_batched)
-from multi_modal_tracking_torch.tracking.tracker import (RGBTCachedTracker,
-                                                         RGBTOnlineCachedTracker)
+from multi_modal_tracking_torch.models.build import is_rgbt_script
+from multi_modal_tracking_torch.tracking import batched, tracker as single
+from multi_modal_tracking_torch.tracking.batched import run_sequences_batched
 from multi_modal_tracking_torch.train.admin import env_settings
 from multi_modal_tracking_torch.utils.device import DTYPES
 
@@ -49,11 +47,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="training yaml name under experiments/<script>/")
     p.add_argument("--tracking_yaml", type=str, default="auto",
                    help="tracking-time overlay under experiments/; 'auto' is "
-                        "experiments/tracking.yaml (every ported script is RGB-T); '' for none")
+                        "experiments/tracking.yaml for the RGB-T scripts and none for the "
+                        "unimodal ones; '' for none")
     p.add_argument("--dataset_name", type=str, default="synthetic_rgbt")
     p.add_argument("--type", type=str, default=None,
                    choices=[None, "RGB", "TIR", "Prompt", "RGBT"],
-                   help="input mode; only RGBT is ported")
+                   help="input mode of a unimodal script (default RGB); RGB-T scripts "
+                        "ignore it")
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--model", type=str, default=None,
                    help="checkpoint file name under save_dir (train.admin.env_settings)")
@@ -124,20 +124,35 @@ def _epoch_of(path: Optional[str]) -> int:
     return int(m.group(1)) if m else -1
 
 
+#: each tracker class and its lockstep twin (the JAX package's
+#: tracking/test.py:113-121)
+_TWINS = {single.RGBTTracker: batched.BatchedRGBTTracker,
+          single.RGBTCachedTracker: batched.BatchedRGBTCachedTracker,
+          single.RGBTOnlineTracker: batched.BatchedRGBTOnlineTracker,
+          single.RGBTOnlineCachedTracker: batched.BatchedRGBTOnlineCachedTracker,
+          single.RGBTracker: batched.BatchedRGBTracker,
+          single.RGBCachedTracker: batched.BatchedRGBCachedTracker,
+          single.OnlineTracker: batched.BatchedOnlineTracker}
+
+
 def _batched_twin(tracker, chunk: int):
     """The lockstep twin of the CLI's tracker, on its model (graphed on
-    CUDA as the tracker is): cached or full forward as the tracker is, the
-    online twin for an online tracker."""
+    CUDA as the tracker is), with its settings: the mode of a unimodal
+    tracker, the online size and decay of an online one."""
     t = tracker
     kw = dict(template_factor=t.template_factor, template_size=t.template_size,
               search_factor=t.search_factor, search_size=t.search_size,
-              update_interval=t.update_interval, ce_keep_rate=t.ce_keep_rate, scan_chunk=chunk,
-              device=t.device, graphs=t.graphs is not None)
-    cached = isinstance(t, (RGBTCachedTracker, RGBTOnlineCachedTracker))
+              update_interval=t.update_interval, scan_chunk=chunk, device=t.device,
+              graphs=t.graphs is not None)
+    if isinstance(t, single.RGBTracker):
+        kw["mode"] = t.mode
+    else:
+        kw["ce_keep_rate"] = t.ce_keep_rate
     if getattr(t, "online", False):
-        cls = BatchedRGBTOnlineCachedTracker if cached else BatchedRGBTOnlineTracker
-        return cls(t.model, max_score_decay=t.max_score_decay, **kw)
-    return (BatchedRGBTCachedTracker if cached else BatchedRGBTTracker)(t.model, **kw)
+        kw["max_score_decay"] = t.max_score_decay
+    if isinstance(t, single.OnlineTracker):
+        kw["online_size"] = t.online_size
+    return _TWINS[type(t)](t.model, **kw)
 
 
 def main(argv: Optional[List[str]] = None) -> List[str]:
@@ -146,9 +161,8 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     rest, extras = _split_params_argv(sys.argv[1:] if argv is None else list(argv))
     args = parser.parse_args(rest)
     overrides = _parse_params_overrides(parser, extras)
-    if (args.type or "RGBT") != "RGBT":
-        raise NotImplementedError(f"--type {args.type}: the unimodal trackers are not ported "
-                                  f"(ROADMAP.md queue 1 item 9)")
+    # the input mode reaches create_tracker for a unimodal script only
+    modal = {} if is_rgbt_script(args.script) else {"mode": args.type or "RGB"}
     if args.vis_search:
         raise NotImplementedError("--vis_search writes videos with cv2, which the port does not "
                                   "use (ROADMAP.md queue 1 item 1)")
@@ -169,8 +183,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     for ckpt in checkpoints:
         suffix = f"_ep{_epoch_of(ckpt)}" if (args.checkpoint_dir and ckpt) else ""
         results_dir = os.path.join(base_results + suffix, args.dataset_name)
-        tracking_yaml = "tracking" if args.tracking_yaml == "auto" else args.tracking_yaml
-        params = get_parameters(args.script, args.config, tracking_yaml or None,
+        params = get_parameters(args.script, args.config, args.tracking_yaml or None,
                                 checkpoint=ckpt, model=args.model,
                                 search_area_scale=args.search_area_scale)
         for k, v in overrides.items():
@@ -178,12 +191,14 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
 
         def make():
             return create_tracker(params, dataset_name=args.dataset_name, device=args.device,
-                                  dtype=DTYPES[args.dtype])
+                                  dtype=DTYPES[args.dtype], **modal)
         if args.batch_sequences > 1:
             bt = _batched_twin(make(), args.chunk)
             groups = {}
             for seq in dataset:
-                groups.setdefault(_load_frame(seq, 0)[0].shape[:2], []).append(seq)
+                fr = _load_frame(seq, 0)            # RGB-T: [v, i]; unimodal: the array
+                groups.setdefault((fr[0] if isinstance(fr, list) else fr).shape[:2],
+                                  []).append(seq)
             for seqs in groups.values():
                 for lo in range(0, len(seqs), args.batch_sequences):
                     run_sequences_batched(seqs[lo:lo + args.batch_sequences], bt, results_dir,

@@ -15,7 +15,8 @@ with `track_chunk(fetch=False)` and fetches all boxes once at the end.
 With `roi_margin` > 0 only a window around the box is uploaded per chunk
 (`track_chunk_roi`), and a chunk whose crops left the window is redone on
 full frames from a snapshot, so the files are those of the full-frame path
-byte for byte; the online trackers have no ROI mode yet and raise.
+byte for byte; the online and unimodal trackers have no ROI mode yet and
+raise.
 
 Frames are uint8 arrays. Path frames need an image decoder, which the port
 does not have yet (ROADMAP.md queue 1 item 1); they raise.
@@ -149,10 +150,11 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
         raise NotImplementedError("save_vis writes a video with cv2, which the port does not "
                                   "use (ROADMAP.md queue 1 item 1)")
     online = getattr(tracker, "online", False)
-    if roi_margin > 0 and online:
-        raise NotImplementedError("roi_margin > 0 with an online tracker: ROI-window uploads "
-                                  "are not ported for the online trackers (ROADMAP.md queue 1 "
-                                  "item 1)")
+    mode = getattr(tracker, "mode", None)           # the unimodal trackers' input mode
+    if roi_margin > 0 and (online or mode):
+        raise NotImplementedError("roi_margin > 0 with an online or unimodal tracker: "
+                                  "ROI-window uploads are not ported for them (ROADMAP.md "
+                                  "queue 1 item 1)")
     os.makedirs(results_dir, exist_ok=True)
     bbox_file = os.path.join(results_dir, f"{seq.name}.txt")
     if skip_if_done and os.path.isfile(bbox_file):
@@ -165,7 +167,8 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
     frame0 = _load_frame(seq, 0)
     t0 = time.time()
     tracker.initialize(frame0, seq.init_info())
-    boxes[0] = np.asarray(_select_init_box(seq.init_info()["init_bbox"]))
+    # frame 0's box is the init box the tracker's mode took
+    boxes[0] = np.asarray(_select_init_box(seq.init_info()["init_bbox"], mode or "RGB"))
     times[0] = time.time() - t0
 
     roi_stats = None

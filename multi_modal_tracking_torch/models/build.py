@@ -12,6 +12,7 @@ from multi_modal_tracking_torch.models.fusion import (DeformableAttentionFusion,
                                                       DeformConvFusion, ModulatedDeformConv2d,
                                                       MSDeformAttnBimodal)
 from multi_modal_tracking_torch.models.layers import set_compute_dtype
+from multi_modal_tracking_torch.models.mixformer import build_mixformer_vit
 from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
 from multi_modal_tracking_torch.models.vit_rgbt import build_vit_rgbt
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
@@ -28,8 +29,19 @@ _VIT_RGBT = {
     "mixformer_vit_rgbt_shared": dict(variant="shared", with_score=False),
     "mixformer_vit_rgbt_unibackbone": dict(variant="unibackbone", with_score=False),
 }
-#: every script build_model builds
-SCRIPTS = tuple(_RGBT_SHARED) + tuple(_VIT_RGBT)
+#: the unimodal MixFormer-ViT scripts: score branch
+_VIT = {
+    "mixformer_vit": dict(with_score=False),
+    "mixformer_vit_online": dict(with_score=True),
+}
+#: the RGB-T scripts build_model builds, then every one
+RGBT_SCRIPTS = tuple(_RGBT_SHARED) + tuple(_VIT_RGBT)
+SCRIPTS = RGBT_SCRIPTS + tuple(_VIT)
+
+
+def is_rgbt_script(script: str) -> bool:
+    """Whether `script` tracks RGB-T pairs (else one modality)."""
+    return script in RGBT_SCRIPTS
 
 
 def _he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -81,8 +93,9 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
 
 def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
                 seed: int = 0, spec_overrides: Optional[dict] = None) -> nn.Module:
-    """Build the model of an RGB-T script (`SCRIPTS`: the `asymmetric_shared*`
-    flagship family and the `mixformer_vit_rgbt*` family) with random
+    """Build the model of a script (`SCRIPTS`: the `asymmetric_shared*`
+    flagship family, the `mixformer_vit_rgbt*` family and the unimodal
+    `mixformer_vit` and `mixformer_vit_online`) with random
     float32 weights from `seed`, in eval mode on `device` (default: the
     GPU; raises if there is none), computing in `dtype` (float32 or
     bfloat16; others raise; `models.layers.set_compute_dtype`), with the
@@ -99,6 +112,8 @@ def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
     set_precision(dtype)
     if script in _RGBT_SHARED:
         model = build_mixformer_rgbt(cfg, **_RGBT_SHARED[script], **(spec_overrides or {}))
+    elif script in _VIT:
+        model = build_mixformer_vit(cfg, **_VIT[script], **(spec_overrides or {}))
     else:
         model = build_vit_rgbt(cfg, **_VIT_RGBT[script], **(spec_overrides or {}))
     return set_compute_dtype(init_random(model, seed), dtype).to(dev).eval()

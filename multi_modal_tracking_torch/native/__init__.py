@@ -11,7 +11,8 @@ package's `native` module, without its JPEG part.
                         window in one call;
   jitter_jet_normalise  `train/data/transforms.py tensor_and_jitter_rgbt`
                         with the factors drawn by the caller, and the
-                        pixel half of `flip_norm`;
+                        pixel half of `flip_norm`; `jitter_normalise` the
+                        unimodal `tensor_and_jitter` in the same call;
   apply_jet             `ops/colormap.py apply_jet_np`.
 
 Each computes what the numpy version computes, bit for bit
@@ -129,20 +130,37 @@ def jitter_jet_normalise(crop_v: np.ndarray, crop_i: np.ndarray, bf: float, tir_
             or crop_i.shape != crop_v.shape or crop_i.dtype != np.uint8):
         raise ValueError(f"jitter_jet_normalise: expected two uint8 (h, w, 3) crops, got "
                          f"{crop_v.dtype} {crop_v.shape} and {crop_i.dtype} {crop_i.shape}")
-    outs = []
-    for out in (out_v, out_i):
-        if out is None:
-            out = np.empty(crop_v.shape, np.float32)
-        elif (out.dtype != np.float32 or out.shape != crop_v.shape
-              or not out.flags.c_contiguous or not out.flags.writeable):
-            raise ValueError(f"jitter_jet_normalise: out must be a writeable C-contiguous "
-                             f"float32 {crop_v.shape} array, got {out.dtype} {out.shape}")
-        outs.append(out)
+    outs = [_float_out(out, crop_v.shape, "jitter_jet_normalise") for out in (out_v, out_i)]
     h, w = crop_v.shape[:2]
     library().mmt_jitter_jet_normalise(crop_v.ctypes.data, crop_i.ctypes.data, h, w, float(bf),
                                        float(tir_f), int(flip), outs[0].ctypes.data,
                                        outs[1].ctypes.data)
     return outs[0], outs[1]
+
+
+def jitter_normalise(crop: np.ndarray, bf: float, flip: bool = False,
+                     out: Optional[np.ndarray] = None) -> np.ndarray:
+    """`tensor_and_jitter` of one (h, w, 3) uint8 crop with the brightness
+    factor `bf` given, then, if `flip`, the pixel half of `flip_norm`:
+    float32 (h, w, 3) written into `out` (allocated if None)."""
+    crop = np.ascontiguousarray(crop)
+    if crop.dtype != np.uint8 or crop.ndim != 3 or crop.shape[2] != 3:
+        raise ValueError(f"jitter_normalise: expected a uint8 (h, w, 3) crop, got "
+                         f"{crop.dtype} {crop.shape}")
+    out = _float_out(out, crop.shape, "jitter_normalise")
+    library().mmt_jitter_jet_normalise(crop.ctypes.data, None, crop.shape[0], crop.shape[1],
+                                       float(bf), 1.0, int(flip), out.ctypes.data, None)
+    return out
+
+
+def _float_out(out: Optional[np.ndarray], shape: tuple, what: str) -> np.ndarray:
+    if out is None:
+        return np.empty(shape, np.float32)
+    if (out.dtype != np.float32 or out.shape != shape or not out.flags.c_contiguous
+            or not out.flags.writeable):
+        raise ValueError(f"{what}: out must be a writeable C-contiguous float32 {shape} array, "
+                         f"got {out.dtype} {out.shape}")
+    return out
 
 
 def apply_jet(img: np.ndarray, out_bgr: bool = True) -> np.ndarray:

@@ -27,6 +27,11 @@ sequence: candidate, decay and commit are per sequence, the commit on the
 same scalar cadence; `track_block` returns the boxes and the (T, N)
 scores.
 
+The unimodal twins (`BatchedRGBTracker`, `BatchedRGBCachedTracker`,
+`BatchedOnlineTracker`) run N streams of one modality in the unimodal
+trackers' input mode; the online one commits each live stream's candidate
+into its own ring slot by a select on the device.
+
 `run_sequences_batched` evaluates a group of same-size sequences this way
 and writes the result files of eval/running.py (with `<seq>_score.txt`
 for the online twins).
@@ -41,10 +46,12 @@ import numpy as np
 import torch
 
 from multi_modal_tracking_torch.ops.boxes import clip_box
+from multi_modal_tracking_torch.ops.crop import crop_resize_batch, normalize_imagenet
 from multi_modal_tracking_torch.tracking.graphs import (StaticInputs, StepGraphs, bind_state,
                                                         copy_tree)
-from multi_modal_tracking_torch.tracking.tracker import (_map_box_back, _prep_rgbt_batch,
-                                                         _select_init_box)
+from multi_modal_tracking_torch.tracking.tracker import (MODES, _map_box_back, _prep_rgbt_batch,
+                                                         _select_init_box, mode_frame,
+                                                         mode_frames)
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 
@@ -163,6 +170,10 @@ class BatchedRGBTTracker:
                                          self.template_size)
             self._update_template(tv, ti, live)
 
+    def _block_frames(self, frames_v: np.ndarray, frames_i: np.ndarray) -> tuple:
+        """The frame stacks a block uploads: both modalities."""
+        return frames_v, frames_i
+
     def _step(self, inputs: StaticInputs, ok: np.ndarray) -> None:
         """One lockstep frame from the static inputs (frames and live mask);
         ok (N,) host bools, the live mask's values: the host's frame ids
@@ -191,17 +202,16 @@ class BatchedRGBTTracker:
                              "batch's frame cadence")
         outs = [torch.empty((T,) + tuple(getattr(self, name).shape), dtype=torch.float32,
                             device=self.device) for name in self._OUTPUTS]
+        sources = self._block_frames(frames_v, frames_i) + (valid,)
         for lo in range(0, T, self.scan_chunk):
             hi = min(lo + self.scan_chunk, T)
-            bv, bi = self._upload(frames_v[lo:hi]), self._upload(frames_i[lo:hi])
-            bl = self._upload(valid[lo:hi])
-            key = (bv.shape[1:], bi.shape[1:], bl.shape[1:])
+            block = [self._upload(x[lo:hi]) for x in sources]
+            key = tuple(b.shape[1:] for b in block)
             if key not in self._inputs:
-                self._inputs[key] = StaticInputs(key, (bv.dtype, bi.dtype, torch.bool),
-                                                 self.device)
+                self._inputs[key] = StaticInputs(key, [b.dtype for b in block], self.device)
             inputs = self._inputs[key]
             for t in range(hi - lo):
-                inputs.load_device((bv[t], bi[t], bl[t]))
+                inputs.load_device([b[t] for b in block])
                 self._step(inputs, valid[lo + t])
                 for out, name in zip(outs, self._OUTPUTS):
                     out[lo + t].copy_(getattr(self, name))
@@ -232,7 +242,32 @@ class BatchedRGBTCachedTracker(BatchedRGBTTracker):
         copy_tree(self._cache, _select(live, cache, self._cache))
 
 
-class BatchedRGBTOnlineTracker(BatchedRGBTTracker):
+class _BatchedScoreGate:
+    """tracking.tracker._ScoreGate per sequence of a lockstep batch, on the
+    state buffers `_scores`, `_max_score`, `_candidate` and `_template`."""
+
+    @torch.no_grad()
+    def _gate(self, out: dict, crop: torch.Tensor, live: torch.Tensor, update: bool) -> None:
+        """Each sequence's score and candidate (`crop`, its template crop at
+        its new box); with `update` the live sequences' candidates are
+        committed (`_commit`) and their candidacy starts again."""
+        n = live.shape[0]
+        score = torch.sigmoid(out["pred_scores"].reshape(n, -1)[:, 0].float())
+        self._scores.copy_(score)
+        max_score = self._max_score * self.max_score_decay
+        better = (score > 0.5) & (score > max_score)
+        candidate = _select(better, crop, self._candidate)
+        if update:
+            self._commit(candidate, live)
+            candidate = self._template
+            max_score = torch.full_like(max_score, -1.0)
+        else:
+            max_score = torch.where(better, score, max_score)
+        self._candidate.copy_(_select(live, candidate, self._candidate))
+        self._max_score.copy_(torch.where(live, max_score, self._max_score))
+
+
+class BatchedRGBTOnlineTracker(_BatchedScoreGate, BatchedRGBTTracker):
     """Lockstep twin of tracking.tracker.RGBTOnlineTracker (the JAX
     package's `BatchedRGBTOnlineTrackerJit`): the full forward with the
     score head every frame; each sequence keeps its own candidate and
@@ -265,31 +300,19 @@ class BatchedRGBTOnlineTracker(BatchedRGBTTracker):
         return self.model(self._template, self._online, s_vi, self.ce_keep_rate,
                           use_ce_template_mask=False, run_score_head=True)
 
-    def _commit(self, live: torch.Tensor) -> None:
-        """After the live sequences' candidates were copied into `_online`:
-        nothing more for the full forward (the cached twin rebuilds its
+    def _commit(self, candidate: torch.Tensor, live: torch.Tensor) -> None:
+        """The live sequences' candidates become their online templates,
+        which the full forward reads (the cached twin also rebuilds its
         cache)."""
+        self._online.copy_(_select(live, candidate, self._online))
 
     @torch.no_grad()
     def _advance(self, fv: torch.Tensor, fi: torch.Tensor, live: torch.Tensor, update: bool):
         """One lockstep frame (BatchedRGBTTracker._advance) with the score
         head, each sequence's candidate and, with `update`, the commit."""
         out, boxes = self._search(fv, fi, live)
-        score = torch.sigmoid(out["pred_scores"].reshape(boxes.shape[0], -1)[:, 0].float())
-        self._scores.copy_(score)
-        max_score = self._max_score * self.max_score_decay
-        better = (score > 0.5) & (score > max_score)
         tv, ti, _ = _prep_rgbt_batch(fv, fi, boxes, self.template_factor, self.template_size)
-        candidate = _select(better, torch.cat([tv, ti], dim=0), self._candidate)
-        if update:
-            self._online.copy_(_select(live, candidate, self._online))
-            self._commit(live)
-            candidate = self._template
-            max_score = torch.full_like(max_score, -1.0)
-        else:
-            max_score = torch.where(better, score, max_score)
-        self._candidate.copy_(_select(live, candidate, self._candidate))
-        self._max_score.copy_(torch.where(live, max_score, self._max_score))
+        self._gate(out, torch.cat([tv, ti], dim=0), live, update)
 
 
 class BatchedRGBTOnlineCachedTracker(BatchedRGBTOnlineTracker):
@@ -310,15 +333,181 @@ class BatchedRGBTOnlineCachedTracker(BatchedRGBTOnlineTracker):
         return self.model.forward_track(self._cache, s_vi, self.ce_keep_rate,
                                         use_ce_template_mask=False, run_score_head=True)
 
-    def _commit(self, live: torch.Tensor) -> None:
+    def _commit(self, candidate: torch.Tensor, live: torch.Tensor) -> None:
+        super()._commit(candidate, live)
         cache = self.model.set_online(self._template, self._online)
+        copy_tree(self._cache, _select(live, cache, self._cache))
+
+
+class BatchedRGBTracker(BatchedRGBTTracker):
+    """Lockstep twin of tracking.tracker.RGBTracker (the JAX package's
+    `BatchedRGBTrackerJit`): N streams of one modality, in input mode RGB,
+    TIR or Prompt (`mode_frame` on the (N, H, W, C) stacks), the full
+    forward at batch N every frame. `initialize` and `track_block` take the
+    RGB and TIR stacks; only those the mode reads are uploaded, so an RGB
+    sequence (the same stack passed twice) uploads its frames once."""
+
+    online = False
+
+    def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
+                 search_factor: float = 4.5, search_size: int = 288,
+                 update_interval: int = 200, mode: str = "RGB", scan_chunk: int = 16,
+                 device="cuda", graphs: bool = True):
+        if mode not in MODES:
+            raise ValueError(f"unimodal tracker mode {mode!r} (one of {MODES})")
+        super().__init__(model, template_factor, template_size, search_factor, search_size,
+                         update_interval, None, scan_chunk, device, graphs)
+        self.mode = mode
+
+    def _block_frames(self, frames_v: np.ndarray, frames_i: np.ndarray) -> tuple:
+        return mode_frames([frames_v, frames_i], self.mode)
+
+    def _cut(self, frame: torch.Tensor, boxes: torch.Tensor, template: bool):
+        factor, size = ((self.template_factor, self.template_size) if template
+                        else (self.search_factor, self.search_size))
+        crop, rf = crop_resize_batch(frame, boxes, factor, size)
+        return normalize_imagenet(crop), rf
+
+    # ------------------------------------------------------- model steps
+    def _init_model(self, t) -> dict:
+        return {"_template": t, "_online": t}
+
+    def _predict(self, s):
+        return self.model(self._template, self._online, s)
+
+    def _update_template(self, t, live: torch.Tensor) -> None:
+        self._online.copy_(_select(live, t, self._online))
+
+    @torch.no_grad()
+    def initialize(self, frames_v: np.ndarray, frames_i: np.ndarray, boxes: np.ndarray) -> None:
+        imgs = [self._upload(x) for x in self._block_frames(frames_v, frames_i)]
+        self._shape = tuple(imgs[0].shape[1:3])
+        state = torch.as_tensor(np.asarray(boxes, np.float32).reshape(-1, 4),
+                                device=self.device)
+        self._frame_ids = np.zeros(imgs[0].shape[0], np.int64)
+        t, _ = self._cut(mode_frame(imgs, self.mode), state, True)
+        bufs = bind_state(self._slots, {"_state": state, "_boxes": state, **self._init_model(t)})
+        for name in self._STATE:
+            setattr(self, name, bufs[name])
+
+    def _search(self, frame: torch.Tensor, live: torch.Tensor):
+        H, W = self._shape
+        s, rf = self._cut(frame, self._state, False)
+        out = self._predict(s)
+        pred = out["pred_boxes"].reshape(s.shape[0], -1, 4).mean(dim=1) \
+            * (self.search_size / rf)[:, None]
+        boxes = clip_box(_map_box_back(pred, self._state, self.search_size, rf),
+                         H, W, margin=10)
+        self._boxes.copy_(boxes)
+        self._state.copy_(_select(live, boxes, self._state))
+        return out, boxes
+
+    @torch.no_grad()
+    def _advance(self, imgs, live: torch.Tensor, update: bool) -> None:
+        frame = mode_frame(imgs, self.mode)
+        self._search(frame, live)
+        if update:
+            self._update_template(self._cut(frame, self._state, True)[0], live)
+
+    def _step(self, inputs: StaticInputs, ok: np.ndarray) -> None:
+        self._frame_ids += ok
+        update = bool(ok.any()) and self._frame_ids.max() % self.update_interval == 0
+        step = lambda: self._advance(inputs.tensors[:-1], inputs.tensors[-1], update)  # noqa
+        if self.graphs is None:
+            step()
+        else:
+            self.graphs.run((len(ok), self._shape, inputs.key, update), step)
+
+
+class BatchedRGBCachedTracker(BatchedRGBTracker):
+    """Unimodal lockstep through the template cache (the JAX package's
+    `BatchedRGBCachedTrackerJit`): the search tokens of the N streams
+    against their caches, the live streams' caches rebuilt at once on the
+    scalar cadence. The cache's key mask is per stream ((N, K), all ones),
+    so that a frozen stream keeps all of its cache."""
+
+    _STATE = ("_state", "_template", "_cache", "_boxes")
+
+    def _set_online(self, t, ot):
+        return self.model.set_online(t, ot, t.new_ones((t.shape[0], 1)))
+
+    def _init_model(self, t) -> dict:
+        return {"_template": t, "_cache": self._set_online(t, t)}
+
+    def _predict(self, s):
+        return self.model.forward_test(s, self._cache)
+
+    def _update_template(self, t, live: torch.Tensor) -> None:
+        copy_tree(self._cache, _select(live, self._set_online(self._template, t), self._cache))
+
+
+class BatchedOnlineTracker(_BatchedScoreGate, BatchedRGBTracker):
+    """Unimodal online lockstep (the JAX package's `BatchedOnlineTrackerJit`):
+    each stream's score-gated candidate, its ring of `online_size` slots
+    with its own `n_filled` and `forget_id`, the commit a device-side
+    select into each live stream's slot, and one cache rebuild for the
+    batch on the scalar cadence. track_block returns (boxes (T, N, 4),
+    scores (T, N))."""
+
+    online = True
+    _STATE = ("_state", "_template", "_ring", "_cache", "_candidate", "_max_score", "_boxes",
+              "_scores", "_n_filled", "_forget_id")
+    _OUTPUTS = ("_boxes", "_scores")
+
+    def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
+                 search_factor: float = 4.5, search_size: int = 288,
+                 update_interval: int = 200, online_size: int = 3,
+                 max_score_decay: float = 1.0, mode: str = "RGB", scan_chunk: int = 16,
+                 device="cuda", graphs: bool = True):
+        super().__init__(model, template_factor, template_size, search_factor, search_size,
+                         update_interval, mode, scan_chunk, device, graphs)
+        self.online_size, self.max_score_decay = online_size, max_score_decay
+
+    def _slot_mask(self, n_filled: torch.Tensor) -> torch.Tensor:
+        slots = torch.arange(self.online_size, device=n_filled.device)
+        return (slots < n_filled[:, None]).float()
+
+    def _init_model(self, t) -> dict:
+        n = t.shape[0]
+        n_filled = torch.ones((n,), dtype=torch.long, device=t.device)
+        ring = t.repeat_interleave(self.online_size, dim=0)
+        return {"_template": t, "_ring": ring, "_candidate": t,
+                "_cache": self.model.set_online(t, ring, self._slot_mask(n_filled)),
+                "_max_score": torch.full((n,), -1.0, device=t.device),
+                "_scores": torch.zeros((n,), device=t.device), "_n_filled": n_filled,
+                "_forget_id": torch.zeros((n,), dtype=torch.long, device=t.device)}
+
+    def _predict(self, s):
+        return self.model.forward_test(s, self._cache, run_score_head=True)
+
+    @torch.no_grad()
+    def _advance(self, imgs, live: torch.Tensor, update: bool) -> None:
+        frame = mode_frame(imgs, self.mode)
+        out, boxes = self._search(frame, live)
+        self._gate(out, self._cut(frame, boxes, True)[0], live, update)
+
+    def _commit(self, candidate: torch.Tensor, live: torch.Tensor) -> None:
+        """Each live stream's ring commit (OnlineTracker._commit) as a
+        select over its slots, then the live streams' caches rebuilt."""
+        n, size = candidate.shape[0], self.online_size
+        full = self._n_filled >= size
+        pos = torch.where(full, self._forget_id, self._n_filled)
+        put = (torch.arange(size, device=pos.device) == pos[:, None]) & live[:, None]
+        ring = self._ring.view((n, size) + tuple(candidate.shape[1:]))
+        ring.copy_(torch.where(put.reshape(n, size, 1, 1, 1), candidate[:, None], ring))
+        self._forget_id.copy_(torch.where(live & full, (self._forget_id + 1) % size,
+                                          self._forget_id))
+        self._n_filled.copy_(torch.where(live, torch.clamp(self._n_filled + 1, max=size),
+                                         self._n_filled))
+        cache = self.model.set_online(self._template, self._ring, self._slot_mask(self._n_filled))
         copy_tree(self._cache, _select(live, cache, self._cache))
 
 
 def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_dir: str,
                           chunk: Optional[int] = None, skip_if_done: bool = True) -> List[dict]:
-    """Evaluate a group of RGB-T sequences of one frame size in lockstep and
-    write their result files (eval/running.py's layout; `_time.txt` holds
+    """Evaluate a group of sequences of one frame size in lockstep (RGB-T,
+    or unimodal, whose one stack goes in as both) and write their result
+    files (eval/running.py's layout; `_time.txt` holds
     the group's time shared out per frame; an online tracker's scores go
     to `_score.txt`, frame 0 at 1.0).
 
@@ -339,9 +528,11 @@ def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_
     lengths = [len(s.frames) for s in todo]
     T = max(lengths)
     f0 = [_load_frame(s, 0) for s in todo]
-    frames0_v = np.stack([f[0] for f in f0])
-    frames0_i = np.stack([f[1] for f in f0])
-    boxes0 = np.stack([np.asarray(_select_init_box(s.init_info()["init_bbox"]), np.float32)
+    rgbt = isinstance(f0[0], list)          # a unimodal sequence's frame is an array
+    frames0_v = np.stack([f[0] if rgbt else f for f in f0])
+    frames0_i = np.stack([f[1] for f in f0]) if rgbt else frames0_v
+    mode = getattr(tracker, "mode", "RGB")
+    boxes0 = np.stack([np.asarray(_select_init_box(s.init_info()["init_bbox"], mode), np.float32)
                        for s in todo])
     t_start = time.time()
     tracker.initialize(frames0_v, frames0_i, boxes0)
@@ -351,7 +542,7 @@ def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_
     for lo in range(1, T, K):
         hi = min(lo + K, T)
         blk_v = np.empty((hi - lo, N) + frames0_v.shape[1:], frames0_v.dtype)
-        blk_i = np.empty((hi - lo, N) + frames0_i.shape[1:], frames0_i.dtype)
+        blk_i = np.empty((hi - lo, N) + frames0_i.shape[1:], frames0_i.dtype) if rgbt else blk_v
         for j, s in enumerate(todo):
             last = None             # a finished sequence replays its last frame
             for t in range(lo, hi):
@@ -359,7 +550,10 @@ def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_
                     fr = last
                 else:
                     fr = last = _load_frame(s, min(t, lengths[j] - 1))
-                blk_v[t - lo, j], blk_i[t - lo, j] = fr
+                if rgbt:
+                    blk_v[t - lo, j], blk_i[t - lo, j] = fr
+                else:
+                    blk_v[t - lo, j] = fr
         valid = np.arange(lo, hi)[:, None] < np.asarray(lengths)[None, :]
         pending.append(tracker.track_block(blk_v, blk_i, valid, fetch=False))
     online = bool(pending) and isinstance(pending[0], tuple)

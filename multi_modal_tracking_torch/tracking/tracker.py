@@ -1,4 +1,4 @@
-"""Tracking loops of the RGB-T models (the inference hot path).
+"""Tracking loops of the models (the inference hot path).
 
 Per frame: a joint square crop of both modalities around the previous
 state (crop_resize), JET on the TIR crop, ImageNet normalisation, the
@@ -19,6 +19,11 @@ forward_track), rebuilt at each template update.
 trackers of the online scripts (the SPM score branch): each frame also
 gives a confidence, and the template is updated from the best-scoring
 frame since the last update instead of the current one (their docstring).
+
+`RGBTracker`, `RGBCachedTracker` and `OnlineTracker` are the unimodal
+models' loops (`mixformer_vit*`): one modality in input mode RGB, TIR or
+Prompt, the mode's transform on the whole frame before the crop, the same
+state buffers and graphs; the online one keeps a ring of online templates.
 
 For the eval runner: `track_chunk(fetch=False)` leaves a chunk's boxes on
 the device; `track_chunk_roi` tracks windows cut around the box (ROI upload
@@ -45,11 +50,12 @@ from multi_modal_tracking_torch.tracking.graphs import (StaticInputs, StepGraphs
 from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
 
 
-def _select_init_box(box):
-    """RGB-T ground-truth pairs -> the RGB row (the bimodal trackers
-    initialise from the RGB box); flat boxes pass through."""
+def _select_init_box(box, mode: str = "RGB"):
+    """RGB-T ground-truth pairs -> the tracked mode's row: the TIR row in
+    TIR mode, else the RGB one (the bimodal trackers and the RGB and Prompt
+    modes); flat boxes pass through."""
     if isinstance(box, (list, tuple)) and isinstance(box[0], (list, tuple, np.ndarray)):
-        return box[0]
+        return box[1] if mode == "TIR" else box[0]
     return box
 
 
@@ -189,9 +195,13 @@ class RGBTTracker:
         return torch.as_tensor(np.asarray(img)).to(self.device)
 
     def _inputs_for(self, shape_v, shape_i, dtype=torch.uint8) -> StaticInputs:
-        key = (tuple(shape_v), tuple(shape_i), dtype)
+        return self._static_inputs((shape_v, shape_i), (dtype, dtype))
+
+    def _static_inputs(self, shapes, dtypes) -> StaticInputs:
+        """The static input tensors of frames of these shapes and dtypes."""
+        key = (tuple(tuple(x) for x in shapes), tuple(dtypes))
         if key not in self._inputs:
-            self._inputs[key] = StaticInputs(key[:2], (dtype, dtype), self.device)
+            self._inputs[key] = StaticInputs(*key, self.device)
         return self._inputs[key]
 
     def _crop(self, img_v, img_i, box, template: bool, offset=None):
@@ -359,7 +369,32 @@ class RGBTCachedTracker(RGBTTracker):
                                         use_ce_template_mask=False)
 
 
-class RGBTOnlineTracker(RGBTTracker):
+class _ScoreGate:
+    """The score-gated template candidate of the online trackers, on their
+    state buffers `_score`, `_max_score`, `_candidate` and `_template`."""
+
+    @torch.no_grad()
+    def _gate(self, out: dict, crop: torch.Tensor, update: bool) -> None:
+        """pred_score = sigmoid(logit); `crop`, the template crop at the
+        new state, becomes the candidate when the score is above 0.5 and
+        above the decayed best since the last commit; with `update` the
+        candidate is committed (`_commit`) and the candidacy starts again
+        from the base template at score -1."""
+        score = torch.sigmoid(out["pred_scores"].reshape(-1)[0].float())
+        self._score.copy_(score)
+        max_score = self._max_score * self.max_score_decay
+        better = (score > 0.5) & (score > max_score)
+        candidate = torch.where(better, crop, self._candidate)
+        if update:
+            self._commit(candidate)
+            self._candidate.copy_(self._template)
+            self._max_score.fill_(-1.0)
+        else:
+            self._candidate.copy_(candidate)
+            self._max_score.copy_(torch.where(better, score, max_score))
+
+
+class RGBTOnlineTracker(_ScoreGate, RGBTTracker):
     """Score-gated online tracking of the models with the SPM score branch
     (asymmetric_shared_online): the JAX package's `RGBTOnlineTrackerJit`.
 
@@ -400,10 +435,10 @@ class RGBTOnlineTracker(RGBTTracker):
         return self.model(self._template, self._online, s_vi, self.ce_keep_rate,
                           use_ce_template_mask=False, run_score_head=True)
 
-    def _commit(self) -> None:
-        """After the candidate was copied into `_online`: nothing more for
-        the full forward, which reads `_online` (the cached tracker
-        rebuilds its cache)."""
+    def _commit(self, candidate: torch.Tensor) -> None:
+        """The candidate becomes the online template, which the full
+        forward reads (the cached tracker also rebuilds its cache)."""
+        self._online.copy_(candidate)
 
     @torch.no_grad()
     def _advance(self, img_v: torch.Tensor, img_i: torch.Tensor, update: bool, offset=None):
@@ -412,20 +447,8 @@ class RGBTOnlineTracker(RGBTTracker):
         if offset is not None:
             raise NotImplementedError(_ONLINE_ROI)
         out, _ = self._search(img_v, img_i)
-        score = torch.sigmoid(out["pred_scores"].reshape(-1)[0].float())
-        self._score.copy_(score)
-        max_score = self._max_score * self.max_score_decay
-        better = (score > 0.5) & (score > max_score)
         tv, ti, _, _ = self._crop(img_v, img_i, self._state, True)
-        candidate = torch.where(better, torch.cat([tv, ti], dim=0), self._candidate)
-        if update:
-            self._online.copy_(candidate)
-            self._commit()
-            self._candidate.copy_(self._template)
-            self._max_score.fill_(-1.0)
-        else:
-            self._candidate.copy_(candidate)
-            self._max_score.copy_(torch.where(better, score, max_score))
+        self._gate(out, torch.cat([tv, ti], dim=0), update)
 
     def track(self, image, info: Optional[dict] = None) -> dict:
         """One frame: returns {"target_bbox": [x, y, w, h], "pred_score": s}
@@ -479,5 +502,261 @@ class RGBTOnlineCachedTracker(RGBTOnlineTracker):
         return self.model.forward_track(self._cache, s_vi, self.ce_keep_rate,
                                         use_ce_template_mask=False, run_score_head=True)
 
-    def _commit(self) -> None:
+    def _commit(self, candidate: torch.Tensor) -> None:
+        super()._commit(candidate)
         copy_tree(self._cache, self.model.set_online(self._template, self._online))
+
+
+# ------------------------------------------------------------------ unimodal
+#: the unimodal trackers' input modes
+MODES = ("RGB", "TIR", "Prompt")
+
+
+def mode_frames(image, mode: str) -> tuple:
+    """The frames of `image` (an array, or an [RGB, TIR] pair) that `mode`
+    reads: the RGB frame, the TIR frame, or both for Prompt. A bare array
+    serves as either (the JAX package's trackers do the same)."""
+    if isinstance(image, (list, tuple)):
+        v, i = image[0], image[1] if len(image) > 1 else image[0]
+    else:
+        v = i = image
+    return {"RGB": (v,), "TIR": (i,), "Prompt": (v, i)}[mode]
+
+
+#: the Prompt mode's blend of JET(TIR) into RGB, fixed in the reference
+PROMPT_LAMBDA = 0.05
+
+
+def mode_frame(imgs, mode: str) -> torch.Tensor:
+    """The image the unimodal trackers crop (the JAX package's `_frame`,
+    tracking/tracker.py:1179-1185): the RGB frame; JET of the whole TIR
+    frame; or the Prompt blend (1 - PROMPT_LAMBDA) RGB + PROMPT_LAMBDA
+    JET(TIR) in float. The transform comes before the crop: on interpolated pixels
+    the other order gives other values."""
+    if mode == "RGB":
+        return imgs[0]
+    if mode == "TIR":
+        return apply_jet(imgs[0])
+    v, i = imgs
+    return (1 - PROMPT_LAMBDA) * v.float() + PROMPT_LAMBDA * apply_jet(i)
+
+
+class RGBTracker(RGBTTracker):
+    """Tracking loop of the unimodal models (`mixformer_vit`; the JAX
+    package's `RGBTrackerJit`) with the full forward every frame, in input
+    mode RGB, TIR or Prompt (`mode_frame`, applied to the whole frame on
+    the device before the crop). A frame is an array or an [RGB, TIR] pair;
+    only the frames the mode reads are uploaded, and `initialize` takes the
+    mode's init box (the TIR row of an RGB-T pair in TIR mode). Otherwise
+    as RGBTTracker: static buffers, one CUDA graph per frame shape and per
+    template update or not. The ROI upload mode is not ported for the
+    unimodal trackers and raises (ROADMAP.md queue 1 item 1)."""
+
+    online = False
+
+    def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
+                 search_factor: float = 4.5, search_size: int = 288,
+                 update_interval: int = 200, mode: str = "RGB", device="cuda",
+                 graphs: bool = True):
+        if mode not in MODES:
+            raise ValueError(f"unimodal tracker mode {mode!r} (one of {MODES})")
+        super().__init__(model, template_factor, template_size, search_factor, search_size,
+                         update_interval, None, device, graphs)
+        self.mode = mode
+
+    def _frame(self, imgs) -> torch.Tensor:
+        return mode_frame(imgs, self.mode)
+
+    def _cut(self, frame: torch.Tensor, box: torch.Tensor, template: bool):
+        """(normalised crop (1, S, S, 3), resize factor) of `frame` at `box`."""
+        factor, size = ((self.template_factor, self.template_size) if template
+                        else (self.search_factor, self.search_size))
+        crop, rf = crop_resize(frame, box, factor, size)
+        return normalize_imagenet(crop)[None], rf
+
+    def _uploads(self, frames) -> tuple:
+        """The frames uploaded, each array once."""
+        seen = {}
+        return tuple(seen.setdefault(id(x), self._upload(x)) for x in frames)
+
+    # ------------------------------------------------------- model steps
+    def _init_model(self, t) -> dict:
+        return {"_template": t, "_online": t}
+
+    def _update_template(self, t) -> None:
+        self._online.copy_(t)
+
+    def _predict(self, s):
+        return self.model(self._template, self._online, s)
+
+    @torch.no_grad()
+    def initialize(self, image, info: dict) -> None:
+        imgs = self._uploads(mode_frames(image, self.mode))
+        self._shape = tuple(imgs[0].shape[:2])
+        box = _select_init_box(info["init_bbox"], self.mode)
+        state = torch.as_tensor(np.asarray(box, np.float32), device=self.device)
+        self._frame_id = 0
+        t, _ = self._cut(self._frame(imgs), state, True)
+        bufs = bind_state(self._slots, {"_state": state, **self._init_model(t)})
+        for name in self._STATE:
+            setattr(self, name, bufs[name])
+
+    def _search(self, frame: torch.Tensor):
+        H, W = self._shape
+        s, rf = self._cut(frame, self._state, False)
+        out = self._predict(s)
+        pred = out["pred_boxes"].reshape(-1, 4).mean(dim=0) * (self.search_size / rf)
+        self._state.copy_(clip_box(_map_box_back(pred, self._state, self.search_size, rf),
+                                   H, W, margin=10))
+        return out
+
+    @torch.no_grad()
+    def _advance(self, imgs, update: bool) -> None:
+        """One frame from the mode's frames `imgs` (device tensors), from the
+        state buffers into them; `update` re-crops the online template."""
+        frame = self._frame(imgs)
+        self._search(frame)
+        if update:
+            self._update_template(self._cut(frame, self._state, True)[0])
+
+    def _step(self, inputs: StaticInputs) -> torch.Tensor:
+        update = self._tick()
+        step = lambda: self._advance(inputs.tensors, update)   # noqa: E731
+        if self.graphs is None:
+            step()
+        else:
+            self.graphs.run((self._shape, inputs.key, update), step)
+        return self._state
+
+    def track(self, image, info: Optional[dict] = None) -> dict:
+        """One frame: {"target_bbox": [x, y, w, h]}, and "pred_score" from
+        the online tracker (one download)."""
+        frames = tuple(np.asarray(x) for x in mode_frames(image, self.mode))
+        inputs = self._static_inputs([x.shape for x in frames],
+                                     [torch.from_numpy(x).dtype for x in frames])
+        inputs.load_host(frames)
+        out = self._step(inputs)
+        if self.online:
+            out = torch.cat([out, self._score[None]])
+        out = out.cpu()
+        res = {"target_bbox": [float(b) for b in out[:4]]}
+        if self.online:
+            res["pred_score"] = float(out[4])
+        return res
+
+    def track_chunk(self, frames_v: np.ndarray, frames_i: Optional[np.ndarray] = None,
+                    fetch: bool = True):
+        """Track (N, H, W, 3) frames (`frames_i`: the TIR stack of an RGB-T
+        sequence, or None): the mode's frames uploaded once for the chunk.
+        Returns the (N, 4) boxes, and the online tracker (boxes, scores
+        (N,)), as numpy or with fetch=False as device tensors."""
+        imgs = self._uploads(mode_frames(frames_v if frames_i is None else [frames_v, frames_i],
+                                         self.mode))
+        inputs = self._static_inputs([x.shape[1:] for x in imgs], [x.dtype for x in imgs])
+        n = imgs[0].shape[0]
+        boxes = torch.empty((n, 4), dtype=torch.float32, device=self.device)
+        scores = torch.empty((n,), dtype=torch.float32, device=self.device)
+        for k in range(n):
+            inputs.load_device([x[k] for x in imgs])
+            boxes[k].copy_(self._step(inputs))
+            if self.online:
+                scores[k].copy_(self._score)
+        outs = (boxes, scores) if self.online else (boxes,)
+        if fetch:
+            outs = tuple(o.cpu().numpy() for o in outs)
+        return outs if self.online else outs[0]
+
+    def track_chunk_roi(self, win_v, win_i, offset_xy, fetch: bool = True):
+        raise NotImplementedError(_UNIMODAL_ROI)
+
+
+_UNIMODAL_ROI = ("ROI-window uploads (roi_margin > 0) are not ported for the unimodal "
+                 "trackers; they wait on the keep-or-delete rule of the ROI path (ROADMAP.md "
+                 "queue 1 item 1)")
+
+
+class RGBCachedTracker(RGBTracker):
+    """RGBTracker over the model's template cache (the JAX package's
+    `RGBCachedTrackerJit`): per frame only the search tokens run the
+    backbone (`forward_test`); `set_online(template, template)` at
+    initialize and `set_online(template, new online crop)` at each update."""
+
+    _STATE = ("_state", "_template", "_cache")
+
+    def _init_model(self, t) -> dict:
+        return {"_template": t, "_cache": self.model.set_online(t, t)}
+
+    def _update_template(self, t) -> None:
+        copy_tree(self._cache, self.model.set_online(self._template, t))
+
+    def _predict(self, s):
+        return self.model.forward_test(s, self._cache)
+
+
+class OnlineTracker(_ScoreGate, RGBTracker):
+    """Score-gated online tracking of the unimodal models with the SPM score
+    branch (`mixformer_vit_online`; the JAX package's `OnlineTrackerJit`)
+    over the template cache, with a ring of `online_size` online templates.
+
+    Each frame: the search tokens against the cache, pred_score =
+    sigmoid(logit); the template crop at the new state becomes the
+    candidate when its score is above 0.5 and above the best score since
+    the last commit times max_score_decay. Every `update_interval` frames
+    the candidate is committed: appended while the ring has fewer than
+    `online_size` live slots, then written over the slot at `forget_id`
+    (which moves on); the candidate goes back to the base template with
+    score -1, and the cache is rebuilt over the template and the ring, the
+    unfilled slots hidden by the slot mask (`n_filled`), as the reference's
+    growing buffer holds only the committed ones. The ring, `n_filled`,
+    `forget_id`, the candidate and the scores are state buffers on the
+    device; the host's frame counter picks the commit graph."""
+
+    online = True
+    _STATE = ("_state", "_template", "_ring", "_cache", "_candidate", "_max_score", "_score",
+              "_n_filled", "_forget_id")
+
+    def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
+                 search_factor: float = 4.5, search_size: int = 288,
+                 update_interval: int = 200, online_size: int = 3,
+                 max_score_decay: float = 1.0, mode: str = "RGB", device="cuda",
+                 graphs: bool = True):
+        super().__init__(model, template_factor, template_size, search_factor, search_size,
+                         update_interval, mode, device, graphs)
+        self.online_size, self.max_score_decay = online_size, max_score_decay
+
+    def _slot_mask(self, n_filled: torch.Tensor) -> torch.Tensor:
+        """(..., online_size) 0/1: the live slots of rings with `n_filled` (...)."""
+        slots = torch.arange(self.online_size, device=n_filled.device)
+        return (slots < n_filled[..., None]).float()
+
+    def _init_model(self, t) -> dict:
+        n_filled = torch.ones((), dtype=torch.long, device=t.device)
+        ring = torch.cat([t] * self.online_size)
+        return {"_template": t, "_ring": ring, "_candidate": t,
+                "_cache": self.model.set_online(t, ring, self._slot_mask(n_filled)),
+                "_max_score": torch.full((), -1.0, device=t.device),
+                "_score": torch.zeros((), device=t.device), "_n_filled": n_filled,
+                "_forget_id": torch.zeros((), dtype=torch.long, device=t.device)}
+
+    def _predict(self, s):
+        return self.model.forward_test(s, self._cache, run_score_head=True)
+
+    @torch.no_grad()
+    def _advance(self, imgs, update: bool) -> None:
+        """One frame (OnlineTrackerJit._step_search_w and the cache refresh
+        of its _step); `update` commits the candidate."""
+        frame = self._frame(imgs)
+        out = self._search(frame)
+        self._gate(out, self._cut(frame, self._state, True)[0], update)
+
+    def _commit(self, candidate: torch.Tensor) -> None:
+        """The ring commit (tracking/tracker.py:1001-1018 there) and the
+        cache rebuilt over the committed ring."""
+        full = self._n_filled >= self.online_size
+        self._ring.index_copy_(0, torch.where(full, self._forget_id, self._n_filled).reshape(1),
+                               candidate)
+        self._forget_id.copy_(torch.where(full, (self._forget_id + 1) % self.online_size,
+                                          self._forget_id))
+        self._n_filled.copy_(torch.clamp(self._n_filled + 1, max=self.online_size))
+        copy_tree(self._cache, self.model.set_online(self._template, self._ring,
+                                                     self._slot_mask(self._n_filled)))

@@ -1,9 +1,12 @@
 """Dataset registry and the train and val loaders.
 
 The port's counterpart of the JAX package's `train/builders.py`. The
-registry knows every name the JAX package knows; only the synthetic RGB-T
-set is ported, and every other name raises NotImplementedError (the real
-dataset adapters need image files and a decoder: ROADMAP.md queue 1).
+registry knows every name the JAX package knows; the synthetic sets are
+ported (`SyntheticRGBT`, and the unimodal `SyntheticVideo`), and every
+other name raises NotImplementedError (the real dataset adapters need
+image files and a decoder: ROADMAP.md queue 1 item 1). A config whose
+training sets are RGB-T (`is_rgbt_config`) gets `RGBTProcessing` and the
+sampler's RGB-T frames; any other, `UnimodalProcessing`.
 The sample budget and the batch are divided by the torch world size (1
 without `torch.distributed`), as each rank loads its own share.
 """
@@ -15,7 +18,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from multi_modal_tracking_torch.train.data.loader import Loader
-from multi_modal_tracking_torch.train.data.processing import RGBTProcessing
+from multi_modal_tracking_torch.train.data.processing import RGBTProcessing, UnimodalProcessing
 from multi_modal_tracking_torch.train.data.sampler import TrackingSampler
 
 RGBT_NAMES = {"VTUAV", "LasHeR", "RGBT234", "KAIST", "LLVIP", "M3FD",
@@ -26,22 +29,24 @@ RGBT_NAMES = {"VTUAV", "LasHeR", "RGBT234", "KAIST", "LLVIP", "M3FD",
 #: names the JAX package's registry builds that the port does not yet
 _NOT_PORTED = RGBT_NAMES - {"SyntheticRGBT"} | {
     "LasHeR_T", "RGBT234_T", "LASOT", "GOT10K_vottrain", "GOT10K_votval",
-    "GOT10K_train_full", "TRACKINGNET", "COCO17", "VID", "TNL2k", "SyntheticVideo",
+    "GOT10K_train_full", "TRACKINGNET", "COCO17", "VID", "TNL2k",
     "LASOT_lmdb", "GOT10K_vottrain_lmdb", "GOT10K_votval_lmdb", "GOT10K_train_full_lmdb",
     "TRACKINGNET_lmdb", "COCO17_lmdb", "VID_lmdb"}
 
 
 def names2datasets(names: List[str]):
     """Instantiate dataset adapters by registry name."""
-    from multi_modal_tracking_torch.train.data.datasets import SyntheticRGBT
+    from multi_modal_tracking_torch.train.data.datasets import SyntheticRGBT, SyntheticVideo
     out = []
     for n in names:
         if n == "SyntheticRGBT":
             out.append(SyntheticRGBT())
+        elif n == "SyntheticVideo":
+            out.append(SyntheticVideo())
         elif n in _NOT_PORTED:
             raise NotImplementedError(f"dataset {n!r} is not ported to multi_modal_tracking_torch "
-                                      f"yet (ROADMAP.md queue 1: the real dataset adapters); "
-                                      f"SyntheticRGBT is")
+                                      f"yet (ROADMAP.md queue 1 item 1: the real dataset "
+                                      f"adapters); SyntheticRGBT and SyntheticVideo are")
         else:
             raise ValueError(f"Unknown dataset name {n}")
     return out
@@ -56,12 +61,13 @@ def world_size() -> int:
 
 
 def _make_loader(cfg, split_cfg, name: str, train: bool, seed: int) -> Loader:
-    """TrackingSampler + RGBTProcessing + Loader of one split, this rank's
-    share of the budget and the batch. The val split is seeded with
-    seed + 1, processes without training augmentation and runs every
-    VAL_EPOCH_INTERVAL epochs."""
+    """TrackingSampler + RGBTProcessing or UnimodalProcessing + Loader of
+    one split, this rank's share of the budget and the batch. The val
+    split is seeded with seed + 1, processes without training augmentation
+    and runs every VAL_EPOCH_INTERVAL epochs."""
     seed = seed if train else seed + 1
-    processing = RGBTProcessing(
+    rgbt = is_rgbt_config(cfg)
+    processing = (RGBTProcessing if rgbt else UnimodalProcessing)(
         search_area_factor={"template": cfg.DATA.TEMPLATE.FACTOR, "search": cfg.DATA.SEARCH.FACTOR},
         output_sz={"template": cfg.DATA.TEMPLATE.SIZE, "search": cfg.DATA.SEARCH.SIZE},
         center_jitter_factor={"template": cfg.DATA.TEMPLATE.CENTER_JITTER,
@@ -79,7 +85,7 @@ def _make_loader(cfg, split_cfg, name: str, train: bool, seed: int) -> Loader:
         processing=processing,
         frame_sample_mode=cfg.DATA.SAMPLER_MODE,
         train_cls=cfg.TRAIN.get("TRAIN_SCORE", False),
-        rgbt=True,
+        rgbt=rgbt,
         seed=seed)
     return Loader(sampler, batch_size=max(1, cfg.TRAIN.BATCH_SIZE // world_size()),
                   num_workers=cfg.TRAIN.NUM_WORKER, name=name, training=train,
@@ -87,10 +93,7 @@ def _make_loader(cfg, split_cfg, name: str, train: bool, seed: int) -> Loader:
 
 
 def build_train_loader(cfg, seed: int = 0) -> Loader:
-    """The training loader of an RGB-T config, seeded."""
-    if not is_rgbt_config(cfg):
-        raise NotImplementedError("only RGB-T training is ported to multi_modal_tracking_torch "
-                                  "(ROADMAP.md queue 1)")
+    """The training loader of a config, seeded."""
     return _make_loader(cfg, cfg.DATA.TRAIN, "train", True, seed)
 
 

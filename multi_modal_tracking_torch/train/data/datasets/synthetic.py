@@ -1,9 +1,9 @@
-"""Procedural RGB-T sets (the port's own copies of `SyntheticRGBT` and
-`SyntheticRGBTHard` from the JAX package's
-`train/data/datasets/synthetic.py`): a textured square moving over textured
-noise, in the hard set also scaling, among distractors and behind an
-occluder; the TIR frame is the inverted grey rendition of the RGB one.
-Deterministic per sequence id, no files."""
+"""Procedural training sets (the port's own copies of `SyntheticRGBT`,
+`SyntheticRGBTHard` and the unimodal `SyntheticVideo` from the JAX
+package's `train/data/datasets/synthetic.py`): a textured square moving
+over textured noise, in the hard set also scaling, among distractors and
+behind an occluder; the TIR frame is the inverted grey rendition of the
+RGB one. Deterministic per sequence id, no files."""
 from __future__ import annotations
 
 from typing import List, Optional
@@ -198,3 +198,33 @@ class SyntheticRGBTHard(SyntheticRGBT):
             anno = self.get_sequence_info(seq_id)
         frame_list = [[frames_v[f], frames_i[f]] for f in frame_ids]
         return frame_list, self._anno_frames(anno, frame_ids), {}
+
+
+class SyntheticVideo(BaseVideoDataset):
+    """The unimodal set: `_render`'s RGB frames and boxes."""
+
+    def __init__(self, n_sequences: int = 8, n_frames: int = 60, H: int = 240, W: int = 320):
+        super().__init__("SyntheticVideo", root="")
+        self.n_sequences = n_sequences
+        self.n_frames = n_frames
+        self.H, self.W = H, W
+        self._cache = {}
+
+    def _seq(self, seq_id: int):
+        if seq_id not in self._cache:
+            self._cache[seq_id] = _render(seq_id, self.n_frames, self.H, self.W)
+        return self._cache[seq_id]
+
+    def get_num_sequences(self):
+        return self.n_sequences
+
+    def get_sequence_info(self, seq_id: int):
+        _, boxes = self._seq(seq_id)
+        valid = np.ones(len(boxes), dtype=bool)
+        return {"bbox": boxes, "valid": valid, "visible": valid.copy()}
+
+    def get_frames(self, seq_id: int, frame_ids: List[int], anno: Optional[dict] = None):
+        frames, _ = self._seq(seq_id)
+        if anno is None:
+            anno = self.get_sequence_info(seq_id)
+        return [frames[f] for f in frame_ids], self._anno_frames(anno, frame_ids), {}

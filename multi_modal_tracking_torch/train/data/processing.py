@@ -1,7 +1,8 @@
-"""Training-sample processing for RGB-T pairs: box jitter -> paired crops ->
-transforms -> validity checks. The port's own copy of the JAX package's
-`train/data/processing.py RGBTProcessing`, without cv2: the same random
-draws in the same order, so one seed gives the same samples.
+"""Training-sample processing for RGB-T pairs (`RGBTProcessing`) and for
+one modality (`UnimodalProcessing`): box jitter -> crops -> transforms ->
+validity checks. The port's own copies of the JAX package's
+`train/data/processing.py` classes, without cv2: the same random draws in
+the same order, so one seed gives the same samples.
 
 Per frame the jitter roll (scale, centre offset) is shared by both
 modalities; both modal crops are taken around the jittered RGB box; a
@@ -26,6 +27,7 @@ from multi_modal_tracking_torch import native
 from multi_modal_tracking_torch.train.data import processing_utils as prutils
 from multi_modal_tracking_torch.train.data.transforms import (JointAugment, brightness_factors,
                                                               flip_box_norm, flip_norm,
+                                                              tensor_and_jitter,
                                                               tensor_and_jitter_rgbt)
 
 
@@ -174,5 +176,97 @@ class RGBTProcessing:
             data[s + "_anno_i"] = boxes_i
             del data[s + "_images"], data[s + "_anno"]
 
+        data["valid"] = True
+        return data
+
+
+class UnimodalProcessing:
+    """Processes one raw unimodal sample dict (template_images /
+    search_images [N](H, W, 3) uint8, template_anno / search_anno [N](4,))
+    into normalised crops, the JAX package's `UnimodalProcessing`: the joint
+    grey and flip roll (the grey on the one image), then per frame its own
+    jitter roll, the crop, the brightness jitter, normalisation and the
+    per-crop flip. `pixels` as for RGBTProcessing."""
+
+    def __init__(self, search_area_factor: Dict[str, float], output_sz: Dict[str, int],
+                 center_jitter_factor: Dict[str, float], scale_jitter_factor: Dict[str, float],
+                 p_gray: float = 0.05, p_flip: float = 0.5, brightness_jitter: float = 0.2,
+                 rng: Optional[random.Random] = None, train: bool = True,
+                 pixels: str = "native"):
+        if pixels not in ("native", "plain"):
+            raise ValueError(f"pixels must be 'native' or 'plain', got {pixels!r}")
+        self.search_area_factor = search_area_factor
+        self.output_sz = output_sz
+        self.center_jitter_factor = center_jitter_factor
+        self.scale_jitter_factor = scale_jitter_factor
+        self.brightness_jitter = brightness_jitter
+        self.rng = rng or random.Random()
+        self.joint = JointAugment(p_gray, p_flip, self.rng)
+        self.train = train
+        self.pixels = pixels
+        if pixels == "native":
+            native.library()
+
+    def _crop(self, img, box, s: str, state: dict):
+        """(crop, resize factor, valid) of `img` (before the joint
+        augmentation for the native pixels, after it for the plain ones)."""
+        f, o = self.search_area_factor[s], self.output_sz[s]
+        if self.pixels == "plain":
+            crop, rf, att = prutils.sample_target(img, box, f, o)
+            return crop, rf, _att_mask_valid(att, o)
+        crop, rf, _, ok = native.sample_target(img, box, f, o, gray=state["gray"],
+                                               flip=state["flip"])
+        return crop, rf, ok
+
+    def _pixels(self, crop, box, rng, dest=None):
+        b = self.brightness_jitter if self.train else 0.0
+        if self.pixels == "plain":
+            c = tensor_and_jitter(crop, b, rng)
+            if self.train and rng.random() < 0.5:
+                c, box = flip_norm(c, box)
+            return c, box
+        bf = rng.uniform(max(0, 1 - b), 1 + b)
+        flip = self.train and rng.random() < 0.5
+        return native.jitter_normalise(crop, bf, flip, out=dest), \
+            (flip_box_norm(box) if flip else box)
+
+    def __call__(self, data: dict, rng=None, out=None) -> dict:
+        """Returns the processed dict with a 'valid' flag; on False the
+        caller resamples. `out` as for RGBTProcessing (image fields
+        template_images / search_images)."""
+        rng = rng or self.rng
+        state = JointAugment(self.joint.p_gray, self.joint.p_flip, rng).roll()
+        for s in ("template", "search"):
+            imgs, annos = [], []
+            for img, anno in zip(data[s + "_images"], data[s + "_anno"]):
+                img = np.asarray(img)
+                annos.append(self.joint.apply_box(anno, img.shape[1], state))
+                imgs.append(self.joint.apply_image_pair(img, img, state)[0]
+                            if self.pixels == "plain" else img)
+            crops, boxes = [], []
+            for f, (img, a) in enumerate(zip(imgs, annos)):
+                roll = (np.exp(np.asarray([rng.gauss(0, 1), rng.gauss(0, 1)])
+                               * self.scale_jitter_factor[s]),
+                        np.asarray([rng.random() - 0.5, rng.random() - 0.5]))
+                jb = _jittered_box(a, self.center_jitter_factor[s], roll)
+                if np.ceil(np.sqrt(max(jb[2], 0) * max(jb[3], 0))
+                           * self.search_area_factor[s]) < 1:
+                    data["valid"] = False
+                    return data
+                try:
+                    crop, rf, valid = self._crop(img, jb, s, state)
+                except ValueError:
+                    data["valid"] = False
+                    return data
+                if not valid:
+                    data["valid"] = False
+                    return data
+                b = prutils.transform_image_to_crop(a, jb, rf, self.output_sz[s], normalize=True)
+                dest = None if out is None else out(f"{s}_images", len(imgs), f, crop.shape)
+                c, b = self._pixels(crop, b, rng, dest)
+                crops.append(c)
+                boxes.append(b)
+            data[s + "_images"] = crops
+            data[s + "_anno"] = boxes
         data["valid"] = True
         return data

@@ -1,11 +1,12 @@
 """Numpy augmentations of the training data workers: the port's own copy of
-the JAX package's `train/data/transforms.py` (the RGB-T part).
+the JAX package's `train/data/transforms.py` (the RGB-T part and the
+unimodal jitter).
 
   JointAugment: grayscale (RGB only, p 0.05) and horizontal flip (p 0.5),
     rolled once per sample and shared by template and search;
   tensor_and_jitter_rgbt: brightness jitter (RGB and TIR draw independent
     factors from U[1 - b, 1 + b]), the JET map of the TIR crop, ImageNet
-    normalisation of both;
+    normalisation of both; tensor_and_jitter, its unimodal twin;
   flip_norm: the per-crop flip of a processed crop and its normalised box.
 
 Outputs are float32 HWC: the models are NHWC.
@@ -82,6 +83,16 @@ def tensor_and_jitter_rgbt(img_v: np.ndarray, img_i: np.ndarray,
     v = (v - IMAGENET_MEAN) / IMAGENET_STD
     i = (i - IMAGENET_MEAN) / IMAGENET_STD
     return v, i
+
+
+def tensor_and_jitter(img: np.ndarray, brightness_jitter: float = 0.2,
+                      rng: Optional[random.Random] = None) -> np.ndarray:
+    """Unimodal: a uint8 crop -> normalised float32 (HWC) with brightness
+    jitter (one factor from U[1 - b, 1 + b], drawn even at b = 0)."""
+    rnd = rng or random
+    bf = rnd.uniform(max(0, 1 - brightness_jitter), 1 + brightness_jitter)
+    v = np.clip(img.astype(np.float32) * (bf / 255.0), 0.0, 1.0)
+    return (v - IMAGENET_MEAN) / IMAGENET_STD
 
 
 def flip_norm(img: np.ndarray, box_norm: np.ndarray):

@@ -1,5 +1,6 @@
-"""One training step and one val step of the RGB-T flagship, and the CE
-keep-rate schedule.
+"""One training step and one val step of the port's models (the RGB-T
+ones on stacked bimodal inputs, the unimodal ones on one modality), and
+the CE keep-rate schedule.
 
 Stage 2 (TRAIN_SCORE, the online scripts' recipes): the step trains the
 SPM score branch. Its forward runs the whole net in eval mode under
@@ -91,13 +92,16 @@ MODEL_INPUTS = {"t": ("template_v", "template_i"),
                 "ot": ("online_template_v", "online_template_i"),
                 "s": ("search_v", "search_i"), "gt_xywh": ("gt_xywh",),
                 "gt_xyxy": ("gt_xyxy",), "labels": ("labels",)}
+#: the images of a unimodal batch (`batch_to_model_inputs(rgbt=False)`)
+UNIMODAL_INPUTS = {"t": ("template",), "ot": ("online_template",), "s": ("search",)}
 #: the inputs of the box step, then those stage 2 adds
 BOX_INPUTS = ("t", "ot", "s", "gt_xywh")
 SCORE_INPUTS = BOX_INPUTS + ("gt_xyxy", "labels")
 
 
 def _fields(batch) -> Dict[str, tuple]:
-    return {k: f for k, f in MODEL_INPUTS.items() if f[0] in batch}
+    table = MODEL_INPUTS if "template_v" in batch else dict(MODEL_INPUTS, **UNIMODAL_INPUTS)
+    return {k: f for k, f in table.items() if f[0] in batch}
 
 
 def input_buffers(batch: Dict[str, np.ndarray], pin: bool = False) -> Dict[str, torch.Tensor]:
@@ -110,10 +114,11 @@ def input_buffers(batch: Dict[str, np.ndarray], pin: bool = False) -> Dict[str, 
 
 def model_inputs(batch: Dict[str, np.ndarray], device,
                  out: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """Host batch (`batch_to_model_inputs`) -> the model's stacked bimodal
-    inputs on `device`: t/ot/s (2B, H, W, 3), [:B] RGB, [B:] TIR, and
-    gt_xywh (B, 4); with a stage-2 batch also gt_xyxy (B, 4) and labels
-    (B,). With `out` (`input_buffers`), the host arrays are
+    """Host batch (`batch_to_model_inputs`) -> the model's inputs on
+    `device`: t/ot/s, the stacked bimodal (2B, H, W, 3) images ([:B] RGB,
+    [B:] TIR) or a unimodal batch's (B, H, W, 3) ones, and gt_xywh (B, 4);
+    with a stage-2 batch also gt_xyxy (B, 4) and labels (B,). With `out`
+    (`input_buffers`), the host arrays are
     concatenated into those buffers and copied from them with
     non_blocking=True on the current stream: the caller keeps a buffer
     untouched until that copy has completed. On the CPU the buffers are

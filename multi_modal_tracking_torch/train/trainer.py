@@ -1,5 +1,7 @@
-"""Epoch-loop trainer of the RGB-T flagship on one GPU, with checkpoints,
-resume, the fail-safe restart, warm starts and the val loop.
+"""Epoch-loop trainer of the port's scripts on one GPU (the RGB-T ones and
+the unimodal `mixformer_vit*`, whose configs train on one modality:
+`train.builders.is_rgbt_config`), with checkpoints, resume, the
+fail-safe restart, warm starts and the val loop.
 
 The port's counterpart of the JAX package's `train/trainer.py Trainer`:
 the train and val loaders (sampler + processing + threaded loader), the
@@ -59,7 +61,7 @@ import torch
 
 from multi_modal_tracking_torch.models.build import build_model
 from multi_modal_tracking_torch.models.layers import set_generator
-from multi_modal_tracking_torch.train.builders import build_dataloaders
+from multi_modal_tracking_torch.train.builders import build_dataloaders, is_rgbt_config
 from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
 from multi_modal_tracking_torch.train.optimizer import make_optimizer
 from multi_modal_tracking_torch.train.stats import StatsTracker
@@ -115,6 +117,7 @@ class Trainer:
                 raise FileNotFoundError(f"{key} = {path!r} not found (cwd {os.getcwd()!r}); "
                                         f"clear it to train from random weights")
         self.script, self.cfg = script, cfg
+        self.rgbt = is_rgbt_config(cfg)
         self.ckpt_dir = os.path.join(save_dir, "checkpoints", script)
         self.epoch = 0
         self.train_loader, self.val_loader = build_dataloaders(cfg, seed=seed)
@@ -226,7 +229,7 @@ class Trainer:
             batches = iter(loader)
             try:
                 for k, batch in enumerate(batches):
-                    host = batch_to_model_inputs(batch, rgbt=True)
+                    host = batch_to_model_inputs(batch, rgbt=self.rgbt)
                     if not cuda:
                         item = (model_inputs(host, self.device), None)
                     else:

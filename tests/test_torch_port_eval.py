@@ -87,8 +87,7 @@ def test_hard_training_set_equals_jax():
 
 
 @pytest.mark.parametrize("name,item", [("lasher", "item 1"), ("vtuav_long", "item 1"),
-                                       ("depthtrack", "item 1"), ("synthetic_rgb", "item 9"),
-                                       ("lasot", "item 9")])
+                                       ("depthtrack", "item 1"), ("lasot", "item 1")])
 def test_unported_datasets_raise(name, item):
     assert name in jax_datasets.dataset_dict
     with pytest.raises(NotImplementedError, match=item):
@@ -519,10 +518,9 @@ def test_cli_batch_sequences_and_checkpoint_sweep(tiny_cli, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--type", "TIR"], NotImplementedError, "item 9"),
     (["--vis_search"], NotImplementedError, "cv2"),
     (["--dataset_name", "lasher"], NotImplementedError, "item 1"),
-], ids=["type_tir", "vis_search", "file_dataset"])
+], ids=["vis_search", "file_dataset"])
 def test_cli_unported_options_raise(tiny_cli, extra, exc, match):
     with pytest.raises(exc, match=match):
         run.main(BASE + extra)

@@ -105,10 +105,14 @@ def test_import_leaves_jax_unloaded():
 def test_eval_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     """The lockstep trackers and the eval CLI, like create_tracker."""
     from multi_modal_tracking_torch.eval import run
-    from multi_modal_tracking_torch.tracking.batched import (BatchedRGBTCachedTracker,
+    from multi_modal_tracking_torch.tracking.batched import (BatchedOnlineTracker,
+                                                             BatchedRGBCachedTracker,
+                                                             BatchedRGBTCachedTracker,
+                                                             BatchedRGBTracker,
                                                              BatchedRGBTTracker)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for cls in (BatchedRGBTTracker, BatchedRGBTCachedTracker):
+    for cls in (BatchedRGBTTracker, BatchedRGBTCachedTracker, BatchedRGBTracker,
+                BatchedRGBCachedTracker, BatchedOnlineTracker):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(torch.nn.Linear(2, 2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -120,7 +124,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.eval.params import get_parameters
     from multi_modal_tracking_torch.models.build import build_model
-    from multi_modal_tracking_torch.tracking.tracker import RGBTCachedTracker, RGBTTracker
+    from multi_modal_tracking_torch.tracking.tracker import (OnlineTracker, RGBCachedTracker,
+                                                             RGBTCachedTracker, RGBTracker,
+                                                             RGBTTracker)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = get_parameters("asymmetric_shared_ce", "attention_lasher_newfusion_2layer")
@@ -129,9 +135,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model("asymmetric_shared_ce", params.cfg)
     model = torch.nn.Linear(2, 2)
-    for cls in (RGBTTracker, RGBTCachedTracker):
+    for cls in (RGBTTracker, RGBTCachedTracker, RGBTracker, RGBCachedTracker, OnlineTracker):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(model)
+    params = get_parameters("mixformer_vit_online", "baseline")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_tracker(params, "LasOT", mode="TIR")
 
 
 TINY = dict(embed_dim=32, depth=1, num_heads=2, head_dim=32, fusion_layers=1, ce_loc=None,
@@ -180,13 +189,13 @@ def test_unported_options_raise(tmp_path, monkeypatch):
         create_tracker(params, device="cpu", dtype=torch.float32)
 
 
-@pytest.mark.parametrize("script", ["mixformer_vit", "mixformer_vit_online", "mixformer_cvt",
-                                    "mixformer_cvt_online", "mixformer_convmae",
+@pytest.mark.parametrize("script", ["mixformer_cvt", "mixformer_cvt_online", "mixformer_convmae",
                                     "mixformer_convmae_online"])
 def test_unported_scripts_raise(script):
-    """The unimodal scripts, CvT and ConvMAE are not ported yet (ROADMAP.md
-    queue 1 item 9): their configs and models raise. Every RGB-T script
-    builds (tests/test_torch_port_vit_rgbt.py)."""
+    """CvT and ConvMAE are not ported yet (ROADMAP.md queue 1 item 9): their
+    configs and models raise. Every RGB-T script builds
+    (tests/test_torch_port_vit_rgbt.py), and so do the unimodal ViT ones
+    (tests/test_torch_port_unimodal.py)."""
     from multi_modal_tracking_torch.config import get_default_config
     from multi_modal_tracking_torch.models.build import build_model
     with pytest.raises(KeyError, match="not ported"):

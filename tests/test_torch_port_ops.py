@@ -147,4 +147,4 @@ def test_strict_overlay_and_unported_script_raise():
     with pytest.raises(ValueError, match="not exist"):
         cfg.merge_strict({"MODEL": {"BOGUS": 1}})
     with pytest.raises(KeyError, match="not ported"):
-        port_params.get_parameters("mixformer_vit")
+        port_params.get_parameters("mixformer_cvt")
