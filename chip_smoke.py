@@ -276,13 +276,49 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 and ViT-B's batch 32 against their plain versions.
                 `python3 chip_smoke.py unimodal` runs the device and build
                 phases and this phase alone.
-Then the kernel table line (launches by path: tracker, graphs, train,
-eval, online, stage2, families, unimodal for the f32 kernels; train bf16,
-lifecycle, stage2 bf16, families bf16, unimodal bf16, and for the forward
-kernels the bf16 tracker, graphs, eval and online; train, train bf16,
-lifecycle, both stage-2 runs, families bf16 and both unimodal runs for
-AdamW; the unimodal phase's RGB-T runs count under online bf16 and
-families bf16) and, last, {"ok": true, "device": {...}}.
+ 17. cvt_convmae - the CvT and ConvMAE MixFormer families
+                (phase_cvt_convmae), full width, seeded random weights.
+                mixformer_cvt_online/baseline (CvT-21: 64 / 192 / 384,
+                depths 1 / 4 / 16, 128 / 320, online size 3, the SPM): the
+                f32 forward and cached path on the card against the CPU
+                (BOX_TOL); the cached tracker against the full-forward one,
+                both through the plain attention, within CVT_CACHED_PX over
+                the 63 frames; OnlineTracker, its score bias centred, f32 and
+                bf16, graphed against eager bit for bit, the ring's commits,
+                10 frames profiled with the plain attention's share of the
+                bf16 frames' busy time; stage 2 at batch 32 bf16 graphed
+                against eager. mixformer_cvt/baseline (CvT-21): 3 bf16
+                steps at batch 8 graphed against eager bit for bit, f32 held
+                as the unimodal f32 step. No CvT path launches a
+                hand-written attention kernel (a count of 0, required).
+                mixformer_convmae/baseline (ConvMAE-B, CORNER_UP, 128 /
+                288): GPU against CPU; RGBCachedTracker f32 and bf16 graphed
+                against eager, against the full-forward RGBTracker (K1)
+                within UNI_CACHED_PX; 3 steps at batch 32, bf16 bit for bit
+                (K1-bf16, K2-bf16) and f32 (K1, K2).
+                mixformer_convmae_online/baseline: the online tracker bf16,
+                stage 2 at batch 32. mixformer_cvt_online/baseline_large
+                (CvT-24) and mixformer_convmae/baseline_large (ConvMAE-L,
+                192 / 384): parameters, 63 bf16 frames graphed against
+                eager, one update (CvT-24: a stage-2 step at 16; ConvMAE-L:
+                3 micro-batches of 12), peak memory. Then `eval.run
+                mixformer_cvt_online baseline --dataset_name
+                synthetic_rgbt_hard --type RGB --batch_sequences 12` and
+                `eval.run mixformer_convmae baseline ... --batch_sequences
+                12` (frames/s with the model's build), and CvT online
+                lockstep N = 12 against one stream (f32 within
+                UNI_LOCKSTEP_PX with the same score files; bf16 printed).
+                `python3 chip_smoke.py cvt_convmae` runs the device and
+                build phases and this phase alone.
+Then a line of each phase's seconds (the whole script only), the kernel
+table line (launches by path: tracker, graphs, train,
+eval, online, stage2, families, unimodal, cvt_convmae for the f32
+kernels; train bf16, lifecycle, stage2 bf16, families bf16, unimodal
+bf16, cvt_convmae bf16, and for the forward kernels the bf16 tracker,
+graphs, eval and online; train, train bf16, lifecycle, both stage-2 runs,
+families bf16, both unimodal runs and both cvt_convmae runs for AdamW;
+the unimodal phase's RGB-T runs count under online bf16 and families
+bf16) and, last, {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py drift` runs the device and build phases and, alone,
 the spread study behind the drift check of phase 16 (`phase_drift`): the
@@ -4713,6 +4749,7 @@ def _attend_in_frames(eager, snap: dict, frames, graphed: list, busy_ms: float) 
     operations at those positions are `_attend`'s, where the two name
     sequences are the same (`_aligned`). The eager run's own figures are
     printed beside them."""
+    import multi_modal_tracking_torch.models.cvt as cvt
     import multi_modal_tracking_torch.models.vit as vit
     from torch.profiler import ProfilerActivity, profile, record_function
     plain, n = vit._attend, len(frames)
@@ -4722,7 +4759,7 @@ def _attend_in_frames(eager, snap: dict, frames, graphed: list, busy_ms: float) 
         with record_function("_attend"):
             return plain(*args, **kw)
 
-    vit._attend = tagged
+    vit._attend = cvt._attend = tagged
     try:
         for attempt in range(PROFILE_SESSIONS):       # again if the profiler lost events
             eager.restore(snap)
@@ -4737,7 +4774,7 @@ def _attend_in_frames(eager, snap: dict, frames, graphed: list, busy_ms: float) 
             if idx_e is not None:
                 break
     finally:
-        vit._attend = plain
+        vit._attend = cvt._attend = plain
     ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
               if e.get("ph") == "X" and e.get("cat") == "user_annotation"
               and e.get("name") == "_attend"]
@@ -4868,12 +4905,14 @@ def _uni_train_cfg(script: str, recipe: str, batch: int, steps: int):
 
 
 def _uni_training(script: str, recipe: str, batch: int, save_dir: str, steps: int = UNI_STEPS,
-                  twin: bool = True, dtype=torch.bfloat16) -> tuple:
+                  twin: bool = True, dtype=torch.bfloat16, attention: bool = True) -> tuple:
     """The Trainer, graphed, on the recipe at its default bf16 or at `dtype`:
     `steps` steps graphed against eager (`_graphed_vs_eager_in_place`, bit
     for bit; f32 `_f32_graphed_vs_eager_in_place`), or with twin=False
     graphed alone; the dtype's K1 and K2
-    launched, no kernel of the other dtype; ms per step, busy, idle, memory
+    launched, no kernel of the other dtype (attention=False: a model that
+    attends through plain PyTorch, CvT: no K1-K4 of either dtype, AdamW
+    only); ms per step, busy, idle, memory
     (`_stage2_timing`); stage 2 also the frozen check. Returns (line,
     launches)."""
     from multi_modal_tracking_torch.train.builders import build_train_loader
@@ -4903,8 +4942,11 @@ def _uni_training(script: str, recipe: str, batch: int, save_dir: str, steps: in
         losses = [float(m["Loss/total"]) for m in metrics]
         require(all(np.isfinite(losses)), f"{script}/{recipe}: losses {losses}")
         line = dict(loss=losses)
-    require(got[kernels[0]] > 0 and got[kernels[1]] > 0 and not any(got[k] for k in other),
-            f"{script}/{recipe} training: launches {got}")
+    if attention:
+        ok = got[kernels[0]] > 0 and got[kernels[1]] > 0 and not any(got[k] for k in other)
+    else:
+        ok = not any(got[k] for k in F32_KERNELS + BF16_KERNELS) and got["AdamW"] > 0
+    require(ok, f"{script}/{recipe} training: launches {got}")
     if tr._step.train_score:
         line["frozen"] = _frozen_check(tr, before)
     reset_launches()
@@ -4923,7 +4965,8 @@ def _uni_training(script: str, recipe: str, batch: int, save_dir: str, steps: in
     return line, launches
 
 
-def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR") -> tuple:
+def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR", params=None,
+                     tag: str = "uni") -> tuple:
     """The online unimodal tracker on synthetic_rgbt_hard in `mode` at update
     interval 25 and online size 3, the score bias shifted: one stream
     (run_dataset) against lockstep N = 12 (eval.run's twin,
@@ -4931,13 +4974,16 @@ def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR") -> 
     None by minus the median logit of the first sequence tracked eager.
     f32: within UNI_LOCKSTEP_PX of one stream with byte-equal score files;
     bf16: the drift printed. No hand-written kernel runs (the cached path's
-    attention is plain). Returns (line, shift)."""
+    attention is plain). `params`: another online script's (default
+    mixformer_vit_online/baseline); `tag` names its runs. Returns (line,
+    shift)."""
     from multi_modal_tracking_torch.eval.datasets import get_dataset
     from multi_modal_tracking_torch.eval.run import _batched_twin
     from multi_modal_tracking_torch.eval.running import run_dataset
     from multi_modal_tracking_torch.tracking.batched import BatchedOnlineTracker
     seqs = get_dataset("synthetic_rgbt_hard")
-    single = _uni_tracker(_family_params(UNI_ONLINE, UNI_ONLINE, "baseline"), dtype, mode)
+    single = _uni_tracker(params or _family_params(UNI_ONLINE, UNI_ONLINE, "baseline"), dtype,
+                          mode)
     if shift is None:               # centre the scores of the first sequence
         probe = _uni_twin(single, graphs=False)
         probe.initialize(list(seqs[0].frames[0]), seqs[0].init_info())
@@ -4950,13 +4996,14 @@ def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR") -> 
     require(type(bt) is BatchedOnlineTracker and bt.online_size == 3 and bt.mode == mode,
             f"eval.run's lockstep twin of OnlineTracker: {type(bt).__name__}")
     label = "f32" if dtype == torch.float32 else "bf16"
-    one = _eval_run(f"uni_A_{label}", lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK),
-                    seqs, root, runs, kernels=())
-    lock = _eval_run(f"uni_B12_{label}", lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG),
-                     seqs, root, runs, kernels=())
-    res = _lockstep_vs_one(one, lock, seqs, root, f"uni_A_{label}", f"uni_B12_{label}", runs,
+    a, b = f"{tag}_A_{label}", f"{tag}_B12_{label}"
+    one = _eval_run(a, lambda d: run_dataset(seqs, single, d, chunk=EVAL_CHUNK), seqs, root, runs,
+                    kernels=())
+    lock = _eval_run(b, lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG), seqs, root, runs,
+                     kernels=())
+    res = _lockstep_vs_one(one, lock, seqs, root, a, b, runs,
                            UNI_LOCKSTEP_PX if dtype == torch.float32 else None)
-    scores = np.concatenate([np.loadtxt(os.path.join(root, f"uni_A_{label}", f"{q.name}_score.txt"))
+    scores = np.concatenate([np.loadtxt(os.path.join(root, a, f"{q.name}_score.txt"))
                              for q in seqs])
     res.update(score_bias_shift=shift, scores_above_half_share=float((scores > 0.5).mean()))
     return res, shift
@@ -5300,49 +5347,291 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
     return {"f32": f32, "bf16": bf16, "online_bf16": online_bf16, "families_bf16": families_bf16}
 
 
+# ----------------------------------------------------------- cvt / convmae
+CVT, CVT_ONLINE = "mixformer_cvt", "mixformer_cvt_online"
+CM, CM_ONLINE = "mixformer_convmae", "mixformer_convmae_online"
+#: the recipes' batches: CvT-21 (mixformer_cvt 8, its stage 2 32), CvT-24's
+#: stage 2 16, ConvMAE-B 32 (and its stage 2), ConvMAE-L 12 (ACCUM_ITER 3)
+CVT_B, CVT_ONLINE_B, CVT_LARGE_B, CM_B, CM_LARGE_B = 8, 32, 16, 32, 12
+#: CvT's cached tracker against its full forward over the 63 frames (px):
+#: both attend through the plain f32 einsum, the cached path over the same
+#: keys in other GEMM groupings, so only the order of f32 sums differs
+CVT_CACHED_PX = 1e-4
+
+
+def _cm_params(script: str, recipe: str = "baseline"):
+    """The recipe's tracking parameters (its own tree, no tracking overlay);
+    an online script's ring of 3 at the update-interval dataset (the CvT
+    recipes list 1 for TrackingNet)."""
+    params = _family_params(script, script, recipe)
+    if script.endswith("online"):
+        params.cfg.TEST.ONLINE_SIZES[ONLINE_INTERVAL_FROM] = [3]
+    return params
+
+
+def _no_attention_kernels(line: dict, what: str) -> None:
+    require(not any(line["launches"][k] for k in F32_KERNELS + BF16_KERNELS),
+            f"{what}: launches {line['launches']} (the cached path attends through plain "
+            f"PyTorch)")
+
+
+def _cached_vs_full(t, frames, bound: float, k1_per_frame: int) -> tuple:
+    """RGBCachedTracker against the full-forward RGBTracker on `t`'s model
+    and settings over the 63 frames (f32, graphed): the largest box
+    difference within `bound`, the full forward's K1 launches
+    `k1_per_frame` a frame and the cached path's none. Returns (line, the
+    full forward's launches)."""
+    from multi_modal_tracking_torch.tracking.tracker import RGBCachedTracker, RGBTracker
+    kw = {k: getattr(t, k) for k in ("template_factor", "template_size", "search_factor",
+                                     "search_size", "update_interval", "mode")}
+    runs = {cls.__name__: _family_run(cls(t.model, **kw), frames[:64])
+            for cls in (RGBCachedTracker, RGBTracker)}
+    cached, full = runs["RGBCachedTracker"], runs["RGBTracker"]
+    d = float(np.abs(full["boxes"] - cached["boxes"]).max())
+    require(d <= bound and full["launches"]["K1"] == k1_per_frame * 63
+            and not any(cached["launches"][k] for k in F32_KERNELS),
+            f"{t.model.__class__.__name__}: cached vs full forward {d} px (bound {bound}), "
+            f"launches full {full['launches']} cached {cached['launches']}")
+    return (dict(max_abs_px=d, bound_px=bound, cached_ms_per_frame=cached["ms_per_frame"],
+                 full_ms_per_frame=full["ms_per_frame"], full_launches={"K1": full["launches"]["K1"]}),
+            full["launches"])
+
+
+def _centred_shift(params, frames) -> float:
+    """Minus the median score logit of the f32 online tracker's eager run on
+    the 63 frames: the shift that puts scores on both sides of 0.5."""
+    probe = _uni_twin(_uni_tracker(params, torch.float32, "RGB"), graphs=False)
+    s = _family_run(probe, frames[:64])["scores"].astype(np.float64)
+    del probe
+    torch.cuda.empty_cache()
+    return -float(np.median(np.log(s / (1.0 - s))))
+
+
+def phase_cvt_convmae(smi: str, frames, save_dir: str) -> dict:
+    """The CvT and ConvMAE MixFormer families at full width, seeded random
+    weights (module docstring, phase 17). Returns the launch counts of its
+    f32 and bf16 paths."""
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.run import main as eval_cli
+    f32 = dict.fromkeys(F32_KERNELS + ("AdamW",), 0)
+    bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    totals = {torch.float32: f32, torch.bfloat16: bf16}
+    attend = {}
+
+    # CvT-21 online: GPU vs CPU, cached vs full, the online tracker, stage 2
+    t0 = time.perf_counter()
+    params = _cm_params(CVT_ONLINE)
+    tracker = _uni_tracker(params, torch.float32, "RGB")
+    res = dict(params=sum(p.numel() for p in tracker.model.parameters()),
+               gpu_vs_cpu_max_abs=_uni_gpu_vs_cpu(tracker.model))
+    res["cached_vs_full"], _ = _cached_vs_full(tracker, frames, CVT_CACHED_PX, 0)
+    del tracker
+    shift = _centred_shift(params, frames)
+    res["score_bias_shift"] = shift
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "f32" if dtype == torch.float32 else "bf16"
+        line, tracker, _ = _uni_tracking(params, dtype, "RGB", frames, shift,
+                                         attend=dtype == torch.bfloat16)
+        _no_attention_kernels(line, f"{CVT_ONLINE} {label}")
+        require(line["tracker"] == "OnlineTracker" and line["online_size"] == 3
+                and line["n_filled"] == 3 and line["forget_id"] == 0,
+                f"{CVT_ONLINE} {label}: {line['tracker']}, ring {line.get('n_filled')} / "
+                f"{line.get('forget_id')}")
+        if "attend" in line["profile"]:
+            attend["cvt OnlineTracker"] = line["profile"]["attend"]
+        res[f"track_{label}"] = line
+        del tracker
+        torch.cuda.empty_cache()
+    res["stage2_bf16"], counts = _uni_training(CVT_ONLINE, "baseline", CVT_ONLINE_B, save_dir,
+                                               attention=False)
+    _add_launches(bf16, counts, counts)
+    emit({"phase": "cvt_convmae cvt_online", "card": smi, "recipe": f"{CVT_ONLINE}/baseline",
+          "tolerance": BOX_TOL, **res, "seconds": time.perf_counter() - t0})
+
+    # CvT-21 by mixformer_cvt's recipe: training at its batch 8
+    t0 = time.perf_counter()
+    res = {}
+    res["train_bf16"], counts = _uni_training(CVT, "baseline", CVT_B, save_dir, attention=False)
+    _add_launches(bf16, counts, counts)
+    res["train_f32"], counts = _uni_training(CVT, "baseline", CVT_B, save_dir,
+                                             dtype=torch.float32, attention=False)
+    _add_launches(f32, counts, counts)
+    emit({"phase": "cvt_convmae cvt", "card": smi, "recipe": f"{CVT}/baseline", **res,
+          "seconds": time.perf_counter() - t0})
+
+    # ConvMAE-B: the cached tracker, against the full forward (K1), training
+    t0 = time.perf_counter()
+    params = _cm_params(CM)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "f32" if dtype == torch.float32 else "bf16"
+        line, tracker, _ = _uni_tracking(params, dtype, "RGB", frames,
+                                         attend=dtype == torch.bfloat16)
+        _no_attention_kernels(line, f"{CM} {label}")
+        require(line["tracker"] == "RGBCachedTracker", f"{CM}: {line['tracker']}")
+        if "attend" in line["profile"]:
+            attend["convmae RGBCachedTracker"] = line["profile"]["attend"]
+        if dtype == torch.float32:
+            res["params"] = sum(p.numel() for p in tracker.model.parameters())
+            res["gpu_vs_cpu_max_abs"] = _uni_gpu_vs_cpu(tracker.model)
+            res["cached_vs_full"], counts = _cached_vs_full(tracker, frames, UNI_CACHED_PX, 11)
+            _add_launches(f32, counts, f32)
+        res[f"track_{label}"] = line
+        del tracker
+        torch.cuda.empty_cache()
+    res["train_bf16"], counts = _uni_training(CM, "baseline", CM_B, save_dir)
+    _add_launches(bf16, counts, counts)
+    res["train_f32"], counts = _uni_training(CM, "baseline", CM_B, save_dir, dtype=torch.float32)
+    _add_launches(f32, counts, counts)
+    emit({"phase": "cvt_convmae convmae", "card": smi, "recipe": f"{CM}/baseline",
+          "tolerance": BOX_TOL, **res, "seconds": time.perf_counter() - t0})
+
+    # ConvMAE-B online: the online tracker in bf16, stage 2
+    t0 = time.perf_counter()
+    params = _cm_params(CM_ONLINE)
+    shift = _centred_shift(params, frames)
+    line, tracker, _ = _uni_tracking(params, torch.bfloat16, "RGB", frames, shift)
+    _no_attention_kernels(line, f"{CM_ONLINE} bf16")
+    require(line["tracker"] == "OnlineTracker" and line["n_filled"] == 3,
+            f"{CM_ONLINE}: {line['tracker']}, ring {line.get('n_filled')}")
+    del tracker
+    torch.cuda.empty_cache()
+    res = dict(score_bias_shift=shift, track_bf16=line)
+    res["stage2_bf16"], counts = _uni_training(CM_ONLINE, "baseline", CM_B, save_dir)
+    _add_launches(bf16, counts, counts)
+    emit({"phase": "cvt_convmae convmae_online", "card": smi, "recipe": f"{CM_ONLINE}/baseline",
+          **res, "seconds": time.perf_counter() - t0})
+    emit({"phase": "cvt_convmae cached attention", "card": smi,
+          "what": "device ms a bf16 frame of the plain attention (models/vit.py _attend, which "
+                  "models/cvt.py calls) in the 10 profiled graphed frames, found by position "
+                  "from the eager twin's trace of the same frames, and its share of their "
+                  "device busy time", **attend})
+
+    # the large recipes: CvT-24 (stage 2) and ConvMAE-L (ACCUM_ITER 3)
+    for script, recipe, batch, attention in ((CVT_ONLINE, "baseline_large", CVT_LARGE_B, False),
+                                             (CM, "baseline_large", CM_LARGE_B, True)):
+        t0 = time.perf_counter()
+        params = _cm_params(script, recipe)
+        line, tracker, _ = _uni_tracking(params, torch.bfloat16, "RGB", frames)
+        _no_attention_kernels(line, f"{script}/{recipe} bf16")
+        n_params = sum(p.numel() for p in tracker.model.parameters())
+        del tracker
+        torch.cuda.empty_cache()
+        # one update: a stage-2 step (CvT-24), ACCUM_ITER's 3 micro-batches (ConvMAE-L)
+        steps = 1 if script == CVT_ONLINE else UNI_STEPS
+        train, counts = _uni_training(script, recipe, batch, save_dir, steps=steps, twin=False,
+                                      attention=attention)
+        require(counts["AdamW"] > 0 and train["accum_iter"] == steps,
+                f"{script}/{recipe}: ACCUM_ITER {train['accum_iter']}, AdamW launches "
+                f"{counts['AdamW']}")
+        _add_launches(bf16, counts, counts)
+        emit({"phase": f"cvt_convmae {script}/{recipe}", "card": smi, "params": n_params,
+              "template_size": params.template_size, "search_size": params.search_size,
+              "track_bf16": line, "train_bf16": train, "seconds": time.perf_counter() - t0})
+
+    # lockstep: the CLI, CvT online N = 12 against one stream; ConvMAE's CLI
+    t0 = time.perf_counter()
+    seqs = get_dataset("synthetic_rgbt_hard")
+    n_frames = sum(len(q.frames) for q in seqs)
+    with tempfile.TemporaryDirectory() as root:
+        cli = {}
+        for script, extra in ((CVT_ONLINE, ["--type", "RGB"]), (CM, [])):
+            reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dirs = eval_cli([script, "baseline", "--dataset_name", "synthetic_rgbt_hard", *extra,
+                             "--batch_sequences", str(EVAL_BIG), "--results_dir",
+                             os.path.join(root, script)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            suffixes = ("", "_score") if script.endswith("online") else ("",)
+            require(len(dirs) == 1 and all(os.path.isfile(os.path.join(dirs[0], f"{q.name}{x}.txt"))
+                                           for q in seqs for x in suffixes),
+                    f"eval.run {script} --batch_sequences {EVAL_BIG}: {dirs}")
+            launches = read_launches()
+            require(not any(launches[k] for k in F32_KERNELS + BF16_KERNELS),
+                    f"eval.run {script}: launches {launches}")
+            cli[script] = dict(seconds=secs, frames=n_frames, fps_with_model_build=n_frames / secs,
+                               launches=launches)
+        runs, drift, cvt_shift = {}, {}, None
+        for dtype in (torch.float32, torch.bfloat16):
+            label = "f32" if dtype == torch.float32 else "bf16"
+            drift[label], cvt_shift = _uni_online_eval(dtype, cvt_shift, root, runs, mode="RGB",
+                                                       params=_cm_params(CVT_ONLINE), tag="cvt")
+    emit({"phase": "cvt_convmae lockstep", "card": smi, "script": CVT_ONLINE, "mode": "RGB",
+          "cli": cli, "runs": runs, "cvt_online_drift": drift,
+          "seconds": time.perf_counter() - t0})
+    return {"f32": f32, "bf16": bf16}
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     dev, smi = phase_device()
     phase_build()
-    phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift}
+    phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift,
+              "cvt_convmae": phase_cvt_convmae}
     if len(argv) == 1 and argv[0] in phases:    # one phase alone (module docstring)
         frames = list(_sequence(74))
         with tempfile.TemporaryDirectory() as save_dir:
             launches = phases[argv[0]](smi, frames, save_dir)
         emit({"phase": f"{argv[0]} launches", **launches})
         return
-    require(not argv, f"unknown arguments {argv}: none, `families`, `unimodal` or `drift`")
+    require(not argv, f"unknown arguments {argv}: none, or one of {sorted(phases)}")
+    laps = [("start", time.perf_counter())]
+
+    def lap(name: str) -> None:
+        """Mark the end of a phase: its seconds go to the "phase seconds" line."""
+        laps.append((name, time.perf_counter()))
+
     phase_bf16_reduction(smi)
     warm_profiler()
     g = torch.Generator().manual_seed(0)
     kernels = phase_kernels(g)
+    lap("kernels")
     phase_model(g)
     frames = list(_sequence(74))
     track_launches, tracker, f32_boxes = phase_tracker(smi, frames[:64])
     phase_profile(tracker, frames[64:], smi)
     del tracker
+    lap("model, tracker, profile")
     graph_launches = phase_graphs(smi, frames)
+    lap("graphs")
     phase_train_data(smi)
+    lap("train data")
     with tempfile.TemporaryDirectory() as save_dir:
         train_launches, _ = phase_train(smi, save_dir, torch.float32)
+    lap("train")
     with tempfile.TemporaryDirectory() as save_dir:
         train_bf16_launches, bf16_step_ms = phase_train(smi, save_dir, torch.bfloat16)
+    lap("train bf16")
     life_launches = phase_lifecycle(smi, frames, bf16_step_ms)
+    lap("lifecycle")
     eval_launches, f32_eval = phase_eval(smi)
+    lap("eval")
     bf16 = phase_bf16(smi, frames, f32_boxes, f32_eval)
+    lap("bf16")
     online = phase_online(smi, frames)
+    lap("online")
     with tempfile.TemporaryDirectory() as save_dir:
         stage2 = phase_stage2(smi, save_dir)
+    lap("stage2")
     with tempfile.TemporaryDirectory() as save_dir:
         families = phase_families(smi, frames, save_dir)
+    lap("families")
     with tempfile.TemporaryDirectory() as save_dir:
         unimodal = phase_unimodal(smi, frames, save_dir)
+    lap("unimodal")
+    with tempfile.TemporaryDirectory() as save_dir:
+        cvt_convmae = phase_cvt_convmae(smi, frames, save_dir)
+    lap("cvt_convmae")
+    emit({"phase": "phase seconds", **{name: t - laps[i][1]
+                                       for i, (name, t) in enumerate(laps[1:])}})
     table = []
     for key in F32_KERNELS:
         by_path = {"tracker": track_launches[key], "graphs": graph_launches["f32"][key],
                    "train": train_launches[key], "eval": eval_launches[key],
                    "stage2": stage2["f32"][key], "families": families["f32"][key],
-                   "unimodal": unimodal["f32"][key]}
+                   "unimodal": unimodal["f32"][key], "cvt_convmae": cvt_convmae["f32"][key]}
         if key in online["f32"]:
             by_path["online"] = online["f32"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
@@ -5359,7 +5648,8 @@ def main(argv=None) -> None:
         by_path = {"train_bf16": train_bf16_launches[key], "lifecycle": life_launches[key],
                    "stage2_bf16": stage2["bf16"][key],
                    "families_bf16": families["bf16"][key] + unimodal["families_bf16"][key],
-                   "unimodal_bf16": unimodal["bf16"][key]}
+                   "unimodal_bf16": unimodal["bf16"][key],
+                   "cvt_convmae_bf16": cvt_convmae["bf16"][key]}
         if key in BF16_SERVING:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
                            graphs_bf16=graph_launches["bf16"][key],
@@ -5380,7 +5670,9 @@ def main(argv=None) -> None:
                "lifecycle": life_launches["AdamW"], "stage2": stage2["f32"]["AdamW"],
                "stage2_bf16": stage2["bf16"]["AdamW"],
                "families_bf16": families["bf16"]["AdamW"] + unimodal["families_bf16"]["AdamW"],
-               "unimodal": unimodal["f32"]["AdamW"], "unimodal_bf16": unimodal["bf16"]["AdamW"]}
+               "unimodal": unimodal["f32"]["AdamW"], "unimodal_bf16": unimodal["bf16"]["AdamW"],
+               "cvt_convmae": cvt_convmae["f32"]["AdamW"],
+               "cvt_convmae_bf16": cvt_convmae["bf16"]["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,14 +1,12 @@
-"""Default config trees of the ported scripts: the `asymmetric_shared*`
+"""Default config trees of every script: the `asymmetric_shared*`
 flagship family, the `mixformer_vit_rgbt*` family and the unimodal
-`mixformer_vit` and `mixformer_vit_online`.
+`mixformer_vit*`, `mixformer_cvt*` and `mixformer_convmae*`.
 
-The port's own copy of those branches of the JAX package's
-`config/defaults.py` (`_rgbt_base`, `_with_ce`, `_with_score`,
-`_unimodal_vit`): the same default trees, so the same `experiments/*.yaml`
-recipes overlay onto them. `mixformer_vit_rgbt_online` has no default tree
-there, nor here: its model builds from a config the caller passes
-(`models.build.build_model`). The CvT and ConvMAE scripts raise (ROADMAP.md
-queue 1 item 9).
+The port's own copy of the JAX package's `config/defaults.py`
+(`_rgbt_base`, `_with_ce`, `_with_score`, `_unimodal_vit`, `_cvt`): the
+same default trees, so the same `experiments/*.yaml` recipes overlay onto
+them. `mixformer_vit_rgbt_online` has no default tree there, nor here: its
+model builds from a config the caller passes (`models.build.build_model`).
 """
 from __future__ import annotations
 
@@ -120,6 +118,48 @@ def _unimodal_vit() -> CfgNode:
     return c
 
 
+def _cvt(online: bool) -> CfgNode:
+    """The CvT scripts' tree (the JAX package's config/defaults.py:123-162):
+    the base script ships CvT-13 depths [1, 2, 10], the online one CvT-21
+    [1, 4, 16], both at search 320; the online one trains stage 2
+    (TRAIN_SCORE) with the trident_pro sampler by default."""
+    c = _unimodal_vit()
+    c.MODEL.VIT_TYPE = "cvt_21"
+    c.MODEL.HIDDEN_DIM = 384
+    c.MODEL.BACKBONE.update(dict(
+        INIT="trunc_norm", NUM_STAGES=3,
+        PATCH_SIZE=[7, 3, 3], PATCH_STRIDE=[4, 2, 2], PATCH_PADDING=[2, 1, 1],
+        DIM_EMBED=[64, 192, 384], NUM_HEADS=[1, 3, 6],
+        DEPTH=[1, 4, 16] if online else [1, 2, 10],
+        MLP_RATIO=[4.0, 4.0, 4.0], ATTN_DROP_RATE=[0.0, 0.0, 0.0],
+        DROP_RATE=[0.0, 0.0, 0.0], DROP_PATH_RATE=[0.0, 0.0, 0.1],
+        QKV_BIAS=[True, True, True], CLS_TOKEN=[False, False, True],
+        POS_EMBED=[False, False, False],
+        QKV_PROJ_METHOD=["dw_bn", "dw_bn", "dw_bn"], KERNEL_QKV=[3, 3, 3],
+        PADDING_KV=[1, 1, 1], STRIDE_KV=[2, 2, 2], PADDING_Q=[1, 1, 1],
+        STRIDE_Q=[1, 1, 1], FREEZE_BN=True,
+    ))
+    c.MODEL.PRETRAINED_STAGE1 = True
+    c.TRAIN.EPOCH = 500
+    c.DATA.SEARCH.SIZE = 320
+    c.TEST.SEARCH_SIZE = 320
+    if online:
+        _with_score(c)
+        c.TRAIN.HINGE_WEIGHT = 100
+        c.TRAIN.TRAIN_SCORE = True
+        c.DATA.SAMPLER_MODE = "trident_pro"
+    return c
+
+
+def _online_unimodal(c: CfgNode) -> CfgNode:
+    """The score branch's keys of the unimodal online scripts."""
+    c.MODEL.PRETRAINED_STAGE1 = False
+    _with_score(c)
+    c.TRAIN.HINGE_WEIGHT = 100
+    c.TRAIN.EPOCH = 500
+    return c
+
+
 def get_default_config(script: str) -> CfgNode:
     if script in ("asymmetric_shared", "mixformer_vit_rgbt", "mixformer_vit_rgbt_shared",
                   "mixformer_vit_rgbt_unibackbone"):
@@ -142,11 +182,11 @@ def get_default_config(script: str) -> CfgNode:
         c.MODEL.FUSION_LAYERS = 6
         return c
     if script == "mixformer_vit_online":
+        return _online_unimodal(_unimodal_vit())
+    if script in ("mixformer_cvt", "mixformer_cvt_online"):
+        return _cvt(online=script.endswith("online"))
+    if script in ("mixformer_convmae", "mixformer_convmae_online"):
         c = _unimodal_vit()
-        c.MODEL.PRETRAINED_STAGE1 = False
-        _with_score(c)
-        c.TRAIN.HINGE_WEIGHT = 100
-        c.TRAIN.EPOCH = 500
-        return c
-    raise KeyError(f"script {script!r} is not ported to multi_modal_tracking_torch "
-                   f"(ROADMAP.md queue 1 item 9)")
+        c.MODEL.VIT_TYPE = "convmae_base"
+        return _online_unimodal(c) if script.endswith("online") else c
+    raise KeyError(f"unknown script {script}")

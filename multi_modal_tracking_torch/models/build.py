@@ -8,6 +8,8 @@ import torch
 from torch import nn
 
 from multi_modal_tracking_torch.models.asymmetric_shared import build_mixformer_rgbt
+from multi_modal_tracking_torch.models.convmae import build_mixformer_convmae
+from multi_modal_tracking_torch.models.cvt import build_mixformer_cvt
 from multi_modal_tracking_torch.models.fusion import (DeformableAttentionFusion,
                                                       DeformConvFusion, ModulatedDeformConv2d,
                                                       MSDeformAttnBimodal)
@@ -29,14 +31,19 @@ _VIT_RGBT = {
     "mixformer_vit_rgbt_shared": dict(variant="shared", with_score=False),
     "mixformer_vit_rgbt_unibackbone": dict(variant="unibackbone", with_score=False),
 }
-#: the unimodal MixFormer-ViT scripts: score branch
-_VIT = {
-    "mixformer_vit": dict(with_score=False),
-    "mixformer_vit_online": dict(with_score=True),
+#: the unimodal scripts and the function that builds each; `_online` means with
+#: the score branch
+_UNIMODAL = {
+    "mixformer_vit": build_mixformer_vit,
+    "mixformer_vit_online": build_mixformer_vit,
+    "mixformer_cvt": build_mixformer_cvt,
+    "mixformer_cvt_online": build_mixformer_cvt,
+    "mixformer_convmae": build_mixformer_convmae,
+    "mixformer_convmae_online": build_mixformer_convmae,
 }
 #: the RGB-T scripts build_model builds, then every one
 RGBT_SCRIPTS = tuple(_RGBT_SHARED) + tuple(_VIT_RGBT)
-SCRIPTS = RGBT_SCRIPTS + tuple(_VIT)
+SCRIPTS = RGBT_SCRIPTS + tuple(_UNIMODAL)
 
 
 def is_rgbt_script(script: str) -> bool:
@@ -95,7 +102,7 @@ def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
                 seed: int = 0, spec_overrides: Optional[dict] = None) -> nn.Module:
     """Build the model of a script (`SCRIPTS`: the `asymmetric_shared*`
     flagship family, the `mixformer_vit_rgbt*` family and the unimodal
-    `mixformer_vit` and `mixformer_vit_online`) with random
+    `mixformer_vit*`, `mixformer_cvt*` and `mixformer_convmae*`) with random
     float32 weights from `seed`, in eval mode on `device` (default: the
     GPU; raises if there is none), computing in `dtype` (float32 or
     bfloat16; others raise; `models.layers.set_compute_dtype`), with the
@@ -106,14 +113,14 @@ def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
     it casts them for serving (`utils.checkpoint.cast_floating`).
     `spec_overrides` replace fields of the model spec read from `cfg`."""
     if script not in SCRIPTS:
-        raise NotImplementedError(f"script {script!r} is not ported to "
-                                  f"multi_modal_tracking_torch (ROADMAP.md queue 1 item 9)")
+        raise KeyError(f"unknown script {script}")
     dev = resolve_device(device)
     set_precision(dtype)
     if script in _RGBT_SHARED:
         model = build_mixformer_rgbt(cfg, **_RGBT_SHARED[script], **(spec_overrides or {}))
-    elif script in _VIT:
-        model = build_mixformer_vit(cfg, **_VIT[script], **(spec_overrides or {}))
+    elif script in _UNIMODAL:
+        model = _UNIMODAL[script](cfg, with_score=script.endswith("_online"),
+                                  **(spec_overrides or {}))
     else:
         model = build_vit_rgbt(cfg, **_VIT_RGBT[script], **(spec_overrides or {}))
     return set_compute_dtype(init_random(model, seed), dtype).to(dev).eval()

@@ -132,6 +132,11 @@ class MixFormerViT(nn.Module):
         self.register_buffer("pos_embed_t", torch.from_numpy(
             get_2d_sincos_pos_embed(embed_dim, self.grid_size_t))[None], persistent=False)
 
+    def _stage_blocks(self) -> nn.ModuleList:
+        """The attention blocks over the tokens (`blocks`; the ConvMAE
+        backbone's third stage, `blocks3`)."""
+        return self.blocks
+
     def _embed(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         """Patch tokens plus the fixed position embedding in the model's
         dtype (models/vit.py:168-172 there)."""
@@ -144,7 +149,7 @@ class MixFormerViT(nn.Module):
         s = self._embed(x_s, self.pos_embed_s)
         n_t = t.shape[1]
         x = torch.cat([t, ot, s], dim=1)
-        for blk in self.blocks:
+        for blk in self._stage_blocks():
             x = blk(x, 2 * n_t)
         B = x.shape[0]
         gt, gs = self.grid_size_t, self.grid_size_s
@@ -171,7 +176,7 @@ class MixFormerViT(nn.Module):
             slots = slot_mask.float().repeat_interleave(n_t, dim=-1)
             key_mask = torch.cat([slots.new_ones(slots.shape[:-1] + (n_t,)), slots], dim=-1)
         mem: List[tuple] = []
-        for blk in self.blocks:
+        for blk in self._stage_blocks():
             x, m = blk.set_online(x, key_mask)
             mem.append(m)
         gt = self.grid_size_t
@@ -181,7 +186,7 @@ class MixFormerViT(nn.Module):
         """NHWC search images against the cache of `set_online` -> the search
         map (B, gs, gs, C)."""
         s = self._embed(x_s, self.pos_embed_s)
-        for blk, m in zip(self.blocks, mem):
+        for blk, m in zip(self._stage_blocks(), mem):
             s = blk.forward_test(s, m, key_mask)
         gs = self.grid_size_s
         return s.reshape(s.shape[0], gs, gs, -1)

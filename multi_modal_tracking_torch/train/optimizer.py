@@ -18,7 +18,10 @@ Matching optax, on purpose:
     does (acc + (g - acc) / (n + 1)); the mean is clipped and one AdamW
     update applied per k micro-batches;
   * regimes match parameter names by substring; the port's dotted names
-    have `blocks.{i}.` where flax has `blocks_{i}/`;
+    have `blocks.{i}.` where flax has `blocks_{i}/`. A model may give the
+    name its flax twin's path has (`regime_name`): CvT's stages are
+    `backbone.stage{i}` in the port and `stage{i}` in flax, so the default
+    regime puts them in `main`, at multiplier 1.0, as the JAX package does;
   * AdamW's arithmetic is optax's, in its order, each operation rounded
     once: the fused update of ops/adamw.py (kernel `csrc/adamw.cu` on the
     card, its plain version on the CPU, the same bits), with the bias
@@ -158,10 +161,12 @@ class RegimeAdamW:
         self.params: List[nn.Parameter] = []
         self.groups: Dict[str, List[nn.Parameter]] = {}
         index = {}
+        # the name the JAX package's labeller sees (MixFormerCvT.regime_name)
+        label_name = getattr(model, "regime_name", lambda n: n)
         for name, p in model.named_parameters():
             index[p] = len(self.params)
             self.params.append(p)
-            g = lab(name)
+            g = lab(label_name(name))
             if mults[g] >= 0:
                 self.groups.setdefault(g, []).append(p)
         self.mults = {g: mults[g] for g in self.groups}

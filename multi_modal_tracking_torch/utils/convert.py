@@ -30,6 +30,14 @@ and these path renames:
   <adjust> / conv | gn (1x1 + GN)     -> <adjust>.0 | .1
   score_branch / proj_q_0 | norm2_1   -> score_branch.proj_q.0 | .norm2.1
   score_branch / score_head / layers_2 -> score_branch.score_head.layers.2
+  stage{i} (CvT, at the top level)     -> backbone.stage{i}
+  stage{i} / blocks_N / fc1 (CvT)      -> backbone.stage{i}.blocks.N.mlp.fc1
+  conv_proj_q / conv | bn (CvT)        -> conv_proj_q.conv | .bn
+  blocks1_N / mlp_fc1 (ConvMAE)        -> blocks1.N.mlp.fc1
+
+A BatchNorm whose scale and bias live in batch_stats (CvT's frozen
+ConvProj BN: scale, bias, mean, var) is a FrozenBatchNorm2d, without a
+step counter.
 
 Input leaves are numpy arrays (or anything np.asarray accepts).
 """
@@ -198,13 +206,21 @@ def _score_path(path: Tuple[str, ...]) -> str:
 def _module_path(path: Tuple[str, ...]) -> str:
     if path[:1] == ("score_branch",):
         return _score_path(path)
+    if path and re.fullmatch(r"stage\d+", path[0]):   # CvT's stages sit at the top level
+        path = ("backbone",) + path
     out = []
     i = 0
     while i < len(path):
         s = path[i]
-        m = re.fullmatch(r"(blocks|layers)_(\d+)", s)
+        m = re.fullmatch(r"(blocks[123]?|layers)_(\d+)", s)
         if m:
             out += (["encoder"] if m.group(1) == "layers" else []) + [m.group(1), m.group(2)]
+        elif s in ("fc1", "fc2") and i and re.fullmatch(r"blocks_\d+", path[i - 1]):
+            out += ["mlp", s]                       # CvT's MAMBlock holds fc1 and fc2
+        elif s in ("mlp_fc1", "mlp_fc2"):           # ConvMAE's CBlock
+            out += ["mlp", s[4:]]
+        elif i and path[i - 1].startswith("conv_proj_"):  # CvT's ConvProj: conv and bn
+            out.append(s)
         elif s in ("tower_tl", "tower_br"):
             i += 1
             stage = re.fullmatch(r"(adjust[34])_(\d)", path[i])
@@ -237,7 +253,7 @@ def _leaf(coll: str, name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
         return "weight", arr.T
     if name == "scale":
         return "weight", arr
-    if coll == "batch_stats":
+    if coll == "batch_stats" and name != "bias":
         return {"mean": "running_mean", "var": "running_var"}[name], arr
     return name, arr
 
@@ -257,18 +273,27 @@ def _deform_paths(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[Tuple[str, ..
 
 
 def from_jax_variables(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax variables of an RGB-T model (MixFormerRGBT, MixFormerViTRGBT;
-    numpy leaves) -> the port's state_dict, loadable with
-    `load_state_dict(..., strict=True)` (every BatchNorm also gets
+    """flax variables of a model of any family (numpy leaves) -> the
+    port's state_dict, loadable with `load_state_dict(..., strict=True)`
+    (every BatchNorm also gets
     num_batches_tracked = 0; a frozen one has none)."""
+    # a BN whose scale lives in batch_stats is frozen (CvT's ConvProj): no step counter
+    frozen = {p[:-1] for p, _ in _flatten(variables_np.get("batch_stats", {})) if p[-1] == "scale"}
     sd: Dict[str, torch.Tensor] = {}
+    for coll, path, key, arr in _port_leaves(variables_np):
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        if coll == "batch_stats" and path[-1] == "mean" and path[:-1] not in frozen:
+            sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def _port_leaves(variables_np: Dict[str, Any]) -> Iterator[Tuple[str, tuple, str, np.ndarray]]:
+    """(collection, flax path, the port's key, array in the port's layout)
+    of every leaf of a flax variables tree."""
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables_np.get(coll, {})):
-            path, leaf = _deform_paths(path, np.asarray(leaf))
-            name, arr = _leaf(coll, path[-1], leaf)
-            mod = _module_path(path[:-1]) + (".1" if path[-1] in _FROZEN_BN else "")
-            key = f"{mod}.{name}" if mod else name
-            sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-            if name == "running_mean" and path[-1] not in _FROZEN_BN:
-                sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
-    return sd
+            fpath, leaf = _deform_paths(path, np.asarray(leaf))
+            name, arr = _leaf(coll, fpath[-1], leaf)
+            mod = _module_path(fpath[:-1]) + (".1" if fpath[-1] in _FROZEN_BN else "")
+            yield coll, path, f"{mod}.{name}" if mod else name, arr

@@ -192,17 +192,23 @@ def test_unported_options_raise(tmp_path, monkeypatch):
 @pytest.mark.parametrize("script", ["mixformer_cvt", "mixformer_cvt_online", "mixformer_convmae",
                                     "mixformer_convmae_online"])
 def test_unported_scripts_raise(script):
-    """CvT and ConvMAE are not ported yet (ROADMAP.md queue 1 item 9): their
-    configs and models raise. Every RGB-T script builds
-    (tests/test_torch_port_vit_rgbt.py), and so do the unimodal ViT ones
-    (tests/test_torch_port_unimodal.py)."""
+    """Every script of the repo is ported: the CvT and ConvMAE ones build
+    from their configs (tests/test_torch_port_cvt.py and
+    tests/test_torch_port_convmae.py hold them to the JAX package), and a
+    name the registry lacks raises in get_default_config and build_model."""
     from multi_modal_tracking_torch.config import get_default_config
-    from multi_modal_tracking_torch.models.build import build_model
-    with pytest.raises(KeyError, match="not ported"):
-        get_default_config(script)
-    cfg = get_default_config("mixformer_vit_rgbt")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build_model(script, cfg, device="cpu")
+    from multi_modal_tracking_torch.models.build import SCRIPTS, build_model
+    cfg = get_default_config(script)
+    tiny = (dict(dim_embed=(16, 32, 64), num_heads=(1, 2, 4), depth=(1, 1, 2), head_dim=64)
+            if "cvt" in script else dict(embed_dim=(32, 48, 64), depth=(1, 1, 2), num_heads=4,
+                                         head_dim=64))
+    model = build_model(script, cfg, device="cpu", spec_overrides=dict(
+        tiny, search_size=64, template_size=32))
+    assert script in SCRIPTS and model.with_score == script.endswith("_online")
+    with pytest.raises(KeyError, match="unknown script"):
+        get_default_config(script + "_x")
+    with pytest.raises(KeyError, match="unknown script"):
+        build_model(script + "_x", cfg, device="cpu")
 
 
 def _train_cfg(small: bool = False):

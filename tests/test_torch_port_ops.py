@@ -146,5 +146,7 @@ def test_strict_overlay_and_unported_script_raise():
     cfg = port_params.get_parameters("asymmetric_shared_ce").cfg
     with pytest.raises(ValueError, match="not exist"):
         cfg.merge_strict({"MODEL": {"BOGUS": 1}})
-    with pytest.raises(KeyError, match="not ported"):
-        port_params.get_parameters("mixformer_cvt")
+    # every script of the repo is ported; a name the registry lacks raises
+    assert port_params.get_parameters("mixformer_cvt").search_size == 320
+    with pytest.raises(KeyError, match="unknown script"):
+        port_params.get_parameters("mixformer_cvt_x")
