@@ -167,8 +167,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 Prints checkpoint bytes, save / load / resume seconds, val
                 ms per batch and ms per accumulation micro-step beside the
                 isolated bf16 step of phase 9;
- 11. eval     - the evaluation stack on synthetic_rgbt_hard (12 sequences of
-                60 frames at 240x320), full width, seed-0 weights: run_dataset
+ 11. eval     - the evaluation stack on synthetic_rgbt_hard (12 sequences at
+                240x320, 30 of their 60 frames each, HARD_FRAMES, as in
+                every later phase's runs but the eval.run CLIs' since PR
+                18), full width, seed-0 weights: run_dataset
                 one stream at a time, chunk 16 (A); run_sequences_batched at
                 N = 4 and N = 12 (B4, B12: the N sequences as one (2N, ...)
                 batch; K3 takes its gather kernel at N = 4 and its staged one
@@ -266,7 +268,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 RGB-T online tracker's bf16 lockstep drift with K1-bf16 in
                 both runs, with its plain version in both, and, as the
                 control, the plain version with the lockstep run's scale
-                times 1 ± 2^-18, 2^-20 or 2^-22. ViT-L: mixformer_vit/baseline_large (GPU vs
+                times 1 ± 2^-20 (`python3 chip_smoke.py drift` runs the
+                control at 2^-18, 2^-20 and 2^-22 on all 60 frames).
+                ViT-L: mixformer_vit/baseline_large (GPU vs
                 CPU in f32, 63 bf16 frames graphed, ACCUM_ITER's 3 bf16
                 steps at batch 12 graphed against eager, parameters, peak
                 memory) and mixformer_vit_rgbt/baseline_large (its own
@@ -310,13 +314,40 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 UNI_LOCKSTEP_PX with the same score files; bf16 printed).
                 `python3 chip_smoke.py cvt_convmae` runs the device and
                 build phases and this phase alone.
+ 18. files    - the file-based data path (phase_files), full width, seeded
+                random weights: the host library's decoder (built from
+                csrc/host/image.cpp with g++ in the build phase) on every
+                committed fixture of tests/torch_port_images/, each decode's
+                SHA-256 equal to manifest.json's (the JAX package's
+                decode); ms to decode a 640x480 RGB-T pair on one thread
+                and through decode_jpeg_batch; a LasHeR tree of 2 x 64
+                frames cycling the committed pairs (links) and a DepthTrack
+                sequence of 16 frames with 16-bit depth maps written here
+                with zlib; the flagship's tracker (bf16 graphed, and f32)
+                on a LasHeR sequence from files against the same frames
+                handed over as arrays, boxes and result files bit for bit,
+                frames/s of each; `eval.run` on the LasHeR and DepthTrack
+                trees and the GOT-10k zip of its results; 4 graphed bf16
+                Trainer steps at batch 16 from the LasHeR tree through
+                cycle_dataset's look-ahead, the loader's ms per batch of 16
+                from files beside the isolated graphed step; the CE
+                template-range modes CTR_REC, ALL and GT_BOX (with its
+                boxes a static input) at bf16 and f32, the full forward
+                graphed against eager and, for CTR_REC and ALL, the cached
+                tracker over 16 frames graphed against eager, bit for bit;
+                CvT-21 with BACKBONE.FREEZE_BN false, 2 bf16 steps at batch
+                8 graphed against eager bit for bit, the projection BNs'
+                running statistics included and moved. `python3
+                chip_smoke.py files` runs the device and build phases and
+                this phase alone.
 Then a line of each phase's seconds (the whole script only), the kernel
 table line (launches by path: tracker, graphs, train,
-eval, online, stage2, families, unimodal, cvt_convmae for the f32
+eval, online, stage2, families, unimodal, cvt_convmae, files for the f32
 kernels; train bf16, lifecycle, stage2 bf16, families bf16, unimodal
-bf16, cvt_convmae bf16, and for the forward kernels the bf16 tracker,
-graphs, eval and online; train, train bf16, lifecycle, both stage-2 runs,
-families bf16, both unimodal runs and both cvt_convmae runs for AdamW;
+bf16, cvt_convmae bf16, files bf16, and for the forward kernels the bf16
+tracker, graphs, eval and online; train, train bf16, lifecycle, both
+stage-2 runs, families bf16, both unimodal runs, both cvt_convmae runs
+and files bf16 for AdamW;
 the unimodal phase's RGB-T runs count under online bf16 and families
 bf16) and, last, {"ok": true, "device": {...}}.
 
@@ -418,6 +449,11 @@ KEEP_FINAL = 240 / 324             # keep 0.7 bucketised to a multiple of 16
 MSDA_SHAPES = ((18, 18), (18, 18))  # the fusion's two modal 18x18 maps
 EVAL_SMALL, EVAL_BIG = 4, 12       # sequences per lockstep batch in the eval phase
 EVAL_CHUNK = 16                    # frames per dispatch in the eval phase
+#: synthetic_rgbt_hard's frames a sequence in the whole script's eval runs
+#: (the eval, bf16, online, families, unimodal and cvt_convmae phases; the
+#: eval.run CLIs read the registry's 60): 30 of 60, cut to make room for
+#: the files phase
+HARD_FRAMES = 30
 EVAL_PX_TOL = 0.05                 # batched vs sequential trajectories, px
 M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
 # device kernel names of the bf16 attention kernels (csrc/mixed_attention_bf16.cu,
@@ -606,6 +642,7 @@ def phase_build():
         t = time.perf_counter()
         try:
             native.library()
+            native.image_library()
         except Exception as e:              # raised below, in this thread
             host["error"] = e
         host["seconds"] = time.perf_counter() - t
@@ -633,9 +670,9 @@ def phase_build():
            if r.get("spill_stores") or r.get("spill_loads") or r.get("wgmma_serialized")]
     require(not bad, f"wgmma kernels spill or serialise their wgmma chain: {bad}")
     emit({"phase": "build", "seconds": round(secs, 3),
-          "host_library": {"source": os.path.relpath(native.SOURCE, os.path.dirname(
-              os.path.abspath(__file__))), "seconds": round(host["seconds"], 3),
-              "flags": _build.HOST_FLAGS},
+          "host_library": {"sources": [os.path.relpath(src, os.path.dirname(
+              os.path.abspath(__file__))) for src in (native.SOURCE, native.IMAGE_SOURCE)],
+              "seconds": round(host["seconds"], 3), "flags": _build.HOST_FLAGS},
           "ptxas": reports,
           "wgmma_kernels": {name: [{k: r.get(k) for k in ("function", "registers", "spill_stores",
                                                            "spill_loads", "wgmma_serialized")}
@@ -3298,17 +3335,18 @@ def _eval_eager_runs(seqs, root: str, runs: dict, single, bt, one_stream: dict,
 
 
 def phase_eval(smi: str) -> dict:
-    """The evaluation stack on synthetic_rgbt_hard (12 sequences of 60
-    frames at 240x320), full width, seed-0 weights: run_dataset one stream
-    at a time (A), run_sequences_batched at N = 4 and 12 (B4, B12), and
-    run_sequence in ROI mode, margin 1.5 (R); A and B12 again eager.
+    """The evaluation stack on synthetic_rgbt_hard (12 sequences at
+    HARD_FRAMES of their 60 frames, 240x320), full width, seed-0 weights:
+    run_dataset one stream at a time (A), run_sequences_batched at N = 4
+    and 12 (B4, B12), and run_sequence in ROI mode, margin 1.5 (R); A and
+    B12 again eager.
     Returns the launch counts of the runs together."""
     from multi_modal_tracking_torch.eval.analysis import TrackerResults, print_results
     from multi_modal_tracking_torch.eval.datasets import get_dataset
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.eval.running import run_dataset, run_sequence
     name = "synthetic_rgbt_hard"
-    seqs = get_dataset(name)
+    seqs = get_dataset(name, n_frames=HARD_FRAMES)
     tracker = create_tracker(_params(), name, seed=0, dtype=torch.float32)
     tracked = sum(len(s.frames) - 1 for s in seqs)
     bt = _lockstep_twin(tracker)
@@ -3503,7 +3541,7 @@ def phase_bf16(smi: str, all_frames, f32_boxes: np.ndarray, f32_eval: dict) -> d
     del tracker
 
     name = "synthetic_rgbt_hard"
-    seqs = get_dataset(name)
+    seqs = get_dataset(name, n_frames=HARD_FRAMES)
     single = create_tracker(_params(), name, seed=0, dtype=torch.bfloat16)
     bt = _lockstep_twin(single)
     single_eager, bt_eager = _eager_twin(single), _lockstep_twin(single, graphs=False)
@@ -3700,7 +3738,7 @@ def _online_eval(dtype, bias_shift: float, root: str, runs: dict) -> dict:
     from multi_modal_tracking_torch.eval.run import _batched_twin, main as eval_cli
     from multi_modal_tracking_torch.eval.running import run_dataset
     from multi_modal_tracking_torch.tracking.batched import BatchedRGBTOnlineCachedTracker
-    seqs = get_dataset("synthetic_rgbt_hard")
+    seqs = get_dataset("synthetic_rgbt_hard", n_frames=HARD_FRAMES)
     single = create_tracker(_online_params(), ONLINE_INTERVAL_FROM, seed=0, dtype=dtype)
     with torch.no_grad():
         _score_head_bias(single.model).add_(bias_shift)
@@ -4370,7 +4408,7 @@ def _family_lockstep(params, root: str) -> tuple:
     from multi_modal_tracking_torch.eval.run import _batched_twin, main as eval_cli
     from multi_modal_tracking_torch.tracking.batched import BatchedRGBTTracker
     name = "synthetic_rgbt_hard"
-    seqs = get_dataset(name)
+    seqs = get_dataset(name, n_frames=HARD_FRAMES)
     tracker = create_tracker(params, name, seed=0)              # bf16, the default
     bt = _batched_twin(tracker, EVAL_CHUNK)
     require(type(bt) is BatchedRGBTTracker and bt.graphs is not None,
@@ -4692,6 +4730,10 @@ UNI_ATTN = ((16, 864, 288), (192, 864, 288), (384, 452, 128))
 #: the drift check's control: the lockstep run's attention scale times
 #: 1 ± each factor; the drift phase also at these score-bias offsets
 DRIFT_FACTORS = (2.0 ** -18, 2.0 ** -20, 2.0 ** -22)
+#: the unimodal lockstep section's drift check in the whole script: the
+#: control at the middle scale factor only (`python3 chip_smoke.py drift`
+#: runs the three on the set's 60 frames)
+UNI_DRIFT_FACTORS = (2.0 ** -20,)
 DRIFT_OFFSETS = (0.0, 0.5, -0.5)
 
 
@@ -4966,7 +5008,7 @@ def _uni_training(script: str, recipe: str, batch: int, save_dir: str, steps: in
 
 
 def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR", params=None,
-                     tag: str = "uni") -> tuple:
+                     tag: str = "uni", n_frames: int = 60) -> tuple:
     """The online unimodal tracker on synthetic_rgbt_hard in `mode` at update
     interval 25 and online size 3, the score bias shifted: one stream
     (run_dataset) against lockstep N = 12 (eval.run's twin,
@@ -4975,13 +5017,13 @@ def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR", par
     f32: within UNI_LOCKSTEP_PX of one stream with byte-equal score files;
     bf16: the drift printed. No hand-written kernel runs (the cached path's
     attention is plain). `params`: another online script's (default
-    mixformer_vit_online/baseline); `tag` names its runs. Returns (line,
-    shift)."""
+    mixformer_vit_online/baseline); `tag` names its runs; `n_frames` the
+    frames of each sequence. Returns (line, shift)."""
     from multi_modal_tracking_torch.eval.datasets import get_dataset
     from multi_modal_tracking_torch.eval.run import _batched_twin
     from multi_modal_tracking_torch.eval.running import run_dataset
     from multi_modal_tracking_torch.tracking.batched import BatchedOnlineTracker
-    seqs = get_dataset("synthetic_rgbt_hard")
+    seqs = get_dataset("synthetic_rgbt_hard", n_frames=n_frames)
     single = _uni_tracker(params or _family_params(UNI_ONLINE, UNI_ONLINE, "baseline"), dtype,
                           mode)
     if shift is None:               # centre the scores of the first sequence
@@ -5031,7 +5073,8 @@ def _lockstep_vs_one(one, lock, seqs, root, a: str, b: str, runs: dict, bound) -
     return res
 
 
-def _rgbt_online_drift(frames, root: str, runs: dict, offsets=(0.0,)) -> dict:
+def _rgbt_online_drift(frames, root: str, runs: dict, offsets=(0.0,),
+                       factors=DRIFT_FACTORS, n_frames: int = 60) -> dict:
     """The open check on the RGB-T online tracker's bf16 lockstep drift
     (asymmetric_shared_online, bf16, synthetic_rgbt_hard one stream against
     lockstep N = 12, the score bias centred as phase_online centres it and
@@ -5040,16 +5083,17 @@ def _rgbt_online_drift(frames, root: str, runs: dict, offsets=(0.0,)) -> dict:
     attention_bf16_plan); both with its plain version (batch-invariant but
     for cuBLAS's GEMMs); and, as the control, the plain version in both
     with the lockstep run's attention scale larger or smaller by each of
-    DRIFT_FACTORS (an f32-sized difference between the two runs, as the bf16
-    phase's drift_by_kernel uses one). Each offset's summary says whether
-    the kernels' distance lies within the control's spread (at most its
-    largest). The runs' lines and launches go to `runs`."""
+    `factors` (DRIFT_FACTORS: an f32-sized difference between the two runs,
+    as the bf16 phase's drift_by_kernel uses one), on `n_frames` frames of
+    each sequence. Each offset's summary says whether the kernels' distance
+    lies within the control's spread (at most its largest). The runs' lines
+    and launches go to `runs`."""
     import multi_modal_tracking_torch.ops.attention as attention
     from multi_modal_tracking_torch.eval.datasets import get_dataset
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
     from multi_modal_tracking_torch.eval.run import _batched_twin
     from multi_modal_tracking_torch.eval.running import run_dataset
-    seqs = get_dataset("synthetic_rgbt_hard")
+    seqs = get_dataset("synthetic_rgbt_hard", n_frames=n_frames)
     k1, p1 = attention.mixed_attention_bf16, attention.mixed_attention_bf16_ref
 
     def scaled(factor):
@@ -5066,7 +5110,7 @@ def _rgbt_online_drift(frames, root: str, runs: dict, offsets=(0.0,)) -> dict:
         cases = [("kernels", k1, k1), ("plain_K1-bf16", p1, p1)]
         cases += [(f"plain, lockstep scale x (1 {sign} 2^{int(np.log2(f))})", p1,
                    scaled(1.0 + f if sign == "+" else 1.0 - f))
-                  for f in DRIFT_FACTORS for sign in "+-"]
+                  for f in factors for sign in "+-"]
         res, alone = {}, {}
         for name, f_one, f_lock in cases:
             try:
@@ -5291,12 +5335,15 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
         runs, drift, tir_shift = {}, {}, None
         for dtype in (torch.float32, torch.bfloat16):
             label = "f32" if dtype == torch.float32 else "bf16"
-            drift[label], tir_shift = _uni_online_eval(dtype, tir_shift, root, runs)
-        rgbt = _rgbt_online_drift(frames, root, runs)
+            drift[label], tir_shift = _uni_online_eval(dtype, tir_shift, root, runs,
+                                                       n_frames=HARD_FRAMES)
+        rgbt = _rgbt_online_drift(frames, root, runs, factors=UNI_DRIFT_FACTORS,
+                                  n_frames=HARD_FRAMES)
         for k in BF16_SERVING:
             online_bf16[k] += sum(r["launches"][k] for n, r in runs.items()
                                   if n.startswith("rgbt_"))
     emit({"phase": "unimodal lockstep", "card": smi, "script": UNI_ONLINE, "mode": "TIR",
+          "frames_per_sequence": HARD_FRAMES, "drift_factors": UNI_DRIFT_FACTORS,
           "cli": cli, "runs": runs, "unimodal_online_drift": drift,
           "rgbt_online_bf16_drift": rgbt, "seconds": time.perf_counter() - t0})
 
@@ -5557,10 +5604,405 @@ def phase_cvt_convmae(smi: str, frames, save_dir: str) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             label = "f32" if dtype == torch.float32 else "bf16"
             drift[label], cvt_shift = _uni_online_eval(dtype, cvt_shift, root, runs, mode="RGB",
-                                                       params=_cm_params(CVT_ONLINE), tag="cvt")
+                                                       params=_cm_params(CVT_ONLINE), tag="cvt",
+                                                       n_frames=HARD_FRAMES)
     emit({"phase": "cvt_convmae lockstep", "card": smi, "script": CVT_ONLINE, "mode": "RGB",
           "cli": cli, "runs": runs, "cvt_online_drift": drift,
           "seconds": time.perf_counter() - t0})
+    return {"f32": f32, "bf16": bf16}
+
+
+# ------------------------------------------------------------------- files
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_port_images")
+FILE_SEQS, FILE_FRAMES = 2, 64     # LasHeR sequences laid out (test and train), frames each
+DEPTH_FRAMES = 16                  # frames of the DepthTrack sequence
+FILE_TRAIN_STEPS = 4               # graphed bf16 steps trained from the LasHeR tree
+LOADER_BATCHES = 9                 # batches of 16 timed from files (the first not timed)
+CE_FRAMES = 16                     # frames tracked per CE mode, graphed and eager
+DECODE_REPS = 20                   # decodes of a pair timed (median)
+
+
+def _png_bytes(arr: np.ndarray) -> bytes:
+    """A grey PNG of a uint8 or uint16 (H, W) map: unfiltered scanlines,
+    zlib's deflate, the chunks' CRCs; nothing but the standard library."""
+    import struct
+    import zlib
+    h, w = arr.shape
+    depth = 16 if arr.dtype == np.uint16 else 8
+    rows = np.ascontiguousarray(arr.astype(">u2" if depth == 16 else np.uint8)).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _digest(a: np.ndarray) -> dict:
+    import hashlib
+    a = np.ascontiguousarray(a)
+    return {"shape": list(a.shape), "dtype": str(a.dtype),
+            "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+
+
+def _fixtures_against_manifest() -> dict:
+    """Every committed fixture decoded by the port (JPEG and PNG, the depth
+    map also unchanged) against the SHA-256 of the JAX package's decode in
+    tests/torch_port_images/manifest.json."""
+    from multi_modal_tracking_torch import native
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    bad = []
+    for name, entries in sorted(manifest.items()):
+        path = os.path.join(FIXTURES, name)
+        if _digest(native.imread(path)) != entries["rgb"]:
+            bad.append(name)
+        if "unchanged" in entries and _digest(native.imread_unchanged(path)) != entries["unchanged"]:
+            bad.append(f"{name} (unchanged)")
+    require(len(manifest) == 16 and not bad, f"fixtures whose decode differs from the "
+                                             f"manifest's digest: {bad} of {len(manifest)}")
+    return dict(files=len(manifest), equal_to_manifest=len(manifest) - len(bad),
+                bytes=sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in manifest))
+
+
+def _decode_ms() -> dict:
+    """ms to decode one 640x480 RGB-T pair (the committed pair 0): one file
+    after the other on the calling thread, and both through
+    decode_jpeg_batch on 2 C++ threads (medians of DECODE_REPS)."""
+    from multi_modal_tracking_torch import native
+    pair = [os.path.join(FIXTURES, f"pair0_{m}.jpg") for m in "vi"]
+    one, batch = [], []
+    for _ in range(DECODE_REPS):
+        t0 = time.perf_counter()
+        for p in pair:
+            native.decode_jpeg(p)
+        one.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        native.decode_jpeg_batch(pair, 480, 640, num_threads=2)
+        batch.append((time.perf_counter() - t0) * 1e3)
+    return dict(pair_hw=[480, 640], one_thread_ms=float(np.median(one)),
+                batch_2_threads_ms=float(np.median(batch)), reps=DECODE_REPS)
+
+
+def _lay_out_trees(root: str) -> dict:
+    """A LasHeR tree (TestingSet and TrainingSet, FILE_SEQS sequences of
+    FILE_FRAMES frames each, cycling the committed 640x480 pairs through
+    links; init.txt the boxes of the synthetic frames the pairs were written
+    from) and a DepthTrack tree (test/<group>/<seq>: DEPTH_FRAMES colour
+    frames, linked, and 16-bit depth maps written here with `_png_bytes`).
+    Returns the local paths naming them."""
+    from multi_modal_tracking_torch.train.data.datasets.synthetic import SyntheticRGBT
+    src = SyntheticRGBT(n_sequences=2, n_frames=2, H=480, W=640)
+    pairs = [(os.path.join(FIXTURES, f"pair{k}_v.jpg"), os.path.join(FIXTURES, f"pair{k}_i.jpg"),
+              src._seq(k)[2][1]) for k in range(2)]
+    for split in ("TestingSet/testingset", "TrainingSet/trainingset"):
+        for q in range(FILE_SEQS):
+            base = os.path.join(root, "lasher", split, f"seq{q:02d}")
+            boxes = []
+            for t in range(FILE_FRAMES):
+                pv, pi, box = pairs[(t + q) % 2]
+                for d, target in (("visible", pv), ("infrared", pi)):
+                    os.makedirs(os.path.join(base, d), exist_ok=True)
+                    os.symlink(target, os.path.join(base, d, f"{t:06d}.jpg"))
+                boxes.append(box)
+            np.savetxt(os.path.join(base, "init.txt"), np.asarray(boxes), fmt="%d", delimiter=",")
+    base = os.path.join(root, "depthtrack", "test", "group01", "seq00")
+    os.makedirs(os.path.join(base, "color"))
+    os.makedirs(os.path.join(base, "depth"))
+    yy, xx = np.mgrid[0:480, 0:640]
+    boxes = []
+    for t in range(DEPTH_FRAMES):
+        pv, _, box = pairs[t % 2]
+        os.symlink(pv, os.path.join(base, "color", f"{t:08d}.jpg"))
+        dp = (1500 + 6 * xx + 4 * yy + 13 * t).astype(np.uint16)
+        x, y, w, h = (int(v) for v in box)
+        dp[y:y + h, x:x + w] = 700 + t                  # the target nearer the camera
+        with open(os.path.join(base, "depth", f"{t:08d}.png"), "wb") as f:
+            f.write(_png_bytes(dp))
+        boxes.append(box)
+    np.savetxt(os.path.join(base, "groundtruth.txt"), np.asarray(boxes), fmt="%d", delimiter=",")
+    return {"lasher_dir": os.path.join(root, "lasher"),
+            "depthtrack_dir": os.path.join(root, "depthtrack")}
+
+
+def _files_vs_arrays(seq, dtype, root: str) -> tuple:
+    """create_tracker's flagship tracker (full width, seed 0, graphed) on a
+    LasHeR sequence read from files and on the same frames decoded first
+    and handed over as arrays: the boxes and result files the same bits,
+    the same launches; frames/s of each on the host clock (a run on the
+    arrays first captures the graphs, untimed). Returns (line, launches)."""
+    from multi_modal_tracking_torch import native
+    from multi_modal_tracking_torch.eval.data import RGBTSequence
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    label = "f32" if dtype == torch.float32 else "bf16"
+    kernels = ("K1", "K3") if dtype == torch.float32 else BF16_SERVING
+    arrays = RGBTSequence(seq.name, [tuple(native.imread(p) for p in fr) for fr in seq.frames],
+                          seq.dataset, seq.ground_truth_rect)
+    tracker = create_tracker(_params(), "lasher", seed=0, dtype=dtype)
+    run_dataset([arrays], tracker, os.path.join(root, label, "warm"), chunk=EVAL_CHUNK)
+    runs = {}
+    for name, s in (("files", seq), ("arrays", arrays)):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = run_dataset([s], tracker, os.path.join(root, label, name), chunk=EVAL_CHUNK)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[name] = dict(boxes=stats[0]["boxes"], seconds=secs, fps=len(s.frames) / secs,
+                          launches=read_launches())
+        with open(os.path.join(root, label, name, f"{seq.name}.txt"), "rb") as f:
+            runs[name]["file"] = f.read()
+    a, b = runs["files"], runs["arrays"]
+    require(np.array_equal(a["boxes"], b["boxes"]) and a["file"] == b["file"]
+            and a["launches"] == b["launches"] and all(a["launches"][k] > 0 for k in kernels)
+            and not any(a["launches"][k] for k in F32_KERNELS + BF16_KERNELS if k not in kernels)
+            and _inside(a["boxes"], 480, 640),
+            f"{label} tracking from files against arrays: boxes differ by "
+            f"{float(np.abs(a['boxes'] - b['boxes']).max())} px, launches {a['launches']} vs "
+            f"{b['launches']}")
+    del tracker
+    torch.cuda.empty_cache()
+    line = dict(dtype=label, frames=len(seq.frames), check="files == arrays, bit for bit",
+                files_fps=a["fps"], arrays_fps=b["fps"], files_over_arrays=a["fps"] / b["fps"],
+                launches={k: a["launches"][k] for k in kernels})
+    return line, {k: a["launches"][k] + b["launches"][k] for k in kernels}
+
+
+def _eval_cli_on(name: str, root: str, n_seqs: int, n_frames: int) -> tuple:
+    """`eval.run` of the flagship recipe (bf16, graphed) on a file tree:
+    every sequence's result file with finite boxes inside the frame.
+    Returns (line, its results directory, launches)."""
+    from multi_modal_tracking_torch.eval.run import main as eval_cli
+    reset_launches()
+    t0 = time.perf_counter()
+    dirs = eval_cli([SCRIPT, RECIPE, "--dataset_name", name, "--results_dir",
+                     os.path.join(root, name)])
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    files = sorted(f for f in os.listdir(dirs[0]) if f.endswith(".txt")
+                   and not f.endswith(("_time.txt", "_score.txt")))
+    boxes = [np.loadtxt(os.path.join(dirs[0], f)) for f in files]
+    require(len(files) == n_seqs and all(b.shape == (n_frames, 4) and _inside(b, 480, 640)
+                                         for b in boxes)
+            and all(launches[k] > 0 for k in BF16_SERVING),
+            f"eval.run --dataset_name {name}: files {files}, launches {launches}")
+    return (dict(sequences=n_seqs, frames=n_seqs * n_frames, seconds_with_build=secs,
+                 launches={k: launches[k] for k in BF16_SERVING}), dirs[0], launches)
+
+
+def _train_from_files(save_dir: str) -> tuple:
+    """The flagship recipe's Trainer (bf16, graphed, batch 16) on the LasHeR
+    training tree: FILE_TRAIN_STEPS steps through cycle_dataset (the loader
+    decoding the files, the one-batch look-ahead); then the loader alone
+    (ms per batch of 16 from files) and the isolated graphed step. Returns
+    (line, launches)."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    cfg = _train_cfg(TRAIN_B, FILE_TRAIN_STEPS)
+    cfg.DATA.TRAIN.DATASETS_NAME = ["LasHeR"]
+    cfg.DATA.TRAIN.DATASETS_RATIO = [1]
+    tr = Trainer(SCRIPT, cfg, save_dir=save_dir, device="cuda", seed=0,
+                 print_interval=FILE_TRAIN_STEPS)
+    require(tr.dtype == torch.bfloat16 and tr._step.graphs is not None, f"Trainer {tr.dtype}")
+    reset_launches()
+    tr.epoch = 1
+    t0 = time.perf_counter()
+    tr.cycle_dataset()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [m["Loss/total"] for m in tr.history]
+    want = {k: v * FILE_TRAIN_STEPS for k, v in TRAIN_LAUNCHES[torch.bfloat16].items()}
+    require(len(losses) == FILE_TRAIN_STEPS and all(np.isfinite(losses))
+            and {k: launches[k] for k in want} == want and len(tr._step.graphs) >= 1,
+            f"training from files: losses {losses}, launches {launches}, graphs "
+            f"{len(tr._step.graphs)}")
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = TRAIN_B * LOADER_BATCHES
+    batches, loader_ms = _timed_batches(build_train_loader(cfg, seed=4), LOADER_BATCHES)
+    x = model_inputs(batch_to_model_inputs(batches[0], rgbt=True), "cuda")
+    reset_launches()
+    iso = _isolated_steps(lambda inputs, _keep: tr._step(inputs, None), x)
+    step_launches = read_launches()
+    line = dict(steps=FILE_TRAIN_STEPS, batch=TRAIN_B, loss=losses, graphs=len(tr._step.graphs),
+                epoch_seconds_with_captures=secs, loader_ms_per_batch=loader_ms,
+                loader_threads=cfg.TRAIN.NUM_WORKER, step_ms=iso["ms_per_step_median"],
+                loader_over_step=loader_ms / iso["ms_per_step_median"])
+    del tr, batches, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, {k: launches[k] + step_launches[k] for k in want}
+
+
+def _ce_inputs(g: torch.Generator, B: int = 2) -> list:
+    t, ot = (torch.randn(2 * B, 128, 128, 3, generator=g) for _ in range(2))
+    s = torch.randn(2 * B, 288, 288, 3, generator=g)
+    xy, wh = torch.rand(B, 2, generator=g) * 0.4 + 0.2, torch.rand(B, 2, generator=g) * 0.2 + 0.2
+    return [x.cuda() for x in (t, ot, s, torch.cat([xy, wh], 1))]
+
+
+def _ce_forward_graphed_vs_eager(model, inputs: list, boxes: bool) -> dict:
+    """The full forward of a CE model (the GT_BOX boxes a static input like
+    the crops) as a CUDA graph (`StepGraphs.run`: the first call eager,
+    then captured) on the input sets in turn, against the same forward
+    eager on each: the boxes the same bits."""
+    from multi_modal_tracking_torch.tracking.graphs import StepGraphs
+    static = [x.clone() for x in inputs[0]]
+    out = torch.empty(inputs[0][2].shape[0] // 2, 1, 4, device="cuda")
+    graphs = StepGraphs(torch.device("cuda"), "CE forward")
+
+    def step():
+        with torch.no_grad():
+            out.copy_(model(*static[:3], ce_gt_boxes=static[3] if boxes else None)["pred_boxes"])
+    got = []
+    for x in inputs:
+        for dst, src in zip(static, x):
+            dst.copy_(src)
+        graphs.run(("ce",), step)
+        got.append(out.clone())
+    with torch.no_grad():
+        want = [model(*x[:3], ce_gt_boxes=x[3] if boxes else None)["pred_boxes"] for x in inputs]
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if not torch.equal(_bits(a), _bits(b))]
+    require(not diff and len(graphs) == 1 and all(torch.isfinite(a).all() for a in got),
+            f"CE forward graphed vs eager: input sets {diff} differ")
+    return dict(check="graphed == eager, bit for bit", calls=len(inputs), graphs=len(graphs))
+
+
+def _ce_modes(frames, g: torch.Generator) -> tuple:
+    """The CE template-range modes at full width (flagship recipe, seed 0):
+    CTR_REC, ALL and GT_BOX, bf16 and f32, the full forward graphed against
+    eager (GT_BOX with its boxes), and for CTR_REC and ALL create_tracker's
+    cached tracker graphed against its eager twin over CE_FRAMES frames
+    (the modes' rows in the search step's ranking), bit for bit. Returns
+    (line, launches by dtype)."""
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    launches = {torch.float32: dict.fromkeys(F32_KERNELS, 0),
+                torch.bfloat16: dict.fromkeys(BF16_KERNELS, 0)}
+    inputs = [_ce_inputs(g) for _ in range(2)]
+    inputs.append(inputs[0])
+    out = {}
+    for mode in ("CTR_REC", "ALL", "GT_BOX"):
+        for dtype in (torch.bfloat16, torch.float32):
+            label = f"{mode} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            kernels = ("K1", "K3") if dtype == torch.float32 else BF16_SERVING
+            params = _params()
+            params.cfg.MODEL.BACKBONE.CE_TEMPLATE_RANGE = mode
+            tracker = create_tracker(params, seed=0, dtype=dtype)
+            require(tracker.model.backbone.ce_template_range == mode, f"{label}: built "
+                    f"{tracker.model.backbone.ce_template_range}")
+            reset_launches()
+            line = dict(forward=_ce_forward_graphed_vs_eager(tracker.model, inputs,
+                                                             mode == "GT_BOX"))
+            got = read_launches()
+            if mode != "GT_BOX":
+                run_g = _family_run(tracker, frames[:CE_FRAMES], timed_from=2)
+                run_e = _family_run(_tracker_twin(tracker, graphs=False), frames[:CE_FRAMES],
+                                    timed_from=2)
+                require(np.array_equal(run_g["boxes"], run_e["boxes"])
+                        and run_g["launches"] == run_e["launches"],
+                        f"{label} tracker graphed vs eager: "
+                        f"{float(np.abs(run_g['boxes'] - run_e['boxes']).max())} px, "
+                        f"launches {run_g['launches']} vs {run_e['launches']}")
+                line["tracker"] = dict(check="graphed == eager, bit for bit",
+                                       frames=CE_FRAMES, ms_per_frame=run_g["ms_per_frame"])
+                _add_launches(got, run_g["launches"], kernels)
+                _add_launches(got, run_e["launches"], kernels)
+            require(all(got[k] > 0 for k in kernels)
+                    and not any(got[k] for k in F32_KERNELS + BF16_KERNELS if k not in kernels),
+                    f"{label}: launches {got}")
+            _add_launches(launches[dtype], got, kernels)
+            line["launches"] = {k: got[k] for k in kernels}
+            out[label] = line
+            del tracker
+            torch.cuda.empty_cache()
+    return out, launches
+
+
+def _cvt_trainable_bn(save_dir: str) -> tuple:
+    """CvT-21 (mixformer_cvt/baseline) with BACKBONE.FREEZE_BN false: 2
+    bf16 steps at batch 8 graphed against eager (`_graphed_vs_eager_in_place`:
+    weights, the projection BNs' running statistics, moments, counters and
+    generator the same bits), the running statistics moved by the steps.
+    Returns (line, launches)."""
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    cfg = _uni_train_cfg(CVT, "baseline", CVT_B, 2)
+    cfg.MODEL.BACKBONE.FREEZE_BN = False
+    tr = Trainer(CVT, cfg, save_dir=save_dir, device="cuda", seed=0, print_interval=2)
+    stats = {k: v for k, v in tr.model.state_dict().items()
+             if ".conv_proj_" in k and k.endswith(("running_mean", "running_var"))}
+    require(tr.dtype == torch.bfloat16 and len(stats) == 2 * 3 * sum(tr.model.spec.depth),
+            f"CvT trainable BN: {len(stats)} running statistics")
+    before = {k: v.clone() for k, v in stats.items()}
+    batches = [model_inputs(batch_to_model_inputs(b, rgbt=False), "cuda")
+               for b in build_train_loader(cfg, seed=4)]
+    check = _graphed_vs_eager_in_place(tr, batches)
+    moved = sum(not torch.equal(v, before[k]) for k, v in stats.items())
+    require(moved == len(stats) and check["launches"]["AdamW"] == 2
+            and not any(check["launches"][k] for k in F32_KERNELS + BF16_KERNELS),
+            f"CvT trainable BN: {moved} of {len(stats)} statistics moved, launches "
+            f"{check['launches']}")
+    line = dict(recipe=f"{CVT}/baseline", freeze_bn=False, batch=CVT_B, graphed_vs_eager=check,
+                running_statistics=len(stats), moved=moved)
+    launches = {"AdamW": check["launches"]["AdamW"]}
+    del tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def phase_files(smi: str, frames, save_dir: str) -> dict:
+    """The file-based data path (module docstring, phase 18): the port's
+    decoder on the committed fixtures, LasHeR and DepthTrack trees read by
+    the trackers, eval.run and the Trainer, the CE template-range modes and
+    CvT's trainable BN. Returns the launch counts by dtype."""
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.packaging import transform_got10k
+    t0 = time.perf_counter()
+    f32 = dict.fromkeys(F32_KERNELS + ("AdamW",), 0)
+    bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    res = dict(fixtures=_fixtures_against_manifest(), decode=_decode_ms())
+    old_paths = os.environ.get("MMT_LOCAL_PATHS")
+    with tempfile.TemporaryDirectory() as root:
+        paths = _lay_out_trees(root)
+        local = os.path.join(root, "local_paths.json")
+        with open(local, "w") as f:
+            json.dump(paths, f)
+        os.environ["MMT_LOCAL_PATHS"] = local
+        try:
+            seqs = get_dataset("lasher")
+            require(len(seqs) == FILE_SEQS and len(seqs[0].frames) == FILE_FRAMES
+                    and isinstance(seqs[0].frames[0][0], str), f"lasher: {len(seqs)} sequences")
+            for dtype, totals in ((torch.bfloat16, bf16), (torch.float32, f32)):
+                line, counts = _files_vs_arrays(seqs[0], dtype, os.path.join(root, "track"))
+                res[f"track_{line['dtype']}"] = line
+                _add_launches(totals, counts, counts)
+            res["eval_run_lasher"], out_dir, counts = _eval_cli_on("lasher", root, FILE_SEQS,
+                                                                   FILE_FRAMES)
+            _add_launches(bf16, counts, BF16_SERVING)
+            zip_path = transform_got10k(out_dir, os.path.join(root, "zip"), "flagship")
+            res["got10k_zip_bytes"] = os.path.getsize(zip_path)
+            res["eval_run_depthtrack"], _, counts = _eval_cli_on("depthtrack", root, 1,
+                                                                 DEPTH_FRAMES)
+            _add_launches(bf16, counts, BF16_SERVING)
+            res["train_bf16"], counts = _train_from_files(save_dir)
+            _add_launches(bf16, counts, counts)
+        finally:
+            if old_paths is None:
+                os.environ.pop("MMT_LOCAL_PATHS", None)
+            else:
+                os.environ["MMT_LOCAL_PATHS"] = old_paths
+    res["ce_modes"], counts = _ce_modes(frames, torch.Generator().manual_seed(18))
+    _add_launches(f32, counts[torch.float32], F32_KERNELS)
+    _add_launches(bf16, counts[torch.bfloat16], BF16_KERNELS)
+    res["cvt_trainable_bn"], counts = _cvt_trainable_bn(save_dir)
+    bf16["AdamW"] += counts["AdamW"]
+    emit({"phase": "files", "card": smi, **res, "seconds": time.perf_counter() - t0})
     return {"f32": f32, "bf16": bf16}
 
 
@@ -5569,7 +6011,7 @@ def main(argv=None) -> None:
     dev, smi = phase_device()
     phase_build()
     phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift,
-              "cvt_convmae": phase_cvt_convmae}
+              "cvt_convmae": phase_cvt_convmae, "files": phase_files}
     if len(argv) == 1 and argv[0] in phases:    # one phase alone (module docstring)
         frames = list(_sequence(74))
         with tempfile.TemporaryDirectory() as save_dir:
@@ -5624,6 +6066,9 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as save_dir:
         cvt_convmae = phase_cvt_convmae(smi, frames, save_dir)
     lap("cvt_convmae")
+    with tempfile.TemporaryDirectory() as save_dir:
+        files = phase_files(smi, frames, save_dir)
+    lap("files")
     emit({"phase": "phase seconds", **{name: t - laps[i][1]
                                        for i, (name, t) in enumerate(laps[1:])}})
     table = []
@@ -5631,7 +6076,8 @@ def main(argv=None) -> None:
         by_path = {"tracker": track_launches[key], "graphs": graph_launches["f32"][key],
                    "train": train_launches[key], "eval": eval_launches[key],
                    "stage2": stage2["f32"][key], "families": families["f32"][key],
-                   "unimodal": unimodal["f32"][key], "cvt_convmae": cvt_convmae["f32"][key]}
+                   "unimodal": unimodal["f32"][key], "cvt_convmae": cvt_convmae["f32"][key],
+                   "files": files["f32"][key]}
         if key in online["f32"]:
             by_path["online"] = online["f32"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
@@ -5649,7 +6095,7 @@ def main(argv=None) -> None:
                    "stage2_bf16": stage2["bf16"][key],
                    "families_bf16": families["bf16"][key] + unimodal["families_bf16"][key],
                    "unimodal_bf16": unimodal["bf16"][key],
-                   "cvt_convmae_bf16": cvt_convmae["bf16"][key]}
+                   "cvt_convmae_bf16": cvt_convmae["bf16"][key], "files_bf16": files["bf16"][key]}
         if key in BF16_SERVING:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
                            graphs_bf16=graph_launches["bf16"][key],
@@ -5672,7 +6118,7 @@ def main(argv=None) -> None:
                "families_bf16": families["bf16"]["AdamW"] + unimodal["families_bf16"]["AdamW"],
                "unimodal": unimodal["f32"]["AdamW"], "unimodal_bf16": unimodal["bf16"]["AdamW"],
                "cvt_convmae": cvt_convmae["f32"]["AdamW"],
-               "cvt_convmae_bf16": cvt_convmae["bf16"]["AdamW"]}
+               "cvt_convmae_bf16": cvt_convmae["bf16"]["AdamW"], "files_bf16": files["bf16"]["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

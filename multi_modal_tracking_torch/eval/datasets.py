@@ -1,10 +1,10 @@
 """Evaluation dataset registry (the port's own copy of the JAX package's
 `eval/datasets.py`): name -> (module, class, kwargs), resolved lazily.
 
-Every name of the JAX registry is here. The in-memory synthetic sets load
-(RGB-T, and the unimodal `synthetic_rgb`); the file-based sets, RGB-T and
-unimodal, need an image decoder (ROADMAP.md queue 1 item 1), so loading
-one of those raises NotImplementedError instead of returning an empty set.
+Every name of the JAX registry is here: the file-based sets, RGB-T and
+unimodal, whose frames the port's own decoder reads, and the in-memory
+synthetic ones. A set whose path is not configured (`train/admin.py`) has
+no sequences.
 """
 from __future__ import annotations
 
@@ -16,29 +16,42 @@ from multi_modal_tracking_torch.eval.data import SequenceList
 DatasetInfo = namedtuple("DatasetInfo", ["module", "class_name", "kwargs"])
 
 _BASE = "multi_modal_tracking_torch.eval."
-_FILES = "file-based: it needs an image decoder (ROADMAP.md queue 1 item 1)"
 
 dataset_dict = dict(
+    # RGB-T / RGB-D
+    lasher=DatasetInfo(_BASE + "datasets_rgbt", "LasHeRDataset", dict()),
+    rgbt234=DatasetInfo(_BASE + "datasets_rgbt", "RGBT234Dataset", dict()),
+    gtot=DatasetInfo(_BASE + "datasets_rgbt", "GTOTDataset", dict()),
+    vtuav=DatasetInfo(_BASE + "datasets_rgbt", "VTUAVDataset", dict(split="all")),
+    vtuav_short=DatasetInfo(_BASE + "datasets_rgbt", "VTUAVDataset", dict(split="short")),
+    vtuav_long=DatasetInfo(_BASE + "datasets_rgbt", "VTUAVDataset", dict(split="long")),
+    vtuav_train=DatasetInfo(_BASE + "datasets_rgbt", "VTUAVDataset",
+                            dict(split="all", train_split=True)),
+    depthtrack=DatasetInfo(_BASE + "datasets_rgbt", "DepthTrackDataset", dict()),
     synthetic_rgbt=DatasetInfo(_BASE + "datasets_rgbt", "SyntheticRGBTEvalDataset", dict()),
     synthetic_rgbt_hard=DatasetInfo(_BASE + "datasets_rgbt", "SyntheticRGBTHardEvalDataset",
                                     dict()),
     synthetic_rgb=DatasetInfo(_BASE + "datasets_rgbt", "SyntheticRGBEvalDataset", dict()),
+    # unimodal
+    lasot=DatasetInfo(_BASE + "datasets_rgb", "LaSOTDataset", dict()),
+    lasot_lmdb=DatasetInfo(_BASE + "datasets_rgb", "LaSOTLmdbDataset", dict()),
+    got10k_test=DatasetInfo(_BASE + "datasets_rgb", "GOT10kDataset", dict(split="test")),
+    got10k_val=DatasetInfo(_BASE + "datasets_rgb", "GOT10kDataset", dict(split="val")),
+    got10k_ltrval=DatasetInfo(_BASE + "datasets_rgb", "GOT10kDataset", dict(split="ltrval")),
+    trackingnet=DatasetInfo(_BASE + "datasets_rgb", "TrackingNetDataset", dict()),
+    otb=DatasetInfo(_BASE + "datasets_rgb", "OTBDataset", dict()),
+    uav=DatasetInfo(_BASE + "datasets_rgb", "UAVDataset", dict()),
+    nfs=DatasetInfo(_BASE + "datasets_rgb", "NFSDataset", dict()),
+    tc128=DatasetInfo(_BASE + "datasets_rgb", "TC128Dataset", dict()),
+    tc128ce=DatasetInfo(_BASE + "datasets_rgb", "TC128Dataset", dict(ce_only=True)),
+    tnl2k=DatasetInfo(_BASE + "datasets_rgb", "TNL2kDataset", dict()),
 )
-
-#: registry names of the JAX package that the port does not load yet, with why
-pending = {name: _FILES for name in (
-    "lasher", "rgbt234", "gtot", "vtuav", "vtuav_short", "vtuav_long", "vtuav_train",
-    "depthtrack", "lasot", "lasot_lmdb", "got10k_test", "got10k_val", "got10k_ltrval",
-    "trackingnet", "otb", "uav", "nfs", "tc128", "tc128ce", "tnl2k")}
 
 
 def load_dataset(name: str, **overrides) -> SequenceList:
     name = name.lower()
-    if name in pending:
-        raise NotImplementedError(f"dataset '{name}' is not ported: {pending[name]}")
     if name not in dataset_dict:
-        raise ValueError(f"Unknown dataset '{name}'. Known: "
-                         f"{sorted(set(dataset_dict) | set(pending))}")
+        raise ValueError(f"Unknown dataset '{name}'. Known: {sorted(dataset_dict)}")
     info = dataset_dict[name]
     mod = importlib.import_module(info.module)
     kwargs = dict(info.kwargs, **overrides)

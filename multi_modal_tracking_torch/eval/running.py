@@ -18,8 +18,11 @@ full frames from a snapshot, so the files are those of the full-frame path
 byte for byte; the online and unimodal trackers have no ROI mode yet and
 raise.
 
-Frames are uint8 arrays. Path frames need an image decoder, which the port
-does not have yet (ROADMAP.md queue 1 item 1); they raise.
+Frames are uint8 arrays, or image files that the prefetch thread decodes
+with the port's own decoder (`native.imread`, JPEG and PNG): an RGB-T
+pair of paths, a DepthTrack pair whose second file is a depth map
+(rendered as replicated greyscale, `utils/depth.py`), or an LMDB (db,
+key) pair. A file the decoder does not take raises with its path.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from multi_modal_tracking_torch import native
 from multi_modal_tracking_torch.eval.data import RGBTSequence, Sequence
 from multi_modal_tracking_torch.tracking.tracker import (_select_init_box, place_window,
                                                          roi_window)
@@ -42,22 +46,48 @@ from multi_modal_tracking_torch.tracking.tracker import (_select_init_box, place
 ROI_MIN_SIZE, ROI_ALIGN = 192, 64
 
 
+def _imread(path) -> np.ndarray:
+    """An RGB uint8 frame from a JPEG or PNG file."""
+    return native.imread(path)
+
+
+def _read_depth_as_rgb(path) -> np.ndarray:
+    """A depth map (a grey PNG, uint16 as stored) -> the clipped, min-max
+    stretched map as replicated greyscale uint8 (H, W, 3), the JAX
+    package's DepthTrack reading; the TIR pipeline's JET mapping follows
+    in the tracker."""
+    from multi_modal_tracking_torch.utils.depth import depth_rgb3d
+    return depth_rgb3d(native.imread_unchanged(path))
+
+
 def _load_frame(seq, k):
     """Frame k of a sequence: [frame_v, frame_i] for RGB-T sequences, the
-    array for unimodal ones."""
+    array for unimodal ones; files are decoded here."""
     fr = seq.frames[k]
-    frames = list(fr) if isinstance(seq, RGBTSequence) else [fr]
-    for f in frames:
-        if not isinstance(f, np.ndarray):
-            raise NotImplementedError(
-                f"{seq.name} frame {k} is {type(f).__name__} {f!r}, not an array: decoding "
-                f"image files is not ported (ROADMAP.md queue 1 item 1)")
-    return frames if isinstance(seq, RGBTSequence) else frames[0]
+    if isinstance(seq, RGBTSequence):
+        fv, fi = fr
+        if isinstance(fv, np.ndarray):
+            return [fv, fi]
+        img_v = _imread(fv)
+        return [img_v, _read_depth_as_rgb(fi) if seq.depth_input else _imread(fi)]
+    if isinstance(fr, np.ndarray):
+        return fr
+    if isinstance(fr, (tuple, list)):
+        # an LMDB-packed frame: (db_path, key)
+        from multi_modal_tracking_torch.utils.lmdb_utils import decode_img
+        return decode_img(*fr)
+    return _imread(fr)
+
+
+#: threads that decode a chunk's frames (the decoder releases the
+#: interpreter lock, so they decode in parallel)
+DECODE_THREADS = 4
 
 
 class _Prefetcher:
     """Background frame loader: keeps `depth` stacked chunks of frames ahead
-    of the device; an error while loading is raised in the consumer."""
+    of the device, each chunk's frames read on DECODE_THREADS threads; an
+    error while loading is raised in the consumer."""
 
     def __init__(self, seq, start: int, chunk: int, depth: int = 2):
         self.seq, self.chunk = seq, chunk
@@ -69,18 +99,22 @@ class _Prefetcher:
 
     def _work(self):
         try:
-            for lo in range(self.start, self.n, self.chunk):
-                hi = min(lo + self.chunk, self.n)
-                frames = [_load_frame(self.seq, k) for k in range(lo, hi)]
-                if isinstance(self.seq, RGBTSequence):
-                    self.q.put((lo, hi, np.stack([f[0] for f in frames]),
-                                np.stack([f[1] for f in frames])))
-                else:
-                    self.q.put((lo, hi, np.stack(frames), None))
+            with ThreadPoolExecutor(DECODE_THREADS) as pool:
+                self._chunks(pool)
         except Exception as e:          # hand it to the consumer, which would
             self.q.put(e)               # otherwise wait for a sentinel that
             return                      # never comes
         self.q.put(None)
+
+    def _chunks(self, pool):
+        for lo in range(self.start, self.n, self.chunk):
+            hi = min(lo + self.chunk, self.n)
+            frames = list(pool.map(lambda k: _load_frame(self.seq, k), range(lo, hi)))
+            if isinstance(self.seq, RGBTSequence):
+                self.q.put((lo, hi, np.stack([f[0] for f in frames]),
+                            np.stack([f[1] for f in frames])))
+            else:
+                self.q.put((lo, hi, np.stack(frames), None))
 
     def __iter__(self):
         while True:

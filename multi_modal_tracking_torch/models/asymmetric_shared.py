@@ -9,7 +9,13 @@ axis ([:B] = RGB, [B:] = TIR) for every shared dense op and separate only
 inside attention. CE at the configured blocks ranks search tokens by the
 template->search attention and keeps the top ceil(keep_ratio * L_s) per
 modality; removed tokens come back as zeros in their original positions
-before the fusion and the head.
+before the fusion and the head. `CE_TEMPLATE_RANGE` chooses the template
+rows whose attention is pooled for the ranking, in each of the four
+template copies (t and ot of both modalities): CTR_POINT the centre token,
+CTR_REC the centre rectangle (2 x 2 cells on an even grid, the centre cell
+on an odd one), ALL every row, and GT_BOX the rows under the ground-truth
+box (`ce_box_row_weights`) when the forward is given `ce_gt_boxes`, else
+every row, as in the JAX package (its trainer and trackers pass none).
 
 All backbone attention runs in kernel K1 (`ops/attention.py`), and its
 gradient in kernel K2:
@@ -40,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -55,18 +61,83 @@ from multi_modal_tracking_torch.ops.boxes import box_xyxy_to_cxcywh
 from multi_modal_tracking_torch.ops.pos_embed import get_2d_sincos_pos_embed
 
 
+#: the CE template-row modes (models/asymmetric_shared.py:55 there)
+CE_TEMPLATE_RANGES = ("CTR_POINT", "CTR_REC", "GT_BOX", "ALL")
+
+class CeSpan(NamedTuple):
+    """CTR_REC's template rows: the cells [lo, hi) of both axes of each of
+    the four F x F template grids."""
+    F: int
+    lo: int
+    hi: int
+
+
+#: template rows pooled for the CE ranking: a CeSpan (CTR_REC), or rows of
+#: the four grids' concatenation by a slice (CTR_POINT's centre rows, step
+#: F * F) or by a sequence of indices
+CeRows = Union[CeSpan, slice, Sequence[int]]
+
+
+def _check_ce_range(mode: str) -> str:
+    if mode not in CE_TEMPLATE_RANGES:
+        raise ValueError(f"unsupported CE_TEMPLATE_RANGE '{mode}' "
+                         f"(implemented: {', '.join(CE_TEMPLATE_RANGES)})")
+    return mode
+
+
+def _ctr_rec_span(F: int) -> Tuple[int, int]:
+    """CTR_REC's row and column span on an F x F template grid: 2 cells
+    from (F - 1) // 2 on an even grid, the centre cell on an odd one (8 ->
+    3:5, 12 -> 5:7, 7 -> 3:4)."""
+    lo = (F - 1) // 2
+    return lo, lo + (2 if F % 2 == 0 else 1)
+
+
+def ce_box_row_weights(gt_xywh: torch.Tensor, template_size: int, grid: int) -> torch.Tensor:
+    """GT_BOX template-row weights: the normalised (B, 4) xywh boxes
+    rasterised at template resolution with the reference's integer
+    truncation (rows and columns [floor(a), floor(a + len - 1))), a
+    bilinear downsample by the stride (align_corners False, no
+    antialias: centres (i + 0.5) * stride - 0.5, edges clamped) and a
+    nonzero threshold. Returns (B, grid * grid) float {0, 1} weights of
+    one template copy; device ops only, so a CUDA graph holds them."""
+    box = gt_xywh.float() * template_size
+    x1, y1, w, h = box.unbind(-1)
+    r = torch.arange(template_size, dtype=torch.float32, device=box.device)
+    rows = (r[None] >= torch.floor(y1)[:, None]) & (r[None] < torch.floor(y1 + h - 1.0)[:, None])
+    cols = (r[None] >= torch.floor(x1)[:, None]) & (r[None] < torch.floor(x1 + w - 1.0)[:, None])
+    mask = (rows[:, :, None] & cols[:, None, :]).float()
+    stride = template_size // grid
+    src = (torch.arange(grid, dtype=torch.float32, device=box.device) + 0.5) * stride - 0.5
+    i0 = torch.clamp(torch.floor(src), 0, template_size - 1).long()
+    i1 = torch.clamp(i0 + 1, 0, template_size - 1)
+    fr = torch.clamp(src - i0, 0.0, 1.0)
+
+    def down(m, dim):
+        f = fr.reshape((-1,) + (1,) * (m.dim() - 1 - dim))
+        return m.index_select(dim, i0) * (1.0 - f) + m.index_select(dim, i1) * f
+
+    small = down(down(mask, 1), 2)
+    return (small > 0).float().reshape(gt_xywh.shape[0], -1)
+
+
 @torch.no_grad()
 def _t2s_attention(q_mt: torch.Tensor, k_s: torch.Tensor, scale: float,
-                   ce_rows: Optional[slice]) -> torch.Tensor:
+                   ce_rows: Optional[CeRows]) -> torch.Tensor:
     """Template->search attention for CE ranking: its own f32 softmax over
     the concatenated bimodal search axis, over the `ce_rows` template rows
     only (None = all rows). No gradient: only `topk` reads it. In a bf16
     model the scores are a bf16 product, scaled in bf16, before the f32
     softmax, as in the JAX model (models/asymmetric_shared.py:210, :262).
-    `ce_rows` is a slice, so the rows are a strided view of q_mt and no
-    index tensor is copied from the host (a CUDA graph can hold the step);
-    made contiguous, they are the product's operand an index would give."""
-    if ce_rows is not None:
+    The rows are a strided view of q_mt's four F x F grids, so no index
+    tensor is copied from the host (a CUDA graph can hold the step); made
+    contiguous, they are the product's operand an index would give, in
+    the JAX package's order (copy, then row, then column)."""
+    if isinstance(ce_rows, CeSpan):
+        F, lo, hi = ce_rows
+        B, H, _, D = q_mt.shape
+        q_mt = q_mt.reshape(B, H, 4, F, F, D)[:, :, :, lo:hi, lo:hi].reshape(B, H, -1, D)
+    elif ce_rows is not None:
         q_mt = q_mt[:, :, ce_rows].contiguous()
     a = torch.matmul(q_mt, k_s.transpose(-2, -1)) * scale
     return torch.softmax(a.float(), dim=-1)
@@ -89,7 +160,7 @@ class AsymCrossModalAttention(nn.Module):
 
     def forward(self, x_v: torch.Tensor, x_i: torch.Tensor, n_mt: int,
                 return_attention: bool = False,
-                ce_rows: Optional[slice] = None):
+                ce_rows: Optional[CeRows] = None):
         """x_v/x_i: (B, n_mt + n_s, C) -> (x_v, x_i, attn_t2s | None)."""
         B = x_v.shape[0]
         q, k, v = self._qkv_heads(torch.cat([x_v, x_i], dim=0))
@@ -129,7 +200,7 @@ class AsymCrossModalAttention(nn.Module):
 
     def search_step(self, nsv: torch.Tensor, nsi: torch.Tensor, cache,
                     return_attention: bool = False,
-                    ce_rows: Optional[slice] = None):
+                    ce_rows: Optional[CeRows] = None):
         """Normed search tokens (B, n_s, C) per modality + the cached
         template q/k/v -> attention output of the search rows + the t->s CE
         attention. Keys per modality: [RGB templates; TIR templates; own
@@ -196,16 +267,23 @@ class SharedBlock(nn.Module):
 
     def forward(self, x_v, x_i, n_mt: int, gidx_v, gidx_i,
                 lens_keep: Optional[int] = None,
-                ce_rows: Optional[slice] = None):
+                ce_rows: Optional[CeRows] = None,
+                ce_row_weights: Optional[torch.Tensor] = None):
         """lens_keep: keep count (None = no CE at this block); ce_rows:
-        template rows pooled for the CE ranking (None = all rows)."""
+        template rows pooled for the CE ranking (None = all rows);
+        ce_row_weights: (B, 4 * n_t) {0, 1} weights of the rows (GT_BOX,
+        with ce_rows None), whose masked rows are averaged."""
         exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
         av, ai, attn_t2s = self.attn(self.norm1_v(x_v), self.norm1_i(x_i), n_mt,
                                      return_attention=exe_ce, ce_rows=ce_rows)
         x_v, x_i = x_v + self.dp1(av), x_i + self.dp1(ai)
         if exe_ce:
             lens_s = gidx_v.shape[1]
-            a = attn_t2s.mean(dim=(1, 2))                      # (B, 2 * L_s)
+            if ce_row_weights is not None and ce_rows is None:
+                wr = ce_row_weights[:, :, None].to(attn_t2s.dtype)
+                a = (attn_t2s.mean(dim=1) * wr).sum(dim=1) / wr.sum(dim=1).clamp_min(1e-6)
+            else:
+                a = attn_t2s.mean(dim=(1, 2))                  # (B, 2 * L_s)
             x_v, gidx_v = _ce_select(a[:, :lens_s], x_v, gidx_v, n_mt, lens_keep)
             x_i, gidx_i = _ce_select(a[:, lens_s:], x_i, gidx_i, n_mt, lens_keep)
         x_v, x_i = self._mlp(x_v, x_i)
@@ -221,7 +299,7 @@ class SharedBlock(nn.Module):
 
     def search_step(self, s_v, s_i, cache, gidx_v, gidx_i,
                     lens_keep: Optional[int] = None,
-                    ce_rows: Optional[slice] = None):
+                    ce_rows: Optional[CeRows] = None):
         """Search-only block step against a template cache; CE selects among
         pure search tokens."""
         exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
@@ -267,9 +345,8 @@ class AsymSharedViT(nn.Module):
                  ce_keep_ratio: Optional[Tuple[float, ...]] = None,
                  ce_template_range: str = "CTR_POINT", drop_path_rate: float = 0.0):
         super().__init__()
-        if ce_template_range != "CTR_POINT":
-            raise NotImplementedError(f"CE_TEMPLATE_RANGE {ce_template_range!r} is not ported "
-                                      f"(CTR_POINT, which every recipe uses, is)")
+        self.ce_template_range = _check_ce_range(ce_template_range)
+        self.img_size_t = img_size_t
         self.depth = depth
         self.ce_loc, self.ce_keep_ratio = ce_loc, ce_keep_ratio
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
@@ -290,26 +367,39 @@ class AsymSharedViT(nn.Module):
         x = self.patch_embed(x)
         return x + pos.to(x.dtype)
 
-    def _ce_rows(self, use_mask: bool) -> Optional[slice]:
+    def _ce_rows(self, use_mask: bool) -> Optional[CeRows]:
         """Template rows ([t_v, ot_v, t_i, ot_i] order, F*F rows each) pooled
-        for the CE ranking: the centre token (CTR_POINT) of each template
-        copy, rows c*F + c + g*F*F for g = 0..3, as a slice with step F*F;
-        None pools every row."""
-        if not use_mask:
+        for the CE ranking in the static modes: the centre token (CTR_POINT,
+        rows c*F + c + g*F*F for g = 0..3, c = (F - 1) // 2, a slice) or the
+        centre rectangle (CTR_REC, a CeSpan) of each template copy. None
+        pools every row (ALL, GT_BOX, or no mask)."""
+        if not use_mask or self.ce_template_range not in ("CTR_POINT", "CTR_REC"):
             return None
         F = self.grid_size_t
-        c = (F - 1) // 2
-        return slice(c * F + c, None, F * F)
+        if self.ce_template_range == "CTR_POINT":
+            c = (F - 1) // 2
+            return slice(c * F + c, None, F * F)
+        return CeSpan(F, *_ctr_rec_span(F))
+
+    def _ce_row_weights(self, use_mask: bool, ce_gt_boxes: Optional[torch.Tensor]
+                        ) -> Optional[torch.Tensor]:
+        """GT_BOX's (B, 4 * n_t) row weights of runtime boxes (the same box in
+        all four template copies), else None."""
+        if not use_mask or self.ce_template_range != "GT_BOX" or ce_gt_boxes is None:
+            return None
+        return ce_box_row_weights(ce_gt_boxes, self.img_size_t, self.grid_size_t).repeat(1, 4)
 
     def _keeps(self, n_s: int, ce_keep_rate: Optional[float]):
         return ce_keep_schedule(n_s, self.depth, self.ce_loc or (),
                                 self.ce_keep_ratio or (), ce_keep_rate)[0]
 
     def forward(self, x_t, x_ot, x_s, ce_keep_rate: Optional[float] = None,
-                use_ce_template_mask: bool = True):
-        """x_*: stacked bimodal NHWC batches (2B, H, W, 3), [:B] RGB, [B:] TIR.
-        Returns the (t, ot, s) feature maps (2B, h, w, C), search tokens
-        zero-restored at pruned positions."""
+                use_ce_template_mask: bool = True,
+                ce_gt_boxes: Optional[torch.Tensor] = None):
+        """x_*: stacked bimodal NHWC batches (2B, H, W, 3), [:B] RGB, [B:] TIR;
+        ce_gt_boxes: (B, 4) normalised template-crop xywh, read by GT_BOX
+        only. Returns the (t, ot, s) feature maps (2B, h, w, C), search
+        tokens zero-restored at pruned positions."""
         t, ot, s = self._embed(x_t, self.pos_embed_t), self._embed(x_ot, self.pos_embed_t), \
             self._embed(x_s, self.pos_embed_s)
         B = t.shape[0] // 2
@@ -319,11 +409,12 @@ class AsymSharedViT(nn.Module):
         x_v, x_i = x[:B], x[B:]
         keeps = self._keeps(n_s, ce_keep_rate)
         ce_rows = self._ce_rows(use_ce_template_mask)
+        ce_row_weights = self._ce_row_weights(use_ce_template_mask, ce_gt_boxes)
         gidx = torch.arange(n_s, device=x.device)[None].expand(B, n_s)
         gidx_v = gidx_i = gidx
         for bi, blk in enumerate(self.blocks):
             x_v, x_i, gidx_v, gidx_i = blk(x_v, x_i, n_mt, gidx_v, gidx_i,
-                                           keeps[bi], ce_rows)
+                                           keeps[bi], ce_rows, ce_row_weights)
         x_v = torch.cat([x_v[:, :n_mt], _recover(x_v[:, n_mt:], gidx_v, n_s)], dim=1)
         x_i = torch.cat([x_i[:, :n_mt], _recover(x_i[:, n_mt:], gidx_i, n_s)], dim=1)
         x = torch.cat([x_v, x_i], dim=0)
@@ -354,7 +445,8 @@ class AsymSharedViT(nn.Module):
     def forward_search(self, cache, x_s, ce_keep_rate: Optional[float] = None,
                        use_ce_template_mask: bool = True):
         """Per-frame search-only forward against a template cache; the same
-        function of the inputs as forward's search output."""
+        function of the inputs as forward's search output (GT_BOX has no
+        boxes here and pools every row, as the JAX package's)."""
         s = self._embed(x_s, self.pos_embed_s)
         B = s.shape[0] // 2
         n_s = s.shape[1]
@@ -403,7 +495,7 @@ class RGBTSpec:
             fusion_class=cfg.MODEL.FUSION_CLASS, fusion_layers=cfg.MODEL.FUSION_LAYERS,
             ce_loc=tuple(bb.CE_LOC) if "CE_LOC" in bb else None,
             ce_keep_ratio=tuple(bb.CE_KEEP_RATIO) if "CE_KEEP_RATIO" in bb else None,
-            ce_template_range=bb.get("CE_TEMPLATE_RANGE", "CTR_POINT"),
+            ce_template_range=_check_ce_range(bb.get("CE_TEMPLATE_RANGE", "CTR_POINT")),
             nlayer_head=cfg.MODEL.get("NLAYER_HEAD", 3))
 
 
@@ -455,13 +547,16 @@ class MixFormerRGBT(nn.Module):
 
     def forward(self, t_vi, ot_vi, s_vi, ce_keep_rate: Optional[float] = None,
                 use_ce_template_mask: bool = True, run_score_head: bool = False,
-                gt_bboxes: Optional[torch.Tensor] = None):
+                gt_bboxes: Optional[torch.Tensor] = None,
+                ce_gt_boxes: Optional[torch.Tensor] = None):
         """t_vi/ot_vi/s_vi: (2B, H, W, 3) bimodal stacks ([:B] RGB, [B:] TIR).
         Returns {'pred_boxes': (B, 1, 4) cxcywh in [0, 1]}, and with
         run_score_head (a model with the score branch) 'pred_scores' (B, 1,
         1) logits; gt_bboxes (B, 4) normalised xyxy replaces the predicted
-        box the score branch pools."""
-        t, _, s = self.backbone(t_vi, ot_vi, s_vi, ce_keep_rate, use_ce_template_mask)
+        box the score branch pools; ce_gt_boxes (B, 4) normalised
+        template-crop xywh are GT_BOX's boxes (no other mode reads them)."""
+        t, _, s = self.backbone(t_vi, ot_vi, s_vi, ce_keep_rate, use_ce_template_mask,
+                                ce_gt_boxes)
         return self._head(s, t, run_score_head, gt_bboxes)
 
     # ------------------------------------------------- cached-template path

@@ -7,8 +7,13 @@ A stage embeds its input maps with a strided convolution and a token
 LayerNorm (eps 1e-5), then runs MAM blocks over [templates; search]
 tokens. A MAM projects q through a depthwise 3x3 convolution at stride 1
 and k and v at stride 2 (padding 1: ceil(h / 2) per side), each followed
-by a frozen BatchNorm (`FREEZE_BN`, as every recipe sets) and a Linear, on each
-crop's own map, so that no convolution reads across a border. Template
+by a BatchNorm and a Linear, on each crop's own map, so that no convolution
+reads across a border. The BatchNorm is frozen (`FREEZE_BN`, as every recipe
+sets) or, with `FREEZE_BN` false, flax's trainable `nn.BatchNorm` (momentum
+0.9, eps 1e-5, the biased batch variance; `models/layers.py BatchNorm2d`):
+in training each crop's map is normalised by its own batch statistics and
+updates the running ones, template, online template, then search, as the
+JAX model calls it on each map in turn. Template
 queries attend to the strided template keys only, search queries to [the
 template keys; the search keys]. The attention scales by the full width
 (`dim ** -0.5`), not the head width, and runs through the plain `_attend`
@@ -42,8 +47,9 @@ import torch
 from torch import nn
 
 from multi_modal_tracking_torch.models.heads import CornerPredictor
-from multi_modal_tracking_torch.models.layers import (Conv2d, DropPath, FrozenBatchNorm2d,
-                                                      LayerNorm, Linear, _heads, _merge)
+from multi_modal_tracking_torch.models.layers import (BatchNorm2d, Conv2d, DropPath,
+                                                      FrozenBatchNorm2d, LayerNorm, Linear,
+                                                      _heads, _merge)
 from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
 from multi_modal_tracking_torch.models.vit import _attend
 from multi_modal_tracking_torch.ops.boxes import box_cxcywh_to_xyxy, box_xyxy_to_cxcywh
@@ -67,16 +73,26 @@ def _slot_key_mask(slot_mask: torch.Tensor, length: int) -> torch.Tensor:
 
 
 class ConvProj(nn.Module):
-    """Depthwise conv + frozen BatchNorm ('dw_bn'): NCHW maps -> (B, h'w', C)
-    tokens."""
+    """Depthwise conv + BatchNorm ('dw_bn'): NCHW maps -> (B, h'w', C)
+    tokens. The BN is frozen, or trainable with `freeze_bn` False."""
 
-    def __init__(self, dim: int, kernel: int = 3, stride: int = 1, padding: int = 1):
+    def __init__(self, dim: int, kernel: int = 3, stride: int = 1, padding: int = 1,
+                 freeze_bn: bool = True):
         super().__init__()
         self.conv = Conv2d(dim, dim, kernel, stride, padding, groups=dim, bias=False)
-        self.bn = FrozenBatchNorm2d(dim)
+        self.bn = FrozenBatchNorm2d(dim) if freeze_bn else BatchNorm2d(dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x)).flatten(2).transpose(1, 2)
+    def forward(self, x: torch.Tensor, n: int = 1) -> torch.Tensor:
+        """x: (B * n, C, h, w), each stream's n maps in turn. A trainable BN
+        in training normalises the n kinds of map apart (the JAX model's
+        one call per crop), in their order."""
+        x = self.conv(x)
+        if n > 1 and self.bn.training and isinstance(self.bn, BatchNorm2d):
+            maps = x.unflatten(0, (-1, n))
+            x = torch.stack([self.bn(maps[:, j]) for j in range(n)], dim=1).flatten(0, 1)
+        else:
+            x = self.bn(x)
+        return x.flatten(2).transpose(1, 2)
 
 
 class ConvEmbed(nn.Module):
@@ -96,12 +112,12 @@ class MAMAttention(nn.Module):
     """Mixed Attention Module (models/cvt.py:128-223 there)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, kernel: int = 3,
-                 stride_kv: int = 2):
+                 stride_kv: int = 2, freeze_bn: bool = True):
         super().__init__()
         self.num_heads = num_heads
-        self.conv_proj_q = ConvProj(dim, kernel, 1, 1)
-        self.conv_proj_k = ConvProj(dim, kernel, stride_kv, 1)
-        self.conv_proj_v = ConvProj(dim, kernel, stride_kv, 1)
+        self.conv_proj_q = ConvProj(dim, kernel, 1, 1, freeze_bn)
+        self.conv_proj_k = ConvProj(dim, kernel, stride_kv, 1, freeze_bn)
+        self.conv_proj_v = ConvProj(dim, kernel, stride_kv, 1, freeze_bn)
         self.proj_q = Linear(dim, dim, bias=qkv_bias)
         self.proj_k = Linear(dim, dim, bias=qkv_bias)
         self.proj_v = Linear(dim, dim, bias=qkv_bias)
@@ -115,7 +131,7 @@ class MAMAttention(nn.Module):
         out = []
         for conv, lin in ((self.conv_proj_q, self.proj_q), (self.conv_proj_k, self.proj_k),
                           (self.conv_proj_v, self.proj_v)):
-            x = lin(conv(maps))
+            x = lin(conv(maps, n))
             out.append(_heads(x.reshape(-1, n * x.shape[1], x.shape[2]), self.num_heads))
         return tuple(out)
 
@@ -168,11 +184,12 @@ class MAMBlock(nn.Module):
     """Pre-LN block around MAM attention (eps 1e-5)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 drop_path: float = 0.0, stride_kv: int = 2):
+                 drop_path: float = 0.0, stride_kv: int = 2, freeze_bn: bool = True):
         super().__init__()
         self.dp1, self.dp2 = DropPath(drop_path), DropPath(drop_path)
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn = MAMAttention(dim, num_heads, qkv_bias, stride_kv=stride_kv)
+        self.attn = MAMAttention(dim, num_heads, qkv_bias, stride_kv=stride_kv,
+                                 freeze_bn=freeze_bn)
         self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = CvTMlp(dim, int(dim * mlp_ratio))
 
@@ -200,13 +217,14 @@ class CvTStage(nn.Module):
 
     def __init__(self, in_chans: int, embed_dim: int, depth: int, num_heads: int,
                  patch_size: int, patch_stride: int, patch_padding: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, drop_path_rate: float = 0.0, stride_kv: int = 2):
+                 qkv_bias: bool = True, drop_path_rate: float = 0.0, stride_kv: int = 2,
+                 freeze_bn: bool = True):
         super().__init__()
         self.patch_embed = ConvEmbed(in_chans, embed_dim, patch_size, patch_stride,
                                      patch_padding)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList(
-            MAMBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, dpr[j], stride_kv)
+            MAMBlock(embed_dim, num_heads, mlp_ratio, qkv_bias, dpr[j], stride_kv, freeze_bn)
             for j in range(depth))
 
     def forward(self, mt: torch.Tensor, s: torch.Tensor, n: int):
@@ -289,7 +307,7 @@ class CvTBackbone(nn.Module):
             self.add_module(f"stage{i}", CvTStage(
                 dims[i], sp.dim_embed[i], sp.depth[i], sp.num_heads[i], sp.patch_size[i],
                 sp.patch_stride[i], sp.patch_padding[i], sp.mlp_ratio[i], sp.qkv_bias[i],
-                sp.drop_path_rate[i], sp.stride_kv[i]))
+                sp.drop_path_rate[i], sp.stride_kv[i], sp.freeze_bn))
         self.num_stages = sp.num_stages
 
     def stages(self) -> List[CvTStage]:
@@ -305,9 +323,6 @@ class MixFormerCvT(nn.Module):
     def __init__(self, spec: CvTSpec, with_score: bool = False):
         super().__init__()
         sp = self.spec = spec
-        if not sp.freeze_bn:
-            raise NotImplementedError("BACKBONE.FREEZE_BN false (trainable BN in CvT's "
-                                      "projections) is not ported; every recipe freezes it")
         self.with_score = with_score
         self.backbone = CvTBackbone(sp)
         feat_sz = sp.search_size // int(np.prod(sp.patch_stride))

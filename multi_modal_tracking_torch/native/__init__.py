@@ -1,6 +1,8 @@
-"""ctypes bindings of the port's host data library (`csrc/host/data.cpp`):
-the training data pipeline's pixel work in C++, named after the JAX
-package's `native` module, without its JPEG part.
+"""ctypes bindings of the port's host libraries, named after the JAX
+package's `native` module: the training data pipeline's pixel work
+(`csrc/host/data.cpp`) and the image decoder (`csrc/host/image.cpp`).
+
+Pixel work (`library()`):
 
   sample_target         the crop, resize and padding mask of
                         `train/data/processing_utils.py sample_target`,
@@ -14,27 +16,50 @@ package's `native` module, without its JPEG part.
                         pixel half of `flip_norm`; `jitter_normalise` the
                         unimodal `tensor_and_jitter` in the same call;
   apply_jet             `ops/colormap.py apply_jet_np`.
-
 Each computes what the numpy version computes, bit for bit
-(tests/test_torch_port_native_data.py). The library is compiled with g++
-at first use into `multi_modal_tracking_torch/_build/` (`ops/_build.py
-build_host`) and loaded with ctypes, which releases the interpreter lock
-for the whole of each call, so the loader's threads run it in parallel.
-There is no fallback: a failed build or load raises.
+(tests/test_torch_port_native_data.py).
+
+Image decoding (`image_library()`), the counterpart of the JAX package's
+libjpeg decoder and of cv2.imread, bit for bit
+(tests/test_torch_port_image_decode.py):
+  decode_jpeg           a JPEG file or its bytes -> RGB uint8 (H, W, 3):
+                        baseline, extended sequential and progressive
+                        Huffman, 8-bit, greyscale or 3 components;
+  decode_jpeg_batch     n files into one (n, cap_h, cap_w, 3) buffer on C++
+                        threads;
+  decode_png            a PNG -> RGB uint8 as cv2.imread(IMREAD_COLOR), or
+                        a grey PNG unchanged (uint8 or uint16) as
+                        cv2.imread(path, -1): colour types 0, 2, 3, 4, 6 at
+                        8 bits and 0 at 16, not interlaced;
+  imread / imdecode     either format, told by its signature -> RGB uint8;
+  imread_unchanged      a grey PNG as stored (the depth maps).
+A file the decoder does not take (arithmetic coding, lossless or
+hierarchical JPEG, 12-bit samples, CMYK/YCCK, Adam7 interlace, other bit
+depths, another format) or cannot read raises ValueError naming the file
+and the reason; nothing falls back to another reader.
+
+The libraries are compiled with g++ at first use into
+`multi_modal_tracking_torch/_build/` (`ops/_build.py build_host`) and
+loaded with ctypes, which releases the interpreter lock for the whole of
+each call, so the loader's threads run them in parallel. There is no
+fallback: a failed build or load raises.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 import os
+import struct
 import threading
-from typing import Optional, Tuple
+import zlib
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
 from multi_modal_tracking_torch.ops import _build
 
 SOURCE = os.path.join(_build.HOST_DIR, "data.cpp")
+IMAGE_SOURCE = os.path.join(_build.HOST_DIR, "image.cpp")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
@@ -46,8 +71,18 @@ _SIGNATURES = {
 _ERRORS = {1: "Too small bounding box.", 2: "The crop window lies outside the image.",
            3: "sample_target: bad arguments"}
 
+_IMAGE_SIGNATURES = {
+    "mmt_jpeg_size": ([_P, ctypes.c_size_t, ctypes.POINTER(_I), ctypes.POINTER(_I), _P, _I], _I),
+    "mmt_decode_jpeg": ([_P, ctypes.c_size_t, _P, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+                         _P, _I], _I),
+    "mmt_decode_jpeg_batch": ([ctypes.POINTER(ctypes.c_char_p), _I, _P, _I, _I, _P, _P, _P, _P,
+                               _I, _I], None),
+    "mmt_png_expand": ([_P, ctypes.c_size_t, _I, _I, _I, _I, _P, _I, _I, _P, _P, _I], _I),
+}
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_image_lib: Optional[ctypes.CDLL] = None
 
 
 def library() -> ctypes.CDLL:
@@ -62,6 +97,20 @@ def library() -> ctypes.CDLL:
                 fn.argtypes, fn.restype = argtypes, restype
             _lib = lib
         return _lib
+
+
+def image_library() -> ctypes.CDLL:
+    """The loaded image decoder library, built on first use (raises as
+    `library()` does)."""
+    global _image_lib
+    with _lock:
+        if _image_lib is None:
+            lib = ctypes.CDLL(_build.build_host(IMAGE_SOURCE))
+            for name, (argtypes, restype) in _IMAGE_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            _image_lib = lib
+        return _image_lib
 
 
 def _frame(img: np.ndarray, what: str) -> np.ndarray:
@@ -175,3 +224,154 @@ def apply_jet(img: np.ndarray, out_bgr: bool = True) -> np.ndarray:
     dst = np.empty((h, w, 3), np.uint8)
     library().mmt_apply_jet(img.ctypes.data, h, w, c, dst.ctypes.data, int(out_bgr))
     return dst
+
+
+# ------------------------------------------------------------------ images
+
+_ERRLEN = 256
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+Source = Union[str, os.PathLike, bytes, bytearray, memoryview]
+
+
+def _read(src: Source) -> Tuple[bytes, str]:
+    """(the bytes, a name for messages) of a path or of bytes."""
+    if isinstance(src, (bytes, bytearray, memoryview)):
+        return bytes(src), "<bytes>"
+    path = os.fspath(src)
+    try:
+        with open(path, "rb") as f:
+            return f.read(), path
+    except OSError as e:
+        raise ValueError(f"{path}: cannot read the file: {e.strerror or e}") from e
+
+
+def _jpeg(data: bytes, name: str) -> np.ndarray:
+    lib = image_library()
+    h, w = _I(0), _I(0)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if lib.mmt_jpeg_size(data, len(data), ctypes.byref(h), ctypes.byref(w), err, _ERRLEN):
+        raise ValueError(f"{name}: JPEG not decoded: {err.value.decode()}")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.mmt_decode_jpeg(data, len(data), out.ctypes.data, h.value, w.value, ctypes.byref(h),
+                           ctypes.byref(w), err, _ERRLEN):
+        raise ValueError(f"{name}: JPEG not decoded: {err.value.decode()}")
+    return out
+
+
+def decode_jpeg(src: Source) -> np.ndarray:
+    """A JPEG file (a path) or its bytes -> RGB uint8 (H, W, 3), as the
+    JAX package's `native.decode_jpeg` (libjpeg-turbo, JCS_RGB) gives it.
+    Raises ValueError with the path and the reason."""
+    data, name = _read(src)
+    return _jpeg(data, name)
+
+
+def decode_jpeg_batch(paths: List[str], cap_h: int, cap_w: int,
+                      num_threads: int = 4) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Decode n JPEG files into one (n, cap_h, cap_w, 3) buffer on
+    `num_threads` C++ threads. Returns (buffer, heights, widths); pixels
+    outside each image's extent are 0. Raises ValueError naming the first
+    file that failed and why."""
+    lib = image_library()
+    n = len(paths)
+    buf = np.zeros((n, cap_h, cap_w, 3), np.uint8)
+    hs, ws, rc = (np.zeros(n, np.int32) for _ in range(3))
+    errs = ctypes.create_string_buffer(_ERRLEN * max(n, 1))
+    arr = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    lib.mmt_decode_jpeg_batch(arr, n, buf.ctypes.data, cap_h, cap_w, hs.ctypes.data,
+                              ws.ctypes.data, rc.ctypes.data, errs, _ERRLEN, num_threads)
+    for i in np.flatnonzero(rc):
+        msg = errs.raw[i * _ERRLEN:(i + 1) * _ERRLEN].split(b"\0", 1)[0].decode()
+        raise ValueError(f"{os.fspath(paths[i])}: JPEG not decoded: {msg}")
+    return buf, hs, ws
+
+
+def _png(data: bytes, name: str, unchanged: bool) -> np.ndarray:
+    def bad(why):
+        return ValueError(f"{name}: PNG not decoded: {why}")
+
+    if not data.startswith(_PNG_SIGNATURE):
+        raise bad("no PNG signature")
+    pos, header, palette, idat = len(_PNG_SIGNATURE), None, b"", []
+    while True:
+        if pos + 8 > len(data):
+            raise bad("truncated file (no IEND chunk)")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if len(body) != length or pos + 12 + length > len(data):
+            raise bad(f"truncated {kind!r} chunk")
+        crc, = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) != crc:
+            raise bad(f"CRC error in the {kind.decode('latin-1')} chunk")
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise bad("no IHDR chunk")
+    w, h, depth, ctype, compression, filtering, interlace = header
+    if interlace:
+        raise bad("Adam7 interlace is not decoded")
+    if compression or filtering:
+        raise bad("unknown compression or filter method")
+    if depth != 8 and not (depth == 16 and ctype == 0):
+        raise bad(f"colour type {ctype} at {depth} bits is not decoded (8-bit types 0, 2, 3, "
+                  f"4, 6 and 16-bit grey are)")
+    if ctype not in (0, 2, 3, 4, 6):
+        raise bad(f"bad colour type {ctype}")
+    if ctype == 3 and (not palette or len(palette) % 3):
+        raise bad("a palette image without a valid PLTE chunk")
+    if unchanged and ctype != 0:
+        raise bad(f"unchanged reading takes grey images only (colour type {ctype})")
+    try:
+        raw = bytearray(zlib.decompress(b"".join(idat)))
+    except zlib.error as e:
+        raise bad(f"the image data does not inflate: {e}") from e
+    shape = (h, w) if unchanged else (h, w, 3)
+    out = np.empty(shape, np.uint16 if unchanged and depth == 16 else np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    pal = np.frombuffer(palette or b"\0", np.uint8)
+    raw_buf = (ctypes.c_uint8 * len(raw)).from_buffer(raw) if raw else None
+    if image_library().mmt_png_expand(raw_buf, len(raw), h, w, ctype, depth, pal.ctypes.data,
+                                      len(palette) // 3, int(unchanged), out.ctypes.data, err,
+                                      _ERRLEN):
+        raise bad(err.value.decode())
+    return out
+
+
+def decode_png(src: Source, unchanged: bool = False) -> np.ndarray:
+    """A PNG file (a path) or its bytes -> RGB uint8 (H, W, 3) as
+    cv2.imread(IMREAD_COLOR) reads it (alpha dropped, 16-bit samples cut
+    to their high byte), or with `unchanged` a grey PNG as stored, uint8 or
+    uint16 (H, W), as cv2.imread(path, -1). Raises ValueError with the path
+    and the reason."""
+    data, name = _read(src)
+    return _png(data, name, unchanged)
+
+
+def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """JPEG or PNG bytes, told by their signature -> RGB uint8 (H, W, 3)."""
+    if data[:2] == b"\xff\xd8":
+        return _jpeg(data, name)
+    if data.startswith(_PNG_SIGNATURE):
+        return _png(data, name, False)
+    raise ValueError(f"{name}: not a JPEG or PNG file (other formats are not decoded)")
+
+
+def imread(path: Source) -> np.ndarray:
+    """An image file -> RGB uint8 (H, W, 3), what the JAX package's
+    readers give (its libjpeg decoder, or cv2.imread(IMREAD_COLOR) then
+    BGR->RGB); JPEG or PNG, told by the signature."""
+    data, name = _read(path)
+    return imdecode(data, name)
+
+
+def imread_unchanged(path: Source) -> np.ndarray:
+    """A grey PNG as stored, uint8 or uint16 (H, W): cv2.imread(path, -1)
+    of a depth map."""
+    return decode_png(path, unchanged=True)

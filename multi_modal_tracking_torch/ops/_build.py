@@ -151,7 +151,7 @@ def library(name: str) -> ctypes.CDLL:
 #: host C++ libraries (csrc/host/<name>.cpp): no -ffast-math, no
 #: -march=native and no contraction to FMA, each of which changes float32 bits
 HOST_DIR = os.path.join(CSRC_DIR, "host")
-HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-ffp-contract=off"]
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-pthread", "-ffp-contract=off"]
 
 
 def host_library_path(src: str, build_dir: str = BUILD_DIR) -> str:

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -516,8 +517,8 @@ def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_
     block of `chunk` frames is dispatched without a fetch; the boxes come
     back in one copy at the end. Returns per sequence {"seq", "n_frames",
     "fps", "boxes"} (and "scores" from an online tracker) as run_sequence
-    does."""
-    from multi_modal_tracking_torch.eval.running import _load_frame
+    does. Each block's frames are read on DECODE_THREADS threads."""
+    from multi_modal_tracking_torch.eval.running import DECODE_THREADS, _load_frame
 
     os.makedirs(results_dir, exist_ok=True)
     todo = [s for s in sequences
@@ -539,23 +540,24 @@ def run_sequences_batched(sequences: List, tracker: BatchedRGBTTracker, results_
 
     K = chunk or tracker.scan_chunk
     pending = []
-    for lo in range(1, T, K):
-        hi = min(lo + K, T)
-        blk_v = np.empty((hi - lo, N) + frames0_v.shape[1:], frames0_v.dtype)
-        blk_i = np.empty((hi - lo, N) + frames0_i.shape[1:], frames0_i.dtype) if rgbt else blk_v
-        for j, s in enumerate(todo):
-            last = None             # a finished sequence replays its last frame
-            for t in range(lo, hi):
-                if t >= lengths[j] and last is not None:
-                    fr = last
-                else:
-                    fr = last = _load_frame(s, min(t, lengths[j] - 1))
-                if rgbt:
-                    blk_v[t - lo, j], blk_i[t - lo, j] = fr
-                else:
-                    blk_v[t - lo, j] = fr
-        valid = np.arange(lo, hi)[:, None] < np.asarray(lengths)[None, :]
-        pending.append(tracker.track_block(blk_v, blk_i, valid, fetch=False))
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        for lo in range(1, T, K):
+            hi = min(lo + K, T)
+            blk_v = np.empty((hi - lo, N) + frames0_v.shape[1:], frames0_v.dtype)
+            blk_i = np.empty((hi - lo, N) + frames0_i.shape[1:], frames0_i.dtype) if rgbt \
+                else blk_v
+            # a finished sequence replays its last frame
+            keys = sorted({(j, min(t, lengths[j] - 1)) for j in range(N) for t in range(lo, hi)})
+            loaded = dict(zip(keys, pool.map(lambda jt: _load_frame(todo[jt[0]], jt[1]), keys)))
+            for j in range(N):
+                for t in range(lo, hi):
+                    fr = loaded[(j, min(t, lengths[j] - 1))]
+                    if rgbt:
+                        blk_v[t - lo, j], blk_i[t - lo, j] = fr
+                    else:
+                        blk_v[t - lo, j] = fr
+            valid = np.arange(lo, hi)[:, None] < np.asarray(lengths)[None, :]
+            pending.append(tracker.track_block(blk_v, blk_i, valid, fetch=False))
     online = bool(pending) and isinstance(pending[0], tuple)
     if online:
         all_scores = torch.cat([p[1] for p in pending]).cpu().numpy()

@@ -1,12 +1,12 @@
 """Dataset registry and the train and val loaders.
 
 The port's counterpart of the JAX package's `train/builders.py`. The
-registry knows every name the JAX package knows; the synthetic sets are
-ported (`SyntheticRGBT`, and the unimodal `SyntheticVideo`), and every
-other name raises NotImplementedError (the real dataset adapters need
-image files and a decoder: ROADMAP.md queue 1 item 1). A config whose
-training sets are RGB-T (`is_rgbt_config`) gets `RGBTProcessing` and the
-sampler's RGB-T frames; any other, `UnimodalProcessing`.
+registry builds every name the JAX package builds: the file-based RGB-T
+and unimodal adapters (their frames decoded by the port's own decoder),
+their LMDB twins (which need the `lmdb` package when they read), and the
+synthetic sets. A config whose training sets are RGB-T (`is_rgbt_config`)
+gets `RGBTProcessing` and the sampler's RGB-T frames; any other,
+`UnimodalProcessing`.
 The sample budget and the batch are divided by the torch world size (1
 without `torch.distributed`), as each rank loads its own share.
 """
@@ -26,29 +26,63 @@ RGBT_NAMES = {"VTUAV", "LasHeR", "RGBT234", "KAIST", "LLVIP", "M3FD",
               "DepthTrack_Train", "DepthTrack_Test",
               "VTUAV_Test", "VTUAV-Test", "SyntheticRGBT", "SyntheticRGBTHard",
               "SyntheticRGBTHardVisible"}
-#: names the JAX package's registry builds that the port does not yet
-_NOT_PORTED = RGBT_NAMES - {"SyntheticRGBT"} | {
-    "LasHeR_T", "RGBT234_T", "LASOT", "GOT10K_vottrain", "GOT10K_votval",
-    "GOT10K_train_full", "TRACKINGNET", "COCO17", "VID", "TNL2k",
-    "LASOT_lmdb", "GOT10K_vottrain_lmdb", "GOT10K_votval_lmdb", "GOT10K_train_full_lmdb",
-    "TRACKINGNET_lmdb", "COCO17_lmdb", "VID_lmdb"}
 
 
-def names2datasets(names: List[str]):
-    """Instantiate dataset adapters by registry name."""
-    from multi_modal_tracking_torch.train.data.datasets import SyntheticRGBT, SyntheticVideo
+def names2datasets(names: List[str], image_loader=None):
+    """Instantiate dataset adapters by registry name (`image_loader`
+    replaces the file adapters' `opencv_loader`)."""
+    from multi_modal_tracking_torch.train.data.datasets import (SyntheticRGBT, SyntheticRGBTHard,
+                                                                SyntheticVideo)
+    from multi_modal_tracking_torch.train.data.datasets import lmdb_twins as L
+    from multi_modal_tracking_torch.train.data.datasets import rgbt as R
+    from multi_modal_tracking_torch.train.data.datasets import unimodal as U
+    kw = {} if image_loader is None else {"image_loader": image_loader}
+    table = {
+        "LasHeR": lambda: R.LasHeR(**kw),
+        "RGBT234": lambda: R.RGBT234(**kw),
+        "VTUAV": lambda: R.VTUAV(**kw),
+        "VTUAV_Test": lambda: R.VTUAV(split_dirs=("test_data",), **kw),
+        "DepthTrack": lambda: R.DepthTrack(**kw),
+        # the reference registry's spellings and their underscore twins
+        "DepthTrack-Train": lambda: R.DepthTrack(split="train", **kw),
+        "DepthTrack-Test": lambda: R.DepthTrack(split="test", **kw),
+        "DepthTrack_Train": lambda: R.DepthTrack(split="train", **kw),
+        "DepthTrack_Test": lambda: R.DepthTrack(split="test", **kw),
+        "VTUAV-Test": lambda: R.VTUAV(split_dirs=("test_data",), **kw),
+        "KAIST": lambda: R.KAIST(**kw),
+        "LLVIP": lambda: R.LLVIP(**kw),
+        "M3FD": lambda: R.M3FD(**kw),
+        "LasHeR_T": lambda: R.LasHeR_TIR(**kw),
+        "RGBT234_T": lambda: R.RGBT234_TIR(**kw),
+        "LASOT": lambda: U.LaSOT(**kw),
+        "GOT10K_vottrain": lambda: U.GOT10k(split="vottrain", **kw),
+        "GOT10K_votval": lambda: U.GOT10k(split="votval", **kw),
+        "GOT10K_train_full": lambda: U.GOT10k(split="train_full", **kw),
+        "TRACKINGNET": lambda: U.TrackingNet(**kw),
+        "COCO17": lambda: U.COCOSeq(**kw),
+        "VID": lambda: U.ImagenetVID(**kw),
+        "TNL2k": lambda: U.TNL2k(**kw),
+        "SyntheticRGBT": lambda: SyntheticRGBT(),
+        "SyntheticRGBTHard": lambda: SyntheticRGBTHard(),
+        # more appearance diversity and occluded frames, but no absence
+        # stretches (a search on a frame without the target would supervise
+        # the box head on no target pixels)
+        "SyntheticRGBTHardVisible": lambda: SyntheticRGBTHard(n_sequences=24, absent_every=0),
+        "SyntheticVideo": lambda: SyntheticVideo(),
+        # the LMDB twins, addressed by suffixed name
+        "LASOT_lmdb": lambda: L.LaSOTLmdb(),
+        "GOT10K_vottrain_lmdb": lambda: L.GOT10kLmdb(split="vottrain"),
+        "GOT10K_votval_lmdb": lambda: L.GOT10kLmdb(split="votval"),
+        "GOT10K_train_full_lmdb": lambda: L.GOT10kLmdb(split="train_full"),
+        "TRACKINGNET_lmdb": lambda: L.TrackingNetLmdb(),
+        "COCO17_lmdb": lambda: L.COCOSeqLmdb(),
+        "VID_lmdb": lambda: L.ImagenetVIDLmdb(),
+    }
     out = []
     for n in names:
-        if n == "SyntheticRGBT":
-            out.append(SyntheticRGBT())
-        elif n == "SyntheticVideo":
-            out.append(SyntheticVideo())
-        elif n in _NOT_PORTED:
-            raise NotImplementedError(f"dataset {n!r} is not ported to multi_modal_tracking_torch "
-                                      f"yet (ROADMAP.md queue 1 item 1: the real dataset "
-                                      f"adapters); SyntheticRGBT and SyntheticVideo are")
-        else:
+        if n not in table:
             raise ValueError(f"Unknown dataset name {n}")
+        out.append(table[n]())
     return out
 
 

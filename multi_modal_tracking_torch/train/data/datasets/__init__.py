@@ -1,2 +1,8 @@
-from multi_modal_tracking_torch.train.data.datasets.base import BaseVideoDataset
-from multi_modal_tracking_torch.train.data.datasets.synthetic import SyntheticRGBT, SyntheticVideo
+from multi_modal_tracking_torch.train.data.datasets.base import (BaseImageDataset,
+                                                                BaseVideoDataset)
+from multi_modal_tracking_torch.train.data.datasets.lmdb_twins import (COCOSeqLmdb, GOT10kLmdb,
+                                                                      ImagenetVIDLmdb, LaSOTLmdb,
+                                                                      TrackingNetLmdb)
+from multi_modal_tracking_torch.train.data.datasets.synthetic import (SyntheticRGBT,
+                                                                     SyntheticRGBTHard,
+                                                                     SyntheticVideo)

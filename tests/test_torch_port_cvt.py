@@ -79,11 +79,11 @@ def _cfg(get, script, recipe="baseline"):
     return c
 
 
-def jax_variables(jm, seed, score=True):
+def jax_variables(jm, seed, score=True, t_sz=T_SZ, s_sz=S_SZ):
     """Randomised variables of a JAX model without compiling its init:
     jax.eval_shape's tree filled with flax's constant inits (ones for
     norm scales and BN variances, zeros elsewhere), then `_randomise`."""
-    t, s = jnp.zeros((1, T_SZ, T_SZ, 3)), jnp.zeros((1, S_SZ, S_SZ, 3))
+    t, s = jnp.zeros((1, t_sz, t_sz, 3)), jnp.zeros((1, s_sz, s_sz, 3))
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), t, t, s,
                                             run_score_head=score))
 
@@ -362,6 +362,96 @@ def test_train_step_matches_jax(pair):
     assert set(opt.groups) == {"main"} and opt.mults["main"] == 1.0
 
 
+def test_trainable_bn_two_steps_match_jax():
+    """CvT with BACKBONE.FREEZE_BN false: two f32 box steps of
+    mixformer_cvt's baseline against the JAX package's (flax
+    `nn.BatchNorm` in every projection, its statistics carried from step
+    to step as `mutable=["batch_stats"]` carries them), at template 64,
+    search 96 and batch 4. (At template 32 and batch 2 the last stage's
+    strided template maps are 1 x 1, so a projection BN's batch holds two
+    values per channel: its variance is near 0 and amplifies the two
+    sides' rounding into 1e-3 gradient differences.) Each step's metrics
+    1e-5 relative; after both, every BN's running mean and variance 1e-5
+    (the projection BNs' updates see each crop's own biased batch
+    statistics, t, ot then s); the parameters: all within 4 x lr (two AdamW
+    steps of at most lr each, which may differ in sign on gradients at
+    rounding level) and 99.9% of their elements within lr / 100 (99.98%
+    are, as with frozen projection BNs)."""
+    t_sz, s_sz, batch = 64, 96, 4
+    spec = dict(TINY, freeze_bn=False, template_size=t_sz, search_size=s_sz)
+    jm = jax_cvt.MixFormerCvT(spec=jax_cvt.CvTSpec(**spec), with_score=False)
+    variables = jax_variables(jm, 5, score=False, t_sz=t_sz, s_sz=s_sz)
+    assert any(k.endswith("/bn/scale") for k in _flat_keys(variables["params"]))
+    pm = _port(variables, score=False, freeze_bn=False, template_size=t_sz, search_size=s_sz)
+    jcfg, pcfg = (_cfg(get, "mixformer_cvt") for get in (jax_default_config, get_default_config))
+    batches = []
+    for seed in (7, 8):
+        rng = np.random.default_rng(seed)
+        b = {k: rng.standard_normal((batch, t_sz, t_sz, 3)).astype(np.float32)
+             for k in ("template", "online_template")}
+        b["search"] = rng.standard_normal((batch, s_sz, s_sz, 3)).astype(np.float32)
+        xy, wh = rng.uniform(0.2, 0.5, (batch, 2)), rng.uniform(0.15, 0.35, (batch, 2))
+        b["gt_xywh"] = np.concatenate([xy, wh], 1).astype(np.float32)
+        batches.append(b)
+    tx = jax_opt.make_optimizer(jcfg, variables["params"], steps_per_epoch=10)
+
+    def loss_fn(params, stats, b):
+        out, new = jm.apply({"params": params, "batch_stats": stats}, b["template"],
+                            b["online_template"], b["search"], train=True, deterministic=False,
+                            mutable=["batch_stats"])
+        loss, metrics = jax_box_losses(out["pred_boxes"], b["gt_xywh"], jcfg.TRAIN.IOU_WEIGHT,
+                                       jcfg.TRAIN.L1_WEIGHT)
+        return loss, (metrics, new["batch_stats"])
+
+    def one_step(carry, b):
+        params, stats, opt_state = carry
+        (_, (metrics, stats)), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            params, stats, b)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return (optax.apply_updates(params, updates), stats, opt_state), metrics
+
+    def two_steps(params, stats, bs):           # one trace of the step, scanned
+        (params, stats, _), metrics = jax.lax.scan(one_step, (params, stats, tx.init(params)),
+                                                   bs)
+        return metrics, params, stats
+
+    jb = {k: jnp.stack([b[k] for b in batches]) for k in batches[0]}
+    metrics, params, stats = jax.device_get(jax.jit(two_steps)(
+        variables["params"], variables["batch_stats"], jb))
+    want = [{k: v[i] for k, v in metrics.items()} for i in range(2)]
+    want_sd = from_jax_variables({"params": params, "batch_stats": stats})
+    before = from_jax_variables(variables)
+
+    opt = port_opt.make_optimizer(pcfg, pm, steps_per_epoch=10)
+    step = port_ts.make_train_step(pm, opt, device="cpu")
+    for b, w in zip(batches, want):
+        got = {k: float(v) for k, v in step(b).items()}
+        for k in w:
+            np.testing.assert_allclose(got[k], float(w[k]), rtol=1e-5, atol=2e-6, err_msg=k)
+    named = dict(pm.named_parameters())
+    n_stats = n_far = n_all = 0
+    for name, v in pm.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        g, w = v.double().numpy(), want_sd[name].double().numpy()
+        if name not in named:
+            if ".conv_proj_" in name:
+                n_stats += 1
+                assert not np.array_equal(w, before[name].numpy()), name
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-5, err_msg=name)
+            continue
+        d = np.abs(g - w) / pcfg.TRAIN.LR
+        assert d.max() <= 4, name
+        n_far, n_all = n_far + int((d > 0.01).sum()), n_all + d.size
+    assert n_far <= 1e-3 * n_all, (n_far, n_all)
+    assert n_stats == 2 * 3 * sum(TINY["depth"])          # mean, var x q, k, v per block
+
+
+def _flat_keys(tree, prefix=""):
+    for k, v in tree.items():
+        yield from (_flat_keys(v, f"{prefix}/{k}") if isinstance(v, dict) else [f"{prefix}/{k}"])
+
+
 def _jax_groups(cfg, variables) -> dict:
     """The port's parameter names -> the JAX labeller's group, through the
     converter's correspondence of flax paths and port keys."""
@@ -475,8 +565,14 @@ def test_build_model_is_seeded():
     for name, m in a.named_modules():
         if type(m).__name__ == "FrozenBatchNorm2d":
             assert torch.equal(m.running_var, torch.ones_like(m.running_var)), name
-    with pytest.raises(NotImplementedError, match="FREEZE_BN"):   # no recipe unfreezes it
-        port_cvt.MixFormerCvT(port_cvt.CvTSpec(**dict(TINY, freeze_bn=False)))
+    # FREEZE_BN false (no recipe sets it): trainable projection BNs, at
+    # flax's init, next to the frozen head-less ones of the recipes
+    m = port_cvt.MixFormerCvT(port_cvt.CvTSpec(**dict(TINY, freeze_bn=False)))
+    bns = [mod.bn for name, mod in m.named_modules() if name.endswith(("conv_proj_q",
+                                                                        "conv_proj_k",
+                                                                        "conv_proj_v"))]
+    assert bns and all(type(bn).__name__ == "BatchNorm2d" and bn.weight.requires_grad
+                       for bn in bns)
 
 
 @pytest.mark.parametrize("script", ["mixformer_cvt", "mixformer_cvt_online", "mixformer_convmae",

@@ -74,7 +74,8 @@ def test_host_build_reaches_nothing_outside_csrc():
     from multi_modal_tracking_torch import native
     from multi_modal_tracking_torch.ops import _build
     assert not [f for f in _build.HOST_FLAGS if f.startswith(("-I", "-L", "-l", "-include"))]
-    assert os.path.realpath(native.SOURCE).startswith(os.path.join(PORT, "csrc", "host") + os.sep)
+    for src in (native.SOURCE, native.IMAGE_SOURCE):
+        assert os.path.realpath(src).startswith(os.path.join(PORT, "csrc", "host") + os.sep)
 
 
 def test_import_leaves_jax_unloaded():
@@ -91,6 +92,13 @@ def test_import_leaves_jax_unloaded():
             "multi_modal_tracking_torch.eval.data, multi_modal_tracking_torch.tracking.batched\n"
             "from multi_modal_tracking_torch.eval.datasets import get_dataset\n"
             "get_dataset('synthetic_rgbt_hard', n_sequences=1, n_frames=2)\n"
+            "import multi_modal_tracking_torch.eval.datasets_rgb, "
+            "multi_modal_tracking_torch.eval.packaging, multi_modal_tracking_torch.utils.depth\n"
+            "from multi_modal_tracking_torch.train import builders\n"
+            "from multi_modal_tracking_torch.train.data.datasets import rgbt, unimodal, lmdb_twins\n"
+            "from multi_modal_tracking_torch import native\n"
+            "native.imread('tests/torch_port_images/1x1.jpg')\n"
+            "native.imread('tests/torch_port_images/palette.png')\n"
             "from multi_modal_tracking_torch.eval.evaltracker import create_tracker\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'multi_modal_tracking_tpu', 'cv2', 'msgpack')]\n"
@@ -173,8 +181,11 @@ def test_unported_options_raise(tmp_path, monkeypatch):
                          spec_overrides=TINY)
     assert online.with_score and hasattr(online, "score_branch")
     from multi_modal_tracking_torch.models.asymmetric_shared import AsymSharedViT
-    with pytest.raises(NotImplementedError, match="CE_TEMPLATE_RANGE"):
-        AsymSharedViT(ce_template_range="CTR_REC")
+    # the CE template-range modes are ported (tests/test_torch_port_ce_modes.py);
+    # a mode that is none of them raises, as in the JAX package
+    assert AsymSharedViT(ce_template_range="CTR_REC").ce_template_range == "CTR_REC"
+    with pytest.raises(ValueError, match="CE_TEMPLATE_RANGE"):
+        AsymSharedViT(ce_template_range="CTR_RECT")
 
     sd = build_model("asymmetric_shared_ce", params.cfg, device="cpu", seed=3,
                      spec_overrides=TINY).state_dict()
@@ -252,7 +263,7 @@ def test_unported_training_options_raise(option, tmp_path, capsys):
     alone, and on a script without the branch it raises.
     ACCUM_ITER and the val split are ported: ACCUM_ITER 2 reaches the
     optimizer, and a val split that
-    cannot be built here (RGBT234, not ported) is disabled with the JAX
+    cannot be built here (RGBT234, whose path is not configured) is disabled with the JAX
     package's printed line, while a SyntheticRGBT one builds."""
     from multi_modal_tracking_torch.train.trainer import Trainer
     cfg = _train_cfg(small=True)

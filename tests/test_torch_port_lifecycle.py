@@ -380,12 +380,15 @@ def test_first_val_batch_equals_jax():
             np.testing.assert_array_equal(p[k], j[k], err_msg=k)
 
 
-def test_unbuildable_val_split_is_disabled_like_jax(capsys):
+def test_unbuildable_val_split_is_disabled_like_jax(capsys, monkeypatch, tmp_path):
+    monkeypatch.setenv("MMT_LOCAL_PATHS", str(tmp_path / "none.json"))
     cfg = _data_cfg(get_default_config)
     cfg.DATA.VAL.DATASETS_NAME = ["LasHeR"]
     assert builders.build_dataloaders(cfg)[1] is None
     out = capsys.readouterr().out
-    assert "[build_dataloaders] val loader disabled: NotImplementedError(" in out
+    # LasHeR is ported; with no path configured it raises as the JAX one does
+    assert "[build_dataloaders] val loader disabled: RuntimeError(" in out
+    assert "lasher_dir" in out
     cfg.DATA.VAL.DATASETS_NAME = ["NoSuchSet"]
     with pytest.raises(ValueError, match="Unknown dataset name"):
         builders.build_dataloaders(cfg)

@@ -129,8 +129,12 @@ def test_sample_target_matches_cv2_crops():
     assert n > 40
 
 
-def test_unported_dataset_names_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_dataset_names_raise(tmp_path, monkeypatch):
+    """The file-based adapters are ported (tests/test_torch_port_file_datasets.py
+    reads them from trees): with no path configured, LasHeR raises as the
+    JAX package's does; an unknown name raises ValueError."""
+    monkeypatch.setenv("MMT_LOCAL_PATHS", str(tmp_path / "none.json"))
+    with pytest.raises(RuntimeError, match="lasher_dir"):
         builders.names2datasets(["LasHeR"])
     with pytest.raises(ValueError, match="Unknown"):
         builders.names2datasets(["NoSuchSet"])
