@@ -265,17 +265,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 synthetic_rgbt_hard --type TIR --batch_sequences 12`, and
                 lockstep N = 12 against one stream in TIR mode (f32 within
                 UNI_LOCKSTEP_PX, the same score files; bf16 printed); the
-                RGB-T online tracker's bf16 lockstep drift with K1-bf16 in
-                both runs, with its plain version in both, and, as the
-                control, the plain version with the lockstep run's scale
-                times 1 ± 2^-20 (`python3 chip_smoke.py drift` runs the
-                control at 2^-18, 2^-20 and 2^-22 on all 60 frames).
+                RGB-T online tracker's bf16 lockstep drift study runs alone
+                (`python3 chip_smoke.py drift`).
                 ViT-L: mixformer_vit/baseline_large (GPU vs
-                CPU in f32, 63 bf16 frames graphed, ACCUM_ITER's 3 bf16
-                steps at batch 12 graphed against eager, parameters, peak
-                memory) and mixformer_vit_rgbt/baseline_large (its own
-                TEST sizes 192 / 384, without the tracking overlay's 128 /
-                288: 63 bf16 frames graphed against eager, one update of 3
+                CPU in f32, LARGE_TRACK - 1 bf16 frames graphed,
+                ACCUM_ITER's 3 bf16 steps at batch 12 graphed against
+                eager, parameters, peak memory) and
+                mixformer_vit_rgbt/baseline_large (its own TEST sizes 192 /
+                384, without the tracking overlay's 128 / 288: LARGE_TRACK
+                - 1 bf16 frames graphed against eager, one update of 3
                 micro-batches of 12); K1 / K1-bf16 and K2 / K2-bf16 at the ViT-L shapes
                 and ViT-B's batch 32 against their plain versions.
                 `python3 chip_smoke.py unimodal` runs the device and build
@@ -301,17 +299,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 within UNI_CACHED_PX; 3 steps at batch 32, bf16 bit for bit
                 (K1-bf16, K2-bf16) and f32 (K1, K2).
                 mixformer_convmae_online/baseline: the online tracker bf16,
-                stage 2 at batch 32. mixformer_cvt_online/baseline_large
-                (CvT-24) and mixformer_convmae/baseline_large (ConvMAE-L,
-                192 / 384): parameters, 63 bf16 frames graphed against
-                eager, one update (CvT-24: a stage-2 step at 16; ConvMAE-L:
-                3 micro-batches of 12), peak memory. Then `eval.run
+                stage 2 at batch 32. (The large recipes, CvT-24 and
+                ConvMAE-L, run alone since PR 19: `python3 chip_smoke.py
+                large`.) Then `eval.run
                 mixformer_cvt_online baseline --dataset_name
                 synthetic_rgbt_hard --type RGB --batch_sequences 12` and
                 `eval.run mixformer_convmae baseline ... --batch_sequences
                 12` (frames/s with the model's build), and CvT online
-                lockstep N = 12 against one stream (f32 within
-                UNI_LOCKSTEP_PX with the same score files; bf16 printed).
+                lockstep N = 12 against one stream (f32, within
+                UNI_LOCKSTEP_PX with the same score files).
                 `python3 chip_smoke.py cvt_convmae` runs the device and
                 build phases and this phase alone.
  18. files    - the file-based data path (phase_files), full width, seeded
@@ -340,20 +336,52 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 running statistics included and moved. `python3
                 chip_smoke.py files` runs the device and build phases and
                 this phase alone.
+ 19. parallel - the multi-GPU slice on the one card (phase_parallel), the
+                flagship recipe at full width, global batch 16; everything
+                that forms a process group runs in child processes of this
+                script (`_parallel_rank`), whose failure fails the phase.
+                NCCL at world 1: the one-GPU bf16 Trainer graphed for 3
+                steps, then TRAIN.REMAT graphed and eager (step ms, peak
+                allocated and graph pool bytes beside the step without
+                remat; remat graphed = eager bit for bit; remat's weights
+                within 1e-6 of the step without it; its launches a step),
+                then the group and the data-parallel Trainer graphed, its
+                collectives captured, held bit for bit against the one-GPU
+                trainer (the NCCL version printed). Two gloo ranks sharing
+                the card, f32 eager, random layers off: the data-parallel
+                Trainer (8 samples a rank) 2 steps against the one-process
+                step at batch 16 (PAR_F32), then FSDP the same way against
+                DP, with each rank's parameter and moment bytes. Then
+                run_dataset over two worker threads pinned to cuda:0 on 6
+                synthetic_rgbt_hard sequences (bf16 graphed) against the
+                sequential run: the result files bit for bit and the same
+                launches (a graph counts its own thread's launches at
+                capture). The kernel line takes each run's launches as a
+                path of its own: gloo DP, FSDP, NCCL DP, remat graphed and
+                the two eval workers.
+                `python3 chip_smoke.py parallel` runs the device and build
+                phases and this phase alone.
 Then a line of each phase's seconds (the whole script only), the kernel
 table line (launches by path: tracker, graphs, train,
-eval, online, stage2, families, unimodal, cvt_convmae, files for the f32
-kernels; train bf16, lifecycle, stage2 bf16, families bf16, unimodal
-bf16, cvt_convmae bf16, files bf16, and for the forward kernels the bf16
-tracker, graphs, eval and online; train, train bf16, lifecycle, both
-stage-2 runs, families bf16, both unimodal runs, both cvt_convmae runs
-and files bf16 for AdamW;
-the unimodal phase's RGB-T runs count under online bf16 and families
+eval, online, stage2, families, unimodal, cvt_convmae, files, parallel
+(gloo DP), parallel_fsdp for the f32 kernels; train bf16, lifecycle,
+stage2 bf16, families bf16, unimodal bf16, cvt_convmae bf16, files bf16,
+parallel bf16 (NCCL DP), parallel remat bf16, and for the forward kernels
+the bf16 tracker, graphs, eval, online and parallel eval bf16; train,
+train bf16, lifecycle, both stage-2 runs, families bf16, both unimodal
+runs, both cvt_convmae runs, files bf16 and the four parallel training
+runs for AdamW; the unimodal phase's RGB-T ViT-L counts under families
 bf16) and, last, {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py drift` runs the device and build phases and, alone,
 the spread study behind the drift check of phase 16 (`phase_drift`): the
 kernels, their plain version and the control at three score-bias offsets.
+`python3 chip_smoke.py large` runs them and, alone, the large recipes of
+phase 17 (`phase_large`; not part of the whole script since PR 19):
+mixformer_cvt_online/baseline_large (CvT-24) and
+mixformer_convmae/baseline_large (ConvMAE-L, 192 / 384): parameters,
+LARGE_TRACK - 1 bf16 frames graphed against eager, one update (CvT-24: a
+stage-2 step at 16; ConvMAE-L: 3 micro-batches of 12), peak memory.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -454,6 +482,10 @@ EVAL_CHUNK = 16                    # frames per dispatch in the eval phase
 #: eval.run CLIs read the registry's 60): 30 of 60, cut to make room for
 #: the files phase
 HARD_FRAMES = 30
+#: frames of the 64 the large recipes (ViT-L, RGB-T ViT-L, and CvT-24 and
+#: ConvMAE-L in `chip_smoke.py large`) track graphed against eager: 16 of
+#: 63, a depth cut that makes room for the parallel phase
+LARGE_TRACK = 17
 EVAL_PX_TOL = 0.05                 # batched vs sequential trajectories, px
 M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
 # device kernel names of the bf16 attention kernels (csrc/mixed_attention_bf16.cu,
@@ -4198,11 +4230,13 @@ def _family_gpu_vs_cpu(model) -> dict:
     return d
 
 
-def _family_tracking(params, dtype, frames, layers: int, blocks: int) -> dict:
+def _family_tracking(params, dtype, frames, layers: int, blocks: int,
+                     n_track: int = 64) -> dict:
     """create_tracker at `dtype` on the family's script, update interval 25:
-    the 63 frames graphed (with its captures), eager (graphs=False, same
-    model) and graphed again, bit for bit with the same launches; 10 more
-    frames profiled (busy, idle, launches against the profiler's kernels).
+    the first `n_track` of the 64 frames (63 tracked by default) graphed
+    (with its captures), eager (graphs=False, same model) and graphed
+    again, bit for bit with the same launches; 10 more frames profiled
+    (busy, idle, launches against the profiler's kernels).
     K1 runs at least `blocks` times a frame, K3 `layers` times. Returns
     (line, tracker)."""
     from multi_modal_tracking_torch.eval.evaltracker import create_tracker
@@ -4212,7 +4246,7 @@ def _family_tracking(params, dtype, frames, layers: int, blocks: int) -> dict:
     require(tracker.update_interval == 25 and tracker.graphs is not None,
             f"{params.script}: create_tracker gave {type(tracker).__name__}")
     eager = _tracker_twin(tracker, graphs=False)
-    seq = frames[:64]
+    seq = frames[:n_track]
     torch.cuda.reset_peak_memory_stats()
     runs = [(name, _family_run(tr, seq)) for name, tr in
             (("graphed_capture", tracker), ("eager", eager), ("graphed", tracker))]
@@ -4730,10 +4764,6 @@ UNI_ATTN = ((16, 864, 288), (192, 864, 288), (384, 452, 128))
 #: the drift check's control: the lockstep run's attention scale times
 #: 1 ± each factor; the drift phase also at these score-bias offsets
 DRIFT_FACTORS = (2.0 ** -18, 2.0 ** -20, 2.0 ** -22)
-#: the unimodal lockstep section's drift check in the whole script: the
-#: control at the middle scale factor only (`python3 chip_smoke.py drift`
-#: runs the three on the set's 60 frames)
-UNI_DRIFT_FACTORS = (2.0 ** -20,)
 DRIFT_OFFSETS = (0.0, 0.5, -0.5)
 
 
@@ -4842,9 +4872,10 @@ def _attend_in_frames(eager, snap: dict, frames, graphed: list, busy_ms: float) 
 
 
 def _uni_tracking(params, dtype, mode: str, frames, shift: float = 0.0, base=None,
-                  attend: bool = False) -> tuple:
+                  attend: bool = False, n_track: int = 64) -> tuple:
     """create_tracker's tracker (or, with `base`, a tracker of base's class
-    and settings on its model in `mode`) on the 63 frames graphed (with its
+    and settings on its model in `mode`) on the first `n_track` of the 64
+    frames (63 tracked by default) graphed (with its
     captures), eager and graphed again, bit for bit (boxes, scores, every
     state buffer) with the same launches; 10 more frames profiled, with
     `attend` the plain attention's share of them (`_attend_in_frames`).
@@ -4862,7 +4893,7 @@ def _uni_tracking(params, dtype, mode: str, frames, shift: float = 0.0, base=Non
     require(tracker.update_interval == 25 and tracker.graphs is not None and tracker.mode == mode,
             f"{params.script} {mode}: create_tracker gave {type(tracker).__name__}")
     eager = _uni_twin(tracker, graphs=False)
-    seq = frames[:64]
+    seq = frames[:n_track]
     torch.cuda.reset_peak_memory_stats()
     runs = [(name, _uni_run(tr, seq)) for name, tr in
             (("graphed_capture", tracker), ("eager", eager), ("graphed", tracker))]
@@ -5155,9 +5186,9 @@ def phase_drift(smi: str, frames, save_dir: str) -> dict:
     """The spread behind the RGB-T online bf16 drift check
     (`_rgbt_online_drift`): the kernels, their plain version and the
     control at each of DRIFT_OFFSETS (the score bias moved from its
-    centred value, which moves the commits and so the trajectories); the
-    unimodal phase runs the first alone. Run alone by
-    `python3 chip_smoke.py drift`; not part of the whole script. Returns
+    centred value, which moves the commits and so the trajectories). Run
+    alone by `python3 chip_smoke.py drift`; not part of the whole script
+    (the unimodal phase ran its first offset there until PR 19). Returns
     the launch counts (the online tracker's path)."""
     launches = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
     t0 = time.perf_counter()
@@ -5227,15 +5258,13 @@ def _uni_attention_checks(g: torch.Generator) -> list:
 def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
     """The unimodal MixFormer-ViT family at full width, seeded random
     weights (module docstring, phase 16). Returns the launch counts by
-    path: the unimodal paths' f32 and bf16, and those of the RGB-T runs the
-    phase makes beside them, the online tracker's drift runs
-    (`online_bf16`) and the RGB-T ViT-L recipe (`families_bf16`)."""
+    path: the unimodal paths' f32 and bf16, and those of the RGB-T ViT-L
+    recipe the phase runs beside them (`families_bf16`)."""
     from multi_modal_tracking_torch.eval.run import main as eval_cli
     from multi_modal_tracking_torch.tracking.tracker import RGBTracker
     g = torch.Generator().manual_seed(16)
     f32 = dict.fromkeys(F32_KERNELS + ("AdamW",), 0)
     bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
-    online_bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
     families_bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
     totals = {torch.float32: f32, torch.bfloat16: bf16}
     attend = {}
@@ -5319,7 +5348,8 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
                   "eager twin's trace of the same frames, and its share of their device "
                   "busy time", **attend})
 
-    # lockstep: the CLI, then N = 12 against one stream; the RGB-T drift check
+    # lockstep: the CLI, then N = 12 against one stream (the RGB-T online
+    # drift study runs alone: `chip_smoke.py drift`)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
         reset_launches()
@@ -5337,21 +5367,15 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
             label = "f32" if dtype == torch.float32 else "bf16"
             drift[label], tir_shift = _uni_online_eval(dtype, tir_shift, root, runs,
                                                        n_frames=HARD_FRAMES)
-        rgbt = _rgbt_online_drift(frames, root, runs, factors=UNI_DRIFT_FACTORS,
-                                  n_frames=HARD_FRAMES)
-        for k in BF16_SERVING:
-            online_bf16[k] += sum(r["launches"][k] for n, r in runs.items()
-                                  if n.startswith("rgbt_"))
     emit({"phase": "unimodal lockstep", "card": smi, "script": UNI_ONLINE, "mode": "TIR",
-          "frames_per_sequence": HARD_FRAMES, "drift_factors": UNI_DRIFT_FACTORS,
-          "cli": cli, "runs": runs, "unimodal_online_drift": drift,
-          "rgbt_online_bf16_drift": rgbt, "seconds": time.perf_counter() - t0})
+          "frames_per_sequence": HARD_FRAMES, "cli": cli, "runs": runs,
+          "unimodal_online_drift": drift, "seconds": time.perf_counter() - t0})
 
     # ViT-L: mixformer_vit/baseline_large and mixformer_vit_rgbt/baseline_large
     t0 = time.perf_counter()
     res = {}
     params = _family_params(UNI_SCRIPT, UNI_SCRIPT, "baseline_large")
-    line, tracker, _ = _uni_tracking(params, torch.bfloat16, "RGB", frames)
+    line, tracker, _ = _uni_tracking(params, torch.bfloat16, "RGB", frames, n_track=LARGE_TRACK)
     res["track_bf16"] = line
     del tracker
     torch.cuda.empty_cache()
@@ -5374,7 +5398,8 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
             f"{params.search_size}")
     layers = 0 if params.cfg.MODEL.FUSION_CLASS.startswith("RGBT_Fusion") \
         else params.cfg.MODEL.FUSION_LAYERS
-    line, tracker = _family_tracking(params, torch.bfloat16, frames, layers, 48)
+    line, tracker = _family_tracking(params, torch.bfloat16, frames, layers, 48,
+                                     n_track=LARGE_TRACK)
     _add_launches(families_bf16, line["launches"], BF16_SERVING)
     _add_launches(families_bf16, line["profile"]["launches"], BF16_SERVING)
     n_params = sum(p.numel() for p in tracker.model.parameters())
@@ -5391,7 +5416,7 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
           "recipe": "mixformer_vit_rgbt/baseline_large", "params": n_params, "track_bf16": line,
           "train_bf16": train, "seconds": time.perf_counter() - t0})
     emit({"phase": "unimodal kernel shapes", "card": smi, "k1_k2": _uni_attention_checks(g)})
-    return {"f32": f32, "bf16": bf16, "online_bf16": online_bf16, "families_bf16": families_bf16}
+    return {"f32": f32, "bf16": bf16, "families_bf16": families_bf16}
 
 
 # ----------------------------------------------------------- cvt / convmae
@@ -5554,28 +5579,6 @@ def phase_cvt_convmae(smi: str, frames, save_dir: str) -> dict:
                   "from the eager twin's trace of the same frames, and its share of their "
                   "device busy time", **attend})
 
-    # the large recipes: CvT-24 (stage 2) and ConvMAE-L (ACCUM_ITER 3)
-    for script, recipe, batch, attention in ((CVT_ONLINE, "baseline_large", CVT_LARGE_B, False),
-                                             (CM, "baseline_large", CM_LARGE_B, True)):
-        t0 = time.perf_counter()
-        params = _cm_params(script, recipe)
-        line, tracker, _ = _uni_tracking(params, torch.bfloat16, "RGB", frames)
-        _no_attention_kernels(line, f"{script}/{recipe} bf16")
-        n_params = sum(p.numel() for p in tracker.model.parameters())
-        del tracker
-        torch.cuda.empty_cache()
-        # one update: a stage-2 step (CvT-24), ACCUM_ITER's 3 micro-batches (ConvMAE-L)
-        steps = 1 if script == CVT_ONLINE else UNI_STEPS
-        train, counts = _uni_training(script, recipe, batch, save_dir, steps=steps, twin=False,
-                                      attention=attention)
-        require(counts["AdamW"] > 0 and train["accum_iter"] == steps,
-                f"{script}/{recipe}: ACCUM_ITER {train['accum_iter']}, AdamW launches "
-                f"{counts['AdamW']}")
-        _add_launches(bf16, counts, counts)
-        emit({"phase": f"cvt_convmae {script}/{recipe}", "card": smi, "params": n_params,
-              "template_size": params.template_size, "search_size": params.search_size,
-              "track_bf16": line, "train_bf16": train, "seconds": time.perf_counter() - t0})
-
     # lockstep: the CLI, CvT online N = 12 against one stream; ConvMAE's CLI
     t0 = time.perf_counter()
     seqs = get_dataset("synthetic_rgbt_hard")
@@ -5600,16 +5603,44 @@ def phase_cvt_convmae(smi: str, frames, save_dir: str) -> dict:
                     f"eval.run {script}: launches {launches}")
             cli[script] = dict(seconds=secs, frames=n_frames, fps_with_model_build=n_frames / secs,
                                launches=launches)
-        runs, drift, cvt_shift = {}, {}, None
-        for dtype in (torch.float32, torch.bfloat16):
-            label = "f32" if dtype == torch.float32 else "bf16"
-            drift[label], cvt_shift = _uni_online_eval(dtype, cvt_shift, root, runs, mode="RGB",
-                                                       params=_cm_params(CVT_ONLINE), tag="cvt",
-                                                       n_frames=HARD_FRAMES)
+        # f32, held to one stream (the unimodal phase prints the bf16 drift
+        # of the same lockstep twin)
+        runs, drift = {}, {}
+        drift["f32"], _ = _uni_online_eval(torch.float32, None, root, runs, mode="RGB",
+                                           params=_cm_params(CVT_ONLINE), tag="cvt",
+                                           n_frames=HARD_FRAMES)
     emit({"phase": "cvt_convmae lockstep", "card": smi, "script": CVT_ONLINE, "mode": "RGB",
           "cli": cli, "runs": runs, "cvt_online_drift": drift,
           "seconds": time.perf_counter() - t0})
     return {"f32": f32, "bf16": bf16}
+
+
+def phase_large(smi: str, frames, save_dir: str) -> dict:
+    """The large recipes of phase 17, run alone (`python3 chip_smoke.py
+    large`, module docstring). Returns the launch counts (bf16)."""
+    bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    for script, recipe, batch, attention in ((CVT_ONLINE, "baseline_large", CVT_LARGE_B, False),
+                                             (CM, "baseline_large", CM_LARGE_B, True)):
+        t0 = time.perf_counter()
+        params = _cm_params(script, recipe)
+        line, tracker, _ = _uni_tracking(params, torch.bfloat16, "RGB", frames,
+                                         n_track=LARGE_TRACK)
+        _no_attention_kernels(line, f"{script}/{recipe} bf16")
+        n_params = sum(p.numel() for p in tracker.model.parameters())
+        del tracker
+        torch.cuda.empty_cache()
+        # one update: a stage-2 step (CvT-24), ACCUM_ITER's 3 micro-batches (ConvMAE-L)
+        steps = 1 if script == CVT_ONLINE else UNI_STEPS
+        train, counts = _uni_training(script, recipe, batch, save_dir, steps=steps, twin=False,
+                                      attention=attention)
+        require(counts["AdamW"] > 0 and train["accum_iter"] == steps,
+                f"{script}/{recipe}: ACCUM_ITER {train['accum_iter']}, AdamW launches "
+                f"{counts['AdamW']}")
+        _add_launches(bf16, counts, counts)
+        emit({"phase": f"large {script}/{recipe}", "card": smi, "params": n_params,
+              "template_size": params.template_size, "search_size": params.search_size,
+              "track_bf16": line, "train_bf16": train, "seconds": time.perf_counter() - t0})
+    return {"bf16": bf16}
 
 
 # ------------------------------------------------------------------- files
@@ -6006,12 +6037,386 @@ def phase_files(smi: str, frames, save_dir: str) -> dict:
     return {"f32": f32, "bf16": bf16}
 
 
+# ---------------------------------------------------------------- parallel
+PAR_STEPS = 3                      # bf16 graphed steps: NCCL world 1, remat
+PAR_GLOO_STEPS = 2                 # f32 eager steps over two gloo ranks
+PAR_EVAL_SEQS = 6                  # synthetic_rgbt_hard sequences run over two workers
+#: f32 bounds of a data-parallel (or FSDP) run against the one-process run
+#: from the same weights: the order of every sum differs (a half batch a
+#: rank, the synced BN's two passes, the gradient average). Step 1 runs on
+#: the same weights: its loss within 1e-5 rel, its grad norm within 1e-3
+#: rel and its clipped gradients all together within 1e-2 of their norm
+#: (the train phases' GPU-vs-CPU bounds); step 2's loss and grad norm
+#: within 1e-3 rel. The weights after step 2 are not held: AdamW moves
+#: every element by about lr whatever its gradient's size, so a
+#: rounding-noise gradient (a conv bias before a BN) moves by +-lr in
+#: either run
+PAR_F32 = dict(loss1_rel=1e-5, grad_norm1_rel=1e-3, grads1=1e-2, metrics2_rel=1e-3)
+
+
+#: random layers off: each rank draws its own masks for its part of the
+#: batch, so a run over ranks matches the one-process run only without them
+NO_DROP = dict(drop_path_rate=0.0, fusion_dropout=0.0)
+
+
+def _par_trainer(dtype, graphs: bool, steps: int, save_dir: str, device="cuda",
+                 remat: bool = False, fsdp: bool = False, spec_overrides=None):
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    cfg = _train_cfg(TRAIN_B, steps)
+    cfg.TRAIN.REMAT, cfg.TRAIN.FSDP = remat, fsdp
+    return Trainer(SCRIPT, cfg, save_dir=save_dir, device=device, seed=0, dtype=dtype,
+                   graphs=graphs, spec_overrides=spec_overrides)
+
+
+def _local_part(x: dict, rank: int, world: int) -> dict:
+    """A rank's part of a global batch of model inputs: its slice of the
+    samples, RGB then TIR."""
+    B = x["gt_xywh"].shape[0]
+    lo, hi = rank * B // world, (rank + 1) * B // world
+    return {k: torch.cat([v[lo:hi], v[B + lo:B + hi]]) if v.shape[0] == 2 * B else v[lo:hi]
+            for k, v in x.items()}
+
+
+def _run_steps(tr, batches, keep=1.0, first_grads=None) -> list:
+    """The Trainer's step on each batch; its metrics. With a dict
+    `first_grads`, fill it with the first step's clipped gradients by
+    parameter name (each shard gathered, on the CPU)."""
+    out = []
+    for i, x in enumerate(batches):
+        out.append({k: float(v) for k, v in tr._step(x, ce_keep_rate=keep).items()})
+        if i == 0 and first_grads is not None:
+            names = [n for n, _ in tr.model.named_parameters()]
+            first_grads.update({n: _gathered(g).detach().cpu()
+                                for n, g in zip(names, tr.optimizer.grads)})
+    return out
+
+
+def _gathered(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of an FSDP shard (a DTensor; a collective), any
+    other tensor as it is. Over gloo the shards are gathered as CPU tensors
+    with a plain all_gather: with torch 2.11's gloo, the functional
+    collectives that DTensor.full_tensor runs ended the process on CUDA
+    tensors (a segmentation fault), which FSDP2's own collectives did not."""
+    if not hasattr(t, "to_local"):
+        return t
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    if dist.get_backend() != "gloo":
+        return t.full_tensor()
+    local = t.to_local().detach().cpu().contiguous()
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, local)
+    dim, = [p.dim for p in t.placements if isinstance(p, Shard)]
+    return torch.cat(parts, dim=dim)
+
+
+def _rank_bytes(tr) -> dict:
+    """This rank's bytes of parameters, of AdamW's moments, and of the
+    parameters it holds whole (replicated)."""
+    from multi_modal_tracking_torch.parallel.mesh import local_tensor
+    opt = tr.optimizer
+    return dict(params=sum(local_tensor(p).numel() * 4 for p in opt.params),
+                moments=sum(m.numel() * 4 for g in opt.groups for m in opt.mu[g] + opt.nu[g]),
+                replicated=sum(p.numel() * 4 for p, sh in zip(opt.params, opt.sharded)
+                               if not sh))
+
+
+def _peak(fn) -> dict:
+    """fn() with the allocator's peak reset before it: (its result, the
+    peak bytes allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def _par_run(tr, batches) -> dict:
+    """PAR_GLOO_STEPS steps: the metrics and the first step's gradients
+    (shards gathered, on the CPU)."""
+    grads1 = {}
+    metrics = _run_steps(tr, batches, first_grads=grads1)
+    return dict(metrics=metrics, grads1=grads1)
+
+
+def _par_close(got: dict, want: dict) -> dict:
+    """`_par_run` results `got` against `want`: the PAR_F32 distances."""
+    m1, w1 = got["metrics"][0], want["metrics"][0]
+    res = dict(loss1_rel=abs(m1["Loss/total"] - w1["Loss/total"]) / abs(w1["Loss/total"]),
+               grad_norm1_rel=abs(m1["grad_norm"] - w1["grad_norm"]) / w1["grad_norm"],
+               grads1=_rel_dist(got["grads1"], want["grads1"], ("",)),
+               metrics2_rel=max(abs(g[k] - w[k]) / abs(w[k])
+                                for g, w in zip(got["metrics"][1:], want["metrics"][1:])
+                                for k in ("Loss/total", "grad_norm")))
+    res["within"] = all(res[k] <= PAR_F32[k] for k in PAR_F32)
+    return res
+
+
+def _par_child_gloo(rank: int, world: int, workdir: str) -> dict:
+    """Two gloo ranks on the one card: DP and FSDP, f32 eager, against the
+    one-process step the parent saved."""
+    from multi_modal_tracking_torch.parallel import distributed as D
+    D.initialize_distributed(f"file://{workdir}/gloo_store", world, rank, device="cuda",
+                             backend="gloo")
+    dev = torch.device("cuda", 0)
+    batches = torch.load(os.path.join(workdir, "batches.pt"), weights_only=True)
+    local = [{k: v.to(dev) for k, v in _local_part(x, rank, world).items()} for x in batches]
+    ref = torch.load(os.path.join(workdir, "one_process.pt"), weights_only=False)
+    out = dict(rank=rank)
+    with tempfile.TemporaryDirectory() as save_dir:
+        reset_launches()
+        tr = _par_trainer(torch.float32, False, PAR_GLOO_STEPS, save_dir, device=dev,
+                          spec_overrides=NO_DROP)
+        require(tr.dp is not None and tr.dp.world == world, "gloo DP: no group in the Trainer")
+        dp_run = _par_run(tr, local)
+        out["launches"] = read_launches()
+        out["dp"] = dict(metrics=dp_run["metrics"], bytes=_rank_bytes(tr),
+                         vs_one_process=_par_close(dp_run, ref))
+        del tr
+        torch.cuda.empty_cache()
+        reset_launches()
+        fs = _par_trainer(torch.float32, False, PAR_GLOO_STEPS, save_dir, device=dev,
+                          fsdp=True, spec_overrides=NO_DROP)
+        fs_run = _par_run(fs, local)
+        out["fsdp_launches"] = read_launches()
+        out["fsdp"] = dict(metrics=fs_run["metrics"], bytes=_rank_bytes(fs),
+                           n_sharded=sum(fs.optimizer.sharded),
+                           vs_dp=_par_close(fs_run, dp_run),
+                           vs_one_process=_par_close(fs_run, ref))
+        del fs
+    D.shutdown_distributed()
+    return out
+
+
+def _par_child_nccl(rank: int, world: int, workdir: str) -> dict:
+    """NCCL at world 1: the one-GPU graphed bf16 trainer, remat graphed and
+    eager, then the group and the DP trainer, graphed, held against the
+    one-GPU one bit for bit."""
+    from multi_modal_tracking_torch.parallel import distributed as D
+    batches = _train_batches(PAR_STEPS)
+    out = {}
+
+    def run(tr) -> tuple:
+        """PAR_STEPS steps (peak bytes), the state after them, then 3
+        isolated steps at the final keep (ms)."""
+        metrics, peak = _peak(lambda: _run_steps(tr, batches))
+        state = {k: v.clone() for k, v in _train_state(tr).items()}
+        pool = tr._step.graphs.pool_bytes() if tr._step.graphs is not None else 0
+        ms = _isolated_steps(tr._step, batches[0], n=3)["ms_per_step_median"]
+        return metrics, state, dict(peak_bytes=peak, pool_bytes=pool, ms_per_step_median=ms)
+
+    with tempfile.TemporaryDirectory() as save_dir:
+        torch.cuda.empty_cache()
+        one = _par_trainer(torch.bfloat16, True, PAR_STEPS, save_dir)
+        one_metrics, one_state, one_mem = run(one)
+        del one
+        torch.cuda.empty_cache()
+        reset_launches()
+        rg = _par_trainer(torch.bfloat16, True, PAR_STEPS, save_dir, remat=True)
+        require(rg.model.backbone.remat, "TRAIN.REMAT did not reach the backbone")
+        rg_metrics, rg_peak = _peak(lambda: _run_steps(rg, batches))
+        remat_launches = read_launches()
+        rg_state = {k: v.clone() for k, v in _train_state(rg).items()}
+        rg_mem = dict(peak_bytes=rg_peak, pool_bytes=rg._step.graphs.pool_bytes(),
+                      ms_per_step_median=_isolated_steps(rg._step, batches[0], n=3)[
+                          "ms_per_step_median"])
+        del rg
+        torch.cuda.empty_cache()
+        re = _par_trainer(torch.bfloat16, False, PAR_STEPS, save_dir, remat=True)
+        re_metrics, re_state, re_mem = run(re)
+        del re
+        torch.cuda.empty_cache()
+        graphed_vs_eager = _differing(rg_state, re_state)
+        vs_plain = _differing(re_state, one_state)
+        out["remat_launches"] = remat_launches
+        out["remat"] = dict(
+            launches_per_step={k: remat_launches[k] / PAR_STEPS
+                               for k in TRAIN_LAUNCHES[torch.bfloat16]},
+            graphed=rg_mem, eager=re_mem, no_remat_graphed=one_mem,
+            graphed_vs_eager_differing=graphed_vs_eager,
+            vs_no_remat_metrics_equal=re_metrics == one_metrics,
+            vs_no_remat_differing=len(vs_plain),
+            vs_no_remat_weights_rel=_rel_dist(re_state, one_state, ("net/",)))
+        require(rg_mem["peak_bytes"] < one_mem["peak_bytes"],
+                f"remat's peak is not below the step's without it: {out['remat']}")
+        require(rg_metrics == re_metrics and not graphed_vs_eager,
+                f"remat graphed != eager: {out['remat']}")
+        require(out["remat"]["vs_no_remat_weights_rel"] <= 1e-6,
+                f"remat moved the weights away from the step without it: {out['remat']}")
+        del rg_state, re_state
+
+        require(D.initialize_distributed(f"file://{workdir}/nccl_store", world, rank,
+                                         device="cuda"), "no NCCL group formed")
+        out["nccl_version"] = ".".join(str(v) for v in torch.cuda.nccl.version())
+        reset_launches()
+        dp = _par_trainer(torch.bfloat16, True, PAR_STEPS, save_dir, device=D.local_device())
+        require(dp.dp is not None and dp.dp.backend == "nccl" and dp.dp.capturable,
+                "NCCL DP: the Trainer has no capturable group")
+        dp_metrics = _run_steps(dp, batches)
+        out["launches"] = read_launches()
+        dp_state = _train_state(dp)
+        differing = _differing(dp_state, one_state)
+        out["dp_world1"] = dict(
+            graphs=len(dp._step.graphs), metrics_equal=dp_metrics == one_metrics,
+            n_differing=len(differing), differing=differing[:8],
+            max_abs_diff=max([float((dp_state[k].float() - one_state[k].float()).abs().max())
+                              for k in differing if dp_state[k].is_floating_point()] or [0.0]))
+        require(dp_metrics == one_metrics and not differing,
+                f"NCCL world-1 DP != the one-GPU trainer: {out['dp_world1']}")
+        del dp, dp_state
+    D.shutdown_distributed()
+    return out
+
+
+def _par_spawn(case: str, world: int, workdir: str, timeout: float = 600.0) -> list:
+    """Run `case` on `world` child processes of this script; their results.
+    A child that fails fails the phase (CalledProcessError)."""
+    procs = [subprocess.Popen([sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+                               "_parallel_rank", case, str(r), str(world), workdir])
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p in procs:
+        if p.returncode:
+            raise subprocess.CalledProcessError(p.returncode, p.args)
+    return [json.load(open(os.path.join(workdir, f"{case}_{r}.json"))) for r in range(world)]
+
+
+def _par_eval_devices(smi: str) -> tuple:
+    """run_dataset over two worker threads pinned to cuda:0 against the
+    sequential run, bit for bit (the files and the boxes), with the same
+    launches (each graph counts its own thread's launches at capture).
+    Returns (line, the two workers' launches)."""
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    name = "synthetic_rgbt_hard"
+    seqs = get_dataset(name, n_frames=HARD_FRAMES)[:PAR_EVAL_SEQS]
+    params = _params()
+    made = []
+
+    def factory(device):
+        made.append(str(device))
+        return create_tracker(params, name, device=device, seed=0)
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        one = run_dataset(seqs, factory("cuda:0"), os.path.join(root, "one"))
+        t1 = time.perf_counter()
+        one_launches = read_launches()
+        made.clear()
+        reset_launches()
+        two = run_dataset(seqs, None, os.path.join(root, "two"), threads=2,
+                          tracker_factory=factory, devices=["cuda:0", "cuda:0"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_launches()
+        same_files = all(open(os.path.join(root, "one", f"{q.name}.txt"), "rb").read() ==
+                         open(os.path.join(root, "two", f"{q.name}.txt"), "rb").read()
+                         for q in seqs)
+    same_boxes = [a["seq"] for a in one] == [b["seq"] for b in two] and all(
+        np.array_equal(a["boxes"], b["boxes"]) for a, b in zip(one, two))
+    res = dict(sequences=len(seqs), frames=sum(len(q.frames) for q in seqs), workers=made,
+               same_files=same_files, same_boxes=same_boxes, one_worker_s=t1 - t0,
+               two_workers_s=t2 - t1,
+               one_worker_launches={k: one_launches[k] for k in BF16_SERVING},
+               two_workers_launches={k: launches[k] for k in BF16_SERVING})
+    require(same_files and same_boxes and len(made) == 2 and
+            all(launches[k] > 0 and launches[k] == one_launches[k] for k in BF16_SERVING),
+            f"run_dataset over devices != sequential: {res}")
+    return res, launches
+
+
+def phase_parallel(smi: str, frames, save_dir: str) -> dict:
+    """Multi-GPU slice on the one card (module docstring, phase 19): child
+    processes for everything that forms a process group (the main process
+    never does). Returns the launch counts of its paths: `f32` gloo DP,
+    `fsdp` FSDP over gloo (f32), `bf16` NCCL DP, `remat_bf16` the graphed
+    remat steps, `eval_bf16` the two eval workers."""
+    t0 = time.perf_counter()
+    out = {path: dict.fromkeys((F32_KERNELS if path in ("f32", "fsdp") else BF16_KERNELS)
+                               + ("AdamW",), 0)
+           for path in ("f32", "fsdp", "bf16", "remat_bf16", "eval_bf16")}
+    # the one-process f32 reference of the gloo runs, saved for the children
+    workdir, one_bytes = _par_reference(save_dir)
+    seconds = {"one_process": time.perf_counter() - t0}
+    gloo = _par_spawn("gloo", 2, workdir)
+    seconds["gloo"] = time.perf_counter() - t0 - sum(seconds.values())
+    for r in gloo:
+        require(r["dp"]["vs_one_process"]["within"],
+                f"gloo DP rank {r['rank']} against the one-process step: {r['dp']}")
+        _add_launches(out["f32"], r["launches"], out["f32"])
+        _add_launches(out["fsdp"], r["fsdp_launches"], out["fsdp"])
+        fs = r["fsdp"]
+        require(fs["vs_dp"]["within"], f"FSDP rank {r['rank']} against DP: {fs}")
+        got, dp, rep = fs["bytes"], r["dp"]["bytes"], fs["bytes"]["replicated"]
+        require(got["params"] <= 0.5 * dp["params"] + rep
+                and got["moments"] <= 0.5 * dp["moments"] + 2 * rep,
+                f"FSDP rank {r['rank']} holds {got} against DP's {dp}")
+    nccl, = _par_spawn("nccl", 1, workdir)
+    seconds["nccl"] = time.perf_counter() - t0 - sum(seconds.values())
+    _add_launches(out["bf16"], nccl["launches"], out["bf16"])
+    _add_launches(out["remat_bf16"], nccl["remat_launches"], out["remat_bf16"])
+    evals, launches = _par_eval_devices(smi)
+    seconds["eval"] = time.perf_counter() - t0 - sum(seconds.values())
+    _add_launches(out["eval_bf16"], launches, BF16_SERVING)
+    require(all(out[p]["AdamW"] > 0 for p in ("f32", "fsdp", "bf16", "remat_bf16")),
+            f"a parallel training path launched no AdamW: {out}")
+    emit({"phase": "parallel", "card": smi, "nccl": nccl["nccl_version"],
+          "dp_nccl_world1_bf16_graphed": nccl["dp_world1"],
+          "dp_gloo_2ranks_f32": [dict(r["dp"], rank=r["rank"]) for r in gloo],
+          "fsdp_gloo_2ranks_f32": [dict(r["fsdp"], rank=r["rank"]) for r in gloo],
+          "one_process_bytes": one_bytes, "remat_bf16": nccl["remat"], "eval_devices": evals,
+          "bounds": PAR_F32, "batch": TRAIN_B, "launches_by_path": out,
+          "seconds_by_part": seconds, "seconds": time.perf_counter() - t0})
+    return out
+
+
+def _par_reference(save_dir: str) -> tuple:
+    """A work directory holding PAR_GLOO_STEPS batches of the recipe and the
+    one-process f32 run on them (random layers off), for the children;
+    (workdir, that run's parameter and moment bytes)."""
+    workdir = tempfile.mkdtemp(dir=save_dir)
+    batches = _train_batches(PAR_GLOO_STEPS, seed=7)
+    torch.save([{k: v.cpu() for k, v in x.items()} for x in batches],
+               os.path.join(workdir, "batches.pt"))
+    tr = _par_trainer(torch.float32, False, PAR_GLOO_STEPS, save_dir, spec_overrides=NO_DROP)
+    torch.save(_par_run(tr, batches), os.path.join(workdir, "one_process.pt"))
+    one_bytes = _rank_bytes(tr)
+    del tr, batches
+    torch.cuda.empty_cache()
+    return workdir, one_bytes
+
+
+def _parallel_rank(argv) -> None:
+    """A child of phase_parallel: `_parallel_rank CASE RANK WORLD WORKDIR`;
+    writes WORKDIR/CASE_RANK.json."""
+    case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    fn = {"gloo": _par_child_gloo, "nccl": _par_child_nccl}[case]
+    out = fn(rank, world, workdir)
+    with open(os.path.join(workdir, f"{case}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["_parallel_rank"]:              # a child of phase_parallel
+        require(torch.cuda.is_available(), "no CUDA device")
+        _parallel_rank(argv[1:])
+        return
     dev, smi = phase_device()
     phase_build()
     phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift,
-              "cvt_convmae": phase_cvt_convmae, "files": phase_files}
+              "large": phase_large,
+              "cvt_convmae": phase_cvt_convmae, "files": phase_files,
+              "parallel": phase_parallel}
     if len(argv) == 1 and argv[0] in phases:    # one phase alone (module docstring)
         frames = list(_sequence(74))
         with tempfile.TemporaryDirectory() as save_dir:
@@ -6069,6 +6474,9 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as save_dir:
         files = phase_files(smi, frames, save_dir)
     lap("files")
+    with tempfile.TemporaryDirectory() as save_dir:
+        parallel = phase_parallel(smi, frames, save_dir)
+    lap("parallel")
     emit({"phase": "phase seconds", **{name: t - laps[i][1]
                                        for i, (name, t) in enumerate(laps[1:])}})
     table = []
@@ -6077,7 +6485,8 @@ def main(argv=None) -> None:
                    "train": train_launches[key], "eval": eval_launches[key],
                    "stage2": stage2["f32"][key], "families": families["f32"][key],
                    "unimodal": unimodal["f32"][key], "cvt_convmae": cvt_convmae["f32"][key],
-                   "files": files["f32"][key]}
+                   "files": files["f32"][key], "parallel": parallel["f32"][key],
+                   "parallel_fsdp": parallel["fsdp"][key]}
         if key in online["f32"]:
             by_path["online"] = online["f32"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
@@ -6095,11 +6504,14 @@ def main(argv=None) -> None:
                    "stage2_bf16": stage2["bf16"][key],
                    "families_bf16": families["bf16"][key] + unimodal["families_bf16"][key],
                    "unimodal_bf16": unimodal["bf16"][key],
-                   "cvt_convmae_bf16": cvt_convmae["bf16"][key], "files_bf16": files["bf16"][key]}
+                   "cvt_convmae_bf16": cvt_convmae["bf16"][key], "files_bf16": files["bf16"][key],
+                   "parallel_bf16": parallel["bf16"][key],
+                   "parallel_remat_bf16": parallel["remat_bf16"][key]}
         if key in BF16_SERVING:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
                            graphs_bf16=graph_launches["bf16"][key],
-                           online_bf16=online["bf16"][key] + unimodal["online_bf16"][key])
+                           online_bf16=online["bf16"][key],
+                           parallel_eval_bf16=parallel["eval_bf16"][key])
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -6118,7 +6530,10 @@ def main(argv=None) -> None:
                "families_bf16": families["bf16"]["AdamW"] + unimodal["families_bf16"]["AdamW"],
                "unimodal": unimodal["f32"]["AdamW"], "unimodal_bf16": unimodal["bf16"]["AdamW"],
                "cvt_convmae": cvt_convmae["f32"]["AdamW"],
-               "cvt_convmae_bf16": cvt_convmae["bf16"]["AdamW"], "files_bf16": files["bf16"]["AdamW"]}
+               "cvt_convmae_bf16": cvt_convmae["bf16"]["AdamW"], "files_bf16": files["bf16"]["AdamW"],
+               "parallel": parallel["f32"]["AdamW"], "parallel_fsdp": parallel["fsdp"]["AdamW"],
+               "parallel_bf16": parallel["bf16"]["AdamW"],
+               "parallel_remat_bf16": parallel["remat_bf16"]["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

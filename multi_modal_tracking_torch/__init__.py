@@ -25,6 +25,13 @@ on first use (ops/_build.py) and differentiable through
 torch.autograd.Function; on CPU tensors their wrappers run the plain
 PyTorch versions. On the GPU the trackers' per-frame step and the
 Trainer's step run as CUDA graphs (tracking/graphs.py).
+
+Several GPUs (parallel/): one process a GPU, the group formed from
+torchrun's environment or explicit flags (parallel/distributed.py); the
+Trainer then trains data-parallel (synced BatchNorm, gradients averaged in
+one NCCL collective captured in the step's graphs), optionally FSDP-sharded
+with sharded checkpoints (parallel/mesh.py), and eval.running.run_dataset
+spreads its worker threads over the given cards.
 """
 
 __version__ = "0.2.0"

@@ -28,6 +28,8 @@ import re
 import sys
 from typing import List, Optional
 
+import torch
+
 from multi_modal_tracking_torch.eval.analysis import TrackerResults, print_results
 from multi_modal_tracking_torch.eval.datasets import get_dataset
 from multi_modal_tracking_torch.eval.evaltracker import create_tracker
@@ -63,7 +65,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--search_area_scale", type=float, default=None)
     p.add_argument("--chunk", type=int, default=16, help="frames per dispatch")
     p.add_argument("--threads", type=int, default=0,
-                   help="worker threads, one tracker each, on the one card")
+                   help="worker threads, one tracker each; with --device cuda they are "
+                        "spread over every visible card")
     p.add_argument("--batch_sequences", type=int, default=0,
                    help="track N same-size sequences in lockstep as one batch")
     p.add_argument("--sequence", type=str, default=None, help="run a single sequence")
@@ -189,8 +192,8 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
         for k, v in overrides.items():
             setattr(params, k, v)
 
-        def make():
-            return create_tracker(params, dataset_name=args.dataset_name, device=args.device,
+        def make(device=args.device):
+            return create_tracker(params, dataset_name=args.dataset_name, device=device,
                                   dtype=DTYPES[args.dtype], **modal)
         if args.batch_sequences > 1:
             bt = _batched_twin(make(), args.chunk)
@@ -204,10 +207,12 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                     run_sequences_batched(seqs[lo:lo + args.batch_sequences], bt, results_dir,
                                           chunk=args.chunk, skip_if_done=not args.rerun)
         else:
-            # with threads every worker builds its own tracker
+            # with threads every worker builds its own tracker, on its own card
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())] \
+                if args.threads and args.device == "cuda" else None
             run_dataset(dataset, None if args.threads else make(), results_dir,
                         skip_if_done=not args.rerun, chunk=args.chunk, threads=args.threads,
-                        tracker_factory=make if args.threads else None,
+                        tracker_factory=make if args.threads else None, devices=devices,
                         roi_margin=args.roi_margin)
         print(f"results -> {results_dir}")
         name = f"{args.script}/{args.config or 'default'}{suffix}"

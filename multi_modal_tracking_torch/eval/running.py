@@ -26,6 +26,7 @@ key) pair. A file the decoder does not take raises with its path.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -258,21 +259,42 @@ def run_dataset(dataset, tracker, results_dir: str, skip_if_done: bool = True,
     """Run a tracker over every sequence of `dataset`.
 
     threads > 0 with tracker_factory maps the sequences over a thread pool
-    with one tracker per worker thread, all on the one card (host work of
-    one worker overlaps the device work of another). `devices` (workers
-    pinned to several cards) waits for the multi-GPU slice (ROADMAP.md
-    queue 1 item 7) and raises."""
+    with one tracker per worker thread (host work of one worker overlaps
+    the device work of another). Without `devices` the workers share the
+    one card and call `tracker_factory()`. With `devices` (e.g.
+    ["cuda:0", "cuda:1"]; the JAX package's `run_dataset(devices=...)`,
+    the reference's per-GPU process pool) the workers are pinned to them
+    round-robin: worker k makes devices[k % len(devices)] its thread's
+    current CUDA device (so its graphs capture there) and calls
+    `tracker_factory(device)`, which must build the tracker on that
+    device; a tracker on another device raises. `devices` without threads
+    and a factory raises."""
     if devices:
-        raise NotImplementedError("run_dataset(devices=...) spreads workers over several "
-                                  "GPUs, which is not ported (ROADMAP.md queue 1 item 7)")
+        if not (threads and tracker_factory is not None):
+            raise ValueError("run_dataset(devices=...) pins worker threads to the devices: "
+                             "pass threads > 0 and a tracker_factory(device)")
+        devices = [torch.device(d) for d in devices]
     kw = dict(skip_if_done=skip_if_done, chunk=chunk, save_vis=save_vis,
               roi_margin=roi_margin)
     if threads and tracker_factory is not None:
         local = threading.local()
+        worker_ids = itertools.count()
+
+        def make():
+            if not devices:
+                return tracker_factory()
+            dev = devices[next(worker_ids) % len(devices)]
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            made = tracker_factory(dev)
+            got = torch.device(getattr(made, "device", dev))
+            if got.type != dev.type or (dev.index is not None and got.index != dev.index):
+                raise ValueError(f"run_dataset: the worker of {dev} got a tracker on {got}")
+            return made
 
         def work(seq):
             if not hasattr(local, "tracker"):
-                local.tracker = tracker_factory()
+                local.tracker = make()
             return run_sequence(seq, local.tracker, results_dir, **kw)
         with ThreadPoolExecutor(max_workers=threads) as ex:
             stats = [s for s in ex.map(work, dataset) if s is not None]

@@ -32,7 +32,12 @@ linspace(0, drop_path_rate, depth) on both residual branches of every
 block (an independent per-sample mask for each modality), CE under a
 runtime keep rate (`ce_keep_rate`), the fusion's dropouts and the head's
 BatchNorm statistics; the random layers draw from the generator given
-with `models.layers.set_generator`.
+with `models.layers.set_generator`. With TRAIN.REMAT (`RGBTSpec.remat`)
+the full forward runs each backbone block under `models.layers.remat`
+whenever gradients are recorded, so the backward recomputes its
+activations with the same masks; the cached tracking path never does.
+The flagship family is the only one with a remat path, as in the JAX
+package (whose other models ignore TRAIN.REMAT).
 
 The online scripts (`asymmetric_shared_online`) add the SPM score branch
 (`models/score_decoder.py`): with `run_score_head` the forward also
@@ -54,7 +59,7 @@ from torch import nn
 from multi_modal_tracking_torch.models.fusion import build_fusion
 from multi_modal_tracking_torch.models.heads import CornerPredictor, PyramidCornerPredictor
 from multi_modal_tracking_torch.models.layers import (DropPath, LayerNorm, Linear, Mlp,
-                                                      PatchEmbed, _heads, _merge)
+                                                      PatchEmbed, _heads, _merge, remat)
 from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
 from multi_modal_tracking_torch.ops.attention import mixed_attention
 from multi_modal_tracking_torch.ops.boxes import box_xyxy_to_cxcywh
@@ -343,8 +348,10 @@ class AsymSharedViT(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  ce_loc: Optional[Tuple[int, ...]] = None,
                  ce_keep_ratio: Optional[Tuple[float, ...]] = None,
-                 ce_template_range: str = "CTR_POINT", drop_path_rate: float = 0.0):
+                 ce_template_range: str = "CTR_POINT", drop_path_rate: float = 0.0,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.ce_template_range = _check_ce_range(ce_template_range)
         self.img_size_t = img_size_t
         self.depth = depth
@@ -412,8 +419,11 @@ class AsymSharedViT(nn.Module):
         ce_row_weights = self._ce_row_weights(use_ce_template_mask, ce_gt_boxes)
         gidx = torch.arange(n_s, device=x.device)[None].expand(B, n_s)
         gidx_v = gidx_i = gidx
+        # remat: each block's activations recomputed in the backward (the
+        # JAX package's nn.remat(SharedBlock), models/asymmetric_shared.py:446)
+        run = remat if self.remat and torch.is_grad_enabled() else (lambda f, *a: f(*a))
         for bi, blk in enumerate(self.blocks):
-            x_v, x_i, gidx_v, gidx_i = blk(x_v, x_i, n_mt, gidx_v, gidx_i,
+            x_v, x_i, gidx_v, gidx_i = run(blk, x_v, x_i, n_mt, gidx_v, gidx_i,
                                            keeps[bi], ce_rows, ce_row_weights)
         x_v = torch.cat([x_v[:, :n_mt], _recover(x_v[:, n_mt:], gidx_v, n_s)], dim=1)
         x_i = torch.cat([x_i[:, :n_mt], _recover(x_i[:, n_mt:], gidx_i, n_s)], dim=1)
@@ -482,6 +492,8 @@ class RGBTSpec:
     drop_path_rate: float = 0.1
     fusion_dropout: float = 0.1
     nlayer_head: int = 3
+    #: TRAIN.REMAT: recompute each backbone block in the backward
+    remat: bool = False
 
     @staticmethod
     def from_cfg(cfg) -> "RGBTSpec":
@@ -496,7 +508,8 @@ class RGBTSpec:
             ce_loc=tuple(bb.CE_LOC) if "CE_LOC" in bb else None,
             ce_keep_ratio=tuple(bb.CE_KEEP_RATIO) if "CE_KEEP_RATIO" in bb else None,
             ce_template_range=_check_ce_range(bb.get("CE_TEMPLATE_RANGE", "CTR_POINT")),
-            nlayer_head=cfg.MODEL.get("NLAYER_HEAD", 3))
+            nlayer_head=cfg.MODEL.get("NLAYER_HEAD", 3),
+            remat=bool(cfg.TRAIN.get("REMAT", False)))
 
 
 def _build_head(sp: RGBTSpec) -> nn.Module:
@@ -522,7 +535,8 @@ class MixFormerRGBT(nn.Module):
             img_size_s=sp.search_size, img_size_t=sp.template_size,
             embed_dim=sp.embed_dim, depth=sp.depth, num_heads=sp.num_heads,
             ce_loc=sp.ce_loc, ce_keep_ratio=sp.ce_keep_ratio,
-            ce_template_range=sp.ce_template_range, drop_path_rate=sp.drop_path_rate)
+            ce_template_range=sp.ce_template_range, drop_path_rate=sp.drop_path_rate,
+            remat=sp.remat)
         # the fusion's d_model is fixed at 512 for every recipe
         self.fusion_vi = build_fusion(sp.fusion_class, sp.embed_dim, 512, sp.fusion_layers,
                                       sp.fusion_dropout)

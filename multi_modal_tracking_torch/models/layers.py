@@ -7,6 +7,20 @@ Module attribute names give the reference's torch state-dict keys.
 Random layers (`DropPath`, `Dropout`) draw their masks from an explicit
 `torch.Generator` that the caller owns (`set_generator`), on the device of
 the tensor, so a seeded generator gives the same masks run after run.
+Under `remat` (TRAIN.REMAT) a block's masks are kept on a tape as it runs
+forward and read back from it when the backward recomputes the block:
+`torch.utils.checkpoint` restores only the default generators' states, and
+a second draw from the explicit one would give other masks.
+
+Synced BatchNorm. With a process group of more than one rank
+(`set_sync_group`), `BatchNorm2d` in training normalises with the
+statistics of the global batch, the JAX package's BN under GSPMD (its
+parallel/mesh.py:7-9) and the reference's SyncBatchNorm: the per-channel
+sums of x and the element count, then those of (x - mean)^2, are summed
+over the ranks (var biased, as flax's; the running variance stays the
+biased one), and the backward sums dy and dy * x_hat over the ranks the
+same way, so the input gradients are those of the global batch's
+statistics. Eval mode syncs nothing.
 
 Compute dtype. A model's parameters and buffers are float32 (the master
 weights of training) or bf16 (after `utils.checkpoint.cast_floating`, for
@@ -45,9 +59,11 @@ No `torch.autocast`: its lists of ops kept in f32 are not flax's.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -169,7 +185,7 @@ class _RandomMask(nn.Module):
             raise RuntimeError(f"{type(self).__name__}(rate={self.rate}) in training mode "
                                f"needs a generator: call set_generator(model, g)")
         keep = 1.0 - self.rate
-        u = torch.rand(self._mask_shape(x), generator=self.generator, device=x.device)
+        u = _draw(self._mask_shape(x), self.generator, x.device)
         # keep in x's dtype, as JAX's weakly typed `x / keep` (a bf16 divisor);
         # filled on x's device: torch.tensor would copy from the host and
         # synchronise the stream, and a Python float divisor turns CUDA's
@@ -194,6 +210,47 @@ class Dropout(_RandomMask):
         return x.shape
 
 
+#: the open remat tape: (the masks, the position read next, or None while
+#: the masks are recorded)
+_TAPE: List = []
+
+
+def _draw(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Uniforms for a mask: drawn from `generator`, or read back from the
+    open remat tape while a block is recomputed."""
+    if _TAPE and _TAPE[-1][1] is not None:
+        masks, pos = _TAPE[-1]
+        _TAPE[-1][1] = pos + 1
+        return masks[pos]
+    u = torch.rand(shape, generator=generator, device=device)
+    if _TAPE:
+        _TAPE[-1][0].append(u)
+    return u
+
+
+@contextlib.contextmanager
+def _taping(masks: list, replay: bool):
+    _TAPE.append([masks, 0 if replay else None])
+    try:
+        yield
+    finally:
+        _TAPE.pop()
+
+
+def remat(fn: Callable, *args):
+    """`fn(*args)` under `torch.utils.checkpoint` (use_reentrant=False):
+    its activations are recomputed in the backward instead of kept. The
+    random masks drawn in `fn` are kept on a tape and the recomputation
+    reads them back, so it replays the same masks (also inside a CUDA
+    graph, where the tape's tensors are static); the default generators
+    are not touched (preserve_rng_state=False: nothing in `fn` draws from
+    them)."""
+    from torch.utils.checkpoint import checkpoint
+    masks: list = []
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (_taping(masks, False), _taping(masks, True)))
+
+
 def set_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
     """Give every DropPath / Dropout of `model` the generator its training-mode
     masks are drawn from (it must live on the model's device)."""
@@ -211,9 +268,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     is torch's; a bf16 input (with bf16 or float32 affine) is normalised in
     f32 with the f32 running statistics and returned in bf16. In training a
     bf16 input is normalised in f32 with its f32 batch statistics and the
-    f32 affine, and rounded once (flax BatchNorm at dtype=bf16)."""
+    f32 affine, and rounded once (flax BatchNorm at dtype=bf16). With a
+    `process_group` of more than one rank (`set_sync_group`), training
+    uses the global batch's statistics (module docstring)."""
+    process_group: Optional["dist.ProcessGroup"] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.process_group
+        if self.training and group is not None and dist.get_world_size(group) > 1:
+            y, mean, var = _SyncBatchNorm.apply(x.float(), self.weight, self.bias, self.eps,
+                                                group)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+            return y.to(x.dtype)
         if not self.training and x.dtype != torch.float32:
             return nn.functional.batch_norm(x, self.running_mean, self.running_var,
                                             self.weight.float(), self.bias.float(), False, 0.0,
@@ -229,6 +298,61 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
         return y
+
+
+def _channels(t: torch.Tensor) -> torch.Tensor:
+    """(C,) -> (1, C, 1, 1)."""
+    return t[None, :, None, None]
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """BatchNorm over the global batch of a process group: f32 x (N, C, H,
+    W) -> (y, batch mean, biased batch variance). Forward, two all-reduces:
+    [sum x, count], then sum (x - mean)^2 (two passes: E[x^2] - E[x]^2
+    loses the variance's digits in f32 where the mean is large against
+    the spread); backward, one of [sum dy, sum dy * x_hat]. The weight and
+    bias gradients are this rank's sums: the data-parallel gradient
+    reduction averages them with every other gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        C = x.shape[1]
+        count = torch.full((1,), x.numel() // C, dtype=torch.float32, device=x.device)
+        stats = torch.cat([x.sum(dim=(0, 2, 3)), count])
+        dist.all_reduce(stats, group=group)
+        n = stats[C]
+        mean = stats[:C] / n
+        xc = x - _channels(mean)
+        sq = xc.square().sum(dim=(0, 2, 3))
+        dist.all_reduce(sq, group=group)
+        var = sq / n
+        invstd = torch.rsqrt(var + eps)
+        xhat = xc * _channels(invstd)
+        ctx.save_for_backward(xhat, weight, invstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * _channels(weight) + _channels(bias), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xhat, weight, invstd, n = ctx.saved_tensors
+        C = xhat.shape[1]
+        gy = gy.float()
+        local = torch.cat([gy.sum(dim=(0, 2, 3)), (gy * xhat).sum(dim=(0, 2, 3))])
+        dbias, dweight = local[:C].clone(), local[C:].clone()
+        dist.all_reduce(local, group=ctx.group)
+        mean_dy, mean_dy_xhat = local[:C] / n, local[C:] / n
+        gx = (gy - _channels(mean_dy) - xhat * _channels(mean_dy_xhat)) * \
+            _channels(invstd * weight)
+        return gx, dweight, dbias, None, None
+
+
+def set_sync_group(model: nn.Module, group: Optional["dist.ProcessGroup"]) -> None:
+    """Make every `BatchNorm2d` of `model` sync its training statistics over
+    `group` (None: each process's own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
 
 
 class FrozenBatchNorm2d(nn.Module):

@@ -196,6 +196,90 @@ def build_host(src: str, build_dir: str = BUILD_DIR) -> str:
 ERR_NO_ENCODER, ERR_ENCODE = 10000, 10001
 
 
+def _on(device, fn, *args):
+    """`fn(*args)` with `device` the calling thread's current CUDA device,
+    switching only when another card is current (a worker thread of
+    eval.running.run_dataset(devices=...) has made its own card current)."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
+def launch(device, entry, *args) -> int:
+    """`entry(*args)`, a kernel's C entry point, on `device`: the C side
+    launches on, and caches its shared-memory attributes for, the calling
+    thread's current device."""
+    return _on(device, entry, *args)
+
+
+#: one writer at a time of the wrappers' launch counts and of the record
+_COUNT_LOCK = threading.Lock()
+#: the launches of the graph capture in progress (`record_capture`)
+_capture_counts = None
+
+
+def _capturing(device) -> bool:
+    """Whether the current stream of `device` is capturing a CUDA graph."""
+    import torch
+    return _on(device, torch.cuda.is_current_stream_capturing)
+
+
+def count_launch(fn, device, kernels=()) -> None:
+    """Count one launch of the kernel wrapper `fn` on `device`: in
+    `fn.launches` and, for each name of `kernels`, in
+    `fn.launches_by_kernel[name]`, the process's counts, which every thread
+    adds to. A launch that a graph capture takes (the current stream
+    captures, whichever thread launches: the autograd engine runs the
+    backward on a thread of its own, on the forward's stream) goes to the
+    capture's record (`record_capture`) instead: it runs at each replay,
+    whose runner adds the record. A capture that nothing records (a
+    caller's own graph) counts its launches here, once."""
+    capturing = _capturing(device)
+    with _COUNT_LOCK:
+        if capturing and _capture_counts is not None:
+            for key in (fn.__name__, *(f"{fn.__name__}/{k}" for k in kernels)):
+                _capture_counts[key] = _capture_counts.get(key, 0) + 1
+            return
+        fn.launches += 1
+        for k in kernels:
+            fn.launches_by_kernel[k] += 1
+
+
+class record_capture:
+    """`with record_capture() as counts:` around a graph capture fills the
+    dict `counts` with the launches the capture took (keys as
+    tracking.graphs.read_counts gives them); the process's counts do not
+    include them. One capture at a time."""
+
+    def __enter__(self) -> Dict[str, int]:
+        global _capture_counts
+        with _COUNT_LOCK:
+            if _capture_counts is not None:
+                raise RuntimeError("record_capture: another capture is being recorded")
+            _capture_counts = {}
+            return _capture_counts
+
+    def __exit__(self, *exc) -> None:
+        global _capture_counts
+        with _COUNT_LOCK:
+            _capture_counts = None
+
+
+def add_launches(fns: Dict[str, object], delta: Dict[str, int]) -> None:
+    """Add `delta`, launch counts keyed "<wrapper>" or "<wrapper>/<kernel>"
+    (a replayed graph's record), to the process's counts of the wrappers
+    `fns` (by name)."""
+    with _COUNT_LOCK:
+        for key, n in delta.items():
+            name, _, kernel = key.partition("/")
+            if kernel:
+                fns[name].launches_by_kernel[kernel] += n
+            else:
+                fns[name].launches += n
+
+
 def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA or tensor-map
     error."""

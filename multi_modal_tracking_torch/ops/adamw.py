@@ -125,14 +125,15 @@ def adamw_fused(groups: Sequence[Group], neg_lr: torch.Tensor, bc: torch.Tensor,
         table = AdamWTable(groups)
     c = _F32
     lib = _build.library("adamw")
-    err = lib.adamw_f32(table.ptrs.data_ptr(), table.numel.data_ptr(), table.group.data_ptr(),
-                        table.chunk_tensor.data_ptr(), table.chunk_start.data_ptr(),
-                        table.n_tensors, table.n_chunks, neg_lr.data_ptr(), bc.data_ptr(),
-                        c["b1"], c["omb1"], c["b2"], c["omb2"], c["eps"],
-                        float(np.float32(weight_decay)),
-                        torch.cuda.current_stream(neg_lr.device).cuda_stream)
+    err = _build.launch(neg_lr.device, lib.adamw_f32,
+        table.ptrs.data_ptr(), table.numel.data_ptr(), table.group.data_ptr(),
+        table.chunk_tensor.data_ptr(), table.chunk_start.data_ptr(),
+        table.n_tensors, table.n_chunks, neg_lr.data_ptr(), bc.data_ptr(),
+        c["b1"], c["omb1"], c["b2"], c["omb2"], c["eps"],
+        float(np.float32(weight_decay)),
+        torch.cuda.current_stream(neg_lr.device).cuda_stream)
     _build.check(err, "adamw_f32")
-    adamw_fused.launches += 1
+    _build.count_launch(adamw_fused, neg_lr.device)
     return table
 
 

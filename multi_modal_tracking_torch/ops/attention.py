@@ -229,13 +229,13 @@ def mixed_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) if return_lse else None
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     lib = _build.library("mixed_attention")
-    err = lib.mixed_attention_fwd_f32(
+    err = _build.launch(q.device, lib.mixed_attention_fwd_f32,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None,
         B * H, Nq, k.shape[2], D, int(n_mt), float(scale), query_warps(B * H, Nq, n_sm),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_fwd_f32")
-    mixed_attention.launches += 1
+    _build.count_launch(mixed_attention, q.device)
     return (out, lse) if return_lse else out
 
 
@@ -267,13 +267,13 @@ def mixed_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
     lib = _build.library("mixed_attention_bwd")
-    err = lib.mixed_attention_bwd_f32(
+    err = _build.launch(q.device, lib.mixed_attention_bwd_f32,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         B * H, Nq, k.shape[2], D, int(n_mt), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_bwd_f32")
-    mixed_attention_bwd.launches += 1
+    _build.count_launch(mixed_attention_bwd, q.device)
     return dq, dk, dv
 
 
@@ -303,14 +303,14 @@ def mixed_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) if return_lse else None
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     lib = _build.library("mixed_attention_bf16")
-    err = lib.mixed_attention_fwd_bf16(
+    err = _build.launch(q.device, lib.mixed_attention_fwd_bf16,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None,
         B * H, Nq, k.shape[2], D, int(n_mt), float(scale),
         attention_bf16_plan(B * H, Nq, k.shape[2], n_sm),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_fwd_bf16")
-    mixed_attention_bf16.launches += 1
+    _build.count_launch(mixed_attention_bf16, q.device)
     return (out, lse) if return_lse else out
 
 
@@ -334,13 +334,13 @@ def mixed_attention_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B * H, Nq, dtype=torch.float32, device=q.device)
     lib = _build.library("mixed_attention_bwd_bf16")
-    err = lib.mixed_attention_bwd_bf16(
+    err = _build.launch(q.device, lib.mixed_attention_bwd_bf16,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
         B * H, Nq, k.shape[2], D, int(n_mt), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mixed_attention_bwd_bf16")
-    mixed_attention_bwd_bf16.launches += 1
+    _build.count_launch(mixed_attention_bwd_bf16, q.device)
     return dq, dk, dv
 
 

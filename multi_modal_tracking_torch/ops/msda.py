@@ -389,14 +389,14 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     plan = _plan_for(value, spatial_shapes, sampling_locations)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
     lib = _build.library("msda")
-    err = lib.msda_fwd_f32(value.data_ptr(), sampling_locations.data_ptr(),
-                           attention_weights.data_ptr(), out.data_ptr(),
-                           B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-                           int(plan.fwd == "staged"),
-                           torch.cuda.current_stream(value.device).cuda_stream)
+    err = _build.launch(value.device, lib.msda_fwd_f32,
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), out.data_ptr(),
+        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+        int(plan.fwd == "staged"),
+        torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_fwd_f32")
-    ms_deform_attn.launches += 1
-    ms_deform_attn.launches_by_kernel[plan.fwd] += 1
+    _build.count_launch(ms_deform_attn, value.device, (plan.fwd,))
     return out
 
 
@@ -429,14 +429,15 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     dloc = torch.empty_like(sampling_locations)
     dattw = torch.empty_like(attention_weights)
     lib = _build.library("msda_bwd")
-    err = lib.msda_bwd_f32(value.data_ptr(), sampling_locations.data_ptr(),
-                           attention_weights.data_ptr(), grad_out.data_ptr(),
-                           dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(),
-                           B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-                           sum(1 << l for l, path in enumerate(plan.bwd) if path == "staged"),
-                           torch.cuda.current_stream(value.device).cuda_stream)
+    err = _build.launch(value.device, lib.msda_bwd_f32,
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), grad_out.data_ptr(),
+        dvalue.data_ptr(), dloc.data_ptr(), dattw.data_ptr(),
+        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+        sum(1 << l for l, path in enumerate(plan.bwd) if path == "staged"),
+        torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_bwd_f32")
-    ms_deform_attn_bwd.launches += 1
+    _build.count_launch(ms_deform_attn_bwd, value.device)
     return dvalue, dloc, dattw
 
 
@@ -469,13 +470,13 @@ def ms_deform_attn_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
     plan = _plan_for(value, spatial_shapes, sampling_locations)
     out = torch.empty((B, Lq, M * D), dtype=torch.bfloat16, device=value.device)
     lib = _build.library("msda")
-    err = lib.msda_fwd_bf16(value.data_ptr(), sampling_locations.data_ptr(),
-                            attention_weights.data_ptr(), out.data_ptr(),
-                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), plan.fwd_tiles,
-                            torch.cuda.current_stream(value.device).cuda_stream)
+    err = _build.launch(value.device, lib.msda_fwd_bf16,
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), out.data_ptr(),
+        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), plan.fwd_tiles,
+        torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_fwd_bf16")
-    ms_deform_attn_bf16.launches += 1
-    ms_deform_attn_bf16.launches_by_kernel[plan.fwd] += 1
+    _build.count_launch(ms_deform_attn_bf16, value.device, (plan.fwd,))
     return out
 
 
@@ -521,19 +522,18 @@ def ms_deform_attn_bwd_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[
     dloc = torch.empty_like(sampling_locations)
     dattw = torch.empty_like(attention_weights)
     lib = _build.library("msda_bwd")
-    err = lib.msda_bwd_bf16(value.data_ptr(), sampling_locations.data_ptr(),
-                            attention_weights.data_ptr(), grad_out.data_ptr(),
-                            dvalue.data_ptr(), scratch.data_ptr() if direct else None,
-                            dloc.data_ptr(), dattw.data_ptr(),
-                            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
-                            sum(1 << l for l, path in enumerate(plan.bwd) if path == "tap"),
-                            torch.cuda.current_stream(value.device).cuda_stream)
+    err = _build.launch(value.device, lib.msda_bwd_bf16,
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), grad_out.data_ptr(),
+        dvalue.data_ptr(), scratch.data_ptr() if direct else None,
+        dloc.data_ptr(), dattw.data_ptr(),
+        B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes),
+        sum(1 << l for l, path in enumerate(plan.bwd) if path == "tap"),
+        torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "msda_bwd_bf16")
     for s0, s1 in direct:
         dvalue[:, s0:s1].copy_(scratch[:, s0:s1])
-    ms_deform_attn_bwd_bf16.launches += 1
-    for kernel in set(plan.bwd):
-        ms_deform_attn_bwd_bf16.launches_by_kernel[kernel] += 1
+    _build.count_launch(ms_deform_attn_bwd_bf16, value.device, sorted(set(plan.bwd)))
     return dvalue, dloc, dattw
 
 

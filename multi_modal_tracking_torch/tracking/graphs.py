@@ -47,7 +47,12 @@ Launch counts: a wrapper counts its kernel when its Python code runs
 `launches_by_kernel` and `adamw_fused.launches`), which a replay does not.
 The runner records each graph's counts at capture and adds them at each
 replay, so a graphed step counts what an eager one does; a key's eager
-first step counts as the step it is, and the capture launches nothing.
+first step counts as the step it is, and the capture launches nothing. A
+wrapper called while its stream captures counts in the capture's record
+(`ops/_build.py record_capture`), not in the process's counts: the
+backward's kernels are launched from the autograd engine's own thread,
+and a worker that launches eagerly while another captures
+(eval/running.py run_dataset(threads=...)) adds nothing to that graph.
 """
 from __future__ import annotations
 
@@ -85,19 +90,10 @@ def read_counts() -> Dict[str, int]:
     return out
 
 
-def add_counts(delta: Dict[str, int], sign: int = 1) -> None:
-    """Add (or with sign -1 take back) launch counts in read_counts' keys."""
-    fns = {fn.__name__: fn for fn in _counters()}
-    for key, n in delta.items():
-        name, _, kernel = key.partition("/")
-        if kernel:
-            fns[name].launches_by_kernel[kernel] += sign * n
-        else:
-            fns[name].launches += sign * n
-
-
-def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+def add_counts(delta: Dict[str, int]) -> None:
+    """Add launch counts in read_counts' keys (a replay's)."""
+    from multi_modal_tracking_torch.ops import _build
+    _build.add_launches({fn.__name__: fn for fn in _counters()}, delta)
 
 
 #: one capture at a time in the process: trackers on several threads
@@ -254,24 +250,22 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
+        from multi_modal_tracking_torch.ops._build import record_capture
         log = OpLog()
-        before = read_counts()
         stream = torch.cuda.current_stream(self.device)
         try:
-            with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+            with record_capture() as counts, \
+                    torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                 with log:
                     step()
         except Exception as e:
             undo_failed_capture(self.device, self.pool, stream)
             if not self._graphs:        # the pool is let go: the next capture starts a new one
                 self.pool = None
-            add_counts(_diff(read_counts(), before), -1)
             at = log.ops[-1] if log.ops else "its first operation"
             cause = f"; first error: {e.__context__}" if e.__context__ is not None else ""
             raise RuntimeError(f"capturing the {self.what} {key} failed at {at} (operation "
                                f"{len(log.ops)} of the step): {e}{cause}") from e
-        counts = _diff(read_counts(), before)
-        add_counts(counts, -1)
         torch.cuda.synchronize(self.device)
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
         return graph, counts

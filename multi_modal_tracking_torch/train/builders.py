@@ -7,16 +7,20 @@ their LMDB twins (which need the `lmdb` package when they read), and the
 synthetic sets. A config whose training sets are RGB-T (`is_rgbt_config`)
 gets `RGBTProcessing` and the sampler's RGB-T frames; any other,
 `UnimodalProcessing`.
-The sample budget and the batch are divided by the torch world size (1
-without `torch.distributed`), as each rank loads its own share.
+Data parallel (the JAX package's train/builders.py:108-136):
+SAMPLE_PER_EPOCH and TRAIN.BATCH_SIZE are the GLOBAL budget and batch;
+each rank's loader draws SAMPLE_PER_EPOCH // world samples in batches of
+BATCH_SIZE // world (world: the torch process group's size, 1 without
+one), from a sampler the Trainer seeds with seed + rank
+(`parallel.distributed.process_seed`). A batch that the world size does
+not divide raises.
 """
 from __future__ import annotations
 
 import random
 from typing import List, Optional, Tuple
 
-import torch
-
+from multi_modal_tracking_torch.parallel.distributed import world_size
 from multi_modal_tracking_torch.train.data.loader import Loader
 from multi_modal_tracking_torch.train.data.processing import RGBTProcessing, UnimodalProcessing
 from multi_modal_tracking_torch.train.data.sampler import TrackingSampler
@@ -90,8 +94,14 @@ def is_rgbt_config(cfg) -> bool:
     return any(n in RGBT_NAMES for n in cfg.DATA.TRAIN.DATASETS_NAME)
 
 
-def world_size() -> int:
-    return torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+def local_batch_size(cfg) -> int:
+    """This rank's share of TRAIN.BATCH_SIZE; raises ValueError if the world
+    size does not divide it (every batch would be short)."""
+    world = world_size()
+    if cfg.TRAIN.BATCH_SIZE % world:
+        raise ValueError(f"TRAIN.BATCH_SIZE {cfg.TRAIN.BATCH_SIZE} (the global batch) is not "
+                         f"divisible by the {world} processes: pick a multiple of {world}")
+    return max(1, cfg.TRAIN.BATCH_SIZE // world)
 
 
 def _make_loader(cfg, split_cfg, name: str, train: bool, seed: int) -> Loader:
@@ -121,7 +131,7 @@ def _make_loader(cfg, split_cfg, name: str, train: bool, seed: int) -> Loader:
         train_cls=cfg.TRAIN.get("TRAIN_SCORE", False),
         rgbt=rgbt,
         seed=seed)
-    return Loader(sampler, batch_size=max(1, cfg.TRAIN.BATCH_SIZE // world_size()),
+    return Loader(sampler, batch_size=local_batch_size(cfg),
                   num_workers=cfg.TRAIN.NUM_WORKER, name=name, training=train,
                   epoch_interval=1 if train else cfg.TRAIN.VAL_EPOCH_INTERVAL)
 

@@ -36,6 +36,15 @@ learning rate and the two bias corrections are device tensors that
 counters (`count`, `mini_step`) stay on the host, where they pick the
 schedule and the micro-batch's role: "accumulate" or, on the
 ACCUM_ITER-th, "update" (clip and AdamW). The same code runs on the CPU.
+
+Data parallel (parallel/mesh.py). The gradients of the parameters that
+are not sharded are views of one flat buffer (`flat_grads`), which the
+training step averages over the ranks in one collective before `apply`.
+Under FSDP a sharded parameter is a DTensor: its gradient buffer is a
+DTensor that FSDP2 reduce-scatters into, and its moments and accumulator
+are this rank's shard only; the clip's squared norm of the shards is
+summed over the ranks (`dp`) before the replicated gradients' is added,
+and the fused AdamW runs on each rank's shards.
 """
 from __future__ import annotations
 
@@ -46,6 +55,11 @@ import torch
 from torch import nn
 
 from multi_modal_tracking_torch.ops.adamw import B1, B2, EPS, adamw_fused
+from multi_modal_tracking_torch.parallel.mesh import is_sharded, local_tensor
+
+#: each view of the flat gradient buffer starts on a multiple of this many
+#: elements (512 bytes, the caching allocator's alignment)
+_ALIGN = 128
 
 
 def _regime_labeler(cfg) -> Tuple[Callable[[str], str], Dict[str, float]]:
@@ -130,12 +144,13 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Clip `grads` in place to global norm <= max_norm (optax
     clip_by_global_norm: scaled by max_norm / norm when norm >= max_norm,
     no epsilon); returns the norm before clipping, a 0-d tensor (no host
-    sync)."""
-    norm = global_norm(grads)
+    sync). `norm`: their global norm, if the caller has it."""
+    norm = global_norm(grads) if norm is None else norm
     clipped = norm >= max_norm
     one = torch.ones((), device=norm.device)
     torch._foreach_div_(grads, torch.where(clipped, norm, one))
@@ -151,8 +166,9 @@ class RegimeAdamW:
     then `finish(role)`; `update()` does the last three in one call, after
     a backward that left its gradients in `.grad`."""
 
-    def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1):
+    def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1, dp=None):
         lab, mults = _regime_labeler(cfg)
+        self.dp = dp              # the data-parallel group (parallel/mesh.py) or None
         self.accum = cfg.TRAIN.get("ACCUM_ITER", 1) or 1
         self.base_lr = cfg.TRAIN.LR
         self.max_norm = cfg.TRAIN.GRAD_CLIP_NORM
@@ -171,14 +187,24 @@ class RegimeAdamW:
                 self.groups.setdefault(g, []).append(p)
         self.mults = {g: mults[g] for g in self.groups}
         self._index = {g: [index[p] for p in ps] for g, ps in self.groups.items()}
-        dev = self.params[0].device if self.params else torch.device("cpu")
-        self.mu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.groups.items()}
-        self.nu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.groups.items()}
+        #: whether each parameter is FSDP-sharded (a DTensor)
+        self.sharded = [is_sharded(p) for p in self.params]
+        if any(self.sharded) and dp is None:
+            raise ValueError("RegimeAdamW: sharded parameters need the data-parallel group (dp)")
+        dev = local_tensor(self.params[0]).device if self.params else torch.device("cpu")
+
+        def zeros(ps):
+            return [torch.zeros_like(local_tensor(p)) for p in ps]
+        self.mu = {g: zeros(ps) for g, ps in self.groups.items()}
+        self.nu = {g: zeros(ps) for g, ps in self.groups.items()}
         self._neg_lr = torch.zeros(len(self.groups), device=dev)     # each group's -lr
         self._bc = torch.ones(2, device=dev)            # 1 - b1^count, 1 - b2^count
         self._n = torch.ones((), device=dev)            # micro-batches in the group, this one too
-        self._acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else None
+        self._acc = zeros(self.params) if self.accum > 1 else None
+        #: the static gradient buffers bound as `.grad` (`bind_grads`): views of
+        #: `flat_grads`, or DTensors for the sharded parameters
         self.grads: Optional[List[torch.Tensor]] = None
+        self.flat_grads: Optional[torch.Tensor] = None
         self._table = None        # the fused update's device tables (ops/adamw.py)
         self.count = 0            # updates applied so far (optax's count)
         self.mini_step = 0        # micro-batches in the open accumulation group
@@ -187,9 +213,21 @@ class RegimeAdamW:
     def bind_grads(self) -> None:
         """Make every parameter's `.grad` its static gradient buffer
         (allocated on the first call, zero): backward then accumulates into
-        the same tensors at every step."""
+        the same tensors at every step. The buffers of the parameters that
+        are not sharded are views of one flat buffer, `flat_grads`, each
+        starting on a 512-byte boundary."""
         if self.grads is None:
-            self.grads = [torch.zeros_like(p) for p in self.params]
+            plain = [p for p, sh in zip(self.params, self.sharded) if not sh]
+            offsets, n = [], 0
+            for p in plain:
+                offsets.append(n)
+                n += -(-p.numel() // _ALIGN) * _ALIGN
+            dev = plain[0].device if plain else None
+            self.flat_grads = torch.zeros(n, device=dev) if plain else None
+            views = iter([self.flat_grads[o:o + p.numel()].view_as(p)
+                          for o, p in zip(offsets, plain)])
+            self.grads = [torch.zeros_like(p) if sh else next(views)
+                          for p, sh in zip(self.params, self.sharded)]
         for p, g in zip(self.params, self.grads):
             if p.grad is not g:
                 p.grad = g
@@ -224,20 +262,34 @@ class RegimeAdamW:
     def zero_grad(self) -> None:
         """Zero the static gradient buffers in place (binding them first)."""
         self.bind_grads()
-        torch._foreach_zero_(self.grads)
+        torch._foreach_zero_([local_tensor(g) for g in self.grads])
 
     def _grads(self) -> List[torch.Tensor]:
-        """Every parameter's gradient; one that got none counts as zero."""
+        """Every parameter's gradient (this rank's shard of a sharded one);
+        one that got none counts as zero."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return [p.grad for p in self.params]
+        return [local_tensor(p.grad) for p in self.params]
+
+    def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of `grads`; under FSDP the shards' squared norm
+        is summed over the ranks first."""
+        if not any(self.sharded):
+            return global_norm(grads)
+        sq = [torch.stack(torch._foreach_norm([g for g, s in zip(grads, self.sharded) if s]))
+              .square().sum()]
+        self.dp.all_reduce_sum_(sq[0])
+        rep = [g for g, s in zip(grads, self.sharded) if not s]
+        if rep:
+            sq.append(torch.stack(torch._foreach_norm(rep)).square().sum())
+        return torch.stack(sq).sum().sqrt()
 
     def _adamw(self, grads: List[torch.Tensor]) -> None:
         if not self.groups:
             return
-        groups = [(ps, [grads[i] for i in self._index[g]], self.mu[g], self.nu[g])
-                  for g, ps in self.groups.items()]
+        groups = [([local_tensor(p) for p in ps], [grads[i] for i in self._index[g]],
+                   self.mu[g], self.nu[g]) for g, ps in self.groups.items()]
         self._table = adamw_fused(groups, self._neg_lr, self._bc, self.weight_decay,
                                   self._table)
 
@@ -252,10 +304,10 @@ class RegimeAdamW:
         group. Reads no value on the host."""
         grads = self._grads()
         if self.accum == 1:
-            norm = clip_by_global_norm_(grads, self.max_norm)
+            norm = clip_by_global_norm_(grads, self.max_norm, self._norm(grads))
             self._adamw(grads)
             return norm
-        norm = global_norm(grads)
+        norm = self._norm(grads)
         diff = torch._foreach_sub(grads, self._acc)
         torch._foreach_div_(diff, self._n)
         torch._foreach_add_(self._acc, diff)
@@ -263,7 +315,7 @@ class RegimeAdamW:
         if role == "update":
             torch._foreach_copy_(grads, self._acc)
             torch._foreach_zero_(self._acc)
-            clip_by_global_norm_(grads, self.max_norm)
+            clip_by_global_norm_(grads, self.max_norm, self._norm(grads))
             self._adamw(grads)
         return norm
 
@@ -294,6 +346,36 @@ class RegimeAdamW:
         return {"adamw": {"state": state, "param_groups": groups}, "count": self.count,
                 "mini_step": self.mini_step,
                 "acc": [a.cpu() for a in self._acc] if self.mini_step else None}
+
+    def sharded_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The state for a sharded checkpoint (torch.distributed.checkpoint):
+        each moment (and accumulator) by group and index, that of a sharded
+        parameter as a DTensor over this rank's shard in its parameter's
+        layout (no copy, so a load writes into the optimizer in place); the
+        counters as 0-d tensors."""
+        def wrap(t, p):
+            if not is_sharded(p):
+                return t
+            from torch.distributed.tensor import DTensor
+            return DTensor.from_local(t, p.device_mesh, p.placements, run_check=False,
+                                      shape=p.shape, stride=p.stride())
+        sd = {}
+        for g, ps in self.groups.items():
+            for k, (p, m, v) in enumerate(zip(ps, self.mu[g], self.nu[g])):
+                sd[f"mu.{g}.{k}"], sd[f"nu.{g}.{k}"] = wrap(m, p), wrap(v, p)
+        if self._acc is not None:
+            for i, (p, a) in enumerate(zip(self.params, self._acc)):
+                sd[f"acc.{i}"] = wrap(a, p)
+        sd["count"] = torch.tensor(self.count)
+        sd["mini_step"] = torch.tensor(self.mini_step)
+        return sd
+
+    def load_sharded_counters(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Take the counters of a `sharded_state_dict` that a checkpoint
+        load has filled (the moments were filled in place)."""
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        if self._acc is not None and not self.mini_step:
+            torch._foreach_zero_(self._acc)
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -326,5 +408,5 @@ class RegimeAdamW:
                     a.copy_(s)
 
 
-def make_optimizer(cfg, model: nn.Module, steps_per_epoch: int = 1) -> RegimeAdamW:
-    return RegimeAdamW(cfg, model, steps_per_epoch)
+def make_optimizer(cfg, model: nn.Module, steps_per_epoch: int = 1, dp=None) -> RegimeAdamW:
+    return RegimeAdamW(cfg, model, steps_per_epoch, dp)

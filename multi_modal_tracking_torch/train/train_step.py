@@ -41,6 +41,19 @@ The first step of a key runs eager and is captured after it; later ones
 are replays. The recipe's keep schedule gives at most 8 keys in a run (keep
 1.0 and the buckets of 240 to 320 of 324 search tokens). graphs=False, and
 any CPU step, runs the same static-buffer step eager.
+
+Data parallel (`dp`, parallel/mesh.py DataParallel; the JAX package's
+`make_train_step(mesh=...)`): each rank runs the step on its local batch;
+between the backward and the optimizer the replicated gradients are
+averaged over the ranks (one collective over the optimizer's flat
+gradient buffer; FSDP2 has reduce-scattered the sharded ones in the
+backward), and so are the loss metrics, so the clip and AdamW run on the
+same gradients on every rank and `grad_norm` is the norm of the global
+gradient (of every micro-batch under ACCUM_ITER). BatchNorm syncs its
+statistics over the group (models/layers.py). With NCCL the collectives
+are captured in the step's graphs; gloo's cannot be, and a CUDA step over
+gloo with graphs=True raises, as does FSDP (sharded parameters) with
+graphs=True: FSDP2 gathers and frees parameters from the host.
 """
 from __future__ import annotations
 
@@ -147,8 +160,8 @@ class TrainStep:
 
     def __init__(self, model: nn.Module, optimizer, device: torch.device, iou_weight: float,
                  l1_weight: float, graphs: bool, train_score: bool = False,
-                 score_weight: float = 1.0):
-        self.model, self.optimizer, self.device = model, optimizer, device
+                 score_weight: float = 1.0, dp=None):
+        self.model, self.optimizer, self.device, self.dp = model, optimizer, device, dp
         self.iou_weight, self.l1_weight = iou_weight, l1_weight
         self.train_score, self.score_weight = train_score, score_weight
         self.metrics = SCORE_METRICS if train_score else METRICS
@@ -181,9 +194,12 @@ class TrainStep:
             loss, metrics = box_losses(out["pred_boxes"], x["gt_xywh"], self.iou_weight,
                                        self.l1_weight)
         loss.backward()
+        values = torch.stack([metrics[k].detach().float() for k in self.metrics[:-1]])
+        if self.dp is not None:
+            self.dp.reduce_grads_(self.optimizer)
+            self.dp.all_reduce_mean_(values)
         norm = self.optimizer.apply(role)
-        self._out.copy_(torch.stack([metrics[k].detach().float() for k in self.metrics[:-1]]
-                                    + [norm]))
+        self._out.copy_(torch.cat([values, norm[None]]))
 
     def __call__(self, batch, ce_keep_rate: Optional[float] = None) -> Dict[str, torch.Tensor]:
         x = batch if "s" in batch else model_inputs(batch, self.device)
@@ -208,7 +224,7 @@ class TrainStep:
 
 def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: float = 2.0,
                     l1_weight: float = 5.0, graphs: bool = True, train_score: bool = False,
-                    score_weight: float = 1.0) -> TrainStep:
+                    score_weight: float = 1.0, dp=None) -> TrainStep:
     """step(batch, ce_keep_rate=None) -> metrics {"Loss/total", "Loss/ciou",
     "Loss/l1", "IoU", "grad_norm"} (0-d device tensors, copies that later
     steps leave alone); with train_score the stage-2 step of the score
@@ -219,21 +235,32 @@ def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: floa
     unless graphs=False (module docstring); a capture that fails raises.
     The model computes in its compute dtype (`models.layers.compute_dtype`:
     float32 or bf16) on float32 parameters; a model whose parameters were
-    cast to bf16 raises."""
+    cast to bf16 raises. `dp`: the data-parallel group (module docstring);
+    a graphed CUDA step over gloo, or over FSDP-sharded parameters, raises
+    ValueError."""
     dev = resolve_device(device)
     require_float32_params(model, "make_train_step")
     set_precision(compute_dtype(model))
+    if graphs and dev.type == "cuda":
+        if dp is not None and not dp.capturable:
+            raise ValueError(f"make_train_step: a CUDA graph cannot capture {dp.backend}'s "
+                             f"collectives (host calls); pass graphs=False, or use NCCL")
+        if any(getattr(optimizer, "sharded", ())):
+            raise ValueError("make_train_step: FSDP gathers and frees the parameters from the "
+                             "host at every step, which a CUDA graph replay would skip; pass "
+                             "graphs=False")
     return TrainStep(model, optimizer, dev, iou_weight, l1_weight, graphs, train_score,
-                     score_weight)
+                     score_weight, dp)
 
 
 def make_eval_step(model: nn.Module, iou_weight: float = 2.0, l1_weight: float = 5.0,
-                   device="cuda"):
+                   device="cuda", dp=None):
     """eval_step(batch) -> the metrics of `box_losses` ("Loss/total",
     "Loss/ciou", "Loss/l1", "IoU"; 0-d device tensors) of the model in eval
-    mode, without gradients and with ce_keep_rate None. Runs on the GPU
-    unless device="cpu"; raises without a GPU. The model's compute dtype
-    and float32 parameters, as for training."""
+    mode, without gradients and with ce_keep_rate None, averaged over the
+    ranks of `dp` if given. Runs on the GPU unless device="cpu"; raises
+    without a GPU. The model's compute dtype and float32 parameters, as for
+    training."""
     dev = resolve_device(device)
     require_float32_params(model, "make_eval_step")
     set_precision(compute_dtype(model))
@@ -244,6 +271,9 @@ def make_eval_step(model: nn.Module, iou_weight: float = 2.0, l1_weight: float =
         model.eval()
         out = model(x["t"], x["ot"], x["s"], None)
         _, metrics = box_losses(out["pred_boxes"], x["gt_xywh"], iou_weight, l1_weight)
-        return metrics
+        if dp is None:
+            return metrics
+        values = dp.all_reduce_mean_(torch.stack([v.float() for v in metrics.values()]))
+        return dict(zip(metrics, values))
 
     return eval_step

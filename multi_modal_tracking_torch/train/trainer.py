@@ -1,4 +1,4 @@
-"""Epoch-loop trainer of the port's scripts on one GPU (the RGB-T ones and
+"""Epoch-loop trainer of the port's scripts (the RGB-T ones and
 the unimodal `mixformer_vit*`, whose configs train on one modality:
 `train.builders.is_rgbt_config`), with checkpoints, resume, the
 fail-safe restart, warm starts and the val loop.
@@ -43,9 +43,32 @@ the net in eval mode with the score loss (train/train_step.py), and the
 val step keeps the box losses, as the JAX package's `make_eval_step`
 does. A stage-1 checkpoint without the score branch's keys warm-starts it
 (the loads are non-strict); the branch starts from `init_random`; a
-script without the branch raises ValueError. Not ported yet, and raising
-NotImplementedError when configured (ROADMAP.md queue 1 item 7): FSDP /
-REMAT.
+script without the branch raises ValueError.
+
+Several GPUs (the JAX package's data mesh, train/trainer.py:115-186). When
+a process group is formed (`parallel.distributed.initialize_distributed`;
+one process per GPU), the Trainer trains data-parallel over it: each rank
+loads BATCH_SIZE // world samples of the global batch from a sampler
+seeded with seed + rank, rank 0's weights and BN statistics are broadcast
+at the start, BatchNorm syncs its statistics over the group, the step
+averages gradients and metrics over the ranks (train/train_step.py), the
+val metrics are averaged too, and each rank's dropout / drop-path
+generator is seeded with seed + 1 + rank. Rank 0 alone prints, writes
+`metrics.jsonl` and writes the checkpoint, which carries every rank's
+generator state; every rank loads it, and a resume at another world size
+raises. TRAIN.FSDP (a group is required) shards the parameters and AdamW
+moments over the group with FSDP2 (parallel/mesh.py fsdp_shard), runs
+eager (graphs=False) and writes sharded checkpoints
+(`<Net>_ep%04d.dcp/`, every rank its own shards), which also load into a
+one-process Trainer (`load_checkpoint(path, reshard=True)`) and into
+`utils.checkpoint.load_variables`. TRAIN.REMAT recomputes the flagship
+backbone's blocks in the backward (models/asymmetric_shared.py); the other
+scripts have no remat path and train as without it, as in the JAX package.
+The fail-safe restart is a one-process feature: under a group of more
+than one rank a failure raises at once, on the rank that failed, and the
+collectives the others wait in fail when its process ends. A restart of
+one rank alone would pair its collectives with the other ranks' later
+steps and average gradients of different steps without an error.
 """
 from __future__ import annotations
 
@@ -59,8 +82,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
+from multi_modal_tracking_torch.models.asymmetric_shared import MixFormerRGBT
 from multi_modal_tracking_torch.models.build import build_model
-from multi_modal_tracking_torch.models.layers import set_generator
+from multi_modal_tracking_torch.models.layers import set_generator, set_sync_group
+from multi_modal_tracking_torch.parallel.distributed import process_seed
+from multi_modal_tracking_torch.parallel.mesh import DataParallel, fsdp_shard
 from multi_modal_tracking_torch.train.builders import build_dataloaders, is_rgbt_config
 from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
 from multi_modal_tracking_torch.train.optimizer import make_optimizer
@@ -71,17 +99,9 @@ from multi_modal_tracking_torch.train.train_step import (adjust_keep_rate, bucke
 from multi_modal_tracking_torch.utils import checkpoint as ckpt
 from multi_modal_tracking_torch.utils.device import resolve_device
 
-_ROADMAP = "is not ported to multi_modal_tracking_torch yet (ROADMAP.md queue 1 item 7)"
 #: pinned host buffers of the look-ahead: one being filled while the other's
 #: copy may still run
 _RING = 2
-
-
-def _check_ported(cfg) -> None:
-    t = cfg.TRAIN
-    for key in ("FSDP", "REMAT"):
-        if t.get(key, False):
-            raise NotImplementedError(f"TRAIN.{key} {_ROADMAP}")
 
 
 def _warm_start_paths(cfg) -> List[tuple]:
@@ -102,7 +122,9 @@ class Trainer:
     dtype (bf16 by default, as in the JAX package, or float32); the
     parameters are float32 either way. Runs on the GPU unless
     device="cpu"; raises without a GPU. `graphs=False` runs the training
-    step eager on the GPU too."""
+    step eager on the GPU too. With a process group formed it trains
+    data-parallel over it (module docstring); give each process its own
+    GPU as `device` (`parallel.distributed.local_device`)."""
 
     def __init__(self, script: str, cfg, save_dir: str = "output", device="cuda",
                  seed: int = 42, log_dir: Optional[str] = None,
@@ -110,7 +132,13 @@ class Trainer:
                  spec_overrides: Optional[dict] = None, dtype: torch.dtype = torch.bfloat16,
                  graphs: bool = True):
         self.device = resolve_device(device)
-        _check_ported(cfg)
+        self.dp = DataParallel() if dist.is_initialized() else None
+        self.fsdp = bool(cfg.TRAIN.get("FSDP", False))
+        if self.fsdp and self.dp is None:
+            raise ValueError("TRAIN.FSDP shards over the process group: start the run under "
+                             "torchrun or with --coordinator/--num_processes/--process_id "
+                             "(a group of one process works)")
+        self.is_main = self.dp is None or self.dp.rank == 0
         warm_starts = _warm_start_paths(cfg)
         for key, path in warm_starts:
             if not os.path.isfile(path):
@@ -120,7 +148,7 @@ class Trainer:
         self.rgbt = is_rgbt_config(cfg)
         self.ckpt_dir = os.path.join(save_dir, "checkpoints", script)
         self.epoch = 0
-        self.train_loader, self.val_loader = build_dataloaders(cfg, seed=seed)
+        self.train_loader, self.val_loader = build_dataloaders(cfg, seed=process_seed(seed))
         self.steps_per_epoch = max(1, cfg.DATA.TRAIN.SAMPLE_PER_EPOCH // cfg.TRAIN.BATCH_SIZE)
         self.dtype = dtype
         self.model = build_model(script, cfg, device=self.device, dtype=dtype, seed=seed,
@@ -130,21 +158,35 @@ class Trainer:
         if train_score and not self.model.with_score:
             raise ValueError(f"TRAIN.TRAIN_SCORE trains the score branch, which {script!r} "
                              f"does not build (an *_online script does)")
+        if cfg.TRAIN.get("REMAT", False) and not isinstance(self.model, MixFormerRGBT):
+            self._print(f"TRAIN.REMAT: {script} has no remat path (as in the JAX package); "
+                        f"it trains without")
         for key, path in warm_starts:
             ckpt.load_variables(path, self.model, strict=False)
-            print(f"warm start from {key} = {path}", flush=True)
-        # the masks of drop path and dropout come from this generator
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+            self._print(f"warm start from {key} = {path}")
+        # the masks of drop path and dropout come from this generator, one
+        # stream per rank (equal ones would mask every rank's half alike)
+        rank = 0 if self.dp is None else self.dp.rank
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1 + rank)
         set_generator(self.model, self.generator)
-        self.optimizer = make_optimizer(cfg, self.model, self.steps_per_epoch)
+        if self.dp is not None:
+            set_sync_group(self.model, self.dp.group)
+            self.dp.broadcast_state(self.model)
+            if self.fsdp:
+                fsdp_shard(self.model, self.dp)
+        self.optimizer = make_optimizer(cfg, self.model, self.steps_per_epoch, dp=self.dp)
         self._step = make_train_step(self.model, self.optimizer, device=self.device,
                                      iou_weight=cfg.TRAIN.IOU_WEIGHT,
                                      l1_weight=cfg.TRAIN.L1_WEIGHT, graphs=graphs,
                                      train_score=train_score,
-                                     score_weight=cfg.TRAIN.get("SCORE_WEIGHT", 1.0))
+                                     score_weight=cfg.TRAIN.get("SCORE_WEIGHT", 1.0),
+                                     dp=self.dp)
         self._eval_step = make_eval_step(self.model, iou_weight=cfg.TRAIN.IOU_WEIGHT,
-                                         l1_weight=cfg.TRAIN.L1_WEIGHT, device=self.device)
-        self.stats = StatsTracker(log_dir or os.path.join(save_dir, "logs", script),
+                                         l1_weight=cfg.TRAIN.L1_WEIGHT, device=self.device,
+                                         dp=self.dp)
+        # rank 0 alone writes metrics.jsonl
+        self.stats = StatsTracker((log_dir or os.path.join(save_dir, "logs", script))
+                                  if self.is_main else None,
                                   print_interval or cfg.TRAIN.PRINT_INTERVAL)
         #: per-step metrics (floats) of the last cycle_dataset, in order
         self.history: List[Dict[str, float]] = []
@@ -153,31 +195,95 @@ class Trainer:
         #: device stream's wait on its upload, or None on the CPU)
         self.input_waits: List[tuple] = []
 
-    # ------------------------------------------------------------ ckpt/resume
-    def save_checkpoint(self) -> Optional[str]:
-        """Write this epoch's checkpoint (rank 0 only); returns its path."""
-        if torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
-            return None
-        state = {"epoch": self.epoch, "net_type": self.net_name,
-                 "net": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
-                 "optimizer": self.optimizer.state_dict(),
-                 "generator": self.generator.get_state()}
-        return ckpt.save_checkpoint(self.ckpt_dir, self.net_name, self.epoch, state)
+    def _print(self, *args) -> None:
+        if self.is_main:
+            print(*args, flush=True)
 
-    def load_checkpoint(self, path: Optional[str] = None) -> bool:
-        """Resume from `path` (default: the latest epoch in ckpt_dir);
-        False if there is none. Weights, buffers, optimizer state and the
-        generator's state are copied into the tensors the training step's
-        graphs hold, in place."""
-        path = path or ckpt.latest_checkpoint(self.ckpt_dir, self.net_name)
-        if not path or not os.path.isfile(path):
+    # ------------------------------------------------------------ ckpt/resume
+    @property
+    def world_size(self) -> int:
+        return 1 if self.dp is None else self.dp.world
+
+    def _generator_states(self) -> list:
+        state = self.generator.get_state()
+        return [state] if self.dp is None else self.dp.gather_objects(state)
+
+    def save_checkpoint(self) -> Optional[str]:
+        """Write this epoch's checkpoint; returns its path (None on the
+        ranks that do not write). Every rank of a group calls it: the
+        generators' states are gathered. Under FSDP every rank writes its
+        shards (`utils.checkpoint.save_checkpoint_sharded`); otherwise rank
+        0 writes the file and the others wait for it."""
+        generators = self._generator_states()
+        if self.fsdp:
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.sharded_state_dict(),
+                     "generators": torch.stack(generators),
+                     "meta": torch.tensor([self.epoch, self.world_size])}
+            return ckpt.save_checkpoint_sharded(self.ckpt_dir, self.net_name, self.epoch, state)
+        path = None
+        if self.is_main:
+            state = {"epoch": self.epoch, "net_type": self.net_name,
+                     "net": {k: v.detach().cpu() for k, v in self.model.state_dict().items()},
+                     "optimizer": self.optimizer.state_dict(),
+                     "generator": generators[0]}
+            if self.dp is not None:
+                state.update(generators=generators, world_size=self.world_size)
+            path = ckpt.save_checkpoint(self.ckpt_dir, self.net_name, self.epoch, state)
+        if self.dp is not None:
+            self.dp.barrier()
+        return path
+
+    def _check_world(self, path: str, saved: int, reshard: bool) -> None:
+        if saved != self.world_size and not reshard:
+            raise ValueError(f"{path} was written by {saved} processes, this run has "
+                             f"{self.world_size}: an exact resume needs the same world size "
+                             f"(load_checkpoint(path, reshard=True) takes the weights and "
+                             f"the optimizer state without it)")
+
+    def load_checkpoint(self, path: Optional[str] = None, reshard: bool = False) -> bool:
+        """Resume from `path` (default: the latest epoch in ckpt_dir, a
+        sharded one under FSDP); False if there is none. Weights, buffers,
+        optimizer state and the generator's state are copied into the
+        tensors the training step's graphs hold, in place; every rank loads
+        and takes its own generator's state. A checkpoint of another world
+        size raises ValueError unless `reshard`, which loads the weights
+        and the optimizer state (a sharded checkpoint into a one-process
+        Trainer, say) and gives this rank the generator of rank `rank %
+        saved world`: not an exact resume."""
+        latest = ckpt.latest_checkpoint_sharded if self.fsdp else ckpt.latest_checkpoint
+        path = path or latest(self.ckpt_dir, self.net_name)
+        if not path or not os.path.exists(path):
             return False
-        state = ckpt.load_checkpoint(path)
-        self.model.load_state_dict(state["net"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.generator.set_state(state["generator"])
-        self.epoch = int(state["epoch"])
-        print(f"resumed from {path} (epoch {self.epoch})", flush=True)
+        rank = 0 if self.dp is None else self.dp.rank
+        if ckpt.is_sharded_checkpoint(path):
+            state = {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.sharded_state_dict()}
+            keys = ckpt.sharded_checkpoint_keys(path)
+            state["generators"] = torch.empty(keys["generators"], dtype=torch.uint8)
+            state["meta"] = torch.zeros(2, dtype=torch.int64)
+            ckpt.load_checkpoint_sharded(path, state)
+            epoch, saved = (int(v) for v in state["meta"])
+            self._check_world(path, saved, reshard)
+            if not self.fsdp:           # plain tensors were filled: copy them in place
+                self.model.load_state_dict(state["model"], strict=True)
+            self.optimizer.load_sharded_counters(state["optimizer"])
+            # a clone: set_state reads a view from its storage's start
+            generator = state["generators"][rank % saved].clone()
+        else:
+            state = ckpt.load_checkpoint(path)
+            saved = int(state.get("world_size", 1))
+            self._check_world(path, saved, reshard)
+            if self.fsdp:
+                raise ValueError(f"{path} is not a sharded checkpoint; TRAIN.FSDP resumes "
+                                 f"from the sharded ones (<Net>_ep%04d.dcp)")
+            self.model.load_state_dict(state["net"], strict=True)
+            self.optimizer.load_state_dict(state["optimizer"])
+            epoch = int(state["epoch"])
+            generator = state.get("generators", [state["generator"]])[rank % saved]
+        self.generator.set_state(generator)
+        self.epoch = epoch
+        self._print(f"resumed from {path} (epoch {self.epoch})")
         return True
 
     # ------------------------------------------------------------- keep rate
@@ -320,7 +426,7 @@ class Trainer:
                     pending.append((self._eval_step(inputs), bsz))
                 if i % self.stats.print_interval == 0 or i == n:
                     drain()
-                    print(self.stats.line(loader.name, self.epoch, i, n), flush=True)
+                    self._print(self.stats.line(loader.name, self.epoch, i, n))
             drain()
         finally:
             batches.close()
@@ -338,7 +444,9 @@ class Trainer:
         saving a checkpoint after each. load_latest resumes first. With
         fail_safe, an exception in an epoch reloads the latest checkpoint
         (if there is none yet, training goes on from the current weights)
-        and retries, up to max_failures tries in all."""
+        and retries, up to max_failures tries in all; under a group of more
+        than one rank it raises whatever fail_safe says (module
+        docstring)."""
         max_epochs = max_epochs or self.cfg.TRAIN.EPOCH
         if load_latest:
             self.load_checkpoint()
@@ -350,12 +458,12 @@ class Trainer:
                     t0 = time.time()
                     self.train_epoch()
                     self.save_checkpoint()
-                    print(f"epoch {self.epoch}/{max_epochs} done in {time.time() - t0:.1f}s",
-                          flush=True)
+                    self._print(f"epoch {self.epoch}/{max_epochs} done in "
+                                f"{time.time() - t0:.1f}s")
                 return self.model
             except Exception:
                 self.epoch -= 1
-                if not fail_safe or attempt == num_tries - 1:
+                if not fail_safe or attempt == num_tries - 1 or self.world_size > 1:
                     raise
                 print("Training crashed at epoch", self.epoch + 1)
                 traceback.print_exc()

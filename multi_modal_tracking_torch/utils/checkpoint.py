@@ -10,12 +10,20 @@ every `keep_every`-th). `load_variables` puts a reference `.pth` /
 `.pth.tar` / `.pt` file or a JAX `.msgpack` checkpoint onto a model: strict
 for evaluation, partial (same-shape keys load, the rest keep their init)
 for warm starts.
+
+Sharded checkpoints (FSDP; the JAX package's orbax
+`save_checkpoint_sharded` / `load_checkpoint_sharded`): a directory
+`<Net>_ep%04d.dcp` written by `torch.distributed.checkpoint`, every rank
+writing its own shards and nothing gathered on one rank. It loads back
+into the same shardings (exact resume), into a process without a group
+(the full tensors: a one-GPU Trainer), and into `load_variables`.
 """
 from __future__ import annotations
 
 import glob
 import os
 import re
+import shutil
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -27,7 +35,7 @@ from multi_modal_tracking_torch.utils.convert import (add_backbone_prefix, expan
                                                       expand_two_stream, from_jax_variables,
                                                       is_ignored_key, load_torch_state_dict)
 
-_EPOCH_RE = re.compile(r"_ep(\d+)\.pth\.tar$")
+_EPOCH_RE = re.compile(r"_ep(\d+)\.(?:pth\.tar|dcp)$")
 
 
 def _ckpt_path(directory: str, name: str, epoch: int) -> str:
@@ -71,10 +79,77 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def save_checkpoint_sharded(directory: str, name: str, epoch: int,
+                            state: Dict[str, Any], keep_last: int = 10,
+                            keep_every: int = 5) -> str:
+    """Write `state` (a dict of state dicts whose tensors may be DTensors)
+    to the directory `<name>_ep%04d.dcp` with torch.distributed.checkpoint:
+    every rank of the group calls it and writes its own shards. The files
+    go to a `.tmp` directory that rank 0 moves into place once all have
+    written; rank 0 then prunes as `save_checkpoint` does. Returns the
+    path."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    path = os.path.join(directory, f"{name}_ep{epoch:04d}.dcp")
+    tmp = path + ".tmp"
+    main = not dist.is_initialized() or dist.get_rank() == 0
+    if main:
+        os.makedirs(directory, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if dist.is_initialized():
+        dist.barrier()
+    dcp.save(state, checkpoint_id=tmp)
+    if dist.is_initialized():
+        dist.barrier()
+    if main:
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+        for p in glob.glob(os.path.join(directory, f"{name}_ep*.dcp")):
+            ep = checkpoint_epoch(p)
+            if 0 <= ep <= epoch - keep_last and ep % keep_every != 0:
+                shutil.rmtree(p, ignore_errors=True)
+    if dist.is_initialized():
+        dist.barrier()
+    return path
+
+
+def latest_checkpoint_sharded(directory: str, name: str) -> Optional[str]:
+    """The sharded checkpoint of the latest epoch in `directory`, or None."""
+    paths = [p for p in glob.glob(os.path.join(directory, f"{name}_ep*.dcp"))
+             if checkpoint_epoch(p) >= 0 and os.path.isdir(p)]
+    return max(paths, key=checkpoint_epoch) if paths else None
+
+
+def is_sharded_checkpoint(path: str) -> bool:
+    return os.path.isdir(path) and os.path.isfile(os.path.join(path, ".metadata"))
+
+
+def sharded_checkpoint_keys(path: str) -> Dict[str, tuple]:
+    """Every tensor key of a sharded checkpoint and its global shape."""
+    import torch.distributed.checkpoint as dcp
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    return {k: tuple(getattr(m, "size", ())) for k, m in meta.items()}
+
+
+def load_checkpoint_sharded(path: str, state: Dict[str, Any],
+                            no_dist: bool = False) -> Dict[str, Any]:
+    """Fill `state` (the structure `save_checkpoint_sharded` wrote, or a
+    part of it) from a sharded checkpoint, in place: DTensors take their
+    own shards, plain tensors the whole tensor (in a process without a
+    group, or with `no_dist`, which reads everything in this process);
+    values that are not tensors are replaced in the dict. Returns
+    `state`."""
+    import torch.distributed.checkpoint as dcp
+    dcp.load(state, checkpoint_id=path, no_dist=no_dist)
+    return state
+
+
 def load_variables(path: str, model: nn.Module, strict: bool = True) -> Dict[str, Any]:
     """Load a checkpoint's weights onto `model` in place; returns a report
     {"path", "loaded", "total", "missing", "unexpected"}.
 
+    A sharded checkpoint's directory (`save_checkpoint_sharded`): its
+    network, read whole in this process.
     `.pth` / `.pth.tar` / `.pt`: a reference or port file (`net`, `model`
     and `state_dict` envelopes); a bare backbone dict gets the `backbone.`
     prefix; a unimodal one (`backbone.*`, norm1/norm2) fills both backbones
@@ -90,6 +165,15 @@ def load_variables(path: str, model: nn.Module, strict: bool = True) -> Dict[str
     loads the same-shape keys, leaves the rest at their init and prints one
     report line."""
     extra = []
+    if is_sharded_checkpoint(path):               # Trainer(FSDP)'s "model" entry
+        shapes = sharded_checkpoint_keys(path)
+        target = model.state_dict()
+        sd = {k: torch.empty(shapes[f"model.{k}"], dtype=t.dtype) for k, t in target.items()
+              if shapes.get(f"model.{k}") is not None}
+        load_checkpoint_sharded(path, {"model": sd}, no_dist=True)
+        unexpected = [k[len("model."):] for k in shapes
+                      if k.startswith("model.") and k[len("model."):] not in target]
+        return _partial_load(model, sd, path, strict, unexpected)
     if path.endswith((".pth", ".pth.tar", ".pt")):
         sd, warm = add_backbone_prefix(load_torch_state_dict(path))
         target = model.state_dict()

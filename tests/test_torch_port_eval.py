@@ -300,7 +300,7 @@ def test_runner_options_that_raise(tmp_path):
         running.run_sequence(seq, _Oracle(np.ones((3, 4))), str(tmp_path))
     with pytest.raises(NotImplementedError, match="cv2"):
         running.run_sequence(seq, _Oracle(np.ones((3, 4))), str(tmp_path), save_vis=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="threads > 0 and a tracker_factory"):
         running.run_dataset([seq], None, str(tmp_path), devices=["cuda:0", "cuda:1"])
     # the prefetcher hands a loading error to the consumer
     with pytest.raises(ValueError, match="a.jpg"):

@@ -257,7 +257,9 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 @pytest.mark.parametrize("option", ["ACCUM_ITER", "TRAIN_SCORE", "FSDP", "REMAT", "AMP", "VAL"])
 def test_unported_training_options_raise(option, tmp_path, capsys):
-    """FSDP, REMAT raise. AMP is accepted: the Trainer computes
+    """FSDP shards over a process group, so without one it raises and says
+    how to form one (tests/test_torch_port_fsdp.py trains it over two);
+    REMAT builds the flagship with its remat path. AMP is accepted: the Trainer computes
     in bf16 by default, as the JAX one does, and AMP changes nothing.
     TRAIN_SCORE is ported: on the online script it trains the score branch
     alone, and on a script without the branch it raises.
@@ -293,10 +295,14 @@ def test_unported_training_options_raise(option, tmp_path, capsys):
         tr = make(cfg)
         assert tr.dtype == torch.bfloat16
         assert {p.dtype for p in tr.model.parameters()} == {torch.float32}
-    else:
-        cfg.TRAIN[option] = True
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    elif option == "FSDP":
+        cfg.TRAIN.FSDP = True
+        with pytest.raises(ValueError, match="torchrun or with --coordinator"):
             make(cfg)
+    else:
+        cfg.TRAIN.REMAT = True
+        tr = make(cfg)
+        assert tr.model.backbone.remat and tr._step.dp is None
 
 
 def test_warm_start_paths_raise(tmp_path):

@@ -23,8 +23,8 @@ template 112, batch 2), against the JAX package where it has a counterpart.
     boxes agree to ~2e-6 here, test_torch_port_model.py) and the first val
     batch against JAX's val loader (the tolerances of
     tests/test_torch_port_train_data.py);
-  * the training CLI's flags map onto the config and the Trainer, and its
-    unported flags raise.
+  * the training CLI's flags map onto the config and the Trainer, the
+    multi-process ones form (and tear down) the process group.
 """
 import json
 import os
@@ -434,7 +434,31 @@ def test_cli_flags_map_onto_cfg_and_trainer(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [["--fsdp"], ["--remat"], ["--coordinator", "h:1"],
                                   ["--num_processes", "2"], ["--process_id", "0"]],
                          ids=lambda f: f[0])
-def test_cli_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run.main(["--script", SCRIPT, "--save_dir", str(tmp_path)] + flag)
+def test_cli_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """The flags of tracking/train.py that the port took over: --fsdp and
+    --remat set their config keys (FSDP runs eager); the multi-process
+    flags form the group from the three together (here a gloo group of
+    one process on a file store) and tear it down at exit, and one of them
+    alone raises before anything is written."""
+    import multi_modal_tracking_torch.train.trainer as trainer_mod
+    monkeypatch.setattr(trainer_mod, "Trainer", _FakeTrainer)
+    _FakeTrainer.made.clear()
+    base = ["--script", SCRIPT, "--save_dir", str(tmp_path), "--device", "cpu"]
+    if flag[0] in ("--fsdp", "--remat"):
+        run.main(base + flag)
+        tr, = _FakeTrainer.made
+        key = flag[0][2:].upper()
+        assert tr.args["cfg"].TRAIN[key] is True
+        assert tr.args["graphs"] is (key != "FSDP")
+        return
+    with pytest.raises(ValueError, match="go together"):
+        run.main(base + flag)
     assert not os.listdir(tmp_path)
+    triple = {"--coordinator": f"file://{tmp_path}/store", "--num_processes": "1",
+              "--process_id": "0"}
+    seen = []
+    monkeypatch.setattr(_FakeTrainer, "train", lambda self, **kw: seen.append(
+        (torch.distributed.get_world_size(), torch.distributed.get_rank())))
+    run.main(base + [x for k, v in triple.items() for x in (k, v)])
+    assert seen == [(1, 0)] and not torch.distributed.is_initialized()
+    assert _FakeTrainer.made[-1].args["device"] == "cpu"
