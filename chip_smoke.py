@@ -117,8 +117,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 (keep 1.0) and one at epoch 51 (keep 0.7, bucketised to
                 240/324), launch counts per step;
                 step time, samples/s, host data time, device busy time and
-                idle share, peak memory, loss per step; an epoch of 16 steps
-                (32 at bf16) through cycle_dataset at the recipe's print
+                idle share, peak memory, loss per step; an epoch of 12 steps
+                (24 at bf16) through cycle_dataset at the recipe's print
                 interval, with the loader and the one-batch look-ahead
                 (pinned buffers, side-stream uploads) running as in
                 training: ms per step after the first 4 against the
@@ -168,7 +168,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 ms per batch and ms per accumulation micro-step beside the
                 isolated bf16 step of phase 9;
  11. eval     - the evaluation stack on synthetic_rgbt_hard (12 sequences at
-                240x320, 30 of their 60 frames each, HARD_FRAMES, as in
+                240x320, 28 of their 60 frames each, HARD_FRAMES, as in
                 every later phase's runs but the eval.run CLIs' since PR
                 18), full width, seed-0 weights: run_dataset
                 one stream at a time, chunk 16 (A); run_sequences_batched at
@@ -361,6 +361,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 the two eval workers.
                 `python3 chip_smoke.py parallel` runs the device and build
                 phases and this phase alone.
+ 20. vot      - Alpha-Refine and the three VOT entries (phase_vot), full
+                width, seeded random weights: AR (ResNet-50, input 384,
+                pool 8, 64 decoder channels, 256 x 256 masks) f32 on the
+                card against the same net on the CPU on one SE crop (kernel
+                and mask logits); run_vot20_mask_exp (mixformer_vit/baseline
+                bf16 graphed, AR f32) through an in-process server on
+                VOT_FRAMES synthetic 480 x 640 PNG frames: ms per tracked and
+                refined frame, frames/s, ms per get_mask on the host clock
+                and its device ms (torch.profiler); the `lt`
+                (mixformer_vit/baseline) and `rgbd`
+                (asymmetric_shared_online/baseline, 16-bit depth PNGs)
+                entries as subprocesses of `python -m
+                multi_modal_tracking_torch.eval.vot`, the script speaking
+                TraX on their stdio, every line they print on stdout equal
+                to the same transcript run in this process through the
+                port's wire (rectangles and confidences byte for byte);
+                REFINE_STEPS refine training steps at batch 16 and 256 x 256
+                (AdamW over every leaf, FrozenBatchNorm's too, as the JAX
+                trainer), the first held against the same step on the CPU;
+                ms per step and peak memory. The rgbd run launches K1-bf16
+                and K3-bf16, the refine steps AdamW; the mask and lt
+                trackers' cached path launches no hand-written kernel and
+                AR runs PrRoI, the correlation and cuDNN convolutions (no
+                Pallas kernel in the JAX package either).
+                `python3 chip_smoke.py vot` runs the device and build phases
+                and this phase alone.
 Then a line of each phase's seconds (the whole script only), the kernel
 table line (launches by path: tracker, graphs, train,
 eval, online, stage2, families, unimodal, cvt_convmae, files, parallel
@@ -371,7 +397,8 @@ the bf16 tracker, graphs, eval, online and parallel eval bf16; train,
 train bf16, lifecycle, both stage-2 runs, families bf16, both unimodal
 runs, both cvt_convmae runs, files bf16 and the four parallel training
 runs for AdamW; the unimodal phase's RGB-T ViT-L counts under families
-bf16) and, last, {"ok": true, "device": {...}}.
+bf16; vot_bf16 for the forward bf16 kernels (the in-process rgbd run) and
+vot for AdamW (the refine steps)) and, last, {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py drift` runs the device and build phases and, alone,
 the spread study behind the drift check of phase 16 (`phase_drift`): the
@@ -426,6 +453,14 @@ cuBLAS and cuDNN):
   * model boxes (normalised to [0, 1]): 1e-4, i.e. 0.03 px at 288. The paths
     compared use other key orders, GEMM shapes and CPU vs GPU kernels
     through 12 blocks, 2 fusion layers and the head.
+  * Alpha-Refine f32, GPU vs CPU at 384 (vot phase): the reference kernel
+    and the mask logits within 1e-4 of their largest magnitude (ResNet-50's
+    sums in cuDNN's and the CPU's orders, TF32 off). The refine step, GPU
+    vs CPU at batch 16: loss 1e-4 rel; the gradients of every leaf
+    together within 1e-3 of their norm; the updated leaves within 5e-5 on
+    all but 1e-4 of the entries and every entry within 2 lr (AdamW's first
+    step moves an entry by lr g / (|g| + eps): an entry whose gradient is
+    at rounding noise moves by up to lr either way).
   * train step, GPU vs CPU (loss and grad norm 1e-3 rel; gradients, with G
     the global grad norm): all gradients together within 1e-2 G, each
     tensor within 5e-2 of its own norm + 1e-6 G, each element within 1e-1
@@ -446,7 +481,9 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -468,8 +505,8 @@ TRAIN_B = 16                       # the recipe's batch; 2 x 16 on the batch axi
 TRAIN_STEPS = 3                    # steps per epoch in the train phase
 LIFE_STEPS = 2                     # steps (and val batches) per epoch in the lifecycle phase
 #: steps of the epoch run at the training pace (train phases), the first
-#: EPOCH_WARM of them untimed
-EPOCH_STEPS = {torch.float32: 16, torch.bfloat16: 32}
+#: EPOCH_WARM of them untimed; a depth cut for the script's time limit
+EPOCH_STEPS = {torch.float32: 12, torch.bfloat16: 24}
 EPOCH_WARM = 4
 DATA_BATCHES = 9                   # batches of 16 compared native vs plain (train data phase)
 LIFE_FRAMES = 16                   # frames tracked on the lifecycle's checkpoint
@@ -479,13 +516,15 @@ EVAL_SMALL, EVAL_BIG = 4, 12       # sequences per lockstep batch in the eval ph
 EVAL_CHUNK = 16                    # frames per dispatch in the eval phase
 #: synthetic_rgbt_hard's frames a sequence in the whole script's eval runs
 #: (the eval, bf16, online, families, unimodal and cvt_convmae phases; the
-#: eval.run CLIs read the registry's 60): 30 of 60, cut to make room for
-#: the files phase
-HARD_FRAMES = 30
+#: eval.run CLIs read the registry's 60): 28 of 60, a depth cut for the
+#: script's time limit. The online trackers' first commit (interval 25)
+#: runs after frame 25's search, so frames 26 and 27 track on what it
+#: committed (`_require_commit_read`)
+HARD_FRAMES = 28
 #: frames of the 64 the large recipes (ViT-L, RGB-T ViT-L, and CvT-24 and
-#: ConvMAE-L in `chip_smoke.py large`) track graphed against eager: 16 of
-#: 63, a depth cut that makes room for the parallel phase
-LARGE_TRACK = 17
+#: ConvMAE-L in `chip_smoke.py large`) track graphed against eager: 12 of
+#: 63, a depth cut for the script's time limit
+LARGE_TRACK = 13
 EVAL_PX_TOL = 0.05                 # batched vs sequential trajectories, px
 M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
 # device kernel names of the bf16 attention kernels (csrc/mixed_attention_bf16.cu,
@@ -3246,6 +3285,20 @@ def _inside(boxes: np.ndarray, H: int, W: int) -> bool:
                 and (boxes[:, 1] + boxes[:, 3] <= H).all())
 
 
+def _require_commit_read(seqs, interval: int, where: str, score_dir: str) -> int:
+    """Require that an online lockstep run's first commit, after frame
+    `interval`'s search, comes before its last compared frame, so that
+    later frames track on the template and cache it committed. Returns
+    how many sequences of the one-stream run in `score_dir` took a
+    candidate (a score above 0.5) by then, whose commit installs a new
+    template."""
+    n = min(len(s.frames) for s in seqs)
+    require(n > interval + 1, f"{where}: {n} frames a sequence; the first commit, after "
+                              f"frame {interval}, is read by no compared frame")
+    return sum(bool((np.loadtxt(os.path.join(score_dir, f"{s.name}_score.txt"))
+                     [1:interval + 1] > 0.5).any()) for s in seqs)
+
+
 def _eval_run(name: str, fn, seqs, root: str, runs: dict, kernels=("K1", "K3")) -> dict:
     """Time one eval run on the host clock with the launch counts of that
     run alone; check its files. `kernels` must launch, no other kernel may.
@@ -3785,6 +3838,8 @@ def _online_eval(dtype, bias_shift: float, root: str, runs: dict) -> dict:
                     seqs, root, runs, kernels)
     lock = _eval_run(f"online_B12_{label}", lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG),
                      seqs, root, runs, kernels)
+    taken = _require_commit_read(seqs, bt.update_interval, f"online lockstep {label}",
+                                 os.path.join(root, f"online_A_{label}"))
     worst = max(float(np.abs(lock[k] - one[k]).max()) for k in one)
     differ = []
     for s in seqs:
@@ -3796,7 +3851,8 @@ def _online_eval(dtype, bias_shift: float, root: str, runs: dict) -> dict:
     centre = float(np.mean([_centre_px(lock[k], one[k]).mean() for k in one]))
     runs[f"online_B12_{label}"].update(max_abs_px_vs_one_stream=worst,
                                         centre_px_vs_one_stream_mean=centre,
-                                        score_files_differing=differ)
+                                        score_files_differing=differ,
+                                        sequences_with_candidate_at_commit=taken)
     require(dtype != torch.float32 or (worst <= EVAL_PX_TOL and not differ),
             f"online lockstep N={EVAL_BIG} {label}: {worst} px from one stream (bound "
             f"{EVAL_PX_TOL}), score files differing {differ}")
@@ -5074,11 +5130,14 @@ def _uni_online_eval(dtype, shift, root: str, runs: dict, mode: str = "TIR", par
                     kernels=())
     lock = _eval_run(b, lambda d: _lockstep_runs(seqs, bt, d, EVAL_BIG), seqs, root, runs,
                      kernels=())
+    taken = _require_commit_read(seqs, bt.update_interval, f"{tag} online lockstep {label}",
+                                 os.path.join(root, a))
     res = _lockstep_vs_one(one, lock, seqs, root, a, b, runs,
                            UNI_LOCKSTEP_PX if dtype == torch.float32 else None)
     scores = np.concatenate([np.loadtxt(os.path.join(root, a, f"{q.name}_score.txt"))
                              for q in seqs])
-    res.update(score_bias_shift=shift, scores_above_half_share=float((scores > 0.5).mean()))
+    res.update(score_bias_shift=shift, scores_above_half_share=float((scores > 0.5).mean()),
+               sequences_with_candidate_at_commit=taken)
     return res, shift
 
 
@@ -5654,11 +5713,13 @@ DECODE_REPS = 20                   # decodes of a pair timed (median)
 
 
 def _png_bytes(arr: np.ndarray) -> bytes:
-    """A grey PNG of a uint8 or uint16 (H, W) map: unfiltered scanlines,
-    zlib's deflate, the chunks' CRCs; nothing but the standard library."""
+    """A PNG of a grey uint8 or uint16 (H, W) map or an RGB uint8 (H, W, 3)
+    frame: unfiltered scanlines, zlib's deflate, the chunks' CRCs; nothing
+    but the standard library."""
     import struct
     import zlib
-    h, w = arr.shape
+    h, w = arr.shape[:2]
+    colour = 2 if arr.ndim == 3 else 0
     depth = 16 if arr.dtype == np.uint16 else 8
     rows = np.ascontiguousarray(arr.astype(">u2" if depth == 16 else np.uint8)).view(np.uint8)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1).tobytes()
@@ -5666,7 +5727,8 @@ def _png_bytes(arr: np.ndarray) -> bytes:
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body)))
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0,
+                                                                0))
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
@@ -6405,6 +6467,324 @@ def _parallel_rank(argv) -> None:
         json.dump(out, f)
 
 
+# ------------------------------------------------------------------ vot phase
+VOT_FRAMES = 16                    # synthetic frames of the timed mask path
+VOT_WIRE_FRAMES = 8                # frames each wire entry (lt, rgbd) reads
+VOT_H, VOT_W = 480, 640
+AR_SIZE = 384                      # the VOT2020 entry's Alpha-Refine input
+REFINE_B, REFINE_SZ, REFINE_STEPS, REFINE_LR = 16, 256, 3, 2e-4
+
+
+class _VotServer:
+    """In-process TraX server (the JAX package's duck type): initialize,
+    the frames, quit; records every status and the host clock at every
+    request."""
+
+    def __init__(self, paths, region):
+        self._queue = [("initialize", paths[0])] + [("frame", p) for p in paths[1:]]
+        self._queue.append(("quit", None))
+        self.region, self.reports, self.times = region, [], []
+
+    def wait(self):
+        self.times.append(time.perf_counter())
+        kind, image = self._queue.pop(0)
+        return types.SimpleNamespace(type=kind, region=self.region, image=image)
+
+    def status(self, region, props=None):
+        self.reports.append((region, dict(props or {})))
+
+    def quit(self):
+        pass
+
+
+def _vot_files(root: str, n: int) -> tuple:
+    """n synthetic 480 x 640 frames (the moving square) as colour PNGs and
+    16-bit depth PNGs (the square nearer); returns (colour paths, depth
+    paths, first box)."""
+    rng = np.random.default_rng(20)
+    colour, depth = [], []
+    for k, (fv, _) in enumerate(_sequence(n, VOT_H, VOT_W, seed=20)):
+        d = rng.integers(3000, 4000, (VOT_H, VOT_W)).astype(np.uint16)
+        x, y = 80 + 5 * k, 60 + 3 * k
+        d[y:y + 48, x:x + 48] = 1200
+        for arr, out, name in ((fv, colour, "c"), (d, depth, "d")):
+            path = os.path.join(root, f"{name}_{k:03d}.png")
+            with open(path, "wb") as f:
+                f.write(_png_bytes(arr))
+            out.append(path)
+    return colour, depth, (80.0, 60.0, 48.0, 48.0)
+
+
+def _transcript(images, region) -> str:
+    """A toolkit's TraX transcript: initialize with the first images and the
+    region, one frame per later images, quit."""
+    from multi_modal_tracking_torch.eval.trax_wire import encode_message
+    x, y, w, h = region
+    lines = [encode_message("initialize", list(images[0]) + [f"{x},{y},{w},{h}"])]
+    lines += [encode_message("frame", list(im)) for im in images[1:]]
+    return "\n".join(lines + [encode_message("quit")]) + "\n"
+
+
+def _wire_child(entry: str, transcript: str, log_path: str):
+    """The entry's command line as a child process, its stdin fed the whole
+    transcript (it reads one request at a time), stderr to `log_path`."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    log = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "multi_modal_tracking_torch.eval.vot", entry],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+    proc.stdin.write(transcript)
+    proc.stdin.close()
+    return proc, log
+
+
+def _wire_in_process(entry: str, transcript: str) -> tuple:
+    """The same transcript through the port's wire in this process: (its
+    stdout lines, the launches of the run)."""
+    import io
+    from multi_modal_tracking_torch.eval import vot
+    from multi_modal_tracking_torch.eval.trax_wire import TraxWireServer
+    chans = ["color", "depth"] if entry == "rgbd" else ["color"]
+    out = io.StringIO()
+    server = TraxWireServer(channels=chans, fin=io.StringIO(transcript), fout=out)
+    script, yaml = vot.ENTRIES[entry]
+    reset_launches()
+    if entry == "rgbd":
+        vot.run_vot_exp(script, yaml, channels="rgbd", server=server)
+    else:
+        vot.run_vot20_lt_exp(script, yaml, server=server)
+    torch.cuda.synchronize()
+    return out.getvalue().splitlines(), read_launches()
+
+
+def _ar_gpu_vs_cpu(net, frame, box) -> tuple:
+    """AR f32 on the card against the same net on the CPU: the reference
+    kernel and the mask logits of one SE crop. Returns (line, the CPU
+    net)."""
+    from multi_modal_tracking_torch.models.alpha_refine import (build_alpha_refine, normalise,
+                                                                sample_target_se,
+                                                                transform_box_to_crop_se)
+    cpu_net, _ = build_alpha_refine(input_sz=AR_SIZE, device="cpu")
+    crop, hf, wf = sample_target_se(frame, box, 2.0, AR_SIZE)
+    p = torch.from_numpy(normalise(crop)[None])
+    b = torch.from_numpy(transform_box_to_crop_se(box, hf, wf, AR_SIZE)[None])
+    out = {}
+    with torch.no_grad():
+        k_gpu = net.init_ref(p.cuda(), b.cuda())
+        l_gpu = net(p.cuda(), k_gpu)
+        k_cpu = cpu_net.init_ref(p, b)
+        l_cpu = cpu_net(p, k_cpu)
+    for name, g, c in (("kernel", k_gpu, k_cpu), ("logits", l_gpu, l_cpu)):
+        g = g.cpu()
+        out[f"{name}_max_abs_err"] = float((g - c).abs().max())
+        out[f"{name}_max_abs"] = float(c.abs().max())
+        require(bool(torch.isfinite(g).all()) and out[f"{name}_max_abs_err"]
+                <= 1e-4 * out[f"{name}_max_abs"], f"AR GPU vs CPU {name}: {out}")
+    require(tuple(l_gpu.shape) == (1, 256, 256, 1), f"AR mask logits {tuple(l_gpu.shape)}")
+    return out, cpu_net
+
+
+def _get_mask_gpu_vs_cpu(refiner, cpu_net, frame0, box0, frame, box, threshold: float) -> dict:
+    """One get_mask on the card (`refiner`, initialised on frame0 / box0)
+    against an ARcmSeg on the CPU net with the same weights: the sigmoid
+    masks in frame coordinates within 1e-5, the thresholded ones differing
+    on at most 0.1% of the pixels, and the CPU's not empty."""
+    from multi_modal_tracking_torch.models.alpha_refine import ARcmSeg
+    cpu = ARcmSeg(cpu_net)
+    cpu.initialize(frame0, box0)
+    m_cpu = cpu.get_mask(frame, box)
+    m_gpu = refiner.get_mask(frame, box)
+    differ = float(np.mean((m_gpu > threshold) != (m_cpu > threshold)))
+    out = {"max_abs_err": float(np.abs(m_gpu - m_cpu).max()), "thresholded_differ_share": differ,
+           "cpu_mask_mean": float((m_cpu > threshold).mean())}
+    require(m_gpu.shape == m_cpu.shape == frame.shape[:2] and out["max_abs_err"] <= 1e-5
+            and differ <= 1e-3 and out["cpu_mask_mean"] > 0, f"get_mask GPU vs CPU: {out}")
+    return out
+
+
+def _refine_batch(frames, boxes, B: int) -> dict:
+    from multi_modal_tracking_torch.train.refine import batch_from_box_dataset
+    samples = [(frames[k], np.asarray(boxes[k], np.float32), frames[k + 1],
+                np.asarray(boxes[k + 1], np.float32)) for k in range(B)]
+    return batch_from_box_dataset(samples, REFINE_SZ)
+
+
+def _refine_training(frames, boxes) -> tuple:
+    """REFINE_STEPS refine steps at batch 16, 256 x 256 on the card, the
+    first against the CPU's on the same batch; (line, AdamW launches)."""
+    from multi_modal_tracking_torch.train.refine import build_refine_trainer
+    batch = _refine_batch(frames, boxes, REFINE_B)
+    _, _, cpu = build_refine_trainer(input_sz=REFINE_SZ, lr=REFINE_LR, device="cpu")
+    _, _, gpu = build_refine_trainer(input_sz=REFINE_SZ, lr=REFINE_LR, device="cuda")
+    before = [t.detach().clone() for t in cpu.leaves]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    gpu_metrics, times = [], []
+    for i in range(REFINE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu_metrics.append(gpu.step(batch))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            grads_gpu = [g.detach().cpu() for g in gpu.grads]
+            leaves_gpu = [t.detach().cpu() for t in gpu.leaves]
+    launches = read_launches()["AdamW"]
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    cpu_metrics = cpu.step(batch)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    g_gpu = torch.cat([g.flatten() for g in grads_gpu])
+    g_cpu = torch.cat([g.flatten() for g in cpu.grads])
+    grad_rel = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+    far, total, worst = 0, 0, 0.0
+    for a, c in zip(leaves_gpu, cpu.leaves):
+        d = (a - c.detach()).abs()
+        far += int((d > 5e-5).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    moved = [not torch.equal(b, c.detach()) for b, c in zip(before, cpu.leaves)]
+    bn_moved = [m for m, n in zip(moved, cpu.names) if n.endswith(("running_mean", "running_var"))]
+    loss_rel = abs(gpu_metrics[0]["loss"] - cpu_metrics["loss"]) / abs(cpu_metrics["loss"])
+    line = {"batch": REFINE_B, "input": REFINE_SZ, "steps": REFINE_STEPS,
+            "ms_per_step": times, "ms_per_step_after_first": float(np.mean(times[1:])),
+            "peak_bytes": int(peak), "loss": [m["loss"] for m in gpu_metrics],
+            "cpu_step_ms": cpu_ms, "loss_rel_gpu_vs_cpu": loss_rel,
+            "grad_rel_gpu_vs_cpu": grad_rel, "updated_beyond_5e-5": far,
+            "updated_entries": total, "updated_max_abs_err": worst,
+            "leaves": len(cpu.leaves), "leaves_moved": sum(moved),
+            "bn_statistics": len(bn_moved), "bn_statistics_moved": sum(bn_moved),
+            "adamw_launches": launches}
+    require(all(np.isfinite(m["loss"]) for m in gpu_metrics), f"refine losses {line['loss']}")
+    require(loss_rel <= 1e-4 and grad_rel <= 1e-3 and far <= 1e-4 * total
+            and worst <= 2 * REFINE_LR * 1.001, f"refine step GPU vs CPU: {line}")
+    require(bn_moved and all(bn_moved), f"refine step: {sum(bn_moved)} of {len(bn_moved)} "
+            "FrozenBatchNorm statistics moved (the JAX trainer trains them)")
+    require(launches == REFINE_STEPS, f"refine steps launched AdamW {launches} times")
+    return line, launches
+
+
+def phase_vot(smi: str, frames, save_dir: str) -> dict:
+    """Alpha-Refine, the three VOT entries and refine training at full
+    width (module docstring, phase 20). Returns the launches of the
+    kernels on its paths."""
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_counters(), 0)
+    colour, depth, region = _vot_files(save_dir, VOT_FRAMES)
+
+    # the two wire entries start first: they boot while this process works
+    transcripts = {"lt": _transcript([[p] for p in colour[:VOT_WIRE_FRAMES]], region),
+                   "rgbd": _transcript(list(zip(colour, depth))[:VOT_WIRE_FRAMES], region)}
+    children = {e: _wire_child(e, transcripts[e], os.path.join(save_dir, f"{e}.log"))
+                for e in transcripts}
+    try:
+        return _phase_vot_body(smi, t_phase, total, colour, depth, region, transcripts, children)
+    finally:
+        for proc, log in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def _phase_vot_body(smi, t_phase, total, colour, depth, region, transcripts, children) -> dict:
+    from multi_modal_tracking_torch import native
+    from multi_modal_tracking_torch.eval import vot
+    from multi_modal_tracking_torch.models.alpha_refine import ARcmSeg, build_alpha_refine
+
+    # AR on the card against the CPU, at 384
+    net, spec = build_alpha_refine(input_sz=AR_SIZE, device="cuda")
+    frame0 = native.imread(colour[0])
+    ar_check, cpu_net = _ar_gpu_vs_cpu(net, frame0, region)
+
+    # the two entries in this process, on the same transcripts
+    in_process = {}
+    for entry in ("lt", "rgbd"):
+        lines, launches = _wire_in_process(entry, transcripts[entry])
+        in_process[entry] = lines
+        _add_launches(total, launches, total)
+        if entry == "rgbd":
+            require(launches["K1-bf16"] > 0 and launches["K3-bf16"] > 0
+                    and not any(launches[k] for k in F32_KERNELS),
+                    f"the rgbd entry's launches {launches}")
+            rgbd_launches = {k: launches[k] for k in BF16_SERVING}
+        else:
+            require(not any(launches[k] for k in F32_KERNELS + BF16_KERNELS),
+                    f"the lt entry's cached tracker launched {launches}")
+    wire = {}
+    for entry, (proc, log) in children.items():
+        timer = threading.Timer(300.0, proc.kill)      # a hung child fails the phase
+        timer.start()
+        out = proc.stdout.read()
+        proc.wait()
+        timer.cancel()
+        log.close()
+        lines = out.splitlines()
+        if proc.returncode != 0 or lines != in_process[entry]:
+            with open(os.path.join(save_dir, f"{entry}.log")) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+        require(proc.returncode == 0, f"the {entry} entry's command exited {proc.returncode}")
+        require(lines == in_process[entry], f"the {entry} entry over the wire differs from the "
+                f"in-process run: {lines[:3]} ... against {in_process[entry][:3]} ...")
+        states = [l for l in lines if l.startswith("@@TRAX:state")]
+        require(len(states) == VOT_WIRE_FRAMES, f"{entry}: {len(states)} states")
+        wire[entry] = {"states": len(states), "equal_to_in_process": True,
+                       "last_state": states[-1]}
+
+    # the mask path, timed: the entry builds the tracker, AR is the net above.
+    # Random weights put every sigmoid near 0.5, under the entry's 0.6, and
+    # every mask would be empty: the threshold is the median of frame 1's
+    # crop mask at the first box, so that the masks' content is checked
+    refiner = ARcmSeg(net)
+    refiner.initialize(frame0, region)
+    threshold = float(refiner.mask_crop(native.imread(colour[1]), region).median())
+    server = _VotServer(colour, region)
+    reset_launches()
+    t0 = time.perf_counter()
+    vot.run_vot20_mask_exp(vot.ENTRIES["mask"][0], vot.ENTRIES["mask"][1], server=server,
+                           refiner=refiner, mask_threshold=threshold)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    mask_launches = read_launches()
+    _add_launches(total, mask_launches, total)
+    require(not any(mask_launches[k] for k in F32_KERNELS + BF16_KERNELS),
+            f"the mask entry's cached tracker launched {mask_launches}")
+    masks = [r for r, _ in server.reports[1:]]
+    require(len(masks) == VOT_FRAMES - 1 and all(
+        isinstance(m, np.ndarray) and m.shape == (VOT_H, VOT_W) and m.dtype == np.uint8
+        and set(np.unique(m)) <= {0, 1} for m in masks), "the mask entry's reports")
+    mask_mean = float(np.mean([m.mean() for m in masks]))
+    require(0.0 < mask_mean < 0.5, f"the mask entry's masks cover {mask_mean} of the frame")
+    frame_ms = np.diff(server.times)[1:] * 1e3      # request k+1 - request k: frame k
+    timed = frame_ms[3:]                              # after the first frames' captures
+    last = native.imread(colour[-1])
+    last_box = [80.0 + 5 * (VOT_FRAMES - 1), 60.0 + 3 * (VOT_FRAMES - 1), 48.0, 48.0]
+    get_mask_ms = _wall_ms(lambda: refiner.get_mask(last, last_box), iters=10, warmup=2)
+    get_mask_device_ms = device_ms(lambda: refiner.mask_crop(last, last_box), iters=10,
+                                   warmup=2)
+    get_mask_check = _get_mask_gpu_vs_cpu(refiner, cpu_net, frame0, region, last, last_box,
+                                          threshold)
+    del cpu_net
+    mask_line = {"frames": VOT_FRAMES, "frame_hw": [VOT_H, VOT_W],
+                 "ms_per_frame": float(np.mean(timed)),
+                 "ms_per_frame_median": float(np.median(timed)),
+                 "frames_per_s": float(1e3 / np.mean(timed)),
+                 "first_frames_ms": frame_ms[:3].tolist(), "run_s": run_s,
+                 "get_mask_ms": get_mask_ms, "get_mask_device_ms": get_mask_device_ms,
+                 "mask_threshold": threshold, "mask_pixels_mean": mask_mean,
+                 "get_mask_gpu_vs_cpu": get_mask_check}
+
+    refine_line, adamw = _refine_training(
+        [fv for fv, _ in _sequence(REFINE_B + 1, VOT_H, VOT_W, seed=20)],
+        [(80.0 + 5 * k, 60.0 + 3 * k, 48.0, 48.0) for k in range(REFINE_B + 1)])
+    total["AdamW"] += adamw
+    emit({"phase": "vot", "nvidia_smi": smi, "ar_gpu_vs_cpu": ar_check, "mask": mask_line,
+          "wire": wire, "rgbd_launches": rgbd_launches, "refine_train": refine_line,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["_parallel_rank"]:              # a child of phase_parallel
@@ -6416,7 +6796,7 @@ def main(argv=None) -> None:
     phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift,
               "large": phase_large,
               "cvt_convmae": phase_cvt_convmae, "files": phase_files,
-              "parallel": phase_parallel}
+              "parallel": phase_parallel, "vot": phase_vot}
     if len(argv) == 1 and argv[0] in phases:    # one phase alone (module docstring)
         frames = list(_sequence(74))
         with tempfile.TemporaryDirectory() as save_dir:
@@ -6477,6 +6857,9 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as save_dir:
         parallel = phase_parallel(smi, frames, save_dir)
     lap("parallel")
+    with tempfile.TemporaryDirectory() as save_dir:
+        vot_launches = phase_vot(smi, frames, save_dir)
+    lap("vot")
     emit({"phase": "phase seconds", **{name: t - laps[i][1]
                                        for i, (name, t) in enumerate(laps[1:])}})
     table = []
@@ -6511,7 +6894,8 @@ def main(argv=None) -> None:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
                            graphs_bf16=graph_launches["bf16"][key],
                            online_bf16=online["bf16"][key],
-                           parallel_eval_bf16=parallel["eval_bf16"][key])
+                           parallel_eval_bf16=parallel["eval_bf16"][key],
+                           vot_bf16=vot_launches[key])
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -6533,7 +6917,8 @@ def main(argv=None) -> None:
                "cvt_convmae_bf16": cvt_convmae["bf16"]["AdamW"], "files_bf16": files["bf16"]["AdamW"],
                "parallel": parallel["f32"]["AdamW"], "parallel_fsdp": parallel["fsdp"]["AdamW"],
                "parallel_bf16": parallel["bf16"]["AdamW"],
-               "parallel_remat_bf16": parallel["remat_bf16"]["AdamW"]}
+               "parallel_remat_bf16": parallel["remat_bf16"]["AdamW"],
+               "vot": vot_launches["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -14,7 +14,14 @@
 //                           pixel half of flip_norm), float32 operation by
 //                           operation; without a TIR crop, the unimodal
 //                           tensor_and_jitter;
-//   mmt_apply_jet           ops/colormap.py apply_jet_np.
+//   mmt_apply_jet           ops/colormap.py apply_jet_np;
+//   mmt_sample_target_se    Alpha-Refine's anisotropic crop
+//                           (models/alpha_refine.py sample_target_se:
+//                           cv2.copyMakeBorder, then cv2.resize INTER_LINEAR
+//                           to a square), uint8 bit for bit, float32 or
+//                           float64 as cv2's IPP path within 1e-5;
+//   mmt_resize_linear       cv2.resize INTER_LINEAR of a whole image to any
+//                           size, the same types.
 //
 // Built with g++ -O3 -fPIC -std=c++17 -shared -ffp-contract=off: no
 // -ffast-math, no -march=native, and no contraction to FMA, each of which
@@ -88,9 +95,209 @@ void py_slice(long long start, long long stop, long long n, long long* first, lo
   *len = std::max(stop - start, 0LL);
 }
 
+// cv2.resize INTER_LINEAR of an (Hs, Ws, C) image read through px(row,
+// column, channel) to (oh, ow, C). uint8: an exact 2x reduction on both
+// axes is cv2's INTER_AREA fast path (cv2 switches to it there), any other
+// size the separable pass of mmt_sample_target (float32 sample positions,
+// 11-bit fixed-point coefficients). float32 and float64: the result of
+// cv2's IPP path, which the pip builds of cv2 take for floating-point
+// images: sample positions and weights in double, both axes clamped at the
+// edges, a row pass then a column pass in double, rounded to the type once.
+template <class T>
+struct Linear;
+
+template <>
+struct Linear<uint8_t> {
+  using Acc = int;
+  static Taps taps(int src, int dst, bool clamp) { return linear_taps(src, dst, clamp); }
+  static Acc h(int v0, int v1, float fr) { return v0 * fixed0(fr) + v1 * fixed1(fr); }
+  static uint8_t v(Acc r0, Acc r1, float fr) {
+    const int r = (((r0 >> 4) * fixed0(fr)) >> 16) + (((r1 >> 4) * fixed1(fr)) >> 16);
+    return static_cast<uint8_t>(std::min(std::max((r + 2) >> 2, 0), 255));
+  }
+  static bool area_fast() { return true; }
+  static uint8_t area(int a, int b, int c, int d) {
+    return static_cast<uint8_t>((a + b + c + d + 2) >> 2);
+  }
+};
+
+// the taps of the floating-point path: positions (d + 0.5) src / dst - 0.5
+// in double, clamped to the edge on both axes (weight 0 on the missing tap)
+struct TapsD {
+  std::vector<int> i0, i1;
+  std::vector<double> frac;
+};
+
+TapsD linear_taps_double(int src, int dst) {
+  TapsD t;
+  t.i0.resize(dst);
+  t.i1.resize(dst);
+  t.frac.resize(dst);
+  const double scale = static_cast<double>(src) / static_cast<double>(dst);
+  for (int d = 0; d < dst; ++d) {
+    const double f = (static_cast<double>(d) + 0.5) * scale - 0.5;
+    const double fl = std::floor(f);
+    const long long k = static_cast<long long>(fl);
+    t.frac[d] = (k < 0 || k >= src - 1) ? 0.0 : f - fl;
+    t.i0[d] = static_cast<int>(std::min<long long>(std::max<long long>(k, 0), src - 1));
+    t.i1[d] = static_cast<int>(std::min<long long>(std::max<long long>(k + 1, 0), src - 1));
+  }
+  return t;
+}
+
+template <class F>
+struct LinearFloat {
+  using Acc = double;
+  static TapsD taps(int src, int dst, bool) { return linear_taps_double(src, dst); }
+  static Acc h(double v0, double v1, double fr) { return v0 * (1.0 - fr) + v1 * fr; }
+  static F v(Acc r0, Acc r1, double fr) { return static_cast<F>(r0 * (1.0 - fr) + r1 * fr); }
+  static bool area_fast() { return false; }
+  static F area(F, F, F, F) { return F(0); }
+};
+template <>
+struct Linear<float> : LinearFloat<float> {};
+template <>
+struct Linear<double> : LinearFloat<double> {};
+
+template <class T, class Px>
+void resize_linear(int Hs, int Ws, int C, int oh, int ow, Px px, T* dst) {
+  using L = Linear<T>;
+  using Acc = typename L::Acc;
+  if (L::area_fast() && Hs == 2 * oh && Ws == 2 * ow) {
+    for (int dy = 0; dy < oh; ++dy)
+      for (int dx = 0; dx < ow; ++dx)
+        for (int c = 0; c < C; ++c)
+          dst[(static_cast<size_t>(dy) * ow + dx) * C + c] =
+              L::area(px(2 * dy, 2 * dx, c), px(2 * dy, 2 * dx + 1, c),
+                      px(2 * dy + 1, 2 * dx, c), px(2 * dy + 1, 2 * dx + 1, c));
+    return;
+  }
+  const auto tx = L::taps(Ws, ow, true);
+  const auto ty = L::taps(Hs, oh, false);
+  const int row_len = ow * C;
+  std::vector<Acc> buf[2] = {std::vector<Acc>(row_len), std::vector<Acc>(row_len)};
+  int tag[2] = {-1, -1};
+  auto fill = [&](int sy, Acc* out) {
+    for (int d = 0; d < ow; ++d)
+      for (int c = 0; c < C; ++c)
+        out[d * C + c] = L::h(px(sy, tx.i0[d], c), px(sy, tx.i1[d], c), tx.frac[d]);
+  };
+  auto get = [&](int sy, int keep) -> const Acc* {
+    for (int s = 0; s < 2; ++s)
+      if (tag[s] == sy) return buf[s].data();
+    const int s = tag[0] == keep ? 1 : 0;
+    fill(sy, buf[s].data());
+    tag[s] = sy;
+    return buf[s].data();
+  };
+  for (int dy = 0; dy < oh; ++dy) {
+    const Acc* r0 = get(ty.i0[dy], ty.i1[dy]);
+    const Acc* r1 = get(ty.i1[dy], ty.i0[dy]);
+    T* o = dst + static_cast<size_t>(dy) * row_len;
+    for (int k = 0; k < row_len; ++k) o[k] = L::v(r0[k], r1[k], ty.frac[dy]);
+  }
+}
+
+// sample_target_SE's window on an (H, W, C) image of type T, resized to
+// out_sz x out_sz (see mmt_sample_target_se)
+template <class T>
+int sample_se(const T* img, int H, int W, int C, double x, double y, double w, double h,
+              double factor, int out_sz, int replicate, T* out) {
+  const double ws_d = std::ceil(factor * w), hs_d = std::ceil(factor * h);
+  if (!(ws_d >= 1.0) || !(hs_d >= 1.0) || !std::isfinite(ws_d) || !std::isfinite(hs_d)) return 1;
+  const long long ws = static_cast<long long>(ws_d), hs = static_cast<long long>(hs_d);
+  const long long x1 = static_cast<long long>(std::nearbyint(x + 0.5 * w - ws * 0.5));
+  const long long y1 = static_cast<long long>(std::nearbyint(y + 0.5 * h - hs * 0.5));
+  const long long x2 = x1 + ws, y2 = y1 + hs;
+  const long long x1_pad = std::max(0LL, -x1), x2_pad = std::max(x2 - W + 1, 0LL);
+  const long long y1_pad = std::max(0LL, -y1), y2_pad = std::max(y2 - H + 1, 0LL);
+  long long xs, nx, ys, ny;
+  py_slice(x1 + x1_pad, x2 - x2_pad, W, &xs, &nx);
+  py_slice(y1 + y1_pad, y2 - y2_pad, H, &ys, &ny);
+  const int Hp = static_cast<int>(ny + y1_pad + y2_pad);
+  const int Wp = static_cast<int>(nx + x1_pad + x2_pad);
+  // an empty cut: cv2 borders it with zeros (constant); replicating it has
+  // no pixel to replicate, nor has a border of zero size anything to resize
+  if (nx == 0 || ny == 0) {
+    if (replicate || Hp == 0 || Wp == 0) return 2;
+    std::fill(out, out + static_cast<size_t>(out_sz) * out_sz * C, T(0));
+    return 0;
+  }
+  // the bordered crop's pixel (r, c): the frame's, 0 (constant) or the
+  // crop's nearest edge pixel (replicate) outside it
+  auto px = [&](int r, int c, int ch) -> T {
+    long long rr = r - y1_pad, cc = c - x1_pad;
+    if (rr < 0 || rr >= ny || cc < 0 || cc >= nx) {
+      if (!replicate) return T(0);
+      rr = std::min(std::max(rr, 0LL), ny - 1);
+      cc = std::min(std::max(cc, 0LL), nx - 1);
+    }
+    return img[(static_cast<size_t>(ys + rr) * W + (xs + cc)) * C + ch];
+  };
+  resize_linear<T>(Hp, Wp, C, out_sz, out_sz, px, out);
+  return 0;
+}
+
+template <class T>
+void resize_image(const T* src, int H, int W, int C, int oh, int ow, T* dst) {
+  auto px = [&](int r, int c, int ch) -> T {
+    return src[(static_cast<size_t>(r) * W + c) * C + ch];
+  };
+  resize_linear<T>(H, W, C, oh, ow, px, dst);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Alpha-Refine's sample_target_SE (models/alpha_refine.py
+// sample_target_se): the window ws = ceil(factor w), hs = ceil(factor h)
+// centred on the box (x, y, w, h) with half-to-even rounding, cut from the
+// frame with the reference's x2 - W + 1 / y2 - H + 1 padding quirk (the
+// last column or row is dropped when the window reaches it), bordered
+// with zeros (replicate 0) or the crop's edge pixels (replicate 1) as
+// cv2.copyMakeBorder, then resized to out_sz x out_sz as cv2.resize
+// INTER_LINEAR. img: (H, W, C) C-contiguous of type dtype (0 uint8, 1
+// float32, 2 float64); out: (out_sz, out_sz, C) of the same type.
+// Returns 0, 1 for a box too small (a window side < 1, or not a number),
+// 2 for a window with no frame pixel, 3 for bad arguments.
+int mmt_sample_target_se(const void* img, int dtype, int H, int W, int C, double x, double y,
+                         double w, double h, double factor, int out_sz, int replicate,
+                         void* out) {
+  if (H < 1 || W < 1 || C < 1 || out_sz < 1) return 3;
+  switch (dtype) {
+    case 0:
+      return sample_se(static_cast<const uint8_t*>(img), H, W, C, x, y, w, h, factor, out_sz,
+                       replicate, static_cast<uint8_t*>(out));
+    case 1:
+      return sample_se(static_cast<const float*>(img), H, W, C, x, y, w, h, factor, out_sz,
+                       replicate, static_cast<float*>(out));
+    case 2:
+      return sample_se(static_cast<const double*>(img), H, W, C, x, y, w, h, factor, out_sz,
+                       replicate, static_cast<double*>(out));
+  }
+  return 3;
+}
+
+// cv2.resize(src, (ow, oh)) INTER_LINEAR: src (H, W, C), dst (oh, ow, C),
+// C-contiguous, of type dtype (0 uint8, 1 float32, 2 float64). Returns 0,
+// or 3 for bad arguments.
+int mmt_resize_linear(const void* src, int dtype, int H, int W, int C, int oh, int ow,
+                      void* dst) {
+  if (H < 1 || W < 1 || C < 1 || oh < 1 || ow < 1) return 3;
+  switch (dtype) {
+    case 0:
+      resize_image(static_cast<const uint8_t*>(src), H, W, C, oh, ow, static_cast<uint8_t*>(dst));
+      return 0;
+    case 1:
+      resize_image(static_cast<const float*>(src), H, W, C, oh, ow, static_cast<float*>(dst));
+      return 0;
+    case 2:
+      resize_image(static_cast<const double*>(src), H, W, C, oh, ow, static_cast<double*>(dst));
+      return 0;
+  }
+  return 3;
+}
 
 // Square crop of side ceil(sqrt(w h) factor) around the box (x, y, w, h),
 // zero padding outside the frame (with sample_target's last-row/column

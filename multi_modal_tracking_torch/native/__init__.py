@@ -15,8 +15,12 @@ Pixel work (`library()`):
                         with the factors drawn by the caller, and the
                         pixel half of `flip_norm`; `jitter_normalise` the
                         unimodal `tensor_and_jitter` in the same call;
-  apply_jet             `ops/colormap.py apply_jet_np`.
-Each computes what the numpy version computes, bit for bit
+  apply_jet             `ops/colormap.py apply_jet_np`;
+  sample_target_se      Alpha-Refine's anisotropic crop
+                        (`models/alpha_refine.py sample_target_se`, cv2's
+                        copyMakeBorder and INTER_LINEAR resize);
+  resize_linear         cv2.resize INTER_LINEAR to any size.
+The training functions compute what the numpy version computes, bit for bit
 (tests/test_torch_port_native_data.py).
 
 Image decoding (`image_library()`), the counterpart of the JAX package's
@@ -67,7 +71,11 @@ _SIGNATURES = {
                            ctypes.POINTER(_I)], _I),
     "mmt_jitter_jet_normalise": ([_P, _P, _I, _I, _D, _D, _I, _P, _P], None),
     "mmt_apply_jet": ([_P, _I, _I, _I, _P, _I], None),
+    "mmt_sample_target_se": ([_P, _I, _I, _I, _I, _D, _D, _D, _D, _D, _I, _I, _P], _I),
+    "mmt_resize_linear": ([_P, _I, _I, _I, _I, _I, _I, _P], _I),
 }
+#: the element types of sample_target_se and resize_linear, by their codes
+_DTYPE_CODES = {np.dtype(np.uint8): 0, np.dtype(np.float32): 1, np.dtype(np.float64): 2}
 _ERRORS = {1: "Too small bounding box.", 2: "The crop window lies outside the image.",
            3: "sample_target: bad arguments"}
 
@@ -375,3 +383,54 @@ def imread_unchanged(path: Source) -> np.ndarray:
     """A grey PNG as stored, uint8 or uint16 (H, W): cv2.imread(path, -1)
     of a depth map."""
     return decode_png(path, unchanged=True)
+
+
+def _image(img: np.ndarray, what: str) -> Tuple[np.ndarray, int]:
+    """`img` as a C-contiguous (H, W, C) array of a type the resize takes,
+    and its type code."""
+    img = np.ascontiguousarray(img)
+    code = _DTYPE_CODES.get(img.dtype)
+    if code is None or img.ndim not in (2, 3) or img.size == 0:
+        raise ValueError(f"{what}: expected a non-empty uint8, float32 or float64 (H, W[, C]) "
+                         f"array, got {img.dtype} {img.shape}")
+    return (img[..., None] if img.ndim == 2 else img), code
+
+
+def sample_target_se(img: np.ndarray, box, factor: float, out_sz: int,
+                     pad_mode: str = "constant") -> Tuple[np.ndarray, float, float]:
+    """Alpha-Refine's anisotropic crop (`models/alpha_refine.py
+    sample_target_se`): the window ceil(factor w) x ceil(factor h) around
+    `box` (x, y, w, h), bordered with zeros (pad_mode "constant") or the
+    crop's edge pixels ("replicate"), resized to out_sz x out_sz as cv2's
+    INTER_LINEAR. `img` (H, W[, C]) uint8, float32 or float64 gives a crop
+    of its type, (out_sz, out_sz, C) (C = 1 for a 2-D image). Returns
+    (crop, out_sz / hs, out_sz / ws). Raises ValueError for a window side
+    below 1 and for a window that holds no pixel of the frame."""
+    if pad_mode not in ("constant", "replicate"):
+        raise ValueError(f"sample_target_se: pad_mode {pad_mode!r} (constant or replicate)")
+    img, code = _image(img, "sample_target_se")
+    H, W, C = img.shape
+    x, y, w, h = (float(v) for v in box)
+    out = np.empty((out_sz, out_sz, C), img.dtype)
+    rc = library().mmt_sample_target_se(img.ctypes.data, code, H, W, C, x, y, w, h,
+                                        float(factor), int(out_sz), int(pad_mode == "replicate"),
+                                        out.ctypes.data)
+    if rc:
+        raise ValueError(_ERRORS.get(rc, f"sample_target_se: error {rc}"))
+    return out, out_sz / math.ceil(factor * h), out_sz / math.ceil(factor * w)
+
+
+def resize_linear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.resize(img, (out_w, out_h)) with INTER_LINEAR: (H, W[, C])
+    uint8, float32 or float64 -> (out_h, out_w[, C]) of the same type."""
+    flat = np.ndim(img) == 2
+    img, code = _image(img, "resize_linear")
+    H, W, C = img.shape
+    if out_h < 1 or out_w < 1:
+        raise ValueError(f"resize_linear: output size {out_h} x {out_w}")
+    out = np.empty((out_h, out_w, C), img.dtype)
+    rc = library().mmt_resize_linear(img.ctypes.data, code, H, W, C, int(out_h), int(out_w),
+                                     out.ctypes.data)
+    if rc:
+        raise ValueError(f"resize_linear: error {rc}")
+    return out[..., 0] if flat else out

@@ -39,6 +39,20 @@ A BatchNorm whose scale and bias live in batch_stats (CvT's frozen
 ConvProj BN: scale, bias, mean, var) is a FrozenBatchNorm2d, without a
 step counter.
 
+Alpha-Refine (`feature_extractor` / `neck` / `refiner` at the top) and a
+bare ResNet (`conv1`, `layer1_0`, ... at the top) have their own renames
+(`_refine_path`, the inverse of the JAX package's
+utils/torch_convert.py:444-532 key maps):
+
+  layer1_0 / down_conv | down_bn      -> layer1.0.downsample.0 | .1
+  spatial_attention / phi | g         -> spatial_attention.phi.0 | .g.0
+  spatial_attention / w_conv | w_bn   -> spatial_attention.W.0 | .W.1
+  channel_attention / fc1 (Dense)     -> channel_attention.fc1 (1x1 conv,
+                                         weight (out, in, 1, 1))
+  TSE_layer5 / reduce0 | transform2   -> TSE.layer5.reduce.0 | .transform.2
+  RRB1_layer4 / bblock1               -> RRB1.layer4.bblock.1
+  CAB_layer3 / convreluconv0          -> CAB.layer3.convreluconv.0
+
 Input leaves are numpy arrays (or anything np.asarray accepts).
 """
 from __future__ import annotations
@@ -281,18 +295,51 @@ def from_jax_variables(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     frozen = {p[:-1] for p, _ in _flatten(variables_np.get("batch_stats", {})) if p[-1] == "scale"}
     sd: Dict[str, torch.Tensor] = {}
     for coll, path, key, arr in _port_leaves(variables_np):
-        sd[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        # a copy: the leaf may be a read-only array
+        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
         if coll == "batch_stats" and path[-1] == "mean" and path[:-1] not in frozen:
             sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
     return sd
 
 
+def _is_refine_tree(variables_np: Dict[str, Any]) -> bool:
+    """Whether a flax tree is an AlphaRefineNet's or a bare ResNet's."""
+    top = variables_np.get("params", {})
+    return "feature_extractor" in top or ("conv1" in top and "layer1_0" in top)
+
+
+_REFINE_RENAMES = {"down_conv": "downsample.0", "down_bn": "downsample.1", "w_conv": "W.0",
+                   "w_bn": "W.1"}
+
+
+def _refine_path(path: Tuple[str, ...]) -> str:
+    """An Alpha-Refine or ResNet module path under the reference's names."""
+    out = []
+    for i, s in enumerate(path):
+        m = re.fullmatch(r"(layer\d)_(\d+)", s) or re.fullmatch(r"(TSE|RRB[12]|CAB)_(layer\d)", s) \
+            or re.fullmatch(r"(reduce|transform|bblock|convreluconv)(\d)", s)
+        if m:
+            out += [m.group(1), m.group(2)]
+        elif s in ("phi", "g") and i and path[i - 1] == "spatial_attention":
+            out += [s, "0"]
+        else:
+            out.append(_REFINE_RENAMES.get(s, s))
+    return ".".join(out)
+
+
 def _port_leaves(variables_np: Dict[str, Any]) -> Iterator[Tuple[str, tuple, str, np.ndarray]]:
     """(collection, flax path, the port's key, array in the port's layout)
     of every leaf of a flax variables tree."""
+    refine = _is_refine_tree(variables_np)
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables_np.get(coll, {})):
+            if refine:
+                name, arr = _leaf(coll, path[-1], np.asarray(leaf))
+                if path[-2:-1] in (("fc1",), ("fc2",)) and arr.ndim == 2:
+                    arr = arr[:, :, None, None]          # the SE's Dense is a 1x1 conv
+                yield coll, path, f"{_refine_path(path[:-1])}.{name}", arr
+                continue
             fpath, leaf = _deform_paths(path, np.asarray(leaf))
             name, arr = _leaf(coll, fpath[-1], leaf)
             mod = _module_path(fpath[:-1]) + (".1" if fpath[-1] in _FROZEN_BN else "")

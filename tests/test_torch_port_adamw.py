@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from multi_modal_tracking_torch.ops import adamw as port_adamw
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SHAPES = ((3, 5), (70_001,), (1,), (64, 4))
 

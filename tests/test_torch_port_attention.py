@@ -16,6 +16,7 @@ import multi_modal_tracking_tpu.ops.attention as A
 
 from multi_modal_tracking_torch.ops import _build
 from multi_modal_tracking_torch.ops.attention import mixed_attention
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # (B, H, Nq, Nk, D, n_mt): the cases of tests/test_pallas_attention.py
 # (N 40, D 16, n_mt 8/16/32, Nk = Nq + 24), plus D 32, n_mt 0 and Nq.

@@ -23,6 +23,7 @@ from multi_modal_tracking_torch.ops.attention import (mixed_attention, mixed_att
                                                       mixed_attention_ref)
 
 from tests.test_torch_port_attention import CASES, _qkv
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL, MAX_DIFFERING = 2.0 ** -7, 1e-5, 0.01
 

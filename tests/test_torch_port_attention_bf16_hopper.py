@@ -42,6 +42,7 @@ from multi_modal_tracking_torch.ops.attention import (BF16_MAX_SPLITS, BF16_TILE
                                                       mixed_attention_ref)
 
 from tests.test_torch_port_attention_bwd import CASES, _inputs
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _shares(n_tiles: int, splits: int):

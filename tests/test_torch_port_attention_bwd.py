@@ -20,6 +20,7 @@ import multi_modal_tracking_tpu.ops.attention as A
 from multi_modal_tracking_torch.ops.attention import (mixed_attention, mixed_attention_bwd,
                                                       mixed_attention_bwd_ref,
                                                       mixed_attention_ref)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # (B, H, Nq, Nk, D, n_mt): the cases of tests/test_torch_port_attention.py:
 # n_mt 0, inside a tile, = Nq; Nq != Nk; D 16 and 32

@@ -34,16 +34,9 @@ from multi_modal_tracking_torch.ops.attention import (mixed_attention, mixed_att
                                                       mixed_attention_lse_ref)
 
 from tests.test_torch_port_attention_bwd import CASES, _inputs
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL_OF_MAX, MAX_DIFFERING = 2.0 ** -7, 2.0 ** -9, 0.01
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bf16(B, H, Nq, Nk, D, seed=0):

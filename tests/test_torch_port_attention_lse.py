@@ -32,6 +32,7 @@ from multi_modal_tracking_torch.ops.attention import (NEG_INF, mixed_attention,
                                                       mixed_attention_bwd, mixed_attention_fwd,
                                                       mixed_attention_lse_ref, mixed_attention_ref,
                                                       query_warps)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the cases of tests/test_torch_port_attention.py
 CASES = [

@@ -25,6 +25,7 @@ from multi_modal_tracking_torch.tracking import batched as port_batched
 from multi_modal_tracking_torch.tracking import tracker as port_tracker
 
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 96, 128
 KW = dict(template_factor=2.0, template_size=T_SZ, search_factor=4.5, search_size=S_SZ,
@@ -35,17 +36,6 @@ BOXES0 = np.asarray([[40.0, 30, 30, 24], [50.0, 20, 24, 30], [30.0, 40, 20, 20]]
 @pytest.fixture(scope="module")
 def pair():
     return _pair(GEOM, 31)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """The tiny model runs as many small operations: one intra-op thread,
-    so that parallel test workers do not oversubscribe the cores (with a
-    thread pool per worker a small operation waits on the others)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _seq_frames(n, seed):

@@ -5,6 +5,7 @@ a stale one is never loaded. Nothing is compiled here."""
 import os
 
 from multi_modal_tracking_torch.ops import _build
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _write(path, text):

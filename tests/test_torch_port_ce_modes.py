@@ -25,6 +25,7 @@ from multi_modal_tracking_torch.models import asymmetric_shared as port_as
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 
 from tests.test_torch_port_model import GEOM, _randomise
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 T_SZ, S_SZ = 128, 176
 CE_GEOM = dict(GEOM, template_size=T_SZ, depth=2, ce_loc=(0, 1), fusion_layers=1)

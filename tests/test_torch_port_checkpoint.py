@@ -39,6 +39,7 @@ from multi_modal_tracking_torch.utils import flax_msgpack
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 from tests.test_torch_port_model import (ATOL, GEOM, _inputs, _jax_full, _pair, _port_full,
                                          _randomise)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,6 @@ param_dtype=float32:
 """
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from torch import nn
 
@@ -23,16 +22,9 @@ from multi_modal_tracking_torch.models import layers
 from multi_modal_tracking_torch.utils.checkpoint import cast_floating
 from multi_modal_tracking_torch.utils.device import set_precision
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 BF16 = torch.bfloat16
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _x(*shape, seed=0):

@@ -35,9 +35,10 @@ from multi_modal_tracking_torch.utils.convert import from_jax_variables
 from tests.test_torch_port_cvt import (_close, _cfg, _images, _jax_count, _jax_groups, _t,
                                        full_width_matches_jax, jax_cached, jax_variables,
                                        step_matches_jax)
-from tests.test_torch_port_cvt import _one_thread_highest  # noqa: F401 (autouse fixture)
+from tests.test_torch_port_cvt import _jax_highest  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_unimodal import KW, S_SZ, T_SZ, _frames, _sequences, _with_bias
 from tests.test_torch_port_unimodal_train import argparse_namespace
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-4
 TINY = dict(search_size=S_SZ, template_size=T_SZ, embed_dim=(32, 48, 64), depth=(1, 1, 2),

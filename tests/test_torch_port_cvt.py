@@ -54,6 +54,7 @@ from tests.test_torch_port_model import _randomise
 from tests.test_torch_port_unimodal import KW, S_SZ, T_SZ, _frames, _sequences, _with_bias
 from tests.test_torch_port_unimodal_train import (_assert_clipped_grads_close, _batch,
                                                   argparse_namespace)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-4
@@ -65,12 +66,10 @@ RECIPES = {"mixformer_cvt": ("baseline", "baseline_1k", "baseline_got", "baselin
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _one_thread_highest():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def _jax_highest():
+    """f32 matmuls in JAX."""
     with jax.default_matmul_precision("highest"):
         yield
-    torch.set_num_threads(n)
 
 
 def _cfg(get, script, recipe="baseline"):

@@ -42,8 +42,8 @@ from multi_modal_tracking_torch.ops.crop import _crop_window
 from multi_modal_tracking_torch.tracking import batched, tracker
 from multi_modal_tracking_torch.train.data.datasets import synthetic
 
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 KW = dict(template_factor=2.0, template_size=T_SZ, search_factor=4.5, search_size=S_SZ,
           update_interval=3)

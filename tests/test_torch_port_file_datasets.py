@@ -49,9 +49,9 @@ from multi_modal_tracking_torch.utils import lmdb_utils as port_lmdb
 from tests.test_dataset_adapters import roots  # noqa: F401 (fixture)
 from tests.test_eval_dataset_layouts import data_root  # noqa: F401 (fixture)
 from tests.test_lmdb_datasets import _FakeEnv, _jpg
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_eval import KW, _jax_float_trajectories
 from tests.test_torch_port_model import GEOM, _pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 EVAL_SETS = ["lasher", "rgbt234", "gtot", "vtuav", "vtuav_short", "vtuav_long", "vtuav_train",
              "depthtrack", "lasot", "got10k_test", "got10k_val", "got10k_ltrval",

@@ -36,9 +36,9 @@ from multi_modal_tracking_torch.models.build import init_random
 from multi_modal_tracking_torch.parallel.mesh import shard_dim
 from multi_modal_tracking_torch.train.trainer import Trainer
 from multi_modal_tracking_torch.utils import checkpoint as port_ckpt
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ
 from tests.test_torch_port_parallel import SCRIPT, run_cfg, spawn, tiny_inputs
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MIN_SIZE = 64          # tests/test_fsdp.py's, so that most leaves are sharded
 

@@ -31,6 +31,7 @@ from multi_modal_tracking_torch.models.build import init_random
 from multi_modal_tracking_torch.models.fusion import FUSION_CLASSES, build_fusion
 from multi_modal_tracking_torch.ops.deform_conv import modulated_deform_conv2d
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 C, D_MODEL, LAYERS, HW = 64, 32, 2, 6
 ATOL = 1e-4
@@ -38,13 +39,10 @@ CONV_CLASSES = ("RGBT_Fusion_1", "RGBT_Fusion_2", "RGBT_Fusion_3", "RGBT_Fusion_
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _one_thread_highest():
-    """One intra-op thread (parallel test workers), f32 matmuls in JAX."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def _jax_highest():
+    """f32 matmuls in JAX."""
     with jax.default_matmul_precision("highest"):
         yield
-    torch.set_num_threads(n)
 
 
 def randomise_port(module: torch.nn.Module, seed: int) -> torch.nn.Module:

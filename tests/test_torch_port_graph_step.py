@@ -32,8 +32,8 @@ from multi_modal_tracking_torch.tracking import tracker as port_tracker
 from multi_modal_tracking_torch.tracking.graphs import OpLog
 from multi_modal_tracking_torch.utils.checkpoint import cast_floating
 
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 96, 128
 N_FRAMES = 7                        # frame 0 initialises; updates at 3 and 6

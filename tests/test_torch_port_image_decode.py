@@ -32,6 +32,7 @@ import pytest
 
 from multi_modal_tracking_tpu import native as jax_native
 from multi_modal_tracking_torch import native
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_images")
 SAMPLING = {"444": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,

@@ -15,6 +15,7 @@ import sys
 
 import pytest
 import torch
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "multi_modal_tracking_torch")
@@ -100,6 +101,14 @@ def test_import_leaves_jax_unloaded():
             "native.imread('tests/torch_port_images/1x1.jpg')\n"
             "native.imread('tests/torch_port_images/palette.png')\n"
             "from multi_modal_tracking_torch.eval.evaltracker import create_tracker\n"
+            "import multi_modal_tracking_torch.eval.vot, "
+            "multi_modal_tracking_torch.eval.trax_wire\n"
+            "import multi_modal_tracking_torch.models.alpha_refine as ar, "
+            "multi_modal_tracking_torch.models.resnet, multi_modal_tracking_torch.train.refine, "
+            "multi_modal_tracking_torch.train.losses\n"
+            "import numpy as np\n"
+            "ar.sample_target_se(np.zeros((20, 30, 3), np.uint8), (5, 5, 8, 6), 2.0, "
+            "16)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'multi_modal_tracking_tpu', 'cv2', 'msgpack')]\n"
             "print(bad)\n"
@@ -126,6 +135,33 @@ def test_eval_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(["asymmetric_shared_ce", "attention_lasher_newfusion_2layer",
                   "--sequence", "synthetic_00"])
+
+
+def test_vot_and_refine_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The VOT command line (before it reads a request), the three entries,
+    ARcmSeg, build_alpha_refine and the refine trainer and its command
+    line."""
+    from multi_modal_tracking_torch.eval import vot
+    from multi_modal_tracking_torch.models.alpha_refine import ARcmSeg, build_alpha_refine
+    from multi_modal_tracking_torch.train import refine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class Server:                       # any read of a request fails the test
+        def wait(self):
+            raise AssertionError("read a request before checking the device")
+
+    for entry in ("mask", "lt", "rgbd"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            vot.main([entry])
+    for run in (vot.run_vot20_mask_exp, vot.run_vot20_lt_exp, vot.run_vot_exp):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run("mixformer_vit", "baseline", server=Server())
+    for build in (ARcmSeg, build_alpha_refine, refine.build_refine_trainer):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        refine.main(["--epochs", "1", "--samples_per_epoch", "1", "--batch_size", "1"])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

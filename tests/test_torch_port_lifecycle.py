@@ -62,6 +62,7 @@ from tests.test_torch_port_tracker import _frames
 from tests.test_torch_port_train_data import _cfg as _data_cfg
 from tests.test_torch_port_train_step import _batch, _jax_grads, assert_grads_close
 from tests.test_torch_port_trainer import RECIPE, TINY, _cfg
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SCRIPT = "asymmetric_shared_ce"
 

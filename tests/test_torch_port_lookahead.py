@@ -21,14 +21,7 @@ from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
 from multi_modal_tracking_torch.train.train_step import input_buffers, model_inputs
 from multi_modal_tracking_torch.train.trainer import Trainer
 from tests.test_torch_port_trainer import TINY, _cfg
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _trainer(tmp_path, seed=0):

@@ -26,6 +26,7 @@ from multi_modal_tracking_tpu.utils.torch_convert import convert_state_dict
 
 from multi_modal_tracking_torch.models import asymmetric_shared as port_as
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 T_SZ, S_SZ = 112, 176
 ATOL = 2e-5

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from multi_modal_tracking_tpu.ops import msda as jax_msda
 
 from multi_modal_tracking_torch.ops.msda import ms_deform_attn
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # (B, M, D, P, spatial_shapes, Lq, loc range)
 CASES = [

@@ -24,6 +24,7 @@ from multi_modal_tracking_torch.ops.msda import (SMEM_MAX, ms_deform_attn, ms_de
                                                  ms_deform_attn_ref, msda_plan, tap_fwd_smem)
 
 from tests.test_torch_port_msda import _inputs
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL, MAX_DIFFERING = 2.0 ** -7, 1e-5, 0.01
 

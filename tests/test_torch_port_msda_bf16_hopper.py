@@ -42,19 +42,12 @@ from multi_modal_tracking_torch.ops.msda import (SMEM_MAX, TAP_BWD_MAX_BLOCKS, T
                                                  tap_fwd_smem)
 
 from tests.test_torch_port_msda_bf16 import CASES, _bf16_case
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 MAX_DIFFERING = 0.01
 IDS = ["recipe", "equal", "mixed", "mixed_oob", "one_level"]
 H100_SMS = 132
 RECIPE = ((18, 18), (18, 18))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bf16(x):

@@ -22,6 +22,7 @@ from multi_modal_tracking_tpu.ops import msda as jax_msda
 
 from multi_modal_tracking_torch.ops.msda import (ms_deform_attn, ms_deform_attn_bwd,
                                                  ms_deform_attn_bwd_ref, ms_deform_attn_ref)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # (B, M, D, P, spatial_shapes, Lq, loc range, share of locations on pixel centres)
 CASES = [

@@ -40,16 +40,9 @@ from multi_modal_tracking_torch.ops.msda import (SMEM_MAX, TAP_BWD_SMEM, ms_defo
                                                  ms_deform_attn_bwd_ref, msda_plan)
 
 from tests.test_torch_port_msda_bwd import CASES, IDS, _inputs
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RTOL, ATOL_OF_MAX, MAX_DIFFERING = 2.0 ** -7, 2.0 ** -9, 0.01
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bf16_case(case, seed):

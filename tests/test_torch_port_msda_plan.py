@@ -12,6 +12,7 @@ import pytest
 from multi_modal_tracking_torch.ops import _build
 from multi_modal_tracking_torch.ops.msda import (BWD_TABLE_BYTES, FWD_TABLE_BYTES, SMEM_MAX,
                                                  msda_plan)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H100_SMS = 132
 RECIPE = ((18, 18), (18, 18))      # the fusion's two modal 18x18 maps

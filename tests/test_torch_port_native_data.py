@@ -45,6 +45,7 @@ from multi_modal_tracking_torch.train.data import processing as port_pr
 from multi_modal_tracking_torch.train.data import processing_utils as port_pu
 from multi_modal_tracking_torch.train.data import transforms as port_tf
 from tests.test_torch_port_train_data import RECIPE, _logged
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -26,9 +26,9 @@ from multi_modal_tracking_torch.eval.data import RGBTSequence
 from multi_modal_tracking_torch.tracking import batched, tracker
 from multi_modal_tracking_torch.tracking.graphs import leaves
 
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import S_SZ, T_SZ
 from tests.test_torch_port_spm import score_pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 240, 320
 N_FRAMES = 8

@@ -18,6 +18,7 @@ from multi_modal_tracking_torch.eval import params as port_params
 from multi_modal_tracking_torch.ops import boxes, crop, pos_embed
 from multi_modal_tracking_torch.ops.colormap import apply_jet
 from multi_modal_tracking_torch.tracking import tracker as port_tracker
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def test_apply_jet_bit_exact_all_256_values():

@@ -46,6 +46,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -70,11 +71,11 @@ from multi_modal_tracking_torch.train import optimizer as port_opt
 from multi_modal_tracking_torch.train import train_step as port_ts
 from multi_modal_tracking_torch.train.data.transforms import IMAGENET_STD
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _randomise
 from tests.test_torch_port_train_data import _cfg as _data_cfg
 from tests.test_torch_port_train_step import RECIPE, _batch, _jax_grads, assert_grads_close
 from tests.test_torch_port_trainer import TINY, _cfg as _trainer_cfg
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_parallel_worker.py")
 SCRIPT = "asymmetric_shared_ce"
@@ -84,21 +85,36 @@ WORLD = 2
 _LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
-def spawn(case: str, workdir, world: int = WORLD, timeout: float = 600.0) -> list:
-    """Run the worker's `case` on `world` gloo processes; their results."""
+def spawn(case: str, workdir, world: int = WORLD, timeout: float = 240.0) -> list:
+    """Run the worker's `case` on `world` gloo processes; their results.
+    Fails fast: as soon as one rank exits with an error the others (which
+    would wait on it in a rendezvous or a collective) are killed, and all
+    are killed at `timeout` seconds."""
     env = {k: v for k, v in os.environ.items() if k not in _LAUNCH_ENV}
     env.update(OMP_NUM_THREADS="1", PYTHONPATH=os.path.dirname(os.path.dirname(WORKER)))
+    logs = [open(os.path.join(workdir, f"{case}_{r}.log"), "w+b") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, WORKER, case, str(r), str(world), str(workdir)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
+                              stdout=logs[r], stderr=subprocess.STDOUT, env=env)
              for r in range(world)]
+    deadline = time.monotonic() + timeout
     try:
-        logs = [p.communicate(timeout=timeout)[0].decode(errors="replace") for p in procs]
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
+                p.wait()
+    text = []
+    for f in logs:
+        f.seek(0)
+        text.append(f.read().decode(errors="replace"))
+        f.close()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, (f"rank {r} exited {p.returncode} (killed: another rank "
+                                   f"failed or {timeout:.0f} s passed):\n{text[r][-6000:]}")
     return [torch.load(os.path.join(workdir, f"{case}_{r}.pt"), weights_only=False)
             for r in range(world)]
 

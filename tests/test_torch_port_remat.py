@@ -34,9 +34,9 @@ from multi_modal_tracking_torch.models import asymmetric_shared as port_as
 from multi_modal_tracking_torch.models.layers import set_generator
 from multi_modal_tracking_torch.train.losses import box_losses
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import _randomise
 from tests.test_torch_port_train_step import assert_grads_close
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SPEC = dict(search_size=64, template_size=32, embed_dim=64, depth=3, num_heads=2,
             head_dim=64, fusion_layers=1, ce_loc=(1,), ce_keep_ratio=(0.7,))

@@ -25,8 +25,8 @@ from multi_modal_tracking_tpu.ops import crop as jax_crop
 from multi_modal_tracking_torch.ops.crop import crop_resize, crop_resize_window
 from multi_modal_tracking_torch.tracking.tracker import RGBTCachedTracker
 
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 120, 160
 OUT = 48

@@ -31,6 +31,7 @@ from multi_modal_tracking_torch.train.losses import score_loss
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 
 from tests.test_torch_port_model import NO_CE, S_SZ, T_SZ, _inputs, _randomise
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SCORE_ATOL = 1e-4
 BOX_ATOL = 2e-5

@@ -19,6 +19,7 @@ from multi_modal_tracking_tpu.tracking import tracker as jax_tracker
 from multi_modal_tracking_torch.tracking import tracker as port_tracker
 
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 H, W = 240, 320
 N_FRAMES = 6

@@ -41,6 +41,7 @@ from multi_modal_tracking_torch.utils.checkpoint import cast_floating
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 
 from tests.test_torch_port_model import GEOM, _randomise
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 BOX_TOL = 5e-2          # tests/test_bf16_eval.py:49
 CENTRE_PX_TOL = 10.0    # tests/test_bf16_eval.py:78

@@ -24,6 +24,7 @@ from multi_modal_tracking_torch.train import builders
 from multi_modal_tracking_torch.train.data import loader as port_loader
 from multi_modal_tracking_torch.train.data import processing_utils as port_pu
 from multi_modal_tracking_torch.train.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RECIPE = "experiments/asymmetric_shared_ce/attention_lasher_newfusion_2layer.yaml"
 

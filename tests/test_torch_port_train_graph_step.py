@@ -40,8 +40,8 @@ from multi_modal_tracking_torch.train import optimizer as port_opt
 from multi_modal_tracking_torch.train import train_step as port_ts
 from multi_modal_tracking_torch.train.losses import box_losses
 
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_trainer import TINY, _cfg
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SCRIPT = "asymmetric_shared_ce"
 B = 1

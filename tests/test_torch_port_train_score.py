@@ -47,9 +47,9 @@ from multi_modal_tracking_torch.train import optimizer as port_opt
 from multi_modal_tracking_torch.train import train_step as port_ts
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import S_SZ, T_SZ
 from tests.test_torch_port_spm import score_pair
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SCRIPT = "asymmetric_shared_online"
 RECIPE = f"experiments/{SCRIPT}/attention_lasher_newfusion_2layer.yaml"

@@ -69,6 +69,7 @@ from multi_modal_tracking_torch.train import train_step as port_ts
 from multi_modal_tracking_torch.train.losses import box_losses
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _randomise
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RECIPE = "experiments/asymmetric_shared_ce/attention_lasher_newfusion_2layer.yaml"
 B = 2

@@ -50,6 +50,7 @@ from multi_modal_tracking_torch.train.losses import box_losses
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 from tests.test_torch_port_model import GEOM, S_SZ, T_SZ, _randomise
 from tests.test_torch_port_train_step import _batch, _flagship_cfgs, _jax_grads
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 #: the f32 plain versions, which the bf16 path must not reach
 F32_OPS = {"multi_modal_tracking_torch.ops.attention": (
@@ -57,14 +58,6 @@ F32_OPS = {"multi_modal_tracking_torch.ops.attention": (
     "mixed_attention_fwd", "mixed_attention_bwd"),
     "multi_modal_tracking_torch.ops.msda": (
     "ms_deform_attn_ref", "ms_deform_attn_bwd_ref", "ms_deform_attn_fwd", "ms_deform_attn_bwd")}
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -14,6 +14,7 @@ from multi_modal_tracking_tpu.train.trainer import Trainer as JaxTrainer
 
 from multi_modal_tracking_torch.config import get_default_config
 from multi_modal_tracking_torch.train.trainer import Trainer
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 RECIPE = "experiments/asymmetric_shared_ce/attention_lasher_newfusion_2layer.yaml"
 TINY = dict(embed_dim=64, depth=4, num_heads=4, head_dim=64, ce_loc=(1, 3),

@@ -75,9 +75,9 @@ from multi_modal_tracking_torch.train.data.transforms import IMAGENET_MEAN, IMAG
 from multi_modal_tracking_torch.utils.checkpoint import load_variables
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 
-from tests.test_torch_port_batched import one_thread  # noqa: F401 (autouse fixture)
 from tests.test_torch_port_model import _randomise
 from tests.test_torch_port_unimodal import S_SZ, T_SZ, TINY
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B = 2

@@ -53,6 +53,7 @@ from multi_modal_tracking_torch.utils.checkpoint import load_variables
 from multi_modal_tracking_torch.utils.convert import from_jax_variables
 from tests.test_torch_port_fusion_zoo import randomise_port
 from tests.test_torch_port_train_step import assert_grads_close
+from tests.torch_port_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T_SZ, S_SZ = 32, 64
@@ -77,12 +78,10 @@ KW = dict(template_factor=2.0, template_size=T_SZ, search_factor=4.5, search_siz
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _one_thread_highest():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def _jax_highest():
+    """f32 matmuls in JAX."""
     with jax.default_matmul_precision("highest"):
         yield
-    torch.set_num_threads(n)
 
 
 def _geom(script, **kw):
