@@ -226,7 +226,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 asymmetric_shared with RGBT_Fusion_Cat and two-stream with
                 the SPM. Each: the f32 forward on the card against the CPU
                 (1e-4); create_tracker's tracker (full forward for the ViT
-                family) at f32 and bf16 on the 63 frames, graphed against
+                family) at f32 and bf16 on the 63 frames (27 but for the
+                online one, CACHED_TRACK), graphed against
                 eager bit for bit, ms per frame, busy, idle, pool bytes; 3
                 bf16 batch-16 Trainer steps graphed against eager bit for
                 bit (BN statistics included), ms per step, busy, idle,
@@ -243,8 +244,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 CORNER_UP, 128/288, search factor 4.5): the f32 forward and
                 cached path on the card against the CPU (BOX_TOL);
                 create_tracker's RGBCachedTracker in RGB, TIR and Prompt,
-                f32 and bf16, on the 63 frames at update interval 25, graphed
-                against eager bit for bit, no hand-written kernel launched
+                f32 and bf16, on 27 of the 63 frames (CACHED_TRACK) at update
+                interval 25, graphed against eager bit for bit, no
+                hand-written kernel launched
                 (the cached path's attention is plain), 10 frames profiled;
                 the f32 cached tracker against the full-forward RGBTracker
                 (K1) within UNI_CACHED_PX; 3 Trainer steps at batch 32 on
@@ -285,8 +287,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 f32 forward and cached path on the card against the CPU
                 (BOX_TOL); the cached tracker against the full-forward one,
                 both through the plain attention, within CVT_CACHED_PX over
-                the 63 frames; OnlineTracker, its score bias centred, f32 and
-                bf16, graphed against eager bit for bit, the ring's commits,
+                CACHED_TRACK - 1 frames; OnlineTracker, its score bias
+                centred, f32 and bf16, graphed against eager bit for bit,
+                the ring's commits,
                 10 frames profiled with the plain attention's share of the
                 bf16 frames' busy time; stage 2 at batch 32 bf16 graphed
                 against eager. mixformer_cvt/baseline (CvT-21): 3 bf16
@@ -294,10 +297,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 as the unimodal f32 step. No CvT path launches a
                 hand-written attention kernel (a count of 0, required).
                 mixformer_convmae/baseline (ConvMAE-B, CORNER_UP, 128 /
-                288): GPU against CPU; RGBCachedTracker f32 and bf16 graphed
-                against eager, against the full-forward RGBTracker (K1)
-                within UNI_CACHED_PX; 3 steps at batch 32, bf16 bit for bit
-                (K1-bf16, K2-bf16) and f32 (K1, K2).
+                288): GPU against CPU; RGBCachedTracker f32 and bf16 on
+                CACHED_TRACK - 1 frames graphed against eager, against the
+                full-forward RGBTracker (K1) within UNI_CACHED_PX; 3 steps
+                at batch 32, bf16 bit for bit (K1-bf16, K2-bf16) and f32
+                (K1, K2).
                 mixformer_convmae_online/baseline: the online tracker bf16,
                 stage 2 at batch 32. (The large recipes, CvT-24 and
                 ConvMAE-L, run alone since PR 19: `python3 chip_smoke.py
@@ -387,6 +391,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 Pallas kernel in the JAX package either).
                 `python3 chip_smoke.py vot` runs the device and build phases
                 and this phase alone.
+ 21. classic  - the classic trackers (phase_classic), full width, random
+                weights from seed 0, on a synthetic 480 x 640 RGB sequence
+                of CLASSIC_FRAMES frames (an 80 x 80 textured two-colour
+                target moving 6, 4 px a frame): ECO conv1+layer3 (crop
+                224, ECO_AUGMENTATION, 10 GN x 10 CG at init), ATOM
+                (ResNet-18, crop 288, IoU refinement), DiMP-18 and DiMP-50
+                (crop 288, refinement). Each: init ms (the first in the
+                process and a second one), ms a frame on the host clock
+                (frames CLASSIC_TIMED, warm), the later frames
+                under torch.profiler (device busy ms and operations a
+                frame, idle share), peak memory, the filter refreshes
+                (an ECO _learn and a periodic ATOM update are required),
+                the flags, the centre error; the hand-written kernels'
+                launches, which must be 0 (the JAX package runs these
+                trackers in XLA; the port in plain PyTorch). ECO and DiMP-50
+                on the card against the CPU with the same weights and the
+                same draws over CLASSIC_CPU_FRAMES frames: the init
+                filter's response to the init samples within
+                CLASSIC_RESPONSE of its largest magnitude, every box within
+                CLASSIC_PX (DiMP-50's frames from the GPU tracker's state,
+                CLASSIC_SYNCED, after a free run printed with the IoU
+                refinement's top-k picks); DiMP-50's card init filter
+                within CLASSIC_SDGN_F64 of the same steps in f64.
+                `python -m multi_modal_tracking_torch.classic.run
+                dimp --dataset_name synthetic_rgb --sequence synthetic_00
+                --params arch=resnet50` as a child process (started after
+                the timed runs), its result file byte for byte an
+                in-process run_dataset's; the phase's seconds by part. `python3
+                chip_smoke.py classic` runs the device and build phases and
+                this phase alone.
 Then a line of each phase's seconds (the whole script only), the kernel
 table line (launches by path: tracker, graphs, train,
 eval, online, stage2, families, unimodal, cvt_convmae, files, parallel
@@ -398,7 +432,8 @@ train bf16, lifecycle, both stage-2 runs, families bf16, both unimodal
 runs, both cvt_convmae runs, files bf16 and the four parallel training
 runs for AdamW; the unimodal phase's RGB-T ViT-L counts under families
 bf16; vot_bf16 for the forward bf16 kernels (the in-process rgbd run) and
-vot for AdamW (the refine steps)) and, last, {"ok": true, "device": {...}}.
+vot for AdamW (the refine steps); classic, 0 for every kernel) and, last,
+{"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py drift` runs the device and build phases and, alone,
 the spread study behind the drift check of phase 16 (`phase_drift`): the
@@ -453,6 +488,18 @@ cuBLAS and cuDNN):
   * model boxes (normalised to [0, 1]): 1e-4, i.e. 0.03 px at 288. The paths
     compared use other key orders, GEMM shapes and CPU vs GPU kernels
     through 12 blocks, 2 fusion layers and the head.
+  * classic trackers, GPU vs CPU (classic phase): boxes 0.05 px over
+    CLASSIC_CPU_FRAMES frames; the init filter's response to the init
+    samples 1e-3 (ECO) and 2e-2 (DiMP-50) of its largest magnitude. The
+    CPU tests hold the port to JAX at 1e-2 px on the same kind of path;
+    cuDNN and the CPU sum the ResNets' and ECO's FFT products in other
+    orders. DiMP-50's learned SD-GN steps are rounding-sensitive on random
+    weights at crop 288 (the line's sdgn_f32_vs_f64: each side's f32 init
+    filter against an f64 run of the same steps; the card's is held to
+    CLASSIC_SDGN_F64, 1e-3, the CPU's lies near 5e-3 with oneDNN on or
+    off) and a pick of its IoU refinement's top 3 then differs by frame
+    3 (the line's free_run), so its frames start from the GPU tracker's
+    state (CLASSIC_SYNCED); ECO runs free.
   * Alpha-Refine f32, GPU vs CPU at 384 (vot phase): the reference kernel
     and the mask logits within 1e-4 of their largest magnitude (ResNet-50's
     sums in cuDNN's and the CPU's orders, TF32 off). The refine step, GPU
@@ -525,6 +572,13 @@ HARD_FRAMES = 28
 #: ConvMAE-L in `chip_smoke.py large`) track graphed against eager: 12 of
 #: 63, a depth cut for the script's time limit
 LARGE_TRACK = 13
+#: frames of the 64 the trackers without a score branch (the RGB-T
+#: families but the online one, mixformer_vit's three modes, ConvMAE-B's
+#: cached tracker, and the cached-against-full comparisons) track graphed
+#: against eager: 27 of 63, two past the template update at frame 25; a
+#: depth cut for the script's time limit (the online trackers keep 63:
+#: their ring fills at frames 25 and 50)
+CACHED_TRACK = 28
 EVAL_PX_TOL = 0.05                 # batched vs sequential trajectories, px
 M_HEADS, M_D, M_L, M_P = 8, 64, 2, 4
 # device kernel names of the bf16 attention kernels (csrc/mixed_attention_bf16.cu,
@@ -545,6 +599,52 @@ def emit(obj) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+INIT_MEMO = 6                      # seeded inits build_model's init_random keeps (memo_init_random)
+
+
+def _init_key(model, seed: int) -> tuple:
+    """What models/build.py init_random's draws depend on: the seed, and
+    the module tree in order, each module with its type, its scalar
+    settings (n_heads, n_points, ...: MSDA's grid bias reads them) and its
+    own parameters' shapes."""
+    plain = (bool, int, float, str, type(None))
+    return (seed, tuple(
+        (name, type(m).__name__,
+         tuple(sorted((k, v) for k, v in vars(m).items() if isinstance(v, plain)
+                      or (isinstance(v, tuple) and all(isinstance(x, plain) for x in v)))),
+         tuple((n, tuple(p.shape)) for n, p in m.named_parameters(recurse=False)))
+        for name, m in model.named_modules()))
+
+
+def memo_init_random() -> None:
+    """Remember build_model's seeded random init (models/build.py
+    init_random) by `_init_key`: the script builds the same seeded model
+    many times (f32 and bf16 trackers, twins, trainers, GPU-vs-CPU copies),
+    and drawing a full-width model's weights from a CPU generator costs
+    seconds of host time each. A repeat copies the first build's values,
+    which are the ones init_random would draw again; INIT_MEMO inits are
+    kept, the least recently used dropped."""
+    import collections
+    import multi_modal_tracking_torch.models.build as build
+    plain, memo = build.init_random, collections.OrderedDict()
+
+    @torch.no_grad()
+    def init_random(model, seed: int):
+        key = _init_key(model, seed)
+        if key in memo:
+            memo.move_to_end(key)
+            for n, p in model.named_parameters():
+                p.copy_(memo[key][n])
+            return model
+        plain(model, seed)
+        memo[key] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        while len(memo) > INIT_MEMO:
+            memo.popitem(last=False)
+        return model
+
+    build.init_random = init_random
 
 
 def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -4768,7 +4868,9 @@ def phase_families(smi: str, frames, save_dir: str) -> dict:
             else params.cfg.MODEL.FUSION_LAYERS
         res = {}
         for dtype, total in ((torch.float32, f32), (torch.bfloat16, bf16)):
-            line, tracker = _family_tracking(params, dtype, frames, layers, blocks)
+            line, tracker = _family_tracking(
+                params, dtype, frames, layers, blocks,
+                n_track=64 if label.endswith("online") else CACHED_TRACK)
             _add_launches(total, line["launches"], TRACK_KERNEL_NAMES[dtype])
             _add_launches(total, line["profile"]["launches"], TRACK_KERNEL_NAMES[dtype])
             if dtype == torch.float32:
@@ -4805,7 +4907,7 @@ UNI_SCRIPT, UNI_ONLINE = "mixformer_vit", "mixformer_vit_online"
 UNI_B, UNI_LARGE_B = 32, 12        # the recipes' batches (ViT-B, ViT-L)
 UNI_STEPS = 3                      # bf16 training steps, graphed then eager
 MODES = ("RGB", "TIR", "Prompt")
-#: cached tracker against the full forward over the 63 frames (px): the
+#: cached tracker against the full forward over CACHED_TRACK - 1 frames (px): the
 #: cached path attends through the plain f32 einsum, the full forward
 #: through K1 (3xTF32), so each frame's box differs by rounding (~1e-5 of
 #: the 288 px crop), and the chaotic random-weight trajectory may carry it
@@ -5337,7 +5439,8 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
         base = None             # create_tracker's for RGB; the other modes on its model
         for mode in MODES:
             line, tracker, first = _uni_tracking(params, dtype, mode, frames, base=base,
-                                                 attend=dtype == torch.bfloat16 and mode == "RGB")
+                                                 attend=dtype == torch.bfloat16 and mode == "RGB",
+                                                 n_track=CACHED_TRACK)
             base = base or tracker
             _add_launches(totals[dtype], line["launches"], totals[dtype])
             require(line["tracker"] == "RGBCachedTracker"
@@ -5352,10 +5455,10 @@ def phase_unimodal(smi: str, frames, save_dir: str) -> dict:
                 full = RGBTracker(tracker.model, **{k: getattr(tracker, k) for k in (
                     "template_factor", "template_size", "search_factor", "search_size",
                     "update_interval", "mode")})
-                fr = _family_run(full, frames[:64])
+                fr = _family_run(full, frames[:CACHED_TRACK])
                 _add_launches(f32, fr["launches"], f32)
                 d = float(np.abs(fr["boxes"] - first["boxes"]).max())
-                require(fr["launches"]["K1"] == 12 * 63 and d <= UNI_CACHED_PX,
+                require(fr["launches"]["K1"] == 12 * (CACHED_TRACK - 1) and d <= UNI_CACHED_PX,
                         f"{UNI_SCRIPT}: cached vs full forward {d} px (bound {UNI_CACHED_PX}), "
                         f"full-forward launches {fr['launches']}")
                 res["cached_vs_full"] = dict(max_abs_px=d, bound_px=UNI_CACHED_PX,
@@ -5508,18 +5611,18 @@ def _no_attention_kernels(line: dict, what: str) -> None:
 
 def _cached_vs_full(t, frames, bound: float, k1_per_frame: int) -> tuple:
     """RGBCachedTracker against the full-forward RGBTracker on `t`'s model
-    and settings over the 63 frames (f32, graphed): the largest box
+    and settings over CACHED_TRACK - 1 frames (f32, graphed): the largest box
     difference within `bound`, the full forward's K1 launches
     `k1_per_frame` a frame and the cached path's none. Returns (line, the
     full forward's launches)."""
     from multi_modal_tracking_torch.tracking.tracker import RGBCachedTracker, RGBTracker
     kw = {k: getattr(t, k) for k in ("template_factor", "template_size", "search_factor",
                                      "search_size", "update_interval", "mode")}
-    runs = {cls.__name__: _family_run(cls(t.model, **kw), frames[:64])
+    runs = {cls.__name__: _family_run(cls(t.model, **kw), frames[:CACHED_TRACK])
             for cls in (RGBCachedTracker, RGBTracker)}
     cached, full = runs["RGBCachedTracker"], runs["RGBTracker"]
     d = float(np.abs(full["boxes"] - cached["boxes"]).max())
-    require(d <= bound and full["launches"]["K1"] == k1_per_frame * 63
+    require(d <= bound and full["launches"]["K1"] == k1_per_frame * (CACHED_TRACK - 1)
             and not any(cached["launches"][k] for k in F32_KERNELS),
             f"{t.model.__class__.__name__}: cached vs full forward {d} px (bound {bound}), "
             f"launches full {full['launches']} cached {cached['launches']}")
@@ -5597,7 +5700,7 @@ def phase_cvt_convmae(smi: str, frames, save_dir: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         label = "f32" if dtype == torch.float32 else "bf16"
         line, tracker, _ = _uni_tracking(params, dtype, "RGB", frames,
-                                         attend=dtype == torch.bfloat16)
+                                         attend=dtype == torch.bfloat16, n_track=CACHED_TRACK)
         _no_attention_kernels(line, f"{CM} {label}")
         require(line["tracker"] == "RGBCachedTracker", f"{CM}: {line['tracker']}")
         if "attend" in line["profile"]:
@@ -6784,19 +6887,343 @@ def _phase_vot_body(smi, t_phase, total, colour, depth, region, transcripts, chi
           "seconds": time.perf_counter() - t_phase})
     return total
 
+CLASSIC_FRAMES = 24                # frames of the classic phase's 480 x 640 sequence
+CLASSIC_CPU_FRAMES = 4             # frames ECO and DiMP-50 run on the card and on the CPU
+CLASSIC_TIMED = (4, 18)            # frames timed on the host clock; the rest after it profiled
+#: GPU vs CPU bounds: boxes (px) and the init filter's response to the
+#: init samples (of its largest magnitude). ECO runs free over the frames.
+#: DiMP-50's learned SD-GN optimizer is rounding-sensitive on random
+#: weights (its f32 filter lay 4.7e-3 from the f64 one on an H100
+#: machine's host CPU, with oneDNN on and off, 1.6e-4 on the card: the
+#: line's sdgn_f32_vs_f64); run free, the boxes then part by 0.02 to 0.05
+#: px and the third of the IoU refinement's top-3 picks differs at frame
+#: 3 (4.66 px apart): its frames are compared from the GPU tracker's
+#: state, copied to the CPU one before each frame
+CLASSIC_PX = {"eco": 0.05, "dimp50": 0.05}
+CLASSIC_RESPONSE = {"eco": 1e-3, "dimp50": 2e-2}
+CLASSIC_SYNCED = ("dimp50",)
+#: DiMP-50: the card's f32 init filter against the same learned init steps
+#: in f64 on its init samples (of the f64 filter's largest entry)
+CLASSIC_SDGN_F64 = 1e-3
+#: the four trackers at their reference parameters (random weights from
+#: seed 0), and how each refreshes its filter: the method and the keyword
+#: a hard-negative refresh passes
+CLASSIC_TRACKERS = {
+    "eco": ("eco", dict(features="conv1+layer3"), "_learn", None),
+    "atom": ("atom", dict(), "_optimize_filter", "num_cg_iter"),
+    "dimp18": ("dimp", dict(arch="resnet18"), "_update_fn", "num_iter"),
+    "dimp50": ("dimp", dict(arch="resnet50"), "_update_fn", "num_iter"),
+}
+
+
+def _classic_sequence(n: int, H: int = 480, W: int = 640, seed: int = 21) -> tuple:
+    """Textured noise with an 80 x 80 two-colour textured target moving 6,
+    4 px a frame (the classic tests' `_frame` at full size): the frames and
+    the init box."""
+    rng = np.random.default_rng(seed)
+    tex = rng.integers(0, 60, (80, 80, 3), dtype=np.uint8)
+    frames = []
+    for t in range(n):
+        f = rng.integers(30, 90, (H, W, 3), dtype=np.uint8)
+        x, y = 160 + 6 * t, 140 + 4 * t
+        patch = np.empty((80, 80, 3), np.uint8)
+        patch[:] = (190, 50, 20)
+        patch[20:60, 20:60] = (20, 50, 190)
+        f[y:y + 80, x:x + 80] = patch + tex
+        frames.append(f)
+    return frames, [160.0, 140.0, 80.0, 80.0]
+
+
+def _counting(tracker, method: str, hn_key) -> dict:
+    """Wrap the tracker's filter refresh: counts of periodic and
+    hard-negative calls (a hard-negative one passes `hn_key`)."""
+    counts = {"periodic": 0, "hard_negative": 0}
+    fn = getattr(tracker, method)
+
+    def run(*args, **kwargs):
+        counts["hard_negative" if hn_key and hn_key in kwargs else "periodic"] += 1
+        return fn(*args, **kwargs)
+    setattr(tracker, method, run)
+    return counts
+
+
+def _classic_run(name: str, frames, box) -> dict:
+    """One classic tracker at full width over the sequence: init ms, ms a
+    frame on the host clock (warm, CLASSIC_TIMED), then the remaining
+    frames under torch.profiler (device busy ms, idle share, operations a
+    frame), peak memory, the hand-written kernels' launches (0), the
+    refreshes and the flags, the centre error against the target."""
+    from torch.profiler import ProfilerActivity, profile
+    from multi_modal_tracking_torch.classic import build_classic_tracker
+    kind, kw, method, hn_key = CLASSIC_TRACKERS[name]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = build_classic_tracker(kind, **kw)
+    counts = _counting(t, method, hn_key)
+    init_ms = []
+    for _ in range(2):                      # the first in the process loads cuFFT, cuSOLVER, ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.initialize(frames[0], {"init_bbox": box})
+        torch.cuda.synchronize()
+        init_ms.append((time.perf_counter() - t0) * 1e3)
+    counts["periodic"] = 0                  # ECO's init budget is not a refresh
+    outs = []
+    a, b = CLASSIC_TIMED
+    for i in range(1, a):
+        outs.append(t.track(frames[i]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(a, b):
+        outs.append(t.track(frames[i]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (b - a) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(b, len(frames)):
+            outs.append(t.track(frames[i]))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ivals = _device_intervals(prof)
+    require(len(ivals) > 0, f"classic {name}: the profiler saw no device operation")
+    launches = read_launches()
+    n_prof = len(frames) - b
+    boxes = np.asarray([o["target_bbox"] for o in outs])
+    require(np.isfinite(boxes).all() and (boxes[:, 2:] > 0).all(),
+            f"classic {name}: boxes {boxes[-3:].tolist()}")
+    centres = boxes[:, :2] + boxes[:, 2:] / 2
+    truth = np.asarray([[200.0 + 6 * k, 180.0 + 4 * k] for k in range(1, len(frames))])
+    flags = [o.get("flag", "n/a") for o in outs]
+    busy = _busy_us(ivals)
+    line = {"init_ms": init_ms[1], "init_ms_first": init_ms[0], "ms_per_frame": ms,
+            "timed_frames": b - a,
+            "device_busy_ms_per_frame": busy / n_prof / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_ops_per_frame": len(ivals) / n_prof, "profiled_frames": n_prof,
+            "profiled_wall_ms_per_frame": wall_us / n_prof / 1e3,
+            "peak_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {k: launches[k] for k in _counters()}, "refreshes": counts,
+            "flags": {f: flags.count(f) for f in sorted(set(flags))},
+            "centre_error_px_mean": float(np.linalg.norm(centres - truth, axis=1).mean()),
+            "centre_error_px_last": float(np.linalg.norm(centres[-1] - truth[-1]))}
+    emit({"phase": "classic tracker", "tracker": name, **line})
+    return line
+
+
+def _moved(obj, device):
+    """A tracker state (a tensor, or tuples of them) on `device`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    return type(obj)(*(_moved(o, device) for o in obj)) if hasattr(obj, "_fields") else \
+        type(obj)(_moved(o, device) for o in obj)
+
+
+class _TopkTap:
+    """`torch` as classic/atom.py sees it, with each topk's pick recorded
+    (the IoU refinement's top-k proposals): the indices, their IoUs and the
+    IoU of the first proposal left out."""
+
+    def __init__(self):
+        self.picks = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def topk(self, x, k, *args, **kwargs):
+        out = torch.topk(x, k, *args, **kwargs)
+        rest = sorted(x.tolist(), reverse=True)
+        self.picks.append({"idx": out.indices.tolist(), "iou": out.values.tolist(),
+                           "next_iou": rest[k] if len(rest) > k else None})
+        return out
+
+
+def _sdgn_f64_distance(t, A: int, dev) -> float:
+    """DiMP's f32 init filter (its state's) against the same learned init
+    (FilterInitializerLinear + init_opt_iter SD-GN steps) in f64 on its own
+    f32 init samples, on `dev`: of the largest entry of the f64 filter."""
+    st = t._state
+    x, b = st.samples[:A].to(dev).double(), st.boxes[:A].to(dev).double()
+    clf = copy.deepcopy(t.classifier).to(dev).double()
+    want = clf.filter_optimizer(clf.filter_initializer(x, b).double(), x, b, None,
+                                t.init_opt_iter)
+    return float((st.filt.to(dev).double() - want).abs().max() / want.abs().max())
+
+
+def _classic_gpu_vs_cpu(name: str, frames, box) -> dict:
+    """ECO or DiMP-50 on the card and on the CPU with the same weights and
+    the same draws (a CPU TorchDraws both take), over CLASSIC_CPU_FRAMES
+    frames: the init filter's response to the init samples (relative to its
+    largest magnitude) and every box (CLASSIC_SYNCED: each frame from the
+    GPU tracker's state, after a free run printed beside it with the IoU
+    refinement's top-k picks). DiMP-50: the card's f32 init filter within
+    CLASSIC_SDGN_F64 of the same steps in f64."""
+    import multi_modal_tracking_torch.classic.atom as atom_mod
+    from multi_modal_tracking_torch.classic import build_classic_tracker
+    from multi_modal_tracking_torch.classic.augmentation import TorchDraws
+    from multi_modal_tracking_torch.classic.dimpnet import apply_filter
+    from multi_modal_tracking_torch.classic.dimp import DiMPTracker
+    from multi_modal_tracking_torch.classic.eco import ECOTracker
+    kind, kw, _, _ = CLASSIC_TRACKERS[name]
+    shared = TorchDraws(0, "cpu", {"eco": ECOTracker, "dimp": DiMPTracker}[kind].DRAW_OFFSETS)
+    trackers = [build_classic_tracker(kind, device=dev, **kw, draw=shared)
+                for dev in ("cuda", "cpu")]
+    gpu, cpu = trackers
+    nets = ("backbone",) if kind == "eco" else ("net",)
+    for attr in nets:
+        getattr(cpu, attr).load_state_dict(getattr(gpu, attr).state_dict())
+    A = gpu.augmenter.num_samples
+
+    def initialize():
+        for t in trackers:
+            t.initialize(frames[0], {"init_bbox": box})
+
+    def response(t):
+        st = t._state
+        if kind == "eco":
+            return [torch.einsum("kphw,phw->khw", z[:A], f).cpu()
+                    for z, f in zip(st.samples_f, st.filter_f)]
+        return [apply_filter(st.samples[:A], st.filt).cpu()]
+
+    def brief(o):
+        return o["target_bbox"], o["pred_score"], o.get("flag")
+
+    initialize()
+    resp = max(float((g - c).abs().max() / c.abs().max())
+               for g, c in zip(response(gpu), response(cpu)))
+    f64 = None
+    if kind == "dimp":
+        f64 = {side: _sdgn_f64_distance(t, A, gpu.device) for side, t in (("gpu", gpu),
+                                                                           ("cpu", cpu))}
+    free = None
+    if name in CLASSIC_SYNCED:
+        # the free run, printed: where the two trajectories part and which
+        # top-k pick of the IoU refinement differs
+        free, tap = [], _TopkTap()
+        atom_mod.torch = tap
+        try:
+            for i in range(1, CLASSIC_CPU_FRAMES):
+                row = {}
+                for side, t in (("gpu", gpu), ("cpu", cpu)):
+                    tap.picks = []
+                    row[side] = brief(t.track(frames[i]))
+                    row[f"{side}_topk"] = tap.picks
+                free.append(row)
+        finally:
+            atom_mod.torch = torch
+        initialize()
+    outs = []
+    for i in range(1, CLASSIC_CPU_FRAMES):
+        if name in CLASSIC_SYNCED:
+            cpu._state, cpu._mod = _moved(gpu._state, cpu.device), _moved(gpu._mod, cpu.device)
+        outs.append([t.track(frames[i]) for t in trackers])
+    boxes = np.asarray([[o["target_bbox"] for o in pair] for pair in outs])
+    px = float(np.abs(boxes[:, 0] - boxes[:, 1]).max())
+    line = {"frames": CLASSIC_CPU_FRAMES, "synced_per_frame": name in CLASSIC_SYNCED,
+            "init_response_rel": resp, "sdgn_f32_vs_f64": f64, "box_px_max": px,
+            "response_tol": CLASSIC_RESPONSE[name], "px_tol": CLASSIC_PX[name],
+            "sdgn_f64_tol": CLASSIC_SDGN_F64 if f64 else None,
+            "gpu": [brief(o) for o, _ in outs], "cpu": [brief(o) for _, o in outs],
+            "free_run": free}
+    line["ok"] = (resp <= CLASSIC_RESPONSE[name] and px <= CLASSIC_PX[name]
+                  and (f64 is None or f64["gpu"] <= CLASSIC_SDGN_F64))
+    emit({"phase": "classic gpu vs cpu", "tracker": name, **line})
+    return line
+
+
+def phase_classic(smi: str, frames, save_dir: str) -> dict:
+    """The classic trackers at full width (module docstring, phase 21).
+    Returns the launches of the kernels on their paths: none."""
+    from multi_modal_tracking_torch.classic import build_classic_tracker
+    from multi_modal_tracking_torch.eval.data import SequenceList
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.running import run_dataset
+    t_phase = time.perf_counter()
+    seq, box = _classic_sequence(CLASSIC_FRAMES)
+    root = os.path.dirname(os.path.abspath(__file__))
+    cli_dir, direct_dir = os.path.join(save_dir, "classic_cli"), os.path.join(save_dir,
+                                                                              "classic_direct")
+    cmd = [sys.executable, "-m", "multi_modal_tracking_torch.classic.run", "dimp",
+           "--dataset_name", "synthetic_rgb", "--sequence", "synthetic_00",
+           "--params", "arch=resnet50", "--results_dir", cli_dir]
+    laps = {}
+    t0 = time.perf_counter()
+    runs = {name: _classic_run(name, seq, box) for name in CLASSIC_TRACKERS}
+    laps["trackers"] = time.perf_counter() - t0
+    # the command starts after the timed runs: it boots while this process
+    # compares the card with the CPU
+    log = open(os.path.join(save_dir, "classic_cli.log"), "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=root,
+                            env=dict(os.environ, PYTHONPATH=root))
+    try:
+        for name, r in runs.items():
+            require(not any(r["launches"].values()),
+                    f"classic {name} launched a hand-written kernel: {r['launches']}")
+        require(runs["eco"]["refreshes"]["periodic"] > 0, "classic: no ECO _learn in the "
+                f"sequence ({runs['eco']['refreshes']})")
+        require(runs["atom"]["refreshes"]["periodic"] > 0, "classic: no periodic ATOM update "
+                f"in the sequence ({runs['atom']['refreshes']})")
+        t0 = time.perf_counter()
+        cpu = {name: _classic_gpu_vs_cpu(name, seq, box) for name in ("eco", "dimp50")}
+        laps["gpu_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = get_dataset("synthetic_rgb")
+        reset_launches()
+        run_dataset(SequenceList([ds["synthetic_00"]]),
+                    build_classic_tracker("dimp", arch="resnet50"), direct_dir)
+        require(not any(read_launches()[k] for k in _counters()), "classic run_dataset launches")
+        laps["run_dataset"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        timer = threading.Timer(300.0, proc.kill)      # a hung child fails the phase
+        timer.start()
+        proc.wait()
+        timer.cancel()
+        laps["cli_wait"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if proc.returncode != 0:
+        with open(os.path.join(save_dir, "classic_cli.log")) as f:
+            print(f.read()[-4000:], file=sys.stderr)
+    require(proc.returncode == 0, f"classic.run exited {proc.returncode}")
+    for name, line in cpu.items():
+        require(line["ok"], f"classic {name} GPU vs CPU: init response {line['init_response_rel']}"
+                f" (bound {line['response_tol']}), boxes {line['box_px_max']} px (bound "
+                f"{line['px_tol']}), SD-GN against f64 {line['sdgn_f32_vs_f64']} (bound "
+                f"{line['sdgn_f64_tol']})")
+    with open(os.path.join(cli_dir, "synthetic_00.txt"), "rb") as f:
+        cli = f.read()
+    with open(os.path.join(direct_dir, "synthetic_00.txt"), "rb") as f:
+        direct = f.read()
+    require(cli == direct and len(cli.splitlines()) == len(ds["synthetic_00"].frames),
+            "classic.run's result file differs from run_dataset's")
+    emit({"phase": "classic", "nvidia_smi": smi, "frames": CLASSIC_FRAMES,
+          "frame_hw": list(seq[0].shape[:2]), "trackers": runs, "gpu_vs_cpu": cpu,
+          "cli": {"command": " ".join(cmd[1:]), "result_equal_to_run_dataset": True,
+                  "lines": len(cli.splitlines())},
+          "kernels": "no hand-written kernel on these paths: K1-K4, their bf16 forms and "
+                     "AdamW launched 0 times (XLA in the JAX package, plain PyTorch here)",
+          "seconds_by_part": laps, "seconds": time.perf_counter() - t_phase})
+    return dict.fromkeys(_counters(), 0)
+
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["_parallel_rank"]:              # a child of phase_parallel
         require(torch.cuda.is_available(), "no CUDA device")
+        memo_init_random()
         _parallel_rank(argv[1:])
         return
     dev, smi = phase_device()
     phase_build()
+    memo_init_random()
     phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift,
               "large": phase_large,
               "cvt_convmae": phase_cvt_convmae, "files": phase_files,
-              "parallel": phase_parallel, "vot": phase_vot}
+              "parallel": phase_parallel, "vot": phase_vot, "classic": phase_classic}
     if len(argv) == 1 and argv[0] in phases:    # one phase alone (module docstring)
         frames = list(_sequence(74))
         with tempfile.TemporaryDirectory() as save_dir:
@@ -6860,6 +7287,9 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as save_dir:
         vot_launches = phase_vot(smi, frames, save_dir)
     lap("vot")
+    with tempfile.TemporaryDirectory() as save_dir:
+        classic_launches = phase_classic(smi, frames, save_dir)
+    lap("classic")
     emit({"phase": "phase seconds", **{name: t - laps[i][1]
                                        for i, (name, t) in enumerate(laps[1:])}})
     table = []
@@ -6872,6 +7302,7 @@ def main(argv=None) -> None:
                    "parallel_fsdp": parallel["fsdp"][key]}
         if key in online["f32"]:
             by_path["online"] = online["f32"][key]
+        by_path["classic"] = classic_launches[key]          # 0: no kernel on those paths
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -6896,6 +7327,7 @@ def main(argv=None) -> None:
                            online_bf16=online["bf16"][key],
                            parallel_eval_bf16=parallel["eval_bf16"][key],
                            vot_bf16=vot_launches[key])
+        by_path["classic"] = classic_launches[key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -6918,7 +7350,7 @@ def main(argv=None) -> None:
                "parallel": parallel["f32"]["AdamW"], "parallel_fsdp": parallel["fsdp"]["AdamW"],
                "parallel_bf16": parallel["bf16"]["AdamW"],
                "parallel_remat_bf16": parallel["remat_bf16"]["AdamW"],
-               "vot": vot_launches["AdamW"]}
+               "vot": vot_launches["AdamW"], "classic": classic_launches["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -13,7 +13,7 @@ from multi_modal_tracking_torch.models.cvt import build_mixformer_cvt
 from multi_modal_tracking_torch.models.fusion import (DeformableAttentionFusion,
                                                       DeformConvFusion, ModulatedDeformConv2d,
                                                       MSDeformAttnBimodal)
-from multi_modal_tracking_torch.models.layers import set_compute_dtype
+from multi_modal_tracking_torch.models.layers import set_compute_dtype, skip_default_init
 from multi_modal_tracking_torch.models.mixformer import build_mixformer_vit
 from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
 from multi_modal_tracking_torch.models.vit_rgbt import build_vit_rgbt
@@ -116,11 +116,12 @@ def build_model(script: str, cfg, device="cuda", dtype=torch.float32,
         raise KeyError(f"unknown script {script}")
     dev = resolve_device(device)
     set_precision(dtype)
-    if script in _RGBT_SHARED:
-        model = build_mixformer_rgbt(cfg, **_RGBT_SHARED[script], **(spec_overrides or {}))
-    elif script in _UNIMODAL:
-        model = _UNIMODAL[script](cfg, with_score=script.endswith("_online"),
-                                  **(spec_overrides or {}))
-    else:
-        model = build_vit_rgbt(cfg, **_VIT_RGBT[script], **(spec_overrides or {}))
+    with skip_default_init():                   # init_random sets every Linear and Conv2d
+        if script in _RGBT_SHARED:
+            model = build_mixformer_rgbt(cfg, **_RGBT_SHARED[script], **(spec_overrides or {}))
+        elif script in _UNIMODAL:
+            model = _UNIMODAL[script](cfg, with_score=script.endswith("_online"),
+                                      **(spec_overrides or {}))
+        else:
+            model = build_vit_rgbt(cfg, **_VIT_RGBT[script], **(spec_overrides or {}))
     return set_compute_dtype(init_random(model, seed), dtype).to(dev).eval()

@@ -60,6 +60,7 @@ No `torch.autocast`: its lists of ops kept in f32 are not flax's.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, List, Optional
 
 import torch
@@ -79,11 +80,33 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(B, N, H * D)
 
 
+_DEFAULT_INIT = threading.local()
+
+
+@contextlib.contextmanager
+def skip_default_init():
+    """Linear and Conv2d built inside (in this thread) skip PyTorch's
+    default fan-in init and keep uninitialised weights: for a caller that
+    then sets every weight and bias of both itself (models/build.py
+    `init_random`). The default init of a full-width model costs seconds of
+    host time."""
+    before = getattr(_DEFAULT_INIT, "skip", False)
+    _DEFAULT_INIT.skip = True
+    try:
+        yield
+    finally:
+        _DEFAULT_INIT.skip = before
+
+
 class Linear(nn.Linear):
     """nn.Linear that casts input, weight and bias to its compute dtype at
     every call (None: the weight's dtype); the state-dict keys are
     nn.Linear's."""
     compute_dtype: Optional[torch.dtype] = None
+
+    def reset_parameters(self) -> None:
+        if not getattr(_DEFAULT_INIT, "skip", False):
+            super().reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype
@@ -95,6 +118,10 @@ class Conv2d(nn.Conv2d):
     """nn.Conv2d that casts input, weight and bias to its compute dtype at
     every call (None: the weight's dtype)."""
     compute_dtype: Optional[torch.dtype] = None
+
+    def reset_parameters(self) -> None:
+        if not getattr(_DEFAULT_INIT, "skip", False):
+            super().reset_parameters()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or self.weight.dtype

@@ -98,10 +98,12 @@ class ResNet(nn.Module):
                 inplanes = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, last: str = "layer4") -> Dict[str, torch.Tensor]:
+        """The features up to `last` (a layer name; the classic trackers
+        stop at layer3)."""
         x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
         feats = {"conv1": x}
-        for i in range(1, 5):
+        for i in range(1, int(last[-1]) + 1):
             x = getattr(self, f"layer{i}")(x)
             feats[f"layer{i}"] = x
         return feats

@@ -39,8 +39,10 @@ A BatchNorm whose scale and bias live in batch_stats (CvT's frozen
 ConvProj BN: scale, bias, mean, var) is a FrozenBatchNorm2d, without a
 step counter.
 
-Alpha-Refine (`feature_extractor` / `neck` / `refiner` at the top) and a
-bare ResNet (`conv1`, `layer1_0`, ... at the top) have their own renames
+Alpha-Refine (`feature_extractor` / `neck` / `refiner` at the top), a
+bare ResNet (`conv1`, `layer1_0`, ... at the top) and a classic tracker's
+combined tree (`backbone` / `classifier` / `bb_regressor`, `_classic_leaf`)
+have their own renames
 (`_refine_path`, the inverse of the JAX package's
 utils/torch_convert.py:444-532 key maps):
 
@@ -328,12 +330,58 @@ def _refine_path(path: Tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+def _is_classic_tree(variables_np: Dict[str, Any]) -> bool:
+    """Whether a flax tree is a classic tracker's combined DiMPnet / ATOMnet
+    tree ({"backbone", "classifier", "bb_regressor"} at the top, the JAX
+    package's classic/common.py combine_nets)."""
+    top = variables_np.get("params", {})
+    return "bb_regressor" in top or "classifier" in top or (
+        "backbone" in top and "layer1_0" in top["backbone"])
+
+
+#: the learned optimizer's 1x1 predictors, flax (bins, 1) -> conv (1, bins, 1, 1)
+_PREDICTORS = {"label_map_predictor": "label_map_predictor.weight",
+               "spatial_weight_predictor": "spatial_weight_predictor.weight",
+               "target_mask_predictor": "target_mask_predictor.0.weight"}
+
+
+def _classic_leaf(coll: str, path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A classic tree's leaf under the reference's DiMPnet / ATOMnet key
+    (the inverse of the JAX package's utils/torch_convert.py:579-685
+    map_dimpnet_key): backbone -> feature_extractor (ResNet names);
+    classifier / feature_extractor / seq{i} -> classifier.feature_extractor.{i};
+    classifier / filter_optimizer's scalars as they are and its predictors
+    as 1x1 conv weights; bb_regressor / <stage> / conv | bn ->
+    bb_regressor.<stage>.0 | .1 (fc3_rt / fc4_rt keep linear and bn)."""
+    top, rest = path[0], path[1:]
+    if top == "backbone":
+        name, arr = _leaf(coll, rest[-1], arr)
+        return f"feature_extractor.{_refine_path(rest[:-1])}.{name}", arr
+    if top == "classifier":
+        if rest[0] == "filter_optimizer":
+            if rest[1] in _PREDICTORS:
+                return f"classifier.filter_optimizer.{_PREDICTORS[rest[1]]}", arr.T[:, :, None, None]
+            return f"classifier.filter_optimizer.{rest[1]}", arr
+        name, arr = _leaf(coll, rest[-1], arr)
+        mods = [re.sub(r"^seq(\d+)$", r"\1", m) for m in rest[:-1]]
+        return f"classifier.{_refine_path(tuple(mods))}.{name}", arr
+    name, arr = _leaf(coll, rest[-1], arr)
+    mods = ["0" if m == "conv" else "1" if m == "bn" and rest[0] not in ("fc3_rt", "fc4_rt")
+            else m for m in rest[:-1]]
+    return f"bb_regressor.{'.'.join(mods)}.{name}", arr
+
+
 def _port_leaves(variables_np: Dict[str, Any]) -> Iterator[Tuple[str, tuple, str, np.ndarray]]:
     """(collection, flax path, the port's key, array in the port's layout)
     of every leaf of a flax variables tree."""
     refine = _is_refine_tree(variables_np)
+    classic = not refine and _is_classic_tree(variables_np)
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables_np.get(coll, {})):
+            if classic:
+                key, arr = _classic_leaf(coll, path, np.asarray(leaf))
+                yield coll, path, key, arr
+                continue
             if refine:
                 name, arr = _leaf(coll, path[-1], np.asarray(leaf))
                 if path[-2:-1] in (("fc1",), ("fc2",)) and arr.ndim == 2:

@@ -106,6 +106,8 @@ def test_import_leaves_jax_unloaded():
             "import multi_modal_tracking_torch.models.alpha_refine as ar, "
             "multi_modal_tracking_torch.models.resnet, multi_modal_tracking_torch.train.refine, "
             "multi_modal_tracking_torch.train.losses\n"
+            "import multi_modal_tracking_torch.classic.eco, multi_modal_tracking_torch.classic.atom, "
+            "multi_modal_tracking_torch.classic.dimp, multi_modal_tracking_torch.classic.run\n"
             "import numpy as np\n"
             "ar.sample_target_se(np.zeros((20, 30, 3), np.uint8), (5, 5, 8, 6), 2.0, "
             "16)\n"
@@ -162,6 +164,23 @@ def test_vot_and_refine_entry_points_default_to_cuda_and_raise_without_it(monkey
             build()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         refine.main(["--epochs", "1", "--samples_per_epoch", "1", "--batch_size", "1"])
+
+
+def test_classic_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    """build_classic_tracker (ECO, ATOM, DiMP) and the classic run command
+    raise without a card unless told "cpu"; none falls back."""
+    from multi_modal_tracking_torch.classic import TRACKERS, build_classic_tracker, run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in TRACKERS:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_classic_tracker(name)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run.main([name, "--dataset_name", "synthetic_rgb", "--sequence", "synthetic_00",
+                      "--results_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+    t = build_classic_tracker("eco", device="cpu", crop_size=64)
+    assert t.device.type == "cpu"
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -256,6 +275,48 @@ def test_unported_scripts_raise(script):
         get_default_config(script + "_x")
     with pytest.raises(KeyError, match="unknown script"):
         build_model(script + "_x", cfg, device="cpu")
+
+
+#: a small spec of each model family (the build-init test below)
+SMALL_SPECS = {
+    "asymmetric_shared_online": TINY,
+    "mixformer_vit_rgbt": dict(search_size=64, template_size=32, embed_dim=64, depth=2,
+                               num_heads=4, head_dim=64, fusion_layers=2),
+    "mixformer_cvt_online": dict(dim_embed=(16, 32, 64), num_heads=(1, 2, 4), depth=(1, 1, 2),
+                                 head_dim=64, search_size=64, template_size=32),
+    "mixformer_convmae_online": dict(embed_dim=(32, 48, 64), depth=(1, 1, 2), num_heads=4,
+                                     head_dim=64, search_size=64, template_size=32),
+}
+
+
+@pytest.mark.parametrize("script", sorted(SMALL_SPECS))
+def test_build_model_weights_do_not_depend_on_the_default_init(script, monkeypatch):
+    """build_model skips PyTorch's default init of Linear and Conv2d while
+    it builds (models/layers.py skip_default_init): init_random sets every
+    one of their weights and biases, so the model equals one built with the
+    default init run first, whatever the global RNG. Outside the context a
+    Linear and a Conv2d still get PyTorch's default init."""
+    import contextlib
+
+    from multi_modal_tracking_torch.config import get_default_config
+    from multi_modal_tracking_torch.models import build, layers
+    cfg = get_default_config(script)
+    torch.manual_seed(1)
+    got = build.build_model(script, cfg, device="cpu", seed=3,
+                            spec_overrides=SMALL_SPECS[script]).state_dict()
+    monkeypatch.setattr(build, "skip_default_init", contextlib.nullcontext)
+    torch.manual_seed(2)
+    want = build.build_model(script, cfg, device="cpu", seed=3,
+                             spec_overrides=SMALL_SPECS[script]).state_dict()
+    assert got.keys() == want.keys()
+    assert not [k for k in want if not torch.equal(got[k], want[k])]
+    for ours, plain in ((lambda: layers.Linear(4, 3), lambda: torch.nn.Linear(4, 3)),
+                        (lambda: layers.Conv2d(2, 3, 3), lambda: torch.nn.Conv2d(2, 3, 3))):
+        torch.manual_seed(5)
+        a = ours()
+        torch.manual_seed(5)
+        b = plain()
+        assert torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
 
 
 def _train_cfg(small: bool = False):
