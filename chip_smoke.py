@@ -360,9 +360,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 synthetic_rgbt_hard sequences (bf16 graphed) against the
                 sequential run: the result files bit for bit and the same
                 launches (a graph counts its own thread's launches at
-                capture). The kernel line takes each run's launches as a
-                path of its own: gloo DP, FSDP, NCCL DP, remat graphed and
-                the two eval workers.
+                capture). The two gloo ranks, the NCCL child and the
+                eval workers run at the same time (their checks compare
+                bits and launch counts; the times they print are taken
+                under each other's load). The kernel line takes each run's
+                launches as a path of its own: gloo DP, FSDP, NCCL DP,
+                remat graphed and the two eval workers.
                 `python3 chip_smoke.py parallel` runs the device and build
                 phases and this phase alone.
  20. vot      - Alpha-Refine and the three VOT entries (phase_vot), full
@@ -421,6 +424,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 in-process run_dataset's; the phase's seconds by part. `python3
                 chip_smoke.py classic` runs the device and build phases and
                 this phase alone.
+ 22. tools    - the command-line tools, the FLOP counter, the visualisation
+                and Alpha-Refine's bf16 form (phase_tools), full width,
+                seed 0: the counter's counts of the flagship on the meta
+                device (forward at batch 1, train step at batch 16, keep
+                0.7) equal to the JAX walker's (JAX_FLAGSHIP_FLOPS);
+                tools.profile_model on the flagship at bf16 (parameters =
+                sum(numel), FLOPs = that forward count, ms a frame of the
+                graphed forward, its device busy time, beside the graphed
+                bf16 tracker's frame); tools.fps over the eval phase's time
+                files (its line = frames / summed seconds);
+                dump_attention_maps and dump_search_features at f32
+                against the same calls on the CPU (TOOLS_MAP_TOL) and their
+                PNGs decoded through the port's decoder against the panels
+                computed on the host from the GPU's maps and features; the
+                save_vis frames drawn (run_sequence(save_vis=True) raises
+                ImportError where cv2 is missing); Alpha-Refine at 384 in
+                bf16 against f32 on the card within 1.5x the CPU's own
+                bf16-to-f32 distance, its device ms at bf16 and f32, and
+                REFINE_STEPS bf16 refine steps at batch 16, 256 x 256 (ms,
+                peak) beside the vot phase's f32 ones. The dumps launch K1
+                and K3, profile_model K1-bf16 and K3-bf16. `python3
+                chip_smoke.py tools` runs the device and build phases and
+                this phase alone.
 Then a line of each phase's seconds (the whole script only), the kernel
 table line (launches by path: tracker, graphs, train,
 eval, online, stage2, families, unimodal, cvt_convmae, files, parallel
@@ -432,7 +458,9 @@ train bf16, lifecycle, both stage-2 runs, families bf16, both unimodal
 runs, both cvt_convmae runs, files bf16 and the four parallel training
 runs for AdamW; the unimodal phase's RGB-T ViT-L counts under families
 bf16; vot_bf16 for the forward bf16 kernels (the in-process rgbd run) and
-vot for AdamW (the refine steps); classic, 0 for every kernel) and, last,
+vot for AdamW (the refine steps); classic, 0 for every kernel; tools for
+K1 and K3 (the dumps) and tools bf16 for K1-bf16 and K3-bf16
+(profile_model)) and, last,
 {"ok": true, "device": {...}}.
 
 `python3 chip_smoke.py drift` runs the device and build phases and, alone,
@@ -522,9 +550,11 @@ from __future__ import annotations
 
 import copy
 import gc
+import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3553,6 +3583,11 @@ def phase_eval(smi: str) -> dict:
     with tempfile.TemporaryDirectory() as root:
         seq_floats = _eval_run("A", lambda d: run_dataset(seqs, tracker, d, chunk=EVAL_CHUNK),
                                seqs, root, runs)
+        # the tools phase runs tools.fps over these time files
+        TOOLS_INPUTS["eval_times"] = tempfile.mkdtemp()
+        for seq in seqs:
+            shutil.copy(os.path.join(root, "A", f"{seq.name}_time.txt"),
+                        TOOLS_INPUTS["eval_times"])
         want_a = dict(K1=12 * (tracked + len(seqs)), K3=2 * tracked)
         require(all(runs["A"]["launches"][k] == v for k, v in want_a.items()),
                 f"eval A: launches {runs['A']['launches']}, expected {want_a}")
@@ -6433,15 +6468,22 @@ def _par_child_nccl(rank: int, world: int, workdir: str) -> dict:
     return out
 
 
-def _par_spawn(case: str, world: int, workdir: str, timeout: float = 600.0) -> list:
-    """Run `case` on `world` child processes of this script; their results.
-    A child that fails fails the phase (CalledProcessError)."""
-    procs = [subprocess.Popen([sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
-                               "_parallel_rank", case, str(r), str(world), workdir])
-             for r in range(world)]
+def _par_start(case: str, world: int, workdir: str) -> list:
+    """Start `case` on `world` child processes of this script."""
+    return [subprocess.Popen([sys.executable, "-X", "faulthandler", os.path.abspath(__file__),
+                              "_parallel_rank", case, str(r), str(world), workdir])
+            for r in range(world)]
+
+
+def _par_finish(cases: dict, workdir: str, timeout: float = 600.0) -> dict:
+    """Wait for the children of `cases` ({case: their processes}); {case:
+    their results}. A child that fails fails the phase
+    (CalledProcessError); every child is ended before this returns."""
+    procs = [p for ps in cases.values() for p in ps]
+    t_end = time.perf_counter() + timeout
     try:
         for p in procs:
-            p.wait(timeout=timeout)
+            p.wait(timeout=max(1.0, t_end - time.perf_counter()))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -6450,7 +6492,8 @@ def _par_spawn(case: str, world: int, workdir: str, timeout: float = 600.0) -> l
     for p in procs:
         if p.returncode:
             raise subprocess.CalledProcessError(p.returncode, p.args)
-    return [json.load(open(os.path.join(workdir, f"{case}_{r}.json"))) for r in range(world)]
+    return {case: [json.load(open(os.path.join(workdir, f"{case}_{r}.json")))
+                   for r in range(len(ps))] for case, ps in cases.items()}
 
 
 def _par_eval_devices(smi: str) -> tuple:
@@ -6512,8 +6555,19 @@ def phase_parallel(smi: str, frames, save_dir: str) -> dict:
     # the one-process f32 reference of the gloo runs, saved for the children
     workdir, one_bytes = _par_reference(save_dir)
     seconds = {"one_process": time.perf_counter() - t0}
-    gloo = _par_spawn("gloo", 2, workdir)
-    seconds["gloo"] = time.perf_counter() - t0 - sum(seconds.values())
+    # the gloo ranks, the NCCL child and the eval workers (in this process)
+    # run at the same time: their checks compare bits and launch counts, not
+    # times, and the times they print are taken under each other's load
+    children = {"gloo": _par_start("gloo", 2, workdir), "nccl": _par_start("nccl", 1, workdir)}
+    try:
+        evals, launches = _par_eval_devices(smi)
+    except BaseException:
+        _par_finish(children, workdir, timeout=1.0)
+        raise
+    seconds["eval"] = time.perf_counter() - t0 - sum(seconds.values())
+    done = _par_finish(children, workdir)
+    seconds["gloo_and_nccl_children"] = time.perf_counter() - t0 - sum(seconds.values())
+    gloo, (nccl,) = done["gloo"], done["nccl"]
     for r in gloo:
         require(r["dp"]["vs_one_process"]["within"],
                 f"gloo DP rank {r['rank']} against the one-process step: {r['dp']}")
@@ -6525,12 +6579,8 @@ def phase_parallel(smi: str, frames, save_dir: str) -> dict:
         require(got["params"] <= 0.5 * dp["params"] + rep
                 and got["moments"] <= 0.5 * dp["moments"] + 2 * rep,
                 f"FSDP rank {r['rank']} holds {got} against DP's {dp}")
-    nccl, = _par_spawn("nccl", 1, workdir)
-    seconds["nccl"] = time.perf_counter() - t0 - sum(seconds.values())
     _add_launches(out["bf16"], nccl["launches"], out["bf16"])
     _add_launches(out["remat_bf16"], nccl["remat_launches"], out["remat_bf16"])
-    evals, launches = _par_eval_devices(smi)
-    seconds["eval"] = time.perf_counter() - t0 - sum(seconds.values())
     _add_launches(out["eval_bf16"], launches, BF16_SERVING)
     require(all(out[p]["AdamW"] > 0 for p in ("f32", "fsdp", "bf16", "remat_bf16")),
             f"a parallel training path launched no AdamW: {out}")
@@ -6882,6 +6932,9 @@ def _phase_vot_body(smi, t_phase, total, colour, depth, region, transcripts, chi
         [fv for fv, _ in _sequence(REFINE_B + 1, VOT_H, VOT_W, seed=20)],
         [(80.0 + 5 * k, 60.0 + 3 * k, 48.0, 48.0) for k in range(REFINE_B + 1)])
     total["AdamW"] += adamw
+    # the tools phase prints its bf16 numbers beside these f32 ones
+    TOOLS_INPUTS.update(ar_f32_device_ms=get_mask_device_ms, refine_f32={
+        k: refine_line[k] for k in ("ms_per_step_after_first", "peak_bytes")})
     emit({"phase": "vot", "nvidia_smi": smi, "ar_gpu_vs_cpu": ar_check, "mask": mask_line,
           "wire": wire, "rgbd_launches": rgbd_launches, "refine_train": refine_line,
           "seconds": time.perf_counter() - t_phase})
@@ -7210,6 +7263,269 @@ def phase_classic(smi: str, frames, save_dir: str) -> dict:
     return dict.fromkeys(_counters(), 0)
 
 
+# ------------------------------------------------------------- tools phase
+TOOLS_REPEATS = 50                 # graph replays profile_model times
+TOOLS_VIS_FRAMES = 6               # frames tracked for the save_vis drawings
+TOOLS_MAP_TOL = 1e-4               # attention maps / features, GPU vs CPU at f32
+#: the JAX package's jaxpr walker on the flagship at full width (a trace on
+#: the CPU, no arithmetic: `python tests/test_torch_port_flops.py --full`):
+#: the recipe's forward at batch 1 and train step at batch 16, keep 0.7, and
+#: the forward of the script's default config (what profile_model profiles,
+#: as the JAX script does)
+JAX_FLAGSHIP_FLOPS = {"forward_b1": 144521184000, "train_step_b16": 6911627218944,
+                      "profile_model_default_config": 155929218816}
+#: filled by phase_eval (its one-stream run's time files) and phase_vot (the
+#: f32 Alpha-Refine numbers the bf16 ones are printed beside)
+TOOLS_INPUTS: dict = {}
+
+
+def _flagship_counts() -> dict:
+    """The port counter's counts of the flagship (the recipe at full width,
+    f32, built on the meta device: no arithmetic): the forward at batch 1
+    and the train step (box loss, backward) at batch 16, keep 0.7; and the
+    default config's forward (no keep rate), profile_model's model."""
+    from multi_modal_tracking_torch.config import get_default_config
+    from multi_modal_tracking_torch.models.asymmetric_shared import build_mixformer_rgbt
+    from multi_modal_tracking_torch.models.layers import skip_default_init
+    from multi_modal_tracking_torch.train.losses import box_losses
+    from multi_modal_tracking_torch.utils.flops import matmul_conv_flops
+    cfg = _params().cfg
+    ts, ss = cfg.DATA.TEMPLATE.SIZE, cfg.DATA.SEARCH.SIZE
+    with skip_default_init():
+        model = build_mixformer_rgbt(cfg, drop_path_rate=0.0, fusion_dropout=0.0).to("meta")
+    t1, s1 = (torch.zeros(2, n, n, 3, device="meta") for n in (ts, ss))
+    with torch.no_grad():
+        fwd = matmul_conv_flops(lambda: model.eval()(t1, t1, s1, 0.7))
+    t16, s16 = (torch.zeros(2 * TRAIN_B, n, n, 3, device="meta") for n in (ts, ss))
+    gt = torch.zeros(TRAIN_B, 4, device="meta")
+    by_op = {}
+
+    def step():
+        loss, _ = box_losses(model.train()(t16, t16, s16, 0.7)["pred_boxes"], gt, 2.0, 5.0)
+        loss.backward()
+    out = {"forward_b1": fwd, "train_step_b16": matmul_conv_flops(step, by_op=by_op),
+           "train_step_by_op": by_op}
+    dcfg = get_default_config("asymmetric_shared_ce")
+    with skip_default_init():
+        model = build_mixformer_rgbt(dcfg).eval().to("meta")
+    td, sd = (torch.zeros(2, n, n, 3, device="meta")
+              for n in (dcfg.DATA.TEMPLATE.SIZE, dcfg.DATA.SEARCH.SIZE))
+    with torch.no_grad():
+        out["profile_model_default_config"] = matmul_conv_flops(lambda: model(td, td, sd))
+    return out
+
+
+def _tools_profile(smi: str, bf16_profile: dict) -> tuple:
+    """tools.profile_model on the flagship at bf16 (its command's function),
+    its forward's device busy time, the FLOP counts; (line, launches)."""
+    from multi_modal_tracking_torch.tools import profile_model
+    counts = _flagship_counts()
+    for key, want in JAX_FLAGSHIP_FLOPS.items():
+        require(counts[key] == want, f"the FLOP counter's {key} {counts[key]} != the JAX "
+                                     f"walker's {want}")
+    reset_launches()
+    res = profile_model.profile("asymmetric_shared_ce", repeats=TOOLS_REPEATS, keep_model=True)
+    launches = read_launches()
+    model, (t, s) = res.pop("model"), res.pop("inputs")
+    require(res["params"] == sum(p.numel() for p in model.parameters()),
+            f"profile_model params {res['params']}")
+    require(res["flops"] == counts["profile_model_default_config"],
+            f"profile_model FLOPs {res['flops']} != the meta count of its model "
+            f"{counts['profile_model_default_config']}")
+    require(all(launches[k] > 0 for k in BF16_SERVING)
+            and not any(launches[k] for k in F32_KERNELS),
+            f"profile_model's forward launched {launches}")
+    replay, out = profile_model.graphed_forward(model, t, s)
+    busy = device_ms(replay)
+    require(bool(torch.isfinite(out).all()), "profile_model's forward output")
+    layers = bf16_profile.get("layers_ms", {}) if bf16_profile else {}
+    line = {"profile_model": res, "forward_device_busy_ms": busy,
+            "bf16_tracker_frame_ms": layers.get("track_total"),
+            "bf16_tracker_device_busy_ms_per_frame":
+                bf16_profile.get("device_busy_ms_per_frame") if bf16_profile else None,
+            "flops": {k: v for k, v in counts.items()}, "jax_walker_flops": JAX_FLAGSHIP_FLOPS,
+            "launches": {k: launches[k] for k in BF16_SERVING}}
+    del model, replay
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def _tools_fps(save_dir: str) -> dict:
+    """tools.fps over the eval phase's one-stream time files (or, run alone,
+    a short run of its own): its line equals frames / the summed seconds."""
+    import contextlib
+    import io
+    from multi_modal_tracking_torch.tools import fps
+    d = TOOLS_INPUTS.get("eval_times")
+    if d is None:
+        from multi_modal_tracking_torch.eval.datasets import get_dataset
+        from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+        from multi_modal_tracking_torch.eval.running import run_dataset
+        d = os.path.join(save_dir, "fps")
+        run_dataset(get_dataset("synthetic_rgbt_hard", n_sequences=2, n_frames=8),
+                    create_tracker(_params(), "synthetic_rgbt_hard", dtype=torch.float32), d)
+    times = [np.loadtxt(os.path.join(d, f)).reshape(-1) for f in sorted(os.listdir(d))
+             if f.endswith("_time.txt")]
+    frames, secs = sum(t.size for t in times), float(sum(t.sum() for t in times))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fps.main([d])
+    want = f"{frames} frames, {secs:.2f}s, {frames / secs:.2f} FPS"
+    require(buf.getvalue().strip() == want, f"tools.fps printed {buf.getvalue()!r}, "
+                                            f"expected {want!r}")
+    return {"dir_files": len(times), "frames": frames, "seconds": secs, "printed": want}
+
+
+def _tools_vis(frames, save_dir: str) -> tuple:
+    """The visualisation on the card at f32 (flagship, seed 0) against the
+    same calls with device="cpu"; the PNGs decoded through the port's
+    decoder against the panels computed on the CPU from the GPU's maps and
+    features; the save_vis frames drawn. (line, launches)."""
+    from multi_modal_tracking_torch import native
+    from multi_modal_tracking_torch.eval import running, visualize
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    params = _params()
+    info = {"init_bbox": [80.0, 60.0, 48.0, 48.0]}
+    gpu = create_tracker(params, "TRACKINGNET", seed=0, dtype=torch.float32)
+    cpu = create_tracker(params, "TRACKINGNET", seed=0, dtype=torch.float32, device="cpu")
+    image = list(frames[1])
+    for tr in (gpu, cpu):
+        tr.initialize(list(frames[0]), info)
+    reset_launches()
+    d = os.path.join(save_dir, "vis")
+    attn_paths = visualize.dump_attention_maps(gpu, image, d, frame_id=1)
+    gmaps = visualize.attention_maps(gpu, image)
+    feat_paths = visualize.dump_search_features({"flagship": gpu}, image, info, d, frame_id=1)
+    gfeats = visualize.search_features(gpu, image, info)
+    launches = read_launches()
+    cmaps = visualize.attention_maps(cpu, image)
+    cfeats = visualize.search_features(cpu, image, info)
+    line = {"attention_maps": sorted(gmaps), "map_shape": list(next(iter(gmaps.values())).shape)}
+    line["maps_max_abs_err"] = max(float(np.abs(gmaps[b] - cmaps[b]).max()) for b in gmaps)
+    line["features_max_abs_err"] = {k: float(np.abs(gfeats[k] - cfeats[k]).max())
+                                    for k in gfeats}
+    require(sorted(gmaps) == sorted(cmaps) == list(params.cfg.MODEL.BACKBONE.CE_LOC)
+            and line["maps_max_abs_err"] <= TOOLS_MAP_TOL,
+            f"attention maps GPU vs CPU: {line}")
+    require(all(v <= TOOLS_MAP_TOL * max(1.0, float(np.abs(cfeats[k]).max()))
+                for k, v in line["features_max_abs_err"].items()),
+            f"search features GPU vs CPU: {line}")
+    for p, bi in zip(attn_paths, sorted(gmaps)):
+        want = np.concatenate([visualize.attention_panel(gmaps[bi][0, m]) for m in (0, 1)], 1)
+        require(np.array_equal(native.imread(p)[..., ::-1], want), f"{p} != its panels")
+    want = np.concatenate([visualize.feature_panel(gfeats[k])
+                           for k in ("search_v", "search_i", "search_fused")], axis=1)
+    require(len(feat_paths) == 1 and np.array_equal(native.imread(feat_paths[0])[..., ::-1],
+                                                    want), f"{feat_paths} != its panels")
+    require(all(launches[k] > 0 for k in ("K1", "K3")), f"the dumps launched {launches}")
+    line["pngs"] = len(attn_paths) + len(feat_paths)
+    # save_vis: the runner's frames drawn on the card's host; the container
+    # needs cv2, which raises where it is missing
+    prev = list(info["init_bbox"])
+    drawn = []
+    for k in range(1, TOOLS_VIS_FRAMES + 1):
+        box = gpu.track(list(frames[k]))["target_bbox"]
+        drawn.append(running._vis_frame(frames[k][0], box, prev, gpu.search_factor))
+        prev = box
+    require(len(drawn) == TOOLS_VIS_FRAMES and all(f.shape == frames[1][0].shape
+                                                   for f in drawn), "save_vis frames")
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    seq = get_dataset("synthetic_rgbt", n_sequences=1, n_frames=TOOLS_VIS_FRAMES + 1)[0]
+    vis_dir = os.path.join(save_dir, "vis_run")
+    line["cv2"] = importlib.util.find_spec("cv2") is not None
+    try:
+        running.run_sequence(seq, gpu, vis_dir, save_vis=True, report_fps=False)
+        video = os.path.join(vis_dir, "vis_video", f"{seq.name}.mp4")
+        require(line["cv2"] and os.path.getsize(video) > 0, "save_vis wrote no video")
+        line["save_vis_video_bytes"] = os.path.getsize(video)
+    except ImportError as e:
+        require(not line["cv2"], f"save_vis raised {e} with cv2 installed")
+        line["save_vis_without_cv2"] = str(e)
+    line["vis_frames"] = len(drawn)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def _ar_mask(net, frames, boxes):
+    from multi_modal_tracking_torch.models.alpha_refine import ARcmSeg
+    seg = ARcmSeg(net)
+    seg.initialize(frames[0], boxes[0])
+    return seg, seg.get_mask(frames[1], boxes[1])
+
+
+def _tools_ar_bf16() -> dict:
+    """Alpha-Refine at bf16 against f32 on the card, beside the same on the
+    CPU; its device ms; REFINE_STEPS bf16 refine steps at batch 16, 256^2."""
+    from multi_modal_tracking_torch.models.alpha_refine import build_alpha_refine
+    from multi_modal_tracking_torch.train.refine import build_refine_trainer
+    seq = [fv for fv, _ in _sequence(REFINE_B + 1, VOT_H, VOT_W, seed=20)]
+    boxes = [(80.0 + 5 * k, 60.0 + 3 * k, 48.0, 48.0) for k in range(REFINE_B + 1)]
+    masks, segs = {}, {}
+    for dev in ("cuda", "cpu"):
+        for dt in (torch.float32, torch.bfloat16):
+            net, _ = build_alpha_refine(input_sz=AR_SIZE, device=dev, dtype=dt)
+            segs[dev, dt], masks[dev, dt] = _ar_mask(net, seq, boxes)
+    dist = {dev: float(np.linalg.norm(masks[dev, torch.bfloat16] - masks[dev, torch.float32]))
+            for dev in ("cuda", "cpu")}
+    line = {"input": AR_SIZE, "mask_l2_bf16_vs_f32": dist,
+            "gpu_over_cpu": dist["cuda"] / dist["cpu"] if dist["cpu"] else None}
+    require(dist["cpu"] > 0 and dist["cuda"] <= 1.5 * dist["cpu"],
+            f"AR bf16: the card's distance to f32 against the CPU's: {line}")
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        seg = segs["cuda", dt]
+        line[f"device_ms_{name}"] = device_ms(lambda seg=seg: seg.mask_crop(seq[2], boxes[2]),
+                                              iters=10, warmup=2)
+    line["f32_device_ms_vot_phase"] = TOOLS_INPUTS.get("ar_f32_device_ms")
+    del segs
+    torch.cuda.empty_cache()
+    _, _, tr = build_refine_trainer(input_sz=REFINE_SZ, lr=REFINE_LR, device="cuda",
+                                    dtype=torch.bfloat16)
+    require(all(t.dtype == torch.float32 for t in tr.leaves), "bf16 refine: leaves not f32")
+    batch = _refine_batch(seq, boxes, REFINE_B)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times, losses = [], []
+    for _ in range(REFINE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tr.step(batch)["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    line["refine_bf16"] = {"batch": REFINE_B, "input": REFINE_SZ, "ms_per_step": times,
+                           "ms_per_step_after_first": float(np.mean(times[1:])),
+                           "peak_bytes": int(torch.cuda.max_memory_allocated() - base),
+                           "loss": losses}
+    line["refine_f32_vot_phase"] = TOOLS_INPUTS.get("refine_f32")
+    require(all(np.isfinite(losses)), f"bf16 refine losses {losses}")
+    del tr
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_tools(smi: str, frames, save_dir: str, bf16_profile: dict = None) -> dict:
+    """The command-line tools, the FLOP counter, the visualisation and
+    Alpha-Refine's bf16 form (module docstring, phase 22). Returns the
+    launches of its f32 (the dumps) and bf16 (profile_model) paths."""
+    t_phase = time.perf_counter()
+    seconds = {}
+    prof, prof_launches = _tools_profile(smi, bf16_profile)
+    seconds["profile_model"] = time.perf_counter() - t_phase
+    fps_line = _tools_fps(save_dir)
+    if "eval_times" in TOOLS_INPUTS:
+        shutil.rmtree(TOOLS_INPUTS.pop("eval_times"))
+    seconds["fps"] = time.perf_counter() - t_phase - sum(seconds.values())
+    vis, vis_launches = _tools_vis(frames, save_dir)
+    seconds["visualisation"] = time.perf_counter() - t_phase - sum(seconds.values())
+    ar = _tools_ar_bf16()
+    seconds["alpha_refine_bf16"] = time.perf_counter() - t_phase - sum(seconds.values())
+    emit({"phase": "tools", "card": smi, **prof, "fps": fps_line, "visualisation": vis,
+          "alpha_refine_bf16": ar, "seconds_by_part": seconds,
+          "seconds": time.perf_counter() - t_phase})
+    return {"f32": {k: vis_launches[k] for k in F32_KERNELS},
+            "bf16": {k: prof_launches[k] for k in BF16_KERNELS}}
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["_parallel_rank"]:              # a child of phase_parallel
@@ -7223,7 +7539,8 @@ def main(argv=None) -> None:
     phases = {"families": phase_families, "unimodal": phase_unimodal, "drift": phase_drift,
               "large": phase_large,
               "cvt_convmae": phase_cvt_convmae, "files": phase_files,
-              "parallel": phase_parallel, "vot": phase_vot, "classic": phase_classic}
+              "parallel": phase_parallel, "vot": phase_vot, "classic": phase_classic,
+              "tools": phase_tools}
     if len(argv) == 1 and argv[0] in phases:    # one phase alone (module docstring)
         frames = list(_sequence(74))
         with tempfile.TemporaryDirectory() as save_dir:
@@ -7290,6 +7607,9 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as save_dir:
         classic_launches = phase_classic(smi, frames, save_dir)
     lap("classic")
+    with tempfile.TemporaryDirectory() as save_dir:
+        tools = phase_tools(smi, frames, save_dir, bf16.get("profile"))
+    lap("tools")
     emit({"phase": "phase seconds", **{name: t - laps[i][1]
                                        for i, (name, t) in enumerate(laps[1:])}})
     table = []
@@ -7303,6 +7623,7 @@ def main(argv=None) -> None:
         if key in online["f32"]:
             by_path["online"] = online["f32"][key]
         by_path["classic"] = classic_launches[key]          # 0: no kernel on those paths
+        by_path["tools"] = tools["f32"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in ("name", "route", "source", "replaces", "launches",
                                           "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -7328,6 +7649,7 @@ def main(argv=None) -> None:
                            parallel_eval_bf16=parallel["eval_bf16"][key],
                            vot_bf16=vot_launches[key])
         by_path["classic"] = classic_launches[key]
+        by_path["tools_bf16"] = tools["bf16"][key]
         row = dict(kernels[key], launches=sum(by_path.values()), launches_by_path=by_path)
         table.append({k: row[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -15,8 +15,9 @@ Results go to <results_dir>/<dataset>/, by default
 train.admin.env_settings, else output/tracking_results). --checkpoint_dir
 sweeps the `*_ep*.pth.tar` epoch files there (epochs > 10 unless the script
 is an online one), each into its own _epN directory. Without a checkpoint
-the weights are random from seed 0. --vis_search (videos through cv2)
-raises.
+the weights are random from seed 0. --vis_search writes
+<results_dir>/<dataset>/vis_video/<seq>.mp4 per sequence (the search
+regions; cv2 writes the container, ImportError without it).
 """
 from __future__ import annotations
 
@@ -75,7 +76,7 @@ def _parser() -> argparse.ArgumentParser:
                    help="upload only a window of margin x the search region per chunk "
                         "(result files byte-identical)")
     p.add_argument("--vis_search", action="store_true",
-                   help="search-region videos (need cv2; not ported)")
+                   help="search-region videos under vis_video/ (cv2 writes them)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=sorted(DTYPES),
                    help="compute dtype of the model: bfloat16 (default, the JAX package's "
@@ -166,9 +167,6 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
     overrides = _parse_params_overrides(parser, extras)
     # the input mode reaches create_tracker for a unimodal script only
     modal = {} if is_rgbt_script(args.script) else {"mode": args.type or "RGB"}
-    if args.vis_search:
-        raise NotImplementedError("--vis_search writes videos with cv2, which the port does not "
-                                  "use (ROADMAP.md queue 1 item 1)")
 
     dataset = get_dataset(args.dataset_name)
     if args.sequence:
@@ -213,7 +211,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
             run_dataset(dataset, None if args.threads else make(), results_dir,
                         skip_if_done=not args.rerun, chunk=args.chunk, threads=args.threads,
                         tracker_factory=make if args.threads else None, devices=devices,
-                        roi_margin=args.roi_margin)
+                        save_vis=args.vis_search, roi_margin=args.roi_margin)
         print(f"results -> {results_dir}")
         name = f"{args.script}/{args.config or 'default'}{suffix}"
         print_results([TrackerResults(results_dir, name)], dataset, report_name=args.dataset_name)

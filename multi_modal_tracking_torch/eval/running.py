@@ -9,6 +9,10 @@ result files (the port's own counterpart of the JAX package's
                   the chunked paths)
   <seq>_score.txt the online trackers' confidence per frame, `%.2f`,
                   frame 0 at 1.0
+  vis_video/<seq>.mp4  with save_vis: each tracked frame with the
+                  predicted box (green) and the search region it was
+                  cropped from (yellow), `_vis_frame`; cv2 writes the
+                  container (ImportError without it)
 A background thread (`_Prefetcher`) stacks the next chunks of
 frames while the device tracks; the chunked path dispatches every chunk
 with `track_chunk(fetch=False)` and fetches all boxes once at the end.
@@ -27,6 +31,7 @@ key) pair. A file the decoder does not take raises with its path.
 from __future__ import annotations
 
 import itertools
+import math
 import os
 import threading
 import time
@@ -39,6 +44,7 @@ import torch
 
 from multi_modal_tracking_torch import native
 from multi_modal_tracking_torch.eval.data import RGBTSequence, Sequence
+from multi_modal_tracking_torch.eval.visualize import draw_rect, import_cv2, write_video
 from multi_modal_tracking_torch.tracking.tracker import (_select_init_box, place_window,
                                                          roi_window)
 
@@ -163,6 +169,22 @@ def _track_roi(seq, tracker, chunk, roi_margin, roi_min_size, roi_align):
                                        "n_fallback": n_fallback}
 
 
+def _vis_frame(frame, pred_box, prev_box, search_factor: float) -> np.ndarray:
+    """The frame (the RGB one of a pair) with the predicted box (green,
+    thickness 2) and the search region the step cropped around the
+    previous box (yellow, thickness 1), corners truncated to integers, as
+    the JAX runner draws them."""
+    img = np.array(frame if frame.ndim == 3 else frame[0], dtype=np.uint8, copy=True)
+    x, y, w, h = [float(v) for v in pred_box]
+    draw_rect(img, (int(x), int(y)), (int(x + w), int(y + h)), (0, 255, 0), 2)
+    px, py, pw, ph = [float(v) for v in prev_box]
+    crop_sz = math.ceil(math.sqrt(max(pw * ph, 1.0)) * search_factor)
+    cx, cy = px + pw / 2, py + ph / 2
+    draw_rect(img, (int(cx - crop_sz / 2), int(cy - crop_sz / 2)),
+              (int(cx + crop_sz / 2), int(cy + crop_sz / 2)), (0, 255, 255), 1)
+    return img
+
+
 def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = True,
                  chunk: int = 16, report_fps: bool = True, save_vis: bool = False,
                  roi_margin: float = 0.0, roi_min_size: int = ROI_MIN_SIZE,
@@ -179,11 +201,12 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
     roi_margin > 0 uploads, per chunk, a window of roi_margin times the
     search region (at least roi_min_size, rounded up to roi_align) instead
     of the frames, at the cost of one 4-float fetch per chunk; the files are
-    the full-frame path's byte for byte. save_vis (a video of the search
-    regions) needs cv2, which the port does not use, and raises."""
+    the full-frame path's byte for byte. save_vis tracks frame by frame
+    and writes <results_dir>/vis_video/<seq>.mp4 of `_vis_frame` (cv2's
+    VideoWriter, re-encoded to h264 where ffmpeg is on the PATH; raises
+    ImportError without cv2, before tracking)."""
     if save_vis:
-        raise NotImplementedError("save_vis writes a video with cv2, which the port does not "
-                                  "use (ROADMAP.md queue 1 item 1)")
+        import_cv2("run_sequence(save_vis=True)")
     online = getattr(tracker, "online", False)
     mode = getattr(tracker, "mode", None)           # the unimodal trackers' input mode
     if roi_margin > 0 and (online or mode):
@@ -207,13 +230,14 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
     times[0] = time.time() - t0
 
     roi_stats = None
-    if n > 1 and roi_margin > 0 and hasattr(tracker, "track_chunk_roi"):
+    vis_frames = [] if save_vis else None
+    if n > 1 and roi_margin > 0 and hasattr(tracker, "track_chunk_roi") and not save_vis:
         t_seq = time.time()
         tracked, roi_stats = _track_roi(seq, tracker, chunk, roi_margin, roi_min_size,
                                         roi_align)
         boxes[1:] = tracked[: n - 1]
         times[1:] = (time.time() - t_seq) / (n - 1)
-    elif n > 1 and hasattr(tracker, "track_chunk"):
+    elif n > 1 and hasattr(tracker, "track_chunk") and not save_vis:
         # every chunk is dispatched without a fetch; the boxes come back in
         # one copy at the end
         t_seq = time.time()
@@ -233,7 +257,15 @@ def run_sequence(seq: Sequence, tracker, results_dir: str, skip_if_done: bool = 
             times[k] = time.time() - t0
             if online:
                 scores[k] = out["pred_score"]
+            if vis_frames is not None:
+                vis_frames.append(_vis_frame(frame[0] if isinstance(frame, list) else frame,
+                                             boxes[k], boxes[k - 1],
+                                             getattr(tracker, "search_factor", 4.5)))
 
+    if vis_frames:
+        vis_dir = os.path.join(results_dir, "vis_video")
+        os.makedirs(vis_dir, exist_ok=True)
+        write_video(os.path.join(vis_dir, f"{seq.name}.mp4"), vis_frames, reencode=True)
     np.savetxt(bbox_file, boxes, delimiter="\t", fmt="%d")
     if online:
         np.savetxt(os.path.join(results_dir, f"{seq.name}_score.txt"), scores, delimiter="\t",

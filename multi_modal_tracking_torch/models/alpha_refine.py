@@ -17,6 +17,15 @@ is plain PyTorch and cuDNN: the PrRoI pool of the reference kernel
 convolutions. Maps are NCHW inside; the public methods take and give
 NHWC, as the JAX ones do.
 
+Compute dtype (`build_alpha_refine(dtype=)`, `ARcmSeg(dtype=)`): float32,
+or bfloat16 on float32 parameters, as the JAX modules' flax `dtype=`: the
+convolutions cast input and weights to it (`models/layers.py
+set_compute_dtype`), so every map after the first convolution is bf16;
+FrozenBatchNorm forms its scale and shift in f32 and applies them in the
+map's dtype, the PrRoI pool runs on the f32 features and its kernel is
+cast to the compute dtype (the JAX `get_ref_kernel`), the non-local
+softmax is f32. The VOT entries run f32.
+
 The host side (`sample_target_se`, `transform_box_to_crop_se`,
 `map_mask_back`, `ARcmSeg`) has no cv2: the crops and resizes run in the
 port's host library (`native.sample_target_se`, `native.resize_linear`).
@@ -33,10 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from multi_modal_tracking_torch import native
-from multi_modal_tracking_torch.models.layers import Conv2d, FrozenBatchNorm2d
+from multi_modal_tracking_torch.models.layers import (Conv2d, FrozenBatchNorm2d,
+                                                      set_compute_dtype)
 from multi_modal_tracking_torch.models.resnet import resnet50, seg_features
 from multi_modal_tracking_torch.ops.prroi import prroi_pool
-from multi_modal_tracking_torch.utils.device import resolve_device, set_precision
+from multi_modal_tracking_torch.utils.device import DTYPES, resolve_device, set_precision
 
 
 def _interp(t: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -287,20 +297,31 @@ class AlphaRefineNet(nn.Module):
         return self(patch_test, self.init_ref(patch_ref, box_ref))
 
 
+def set_refine_dtype(net: AlphaRefineNet, dtype: torch.dtype) -> AlphaRefineNet:
+    """Make `net` compute in `dtype` (float32 or bfloat16; anything else
+    raises), its parameters unchanged, with the precision flags of
+    `utils.device.set_precision`."""
+    if dtype not in DTYPES.values():
+        raise ValueError(f"Alpha-Refine computes in float32 or bfloat16, not {dtype}")
+    set_precision(dtype)
+    return set_compute_dtype(net, dtype)
+
+
 def build_alpha_refine(input_sz: int = 256, pool_size: int = 8, output_sz: Optional[int] = None,
-                       device="cuda", seed: int = 0) -> Tuple[AlphaRefineNet, RefineSpec]:
-    """An AlphaRefineNet with random weights from `seed` (PyTorch's default
-    initialisation under a seeded generator), on `device` (CUDA unless
-    "cpu"; raises without a card), in eval mode. It computes in float32
-    with TF32 off, the JAX package's default and the VOT entry's dtype.
-    Trained weights load with `utils.checkpoint.load_variables`."""
+                       device="cuda", seed: int = 0, dtype: torch.dtype = torch.float32
+                       ) -> Tuple[AlphaRefineNet, RefineSpec]:
+    """An AlphaRefineNet with random float32 weights from `seed` (PyTorch's
+    default initialisation under a seeded generator), on `device` (CUDA
+    unless "cpu"; raises without a card), in eval mode, computing in
+    `dtype` (float32, the default and the VOT entries' dtype, with TF32
+    off; or bfloat16; others raise). Trained weights load with
+    `utils.checkpoint.load_variables`."""
     dev = resolve_device(device)
-    set_precision(torch.float32)
     spec = RefineSpec(input_sz=input_sz, pool_size=pool_size, output_sz=output_sz)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         net = AlphaRefineNet(spec)
-    return net.to(dev).eval(), spec
+    return set_refine_dtype(net, dtype).to(dev).eval(), spec
 
 
 # ---------------------------------------------------------------------------
@@ -368,14 +389,20 @@ class ARcmSeg:
 
     `net`: an AlphaRefineNet (its device is the wrapper's), or None to
     build one with random weights from `seed` at `spec` on `device`
-    (CUDA unless "cpu"; raises without a card)."""
+    (CUDA unless "cpu"; raises without a card). `dtype` (float32 or
+    bfloat16) sets the network's compute dtype; None keeps a given net's
+    (float32 for a built one)."""
 
     def __init__(self, net: Optional[AlphaRefineNet] = None, spec: Optional[RefineSpec] = None,
-                 search_factor: float = 2.0, device="cuda", seed: int = 0):
+                 search_factor: float = 2.0, device="cuda", seed: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         if net is None:
             spec = spec or RefineSpec()
             net, spec = build_alpha_refine(spec.input_sz, spec.pool_size, spec.output_sz,
-                                           device=device, seed=seed)
+                                           device=device, seed=seed,
+                                           dtype=dtype or torch.float32)
+        elif dtype is not None:
+            set_refine_dtype(net, dtype)
         self.net = net.eval()
         self.spec = net.spec
         self.device = next(net.parameters()).device
@@ -399,7 +426,8 @@ class ARcmSeg:
         if self.kernel is None:
             raise RuntimeError("ARcmSeg.get_mask before initialize")
         crop, _, _ = sample_target_se(frame, box, self.search_factor, self.spec.input_sz)
-        return torch.sigmoid(self.net(self._upload(crop), self.kernel))[0, :, :, 0]
+        # the sigmoid in the compute dtype, as the JAX wrapper's
+        return torch.sigmoid(self.net(self._upload(crop), self.kernel))[0, :, :, 0].float()
 
     def get_mask(self, frame: np.ndarray, box) -> np.ndarray:
         mask_crop = self.mask_crop(frame, box).cpu().numpy()

@@ -64,6 +64,7 @@ from multi_modal_tracking_torch.models.score_decoder import ScoreDecoder
 from multi_modal_tracking_torch.ops.attention import mixed_attention
 from multi_modal_tracking_torch.ops.boxes import box_xyxy_to_cxcywh
 from multi_modal_tracking_torch.ops.pos_embed import get_2d_sincos_pos_embed
+from multi_modal_tracking_torch.utils import flops as _flops
 
 
 #: the CE template-row modes (models/asymmetric_shared.py:55 there)
@@ -237,8 +238,10 @@ def _ce_select(attn_m: torch.Tensor, tokens: torch.Tensor, gidx: torch.Tensor,
     """
     top_idx = torch.topk(attn_m, lens_keep, dim=1).indices
     gidx_new = torch.gather(gidx, 1, top_idx)
-    C = tokens.shape[-1]
+    B, C = tokens.shape[0], tokens.shape[-1]
     kept = torch.gather(tokens[:, n_mt:], 1, top_idx[..., None].expand(-1, -1, C))
+    # a FLOP count adds the JAX package's one-hot row product (_select_rows)
+    kept = _flops.one_hot_rows(kept, B, lens_keep, attn_m.shape[1], C)
     return torch.cat([tokens[:, :n_mt], kept], dim=1), gidx_new
 
 
@@ -247,8 +250,10 @@ def _recover(sm: torch.Tensor, gidx: torch.Tensor, n_s: int) -> torch.Tensor:
     with zeros at the pruned positions."""
     if sm.shape[1] == n_s:
         return sm
-    out = sm.new_zeros(sm.shape[0], n_s, sm.shape[2])
-    return out.scatter(1, gidx[..., None].expand(-1, -1, sm.shape[2]), sm)
+    B, K, C = sm.shape
+    out = sm.new_zeros(B, n_s, C).scatter(1, gidx[..., None].expand(-1, -1, C), sm)
+    # a FLOP count adds the JAX package's one-hot product (_scatter_rows)
+    return _flops.one_hot_rows(out, B, K, n_s, C)
 
 
 class SharedBlock(nn.Module):
@@ -273,25 +278,37 @@ class SharedBlock(nn.Module):
     def forward(self, x_v, x_i, n_mt: int, gidx_v, gidx_i,
                 lens_keep: Optional[int] = None,
                 ce_rows: Optional[CeRows] = None,
-                ce_row_weights: Optional[torch.Tensor] = None):
+                ce_row_weights: Optional[torch.Tensor] = None,
+                return_scores: bool = False):
         """lens_keep: keep count (None = no CE at this block); ce_rows:
         template rows pooled for the CE ranking (None = all rows);
         ce_row_weights: (B, 4 * n_t) {0, 1} weights of the rows (GT_BOX,
-        with ce_rows None), whose masked rows are averaged."""
+        with ce_rows None), whose masked rows are averaged. return_scores
+        also returns the pooled t->s attention per modality with the
+        search positions it scores, taken before this block prunes:
+        (a_v, a_i, gidx_v, gidx_i) (a diagnostic, the JAX block's
+        `return_scores`)."""
         exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
         av, ai, attn_t2s = self.attn(self.norm1_v(x_v), self.norm1_i(x_i), n_mt,
-                                     return_attention=exe_ce, ce_rows=ce_rows)
+                                     return_attention=exe_ce or return_scores,
+                                     ce_rows=ce_rows)
         x_v, x_i = x_v + self.dp1(av), x_i + self.dp1(ai)
-        if exe_ce:
+        scores = None
+        if exe_ce or return_scores:
             lens_s = gidx_v.shape[1]
             if ce_row_weights is not None and ce_rows is None:
                 wr = ce_row_weights[:, :, None].to(attn_t2s.dtype)
                 a = (attn_t2s.mean(dim=1) * wr).sum(dim=1) / wr.sum(dim=1).clamp_min(1e-6)
             else:
                 a = attn_t2s.mean(dim=(1, 2))                  # (B, 2 * L_s)
-            x_v, gidx_v = _ce_select(a[:, :lens_s], x_v, gidx_v, n_mt, lens_keep)
-            x_i, gidx_i = _ce_select(a[:, lens_s:], x_i, gidx_i, n_mt, lens_keep)
+            if return_scores:
+                scores = (a[:, :lens_s], a[:, lens_s:], gidx_v, gidx_i)
+            if exe_ce:
+                x_v, gidx_v = _ce_select(a[:, :lens_s], x_v, gidx_v, n_mt, lens_keep)
+                x_i, gidx_i = _ce_select(a[:, lens_s:], x_i, gidx_i, n_mt, lens_keep)
         x_v, x_i = self._mlp(x_v, x_i)
+        if return_scores:
+            return x_v, x_i, gidx_v, gidx_i, scores
         return x_v, x_i, gidx_v, gidx_i
 
     # ------------------------------------------------- cached-template path
@@ -402,11 +419,18 @@ class AsymSharedViT(nn.Module):
 
     def forward(self, x_t, x_ot, x_s, ce_keep_rate: Optional[float] = None,
                 use_ce_template_mask: bool = True,
-                ce_gt_boxes: Optional[torch.Tensor] = None):
+                ce_gt_boxes: Optional[torch.Tensor] = None,
+                return_attn_maps: bool = False):
         """x_*: stacked bimodal NHWC batches (2B, H, W, 3), [:B] RGB, [B:] TIR;
         ce_gt_boxes: (B, 4) normalised template-crop xywh, read by GT_BOX
         only. Returns the (t, ot, s) feature maps (2B, h, w, C), search
-        tokens zero-restored at pruned positions."""
+        tokens zero-restored at pruned positions. return_attn_maps also
+        returns {CE block index: (B, 2, gs, gs) float32}: that block's
+        head- and row-pooled t->s attention per modality (the ranking's,
+        before the block prunes) scattered back to the search grid, zero
+        at positions pruned earlier (the JAX backbone's
+        `return_attn_maps`, the reference's attention-map
+        visualisation)."""
         t, ot, s = self._embed(x_t, self.pos_embed_t), self._embed(x_ot, self.pos_embed_t), \
             self._embed(x_s, self.pos_embed_s)
         B = t.shape[0] // 2
@@ -422,16 +446,27 @@ class AsymSharedViT(nn.Module):
         # remat: each block's activations recomputed in the backward (the
         # JAX package's nn.remat(SharedBlock), models/asymmetric_shared.py:446)
         run = remat if self.remat and torch.is_grad_enabled() else (lambda f, *a: f(*a))
+        gt, gs = self.grid_size_t, self.grid_size_s
+        attn_maps = {}
+
+        def grid(score, gi):
+            full = torch.zeros(B, n_s, dtype=torch.float32, device=score.device)
+            return full.scatter(1, gi, score.float()).reshape(B, gs, gs)
         for bi, blk in enumerate(self.blocks):
-            x_v, x_i, gidx_v, gidx_i = run(blk, x_v, x_i, n_mt, gidx_v, gidx_i,
-                                           keeps[bi], ce_rows, ce_row_weights)
+            if return_attn_maps and bi in (self.ce_loc or ()):
+                x_v, x_i, gidx_v, gidx_i, (a_v, a_i, g_v, g_i) = blk(
+                    x_v, x_i, n_mt, gidx_v, gidx_i, keeps[bi], ce_rows, ce_row_weights, True)
+                attn_maps[bi] = torch.stack([grid(a_v, g_v), grid(a_i, g_i)], dim=1)
+            else:
+                x_v, x_i, gidx_v, gidx_i = run(blk, x_v, x_i, n_mt, gidx_v, gidx_i,
+                                               keeps[bi], ce_rows, ce_row_weights)
         x_v = torch.cat([x_v[:, :n_mt], _recover(x_v[:, n_mt:], gidx_v, n_s)], dim=1)
         x_i = torch.cat([x_i[:, :n_mt], _recover(x_i[:, n_mt:], gidx_i, n_s)], dim=1)
         x = torch.cat([x_v, x_i], dim=0)
-        gt, gs = self.grid_size_t, self.grid_size_s
-        return (x[:, :n_t].reshape(2 * B, gt, gt, -1),
-                x[:, n_t:n_mt].reshape(2 * B, gt, gt, -1),
-                x[:, n_mt:].reshape(2 * B, gs, gs, -1))
+        feats = (x[:, :n_t].reshape(2 * B, gt, gt, -1),
+                 x[:, n_t:n_mt].reshape(2 * B, gt, gt, -1),
+                 x[:, n_mt:].reshape(2 * B, gs, gs, -1))
+        return feats + (attn_maps,) if return_attn_maps else feats
 
     # ------------------------------------------------- cached-template path
     def build_template_cache(self, x_t, x_ot):
@@ -545,7 +580,7 @@ class MixFormerRGBT(nn.Module):
             self.score_branch = ScoreDecoder(sp.num_heads, sp.embed_dim, sp.nlayer_head)
 
     def _head(self, s: torch.Tensor, t: Optional[torch.Tensor], run_score_head: bool,
-              gt_bboxes: Optional[torch.Tensor] = None):
+              gt_bboxes: Optional[torch.Tensor] = None, return_features: bool = False):
         B = s.shape[0] // 2
         fused = self.fusion_vi(s[:B], s[B:])
         box_xyxy = self.box_head(fused)
@@ -557,21 +592,26 @@ class MixFormerRGBT(nn.Module):
             # the tokens the SPM attends over
             out["pred_scores"] = self.score_branch(fused, torch.cat([t[:B], t[B:]], dim=1),
                                                    box.reshape(B, 4))
+        if return_features:
+            out["search_v"], out["search_i"], out["search_fused"] = s[:B], s[B:], fused
         return out
 
     def forward(self, t_vi, ot_vi, s_vi, ce_keep_rate: Optional[float] = None,
                 use_ce_template_mask: bool = True, run_score_head: bool = False,
                 gt_bboxes: Optional[torch.Tensor] = None,
-                ce_gt_boxes: Optional[torch.Tensor] = None):
+                ce_gt_boxes: Optional[torch.Tensor] = None, return_features: bool = False):
         """t_vi/ot_vi/s_vi: (2B, H, W, 3) bimodal stacks ([:B] RGB, [B:] TIR).
         Returns {'pred_boxes': (B, 1, 4) cxcywh in [0, 1]}, and with
         run_score_head (a model with the score branch) 'pred_scores' (B, 1,
         1) logits; gt_bboxes (B, 4) normalised xyxy replaces the predicted
         box the score branch pools; ce_gt_boxes (B, 4) normalised
-        template-crop xywh are GT_BOX's boxes (no other mode reads them)."""
+        template-crop xywh are GT_BOX's boxes (no other mode reads them).
+        return_features adds the search feature maps 'search_v',
+        'search_i' (B, gs, gs, C) and the fused 'search_fused' (the JAX
+        model's diagnostic outputs)."""
         t, _, s = self.backbone(t_vi, ot_vi, s_vi, ce_keep_rate, use_ce_template_mask,
                                 ce_gt_boxes)
-        return self._head(s, t, run_score_head, gt_bboxes)
+        return self._head(s, t, run_score_head, gt_bboxes, return_features)
 
     # ------------------------------------------------- cached-template path
     def set_online(self, t_vi, ot_vi):

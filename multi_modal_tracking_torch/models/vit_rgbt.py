@@ -100,13 +100,14 @@ class MixFormerViTRGBT(nn.Module):
 
     def forward(self, t_vi, ot_vi, s_vi, ce_keep_rate: Optional[float] = None,
                 use_ce_template_mask: bool = True, run_score_head: bool = False,
-                gt_bboxes: Optional[torch.Tensor] = None):
+                gt_bboxes: Optional[torch.Tensor] = None, return_features: bool = False):
         """t_vi/ot_vi/s_vi: (2B, H, W, 3) bimodal stacks ([:B] RGB, [B:] TIR).
         Returns {'pred_boxes': (B, 1, 4) cxcywh in [0, 1]}, and with
         run_score_head (a model with the score branch) 'pred_scores' (B, 1,
         1) logits; gt_bboxes (B, 4) normalised xyxy replaces the predicted
         box the score branch pools. ce_keep_rate and use_ce_template_mask
-        are ignored (no CE)."""
+        are ignored (no CE). return_features adds 'search_v', 'search_i'
+        and 'search_fused', as the flagship's."""
         del ce_keep_rate, use_ce_template_mask
         t, _, s = self._backbone(t_vi, ot_vi, s_vi)
         B = s.shape[0] // 2
@@ -117,6 +118,8 @@ class MixFormerViTRGBT(nn.Module):
             box = gt_bboxes if gt_bboxes is not None else box_xyxy.detach()
             out["pred_scores"] = self.score_branch(fused, torch.cat([t[:B], t[B:]], dim=2),
                                                    box.reshape(B, 4))
+        if return_features:
+            out["search_v"], out["search_i"], out["search_fused"] = s[:B], s[B:], fused
         return out
 
 

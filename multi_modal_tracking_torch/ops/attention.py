@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from multi_modal_tracking_torch.ops import _build
+from multi_modal_tracking_torch.utils import flops as _flops
 
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (16, 32, 64)
@@ -180,7 +181,20 @@ def _check_kernel_args(tensors, n_mt, dtype=torch.float32):
 
 
 def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+    """CPU tensors take the plain versions; so do meta tensors while a FLOP
+    count runs (`utils/flops.py`: shapes only). Outside a count a meta
+    tensor raises like any other non-CUDA one."""
+    return _flops.plain_device(tensors)
+
+
+def attention_einsum_flops(q_shape, Nk: int, n_mt: int) -> float:
+    """One product of the JAX package's two-call XLA mixed attention
+    (`mixed_attention_xla`: template rows against the first n_mt keys,
+    search rows against all Nk): 2 * B * H * D * (n_mt^2 + (Nq - n_mt) * Nk).
+    The forward runs two (scores, then values), the backward one per
+    operand that takes a gradient."""
+    B, H, Nq, D = q_shape
+    return 2.0 * B * H * D * (n_mt * n_mt + (Nq - n_mt) * Nk)
 
 
 def query_warps(BH: int, Nq: int, n_sm: int) -> int:
@@ -363,12 +377,18 @@ class _MixedAttention(torch.autograd.Function):
     def backward(ctx, g):
         # the model's head merge can hand over a non-contiguous gradient
         g = g.contiguous()
-        if ctx.bf16:
-            q, k, v, lse = ctx.saved_tensors
-            dq, dk, dv = mixed_attention_bwd_bf16(q, k, v, g, ctx.n_mt, ctx.scale, lse)
-        else:
-            q, k, v, out, lse = ctx.saved_tensors
-            dq, dk, dv = mixed_attention_bwd(q, k, v, out, g, ctx.n_mt, ctx.scale, lse)
+        # unpacked once: under remat (torch.utils.checkpoint) a second
+        # unpack raises
+        saved = ctx.saved_tensors
+        rq, rk, rv = ctx.needs_input_grad[:3]
+        one = attention_einsum_flops(g.shape, saved[1].shape[2], ctx.n_mt)
+        with _flops.kernel_region("mixed_attention_bwd", one * (rq + rk + (rq or rk) + rv)):
+            if ctx.bf16:
+                q, k, v, lse = saved
+                dq, dk, dv = mixed_attention_bwd_bf16(q, k, v, g, ctx.n_mt, ctx.scale, lse)
+            else:
+                q, k, v, out, lse = saved
+                dq, dk, dv = mixed_attention_bwd(q, k, v, out, g, ctx.n_mt, ctx.scale, lse)
         return dq, dk, dv, None, None, None
 
 
@@ -382,11 +402,13 @@ def mixed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     autograd to K1-bf16 and K2-bf16."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     bf16 = torch.bfloat16 in (q.dtype, k.dtype, v.dtype)
-    if grad:
-        return _MixedAttention.apply(q, k, v, int(n_mt), float(scale), bf16)
-    if bf16:
-        return mixed_attention_bf16(q, k, v, int(n_mt), float(scale))
-    return mixed_attention_fwd(q, k, v, int(n_mt), float(scale))
+    with _flops.kernel_region("mixed_attention",
+                              2 * attention_einsum_flops(q.shape, k.shape[2], int(n_mt))):
+        if grad:
+            return _MixedAttention.apply(q, k, v, int(n_mt), float(scale), bf16)
+        if bf16:
+            return mixed_attention_bf16(q, k, v, int(n_mt), float(scale))
+        return mixed_attention_fwd(q, k, v, int(n_mt), float(scale))
 
 
 mixed_attention.launches = 0

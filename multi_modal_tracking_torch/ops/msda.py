@@ -39,6 +39,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from multi_modal_tracking_torch.ops import _build
+from multi_modal_tracking_torch.utils import flops as _flops
 
 
 def _corners(loc_l: torch.Tensor, H: int, W: int):
@@ -379,7 +380,7 @@ def ms_deform_attn_fwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     `ms_deform_attn.launches_by_kernel`), `ms_deform_attn_ref` for CPU
     tensors."""
     tensors = (value, sampling_locations, attention_weights)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _flops.plain_device(tensors):
         return ms_deform_attn_ref(value, spatial_shapes, sampling_locations,
                                   attention_weights)
     _check_kernel_args(value, spatial_shapes, sampling_locations, attention_weights)
@@ -410,7 +411,7 @@ def ms_deform_attn_bwd(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, 
     (in shared memory for staged levels, in device memory for direct ones),
     so its summation order varies from run to run."""
     tensors = (value, sampling_locations, attention_weights, grad_out)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _flops.plain_device(tensors):
         return ms_deform_attn_bwd_ref(value, spatial_shapes, sampling_locations,
                                       attention_weights, grad_out)
     _check_kernel_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
@@ -457,7 +458,7 @@ def ms_deform_attn_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
         if t.dtype != want:
             raise TypeError(f"ms_deform_attn_bf16 takes {want} {name}, got {t.dtype}")
     tensors = (value, sampling_locations, attention_weights)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _flops.plain_device(tensors):
         return ms_deform_attn_bf16_ref(value, spatial_shapes, sampling_locations,
                                        attention_weights)
     _check_kernel_args(value, spatial_shapes, sampling_locations, attention_weights,
@@ -501,7 +502,7 @@ def ms_deform_attn_bwd_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[
         if t.dtype != want:
             raise TypeError(f"ms_deform_attn_bwd_bf16 takes {want} {name}, got {t.dtype}")
     tensors = (value, sampling_locations, attention_weights, grad_out)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _flops.plain_device(tensors):
         return ms_deform_attn_bwd_bf16_ref(value, spatial_shapes, sampling_locations,
                                            attention_weights, grad_out)
     _check_kernel_args(value, spatial_shapes, sampling_locations, attention_weights, grad_out,
@@ -537,6 +538,25 @@ def ms_deform_attn_bwd_bf16(value: torch.Tensor, spatial_shapes: Sequence[Tuple[
     return dvalue, dloc, dattw
 
 
+#: the largest level (pixels) that the JAX package's CPU MSDA samples through
+#: its dense einsums (ops/msda.py `_DENSE_MAX_SOURCE`); larger ones gather
+DENSE_MAX_SOURCE = 4096
+
+
+def msda_einsum_flops(B: int, Lq: int, M: int, D: int, P: int,
+                      spatial_shapes) -> Tuple[float, float]:
+    """The JAX package's CPU MSDA products (`_dense_sample_level`) summed
+    over its dense levels: (the interpolation matrix's einsum, 2 * B * Lq *
+    M * P * HW; its product with the values, 2 * B * M * Lq * HW * D)."""
+    hw = sum(h * w for h, w in spatial_shapes if h * w <= DENSE_MAX_SOURCE)
+    return 2.0 * B * Lq * M * P * hw, 2.0 * B * M * Lq * hw * D
+
+
+def _msda_flops(value, spatial_shapes, loc) -> Tuple[float, float]:
+    B, _, M, D = value.shape
+    return msda_einsum_flops(B, loc.shape[1], M, D, loc.shape[4], spatial_shapes)
+
+
 def _level_starts(spatial_shapes):
     starts, s = [], 0
     for h, w in spatial_shapes:
@@ -559,7 +579,12 @@ class _MSDeformAttn(torch.autograd.Function):
     def backward(ctx, grad_out):
         value, loc, attw = ctx.saved_tensors
         bwd = ms_deform_attn_bwd_bf16 if ctx.bf16 else ms_deform_attn_bwd
-        dvalue, dloc, dattw = bwd(value, ctx.spatial_shapes, loc, attw, grad_out.contiguous())
+        rv, _, rl, ra = ctx.needs_input_grad[:4]
+        e1, e2 = _msda_flops(value, ctx.spatial_shapes, loc)
+        with _flops.kernel_region("ms_deform_attn_bwd",
+                                  e1 * ((rl or ra) + rl) + e2 * ((rl or ra) + rv)):
+            dvalue, dloc, dattw = bwd(value, ctx.spatial_shapes, loc, attw,
+                                      grad_out.contiguous())
         return dvalue, None, dloc, dattw, None
 
 
@@ -577,11 +602,14 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     tensors = (value, sampling_locations, attention_weights)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     bf16 = value.dtype == torch.bfloat16
-    if grad:
-        return _MSDeformAttn.apply(value, shapes, sampling_locations, attention_weights, bf16)
-    if bf16:
-        return ms_deform_attn_bf16(value, shapes, sampling_locations, attention_weights)
-    return ms_deform_attn_fwd(value, shapes, sampling_locations, attention_weights)
+    with _flops.kernel_region("ms_deform_attn",
+                              sum(_msda_flops(value, shapes, sampling_locations))):
+        if grad:
+            return _MSDeformAttn.apply(value, shapes, sampling_locations, attention_weights,
+                                       bf16)
+        if bf16:
+            return ms_deform_attn_bf16(value, shapes, sampling_locations, attention_weights)
+        return ms_deform_attn_fwd(value, shapes, sampling_locations, attention_weights)
 
 
 ms_deform_attn.launches = 0

@@ -91,7 +91,10 @@ class RefineTrainer:
     """AdamW training of an AlphaRefineNet, the JAX refine step's
     semantics. `step(batch)` takes the host batch of
     `batch_from_box_dataset` and returns its metrics as floats
-    {"loss", "mask_bce", "mask_soft_iou"}."""
+    {"loss", "mask_bce", "mask_soft_iou"}. The leaves stay float32 (master
+    weights); the net computes in its compute dtype (bfloat16 with
+    `build_alpha_refine(dtype=torch.bfloat16)`, the JAX
+    `build_refine_trainer(dtype=)`), the loss in f32."""
 
     def __init__(self, net: AlphaRefineNet, lr: float = 1e-3, weight_decay: float = 1e-4):
         for p in net.parameters():
@@ -152,11 +155,12 @@ class RefineTrainer:
 
 
 def build_refine_trainer(input_sz: int = 256, lr: float = 1e-3, weight_decay: float = 1e-4,
-                         seed: int = 0, device="cuda"
+                         seed: int = 0, device="cuda", dtype: torch.dtype = torch.float32
                          ) -> Tuple[AlphaRefineNet, RefineSpec, RefineTrainer]:
-    """A randomly initialised AlphaRefineNet (from `seed`) and its trainer,
-    on `device` (CUDA unless "cpu"; raises without a card)."""
-    net, spec = build_alpha_refine(input_sz=input_sz, device=device, seed=seed)
+    """A randomly initialised AlphaRefineNet (from `seed`) computing in
+    `dtype` on float32 parameters, and its trainer, on `device` (CUDA
+    unless "cpu"; raises without a card)."""
+    net, spec = build_alpha_refine(input_sz=input_sz, device=device, seed=seed, dtype=dtype)
     return net, spec, RefineTrainer(net, lr=lr, weight_decay=weight_decay)
 
 

@@ -23,6 +23,7 @@
 """
 import io
 import os
+import sys
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -292,14 +293,19 @@ def test_run_dataset_threads_one_tracker_per_worker(tmp_path):
                                       np.trunc(np.tile(s.ground_truth_rect[0, 0], (5, 1))))
 
 
-def test_runner_options_that_raise(tmp_path):
+def test_runner_options_that_raise(tmp_path, monkeypatch):
     """Path frames are decoded; one that cannot be read raises with its path
-    (tests/test_torch_port_file_datasets.py tracks from files)."""
+    (tests/test_torch_port_file_datasets.py tracks from files). save_vis
+    without cv2 (the video container's writer) raises ImportError naming it,
+    before tracking (test_run_sequence_save_vis_writes_the_video writes
+    one)."""
     seq = RGBTSequence("paths", [("a.jpg", "b.jpg")] * 3, "LasHeR", np.ones((3, 2, 4)))
     with pytest.raises(ValueError, match="a.jpg: cannot read the file"):
         running.run_sequence(seq, _Oracle(np.ones((3, 4))), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="cv2"):
-        running.run_sequence(seq, _Oracle(np.ones((3, 4))), str(tmp_path), save_vis=True)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "cv2", None)
+        with pytest.raises(ImportError, match="cv2"):
+            running.run_sequence(seq, _Oracle(np.ones((3, 4))), str(tmp_path), save_vis=True)
     with pytest.raises(ValueError, match="threads > 0 and a tracker_factory"):
         running.run_dataset([seq], None, str(tmp_path), devices=["cuda:0", "cuda:1"])
     # the prefetcher hands a loading error to the consumer
@@ -307,6 +313,34 @@ def test_runner_options_that_raise(tmp_path):
         list(running._Prefetcher(seq, 1, 2))
     uni = Sequence("uni", [np.zeros((4, 4, 3), np.uint8)] * 2, "otb", np.ones((2, 4)))
     assert running._load_frame(uni, 1).shape == (4, 4, 3)
+
+
+def test_run_sequence_save_vis_writes_the_video(tmp_path, monkeypatch):
+    """save_vis tracks frame by frame and writes vis_video/<seq>.mp4 of the
+    JAX runner's frames (jax_running._vis_frame: the predicted box and the
+    search region around the previous one), through cv2."""
+    import cv2
+    seq = datasets.get_dataset("synthetic_rgbt", n_sequences=1, n_frames=6)[0]
+    gt = seq.ground_truth_rect[:, 0] + np.array([0.3, -0.6, 4.7, 2.2])
+    got = []
+    write = running.write_video
+    monkeypatch.setattr(running, "write_video",
+                        lambda path, frames, **kw: got.append(list(frames)) or
+                        write(path, got[-1], **kw))
+    running.run_sequence(seq, _Oracle(gt), str(tmp_path), save_vis=True, report_fps=False)
+    path = tmp_path / "vis_video" / f"{seq.name}.mp4"
+    cap = cv2.VideoCapture(str(path))
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 5
+    boxes = gt.copy()                         # the float boxes the runner holds
+    boxes[0] = running._select_init_box(seq.init_info()["init_bbox"])
+    for k, frame in enumerate(got[0], start=1):
+        want = jax_running._vis_frame(seq.frames[k][0].copy(), boxes[k], boxes[k - 1], 4.5)
+        np.testing.assert_array_equal(frame, want)
+
+
+def test_cli_vis_search_writes_videos(tiny_cli, tmp_path):
+    out = run.main(BASE + ["--sequence", "synthetic_01", "--vis_search"])
+    assert os.listdir(os.path.join(out[0], "vis_video")) == ["synthetic_01.mp4"]
 
 
 # ------------------------------------------------------ trackers end to end
@@ -525,11 +559,15 @@ def test_cli_batch_sequences_and_checkpoint_sweep(tiny_cli, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--vis_search"], NotImplementedError, "cv2"),
+    # the videos need cv2's container writer: without cv2 it raises
+    # (test_cli_vis_search_writes_videos writes them)
+    (["--vis_search"], ImportError, "cv2"),
     # the file-based sets are read (tests/test_torch_port_file_datasets.py
     # runs eval.run on a LasHeR tree); a name the registry lacks raises
     (["--dataset_name", "lasher_2024"], ValueError, "Unknown dataset 'lasher_2024'"),
 ], ids=["vis_search", "file_dataset"])
-def test_cli_unported_options_raise(tiny_cli, extra, exc, match):
+def test_cli_unported_options_raise(tiny_cli, extra, exc, match, monkeypatch):
+    if "--vis_search" in extra:
+        monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(exc, match=match):
         run.main(BASE + extra)
