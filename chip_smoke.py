@@ -366,6 +366,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 under each other's load). The kernel line takes each run's
                 launches as a path of its own: gloo DP, FSDP, NCCL DP,
                 remat graphed and the two eval workers.
+                Tensor parallelism (parallel/tensor.py), bf16, random
+                layers off: in the NCCL child a 1 x 1 data x model group,
+                graphed, 3 steps bit for bit the plain step's (ms a step of
+                each); two more gloo ranks on the card as a 1 x 2 group,
+                eager, full width (6 heads, half of every MLP and fusion
+                FFN, half of output_proj's input a rank), step 1 at keep 1
+                against the one-process bf16 step (loss and grad_norm
+                within 1e-3 + PAR_TP_DRIFT times that step's own distance
+                to the f32 one), step 2 at the final keep (CE ranks over
+                both ranks' heads) equal on both ranks, the replicated
+                parameters the same bits on both, K1-K4-bf16 launched, ms
+                a step. The restart across ranks: two more gloo ranks train
+                the bf16 Trainer eagerly for 2 epochs of one step, rank 1's
+                boxes NaN in epoch 2's first try, so the averaged loss is
+                non-finite on both: both reload epoch 1's checkpoint, retry
+                and end with the same weights. In the main process, after
+                the eval workers: the cached bf16 lockstep at N = 12 over
+                devices ["cuda:0", "cuda:0"] (two shards of 6, graphed)
+                against the unsharded N = 12 run, boxes within
+                PAR_LOCKSTEP_PX, frames/s of each. Paths of the kernel
+                line: parallel_tp_bf16 (both TP runs), parallel_restart_bf16,
+                parallel_lockstep_bf16.
                 `python3 chip_smoke.py parallel` runs the device and build
                 phases and this phase alone.
  20. vot      - Alpha-Refine and the three VOT entries (phase_vot), full
@@ -3512,15 +3534,16 @@ def _eager_twin(tracker):
                              ce_keep_rate=None, graphs=False)
 
 
-def _lockstep_twin(tracker, graphs: bool = True):
-    """The lockstep tracker on a single-stream tracker's model and settings."""
+def _lockstep_twin(tracker, graphs: bool = True, devices=None):
+    """The lockstep tracker on a single-stream tracker's model and settings
+    (its batch sharded over `devices` if given)."""
     from multi_modal_tracking_torch.tracking.batched import BatchedRGBTCachedTracker
     t = tracker
     return BatchedRGBTCachedTracker(t.model, template_factor=t.template_factor,
                                     template_size=t.template_size,
                                     search_factor=t.search_factor, search_size=t.search_size,
                                     update_interval=t.update_interval, ce_keep_rate=None,
-                                    scan_chunk=EVAL_CHUNK, graphs=graphs)
+                                    scan_chunk=EVAL_CHUNK, graphs=graphs, devices=devices)
 
 
 def _lockstep_runs(seqs, bt, d: str, n: int) -> list:
@@ -6257,6 +6280,17 @@ PAR_F32 = dict(loss1_rel=1e-5, grad_norm1_rel=1e-3, grads1=1e-2, metrics2_rel=1e
 #: random layers off: each rank draws its own masks for its part of the
 #: batch, so a run over ranks matches the one-process run only without them
 NO_DROP = dict(drop_path_rate=0.0, fusion_dropout=0.0)
+#: the bf16 TP step's bound against the one-process bf16 step: 1e-3 rel
+#: plus this many times the bf16 step's own distance to the f32 one (TP
+#: rounds each partial product to bf16 before the f32 sum over the ranks:
+#: another rounding of the same size as the bf16 step's own)
+PAR_TP_DRIFT = 2.0
+#: the keeps of the gloo TP steps: keep 1, then the final keep (CE on)
+PAR_TP_KEEPS = (1.0, KEEP_FINAL)
+PAR_LOCKSTEP_N = 12                # the sharded lockstep: N = 12 over two shards on cuda:0
+#: its bound against the unsharded run: the bf16 lockstep's bound against
+#: one stream (module docstring, phase 7); shards of 6 run other GEMM shapes
+PAR_LOCKSTEP_PX = 0.05
 
 
 def _par_trainer(dtype, graphs: bool, steps: int, save_dir: str, device="cuda",
@@ -6350,6 +6384,146 @@ def _par_close(got: dict, want: dict) -> dict:
                                 for k in ("Loss/total", "grad_norm")))
     res["within"] = all(res[k] <= PAR_F32[k] for k in PAR_F32)
     return res
+
+
+def _tp_trainee(tp, graphs: bool, dtype, device, steps: int) -> tuple:
+    """The flagship at full width as the Trainer builds it (seed 0, random
+    layers off), cut over `tp`'s model group if given: (model, optimizer,
+    training step)."""
+    from multi_modal_tracking_torch.models.build import build_model
+    from multi_modal_tracking_torch.parallel.tensor import shard_tensor_parallel_
+    from multi_modal_tracking_torch.train.optimizer import make_optimizer
+    from multi_modal_tracking_torch.train.train_step import make_train_step
+    cfg = _train_cfg(TRAIN_B, steps)
+    model = build_model(SCRIPT, cfg, device=device, dtype=dtype, seed=0,
+                        spec_overrides=NO_DROP).train()
+    if tp is not None:
+        shard_tensor_parallel_(model, tp)
+    opt = make_optimizer(cfg, model, steps, tp=tp)
+    step = make_train_step(model, opt, device=device, iou_weight=cfg.TRAIN.IOU_WEIGHT,
+                           l1_weight=cfg.TRAIN.L1_WEIGHT, graphs=graphs, tp=tp)
+    return model, opt, step
+
+
+def _step_state(model, opt) -> dict:
+    """Weights, buffers and AdamW moments by name."""
+    out = {f"net/{k}": v for k, v in model.state_dict().items()}
+    for g in opt.groups:
+        for i, (m, v) in enumerate(zip(opt.mu[g], opt.nu[g])):
+            out[f"mu/{g}/{i}"], out[f"nu/{g}/{i}"] = m, v
+    return out
+
+
+def _state_digest(tensors: dict) -> str:
+    """sha256 of the tensors' bytes, in name order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_world1(batches, device) -> tuple:
+    """TP over a 1 x 1 data x model group (NCCL, graphed, bf16) against the
+    plain step from the same weights: every step's metrics and the state
+    after them bit for bit, the same launches; ms a step of each. Returns
+    (line, the TP run's launches)."""
+    from multi_modal_tracking_torch.parallel.mesh import create_mesh_2d
+    runs = {}
+    for name, tp in (("plain", None), ("tp", create_mesh_2d(1, 1))):
+        torch.cuda.empty_cache()
+        reset_launches()
+        model, opt, step = _tp_trainee(tp, True, torch.bfloat16, device, len(batches))
+        metrics = [{k: float(v) for k, v in step(x, ce_keep_rate=KEEP_FINAL).items()}
+                   for x in batches]
+        launches = read_launches()
+        state = {k: v.clone() for k, v in _step_state(model, opt).items()}
+        ms = _isolated_steps(step, batches[0], n=3)["ms_per_step_median"]
+        runs[name] = dict(metrics=metrics, state=state, launches=launches, ms=ms)
+        del model, opt, step
+    differing = _differing(runs["tp"]["state"], runs["plain"]["state"])
+    res = dict(steps=len(batches), keep=KEEP_FINAL,
+               metrics_equal=runs["tp"]["metrics"] == runs["plain"]["metrics"],
+               n_differing=len(differing), differing=differing[:8],
+               launches_equal=all(runs["tp"]["launches"][k] == runs["plain"]["launches"][k]
+                                  for k in BF16_KERNELS + ("AdamW",)),
+               ms_per_step_plain=runs["plain"]["ms"], ms_per_step_tp=runs["tp"]["ms"])
+    require(res["metrics_equal"] and not differing and res["launches_equal"],
+            f"TP over a 1 x 1 group != the plain step: {res}")
+    return res, runs["tp"]["launches"]
+
+
+def _par_child_tp(rank: int, world: int, workdir: str) -> dict:
+    """Two gloo ranks on the one card as a 1 x 2 TP group, bf16 eager, full
+    width: the parent's batches whole on both ranks (n_data 1), step 1 at
+    keep 1 and step 2 at the final keep; the metrics, ms a step, launches
+    and a digest of the replicated state."""
+    from multi_modal_tracking_torch.parallel import distributed as D
+    from multi_modal_tracking_torch.parallel.mesh import create_mesh_2d
+    D.initialize_distributed(f"file://{workdir}/tp_store", world, rank, device="cuda",
+                             backend="gloo")
+    dev = torch.device("cuda", 0)
+    tp = create_mesh_2d(1, world)
+    batches = [{k: v.to(dev) for k, v in x.items()}
+               for x in torch.load(os.path.join(workdir, "batches.pt"), weights_only=True)]
+    reset_launches()
+    model, opt, step = _tp_trainee(tp, False, torch.bfloat16, dev, len(batches))
+    metrics, ms = [], []
+    for x, keep in zip(batches, PAR_TP_KEEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append({k: float(v) for k, v in step(x, ce_keep_rate=keep).items()})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    dims = model.tp_dims
+    out = dict(rank=rank, metrics=metrics, ms_per_step=ms, launches=launches,
+               heads=model.backbone.blocks[0].attn.num_heads, sharded=len(dims),
+               replicated_digest=_state_digest({k: v for k, v in model.state_dict().items()
+                                          if k not in dims}),
+               ms_per_step_isolated=_isolated_steps(step, batches[0], n=3)["ms_per_step_median"])
+    D.shutdown_distributed()
+    return out
+
+
+def _par_child_restart(rank: int, world: int, workdir: str) -> dict:
+    """Two gloo ranks on the one card train the bf16 Trainer eagerly for 2
+    epochs of one step with its fail-safe restart on; rank 1's boxes are
+    NaN in epoch 2's first try. The epochs begun, the reloads, and digests
+    of the final weights."""
+    from multi_modal_tracking_torch.parallel import distributed as D
+    D.initialize_distributed(f"file://{workdir}/restart_store", world, rank, device="cuda",
+                             backend="gloo")
+    tr = _par_trainer(torch.bfloat16, False, 1, os.path.join(workdir, "restart_run"),
+                      device=torch.device("cuda", 0))
+    began, loads = [], []
+    train_epoch, load_checkpoint = tr.train_epoch, tr.load_checkpoint
+
+    def poisoned_epoch():
+        began.append(tr.epoch)
+        if tr.epoch != 2 or began.count(2) > 1 or rank != 1:
+            return train_epoch()
+        step = tr._step
+        tr._step = lambda x, ce_keep_rate=None: step(
+            dict(x, gt_xywh=x["gt_xywh"] * float("nan")), ce_keep_rate)
+        try:
+            return train_epoch()
+        finally:
+            tr._step = step
+
+    def counted_load(path=None, reshard=False):
+        loads.append(tr.epoch)
+        return load_checkpoint(path, reshard)
+    tr.train_epoch, tr.load_checkpoint = poisoned_epoch, counted_load
+    reset_launches()
+    tr.train(max_epochs=2)
+    state = tr.model.state_dict()
+    out = dict(rank=rank, began=began, loads=loads, epoch=tr.epoch, count=tr.optimizer.count,
+               launches=read_launches(), digest=_state_digest(state),
+               finite=all(bool(torch.isfinite(v).all()) for v in state.values()
+                          if v.is_floating_point()))
+    D.shutdown_distributed()
+    return out
 
 
 def _par_child_gloo(rank: int, world: int, workdir: str) -> dict:
@@ -6464,6 +6638,7 @@ def _par_child_nccl(rank: int, world: int, workdir: str) -> dict:
         require(dp_metrics == one_metrics and not differing,
                 f"NCCL world-1 DP != the one-GPU trainer: {out['dp_world1']}")
         del dp, dp_state
+        out["tp_world1"], out["tp_launches"] = _tp_world1(batches, D.local_device())
     D.shutdown_distributed()
     return out
 
@@ -6542,32 +6717,76 @@ def _par_eval_devices(smi: str) -> tuple:
     return res, launches
 
 
+def _par_lockstep_devices() -> tuple:
+    """The flagship's cached bf16 lockstep at N = PAR_LOCKSTEP_N over two
+    shards on cuda:0 (graphed) against the unsharded run: boxes within
+    PAR_LOCKSTEP_PX; frames/s of each from a second, warm run. Returns
+    (line, the sharded run's launches)."""
+    from multi_modal_tracking_torch.eval.datasets import get_dataset
+    from multi_modal_tracking_torch.eval.evaltracker import create_tracker
+    from multi_modal_tracking_torch.tracking.batched import run_sequences_batched
+    name = "synthetic_rgbt_hard"
+    seqs = get_dataset(name, n_frames=HARD_FRAMES)[:PAR_LOCKSTEP_N]
+    single = create_tracker(_params(), name, seed=0, dtype=torch.bfloat16)
+    trackers = {"one": _lockstep_twin(single),
+                "two_shards": _lockstep_twin(single, devices=["cuda:0", "cuda:0"])}
+    res, boxes, launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for key, bt in trackers.items():
+            run_sequences_batched(seqs, bt, os.path.join(root, key + "_warm"), chunk=EVAL_CHUNK)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            stats = run_sequences_batched(seqs, bt, os.path.join(root, key), chunk=EVAL_CHUNK)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[key] = read_launches()
+            boxes[key] = np.stack([st["boxes"] for st in stats])
+            n = sum(st["n_frames"] for st in stats)
+            res[key] = dict(frames=n, seconds=secs, fps=n / secs)
+    res["max_abs_px"] = float(np.abs(boxes["two_shards"] - boxes["one"]).max())
+    res["N"], res["shards"] = len(seqs), len(trackers["two_shards"]._shards)
+    res["launches"] = {k: launches["two_shards"][k] for k in BF16_SERVING}
+    require(np.isfinite(boxes["two_shards"]).all() and res["max_abs_px"] <= PAR_LOCKSTEP_PX
+            and all(v > 0 for v in res["launches"].values()),
+            f"the lockstep over two shards against N = {len(seqs)} unsharded: {res}")
+    return res, launches["two_shards"]
+
+
 def phase_parallel(smi: str, frames, save_dir: str) -> dict:
     """Multi-GPU slice on the one card (module docstring, phase 19): child
     processes for everything that forms a process group (the main process
     never does). Returns the launch counts of its paths: `f32` gloo DP,
     `fsdp` FSDP over gloo (f32), `bf16` NCCL DP, `remat_bf16` the graphed
-    remat steps, `eval_bf16` the two eval workers."""
+    remat steps, `eval_bf16` the two eval workers, `tp_bf16` tensor
+    parallelism (NCCL 1 x 1 and gloo 1 x 2), `restart_bf16` the restart
+    across ranks, `lockstep_bf16` the lockstep over two shards."""
     t0 = time.perf_counter()
     out = {path: dict.fromkeys((F32_KERNELS if path in ("f32", "fsdp") else BF16_KERNELS)
                                + ("AdamW",), 0)
-           for path in ("f32", "fsdp", "bf16", "remat_bf16", "eval_bf16")}
-    # the one-process f32 reference of the gloo runs, saved for the children
+           for path in ("f32", "fsdp", "bf16", "remat_bf16", "eval_bf16", "tp_bf16",
+                        "restart_bf16", "lockstep_bf16")}
+    # the one-process f32 and bf16 references of the gloo runs, saved for the children
     workdir, one_bytes = _par_reference(save_dir)
     seconds = {"one_process": time.perf_counter() - t0}
     # the gloo ranks, the NCCL child and the eval workers (in this process)
     # run at the same time: their checks compare bits and launch counts, not
     # times, and the times they print are taken under each other's load
-    children = {"gloo": _par_start("gloo", 2, workdir), "nccl": _par_start("nccl", 1, workdir)}
+    children = {"gloo": _par_start("gloo", 2, workdir), "nccl": _par_start("nccl", 1, workdir),
+                "tp": _par_start("tp", 2, workdir), "restart": _par_start("restart", 2, workdir)}
     try:
         evals, launches = _par_eval_devices(smi)
+        lockstep, lockstep_launches = _par_lockstep_devices()
     except BaseException:
         _par_finish(children, workdir, timeout=1.0)
         raise
-    seconds["eval"] = time.perf_counter() - t0 - sum(seconds.values())
+    seconds["eval_and_lockstep"] = time.perf_counter() - t0 - sum(seconds.values())
     done = _par_finish(children, workdir)
-    seconds["gloo_and_nccl_children"] = time.perf_counter() - t0 - sum(seconds.values())
+    seconds["children"] = time.perf_counter() - t0 - sum(seconds.values())
     gloo, (nccl,) = done["gloo"], done["nccl"]
+    tp_line = _par_tp_check(done["tp"], nccl, workdir, out["tp_bf16"])
+    restart_line = _par_restart_check(done["restart"], out["restart_bf16"])
+    _add_launches(out["lockstep_bf16"], lockstep_launches, BF16_SERVING)
     for r in gloo:
         require(r["dp"]["vs_one_process"]["within"],
                 f"gloo DP rank {r['rank']} against the one-process step: {r['dp']}")
@@ -6582,22 +6801,26 @@ def phase_parallel(smi: str, frames, save_dir: str) -> dict:
     _add_launches(out["bf16"], nccl["launches"], out["bf16"])
     _add_launches(out["remat_bf16"], nccl["remat_launches"], out["remat_bf16"])
     _add_launches(out["eval_bf16"], launches, BF16_SERVING)
-    require(all(out[p]["AdamW"] > 0 for p in ("f32", "fsdp", "bf16", "remat_bf16")),
+    require(all(out[p]["AdamW"] > 0 for p in ("f32", "fsdp", "bf16", "remat_bf16", "tp_bf16",
+                                              "restart_bf16")),
             f"a parallel training path launched no AdamW: {out}")
     emit({"phase": "parallel", "card": smi, "nccl": nccl["nccl_version"],
           "dp_nccl_world1_bf16_graphed": nccl["dp_world1"],
           "dp_gloo_2ranks_f32": [dict(r["dp"], rank=r["rank"]) for r in gloo],
           "fsdp_gloo_2ranks_f32": [dict(r["fsdp"], rank=r["rank"]) for r in gloo],
           "one_process_bytes": one_bytes, "remat_bf16": nccl["remat"], "eval_devices": evals,
+          "tp_nccl_1x1_bf16_graphed": nccl["tp_world1"], "tp_gloo_1x2_bf16": tp_line,
+          "restart_gloo_2ranks_bf16": restart_line, "lockstep_two_shards_bf16": lockstep,
           "bounds": PAR_F32, "batch": TRAIN_B, "launches_by_path": out,
           "seconds_by_part": seconds, "seconds": time.perf_counter() - t0})
     return out
 
 
 def _par_reference(save_dir: str) -> tuple:
-    """A work directory holding PAR_GLOO_STEPS batches of the recipe and the
-    one-process f32 run on them (random layers off), for the children;
-    (workdir, that run's parameter and moment bytes)."""
+    """A work directory holding PAR_GLOO_STEPS batches of the recipe, the
+    one-process f32 run on them (random layers off) and the one-process
+    bf16 step run at PAR_TP_KEEPS (the TP children's reference), for the
+    children; (workdir, the f32 run's parameter and moment bytes)."""
     workdir = tempfile.mkdtemp(dir=save_dir)
     batches = _train_batches(PAR_GLOO_STEPS, seed=7)
     torch.save([{k: v.cpu() for k, v in x.items()} for x in batches],
@@ -6605,16 +6828,72 @@ def _par_reference(save_dir: str) -> tuple:
     tr = _par_trainer(torch.float32, False, PAR_GLOO_STEPS, save_dir, spec_overrides=NO_DROP)
     torch.save(_par_run(tr, batches), os.path.join(workdir, "one_process.pt"))
     one_bytes = _rank_bytes(tr)
-    del tr, batches
+    del tr
+    torch.cuda.empty_cache()
+    model, opt, step = _tp_trainee(None, False, torch.bfloat16, "cuda", len(batches))
+    metrics = [{k: float(v) for k, v in step(x, ce_keep_rate=keep).items()}
+               for x, keep in zip(batches, PAR_TP_KEEPS)]
+    with open(os.path.join(workdir, "one_process_bf16.json"), "w") as f:
+        json.dump(metrics, f)
+    del model, opt, step, batches
     torch.cuda.empty_cache()
     return workdir, one_bytes
+
+
+def _par_tp_check(ranks: list, nccl: dict, workdir: str, launches: dict) -> dict:
+    """The gloo 1 x 2 TP ranks against the one-process bf16 step (step 1:
+    within 1e-3 + PAR_TP_DRIFT times the bf16 step's distance to the f32
+    one, for the loss and grad_norm), equal on both ranks, the replicated
+    state the same bits, every bf16 kernel launched; adds the TP runs'
+    launches (these and the NCCL 1 x 1 run's) to `launches`."""
+    one_bf16 = json.load(open(os.path.join(workdir, "one_process_bf16.json")))
+    one_f32 = torch.load(os.path.join(workdir, "one_process.pt"), weights_only=False)["metrics"]
+    res = dict(heads_a_rank=ranks[0]["heads"], sharded_parameters=ranks[0]["sharded"],
+               keeps=list(PAR_TP_KEEPS), metrics=ranks[0]["metrics"], one_process_bf16=one_bf16,
+               ms_per_step=[r["ms_per_step"] for r in ranks],
+               ms_per_step_isolated=[r["ms_per_step_isolated"] for r in ranks],
+               launches={k: sum(r["launches"][k] for r in ranks) for k in BF16_KERNELS})
+    for k in ("Loss/total", "grad_norm"):
+        w, f = one_bf16[0][k], one_f32[0][k]
+        res[f"{k}_rel"] = abs(ranks[0]["metrics"][0][k] - w) / abs(w)
+        res[f"{k}_bf16_vs_f32_rel"] = abs(w - f) / abs(f)
+        res[f"{k}_bound"] = 1e-3 + PAR_TP_DRIFT * res[f"{k}_bf16_vs_f32_rel"]
+        res[f"{k}_step2_rel"] = abs(ranks[0]["metrics"][1][k] - one_bf16[1][k]) / abs(
+            one_bf16[1][k])
+    res["ranks_equal"] = all(r["metrics"] == ranks[0]["metrics"] for r in ranks)
+    res["replicated_equal"] = len({r["replicated_digest"] for r in ranks}) == 1
+    require(all(res[f"{k}_rel"] <= res[f"{k}_bound"] for k in ("Loss/total", "grad_norm"))
+            and res["ranks_equal"] and res["replicated_equal"]
+            and all(np.isfinite(v) for m in ranks[0]["metrics"] for v in m.values())
+            and all(v > 0 for v in res["launches"].values()),
+            f"TP over two gloo ranks against the one-process bf16 step: {res}")
+    for r in ranks:
+        _add_launches(launches, r["launches"], launches)
+    _add_launches(launches, nccl["tp_launches"], launches)
+    return res
+
+
+def _par_restart_check(ranks: list, launches: dict) -> dict:
+    """Both restart ranks began epoch 2 twice, reloaded epoch 1's checkpoint
+    once and ended with the same finite weights."""
+    res = dict(began=[r["began"] for r in ranks], loads=[r["loads"] for r in ranks],
+               counts=[r["count"] for r in ranks],
+               same_weights=len({r["digest"] for r in ranks}) == 1,
+               finite=all(r["finite"] for r in ranks))
+    require(all(r["began"] == [1, 2, 2] and r["loads"] == [1] and r["epoch"] == 2
+                for r in ranks) and res["same_weights"] and res["finite"],
+            f"the restart across two ranks: {res}")
+    for r in ranks:
+        _add_launches(launches, r["launches"], launches)
+    return res
 
 
 def _parallel_rank(argv) -> None:
     """A child of phase_parallel: `_parallel_rank CASE RANK WORLD WORKDIR`;
     writes WORKDIR/CASE_RANK.json."""
     case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
-    fn = {"gloo": _par_child_gloo, "nccl": _par_child_nccl}[case]
+    fn = {"gloo": _par_child_gloo, "nccl": _par_child_nccl, "tp": _par_child_tp,
+          "restart": _par_child_restart}[case]
     out = fn(rank, world, workdir)
     with open(os.path.join(workdir, f"{case}_{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -7641,12 +7920,15 @@ def main(argv=None) -> None:
                    "unimodal_bf16": unimodal["bf16"][key],
                    "cvt_convmae_bf16": cvt_convmae["bf16"][key], "files_bf16": files["bf16"][key],
                    "parallel_bf16": parallel["bf16"][key],
-                   "parallel_remat_bf16": parallel["remat_bf16"][key]}
+                   "parallel_remat_bf16": parallel["remat_bf16"][key],
+                   "parallel_tp_bf16": parallel["tp_bf16"][key],
+                   "parallel_restart_bf16": parallel["restart_bf16"][key]}
         if key in BF16_SERVING:
             by_path.update({path: bf16[path][key] for path in ("tracker_bf16", "eval_bf16")},
                            graphs_bf16=graph_launches["bf16"][key],
                            online_bf16=online["bf16"][key],
                            parallel_eval_bf16=parallel["eval_bf16"][key],
+                           parallel_lockstep_bf16=parallel["lockstep_bf16"][key],
                            vot_bf16=vot_launches[key])
         by_path["classic"] = classic_launches[key]
         by_path["tools_bf16"] = tools["bf16"][key]
@@ -7672,6 +7954,8 @@ def main(argv=None) -> None:
                "parallel": parallel["f32"]["AdamW"], "parallel_fsdp": parallel["fsdp"]["AdamW"],
                "parallel_bf16": parallel["bf16"]["AdamW"],
                "parallel_remat_bf16": parallel["remat_bf16"]["AdamW"],
+               "parallel_tp_bf16": parallel["tp_bf16"]["AdamW"],
+               "parallel_restart_bf16": parallel["restart_bf16"]["AdamW"],
                "vot": vot_launches["AdamW"], "classic": classic_launches["AdamW"]}
     row = dict(kernels["AdamW"], launches=sum(by_path.values()), launches_by_path=by_path)
     table.append({k: row[k] for k in (

@@ -54,6 +54,7 @@ import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from multi_modal_tracking_torch.models.fusion import build_fusion
@@ -150,14 +151,56 @@ def _t2s_attention(q_mt: torch.Tensor, k_s: torch.Tensor, scale: float,
 
 
 class AsymCrossModalAttention(nn.Module):
-    """Cross-modal asymmetric mixed attention over per-modality [t; ot; s]."""
+    """Cross-modal asymmetric mixed attention over per-modality [t; ot; s].
+
+    Under tensor parallelism (parallel/tensor.py, `set_model_group`) `qkv`
+    holds this rank's heads' rows of q, of k and of v (the rows split per
+    head, not the JAX rule's contiguous cut of the kernel's last axis,
+    which GSPMD reshards) and `proj` the matching input columns:
+    `num_heads` is then the rank's head count and the attention runs on
+    its heads with no collective; `ce_scores` sums the CE ranking over the
+    model group's heads."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = self.total_heads = num_heads
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
         self.scale = (dim // num_heads) ** -0.5
+        #: the model group of tensor parallelism (parallel/mesh.py), or None
+        self.model_group = None
+
+    def set_model_group(self, group) -> None:
+        """Run on this rank's heads of `group`'s (its qkv and proj already
+        cut: parallel/tensor.py shard_tensor_parallel_)."""
+        self.model_group = group
+        self.num_heads = self.total_heads // group.world
+
+    def _head_sum(self, x: torch.Tensor, dims) -> torch.Tensor:
+        """x summed over `dims` (dim 1, the heads, among them) and over the
+        model group's heads."""
+        x = x.sum(dim=dims)
+        dist.all_reduce(x, group=self.model_group.group)
+        return x
+
+    @torch.no_grad()
+    def ce_scores(self, attn_t2s: torch.Tensor,
+                  row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The CE ranking (B, 2 * L_s) of `_t2s_attention`'s (B, H, R, 2 *
+        L_s): the mean over heads and rows, or with GT_BOX's (B, R) row
+        weights the mean over heads, then the weighted mean over rows. Under
+        tensor parallelism the sums run over every rank's heads before the
+        division by the total head count, so every model rank keeps the
+        same tokens."""
+        tp = self.model_group is not None and self.model_group.world > 1
+        if row_weights is not None:
+            wr = row_weights[:, :, None].to(attn_t2s.dtype)
+            heads = self._head_sum(attn_t2s, 1) / self.total_heads if tp \
+                else attn_t2s.mean(dim=1)
+            return (heads * wr).sum(dim=1) / wr.sum(dim=1).clamp_min(1e-6)
+        if tp:
+            return self._head_sum(attn_t2s, (1, 2)) / (self.total_heads * attn_t2s.shape[2])
+        return attn_t2s.mean(dim=(1, 2))
 
     def _qkv_heads(self, x):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
@@ -287,7 +330,10 @@ class SharedBlock(nn.Module):
         also returns the pooled t->s attention per modality with the
         search positions it scores, taken before this block prunes:
         (a_v, a_i, gidx_v, gidx_i) (a diagnostic, the JAX block's
-        `return_scores`)."""
+        `return_scores`; it raises under tensor parallelism)."""
+        if return_scores and self.attn.model_group is not None:
+            raise NotImplementedError("return_scores under tensor parallelism (each rank "
+                                      "holds only its heads' attention)")
         exe_ce = lens_keep is not None and lens_keep < gidx_v.shape[1]
         av, ai, attn_t2s = self.attn(self.norm1_v(x_v), self.norm1_i(x_i), n_mt,
                                      return_attention=exe_ce or return_scores,
@@ -296,11 +342,7 @@ class SharedBlock(nn.Module):
         scores = None
         if exe_ce or return_scores:
             lens_s = gidx_v.shape[1]
-            if ce_row_weights is not None and ce_rows is None:
-                wr = ce_row_weights[:, :, None].to(attn_t2s.dtype)
-                a = (attn_t2s.mean(dim=1) * wr).sum(dim=1) / wr.sum(dim=1).clamp_min(1e-6)
-            else:
-                a = attn_t2s.mean(dim=(1, 2))                  # (B, 2 * L_s)
+            a = self.attn.ce_scores(attn_t2s, ce_row_weights if ce_rows is None else None)
             if return_scores:
                 scores = (a[:, :lens_s], a[:, lens_s:], gidx_v, gidx_i)
             if exe_ce:
@@ -331,7 +373,7 @@ class SharedBlock(nn.Module):
         s_v, s_i = s_v + av, s_i + ai
         if exe_ce:
             lens_s = gidx_v.shape[1]
-            a = attn_t2s.mean(dim=(1, 2))
+            a = self.attn.ce_scores(attn_t2s)
             s_v, gidx_v = _ce_select(a[:, :lens_s], s_v, gidx_v, 0, lens_keep)
             s_i, gidx_i = _ce_select(a[:, lens_s:], s_i, gidx_i, 0, lens_keep)
         s_v, s_i = self._mlp(s_v, s_i)
@@ -430,7 +472,10 @@ class AsymSharedViT(nn.Module):
         before the block prunes) scattered back to the search grid, zero
         at positions pruned earlier (the JAX backbone's
         `return_attn_maps`, the reference's attention-map
-        visualisation)."""
+        visualisation; it raises under tensor parallelism)."""
+        if return_attn_maps and self.blocks[0].attn.model_group is not None:
+            raise NotImplementedError("return_attn_maps under tensor parallelism (each rank "
+                                      "holds only its heads' attention)")
         t, ot, s = self._embed(x_t, self.pos_embed_t), self._embed(x_ot, self.pos_embed_t), \
             self._embed(x_s, self.pos_embed_s)
         B = t.shape[0] // 2

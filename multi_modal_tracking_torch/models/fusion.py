@@ -25,6 +25,15 @@ ReLU, after its second linear); they act in training mode only and draw
 from the generator of `set_generator`. Gradients flow through K3's
 backward, kernel K4. A model cast to bf16 runs K3-bf16: bf16 values and
 attention weights, f32 sampling locations.
+
+Under tensor parallelism (parallel/tensor.py `shard_tensor_parallel_`)
+an encoder layer's `linear1` is column-parallel and `linear2`
+row-parallel, and MSDA's `output_proj` row-parallel behind `scatter_last`
+(MSDA's output is replicated); `value_proj`, `sampling_offsets` and
+`attention_weights` stay whole, so K3 / K4 run whole on every model rank.
+`dropout2` then acts on the rank's part of the FFN hidden and draws from
+its own generator (`tp_sharded`); `dropout1` and `dropout3` act on
+replicated activations and draw alike on every rank of a model group.
 """
 from __future__ import annotations
 

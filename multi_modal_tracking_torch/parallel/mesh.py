@@ -39,7 +39,7 @@ replay would skip, so FSDP runs eager (`graphs=False`).
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional, Set
+from typing import Dict, Iterable, Optional, Set
 
 import torch
 import torch.distributed as dist
@@ -96,6 +96,83 @@ class DataParallel:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
+
+
+class TensorParallel:
+    """The data x model group of a tensor-parallel run (`create_mesh_2d`):
+    `data` and `model` are the reductions (`DataParallel`) over this
+    rank's data group and model group; `n_data`, `n_model`, `data_rank`,
+    `model_rank` place it in the grid."""
+
+    def __init__(self, n_data: int, n_model: int, data: DataParallel, model: DataParallel):
+        self.n_data, self.n_model = n_data, n_model
+        self.data, self.model = data, model
+        self.data_rank, self.model_rank = data.rank, model.rank
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold both groups' collectives (NCCL)."""
+        return self.data.capturable and self.model.capturable
+
+    @property
+    def backend(self) -> str:
+        return self.data.backend
+
+
+def create_mesh_2d(n_data: int, n_model: int) -> TensorParallel:
+    """Split the formed world into the data x model group (module
+    docstring): rank = data_rank * n_model + model_rank. Every rank calls
+    it, in the same order as its other groups. A world that is not n_data
+    * n_model raises: unlike the JAX function, which falls back to the
+    CPU's virtual devices, the port forms its groups from processes (gloo
+    on the CPU)."""
+    if not dist.is_initialized():
+        raise RuntimeError("create_mesh_2d: no process group; call "
+                           "parallel.distributed.initialize_distributed first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if n_data < 1 or n_model < 1 or world != n_data * n_model:
+        raise ValueError(f"create_mesh_2d: a {n_data} x {n_model} group needs "
+                         f"{n_data * n_model} processes, the world has {world}")
+    # every rank forms every group, in the same order (torch.distributed's rule)
+    data_groups = [dist.new_group([d * n_model + m for d in range(n_data)])
+                   for m in range(n_model)]
+    model_groups = [dist.new_group([d * n_model + m for m in range(n_model)])
+                    for d in range(n_data)]
+    return TensorParallel(n_data, n_model, DataParallel(data_groups[rank % n_model]),
+                          DataParallel(model_groups[rank // n_model]))
+
+
+#: the JAX rule's owners: column-parallel (output dimension sharded) and
+#: row-parallel (input dimension sharded) layers
+COLUMN_PARALLEL = ("qkv", "fc1", "linear1")
+ROW_PARALLEL = ("proj", "fc2", "linear2", "output_proj")
+
+
+def tensor_parallel_dims(model: nn.Module, n_model: int) -> Dict[str, int]:
+    """The JAX package's `param_shardings` rule on the port's parameters:
+    {parameter name: the dimension sharded over the model group}; a
+    parameter not named is replicated. Column-parallel owners (`qkv`,
+    `fc1`, `linear1`) shard their output dimension, weight and bias;
+    row-parallel ones (`proj`, `fc2`, `linear2`, `output_proj`) their
+    weight's input dimension, the bias replicated. A dimension that
+    n_model does not divide stays replicated. A torch weight is the flax
+    kernel's transpose, (out, in) for a Linear and (out, in, kh, kw) for a
+    Conv2d, so the output dimension is 0 and the input one 1; like the JAX
+    rule, which reads a conv kernel's input channels (its axis -2), the
+    patch embedding's `proj` conv is row-parallel when n_model divides
+    its 3 input channels (n_model 3), else replicated."""
+    dims = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        owner, leaf = (parts[-2] if len(parts) >= 2 else ""), parts[-1]
+        if leaf == "weight" and p.dim() >= 2:
+            if owner in COLUMN_PARALLEL and p.shape[0] % n_model == 0:
+                dims[name] = 0
+            elif owner in ROW_PARALLEL and p.shape[1] % n_model == 0:
+                dims[name] = 1
+        elif leaf == "bias" and owner in COLUMN_PARALLEL and p.shape[0] % n_model == 0:
+            dims[name] = 0
+    return dims
 
 
 def shard_dim(shape: Iterable[int], world: int, min_size: int = 1024) -> Optional[int]:

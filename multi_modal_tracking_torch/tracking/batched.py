@@ -35,9 +35,21 @@ into its own ring slot by a select on the device.
 `run_sequences_batched` evaluates a group of same-size sequences this way
 and writes the result files of eval/running.py (with `<seq>_score.txt`
 for the online twins).
+
+Over several cards (`devices=[...]`, every twin; the JAX package's
+`mesh=` data axis, tracking/batched.py:49-54, :101-111 there): the N
+sequences split into equal contiguous shards, one per device (N must
+divide by their count, as in JAX). Each shard is a tracker of the same
+class and settings on its device, with a model replica there (shards on
+one device share it), its own static inputs, state buffers and graphs.
+`track_block` launches the shards' chunks in turn, so the cards overlap,
+and returns (T, N, ...) in sequence order; nothing is exchanged between
+shards. A shard's template-update cadence is the batch's: lockstep
+sequences start together, so the live ones share one frame count.
 """
 from __future__ import annotations
 
+import copy
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -83,13 +95,21 @@ class BatchedRGBTTracker:
     and writes the state and the frame's boxes into them: on CUDA with
     graphs=True (the default) as CUDA graphs, one per (N, frame shape) and
     per template update or not (tracking/graphs.py); graphs=False, and any
-    CPU tracker, runs the same step eager."""
+    CPU tracker, runs the same step eager. `devices`: shard the N
+    sequences over these devices (module docstring); `device` is then
+    where `track_block(fetch=False)` puts its outputs."""
 
     def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
                  search_factor: float = 5.0, search_size: int = 288,
                  update_interval: int = 200, ce_keep_rate: Optional[float] = None,
-                 scan_chunk: int = 16, device="cuda", graphs: bool = True):
+                 scan_chunk: int = 16, device="cuda", graphs: bool = True,
+                 devices: Optional[List] = None):
         self.device = resolve_device(device)
+        self.devices = None if devices is None else [resolve_device(d) for d in devices]
+        if self.devices is not None and not self.devices:
+            raise ValueError("devices: an empty list")
+        self._graphs_on = graphs
+        self._shards: Optional[List["BatchedRGBTTracker"]] = None
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, tracker device is {self.device}")
@@ -108,6 +128,51 @@ class BatchedRGBTTracker:
 
     def _upload(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x)).to(self.device)
+
+    # ------------------------------------------------- shards over devices
+    def _split(self, n: int) -> List[slice]:
+        k = len(self.devices)
+        if n % k:
+            raise ValueError(f"{n} sequences do not split over {k} devices (N must divide "
+                             f"by the device count)")
+        return [slice(i * n // k, (i + 1) * n // k) for i in range(k)]
+
+    def _make_shards(self) -> List["BatchedRGBTTracker"]:
+        """One tracker of this class and its settings per device, each with
+        a model replica on its device (one replica per distinct device)."""
+        home = next(self.model.parameters()).device
+        replicas = {home: self.model}
+        shards = []
+        for d in self.devices:
+            key = d if d.type == "cpu" or d.index is not None \
+                else torch.device("cuda", torch.cuda.current_device())
+            if key not in replicas:
+                replicas[key] = copy.deepcopy(self.model).to(key)
+            shard = copy.copy(self)
+            shard.devices, shard._shards, shard.device = None, None, key
+            shard.model = replicas[key]
+            shard.graphs = StepGraphs(key) if self._graphs_on and key.type == "cuda" else None
+            shard._slots, shard._inputs = {}, {}
+            shards.append(shard)
+        return shards
+
+    def _track_block_sharded(self, frames_v, frames_i, valid, fetch: bool):
+        T, N = frames_v.shape[:2]
+        parts = self._split(N)
+        chunks = []
+        for lo in range(0, T, self.scan_chunk):
+            hi = min(lo + self.scan_chunk, T)
+            outs = [shard.track_block(np.ascontiguousarray(frames_v[lo:hi, sl]),
+                                      np.ascontiguousarray(frames_i[lo:hi, sl]),
+                                      valid[lo:hi, sl], fetch=False)
+                    for shard, sl in zip(self._shards, parts)]
+            outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+            chunks.append([torch.cat([o[j].to(self.device) for o in outs], dim=1)
+                           for j in range(len(outs[0]))])
+        outs = [torch.cat([c[j] for c in chunks]) for j in range(len(chunks[0]))]
+        if fetch:
+            outs = [o.cpu().numpy() for o in outs]
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
     # ------------------------------------------------------- model steps
     #: the state buffers; `_boxes` holds the step's output
@@ -131,6 +196,8 @@ class BatchedRGBTTracker:
     def initialize(self, frames_v: np.ndarray, frames_i: np.ndarray, boxes: np.ndarray) -> None:
         """frames_*: (N, H, W, 3) uint8 frame-0 stacks (TIR may be (N, H, W));
         boxes: (N, 4) xywh init boxes. Runs eager."""
+        if self.devices is not None:
+            return self._initialize_sharded(frames_v, frames_i, boxes)
         fv, fi = self._upload(frames_v), self._upload(frames_i)
         self._shape = tuple(fv.shape[1:3])
         state = torch.as_tensor(np.asarray(boxes, np.float32).reshape(-1, 4),
@@ -142,6 +209,13 @@ class BatchedRGBTTracker:
                                         **self._init_model(tv, ti)})
         for name in self._STATE:
             setattr(self, name, bufs[name])
+
+    def _initialize_sharded(self, frames_v, frames_i, boxes) -> None:
+        boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+        if self._shards is None:
+            self._shards = self._make_shards()
+        for shard, sl in zip(self._shards, self._split(len(boxes))):
+            shard.initialize(frames_v[sl], frames_i[sl], boxes[sl])
 
     def _search(self, fv: torch.Tensor, fi: torch.Tensor, live: torch.Tensor):
         """The N search crops at the states, the network, and the frame's
@@ -201,6 +275,8 @@ class BatchedRGBTTracker:
             raise ValueError("track_block valid mask must be suffix-style per sequence "
                              "(no True after a False): the template update runs on the "
                              "batch's frame cadence")
+        if self.devices is not None:
+            return self._track_block_sharded(frames_v, frames_i, valid, fetch)
         outs = [torch.empty((T,) + tuple(getattr(self, name).shape), dtype=torch.float32,
                             device=self.device) for name in self._OUTPUTS]
         sources = self._block_frames(frames_v, frames_i) + (valid,)
@@ -285,9 +361,9 @@ class BatchedRGBTOnlineTracker(_BatchedScoreGate, BatchedRGBTTracker):
                  search_factor: float = 5.0, search_size: int = 288,
                  update_interval: int = 25, max_score_decay: float = 1.0,
                  ce_keep_rate: Optional[float] = None, scan_chunk: int = 16, device="cuda",
-                 graphs: bool = True):
+                 graphs: bool = True, devices: Optional[List] = None):
         super().__init__(model, template_factor, template_size, search_factor, search_size,
-                         update_interval, ce_keep_rate, scan_chunk, device, graphs)
+                         update_interval, ce_keep_rate, scan_chunk, device, graphs, devices)
         self.max_score_decay = max_score_decay
 
     def _init_model(self, tv, ti) -> dict:
@@ -353,11 +429,11 @@ class BatchedRGBTracker(BatchedRGBTTracker):
     def __init__(self, model, template_factor: float = 2.0, template_size: int = 128,
                  search_factor: float = 4.5, search_size: int = 288,
                  update_interval: int = 200, mode: str = "RGB", scan_chunk: int = 16,
-                 device="cuda", graphs: bool = True):
+                 device="cuda", graphs: bool = True, devices: Optional[List] = None):
         if mode not in MODES:
             raise ValueError(f"unimodal tracker mode {mode!r} (one of {MODES})")
         super().__init__(model, template_factor, template_size, search_factor, search_size,
-                         update_interval, None, scan_chunk, device, graphs)
+                         update_interval, None, scan_chunk, device, graphs, devices)
         self.mode = mode
 
     def _block_frames(self, frames_v: np.ndarray, frames_i: np.ndarray) -> tuple:
@@ -381,6 +457,8 @@ class BatchedRGBTracker(BatchedRGBTTracker):
 
     @torch.no_grad()
     def initialize(self, frames_v: np.ndarray, frames_i: np.ndarray, boxes: np.ndarray) -> None:
+        if self.devices is not None:
+            return self._initialize_sharded(frames_v, frames_i, boxes)
         imgs = [self._upload(x) for x in self._block_frames(frames_v, frames_i)]
         self._shape = tuple(imgs[0].shape[1:3])
         state = torch.as_tensor(np.asarray(boxes, np.float32).reshape(-1, 4),
@@ -459,9 +537,9 @@ class BatchedOnlineTracker(_BatchedScoreGate, BatchedRGBTracker):
                  search_factor: float = 4.5, search_size: int = 288,
                  update_interval: int = 200, online_size: int = 3,
                  max_score_decay: float = 1.0, mode: str = "RGB", scan_chunk: int = 16,
-                 device="cuda", graphs: bool = True):
+                 device="cuda", graphs: bool = True, devices: Optional[List] = None):
         super().__init__(model, template_factor, template_size, search_factor, search_size,
-                         update_interval, mode, scan_chunk, device, graphs)
+                         update_interval, mode, scan_chunk, device, graphs, devices)
         self.online_size, self.max_score_decay = online_size, max_score_decay
 
     def _slot_mask(self, n_filled: torch.Tensor) -> torch.Tensor:

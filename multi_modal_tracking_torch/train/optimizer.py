@@ -45,6 +45,15 @@ DTensor that FSDP2 reduce-scatters into, and its moments and accumulator
 are this rank's shard only; the clip's squared norm of the shards is
 summed over the ranks (`dp`) before the replicated gradients' is added,
 and the fused AdamW runs on each rank's shards.
+
+Tensor parallel (`tp`, parallel/mesh.py `TensorParallel`; the JAX
+package's `state_shardings` over a data x model mesh). A parameter cut
+over the model group (parallel/tensor.py, `tp_dim`) is a plain tensor of
+this rank's shard: its gradient is a view of the flat buffer like any
+other, its moments are shards, and the fused AdamW updates the local flat
+buffer. The clip's squared norm sums the sharded gradients' over the
+model group and counts the replicated ones once (they are equal on the
+ranks of a model group).
 """
 from __future__ import annotations
 
@@ -166,9 +175,13 @@ class RegimeAdamW:
     then `finish(role)`; `update()` does the last three in one call, after
     a backward that left its gradients in `.grad`."""
 
-    def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1, dp=None):
+    def __init__(self, cfg, model: nn.Module, steps_per_epoch: int = 1, dp=None, tp=None):
         lab, mults = _regime_labeler(cfg)
+        if dp is not None and tp is not None:
+            raise ValueError("RegimeAdamW: pass the data-parallel group (dp) or the "
+                             "tensor-parallel one (tp), whose data group it holds")
         self.dp = dp              # the data-parallel group (parallel/mesh.py) or None
+        self.tp = tp              # the data x model group (parallel/mesh.py) or None
         self.accum = cfg.TRAIN.get("ACCUM_ITER", 1) or 1
         self.base_lr = cfg.TRAIN.LR
         self.max_norm = cfg.TRAIN.GRAD_CLIP_NORM
@@ -189,6 +202,11 @@ class RegimeAdamW:
         self._index = {g: [index[p] for p in ps] for g, ps in self.groups.items()}
         #: whether each parameter is FSDP-sharded (a DTensor)
         self.sharded = [is_sharded(p) for p in self.params]
+        #: whether each parameter is cut over the model group (tensor parallel)
+        self.tp_sharded = [getattr(p, "tp_dim", None) is not None for p in self.params]
+        if any(self.tp_sharded) and tp is None:
+            raise ValueError("RegimeAdamW: tensor-parallel parameters need the "
+                             "tensor-parallel group (tp)")
         if any(self.sharded) and dp is None:
             raise ValueError("RegimeAdamW: sharded parameters need the data-parallel group (dp)")
         dev = local_tensor(self.params[0]).device if self.params else torch.device("cpu")
@@ -274,13 +292,18 @@ class RegimeAdamW:
 
     def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of `grads`; under FSDP the shards' squared norm
-        is summed over the ranks first."""
-        if not any(self.sharded):
+        is summed over the ranks first, under tensor parallelism over the
+        model group (a sum over one rank is the plain norm)."""
+        if self.tp is not None and self.tp.model.world > 1:
+            sharded, group = self.tp_sharded, self.tp.model
+        elif any(self.sharded):
+            sharded, group = self.sharded, self.dp
+        else:
             return global_norm(grads)
-        sq = [torch.stack(torch._foreach_norm([g for g, s in zip(grads, self.sharded) if s]))
+        sq = [torch.stack(torch._foreach_norm([g for g, s in zip(grads, sharded) if s]))
               .square().sum()]
-        self.dp.all_reduce_sum_(sq[0])
-        rep = [g for g, s in zip(grads, self.sharded) if not s]
+        group.all_reduce_sum_(sq[0])
+        rep = [g for g, s in zip(grads, sharded) if not s]
         if rep:
             sq.append(torch.stack(torch._foreach_norm(rep)).square().sum())
         return torch.stack(sq).sum().sqrt()
@@ -408,5 +431,6 @@ class RegimeAdamW:
                     a.copy_(s)
 
 
-def make_optimizer(cfg, model: nn.Module, steps_per_epoch: int = 1, dp=None) -> RegimeAdamW:
-    return RegimeAdamW(cfg, model, steps_per_epoch, dp)
+def make_optimizer(cfg, model: nn.Module, steps_per_epoch: int = 1, dp=None,
+                   tp=None) -> RegimeAdamW:
+    return RegimeAdamW(cfg, model, steps_per_epoch, dp, tp)

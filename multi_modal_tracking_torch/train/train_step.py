@@ -54,6 +54,19 @@ statistics over the group (models/layers.py). With NCCL the collectives
 are captured in the step's graphs; gloo's cannot be, and a CUDA step over
 gloo with graphs=True raises, as does FSDP (sharded parameters) with
 graphs=True: FSDP2 gathers and frees parameters from the host.
+
+Tensor parallel (`tp`, a data x model group of parallel/mesh.py
+`create_mesh_2d`; the JAX package's `make_train_step(mesh=,
+state_shardings=param_shardings(...))`): the model is cut over the model
+group first (parallel/tensor.py `shard_tensor_parallel_`, the flagship
+scripts only) and the optimizer built with the same `tp`. Each rank runs
+the step on its data rank's part of the batch; the gradients and metrics
+are averaged over the data group only (the ranks of a model group hold
+the same sample's gradients, sharded or replicated), BatchNorm syncs over
+the data group, the clip's norm sums the sharded gradients' squares over
+the model group (train/optimizer.py) and the fused AdamW updates each
+rank's local buffers. With NCCL the step is graphed, the model group's
+collectives captured with the rest; over gloo a graphed CUDA step raises.
 """
 from __future__ import annotations
 
@@ -224,7 +237,7 @@ class TrainStep:
 
 def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: float = 2.0,
                     l1_weight: float = 5.0, graphs: bool = True, train_score: bool = False,
-                    score_weight: float = 1.0, dp=None) -> TrainStep:
+                    score_weight: float = 1.0, dp=None, tp=None) -> TrainStep:
     """step(batch, ce_keep_rate=None) -> metrics {"Loss/total", "Loss/ciou",
     "Loss/l1", "IoU", "grad_norm"} (0-d device tensors, copies that later
     steps leave alone); with train_score the stage-2 step of the score
@@ -237,20 +250,34 @@ def make_train_step(model: nn.Module, optimizer, device="cuda", iou_weight: floa
     float32 or bf16) on float32 parameters; a model whose parameters were
     cast to bf16 raises. `dp`: the data-parallel group (module docstring);
     a graphed CUDA step over gloo, or over FSDP-sharded parameters, raises
-    ValueError."""
+    ValueError. `tp`: the data x model group of a model cut by
+    `parallel.tensor.shard_tensor_parallel_` and of its optimizer (module
+    docstring); with `dp` too, or with another optimizer or an uncut
+    model, it raises ValueError."""
     dev = resolve_device(device)
     require_float32_params(model, "make_train_step")
     set_precision(compute_dtype(model))
+    if tp is not None:
+        if dp is not None:
+            raise ValueError("make_train_step: pass dp or tp (whose data group averages the "
+                             "gradients), not both")
+        if getattr(model, "tp_dims", None) is None or optimizer.tp is not tp:
+            raise ValueError("make_train_step: tp needs the model cut by "
+                             "parallel.tensor.shard_tensor_parallel_ and the optimizer "
+                             "built with the same tp")
+    group = tp if tp is not None else dp
     if graphs and dev.type == "cuda":
-        if dp is not None and not dp.capturable:
-            raise ValueError(f"make_train_step: a CUDA graph cannot capture {dp.backend}'s "
-                             f"collectives (host calls); pass graphs=False, or use NCCL")
+        if group is not None and not group.capturable:
+            raise ValueError(f"make_train_step: a CUDA graph cannot capture "
+                             f"{group.backend}'s collectives (host calls); pass "
+                             f"graphs=False, or use NCCL")
         if any(getattr(optimizer, "sharded", ())):
             raise ValueError("make_train_step: FSDP gathers and frees the parameters from the "
                              "host at every step, which a CUDA graph replay would skip; pass "
                              "graphs=False")
+    # under tensor parallelism the gradients and metrics average over the data group
     return TrainStep(model, optimizer, dev, iou_weight, l1_weight, graphs, train_score,
-                     score_weight, dp)
+                     score_weight, tp.data if tp is not None else dp)
 
 
 def make_eval_step(model: nn.Module, iou_weight: float = 2.0, l1_weight: float = 5.0,

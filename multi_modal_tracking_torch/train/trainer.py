@@ -64,11 +64,21 @@ one-process Trainer (`load_checkpoint(path, reshard=True)`) and into
 `utils.checkpoint.load_variables`. TRAIN.REMAT recomputes the flagship
 backbone's blocks in the backward (models/asymmetric_shared.py); the other
 scripts have no remat path and train as without it, as in the JAX package.
-The fail-safe restart is a one-process feature: under a group of more
-than one rank a failure raises at once, on the rank that failed, and the
-collectives the others wait in fail when its process ends. A restart of
-one rank alone would pair its collectives with the other ranks' later
-steps and average gradients of different steps without an error.
+The fail-safe restart under a group of more than one rank (the JAX
+Trainer's, train/trainer.py:323-348 there, where SPMD makes every process
+see a failure at the same step). Two cases:
+  * a failure every rank sees at the same point restarts every rank from
+    the same checkpoint: the non-finite loss of the step's metrics
+    (`NonFiniteLoss`), which are averaged over the group, so every rank
+    reads the same value at the same drain. After a barrier each rank
+    reloads in place (the file rank 0 wrote, or its shards under FSDP)
+    and retries; the attempts count alike on every rank;
+  * any other failure is one rank's own (a loader error, a fault): it
+    raises at once on the rank that failed, and the collectives the
+    others wait in fail when its process ends, so they raise too. A
+    restart of one rank alone would pair its collectives with the other
+    ranks' later steps and average gradients of different steps without
+    an error.
 """
 from __future__ import annotations
 
@@ -102,6 +112,11 @@ from multi_modal_tracking_torch.utils.device import resolve_device
 #: pinned host buffers of the look-ahead: one being filled while the other's
 #: copy may still run
 _RING = 2
+
+
+class NonFiniteLoss(FloatingPointError):
+    """A non-finite loss among the step metrics that `cycle_dataset` reads
+    back (averaged over the group, so every rank sees it at once)."""
 
 
 def _warm_start_paths(cfg) -> List[tuple]:
@@ -411,8 +426,8 @@ class Trainer:
             for metrics, bsz in pending:
                 m = {k: float(v) for k, v in metrics.items()}
                 if not np.isfinite(m["Loss/total"]):
-                    raise FloatingPointError(f"non-finite loss at epoch {self.epoch} "
-                                             f"it {len(self.history) + 1}")
+                    raise NonFiniteLoss(f"non-finite loss at epoch {self.epoch} "
+                                        f"it {len(self.history) + 1}")
                 self.stats.update(m, bsz)
                 self.history.append(m)
             pending.clear()
@@ -444,9 +459,9 @@ class Trainer:
         saving a checkpoint after each. load_latest resumes first. With
         fail_safe, an exception in an epoch reloads the latest checkpoint
         (if there is none yet, training goes on from the current weights)
-        and retries, up to max_failures tries in all; under a group of more
-        than one rank it raises whatever fail_safe says (module
-        docstring)."""
+        and retries, up to max_failures tries in all. Under a group of more
+        than one rank only a `NonFiniteLoss` restarts, every rank together
+        after a barrier; any other failure raises (module docstring)."""
         max_epochs = max_epochs or self.cfg.TRAIN.EPOCH
         if load_latest:
             self.load_checkpoint()
@@ -461,13 +476,16 @@ class Trainer:
                     self._print(f"epoch {self.epoch}/{max_epochs} done in "
                                 f"{time.time() - t0:.1f}s")
                 return self.model
-            except Exception:
+            except Exception as e:
                 self.epoch -= 1
-                if not fail_safe or attempt == num_tries - 1 or self.world_size > 1:
+                alone = self.world_size > 1 and not isinstance(e, NonFiniteLoss)
+                if not fail_safe or attempt == num_tries - 1 or alone:
                     raise
                 print("Training crashed at epoch", self.epoch + 1)
                 traceback.print_exc()
                 print("Restarting from last checkpoint ...", flush=True)
+                if self.dp is not None:
+                    self.dp.barrier()
                 if not self.load_checkpoint():
                     print("no checkpoint yet: going on from the current weights", flush=True)
         return self.model

@@ -203,6 +203,32 @@ def test_classic_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, 
     assert t.device.type == "cpu"
 
 
+def test_tensor_parallel_imports_nothing_of_jax():
+    """parallel/tensor.py (tensor parallelism) and parallel/mesh.py import
+    nothing of JAX or the JAX package, at their top or in a function (the
+    source scan), and leave them unloaded when imported with the flagship
+    and the training step."""
+    for name in ("tensor.py", "mesh.py"):
+        path = os.path.join(PORT, "parallel", name)
+        assert path in set(_port_sources())
+        bad = [m for m in _imported_modules(path, inside_functions=True)
+               if m.split(".")[0] in FORBIDDEN]
+        assert not bad, f"{name} imports {bad}"
+    code = ("import sys\n"
+            "import multi_modal_tracking_torch.parallel.tensor, "
+            "multi_modal_tracking_torch.parallel.mesh, "
+            "multi_modal_tracking_torch.models.asymmetric_shared, "
+            "multi_modal_tracking_torch.train.train_step\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'multi_modal_tracking_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 TOOLS = ("fps", "analysis_results", "analysis_results_vtuav", "analysis_results_ITP",
          "analysis_results_crossdatasets", "analysis_results_plot",
          "create_default_local_file", "pre_read_datasets", "profile_model", "vis_attn",

@@ -35,6 +35,9 @@ unclipped gradient norm moves by 1e-4 of itself between thread counts.
     its own dropout generator, the resume is exact on both ranks and the
     group is torn down; with the fail-safe restart on, a rank that fails
     raises instead of restarting alone, and the other rank raises too;
+    a non-finite loss (one rank's NaN boxes, averaged into both ranks'
+    metrics) restarts both ranks from the same checkpoint, and they
+    finish with the same weights;
   * a graphed CUDA step over gloo raises;
   * `run_dataset(devices=["cpu", "cpu"], threads=2)` gives the sequential
     run's boxes.
@@ -85,17 +88,24 @@ WORLD = 2
 _LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
-def spawn(case: str, workdir, world: int = WORLD, timeout: float = 240.0) -> list:
-    """Run the worker's `case` on `world` gloo processes; their results.
-    Fails fast: as soon as one rank exits with an error the others (which
-    would wait on it in a rendezvous or a collective) are killed, and all
-    are killed at `timeout` seconds."""
+def start(case: str, workdir, world: int = WORLD) -> list:
+    """Start the worker's `case` on `world` gloo processes (`finish` waits
+    for them)."""
     env = {k: v for k, v in os.environ.items() if k not in _LAUNCH_ENV}
     env.update(OMP_NUM_THREADS="1", PYTHONPATH=os.path.dirname(os.path.dirname(WORKER)))
     logs = [open(os.path.join(workdir, f"{case}_{r}.log"), "w+b") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, WORKER, case, str(r), str(world), str(workdir)],
                               stdout=logs[r], stderr=subprocess.STDOUT, env=env)
              for r in range(world)]
+    return list(zip(procs, logs))
+
+
+def finish(case: str, started: list, workdir, timeout: float = 240.0) -> list:
+    """The results of `start`'s processes. Fails fast: as soon as one rank
+    exits with an error the others (which would wait on it in a rendezvous
+    or a collective) are killed, and all are killed at `timeout` seconds
+    from now."""
+    procs = [p for p, _ in started]
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
@@ -108,7 +118,7 @@ def spawn(case: str, workdir, world: int = WORLD, timeout: float = 240.0) -> lis
                 p.kill()
                 p.wait()
     text = []
-    for f in logs:
+    for _, f in started:
         f.seek(0)
         text.append(f.read().decode(errors="replace"))
         f.close()
@@ -116,7 +126,13 @@ def spawn(case: str, workdir, world: int = WORLD, timeout: float = 240.0) -> lis
         assert p.returncode == 0, (f"rank {r} exited {p.returncode} (killed: another rank "
                                    f"failed or {timeout:.0f} s passed):\n{text[r][-6000:]}")
     return [torch.load(os.path.join(workdir, f"{case}_{r}.pt"), weights_only=False)
-            for r in range(world)]
+            for r in range(len(procs))]
+
+
+def spawn(case: str, workdir, world: int = WORLD, timeout: float = 240.0) -> list:
+    """Run the worker's `case` on `world` gloo processes; their results
+    (`start`, then `finish`)."""
+    return finish(case, start(case, workdir, world), workdir, timeout)
 
 
 def free_port() -> int:
@@ -377,6 +393,25 @@ def test_fail_safe_raises_on_a_failing_rank(dp):
     assert r1["began"] == [1]
     assert r0["error"] is not None and r0["began"] == [1]
     assert not r0["initialized_after"] and not r1["initialized_after"]
+
+
+def test_fail_safe_restarts_every_rank_on_a_non_finite_loss(dp):
+    """train.run for two epochs under two processes, rank 1's boxes NaN in
+    epoch 2's first try: the loss the ranks average is non-finite
+    on both, both reload epoch 1's checkpoint after a barrier, retry epoch
+    2 and finish with the same, finite weights, the optimizer's count that
+    of two clean epochs."""
+    r0, r1 = (r["restart"] for r in dp["ranks"])
+    for r in (r0, r1):
+        assert r["began"] == [1, 2, 2] and r["loads"] == [1]
+        assert r["epoch"] == 2 and r["count"] == r0["count"] > 0
+        assert not r["initialized_after"]
+    assert r0["state"].keys() == r1["state"].keys()
+    for k, v in r0["state"].items():
+        assert torch.equal(v, r1["state"][k]), k
+        assert not v.is_floating_point() or bool(torch.isfinite(v).all()), k
+    ckpts = sorted(os.listdir(dp["workdir"] / "restart" / "checkpoints" / SCRIPT))
+    assert ckpts == ["MixFormerRGBT_ep0001.pth.tar", "MixFormerRGBT_ep0002.pth.tar"]
 
 
 def test_capture_records_only_captured_launches(monkeypatch):

@@ -2,12 +2,13 @@
 
     python tests/torch_port_parallel_worker.py CASE RANK WORLD WORKDIR
 
-by tests/test_torch_port_parallel.py and tests/test_torch_port_fsdp.py,
-which write `WORKDIR/inputs.pt` first and read `WORKDIR/<case>_<rank>.pt`
-after. Each case forms its groups through `file://` stores under WORKDIR
-(no port shared between test processes), except the torchrun bootstrap,
-which needs MASTER_PORT (WORKDIR/inputs.pt names a free one). Torch runs
-on one intra-op thread, so runs repeat bit for bit.
+by tests/test_torch_port_parallel.py, tests/test_torch_port_fsdp.py and
+tests/test_torch_port_tensor_parallel.py, which write
+`WORKDIR/inputs.pt` first and read `WORKDIR/<case>_<rank>.pt` after. Each
+case forms its groups through `file://` stores under WORKDIR (no port
+shared between test processes), except the torchrun bootstrap, which
+needs MASTER_PORT (WORKDIR/inputs.pt names a free one). Torch runs on one
+intra-op thread, so runs repeat bit for bit.
 """
 import copy
 import os
@@ -34,9 +35,9 @@ def _group(workdir, name, rank, world):
     return DataParallel()
 
 
-def _model(inp):
-    m = port_as.MixFormerRGBT(port_as.RGBTSpec(**inp["geom"], drop_path_rate=0.0,
-                                               fusion_dropout=0.0))
+def _model(inp, drop: float = 0.0):
+    m = port_as.MixFormerRGBT(port_as.RGBTSpec(**inp["geom"], drop_path_rate=drop,
+                                               fusion_dropout=drop))
     m.load_state_dict(inp["state"], strict=True)
     return m
 
@@ -115,9 +116,10 @@ def case_dp(rank, world, workdir, inp):
         del os.environ[k]
 
     # the training command under two processes, then its resume; then with
-    # its fail-safe on and rank 1 failing
+    # its fail-safe on and rank 1 failing; then a non-finite loss on both
     out["run"] = _run_case(rank, world, workdir, inp)
     out["fail"] = _fail_case(rank, world, workdir, inp)
+    out["restart"] = _restart_case(rank, world, workdir, inp)
     return out
 
 
@@ -188,6 +190,46 @@ def _fail_case(rank, world, workdir, inp):
     return dict(error=error, began=began, initialized_after=torch.distributed.is_initialized())
 
 
+def _restart_case(rank, world, workdir, inp):
+    """train.run for two epochs with its fail-safe restart on, rank 1's
+    boxes NaN in epoch 2's first try: the averaged loss is non-finite on
+    both ranks, and both restart from epoch 1's checkpoint.
+    Each rank's epochs begun, its restarts and its final state."""
+    from multi_modal_tracking_torch.train.trainer import Trainer
+    began, loads = [], []
+
+    def train_epoch(self):
+        began.append(self.epoch)
+        if self.epoch != 2 or began.count(2) > 1 or rank != 1:
+            return Trainer.train_epoch(self)
+        step = self._step
+
+        def poisoned(inputs, ce_keep_rate=None):
+            return step(dict(inputs, gt_xywh=inputs["gt_xywh"] * float("nan")), ce_keep_rate)
+        self._step = poisoned
+        try:
+            return Trainer.train_epoch(self)
+        finally:
+            self._step = step
+
+    base = Trainer.load_checkpoint
+
+    def load_checkpoint(self, path=None, reshard=False):
+        loads.append(self.epoch)
+        return base(self, path, reshard)
+    main = _tiny_cli(inp, train_epoch)
+    Trainer.load_checkpoint = load_checkpoint
+    try:
+        argv = _cli_argv(workdir, "restart", rank, world)
+        argv[argv.index("--epochs") + 1] = "2"
+        tr = main(argv + ["--coordinator", f"file://{workdir}/store_restart"])
+    finally:
+        Trainer.load_checkpoint = base
+    return dict(began=began, loads=loads, epoch=tr.epoch, count=tr.optimizer.count,
+                state={k: v.clone() for k, v in tr.model.state_dict().items()},
+                initialized_after=torch.distributed.is_initialized())
+
+
 def _same_optimizer(a, b):
     sa, sb = a.state_dict(), b.state_dict()
     if (sa["count"], sa["mini_step"]) != (sb["count"], sb["mini_step"]):
@@ -254,6 +296,53 @@ def case_fsdp(rank, world, workdir, inp):
     out["full_moments"] = {i: _full(t).clone() for i, t in
                            enumerate(first.optimizer.sharded_state_dict().values())
                            if t.dim() > 0}
+    D.shutdown_distributed()
+    return out
+
+
+def case_tp(rank, world, workdir, inp):
+    """One step of the tiny flagship over a 2 x 2 data x model group (CE at
+    the input's keep), each data rank on its part of the global batch;
+    the metrics, the whole parameters and clipped gradients gathered over
+    the model group, and this rank's own state."""
+    from multi_modal_tracking_torch.parallel.mesh import create_mesh_2d
+    from multi_modal_tracking_torch.parallel.tensor import (
+        gather_state_dict, set_tensor_parallel_generators, shard_tensor_parallel_,
+        tensor_parallel_seeds)
+    D.initialize_distributed(f"file://{workdir}/store_tp", world, rank, device="cpu")
+    out = {}
+    try:
+        create_mesh_2d(3, 1)
+    except ValueError as e:
+        out["wrong_world"] = str(e)
+    tp = create_mesh_2d(2, 2)
+    out["grid"] = (tp.data_rank, tp.model_rank, tp.data.world, tp.model.world)
+    model = _model(inp)
+    dims = shard_tensor_parallel_(model, tp)
+    opt = port_opt.make_optimizer(inp["cfg"], model, steps_per_epoch=4, tp=tp)
+    step = port_ts.make_train_step(model, opt, device="cpu", tp=tp)
+    x = _local(inp["batches"][0], tp.data_rank, tp.n_data)
+    out["metrics"] = {k: float(v) for k, v in step(x, ce_keep_rate=inp["keep"]).items()}
+    names = [n for n, _ in model.named_parameters()]
+    out["grads"] = gather_state_dict(dict(zip(names, opt.grads)), dims, tp.model)
+    out["params"] = gather_state_dict(dict(model.named_parameters()), dims, tp.model)
+    out["local"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out["dims"] = dims
+    out["heads"] = model.backbone.blocks[0].attn.num_heads
+    # drop path and dropout on: masks from the generators of Megatron's rule
+    model = _model(inp, drop=0.1)
+    shard_tensor_parallel_(model, tp)
+    out["seeds"] = tensor_parallel_seeds(7, tp)
+    set_tensor_parallel_generators(model, *(torch.Generator().manual_seed(s)
+                                            for s in out["seeds"]))
+    out["sharded_masks"] = sorted(n for n, m in model.named_modules()
+                                  if getattr(m, "generator", None) is not None
+                                  and m.generator is not model.backbone.blocks[0].dp1.generator)
+    opt = port_opt.make_optimizer(inp["cfg"], model, steps_per_epoch=4, tp=tp)
+    step = port_ts.make_train_step(model, opt, device="cpu", tp=tp)
+    out["dropped_metrics"] = {k: float(v) for k, v in
+                              step(x, ce_keep_rate=inp["keep"]).items()}
+    out["dropped_local"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
     D.shutdown_distributed()
     return out
 
