@@ -377,16 +377,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                 to the f32 one), step 2 at the final keep (CE ranks over
                 both ranks' heads) equal on both ranks, the replicated
                 parameters the same bits on both, K1-K4-bf16 launched, ms
-                a step. The restart across ranks: two more gloo ranks train
-                the bf16 Trainer eagerly for 2 epochs of one step, rank 1's
-                boxes NaN in epoch 2's first try, so the averaged loss is
+                a step. Then the other families (PAR_TP_FAMILIES: the
+                online script's stage 1 and stage 2, the two-stream,
+                shared-LN and unibackbone RGB-T ViTs, the unimodal ViT-B,
+                CvT-21 and ConvMAE-B), full width, random layers off:
+                in the NCCL child each at 1 x 1, graphed, batch
+                PAR_TP_FAM_B1, PAR_TP_FAM_STEPS steps bit for bit the
+                plain step's with the same launches (ms a step of each);
+                in the gloo TP children each at 1 x 2, eager, on a cut
+                batch of PAR_TP_FAM_B2 (the same on both ranks, checked
+                by digest): first the one-process step from the same
+                weights (bf16 on rank 0, f32 on rank 1), then the TP step,
+                whose loss and grad_norm must lie within 1e-3 +
+                PAR_TP_DRIFT times the bf16 step's distance to the f32
+                one, equal on both ranks, the replicated state the same
+                bits, the family's bf16 kernels launched (none for CvT)
+                and RowParallelConv2d run for CvT and ConvMAE only; the
+                line prints K1-bf16's key-share plans (attention_bf16_plan
+                on the rank's heads) and ms a step. The restart across
+                ranks: two more gloo ranks train the bf16 Trainer eagerly
+                for 2 epochs of one step, rank 1's boxes NaN in epoch 2's
+                first try, so the averaged loss is
                 non-finite on both: both reload epoch 1's checkpoint, retry
                 and end with the same weights. In the main process, after
                 the eval workers: the cached bf16 lockstep at N = 12 over
                 devices ["cuda:0", "cuda:0"] (two shards of 6, graphed)
                 against the unsharded N = 12 run, boxes within
                 PAR_LOCKSTEP_PX, frames/s of each. Paths of the kernel
-                line: parallel_tp_bf16 (both TP runs), parallel_restart_bf16,
+                line: parallel_tp_bf16 (every TP run), parallel_restart_bf16,
                 parallel_lockstep_bf16.
                 `python3 chip_smoke.py parallel` runs the device and build
                 phases and this phase alone.
@@ -493,7 +511,11 @@ phase 17 (`phase_large`; not part of the whole script since PR 19):
 mixformer_cvt_online/baseline_large (CvT-24) and
 mixformer_convmae/baseline_large (ConvMAE-L, 192 / 384): parameters,
 LARGE_TRACK - 1 bf16 frames graphed against eager, one update (CvT-24: a
-stage-2 step at 16; ConvMAE-L: 3 micro-batches of 12), peak memory.
+stage-2 step at 16; ConvMAE-L: 3 micro-batches of 12), peak memory; then
+tensor parallelism over two gloo ranks sharing the card (children
+`tp_large`) for ViT-L, CvT-24 and ConvMAE-L (mixformer_vit,
+mixformer_cvt and mixformer_convmae baseline_large) as phase 19 runs
+the families at 1 x 2.
 
 Tolerances (f32 everywhere but the bf16 kernels and phase; TF32 off for
 cuBLAS and cuDNN):
@@ -5181,7 +5203,9 @@ def _uni_train_cfg(script: str, recipe: str, batch: int, steps: int):
     cfg = get_default_config(script)
     cfg.update_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                       "experiments", script, f"{recipe}.yaml"))
-    cfg.DATA.TRAIN.DATASETS_NAME = ["SyntheticRGBT" if "rgbt" in script else "SyntheticVideo"]
+    from multi_modal_tracking_torch.models.build import is_rgbt_script
+    cfg.DATA.TRAIN.DATASETS_NAME = ["SyntheticRGBT" if is_rgbt_script(script)
+                                    else "SyntheticVideo"]
     cfg.DATA.TRAIN.DATASETS_RATIO = [1]
     cfg.DATA.VAL.DATASETS_NAME = []
     cfg.MODEL.BACKBONE.PRETRAINED = False
@@ -5860,6 +5884,15 @@ def phase_large(smi: str, frames, save_dir: str) -> dict:
         emit({"phase": f"large {script}/{recipe}", "card": smi, "params": n_params,
               "template_size": params.template_size, "search_size": params.search_size,
               "track_bf16": line, "train_bf16": train, "seconds": time.perf_counter() - t0})
+    # tensor parallelism over two gloo ranks sharing the card: ViT-L, CvT-24, ConvMAE-L
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(dir=save_dir)
+    ranks = _par_finish({"tp_large": _par_start("tp_large", 2, workdir)}, workdir)["tp_large"]
+    tp_bf16 = dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    lines = _par_tp_families_check(ranks, tp_bf16)
+    _add_launches(bf16, tp_bf16, tp_bf16)
+    emit({"phase": "large tp_gloo_1x2_bf16", "card": smi, "families": lines,
+          "seconds": time.perf_counter() - t0})
     return {"bf16": bf16}
 
 
@@ -6287,6 +6320,33 @@ NO_DROP = dict(drop_path_rate=0.0, fusion_dropout=0.0)
 PAR_TP_DRIFT = 2.0
 #: the keeps of the gloo TP steps: keep 1, then the final keep (CE on)
 PAR_TP_KEEPS = (1.0, KEEP_FINAL)
+#: tensor parallelism beyond the flagship: name -> (script, recipe, stage 2,
+#: the step's CE keep); each at 1 x 1 over NCCL (graphed, the plain step's
+#: bits) and 1 x 2 over two gloo ranks (eager, against the one-process step)
+PAR_TP_FAMILIES = {
+    "online": (ONLINE_SCRIPT, RECIPE, False, KEEP_FINAL),
+    "online_stage2": (ONLINE_SCRIPT, RECIPE, True, None),
+    "vit_rgbt": ("mixformer_vit_rgbt", "attention_lasher_newfusion_2layer", False, None),
+    "vit_rgbt_shared": ("mixformer_vit_rgbt_shared",
+                        "baseline_attention_lasher_newfusion_2layer", False, None),
+    "vit_rgbt_unibackbone": ("mixformer_vit_rgbt_unibackbone", "baseline", False, None),
+    "vit": (UNI_SCRIPT, "baseline", False, None),
+    "cvt": (CVT, "baseline", False, None),
+    "convmae": (CM, "baseline", False, None),
+}
+#: the large recipes' 1 x 2 runs (`chip_smoke.py large`): ViT-L, CvT-24,
+#: ConvMAE-L (its first micro-batch of ACCUM_ITER 3)
+PAR_TP_LARGE = {
+    "vit_large": (UNI_SCRIPT, "baseline_large", False, None),
+    "cvt_large": (CVT, "baseline_large", False, None),
+    "convmae_large": (CM, "baseline_large", False, None),
+}
+#: the batch of the families' 1 x 1 runs (the flagship's recipe batch), and
+#: the cut batch of their 1 x 2 gloo runs: gloo moves every row-parallel
+#: layer's partial sums through the host, about linear in the batch (the
+#: flagship's 1 x 2 step at 16 took 2.6 to 3.6 s); width and depth are full
+PAR_TP_FAM_B1, PAR_TP_FAM_B2 = 16, 4
+PAR_TP_FAM_STEPS = 2               # graphed steps of each family's 1 x 1 run
 PAR_LOCKSTEP_N = 12                # the sharded lockstep: N = 12 over two shards on cuda:0
 #: its bound against the unsharded run: the bf16 lockstep's bound against
 #: one stream (module docstring, phase 7); shards of 6 run other GEMM shapes
@@ -6424,34 +6484,230 @@ def _state_digest(tensors: dict) -> str:
     return h.hexdigest()
 
 
-def _tp_world1(batches, device) -> tuple:
+def _tp_world1(batches, device, make=None, keep=KEEP_FINAL, what="TP") -> tuple:
     """TP over a 1 x 1 data x model group (NCCL, graphed, bf16) against the
     plain step from the same weights: every step's metrics and the state
-    after them bit for bit, the same launches; ms a step of each. Returns
-    (line, the TP run's launches)."""
+    after them bit for bit, the same launches; ms a step of each. `make(tp)`
+    builds (model, optimizer, step), by default the flagship's
+    (`_tp_trainee`). Returns (line, the TP run's launches)."""
     from multi_modal_tracking_torch.parallel.mesh import create_mesh_2d
+    if make is None:
+        def make(tp):
+            return _tp_trainee(tp, True, torch.bfloat16, device, len(batches))
     runs = {}
     for name, tp in (("plain", None), ("tp", create_mesh_2d(1, 1))):
         torch.cuda.empty_cache()
         reset_launches()
-        model, opt, step = _tp_trainee(tp, True, torch.bfloat16, device, len(batches))
-        metrics = [{k: float(v) for k, v in step(x, ce_keep_rate=KEEP_FINAL).items()}
+        model, opt, step = make(tp)
+        metrics = [{k: float(v) for k, v in step(x, ce_keep_rate=keep).items()}
                    for x in batches]
         launches = read_launches()
         state = {k: v.clone() for k, v in _step_state(model, opt).items()}
-        ms = _isolated_steps(step, batches[0], n=3)["ms_per_step_median"]
+        ms = _isolated_steps(lambda x, _: step(x, ce_keep_rate=keep), batches[0],
+                             n=3)["ms_per_step_median"]
         runs[name] = dict(metrics=metrics, state=state, launches=launches, ms=ms)
         del model, opt, step
     differing = _differing(runs["tp"]["state"], runs["plain"]["state"])
-    res = dict(steps=len(batches), keep=KEEP_FINAL,
+    res = dict(steps=len(batches), keep=keep,
                metrics_equal=runs["tp"]["metrics"] == runs["plain"]["metrics"],
                n_differing=len(differing), differing=differing[:8],
                launches_equal=all(runs["tp"]["launches"][k] == runs["plain"]["launches"][k]
                                   for k in BF16_KERNELS + ("AdamW",)),
+               launches={k: runs["tp"]["launches"][k] for k in BF16_KERNELS + ("AdamW",)},
                ms_per_step_plain=runs["plain"]["ms"], ms_per_step_tp=runs["tp"]["ms"])
     require(res["metrics_equal"] and not differing and res["launches_equal"],
-            f"TP over a 1 x 1 group != the plain step: {res}")
+            f"{what} over a 1 x 1 group != the plain step: {res}")
     return res, runs["tp"]["launches"]
+
+
+def _tp_family(name: str) -> tuple:
+    return {**PAR_TP_FAMILIES, **PAR_TP_LARGE}[name]
+
+
+def _tp_family_cfg(name: str, batch: int):
+    """The family's recipe on the synthetic set at `batch` (`_uni_train_cfg`),
+    stage 2 or not."""
+    script, recipe, stage2, _ = _tp_family(name)
+    cfg = _uni_train_cfg(script, recipe, batch, 1)
+    cfg.TRAIN.TRAIN_SCORE = stage2
+    return cfg
+
+
+def _tp_family_batches(name: str, batch: int, n: int, seed: int = 7) -> list:
+    """n batches of the family's loader, uploaded as model inputs."""
+    from multi_modal_tracking_torch.models.build import is_rgbt_script
+    from multi_modal_tracking_torch.train.builders import build_train_loader
+    from multi_modal_tracking_torch.train.data.loader import batch_to_model_inputs
+    from multi_modal_tracking_torch.train.train_step import model_inputs
+    cfg = _tp_family_cfg(name, batch)
+    cfg.DATA.TRAIN.SAMPLE_PER_EPOCH = batch * n
+    rgbt = is_rgbt_script(_tp_family(name)[0])
+    return [model_inputs(batch_to_model_inputs(b, rgbt=rgbt), "cuda")
+            for b in build_train_loader(cfg, seed=seed)]
+
+
+def _tp_family_trainee(name: str, tp, graphs: bool, dtype, device, batch: int) -> tuple:
+    """The family's model at full width as build_model makes it (seed 0,
+    random layers off), cut over `tp`'s model group if given: (model,
+    optimizer, training step)."""
+    from multi_modal_tracking_torch.models.build import build_model, is_rgbt_script
+    from multi_modal_tracking_torch.parallel.tensor import shard_tensor_parallel_
+    from multi_modal_tracking_torch.train.optimizer import make_optimizer
+    from multi_modal_tracking_torch.train.train_step import make_train_step
+    script, _, stage2, _ = _tp_family(name)
+    cfg = _tp_family_cfg(name, batch)
+    off = NO_DROP if is_rgbt_script(script) else \
+        dict(drop_path_rate=(0.0, 0.0, 0.0) if script.startswith(CVT) else 0.0)
+    model = build_model(script, cfg, device=device, dtype=dtype, seed=0,
+                        spec_overrides=off).train()
+    if tp is not None:
+        shard_tensor_parallel_(model, tp)
+    opt = make_optimizer(cfg, model, 1, tp=tp)
+    step = make_train_step(model, opt, device=device, iou_weight=cfg.TRAIN.IOU_WEIGHT,
+                           l1_weight=cfg.TRAIN.L1_WEIGHT, graphs=graphs, train_score=stage2,
+                           score_weight=cfg.TRAIN.get("SCORE_WEIGHT", 1.0), tp=tp)
+    return model, opt, step
+
+
+def _tp_family_kernels(name: str) -> tuple:
+    """The bf16 kernels a family's training step launches: K1-K4 where a
+    fusion follows the backbone (the RGB-T scripts), K1 and K2 for the
+    unimodal ViT and ConvMAE, none for CvT (plain attention)."""
+    from multi_modal_tracking_torch.models.build import is_rgbt_script
+    script = _tp_family(name)[0]
+    if script.startswith(CVT):
+        return ()
+    return BF16_KERNELS if is_rgbt_script(script) else BF16_KERNELS[:2]
+
+
+def _tp_families_world1(device) -> tuple:
+    """Each PAR_TP_FAMILIES entry as `_tp_world1` (batch PAR_TP_FAM_B1,
+    PAR_TP_FAM_STEPS steps at its keep), its bf16 kernels launched.
+    Returns (lines by family, the TP runs' launches)."""
+    lines, total = {}, dict.fromkeys(BF16_KERNELS + ("AdamW",), 0)
+    for name in PAR_TP_FAMILIES:
+        batches = _tp_family_batches(name, PAR_TP_FAM_B1, PAR_TP_FAM_STEPS)
+
+        def make(tp):
+            return _tp_family_trainee(name, tp, True, torch.bfloat16, device, PAR_TP_FAM_B1)
+        line, launches = _tp_world1(batches, device, make, _tp_family(name)[3], name)
+        line["batch"] = PAR_TP_FAM_B1
+        require(all(launches[k] > 0 for k in _tp_family_kernels(name) + ("AdamW",)),
+                f"{name}: TP over a 1 x 1 group launched {line['launches']}")
+        _add_launches(total, launches, total)
+        lines[name] = line
+        del batches
+    return lines, total
+
+
+def _tp_family_runs(tp, rank: int, dev, names) -> dict:
+    """Each family of `names` over the 1 x 2 gloo group `tp`, bf16 eager,
+    full width, batch PAR_TP_FAM_B2 (the same batch on both ranks, checked
+    by digest): the one-process step from the same weights first (bf16 on
+    rank 0, f32 on rank 1: the reference and its distance to f32), then the
+    TP step; its metrics, ms, launches, RowParallelConv2d forwards, the
+    rank's heads, K1-bf16's key-share plans, and a digest of the replicated
+    state."""
+    import torch.distributed as dist
+    import multi_modal_tracking_torch.ops.attention as attention
+    from multi_modal_tracking_torch.parallel.tensor import RowParallelConv2d
+    plan, plans = attention.attention_bf16_plan, set()
+
+    def recorded(BH, Nq, Nk, n_sm):
+        shares = plan(BH, Nq, Nk, n_sm)
+        plans.add((BH, Nq, Nk, shares))
+        return shares
+    attention.attention_bf16_plan = recorded
+    out = {}
+    try:
+        for name in names:
+            keep = _tp_family(name)[3]
+            x, = _tp_family_batches(name, PAR_TP_FAM_B2, 1)
+            digests = tp.model.gather_objects(_state_digest(x))
+            require(len(set(digests)) == 1, f"{name}: the ranks' batches differ")
+            ref_dtype = torch.bfloat16 if rank == 0 else torch.float32
+            model, opt, step = _tp_family_trainee(name, None, False, ref_dtype, dev,
+                                                  PAR_TP_FAM_B2)
+            reference = {k: float(v) for k, v in step(x, ce_keep_rate=keep).items()}
+            del model, opt, step
+            torch.cuda.empty_cache()
+            model, opt, step = _tp_family_trainee(name, tp, False, torch.bfloat16, dev,
+                                                  PAR_TP_FAM_B2)
+            dist.barrier(group=tp.model.group)
+            plans.clear()
+            reset_launches()
+            calls = RowParallelConv2d.calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in step(x, ce_keep_rate=keep).items()}
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            dims = model.tp_dims
+            out[name] = dict(
+                reference=reference, reference_dtype=str(ref_dtype), metrics=metrics,
+                ms_per_step=ms, launches=read_launches(),
+                row_parallel_convs=RowParallelConv2d.calls - calls,
+                heads=sorted({m.num_heads for m in model.modules()
+                              if hasattr(m, "set_model_group")}),
+                k1_bf16_plans=sorted(plans), sharded=len(dims),
+                replicated_digest=_state_digest({k: v for k, v in model.state_dict().items()
+                                                 if k not in dims}))
+            del model, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        attention.attention_bf16_plan = plan
+    return out
+
+
+def _par_child_tp_large(rank: int, world: int, workdir: str) -> dict:
+    """Two gloo ranks on the one card as a 1 x 2 TP group: the large
+    recipes (PAR_TP_LARGE) as `_tp_family_runs`."""
+    from multi_modal_tracking_torch.parallel import distributed as D
+    from multi_modal_tracking_torch.parallel.mesh import create_mesh_2d
+    D.initialize_distributed(f"file://{workdir}/tp_large_store", world, rank, device="cuda",
+                             backend="gloo")
+    out = dict(rank=rank, families=_tp_family_runs(create_mesh_2d(1, world), rank,
+                                                   torch.device("cuda", 0), PAR_TP_LARGE))
+    D.shutdown_distributed()
+    return out
+
+
+def _par_tp_families_check(ranks: list, launches: dict) -> dict:
+    """Each family's 1 x 2 gloo run (`_tp_family_runs` on both ranks): loss
+    and grad_norm against the one-process bf16 step within 1e-3 +
+    PAR_TP_DRIFT times its distance to the f32 one, both ranks' metrics and
+    replicated state equal, finite, the family's bf16 kernels launched and
+    row-parallel convolutions run where the rule cuts a patch embedding
+    (CvT, ConvMAE); adds the runs' launches to `launches`. Returns the
+    lines by family."""
+    lines = {}
+    for name in ranks[0]["families"]:
+        a, b = (r["families"][name] for r in ranks)
+        line = dict(batch=PAR_TP_FAM_B2, keep=_tp_family(name)[3], heads_a_rank=a["heads"],
+                    sharded_parameters=a["sharded"], metrics=a["metrics"],
+                    one_process_bf16=a["reference"], one_process_f32=b["reference"],
+                    ms_per_step=[a["ms_per_step"], b["ms_per_step"]],
+                    k1_bf16_plans=a["k1_bf16_plans"],
+                    row_parallel_convs=a["row_parallel_convs"],
+                    launches={k: a["launches"][k] + b["launches"][k] for k in BF16_KERNELS})
+        for k in ("Loss/total", "grad_norm"):
+            w, f = a["reference"][k], b["reference"][k]
+            line[f"{k}_rel"] = abs(a["metrics"][k] - w) / abs(w)
+            line[f"{k}_bf16_vs_f32_rel"] = abs(w - f) / abs(f)
+            line[f"{k}_bound"] = 1e-3 + PAR_TP_DRIFT * line[f"{k}_bf16_vs_f32_rel"]
+        line["ranks_equal"] = a["metrics"] == b["metrics"]
+        line["replicated_equal"] = a["replicated_digest"] == b["replicated_digest"]
+        convs = _tp_family(name)[0] in (CVT, CM)
+        require(all(line[f"{k}_rel"] <= line[f"{k}_bound"] for k in ("Loss/total", "grad_norm"))
+                and line["ranks_equal"] and line["replicated_equal"]
+                and all(np.isfinite(v) for v in a["metrics"].values())
+                and all(line["launches"][k] > 0 for k in _tp_family_kernels(name))
+                and (line["row_parallel_convs"] > 0) == convs,
+                f"{name}: TP over two gloo ranks against the one-process bf16 step: {line}")
+        for r in (a, b):
+            _add_launches(launches, r["launches"], launches)
+        lines[name] = line
+    return lines
 
 
 def _par_child_tp(rank: int, world: int, workdir: str) -> dict:
@@ -6482,6 +6738,9 @@ def _par_child_tp(rank: int, world: int, workdir: str) -> dict:
                replicated_digest=_state_digest({k: v for k, v in model.state_dict().items()
                                           if k not in dims}),
                ms_per_step_isolated=_isolated_steps(step, batches[0], n=3)["ms_per_step_median"])
+    del model, opt, step, batches
+    torch.cuda.empty_cache()
+    out["families"] = _tp_family_runs(tp, rank, dev, PAR_TP_FAMILIES)
     D.shutdown_distributed()
     return out
 
@@ -6639,6 +6898,8 @@ def _par_child_nccl(rank: int, world: int, workdir: str) -> dict:
                 f"NCCL world-1 DP != the one-GPU trainer: {out['dp_world1']}")
         del dp, dp_state
         out["tp_world1"], out["tp_launches"] = _tp_world1(batches, D.local_device())
+        out["tp_families_world1"], out["tp_families_launches"] = _tp_families_world1(
+            D.local_device())
     D.shutdown_distributed()
     return out
 
@@ -6785,6 +7046,8 @@ def phase_parallel(smi: str, frames, save_dir: str) -> dict:
     seconds["children"] = time.perf_counter() - t0 - sum(seconds.values())
     gloo, (nccl,) = done["gloo"], done["nccl"]
     tp_line = _par_tp_check(done["tp"], nccl, workdir, out["tp_bf16"])
+    tp_families = _par_tp_families_check(done["tp"], out["tp_bf16"])
+    _add_launches(out["tp_bf16"], nccl["tp_families_launches"], out["tp_bf16"])
     restart_line = _par_restart_check(done["restart"], out["restart_bf16"])
     _add_launches(out["lockstep_bf16"], lockstep_launches, BF16_SERVING)
     for r in gloo:
@@ -6810,6 +7073,8 @@ def phase_parallel(smi: str, frames, save_dir: str) -> dict:
           "fsdp_gloo_2ranks_f32": [dict(r["fsdp"], rank=r["rank"]) for r in gloo],
           "one_process_bytes": one_bytes, "remat_bf16": nccl["remat"], "eval_devices": evals,
           "tp_nccl_1x1_bf16_graphed": nccl["tp_world1"], "tp_gloo_1x2_bf16": tp_line,
+          "tp_families_nccl_1x1_bf16_graphed": nccl["tp_families_world1"],
+          "tp_families_gloo_1x2_bf16": tp_families,
           "restart_gloo_2ranks_bf16": restart_line, "lockstep_two_shards_bf16": lockstep,
           "bounds": PAR_F32, "batch": TRAIN_B, "launches_by_path": out,
           "seconds_by_part": seconds, "seconds": time.perf_counter() - t0})
@@ -6893,7 +7158,7 @@ def _parallel_rank(argv) -> None:
     writes WORKDIR/CASE_RANK.json."""
     case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
     fn = {"gloo": _par_child_gloo, "nccl": _par_child_nccl, "tp": _par_child_tp,
-          "restart": _par_child_restart}[case]
+          "restart": _par_child_restart, "tp_large": _par_child_tp_large}[case]
     out = fn(rank, world, workdir)
     with open(os.path.join(workdir, f"{case}_{rank}.json"), "w") as f:
         json.dump(out, f)

@@ -51,14 +51,28 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 
 class MixedAttention(nn.Module):
-    """Asymmetric mixed attention over [t; ot; s] tokens."""
+    """Asymmetric mixed attention over [t; ot; s] tokens.
+
+    Under tensor parallelism (parallel/tensor.py, `set_model_group`) `qkv`
+    holds this rank's heads' rows of q, of k and of v and `proj` the
+    matching input columns (row-parallel): `num_heads` is then the rank's
+    head count, and K1 / K2 (or K1-bf16 / K2-bf16) and the cached path's
+    `_attend` run on its heads with no collective inside."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads = self.total_heads = num_heads
         self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = Linear(dim, dim)
         self.scale = (dim // num_heads) ** -0.5
+        #: the model group of tensor parallelism (parallel/mesh.py), or None
+        self.model_group = None
+
+    def set_model_group(self, group) -> None:
+        """Run on this rank's heads of `group`'s (its qkv and proj already
+        cut: parallel/tensor.py shard_tensor_parallel_)."""
+        self.model_group = group
+        self.num_heads = self.total_heads // group.world
 
     def _qkv(self, x: torch.Tensor):
         return tuple(_heads(t, self.num_heads) for t in self.qkv(x).chunk(3, dim=-1))

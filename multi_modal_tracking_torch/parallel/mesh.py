@@ -1,5 +1,6 @@
 """The data-parallel group of a training run: gradient and metric
-reductions, the start-up broadcast, and FSDP's sharding rule.
+reductions, the start-up broadcast, and FSDP's sharding rule; the data x
+model group of tensor parallelism and its placement rule.
 
 The port's counterpart of the JAX package's `parallel/mesh.py`. There, one
 'data' mesh axis holds the batch and GSPMD inserts the reductions; here
@@ -36,6 +37,12 @@ reduce-scattered after; the AdamW moments of a sharded parameter are
 shards too (`RegimeAdamW`), and the fused AdamW kernel updates each rank's
 shard. FSDP2 gathers and frees from the host at every step, hooks a graph
 replay would skip, so FSDP runs eager (`graphs=False`).
+
+Tensor parallelism (`create_mesh_2d`, `TensorParallel`): the world split
+into data groups and model groups, as the JAX package's 2-D mesh;
+`tensor_parallel_dims` is the JAX `param_shardings` rule (parallel/mesh.py
+:53-81 there) on the flax names of any model of `models/build.py
+SCRIPTS`, and parallel/tensor.py cuts the model by it.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ from typing import Dict, Iterable, Optional, Set
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from multi_modal_tracking_torch.utils.convert import flax_owner
 
 
 class DataParallel:
@@ -151,20 +160,25 @@ ROW_PARALLEL = ("proj", "fc2", "linear2", "output_proj")
 def tensor_parallel_dims(model: nn.Module, n_model: int) -> Dict[str, int]:
     """The JAX package's `param_shardings` rule on the port's parameters:
     {parameter name: the dimension sharded over the model group}; a
-    parameter not named is replicated. Column-parallel owners (`qkv`,
-    `fc1`, `linear1`) shard their output dimension, weight and bias;
-    row-parallel ones (`proj`, `fc2`, `linear2`, `output_proj`) their
-    weight's input dimension, the bias replicated. A dimension that
+    parameter not named is replicated. The rule reads the flax module
+    names (`utils.convert.flax_owner`, the converter's key map), not the
+    port's: ConvMAE's conv FFN, the port's `mlp.fc1` / `mlp.fc2` of a
+    `CBlock`, is flax's `mlp_fc1` / `mlp_fc2` and stays replicated, as
+    the SPM's `proj.0` (flax `proj_0`) does. Column-parallel owners
+    (`qkv`, `fc1`, `linear1`) shard their output dimension, weight and
+    bias; row-parallel ones (`proj`, `fc2`, `linear2`, `output_proj`)
+    their weight's input dimension, the bias replicated. A dimension that
     n_model does not divide stays replicated. A torch weight is the flax
     kernel's transpose, (out, in) for a Linear and (out, in, kh, kw) for a
-    Conv2d, so the output dimension is 0 and the input one 1; like the JAX
+    Conv2d, so the output dimension is 0 and the input one 1. Like the JAX
     rule, which reads a conv kernel's input channels (its axis -2), the
-    patch embedding's `proj` conv is row-parallel when n_model divides
-    its 3 input channels (n_model 3), else replicated."""
+    patch embeddings' `proj` convs are row-parallel where n_model divides
+    their input channels: the ViT's 3 at n_model 3; at the recipes'
+    widths CvT's `stage1` and `stage2` (64 and 192) and ConvMAE's
+    `patch_embed2` and `patch_embed3` (256 and 384)."""
     dims = {}
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        owner, leaf = (parts[-2] if len(parts) >= 2 else ""), parts[-1]
+        owner, leaf = flax_owner(name), name.rsplit(".", 1)[-1]
         if leaf == "weight" and p.dim() >= 2:
             if owner in COLUMN_PARALLEL and p.shape[0] % n_model == 0:
                 dims[name] = 0

@@ -4,8 +4,9 @@ explicit collectives.
 
 The JAX package annotates the parameters with `param_shardings` and GSPMD
 inserts the collectives (parallel/mesh.py:53-81 there). Here the
-placement is the same rule (`tensor_parallel_dims`) and the collectives
-are three autograd Functions over the model group:
+placement is the same rule (`tensor_parallel_dims`, on the flax names of
+the converter's key map) and the collectives are four autograd Functions
+over the model group:
 
   * `copy_to`: the identity forward, an all-reduce of the gradient
     backward (the input of a column-parallel layer: each rank's output
@@ -15,35 +16,57 @@ are three autograd Functions over the model group:
     of the product);
   * `scatter_last`: this rank's slice of the last dimension forward, an
     all-gather of the gradient backward (a replicated activation entering
-    a row-parallel layer).
+    a row-parallel layer);
+  * `scatter_channels`: the same on dim 1 of an NCHW map (a replicated
+    map entering a row-parallel convolution).
 
 With NCCL the collectives run on the current stream and a CUDA graph
 captures them, as the data-parallel reductions are captured. Sums are
 taken in f32 whatever the compute dtype (a bf16 partial product is
 rounded once, then summed in f32). Over a group of one rank every one of
-them is the identity, and the layers compute exactly the plain `Linear`.
+them is the identity, and the layers compute exactly the plain `Linear`
+and `Conv2d`.
 
-`shard_tensor_parallel_` cuts the flagship (`MixFormerRGBT` of
-`asymmetric_shared` and `asymmetric_shared_ce`; any other model raises
+`shard_tensor_parallel_` cuts a model of any script of `models/build.py
+SCRIPTS` (the flagship and its online script, the RGB-T ViT family, the
+unimodal ViT, CvT and ConvMAE families; any other model raises
 NotImplementedError) in place:
-  * backbone attention: `qkv` column-parallel, `proj` row-parallel. The
-    qkv rows are split per head, each rank holding its heads' q, k and v
-    rows, where the JAX rule cuts the kernel's last axis into contiguous
-    pieces (at n_model 2 rank 0 would hold all of q and half of k, and
-    GSPMD reshards the attention's operands silently). The attention then
-    runs on the rank's heads (K1 / K2 on num_heads / n_model heads) with
-    no collective inside; CE's ranking sums the attention over the model
-    group before dividing by the total head count (models/asymmetric_shared.py);
-  * backbone MLP: `fc1` column-, `fc2` row-parallel;
+  * attention with a `qkv` (the flagship's `AsymCrossModalAttention`,
+    models/vit.py's `MixedAttention` of the ViT families and ConvMAE's
+    third stage): `qkv` column-parallel, `proj` row-parallel. The qkv rows
+    are split per head, each rank holding its heads' q, k and v rows,
+    where the JAX rule cuts the kernel's last axis into contiguous pieces
+    (at n_model 2 rank 0 would hold all of q and half of k, and GSPMD
+    reshards the attention's operands silently). The attention then runs
+    on the rank's heads (K1 / K2 on num_heads / n_model heads) with no
+    collective inside; CE's ranking sums the attention over the model
+    group before dividing by the total head count
+    (models/asymmetric_shared.py). A model whose heads the group does not
+    split, or whose qkv and proj the rule cuts unalike, raises ValueError;
+  * CvT's MAM attention (no `qkv`: `proj_q`, `proj_k`, `proj_v` and the
+    conv projections are no owners of the rule): the whole attention on
+    every model rank, then `proj` row-parallel behind `scatter_last`;
+  * MLPs: `fc1` column-, `fc2` row-parallel (ConvMAE's conv FFN,
+    flax's `mlp_fc1` / `mlp_fc2`, stays whole);
   * fusion FFN: `linear1` column-, `linear2` row-parallel; `output_proj`
     row-parallel behind `scatter_last` (its input, MSDA's output, is
     replicated); `value_proj`, `sampling_offsets` and `attention_weights`
     stay replicated, so K3 / K4 run whole on every model rank;
+  * patch-embedding convolutions named `proj` whose input channels the
+    group divides: `RowParallelConv2d` behind `scatter_channels` (the
+    ViT's 3 channels at n_model 3, CvT's later stages, ConvMAE's
+    `patch_embed2` and `patch_embed3`);
+  * the SPM score branch stays whole and reads the replicated outputs of
+    the cut backbone and fusion;
   * BatchNorm syncs over the data group only (each sample counted once).
+A row-parallel layer scatters its input unless the column-parallel
+layer before it (its `qkv`, `fc1` or `linear1` sibling) is cut too.
 Random masks: a mask on a replicated activation (drop path, the fusion's
 `dropout1` and `dropout3`) must be the same on every rank of a model group;
 one on the sharded FFN hidden (`dropout2`) must differ between them
-(`set_tensor_parallel_generators`, Megatron's rule).
+(`set_tensor_parallel_generators`, Megatron's rule). No other family
+draws a mask on a sharded activation: the ViT and CvT MLPs have no
+dropout.
 
 `shard_state_dict` / `gather_state_dict` carry a whole state dict (that
 of `utils.convert.from_jax_variables`, say) to a rank's shards and back.
@@ -56,13 +79,16 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from multi_modal_tracking_torch.models.layers import (Linear, _RandomMask, set_generator,
-                                                      set_sync_group, skip_default_init)
+from multi_modal_tracking_torch.models.layers import (Conv2d, Linear, _RandomMask,
+                                                      set_generator, set_sync_group,
+                                                      skip_default_init)
 from multi_modal_tracking_torch.parallel.mesh import (COLUMN_PARALLEL, DataParallel,
                                                       TensorParallel, tensor_parallel_dims)
+from multi_modal_tracking_torch.utils.convert import flax_owner
 
-#: the scripts whose model `shard_tensor_parallel_` cuts
-TP_SCRIPTS = ("asymmetric_shared", "asymmetric_shared_ce")
+#: each row-parallel owner and the column-parallel one before it: the row
+#: layer's input is sharded where that sibling is cut, else replicated
+_COLUMN_BEFORE = {"proj": "qkv", "fc2": "fc1", "linear2": "linear1"}
 
 
 def _all_reduce_f32(t: torch.Tensor, group: DataParallel) -> torch.Tensor:
@@ -105,6 +131,19 @@ class _ScatterLast(torch.autograd.Function):
         return torch.cat(_all_gather(g.float(), ctx.group), dim=-1).to(g.dtype), None
 
 
+class _ScatterChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        fmt = torch.channels_last if x.is_contiguous(memory_format=torch.channels_last) \
+            else torch.contiguous_format
+        return x.chunk(group.world, dim=1)[group.rank].contiguous(memory_format=fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_all_gather(g.float(), ctx.group), dim=1).to(g.dtype), None
+
+
 def _all_gather(t: torch.Tensor, group: DataParallel) -> list:
     """Every rank's `t`, in rank order, on t's device; gloo gathers from
     the CPU, as chip_smoke.py's `_gathered` does (DTensor's gloo
@@ -128,6 +167,12 @@ def reduce_from(x: torch.Tensor, group: DataParallel) -> torch.Tensor:
 def scatter_last(x: torch.Tensor, group: DataParallel) -> torch.Tensor:
     """This rank's slice of x's last dimension; the gradient all-gathered."""
     return x if group.world == 1 else _ScatterLast.apply(x, group)
+
+
+def scatter_channels(x: torch.Tensor, group: DataParallel) -> torch.Tensor:
+    """This rank's slice of the channels (dim 1) of an NCHW map, in its
+    memory format; the gradient all-gathered on dim 1."""
+    return x if group.world == 1 else _ScatterChannels.apply(x, group)
 
 
 class ColumnParallelLinear(Linear):
@@ -169,6 +214,38 @@ class RowParallelLinear(Linear):
         y = reduce_from(nn.functional.linear(x, self.weight.to(dt)), self.group)
         if self.bias is not None:
             y = y + self.bias.float()
+        return y.to(dt)
+
+
+class RowParallelConv2d(Conv2d):
+    """`models.layers.Conv2d` holding this rank's slice of the input
+    channels (weight dim 1): it takes the same slice of its replicated NCHW
+    input (`scatter_channels`) and convolves it at the same stride and
+    padding; by linearity the ranks' parts sum to the whole convolution,
+    which `reduce_from` takes over the model group in f32. The replicated
+    bias is added once to the f32 sum, then the result is rounded to the
+    compute dtype, as `RowParallelLinear` does. Over a group of one rank it
+    is the plain Conv2d. `calls` counts its forwards over more than one
+    rank."""
+
+    calls = 0
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride, padding,
+                 dilation, bias: bool, group: DataParallel):
+        with skip_default_init():
+            super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                             dilation, bias=bias)
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group.world == 1:
+            return super().forward(x)
+        RowParallelConv2d.calls += 1
+        dt = self.compute_dtype or self.weight.dtype
+        x = scatter_channels(x.to(dt), self.group)
+        y = reduce_from(self._conv_forward(x, self.weight.to(dt), None), self.group)
+        if self.bias is not None:
+            y = y + self.bias.float()[:, None, None]
         return y.to(dt)
 
 
@@ -216,16 +293,50 @@ def gather_state_dict(state: Dict[str, torch.Tensor], dims: Dict[str, int],
 
 def _check_model(model: nn.Module) -> None:
     from multi_modal_tracking_torch.models.asymmetric_shared import MixFormerRGBT
-    if not isinstance(model, MixFormerRGBT) or model.with_score:
-        name = "asymmetric_shared_online" if isinstance(model, MixFormerRGBT) \
-            else type(model).__name__
-        raise NotImplementedError(f"tensor parallelism is ported for {', '.join(TP_SCRIPTS)} "
-                                  f"(MixFormerRGBT without the score branch), not {name}")
+    from multi_modal_tracking_torch.models.cvt import MixFormerCvT
+    from multi_modal_tracking_torch.models.mixformer import MixFormer
+    from multi_modal_tracking_torch.models.vit_rgbt import MixFormerViTRGBT
+    if not isinstance(model, (MixFormerRGBT, MixFormerViTRGBT, MixFormer, MixFormerCvT)):
+        raise NotImplementedError(f"tensor parallelism is ported for the models of "
+                                  f"models/build.py SCRIPTS, not {type(model).__name__}")
 
 
 def _swap(model: nn.Module, name: str, new: nn.Module) -> None:
     parent, _, attr = name.rpartition(".")
     setattr(model.get_submodule(parent) if parent else model, attr, new)
+
+
+def _check_heads(model: nn.Module, dims: Dict[str, int], n: int) -> None:
+    """Every attention with a `qkv` must have qkv and proj cut alike, and by
+    whole heads, else ValueError."""
+    for name, mod in model.named_modules():
+        if not hasattr(mod, "qkv") or not hasattr(mod, "num_heads"):
+            continue
+        q, p = f"{name}.qkv.weight" in dims, f"{name}.proj.weight" in dims
+        if q != p or (q and mod.num_heads % n):
+            raise ValueError(f"{name}: {mod.num_heads} heads cannot be split over "
+                             f"{n} model ranks (qkv sharded {q}, proj sharded {p})")
+
+
+def _parallel_layer(name: str, mod: nn.Module, w: torch.Tensor, dims: Dict[str, int],
+                    group: DataParallel) -> nn.Module:
+    """The tensor-parallel layer that replaces `mod` (its weight cut to `w`)."""
+    owner = flax_owner(f"{name}.weight")
+    bias = mod.bias is not None
+    if isinstance(mod, Conv2d):
+        if owner in COLUMN_PARALLEL or mod.groups != 1:
+            raise NotImplementedError(f"{name}: only a row-parallel convolution of one group "
+                                      f"is ported")
+        return RowParallelConv2d(w.shape[1], w.shape[0], mod.kernel_size, mod.stride,
+                                 mod.padding, mod.dilation, bias, group)
+    if owner in COLUMN_PARALLEL:
+        return ColumnParallelLinear(w.shape[1], w.shape[0], bias, group)
+    parent = name.rpartition(".")[0]
+    before = _COLUMN_BEFORE.get(owner)
+    sharded_input = before is not None and \
+        f"{parent + '.' if parent else ''}{before}.weight" in dims
+    return RowParallelLinear(w.shape[1], w.shape[0], bias, group,
+                             scatter_input=not sharded_input)
 
 
 @torch.no_grad()
@@ -239,38 +350,22 @@ def shard_tensor_parallel_(model: nn.Module, tp: TensorParallel) -> Dict[str, in
     _check_model(model)
     n, mp = tp.n_model, tp.model
     dims = tensor_parallel_dims(model, n)
-    for name, mod in model.named_modules():
-        if type(mod).__name__ == "AsymCrossModalAttention":
-            q, p = f"{name}.qkv.weight" in dims, f"{name}.proj.weight" in dims
-            if q != p or (q and mod.num_heads % n):
-                raise ValueError(f"{name}: {mod.num_heads} heads cannot be split over "
-                                 f"{n} model ranks (qkv sharded {q}, proj sharded {p})")
-    # the JAX rule makes the patch embedding's conv row-parallel where n_model
-    # divides its 3 input channels; over one rank that is the plain conv
-    conv = [k for k in dims if model.get_parameter(k).dim() != 2 and not k.endswith(".bias")]
-    if conv and n > 1:
-        raise NotImplementedError(f"a row-parallel convolution is not ported: {conv}")
+    _check_heads(model, dims, n)
     local = shard_state_dict({k: v for k, v in model.named_parameters()}, dims,
                              tp.model_rank, n)
     for name, mod in list(model.named_modules()):
-        if not isinstance(mod, Linear) or f"{name}.weight" not in dims:
+        if not isinstance(mod, (Linear, Conv2d)) or f"{name}.weight" not in dims:
             continue
-        owner = name.rsplit(".", 1)[-1]
         w = local[f"{name}.weight"]
-        bias = mod.bias is not None
-        if owner in COLUMN_PARALLEL:
-            new = ColumnParallelLinear(w.shape[1], w.shape[0], bias, mp)
-        else:
-            new = RowParallelLinear(w.shape[1], w.shape[0], bias, mp,
-                                    scatter_input=owner == "output_proj")
+        new = _parallel_layer(name, mod, w, dims, mp)
         new.compute_dtype = mod.compute_dtype
         new.to(device=w.device)
         new.weight.copy_(w)
-        if bias:
+        if mod.bias is not None:
             new.bias.copy_(local[f"{name}.bias"])
         _swap(model, name, new)
     for name, mod in model.named_modules():
-        if type(mod).__name__ == "AsymCrossModalAttention" and f"{name}.qkv.weight" in dims:
+        if hasattr(mod, "set_model_group") and f"{name}.qkv.weight" in dims:
             mod.set_model_group(mp)
         if type(mod).__name__ == "DeformableEncoderLayer" and f"{name}.linear1.weight" in dims:
             mod.dropout2.tp_sharded = True

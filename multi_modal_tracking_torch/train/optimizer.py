@@ -53,7 +53,8 @@ this rank's shard: its gradient is a view of the flat buffer like any
 other, its moments are shards, and the fused AdamW updates the local flat
 buffer. The clip's squared norm sums the sharded gradients' over the
 model group and counts the replicated ones once (they are equal on the
-ranks of a model group).
+ranks of a model group); in stage 2 (TRAIN_SCORE) that covers the frozen
+parameters' gradients too, sharded or not, each square counted once.
 """
 from __future__ import annotations
 

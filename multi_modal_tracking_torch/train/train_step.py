@@ -57,10 +57,12 @@ graphs=True: FSDP2 gathers and frees parameters from the host.
 
 Tensor parallel (`tp`, a data x model group of parallel/mesh.py
 `create_mesh_2d`; the JAX package's `make_train_step(mesh=,
-state_shardings=param_shardings(...))`): the model is cut over the model
-group first (parallel/tensor.py `shard_tensor_parallel_`, the flagship
-scripts only) and the optimizer built with the same `tp`. Each rank runs
-the step on its data rank's part of the batch; the gradients and metrics
+state_shardings=param_shardings(...))`): the model, of any script of
+models/build.py SCRIPTS, is cut over the model group first
+(parallel/tensor.py `shard_tensor_parallel_`) and the optimizer built
+with the same `tp`. Each rank runs the step on its data rank's part of
+the batch (the bimodal stacks or a unimodal batch; stage 2's too, whose
+frozen gradients enter the clip as without TP); the gradients and metrics
 are averaged over the data group only (the ranks of a model group hold
 the same sample's gradients, sharded or replicated), BatchNorm syncs over
 the data group, the clip's norm sums the sharded gradients' squares over

@@ -256,6 +256,24 @@ def _module_path(path: Tuple[str, ...]) -> str:
     return ".".join(out)
 
 
+def flax_owner(key: str) -> str:
+    """The name of the flax module that holds the JAX leaf of the port's
+    parameter `key` (a model of `models/build.py SCRIPTS`): the inverse of
+    `_module_path` on the key's last module. It is the port's module name
+    except for ConvMAE's conv FFN, whose `blocks1.N.mlp.fc1` is flax's
+    `blocks1_N/mlp_fc1`, and for a ModuleList or Sequential entry, whose
+    flax name carries the index (`proj.0` is `proj_0`; a Sequential's
+    `conv` / `bn` give no name of the tensor-parallel rule either)."""
+    mods = key.split(".")[:-1]
+    if not mods:
+        return ""
+    if len(mods) >= 4 and re.fullmatch(r"blocks[12]", mods[-4]) and mods[-2] == "mlp":
+        return "mlp_" + mods[-1]
+    if mods[-1].isdigit() and len(mods) >= 2:
+        return f"{mods[-2]}_{mods[-1]}"
+    return mods[-1]
+
+
 _FROZEN_BN = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
               "bn_var": "running_var"}
 

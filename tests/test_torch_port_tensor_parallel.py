@@ -24,8 +24,9 @@ drop path and dropout 0, global batch 2, CE at keep 0.7, one torch thread:
     full width (shapes only: `jax.eval_shape`, the port on the meta
     device); `shard_state_dict` / `gather_state_dict` round trips, the
     qkv rows cut per head;
-  * what raises: a world that is not n_data * n_model, another family, a
-    graphed CUDA step over gloo, the attention maps under TP.
+  * what raises: a world that is not n_data * n_model, a model outside
+    models/build.py SCRIPTS (Alpha-Refine), a graphed CUDA step over gloo,
+    the attention maps under TP.
 """
 import copy
 
@@ -43,7 +44,6 @@ from multi_modal_tracking_tpu.train import train_step as jax_ts
 
 from multi_modal_tracking_torch.config import get_default_config
 from multi_modal_tracking_torch.models import asymmetric_shared as port_as
-from multi_modal_tracking_torch.models.build import build_model
 from multi_modal_tracking_torch.models.layers import skip_default_init
 from multi_modal_tracking_torch.parallel import mesh as port_mesh
 from multi_modal_tracking_torch.parallel import tensor as port_tp
@@ -241,13 +241,11 @@ def test_tp_raises_outside_its_scope(monkeypatch):
         model = Group()
         model.world = n_model
         return port_mesh.TensorParallel(1, n_model, Group(), model)
-    tiny = dict(search_size=64, template_size=32, embed_dim=64, depth=2, num_heads=4,
-                head_dim=64)
-    for script in ("asymmetric_shared_online", "mixformer_vit"):
-        m = build_model(script, get_default_config(script), device="cpu",
-                        spec_overrides=tiny)
-        with pytest.raises(NotImplementedError, match=f"not {type(m).__name__}|not {script}"):
-            port_tp.shard_tensor_parallel_(m, Tp())
+    # a model outside models/build.py SCRIPTS: Alpha-Refine has no JAX TP path
+    from multi_modal_tracking_torch.models.alpha_refine import build_alpha_refine
+    m, _ = build_alpha_refine(input_sz=64, output_sz=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="not AlphaRefineNet"):
+        port_tp.shard_tensor_parallel_(m, Tp())
     # a model whose heads do not split over the group
     m = port_as.MixFormerRGBT(port_as.RGBTSpec(**dict(GEOM, num_heads=4)))
     with pytest.raises(ValueError, match="cannot be split"):

@@ -2,8 +2,9 @@
 
     python tests/torch_port_parallel_worker.py CASE RANK WORLD WORKDIR
 
-by tests/test_torch_port_parallel.py, tests/test_torch_port_fsdp.py and
-tests/test_torch_port_tensor_parallel.py, which write
+by tests/test_torch_port_parallel.py, tests/test_torch_port_fsdp.py,
+tests/test_torch_port_tensor_parallel.py and
+tests/test_torch_port_tensor_parallel_families.py, which write
 `WORKDIR/inputs.pt` first and read `WORKDIR/<case>_<rank>.pt` after. Each
 case forms its groups through `file://` stores under WORKDIR (no port
 shared between test processes), except the torchrun bootstrap, which
@@ -343,6 +344,111 @@ def case_tp(rank, world, workdir, inp):
     out["dropped_metrics"] = {k: float(v) for k, v in
                               step(x, ce_keep_rate=inp["keep"]).items()}
     out["dropped_local"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    D.shutdown_distributed()
+    return out
+
+
+def _conv_check(conv, x: torch.Tensor, gy: torch.Tensor, group) -> dict:
+    """RowParallelConv2d over `group` holding this rank's input channels of
+    `conv` against `conv` on the whole NCHW input: the largest differences
+    of the output, the input gradient and the weight gradient (this rank's
+    slice), each over the largest magnitude of the whole conv's."""
+    from multi_modal_tracking_torch.parallel.tensor import RowParallelConv2d
+    n, r = group.world, group.rank
+    conv = copy.deepcopy(conv)
+    rp = RowParallelConv2d(conv.in_channels // n, conv.out_channels, conv.kernel_size,
+                           conv.stride, conv.padding, conv.dilation, conv.bias is not None,
+                           group)
+    with torch.no_grad():
+        rp.weight.copy_(conv.weight.chunk(n, dim=1)[r])
+        rp.bias.copy_(conv.bias)
+    xa, xb = (x.detach().clone().requires_grad_(True) for _ in range(2))
+    ya, yb = rp(xa), conv(xb)
+    (ya * gy).sum().backward()
+    (yb * gy).sum().backward()
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    return dict(output=rel(ya, yb), input_grad=rel(xa.grad, xb.grad),
+                weight_grad=rel(rp.weight.grad, conv.weight.grad.chunk(n, dim=1)[r]))
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().reshape(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def case_tp_families(rank, world, workdir, inp):
+    """One step of each family's tiny model over a 2 x 2 data x model group,
+    each data rank on its samples of the global batch, held here against
+    the one-process step of the inputs (`want`; the states are too large
+    to send back whole): the metrics; the largest difference of each
+    clipped gradient and BN statistic (gathered over the model group); the
+    largest excess of each gathered parameter over 1e-6 + lr |dg| / eps;
+    digests of this rank's tensors and of the gathered parameters; whether
+    the cut parameters were `shard_state_dict` of the whole ones and
+    gathering them gave those back. And RowParallelConv2d against the
+    whole convolution on the inputs of CvT's and ConvMAE's row-parallel
+    patch embeddings."""
+    from multi_modal_tracking_torch.parallel.mesh import create_mesh_2d
+    from multi_modal_tracking_torch.parallel.tensor import (
+        RowParallelConv2d, gather_state_dict, shard_state_dict, shard_tensor_parallel_)
+    D.initialize_distributed(f"file://{workdir}/store_tp_families", world, rank, device="cpu")
+    tp = create_mesh_2d(2, 2)
+    out = {"grid": (tp.data_rank, tp.model_rank)}
+    for family, f in inp["families"].items():
+        want = f["want"]
+        model = copy.deepcopy(f["model"])
+        whole = {k: v.detach().clone() for k, v in model.named_parameters()}
+        dims = shard_tensor_parallel_(model, tp)
+        before = {k: v.detach().clone() for k, v in model.named_parameters()}
+        back = gather_state_dict(before, dims, tp.model)
+        cut = shard_state_dict(whole, dims, tp.model_rank, tp.n_model)
+        cfg = copy.deepcopy(f["cfg"])
+        opt = port_opt.make_optimizer(cfg, model, steps_per_epoch=4, tp=tp)
+        step = port_ts.make_train_step(model, opt, device="cpu", tp=tp,
+                                       train_score=f["train_score"],
+                                       score_weight=cfg.TRAIN.get("SCORE_WEIGHT", 1.0))
+        B = f["batch"]["gt_xywh"].shape[0]
+        lo, hi = tp.data_rank * B // tp.n_data, (tp.data_rank + 1) * B // tp.n_data
+        calls = RowParallelConv2d.calls
+        metrics = step({k: v[lo:hi] for k, v in f["batch"].items()}, ce_keep_rate=f["keep"])
+        names = [n for n, _ in model.named_parameters()]
+        grads = gather_state_dict(dict(zip(names, opt.grads)), dims, tp.model)
+        params = gather_state_dict(dict(model.named_parameters()), dims, tp.model)
+        local = model.state_dict()
+        lr = f["lr"]
+        out[family] = dict(
+            metrics={k: float(v) for k, v in metrics.items()}, dims=dims,
+            grad_keys=sorted(grads),
+            grad_err={k: float((grads[k] - w).abs().max()) for k, w in want["grads"].items()},
+            param_excess={k: float(((params[k] - w).abs() - 1e-6 - lr * (
+                grads[k] - want["grads"][k]).abs() / port_opt.EPS).max())
+                for k, w in want["params"].items()},
+            buffer_err={k: float((local[k].double() - w.double()).abs().max())
+                        for k, w in want["buffers"].items()},
+            local_digests={k: _digest(v) for k, v in local.items()},
+            param_digests={k: _digest(v) for k, v in params.items()},
+            running_stats=sorted(k for k in local if k.endswith("running_var")),
+            cut_is_shard=before.keys() == cut.keys() and all(torch.equal(before[k], cut[k])
+                                                             for k in cut),
+            gathered_equal=back.keys() == whole.keys() and all(torch.equal(back[k], whole[k])
+                                                               for k in whole),
+            heads=[m.num_heads for m in model.modules() if hasattr(m, "set_model_group")],
+            total_heads=[m.total_heads for m in model.modules() if hasattr(m, "set_model_group")],
+            row_parallel_convs=RowParallelConv2d.calls - calls)
+    # the row-parallel convolution on the maps CvT's and ConvMAE's embeddings get
+    g = torch.Generator().manual_seed(5)
+    cvt = inp["families"]["cvt"]["model"].backbone.stage1.patch_embed.proj
+    cm = inp["families"]["convmae"]["model"].backbone.patch_embed2.proj
+    checks = {}
+    for case, conv, hw in (("cvt_template", cvt, 8), ("cvt_search", cvt, 16),
+                           ("convmae_template", cm, 8)):
+        # channels-last NCHW views of NHWC maps, as the models pass them
+        x = torch.randn(2, hw, hw, conv.in_channels, generator=g).permute(0, 3, 1, 2)
+        oh = (hw + 2 * conv.padding[0] - conv.kernel_size[0]) // conv.stride[0] + 1
+        gy = torch.randn(2, conv.out_channels, oh, oh, generator=g)
+        checks[case] = _conv_check(conv, x, gy, tp.model)
+    out["conv_check"] = checks
     D.shutdown_distributed()
     return out
 
